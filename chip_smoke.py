@@ -1,0 +1,652 @@
+"""Drive the PyTorch port (trino_tpu_torch) end to end on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, each printing its lines before the next starts:
+  1. card: name and power limit, torch/CUDA versions, kernel build time
+     (every csrc/*.cu built by nvcc in parallel, plus the Triton kernel);
+  2. kernels against their plain PyTorch twins on seeded inputs on the
+     card (NULLs, NaN, -0.0, empty pages, all-false masks, ragged
+     capacities, one 4,194,304-row page): integers exact, float64 sums
+     to 1e-9 relative;
+  3. TPC-H q6 and q1 at sf1 and q6 at sf10 from SQL through
+     LocalQueryRunner.tpch(schema).execute(sql) on cuda, rows held equal
+     to the same queries through the port on the CPU;
+  4. every kernel of the path launched during phase 3; per kernel its
+     launches, its time at the main path's shapes (CUDA events), its
+     bound, its plain twin's time and a one-call PyTorch yardstick; each
+     query's warm wall time.
+The last line is {"ok": true, "device": {...}}. Any failure exits
+non-zero before it. Needs one card; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
+
+Q6 = """SELECT sum(l_extendedprice * l_discount) AS revenue
+FROM lineitem
+WHERE l_shipdate >= DATE '1994-01-01'
+  AND l_shipdate < DATE '1994-01-01' + INTERVAL '1' YEAR
+  AND l_discount BETWEEN 0.06 - 0.01 AND 0.06 + 0.01
+  AND l_quantity < 24"""
+
+Q1 = """SELECT l_returnflag, l_linestatus, sum(l_quantity) AS sum_qty,
+       sum(l_extendedprice) AS sum_base_price,
+       sum(l_extendedprice * (1 - l_discount)) AS sum_disc_price,
+       sum(l_extendedprice * (1 - l_discount) * (1 + l_tax)) AS sum_charge,
+       avg(l_quantity) AS avg_qty, avg(l_extendedprice) AS avg_price,
+       count(*) AS count_order
+FROM lineitem
+WHERE l_shipdate <= DATE '1998-12-01' - INTERVAL '90' DAY
+GROUP BY l_returnflag, l_linestatus
+ORDER BY l_returnflag, l_linestatus"""
+
+
+def say(*parts) -> None:
+    print(*parts, flush=True)
+
+
+def fail(msg: str) -> None:
+    say(f"FAIL: {msg}")
+    sys.exit(1)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.stdout.strip() \
+        else "nvidia-smi: no output"
+
+
+def sync() -> None:
+    torch.cuda.synchronize()
+
+
+def cuda_ms(fn, iters: int = 20) -> float:
+    """Median milliseconds of `fn()` over `iters` runs, CUDA events."""
+    for _ in range(3):
+        fn()
+    sync()
+    times = []
+    for _ in range(iters):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def device_profile(fn, iters: int = 10):
+    """(device-busy ms per call, top kernels) of `fn` from torch.profiler:
+    the sum of the device time of every kernel and copy it ran. None when
+    the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        sync()
+    # device-side events only (kernels, copies): an operator's entry
+    # repeats the device time of the kernels it launched
+    rows = [(getattr(e, "self_device_time_total", 0.0), e.key)
+            for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    total_us = sum(t for t, _ in rows)
+    if total_us <= 0:
+        return None, []
+    top = sorted(rows, reverse=True)[:6]
+    return total_us / iters / 1e3, [(k, t / iters / 1e3) for t, k in top]
+
+
+def host_profile(fn, iters: int = 3, top: int = 12) -> str:
+    """The functions with the most host self time per call of `fn`
+    (cProfile), as 'file:line(function) ms' items."""
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(iters):
+        fn()
+    sync()
+    prof.disable()
+    stats = pstats.Stats(prof).stats
+    rows = sorted(((tt, fl) for fl, (_, _, tt, _, _) in stats.items()),
+                  reverse=True)[:top]
+    return ", ".join(f"{os.path.basename(f)}:{ln}({name}) "
+                     f"{tt / iters * 1e3:.3f} ms"
+                     for tt, (f, ln, name) in rows)
+
+
+# ------------------------------------------------------------ comparisons
+
+
+def same_bits(x: torch.Tensor, y: torch.Tensor) -> bool:
+    if x.shape != y.shape or x.dtype != y.dtype:
+        return False
+    if x.dtype in (torch.float64, torch.int64):
+        return torch.equal(x.view(torch.int64), y.view(torch.int64))
+    return torch.equal(x, y)
+
+
+def max_abs_err(x: torch.Tensor, y: torch.Tensor) -> float:
+    if x.numel() == 0:
+        return 0.0
+    d = (x.to(torch.float64) - y.to(torch.float64)).abs()
+    d = torch.where(torch.isnan(x.to(torch.float64))
+                    & torch.isnan(y.to(torch.float64)),
+                    torch.zeros_like(d), d)
+    return float(d.max())
+
+
+def close_f64(x: torch.Tensor, y: torch.Tensor, rel: float = 1e-9) -> bool:
+    both_nan = torch.isnan(x) & torch.isnan(y)
+    same = (x == y) | both_nan
+    tol = rel * torch.maximum(x.abs(), y.abs())
+    return bool((same | ((x - y).abs() <= tol)).all())
+
+
+# ----------------------------------------------------------- phase 2 data
+
+
+def rng_page_arrays(g: torch.Generator, cap: int, dev):
+    """Seeded columns of every element size, with NaN and -0.0."""
+    ints = torch.randint(-2**62, 2**62, (cap,), generator=g,
+                         dtype=torch.int64)
+    f = torch.randn(cap, generator=g, dtype=torch.float64) * 1e3
+    if cap >= 4:
+        f[::7] = float("nan")
+        f[1::11] = -0.0
+        f[2::13] = 0.0
+    i32 = torch.randint(-2**31, 2**31 - 1, (cap,), generator=g,
+                        dtype=torch.int32)
+    valid = torch.rand(cap, generator=g) < 0.8
+    i16 = torch.randint(-2**15, 2**15 - 1, (cap,), generator=g,
+                        dtype=torch.int16)
+    return [t.to(dev) for t in (ints, f, i32, valid, i16)]
+
+
+def check_compact(g, dev) -> float:
+    from trino_tpu_torch import page as P
+    cases = [(0, 0, 0.5), (1, 1, 1.0), (4095, 4000, 0.5), (4096, 4096, 0.0),
+             (4097, 4097, 1.0), (5000, 3000, 0.3), (100_003, 99_999, 0.01),
+             (4_194_304, 4_194_304, 0.02)]
+    for cap, n, p in cases:
+        arrays = rng_page_arrays(g, cap, dev)
+        mask = (torch.rand(cap, generator=g) < p).to(dev)
+        num_rows = torch.tensor(n, dtype=torch.int32, device=dev)
+        got, cnt = P.compact_rows_cuda(arrays, mask, num_rows)
+        sync()
+        want, wcnt = P.compact_rows_plain(arrays, mask, num_rows)
+        k = int(wcnt)
+        if int(cnt) != k:
+            fail(f"K1 count cap={cap}: {int(cnt)} != {k}")
+        for a, b in zip(got, want):
+            if not same_bits(a[:k], b[:k]):
+                fail(f"K1 rows differ at cap={cap} dtype={a.dtype}")
+    return 0.0   # compared bit for bit
+
+
+def check_concat(g, dev) -> float:
+    from trino_tpu_torch import page as P
+    layouts = [[(10, 3), (0, 0), (4097, 4097), (5, 0)],
+               [(2048, 2000), (2049, 1), (1, 1)],
+               [(12, 4), (12, 4)],
+               [(4_194_304, 4_000_000), (1_805_652, 1_805_652)]]
+    for layout in layouts:
+        arrays, counts = [], []
+        for i, (cap, n) in enumerate(layout):
+            ints, f, i32, valid, _ = rng_page_arrays(g, cap, dev)
+            arrays.append([ints, f, i32, valid if i % 2 == 0 else None])
+            counts.append(torch.tensor(n, dtype=torch.int32, device=dev))
+        out_cap = sum(c for c, _ in layout)
+        got, tot = P.concat_rows_cuda(arrays, counts, out_cap)
+        sync()
+        want, wtot = P.concat_rows_plain(arrays, counts, out_cap)
+        k = int(wtot)
+        if int(tot) != k:
+            fail(f"K2 total {int(tot)} != {k}")
+        for a, b in zip(got, want):
+            if not same_bits(a[:k], b[:k]):
+                fail(f"K2 rows differ for layout {layout}")
+    return 0.0   # compared bit for bit
+
+
+def agg_states(g, cap, dev, with_masks=True):
+    from trino_tpu_torch.ops import aggregate as A
+    ints = torch.randint(-10**9, 10**9, (cap,), generator=g,
+                         dtype=torch.int64).to(dev)
+    pos = (torch.rand(cap, generator=g, dtype=torch.float64) * 1e3).to(dev)
+    f = torch.randn(cap, generator=g, dtype=torch.float64).to(dev)
+    if cap >= 4:
+        f[::997] = float("nan")
+        f[1::5] = -0.0
+        f[2::7] = 0.0
+    valid = (torch.rand(cap, generator=g) < 0.9).to(dev)
+    mask = (torch.rand(cap, generator=g) < 0.7).to(dev) if with_masks \
+        else None
+    S = A.StateInput
+    return [S(ints, valid, None, A.SUM, False),
+            S(pos, valid, mask, A.SUM, True),
+            S(None, valid, mask, A.COUNT, False),
+            S(ints, None, mask, A.MIN, False),
+            S(ints, valid, None, A.MAX, False),
+            S(f, valid, None, A.MIN, True),
+            S(f, None, mask, A.MAX, True)]
+
+
+def compare_states(label, states, got, want) -> float:
+    worst = 0.0
+    for s, a, b in zip(states, got, want):
+        if s.is_float and s.kind == 0:
+            if not close_f64(a, b):
+                fail(f"{label}: float sum beyond 1e-9 relative")
+            worst = max(worst, max_abs_err(a, b))
+        elif not same_bits(a, b):
+            fail(f"{label}: state kind {s.kind} float={s.is_float} differs")
+    return worst
+
+
+def check_direct(g, dev) -> float:
+    from trino_tpu_torch.ops import aggregate as A
+    worst = 0.0
+    # (4, 3): 32 per-lane tables in shared memory; (17, 16): one shared
+    # table; (64, 64): atomics on the global table
+    for cap, n, sizes in [(0, 0, (4, 3)), (5000, 4321, (4, 3)),
+                          (50_000, 49_000, (17, 16)),
+                          (100_000, 100_000, (64, 64)),
+                          (4_194_304, 4_100_000, (4, 3))]:
+        keys = []
+        stride = 1
+        for s in sizes:
+            stride *= s
+        for size in sizes:
+            stride //= size
+            codes = torch.randint(-1, size, (cap,), generator=g,
+                                  dtype=torch.int32).to(dev)
+            kv = (torch.rand(cap, generator=g) < 0.95).to(dev)
+            keys.append(A.KeyInput(codes, kv, size, stride))
+        nseg = 1
+        for s in sizes:
+            nseg *= s
+        states = agg_states(g, cap, dev)
+        num_rows = torch.tensor(n, dtype=torch.int32, device=dev)
+        slots, got, ng = A.direct_reduce_cuda(keys, states, num_rows, nseg)
+        sync()
+        wslots, want, wng = A.direct_reduce_plain(keys, states, num_rows,
+                                                  nseg)
+        k = int(wng)
+        if int(ng) != k or not torch.equal(slots[:k], wslots[:k]):
+            fail(f"K3 groups differ at cap={cap} sizes={sizes}")
+        worst = max(worst, compare_states(
+            f"K3 cap={cap}", states, [x[:k] for x in got],
+            [x[:k] for x in want]))
+    return worst
+
+
+def check_global(g, dev) -> float:
+    from trino_tpu_torch.ops import aggregate as A
+    worst = 0.0
+    for cap, n in [(0, 0), (1, 1), (4097, 10), (100_003, 100_003),
+                   (4_194_304, 4_194_304)]:
+        states = agg_states(g, cap, dev)
+        num_rows = torch.tensor(n, dtype=torch.int32, device=dev)
+        got = A.global_reduce_triton(states, num_rows, cap)
+        sync()
+        want = A.global_reduce_plain(states, num_rows, cap)
+        worst = max(worst, compare_states(f"K4 cap={cap}", states, got,
+                                          want))
+    return worst
+
+
+# ------------------------------------------------------------- phase 3/4
+
+
+class Capture:
+    """Keep the largest-capacity call of a kernel wrapper per query, so
+    phase 4 times each kernel at the shapes the main path gave it."""
+
+    def __init__(self):
+        self.label = None
+        self.calls = {}
+        self.orig = {}
+
+    def wrap(self, module, name, size_of):
+        """Replace module.name with a recording pass-through. The kernel
+        function increments `<module>.<name>.launches` through its module
+        global, so the counter now lives on the pass-through."""
+        orig = getattr(module, name)
+
+        def wrapped(*args):
+            key = (name, self.label)
+            if self.label is not None:
+                size = size_of(*args)
+                if key not in self.calls or size > self.calls[key][0]:
+                    self.calls[key] = (size, args)
+            return orig(*args)
+        wrapped.launches = 0
+        self.orig[name] = orig
+        setattr(module, name, wrapped)
+
+
+def rows_equal(a, b) -> bool:
+    if len(a) != len(b):
+        return False
+    for ra, rb in zip(a, b):
+        for x, y in zip(ra, rb):
+            if isinstance(x, float) and isinstance(y, float):
+                if not (x == y or abs(x - y) <= 1e-9 * max(abs(x), abs(y))):
+                    return False
+            elif x != y:
+                return False
+    return True
+
+
+def nbytes(ts) -> int:
+    seen = {}
+    for t in ts:
+        if t is not None and t.numel():
+            seen[t.data_ptr()] = t.numel() * t.element_size()
+    return sum(seen.values())
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        sys.exit(2)
+    here = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(here, "trino_tpu_torch")):
+        print("trino_tpu_torch/ not beside chip_smoke.py", file=sys.stderr)
+        sys.exit(2)
+    dev = torch.device("cuda")
+    card = card_line()
+    name = torch.cuda.get_device_name(0)
+
+    # ---- phase 1: card and build
+    say(card)   # as nvidia-smi prints it: name, power limit
+    say(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]} devices "
+        f"{torch.cuda.device_count()}")
+    from trino_tpu_torch import native
+    t0 = time.perf_counter()
+    logs = native.build_all()
+    build_s = time.perf_counter() - t0
+    for src, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                say(f"[build] {src}: {line.strip()}")
+    say(f"[card] nvcc build of {len(logs)} sources in parallel: "
+        f"{build_s:.2f} s")
+
+    # ---- phase 2: kernels against plain twins
+    g = torch.Generator().manual_seed(20261017)
+    from trino_tpu_torch.ops import aggregate as A
+    t0 = time.perf_counter()
+    A._global_kernels()
+    check_global(g, dev)   # first call compiles the Triton programs
+    say(f"[card] Triton K4 first call (compile + run): "
+        f"{time.perf_counter() - t0:.2f} s")
+    errs = {"compact_rows": check_compact(g, dev),
+            "concat_rows": check_concat(g, dev),
+            "direct_aggregate": check_direct(g, dev),
+            "global_aggregate": check_global(g, dev)}
+    say(f"[kernels] K1-K4 match their plain twins on the card "
+        f"(integers exact, float64 sums <= 1e-9 rel): {errs}")
+
+    # ---- phase 3: queries from SQL on cuda vs the port on the CPU
+    from trino_tpu_torch import page as P
+    from trino_tpu_torch.exec import LocalQueryRunner
+    cap = Capture()
+    cap.wrap(P, "compact_rows_cuda", lambda arrays, mask, n: mask.numel())
+    cap.wrap(P, "concat_rows_cuda", lambda arrays, counts, c: c)
+    cap.wrap(A, "direct_reduce_cuda",
+             lambda keys, states, n, nseg: keys[0].codes.numel())
+    cap.wrap(A, "global_reduce_triton", lambda states, n, c: c)
+    kernels = {"compact_rows": (P, "compact_rows_cuda"),
+               "concat_rows": (P, "concat_rows_cuda"),
+               "direct_aggregate": (A, "direct_reduce_cuda"),
+               "global_aggregate": (A, "global_reduce_triton")}
+    runs = [("sf1", "q6", Q6), ("sf1", "q1", Q1), ("sf10", "q6", Q6)]
+    gpu = {s: LocalQueryRunner.tpch(s) for s in ("sf1", "sf10")}
+    cpu = {s: LocalQueryRunner.tpch(s, device="cpu")
+           for s in ("sf1", "sf10")}
+    for mod, attr in kernels.values():
+        getattr(mod, attr).launches = 0
+    results = {}
+    for schema, q, sql in runs:
+        cap.label = (schema, q)
+        t0 = time.perf_counter()
+        res = gpu[schema].execute(sql)
+        sync()
+        results[(schema, q)] = (res, time.perf_counter() - t0)
+    cap.label = None
+    launches = {k: getattr(mod, attr).launches
+                for k, (mod, attr) in kernels.items()}
+    for (schema, q), (res, secs) in results.items():
+        say(f"[query] {q} {schema} on cuda: {len(res.rows)} rows, first "
+            f"run {secs:.2f} s (includes data generation and staging)")
+    for schema, q, sql in runs:
+        want = cpu[schema].execute(sql).rows
+        if not rows_equal(results[(schema, q)][0].rows, want):
+            fail(f"{q} {schema}: cuda rows differ from the CPU run:\n"
+                 f"{results[(schema, q)][0].rows}\n{want}")
+        say(f"[query] {q} {schema}: cuda rows == cpu rows "
+            f"({results[(schema, q)][0].rows[0]} ...)")
+
+    # ---- phase 4: launch check and times
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        fail(f"kernels never launched on the main path: {missing}")
+    say(f"[launches] main path (q6 sf1, q1 sf1, q6 sf10): {launches} "
+        f"— {card}")
+    originals = {k: cap.orig[attr] for k, (_, attr) in kernels.items()}
+    rows = kernel_rows(cap, originals, launches, dev)
+    for r in rows:
+        dev_ms = "not measured" if r["device_ms"] is None \
+            else f"{r['device_ms']:.4f} ms"
+        say(f"[kernel] {r['name']}: {r['ms']:.4f} ms per call (CUDA "
+            f"events), device-busy {dev_ms} (profiler), bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+            f"{r['shape']} — {card}")
+    from trino_tpu_torch.connector import tpch_gen
+    lineitem = {s: tpch_gen.row_count("lineitem", sf)
+                for s, sf in (("sf1", 1.0), ("sf10", 10.0))}
+    for schema, q, sql in runs:
+        gpu[schema].execute(sql)
+        sync()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            gpu[schema].execute(sql)
+            sync()
+            walls.append(time.perf_counter() - t0)
+        w = statistics.median(walls)
+        say(f"[wall] {q} {schema}: warm median of 3 = {w * 1e3:.1f} ms, "
+            f"{lineitem[schema] / w / 1e6:.1f} M lineitem rows/s — {card}")
+        busy, top = device_profile(lambda: gpu[schema].execute(sql), 3)
+        if busy is None:
+            say(f"[profile] {q} {schema}: device time not measured — "
+                f"{card}")
+        else:
+            say(f"[profile] {q} {schema}: device busy {busy:.2f} ms of "
+                f"{w * 1e3:.1f} ms warm wall (idle share "
+                f"{max(0.0, 1 - busy / (w * 1e3)):.2f}); top device time: "
+                + ", ".join(f"{k[:60]} {t:.3f} ms" for k, t in top)
+                + f" — {card}")
+        say(f"[profile] {q} {schema}: top host self time per query: "
+            + host_profile(lambda: gpu[schema].execute(sql))
+            + f" — {card}")
+    print(json.dumps({"kernels": [
+        {k: r[k] for k in ("name", "route", "source", "replaces",
+                           "launches", "max_abs_err", "ms", "plain_ms",
+                           "bound_ms", "bound_by", "library_ms")}
+        for r in rows]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+def kernel_rows(cap: Capture, originals, launches, dev):
+    from trino_tpu_torch import page as P
+    from trino_tpu_torch.ops import aggregate as A
+    out = []
+
+    # K1 at q6 sf1's scan-page filter
+    arrays, mask, num_rows = cap.calls[("compact_rows_cuda",
+                                        ("sf1", "q6"))][1]
+    n = int(num_rows)
+    sel = int((mask[:n]).sum())
+    row_b = sum(a.element_size() for a in arrays)
+    stacked = torch.stack([a.to(torch.int64) for a in arrays])
+    got, c = originals["compact_rows"](arrays, mask, num_rows)
+    want, wc = P.compact_rows_plain(arrays, mask, num_rows)
+    if int(c) != int(wc) or not all(same_bits(x[:sel], y[:sel])
+                                    for x, y in zip(got, want)):
+        fail("K1 differs from its plain twin at the main path's inputs")
+    err = max(max_abs_err(x[:sel], y[:sel]) for x, y in zip(got, want))
+    out.append(dict(
+        name="compact_rows (K1, Page.filter)", route="cuda",
+        source="trino_tpu_torch/csrc/compact.cu",
+        replaces="trino_tpu/page.py:308",
+        launches=launches["compact_rows"], max_abs_err=err,
+        ms=cuda_ms(lambda: originals["compact_rows"](arrays, mask,
+                                                     num_rows)),
+        device_ms=device_profile(lambda: originals["compact_rows"](
+            arrays, mask, num_rows))[0],
+        plain_ms=cuda_ms(lambda: P.compact_rows_plain(arrays, mask,
+                                                      num_rows)),
+        # the live mask read once, the selected rows read and written once
+        bound_ms=(n + 2 * sel * row_b) / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes",
+        library_ms=cuda_ms(lambda: torch.masked_select(stacked, mask)),
+        shape=f"q6 sf1 scan page: cap {mask.numel()}, {n} live, {sel} "
+              f"selected, {len(arrays)} arrays"))
+
+    # K2 at q1 sf1's partial-aggregate buffer merge
+    arrays2, counts, out_cap = cap.calls[("concat_rows_cuda",
+                                          ("sf1", "q1"))][1]
+    live = [int(c) for c in counts]
+    moved = sum(live[p] * sum(a.element_size() for a in pa if a is not None)
+                for p, pa in enumerate(arrays2))
+    got, tot = originals["concat_rows"](arrays2, counts, out_cap)
+    want, wtot = P.concat_rows_plain(arrays2, counts, out_cap)
+    k = int(wtot)
+    if int(tot) != k or not all(same_bits(x[:k], y[:k])
+                                for x, y in zip(got, want)):
+        fail("K2 differs from its plain twin at the main path's inputs")
+    err = max(max_abs_err(x[:k], y[:k]) for x, y in zip(got, want))
+    parts = [torch.stack([a[:live[p]].to(torch.int64) for a in pa
+                          if a is not None]) for p, pa in enumerate(arrays2)]
+    out.append(dict(
+        name="concat_rows (K2, device_concat)", route="cuda",
+        source="trino_tpu_torch/csrc/concat.cu",
+        replaces="trino_tpu/page.py:522",
+        launches=launches["concat_rows"], max_abs_err=err,
+        ms=cuda_ms(lambda: originals["concat_rows"](arrays2, counts,
+                                                    out_cap)),
+        device_ms=device_profile(lambda: originals["concat_rows"](
+            arrays2, counts, out_cap))[0],
+        plain_ms=cuda_ms(lambda: P.concat_rows_plain(arrays2, counts,
+                                                     out_cap)),
+        bound_ms=(2 * moved) / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=cuda_ms(lambda: torch.cat(parts, dim=1)),
+        shape=f"q1 sf1 partial buffer: {len(arrays2)} pages, caps "
+              f"{[pa[0].numel() for pa in arrays2]}, live {live}"))
+
+    # K3 at q1 sf1's partial aggregation of the first scan page
+    keys, states, num_rows3, nseg = cap.calls[("direct_reduce_cuda",
+                                               ("sf1", "q1"))][1]
+    n3 = int(num_rows3)
+    ins = [k.codes[:n3] for k in keys] + [k.valid[:n3] for k in keys
+                                          if k.valid is not None]
+    for s in states:
+        ins += [x[:n3] for x in (s.values, s.valid, s.mask) if x is not None]
+    slots, got, ng = originals["direct_aggregate"](keys, states, num_rows3,
+                                                   nseg)
+    wslots, want, wng = A.direct_reduce_plain(keys, states, num_rows3, nseg)
+    kk = int(wng)
+    if int(ng) != kk or not torch.equal(slots[:kk], wslots[:kk]):
+        fail("K3 groups differ from its plain twin at the main path's "
+             "inputs")
+    compare_states("K3 main path", states, [x[:kk] for x in got],
+                   [x[:kk] for x in want])
+    err = max(max_abs_err(x[:kk], y[:kk]) for x, y in zip(got, want))
+    seg = torch.zeros(keys[0].codes.numel(), dtype=torch.int64, device=dev)
+    for kin in keys:
+        seg += kin.codes.to(torch.int64).clamp(0, kin.size - 2) * kin.stride
+    contrib = torch.stack([s.values if s.values is not None
+                           else torch.ones_like(seg) for s in states], 1)
+    contrib = contrib.view(torch.int64) if contrib.dtype != torch.int64 \
+        else contrib
+    table = torch.zeros(nseg, len(states), dtype=torch.int64, device=dev)
+    out.append(dict(
+        name="direct_aggregate (K3, _direct_aggregate)", route="cuda",
+        source="trino_tpu_torch/csrc/direct_agg.cu",
+        replaces="trino_tpu/ops/aggregate.py:675",
+        launches=launches["direct_aggregate"], max_abs_err=err,
+        ms=cuda_ms(lambda: originals["direct_aggregate"](
+            keys, states, num_rows3, nseg)),
+        device_ms=device_profile(lambda: originals["direct_aggregate"](
+            keys, states, num_rows3, nseg))[0],
+        plain_ms=cuda_ms(lambda: A.direct_reduce_plain(
+            keys, states, num_rows3, nseg)),
+        bound_ms=(nbytes(ins) + nseg * len(states) * 8)
+        / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=cuda_ms(lambda: table.index_add_(0, seg, contrib)),
+        shape=f"q1 sf1 partial: cap {keys[0].codes.numel()}, {n3} live, "
+              f"{nseg} slots, {len(states)} states"))
+
+    # K4 at q6 sf1's partial aggregation of the first filtered page
+    states4, num_rows4, cap4 = cap.calls[("global_reduce_triton",
+                                          ("sf1", "q6"))][1]
+    n4 = int(num_rows4)
+    ins4 = []
+    for s in states4:
+        ins4 += [x[:n4] for x in (s.values, s.valid, s.mask)
+                 if x is not None]
+    got = originals["global_aggregate"](states4, num_rows4, cap4)
+    want = A.global_reduce_plain(states4, num_rows4, cap4)
+    compare_states("K4 main path", states4, got, want)
+    err = max(max_abs_err(x, y) for x, y in zip(got, want))
+    stacked4 = torch.stack([s.values[:n4] if s.values is not None
+                            else torch.ones(n4, dtype=torch.int64,
+                                            device=dev)
+                            for s in states4])
+    out.append(dict(
+        name="global_aggregate (K4, _global_aggregate)", route="triton",
+        source="trino_tpu_torch/ops/aggregate.py",
+        replaces="trino_tpu/ops/aggregate.py:1229",
+        launches=launches["global_aggregate"], max_abs_err=err,
+        ms=cuda_ms(lambda: originals["global_aggregate"](states4, num_rows4,
+                                                         cap4)),
+        device_ms=device_profile(lambda: originals["global_aggregate"](
+            states4, num_rows4, cap4))[0],
+        plain_ms=cuda_ms(lambda: A.global_reduce_plain(states4, num_rows4,
+                                                       cap4)),
+        bound_ms=(nbytes(ins4) + 8 * len(states4)) / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes",
+        library_ms=cuda_ms(lambda: torch.sum(stacked4, dim=1)),
+        shape=f"q6 sf1 partial: cap {cap4}, {n4} live, {len(states4)} "
+              f"states"))
+    return out
+
+
+if __name__ == "__main__":
+    main()

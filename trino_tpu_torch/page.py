@@ -1,0 +1,584 @@
+"""Columnar Page/Column data model over torch tensors.
+
+Port of `trino_tpu/page.py`. A Column is a device value tensor plus an
+optional bool validity tensor; strings are dictionary-encoded (int32 codes
+on the device, the sorted string pool on the host). A Page is a tuple of
+equal-capacity Columns plus `num_rows`, a 0-d int32 tensor on the page's
+device: rows in [num_rows, capacity) are padding whose contents are
+undefined, so every consumer masks with `row_mask()`.
+
+Two device kernels live here, each beside its plain PyTorch twin:
+
+* K1 `compact_rows` (Page.filter): stable compaction of the live rows where
+  a mask is true, `csrc/compact.cu`.
+* K2 `concat_rows` (device_concat): the live prefixes of N pages packed at
+  device-side running offsets, `csrc/concat.cu`.
+
+A wrapper takes its plain twin only for tensors on the CPU; on a CUDA
+tensor it launches its kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import itertools
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from trino_tpu_torch import native
+from trino_tpu_torch import types as T
+
+_dict_ids = itertools.count()
+
+
+class Dictionary:
+    """Host-side sorted string pool backing a dictionary-encoded column.
+
+    Codes index `values` (ascending), so integer comparison of codes is
+    string comparison of values. Equality and hashing key on a content
+    fingerprint, so byte-identical pools are interchangeable."""
+
+    __slots__ = ("values", "id", "_table_cache", "_fp")
+
+    def __init__(self, values: np.ndarray):
+        import hashlib
+        values = np.asarray(values, dtype=object)
+        h = hashlib.blake2b(digest_size=16)
+        prev = None
+        for s in values:
+            if prev is not None and not (prev <= s):
+                raise ValueError("dictionary must be sorted")
+            prev = s
+            b = s.encode("utf-8", "surrogatepass") \
+                if isinstance(s, str) else repr(s).encode()
+            h.update(len(b).to_bytes(4, "little"))
+            h.update(b)
+        self.values = values
+        self.id = next(_dict_ids)
+        self._fp = h.digest()
+
+    @property
+    def fingerprint(self) -> bytes:
+        return self._fp
+
+    @classmethod
+    def build(cls, strings: Sequence[str]) -> Tuple["Dictionary", np.ndarray]:
+        """Encode `strings` -> (dictionary, int32 codes)."""
+        uniq, codes = np.unique(np.asarray(strings, dtype=object),
+                                return_inverse=True)
+        return cls(uniq), codes.astype(np.int32)
+
+    def code_of(self, s: str) -> int:
+        """Exact-match lookup; -1 if absent (used to fold literals)."""
+        i = int(np.searchsorted(self.values, s))
+        if i < len(self.values) and self.values[i] == s:
+            return i
+        return -1
+
+    def lower_bound(self, s: str) -> int:
+        return int(np.searchsorted(self.values, s, side="left"))
+
+    def upper_bound(self, s: str) -> int:
+        return int(np.searchsorted(self.values, s, side="right"))
+
+    def encode(self, strings: np.ndarray) -> np.ndarray:
+        """Map strings -> int32 codes; raises KeyError if any is absent."""
+        arr = np.asarray(strings, dtype=object)
+        if len(self.values) == 0:
+            if len(arr) == 0:
+                return np.empty(0, dtype=np.int32)
+            raise KeyError("value(s) not present in dictionary")
+        codes = np.searchsorted(self.values, arr).astype(np.int32)
+        codes = np.minimum(codes, len(self.values) - 1)
+        if not np.array_equal(self.values[codes], arr):
+            raise KeyError("value(s) not present in dictionary")
+        return codes
+
+    def decode(self, codes: np.ndarray) -> np.ndarray:
+        out = np.empty(len(codes), dtype=object)
+        valid = codes >= 0
+        out[valid] = self.values[codes[valid]]
+        out[~valid] = None
+        return out
+
+    def __len__(self):
+        return len(self.values)
+
+    def __hash__(self):
+        return hash(self.fingerprint)
+
+    def __eq__(self, other):
+        if self is other:
+            return True
+        if not isinstance(other, Dictionary):
+            return NotImplemented
+        return self.fingerprint == other.fingerprint
+
+    def __repr__(self):  # pragma: no cover
+        return f"Dictionary(id={self.id}, n={len(self.values)})"
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: `cuda` unless the caller asks
+    for another; raises when CUDA is wanted but absent (never quietly
+    carries on on the CPU)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: pass device='cpu' to run on the CPU")
+    return dev
+
+
+@dataclasses.dataclass
+class Column:
+    """One columnar vector: values [capacity] (+ bool validity)."""
+
+    values: torch.Tensor
+    valid: Optional[torch.Tensor]
+    type: T.Type
+    dictionary: Optional[Dictionary] = None
+
+    @property
+    def capacity(self) -> int:
+        return self.values.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.values.device
+
+    def valid_mask(self) -> torch.Tensor:
+        if self.valid is None:
+            return torch.ones(self.capacity, dtype=torch.bool,
+                              device=self.device)
+        return self.valid
+
+    def gather(self, indices: torch.Tensor) -> "Column":
+        """copyPositions analog; out-of-range indices clip to the ends."""
+        idx = indices.long().clamp(0, max(self.capacity - 1, 0))
+        valid = None if self.valid is None else self.valid[idx]
+        return Column(self.values[idx], valid, self.type, self.dictionary)
+
+    def with_valid(self, valid: Optional[torch.Tensor]) -> "Column":
+        return Column(self.values, valid, self.type, self.dictionary)
+
+    @property
+    def nbytes(self) -> int:
+        n = self.values.numel() * self.values.element_size()
+        if self.valid is not None:
+            n += self.valid.numel()
+        return n
+
+    @classmethod
+    def from_numpy(cls, data: np.ndarray, typ: T.Type,
+                   valid: Optional[np.ndarray] = None,
+                   dictionary: Optional[Dictionary] = None,
+                   device="cpu") -> "Column":
+        if T.is_string(typ) and dictionary is None:
+            dictionary, codes = Dictionary.build(data)
+            data = codes
+        arr = _to_device(np.asarray(data, dtype=T.to_numpy_dtype(typ)),
+                         device)
+        v = None if valid is None else _to_device(
+            np.asarray(valid, dtype=np.bool_), device)
+        return cls(arr, v, typ, dictionary)
+
+    def to_numpy(self, num_rows: Optional[int] = None) -> np.ndarray:
+        n = self.capacity if num_rows is None else int(num_rows)
+        return Page((self,), row_count(n, self.device)).to_host(n)[0]
+
+
+def _to_device(arr: np.ndarray, device) -> torch.Tensor:
+    """Stage a host array to `device` (through pinned memory for CUDA)."""
+    arr = np.ascontiguousarray(arr)
+    if not arr.flags.writeable:
+        arr = arr.copy()
+    t = torch.from_numpy(arr)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.clone() if dev.type == "cpu" else t.to(dev)
+
+
+def device_scalar(value, dtype, device) -> torch.Tensor:
+    """A host scalar as a 0-d tensor on `device`, filled there: a copy
+    from pageable host memory would first wait for the whole stream."""
+    return torch.full((), value, dtype=dtype, device=device)
+
+
+def row_count(n, device) -> torch.Tensor:
+    """A live-row count as a 0-d int32 tensor on `device`."""
+    if isinstance(n, torch.Tensor):
+        return n.to(device=device, dtype=torch.int32).reshape(())
+    return device_scalar(int(n), torch.int32, device)
+
+
+@dataclasses.dataclass
+class Page:
+    """Horizontal batch of Columns + a device-side live-row count."""
+
+    columns: Tuple[Column, ...]
+    num_rows: torch.Tensor
+
+    def __post_init__(self):
+        self.columns = tuple(self.columns)
+        dev = self.columns[0].device if self.columns else (
+            self.num_rows.device if isinstance(self.num_rows, torch.Tensor)
+            else torch.device("cpu"))
+        if not (isinstance(self.num_rows, torch.Tensor)
+                and self.num_rows.dtype == torch.int32
+                and self.num_rows.dim() == 0
+                and self.num_rows.device == dev):
+            self.num_rows = row_count(self.num_rows, dev)
+
+    @property
+    def capacity(self) -> int:
+        return self.columns[0].capacity if self.columns else 0
+
+    @property
+    def device(self) -> torch.device:
+        return self.num_rows.device
+
+    @property
+    def num_columns(self) -> int:
+        return len(self.columns)
+
+    def column(self, i: int) -> Column:
+        return self.columns[i]
+
+    def row_mask(self) -> torch.Tensor:
+        """Mask of live rows ([0, num_rows))."""
+        return torch.arange(self.capacity, dtype=torch.int32,
+                            device=self.device) < self.num_rows
+
+    def append_column(self, col: Column) -> "Page":
+        return Page(self.columns + (col,), self.num_rows)
+
+    def select_columns(self, indices: Sequence[int]) -> "Page":
+        return Page(tuple(self.columns[i] for i in indices), self.num_rows)
+
+    def filter(self, mask: torch.Tensor) -> "Page":
+        """Compact live rows where mask is true (Page.getPositions
+        analog): selected rows move to the front in order, num_rows
+        becomes their count, capacity stays. Runs K1."""
+        return compact_rows(self, mask)
+
+    def gather(self, indices: torch.Tensor, count) -> "Page":
+        cols = tuple(c.gather(indices) for c in self.columns)
+        return Page(cols, row_count(count, self.device))
+
+    def shrink_to(self, capacity: int) -> "Page":
+        """Slice every column to a smaller capacity (live rows are a
+        prefix; the caller knows num_rows <= capacity)."""
+        if capacity >= self.capacity:
+            return self
+        cols = tuple(
+            Column(c.values[:capacity],
+                   None if c.valid is None else c.valid[:capacity],
+                   c.type, c.dictionary)
+            for c in self.columns)
+        return Page(cols, self.num_rows)
+
+    def pad_to(self, capacity: int) -> "Page":
+        """Grow capacity without changing live rows."""
+        if capacity < self.capacity:
+            raise ValueError("pad_to cannot shrink")
+        if capacity == self.capacity:
+            return self
+        cols = []
+        for c in self.columns:
+            values = torch.zeros(capacity, dtype=c.values.dtype,
+                                 device=c.device)
+            values[:self.capacity] = c.values
+            valid = None
+            if c.valid is not None:
+                valid = torch.zeros(capacity, dtype=torch.bool,
+                                    device=c.device)
+                valid[:self.capacity] = c.valid
+            cols.append(Column(values, valid, c.type, c.dictionary))
+        return Page(tuple(cols), self.num_rows)
+
+    @classmethod
+    def from_numpy(cls, arrays: Sequence[np.ndarray], typs: Sequence[T.Type],
+                   valids: Optional[Sequence[Optional[np.ndarray]]] = None,
+                   dictionaries: Optional[Sequence[Optional[Dictionary]]]
+                   = None, device="cpu") -> "Page":
+        n = len(arrays[0]) if arrays else 0
+        valids = valids or [None] * len(arrays)
+        dictionaries = dictionaries or [None] * len(arrays)
+        cols = tuple(
+            Column.from_numpy(a, t, v, d, device=device)
+            for a, t, v, d in zip(arrays, typs, valids, dictionaries))
+        return cls(cols, row_count(n, torch.device(device)))
+
+    def to_host(self, num_rows: Optional[int] = None) -> list:
+        """All columns as decoded host arrays (the reference's row form)."""
+        n = int(self.num_rows) if num_rows is None else int(num_rows)
+        out = []
+        for c in self.columns:
+            vals = c.values[:n].cpu().numpy()
+            valid = None if c.valid is None else c.valid[:n].cpu().numpy()
+            if c.dictionary is not None:
+                if valid is not None:
+                    # a NULL row's code may lie past the pool (the NULL
+                    # group slot of an aggregation): decode valid codes only
+                    vals = np.where(valid, vals, -1)
+                decoded = c.dictionary.decode(vals)
+            else:
+                decoded = vals.astype(object)
+            if valid is not None:
+                decoded = decoded.copy()
+                decoded[~valid] = None
+            out.append(decoded)
+        return out
+
+    def to_pylist(self) -> list:
+        n = int(self.num_rows)
+        cols = self.to_host(n)
+        return [tuple(col[i] for col in cols) for i in range(n)]
+
+
+def page_from_host(arrays: Sequence[np.ndarray],
+                   valids: Sequence[Optional[np.ndarray]],
+                   pools: Sequence[Optional[Sequence[str]]],
+                   typs: Sequence[T.Type], num_rows: int,
+                   device="cpu") -> Page:
+    """Build a Page from another engine's page carried across as host
+    arrays: raw values (dictionary codes for strings), validity (or None),
+    and each string column's sorted pool. The same bytes fed to two
+    engines give the same page."""
+    cols = []
+    for a, v, pool, t in zip(arrays, valids, pools, typs):
+        d = None if pool is None else Dictionary(np.asarray(pool,
+                                                            dtype=object))
+        cols.append(Column.from_numpy(a, t, v, d, device=device))
+    return Page(tuple(cols), row_count(num_rows, torch.device(device)))
+
+
+def union_dictionaries(dicts: Sequence[Dictionary], device="cpu"
+                       ) -> Tuple[Dictionary, list]:
+    """Rebase N dictionaries onto one union pool: (union, [int32 remap
+    tensor per input]) with new_code = remap[i][old_code]."""
+    union = Dictionary(np.unique(np.concatenate([d.values for d in dicts])))
+    remaps = [_to_device(np.searchsorted(union.values, d.values)
+                         .astype(np.int32), device) for d in dicts]
+    return union, remaps
+
+
+# ------------------------------------------------------------------ K1
+
+
+def _movable(c: Column):
+    """The 1-D tensors a page move carries for one column."""
+    return [c.values] if c.valid is None else [c.values, c.valid]
+
+
+def _rebuild(page_cols: Sequence[Column], moved: List[torch.Tensor]
+             ) -> Tuple[Column, ...]:
+    it = iter(moved)
+    out = []
+    for c in page_cols:
+        values = next(it)
+        valid = next(it) if c.valid is not None else None
+        out.append(Column(values, valid, c.type, c.dictionary))
+    return tuple(out)
+
+
+def compact_rows_plain(arrays: Sequence[torch.Tensor], mask: torch.Tensor,
+                       num_rows: torch.Tensor
+                       ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """Plain twin of K1: stable compaction of rows `i < num_rows` with
+    `mask[i]` (the reference's one stable sort on the drop flag)."""
+    cap = mask.shape[0]
+    keep = mask & (torch.arange(cap, device=mask.device,
+                                dtype=torch.int32) < num_rows)
+    count = keep.sum(dtype=torch.int64).to(torch.int32)
+    order = torch.argsort((~keep).to(torch.uint8), stable=True)
+    return [a[order] for a in arrays], count
+
+
+def compact_rows_cuda(arrays: Sequence[torch.Tensor], mask: torch.Tensor,
+                      num_rows: torch.Tensor
+                      ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """K1 launch: see csrc/compact.cu."""
+    cap = mask.shape[0]
+    dev = mask.device
+    _check_rows(arrays, mask, num_rows, cap)
+    outs = [torch.empty_like(a) for a in arrays]
+    count = torch.empty((), dtype=torch.int32, device=dev)
+    table = host_table([a.data_ptr() for a in arrays],
+                       [o.data_ptr() for o in outs],
+                       [a.element_size() for a in arrays])
+    nblocks = max(1, -(-cap // COMPACT_TILE))
+    scratch = torch.empty(nblocks, dtype=torch.int64, device=dev)
+    lib = native.library("compact")
+    rc = lib.compact_rows(
+        ctypes.c_void_p(mask.data_ptr()), ctypes.c_void_p(num_rows.data_ptr()),
+        ctypes.c_int64(cap), ctypes.c_int64(len(arrays)),
+        table,
+        ctypes.c_void_p(scratch.data_ptr()), ctypes.c_void_p(count.data_ptr()),
+        ctypes.c_void_p(native.stream_ptr(dev)))
+    native.check(rc, "compact_rows")
+    compact_rows_cuda.launches += 1
+    return outs, count
+
+
+compact_rows_cuda.launches = 0
+COMPACT_TILE = 4096   # rows per block; matches csrc/compact.cu
+
+
+def _check_rows(arrays, mask, num_rows, cap) -> None:
+    dev = mask.device
+    if mask.dtype != torch.bool or mask.dim() != 1 \
+            or not mask.is_contiguous():
+        raise ValueError("mask must be a contiguous 1-D bool tensor")
+    if num_rows.dtype != torch.int32 or num_rows.device != dev:
+        raise ValueError("num_rows must be an int32 tensor on the mask's "
+                         "device")
+    for a in arrays:
+        if a.device != dev or a.dim() != 1 or a.shape[0] != cap \
+                or not a.is_contiguous() \
+                or a.element_size() not in (1, 2, 4, 8):
+            raise ValueError(
+                f"column {a.dtype}{tuple(a.shape)} on {a.device} does not "
+                "match the mask")
+
+
+def host_table(*groups):
+    """Pointers and sizes concatenated into a host int64 array; the
+    launcher passes it to its kernels by value (csrc/common.cuh Table)."""
+    flat = [int(x) for g in groups for x in g]
+    return (ctypes.c_int64 * max(len(flat), 1))(*flat)
+
+
+def compact_rows(page: Page, mask: torch.Tensor) -> Page:
+    """K1 wrapper (Page.filter): plain twin on the CPU, kernel on CUDA."""
+    arrays = [a for c in page.columns for a in _movable(c)]
+    if mask.dim() == 0:
+        mask = mask.expand(page.capacity)
+    mask = mask.contiguous()
+    run = compact_rows_cuda if mask.is_cuda else compact_rows_plain
+    moved, count = run(arrays, mask, page.num_rows)
+    if not page.columns:
+        return Page((), count)
+    return Page(_rebuild(page.columns, moved), count)
+
+
+# ------------------------------------------------------------------ K2
+
+
+def concat_rows_plain(arrays: Sequence[Sequence[torch.Tensor]],
+                      counts: Sequence[torch.Tensor], out_cap: int
+                      ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """Plain twin of K2: page p's first counts[p] rows of every array
+    land at the running offset; the rest of the output is padding.
+    `arrays[p][c]` is None where page p has no validity for column c
+    (written as all-valid)."""
+    ncols = len(arrays[0])
+    dev = counts[0].device
+    ref = [next(a[c] for a in arrays if a[c] is not None)
+           for c in range(ncols)]
+    outs = [torch.zeros(out_cap, dtype=r.dtype, device=dev) for r in ref]
+    cnt = torch.stack([c.to(torch.int64) for c in counts])
+    offs = torch.cumsum(cnt, 0) - cnt
+    pos = torch.arange(out_cap, device=dev)
+    for p, page_arrays in enumerate(arrays):
+        cap = next((a.shape[0] for a in page_arrays if a is not None), 0)
+        if cap == 0:
+            continue
+        # rows of page p: output positions [offs[p], offs[p] + counts[p])
+        inside = (pos >= offs[p]) & (pos < offs[p] + cnt[p])
+        src = (pos - offs[p]).clamp(0, None)
+        for c, a in enumerate(page_arrays):
+            if a is None:
+                vals = torch.ones(out_cap, dtype=torch.bool, device=dev)
+            else:
+                vals = a[src.clamp(max=a.shape[0] - 1)]
+            outs[c] = torch.where(inside, vals, outs[c])
+    return outs, cnt.sum().to(torch.int32)
+
+
+def concat_rows_cuda(arrays: Sequence[Sequence[Optional[torch.Tensor]]],
+                     counts: Sequence[torch.Tensor], out_cap: int
+                     ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """K2 launch: see csrc/concat.cu."""
+    npages, ncols = len(arrays), len(arrays[0])
+    dev = counts[0].device
+    ref = [next(a[c] for a in arrays if a[c] is not None)
+           for c in range(ncols)]
+    caps = []
+    for p, page_arrays in enumerate(arrays):
+        cap = next((a.shape[0] for a in page_arrays if a is not None), 0)
+        caps.append(cap)
+        if counts[p].dtype != torch.int32 or counts[p].device != dev:
+            raise ValueError("counts must be int32 tensors on one device")
+        for c, a in enumerate(page_arrays):
+            if a is None:
+                if ref[c].dtype != torch.bool:
+                    raise ValueError("only validity columns may be absent")
+                continue
+            if a.device != dev or a.dim() != 1 or a.shape[0] != cap \
+                    or a.dtype != ref[c].dtype or not a.is_contiguous():
+                raise ValueError(f"page {p} column {c} does not match")
+    if sum(caps) != out_cap:
+        raise ValueError("out_cap must be the sum of the page capacities")
+    outs = [torch.empty(out_cap, dtype=r.dtype, device=dev) for r in ref]
+    total = torch.empty((), dtype=torch.int32, device=dev)
+    table = host_table(
+        [c.data_ptr() for c in counts], caps,
+        [0 if a is None else a.data_ptr() for pa in arrays for a in pa],
+        [o.data_ptr() for o in outs], [o.element_size() for o in outs])
+    offsets = torch.empty(npages, dtype=torch.int64, device=dev)
+    lib = native.library("concat")
+    rc = lib.concat_rows(
+        ctypes.c_int64(npages), ctypes.c_int64(ncols),
+        ctypes.c_int64(max(caps)), table,
+        ctypes.c_void_p(offsets.data_ptr()), ctypes.c_void_p(total.data_ptr()),
+        ctypes.c_void_p(native.stream_ptr(dev)))
+    native.check(rc, "concat_rows")
+    concat_rows_cuda.launches += 1
+    return outs, total
+
+
+concat_rows_cuda.launches = 0
+
+
+def device_concat(pages: Sequence[Page]) -> Page:
+    """Concatenate pages on the device into one page of capacity
+    sum(capacities), with no host round trip for the counts (K2).
+    All pages must share column types and dictionaries."""
+    if not pages:
+        raise ValueError("no pages")
+    if len(pages) == 1:
+        return pages[0]
+    ncols = pages[0].num_columns
+    for ci in range(ncols):
+        ref = pages[0].column(ci)
+        if any(p.column(ci).dictionary != ref.dictionary for p in pages):
+            raise ValueError(
+                f"column {ci}: pages use different dictionaries; re-encode "
+                "to a shared dictionary before concatenating")
+    needs_valid = [any(p.column(ci).valid is not None for p in pages)
+                   for ci in range(ncols)]
+    arrays = []
+    for p in pages:
+        pa = []
+        for ci, c in enumerate(p.columns):
+            pa.append(c.values)
+            if needs_valid[ci]:
+                pa.append(c.valid)
+        arrays.append(pa)
+    out_cap = sum(p.capacity for p in pages)
+    counts = [p.num_rows for p in pages]
+    run = concat_rows_cuda if pages[0].device.type == "cuda" \
+        else concat_rows_plain
+    moved, total = run(arrays, counts, out_cap)
+    it = iter(moved)
+    cols = []
+    for ci, ref in enumerate(pages[0].columns):
+        values = next(it)
+        valid = next(it) if needs_valid[ci] else None
+        cols.append(Column(values, valid, ref.type, ref.dictionary))
+    return Page(tuple(cols), total)
