@@ -7,15 +7,18 @@ Phases, each printing its lines before the next starts:
      (every csrc/*.cu built by nvcc in parallel, plus the Triton kernel);
   2. kernels against their plain PyTorch twins on seeded inputs on the
      card (NULLs, NaN, -0.0, empty pages, all-false masks, ragged
-     capacities, one 4,194,304-row page): integers exact, float64 sums
-     to 1e-9 relative;
-  3. TPC-H q6 and q1 at sf1 and q6 at sf10 from SQL through
-     LocalQueryRunner.tpch(schema).execute(sql) on cuda, rows held equal
-     to the same queries through the port on the CPU;
-  4. every kernel of the path launched during phase 3; per kernel its
-     launches, its time at the main path's shapes (CUDA events), its
-     bound, its plain twin's time and a one-call PyTorch yardstick; each
-     query's warm wall time.
+     capacities, duplicate, negative, composite and out-of-span join
+     keys, an empty build, an all-dead probe, one 4,194,304-row page):
+     integers and masks exact, float64 sums to 1e-9 relative, GROUP BY
+     results equal as multisets of groups;
+  3. TPC-H q6 and q1 at sf1, q6 at sf10 and q3 at sf1 and sf10 from SQL
+     through LocalQueryRunner.tpch(schema).execute(sql) on cuda, rows held
+     equal to the same queries through the port on the CPU; each q3 join's
+     route (dense or search), build live rows and probe rows;
+  4. every kernel of the path launched during phase 3 (q3 taking both
+     join routes); per kernel its launches, its time at the main path's
+     shapes (CUDA events), its bound, its plain twin's time and a one-call
+     PyTorch yardstick; each query's warm wall time and profile.
 The last line is {"ok": true, "device": {...}}. Any failure exits
 non-zero before it. Needs one card; imports nothing of JAX.
 """
@@ -39,6 +42,16 @@ WHERE l_shipdate >= DATE '1994-01-01'
   AND l_shipdate < DATE '1994-01-01' + INTERVAL '1' YEAR
   AND l_discount BETWEEN 0.06 - 0.01 AND 0.06 + 0.01
   AND l_quantity < 24"""
+
+Q3 = """SELECT l_orderkey, sum(l_extendedprice * (1 - l_discount)) AS revenue,
+       o_orderdate, o_shippriority
+FROM customer, orders, lineitem
+WHERE c_mktsegment = 'BUILDING' AND c_custkey = o_custkey
+  AND l_orderkey = o_orderkey AND o_orderdate < DATE '1995-03-15'
+  AND l_shipdate > DATE '1995-03-15'
+GROUP BY l_orderkey, o_orderdate, o_shippriority
+ORDER BY revenue DESC, o_orderdate, l_orderkey
+LIMIT 10"""
 
 Q1 = """SELECT l_returnflag, l_linestatus, sum(l_quantity) AS sum_qty,
        sum(l_extendedprice) AS sum_base_price,
@@ -315,6 +328,214 @@ def check_global(g, dev) -> float:
     return worst
 
 
+def check_range(g, dev) -> float:
+    """K1's range mode (range_prefilter) against its twin."""
+    from trino_tpu_torch import page as P
+    for cap, n, kind in [(0, 0, "i64"), (1, 1, "f64"), (5000, 4000, "i32"),
+                         (100_003, 99_999, "f64"),
+                         (4_194_304, 4_194_304, "i64")]:
+        arrays = rng_page_arrays(g, cap, dev)
+        key = {"i64": arrays[0], "f64": arrays[1], "i32": arrays[2]}[kind]
+        key_valid = arrays[3]
+        if cap:
+            lo, hi = torch.sort(key[torch.randint(0, cap, (2,),
+                                                  generator=g).to(dev)])[0]
+        else:
+            lo = hi = torch.zeros((), dtype=key.dtype, device=dev)
+        num_rows = torch.tensor(n, dtype=torch.int32, device=dev)
+        got, cnt = P.compact_range_cuda(arrays, key, key_valid, lo, hi,
+                                        num_rows)
+        sync()
+        want, wcnt = P.compact_range_plain(arrays, key, key_valid, lo, hi,
+                                           num_rows)
+        k = int(wcnt)
+        if int(cnt) != k:
+            fail(f"K1 range count cap={cap} {kind}: {int(cnt)} != {k}")
+        for a, b in zip(got, want):
+            if not same_bits(a[:k], b[:k]):
+                fail(f"K1 range rows differ at cap={cap} {kind}")
+    return 0.0   # compared bit for bit
+
+
+def check_gather(g, dev) -> float:
+    """K7 against its twin, indices past both ends included."""
+    from trino_tpu_torch import page as P
+    for cap, n in [(1, 5), (5000, 7000), (4097, 0),
+                   (4_194_304, 4_194_304)]:
+        arrays = rng_page_arrays(g, cap, dev)
+        idx = torch.randint(-3, cap + 3, (n,), generator=g).to(dev)
+        got = P.gather_rows_cuda(arrays, idx)
+        sync()
+        want = P.gather_rows_plain(arrays, idx)
+        for a, b in zip(got, want):
+            if not same_bits(a, b):
+                fail(f"K7 rows differ at cap={cap} n={n} dtype={a.dtype}")
+    return 0.0   # compared bit for bit
+
+
+def join_case(g, dev, kind, cap, n, dup=False, null_frac=0.1):
+    """Build-side key columns (values, valid) of one join test case."""
+    if kind == "dense":      # a shuffled dense span, like an orderkey
+        v = (torch.randperm(cap, generator=g) * 4 + 1000).to(torch.int64)
+    elif kind == "negative":  # sparse keys over all of int64
+        v = torch.randint(-2**62, 2**62, (cap,), generator=g,
+                          dtype=torch.int64) * 2
+    else:                     # composite: (int32, int64)
+        v = torch.randint(0, 50, (cap,), generator=g, dtype=torch.int32)
+    if dup and cap > 8:
+        v[cap // 2:cap // 2 + 5] = v[0]
+    valid = torch.rand(cap, generator=g) >= null_frac
+    cols = [(v.to(dev), valid.to(dev))]
+    if kind == "composite":
+        w = torch.arange(cap, dtype=torch.int64) * 7 - cap
+        if dup and cap > 8:
+            w[cap // 2:cap // 2 + 5] = w[0]
+        cols.append((w.to(dev), None))
+    return cols
+
+
+def probe_cols(g, build_cols, cap, dev, hit=0.6):
+    """Probe key columns drawn from the build keys (hits) and from keys
+    outside them (misses), with NULLs."""
+    out = []
+    bcap = build_cols[0][0].shape[0]
+    pick = torch.randint(0, max(bcap, 1), (cap,), generator=g).to(dev)
+    miss = (torch.rand(cap, generator=g) >= hit).to(dev)
+    for values, _ in build_cols:
+        if bcap:
+            v = values[pick]
+        else:
+            v = torch.zeros(cap, dtype=values.dtype, device=dev)
+        other = torch.randint(-10**6, 10**6, (cap,), generator=g).to(dev) \
+            .to(values.dtype)
+        out.append((torch.where(miss, other, v).contiguous(),
+                    (torch.rand(cap, generator=g) >= 0.05).to(dev)))
+    return out
+
+
+def check_join(g, dev) -> float:
+    """K5 (statistics, hash table, dense table) and K6 (both routes)
+    against their twins."""
+    from trino_tpu_torch.ops import join as J
+    cases = [("dense", 5000, 4900, False, 6000, 5990),
+             ("dense", 20_000, 20_000, True, 100, 100),
+             ("negative", 30_000, 29_000, False, 70_000, 65_000),
+             ("composite", 4096, 4096, False, 9000, 9000),
+             ("composite", 3000, 3000, True, 10, 10),
+             ("dense", 1000, 0, False, 500, 500),           # empty build
+             ("negative", 1000, 1000, False, 500, 0),       # dead probe
+             ("dense", 147_456, 147_000, False, 4_194_304, 4_194_304)]
+    for kind, bcap, bn, dup, pcap, pn in cases:
+        label = f"{kind} build {bn}/{bcap} probe {pn}/{pcap} dup={dup}"
+        bcols = join_case(g, dev, kind, bcap, bn, dup)
+        bnr = torch.tensor(bn, dtype=torch.int32, device=dev)
+        stats, lookup = J.join_build_cuda(bcols, bnr)
+        sync()
+        wstats, wlookup = J.join_build_plain(bcols, bnr)
+        if not torch.equal(stats, wstats):
+            fail(f"K5 statistics differ ({label}):\n{stats.tolist()}\n"
+                 f"{wstats.tolist()}")
+        if dup and int(stats[J.MAX_RUN]) < 2:
+            fail(f"K5 missed the duplicate keys ({label})")
+        if not hash_table_ok(bcols, bnr, lookup):
+            fail(f"K5 hash table does not hold the build keys ({label})")
+        kmin, kmax = (J.unsigned(int(stats[J.KMIN])),
+                      J.unsigned(int(stats[J.KMAX])))
+        routes = ["search"]
+        if kmax >= kmin and kmax - kmin < (1 << 22):
+            routes.append("dense")
+        pcols = probe_cols(g, bcols, pcap, dev)
+        pnr = torch.tensor(pn, dtype=torch.int32, device=dev)
+        for route in routes:
+            prep = J.Prepared(None, (), stats, lookup)
+            wprep = J.Prepared(None, (), wstats, wlookup)
+            if route == "dense":
+                size = 1 << max(10, (kmax - kmin).bit_length())
+                table = J.join_dense_cuda(bcols, bnr, stats, size)
+                sync()
+                wtable = J.join_dense_plain(bcols, bnr, wstats, size)
+                if not torch.equal(table, wtable):
+                    fail(f"K5 dense table differs ({label})")
+                prep.dense, wprep.dense = table, wtable
+            f, b, c = J.unique_probe_cuda(pcols, bcols, pnr, prep)
+            sync()
+            wf, wb, wc = J.unique_probe_plain(pcols, bcols, pnr, wprep)
+            if int(c) != int(wc) or not torch.equal(f, wf):
+                fail(f"K6 {route} found/count differ ({label}): "
+                     f"{int(c)} vs {int(wc)}")
+            if not dup and not torch.equal(b, wb):
+                fail(f"K6 {route} build rows differ ({label})")
+    return 0.0   # compared exactly
+
+
+def lexsort_rows(cols):
+    """Permutation ordering rows by int64 columns, first most major."""
+    perm = torch.arange(cols[0].shape[0], device=cols[0].device)
+    for c in reversed(cols):
+        perm = perm[torch.sort(c[perm], stable=True).indices]
+    return perm
+
+
+def compare_groups(label, states, got, want) -> float:
+    """K8 output against its twin as multisets of groups: canonical keys
+    equal, states as compare_states holds them."""
+    from trino_tpu_torch.ops import aggregate as A
+    (kv, km, res, ng), (wkv, wkm, wres, wng) = got, want
+    k = int(wng)
+    if int(ng) != k:
+        fail(f"{label}: {int(ng)} groups != {k}")
+    sides = []
+    for vals, valids, results in ((kv, km, res), (wkv, wkm, wres)):
+        canon = []
+        for v, m in zip(vals, valids):
+            canon += list(A._canonical(A.GroupKey(
+                v[:k], None if m is None else m[:k])))
+        canon = [c.to(torch.int64) for c in canon]
+        perm = lexsort_rows(canon) if canon and k else \
+            torch.arange(k, device=res[0].device if res else None)
+        sides.append(([c[perm] for c in canon],
+                      [r[:k][perm] for r in results]))
+    if not all(torch.equal(a, b) for a, b in zip(sides[0][0], sides[1][0])):
+        fail(f"{label}: group keys differ")
+    return compare_states(label, states, sides[0][1], sides[1][1])
+
+
+def group_keys(g, cap, dev, ngroups):
+    from trino_tpu_torch.ops import aggregate as A
+    big = torch.randint(0, max(ngroups, 1), (cap,), generator=g,
+                        dtype=torch.int64) * 1_000_003 - 2**40
+    f = torch.randint(0, 6, (cap,), generator=g).to(torch.float64) - 2.5
+    if cap >= 8:
+        f[::5] = float("nan")
+        f[1::7] = -0.0
+        f[2::9] = 0.0
+    code = torch.randint(0, 4, (cap,), generator=g, dtype=torch.int32)
+    return [A.GroupKey(big.to(dev), (torch.rand(cap, generator=g) >= 0.05)
+                       .to(dev)),
+            A.GroupKey(f.to(dev), (torch.rand(cap, generator=g) >= 0.1)
+                       .to(dev)),
+            A.GroupKey(code.to(dev), None)]
+
+
+def check_group(g, dev) -> float:
+    """K8 against its twin: NULL, NaN, -0.0 and +0.0 keys, integer and
+    dictionary-code keys, few and many groups."""
+    from trino_tpu_torch.ops import aggregate as A
+    worst = 0.0
+    for cap, n, ngroups in [(0, 0, 1), (1, 1, 1), (5000, 4321, 3),
+                            (100_000, 99_000, 50_000),
+                            (4_194_304, 4_000_000, 1_000_000)]:
+        keys = group_keys(g, cap, dev, ngroups)
+        states = agg_states(g, cap, dev)
+        num_rows = torch.tensor(n, dtype=torch.int32, device=dev)
+        got = A.group_reduce_cuda(keys, states, num_rows, cap)
+        sync()
+        want = A.group_reduce_plain(keys, states, num_rows, cap)
+        worst = max(worst, compare_groups(f"K8 cap={cap}", states, got,
+                                          want))
+    return worst
+
+
 # ------------------------------------------------------------- phase 3/4
 
 
@@ -408,33 +629,67 @@ def main() -> None:
             "global_aggregate": check_global(g, dev)}
     say(f"[kernels] K1-K4 match their plain twins on the card "
         f"(integers exact, float64 sums <= 1e-9 rel): {errs}")
+    errs = {"compact_rows range mode": check_range(g, dev),
+            "gather_rows": check_gather(g, dev),
+            "join_build + join_dense + unique_probe": check_join(g, dev),
+            "group_aggregate": check_group(g, dev)}
+    say(f"[kernels] K1 range mode and K5-K8 match their plain twins on "
+        f"the card (integers and masks exact, float64 sums <= 1e-9 rel, "
+        f"groups as multisets): {errs}")
 
     # ---- phase 3: queries from SQL on cuda vs the port on the CPU
     from trino_tpu_torch import page as P
     from trino_tpu_torch.exec import LocalQueryRunner
+    from trino_tpu_torch.ops import join as J
     cap = Capture()
     cap.wrap(P, "compact_rows_cuda", lambda arrays, mask, n: mask.numel())
     cap.wrap(P, "concat_rows_cuda", lambda arrays, counts, c: c)
     cap.wrap(A, "direct_reduce_cuda",
              lambda keys, states, n, nseg: keys[0].codes.numel())
     cap.wrap(A, "global_reduce_triton", lambda states, n, c: c)
+    cap.wrap(P, "compact_range_cuda", lambda arrays, key, *_: key.numel())
+    cap.wrap(P, "gather_rows_cuda",
+             lambda arrays, idx: idx.numel() if arrays else -1)
+    cap.wrap(J, "join_build_cuda", lambda cols, n: cols[0][0].numel())
+    cap.wrap(J, "join_dense_cuda", lambda cols, n, st, size: size)
+    cap.wrap(J, "unique_probe_cuda", lambda pc, bc, *_: pc[0][0].numel())
+    cap.wrap(A, "group_reduce_cuda", lambda keys, states, n, c: c)
     kernels = {"compact_rows": (P, "compact_rows_cuda"),
+               "compact_range": (P, "compact_range_cuda"),
                "concat_rows": (P, "concat_rows_cuda"),
                "direct_aggregate": (A, "direct_reduce_cuda"),
-               "global_aggregate": (A, "global_reduce_triton")}
-    runs = [("sf1", "q6", Q6), ("sf1", "q1", Q1), ("sf10", "q6", Q6)]
+               "global_aggregate": (A, "global_reduce_triton"),
+               "join_build": (J, "join_build_cuda"),
+               "join_dense": (J, "join_dense_cuda"),
+               "unique_probe": (J, "unique_probe_cuda"),
+               "gather_rows": (P, "gather_rows_cuda"),
+               "group_aggregate": (A, "group_reduce_cuda")}
+    runs = [("sf1", "q6", Q6), ("sf1", "q1", Q1), ("sf10", "q6", Q6),
+            ("sf1", "q3", Q3), ("sf10", "q3", Q3)]
     gpu = {s: LocalQueryRunner.tpch(s) for s in ("sf1", "sf10")}
     cpu = {s: LocalQueryRunner.tpch(s, device="cpu")
            for s in ("sf1", "sf10")}
     for mod, attr in kernels.values():
         getattr(mod, attr).launches = 0
     results = {}
+    routes = set()
+    per_query = {}
     for schema, q, sql in runs:
         cap.label = (schema, q)
+        before = {k: getattr(mod, attr).launches
+                  for k, (mod, attr) in kernels.items()}
         t0 = time.perf_counter()
         res = gpu[schema].execute(sql)
         sync()
         results[(schema, q)] = (res, time.perf_counter() - t0)
+        per_query[(schema, q)] = {
+            k: getattr(mod, attr).launches - before[k]
+            for k, (mod, attr) in kernels.items()}
+        for i, j in enumerate(gpu[schema].last_joins):
+            routes.add(j["route"])
+            say(f"[join] {q} {schema} join {i + 1}: route {j['route']}, "
+                f"build {j['build_rows']} live rows, probe "
+                f"{j['probe_rows']} rows, {j['matched']} matched")
     cap.label = None
     launches = {k: getattr(mod, attr).launches
                 for k, (mod, attr) in kernels.items()}
@@ -453,10 +708,17 @@ def main() -> None:
     missing = [k for k, n in launches.items() if n == 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
-    say(f"[launches] main path (q6 sf1, q1 sf1, q6 sf10): {launches} "
-        f"— {card}")
+    if routes != {"dense", "search"}:
+        fail(f"q3 took the join routes {sorted(routes)}, not both "
+             f"dense and search")
+    for (schema, q), counts in per_query.items():
+        say(f"[launches] {q} {schema}: "
+            + ", ".join(f"{k} {n}" for k, n in counts.items() if n))
+    say(f"[launches] main path (q6 sf1, q1 sf1, q6 sf10, q3 sf1, q3 "
+        f"sf10): {launches} — {card}")
     originals = {k: cap.orig[attr] for k, (_, attr) in kernels.items()}
     rows = kernel_rows(cap, originals, launches, dev)
+    rows += kernel_rows_q3(cap, originals, launches, dev)
     for r in rows:
         dev_ms = "not measured" if r["device_ms"] is None \
             else f"{r['device_ms']:.4f} ms"
@@ -645,6 +907,214 @@ def kernel_rows(cap: Capture, originals, launches, dev):
         library_ms=cuda_ms(lambda: torch.sum(stacked4, dim=1)),
         shape=f"q6 sf1 partial: cap {cap4}, {n4} live, {len(states4)} "
               f"states"))
+    return out
+
+
+def hash_table_ok(cols, num_rows, lookup) -> bool:
+    """K5's hash table holds each live key once, with its count and a row
+    that carries it."""
+    from trino_tpu_torch.ops import join as J
+    _, slot_keys, slot_rows, slot_counts = lookup
+    occ = slot_rows >= 0
+    key, null = J._key_cols(cols)
+    live = (torch.arange(key.shape[0], device=key.device)
+            < num_rows) & ~null
+    uk, uc = torch.unique(key[live], return_counts=True)
+    sk, order = torch.sort(slot_keys[occ])
+    return (torch.equal(sk, uk)
+            and torch.equal(slot_counts[occ][order].to(torch.int64), uc)
+            and torch.equal(key[slot_rows[occ].long()], slot_keys[occ]))
+
+
+def col_bytes(cols, n: int) -> int:
+    """Bytes of n rows of (values, valid) columns."""
+    return sum(n * (v.element_size() + (1 if m is not None else 0))
+               for v, m in cols)
+
+
+def kernel_rows_q3(cap: Capture, originals, launches, dev):
+    """The kernels q3 brought in, each at the largest call q3 sf1 gave it
+    (the first in that size when several tie), against its twin."""
+    from trino_tpu_torch import page as P
+    from trino_tpu_torch.ops import aggregate as A
+    from trino_tpu_torch.ops import join as J
+    label = ("sf1", "q3")
+    out = []
+
+    def row(name, source, replaces, key, err, fn, plain, bound_bytes,
+            library, library_name, shape):
+        return dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=launches[key], max_abs_err=err, ms=cuda_ms(fn),
+            device_ms=device_profile(fn)[0], plain_ms=cuda_ms(plain),
+            bound_ms=bound_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+            library_ms=cuda_ms(library),
+            shape=f"{shape}; library = {library_name}")
+
+    # K1 range mode at the lineitem scan page the dynamic filter compacts
+    arrays, key, key_valid, lo, hi, nr = cap.calls[("compact_range_cuda",
+                                                    label)][1]
+    n = int(nr)
+    got, c = originals["compact_range"](arrays, key, key_valid, lo, hi, nr)
+    want, wc = P.compact_range_plain(arrays, key, key_valid, lo, hi, nr)
+    sel = int(wc)
+    if int(c) != sel or not all(same_bits(x[:sel], y[:sel])
+                                for x, y in zip(got, want)):
+        fail("K1 range mode differs from its twin at q3's inputs")
+    keep = (key >= lo) & (key <= hi)
+    if key_valid is not None:
+        keep &= key_valid
+    keep &= torch.arange(key.numel(), device=dev) < n
+    stacked = torch.stack([a.to(torch.int64) for a in arrays])
+    row_b = sum(a.element_size() for a in arrays)
+    out.append(row(
+        "compact_rows range mode (K1, range_prefilter)",
+        "trino_tpu_torch/csrc/compact.cu", "trino_tpu/ops/join.py:772",
+        "compact_range", 0.0,
+        lambda: originals["compact_range"](arrays, key, key_valid, lo, hi,
+                                           nr),
+        lambda: P.compact_range_plain(arrays, key, key_valid, lo, hi, nr),
+        col_bytes([(key, key_valid)], n) + 2 * sel * row_b,
+        lambda: torch.masked_select(stacked, keep), "torch.masked_select",
+        f"q3 sf1 lineitem probe page: cap {key.numel()}, {n} live, {sel} "
+        f"kept, {len(arrays)} arrays"))
+
+    # K5 at q3's largest build (orders joined with customer)
+    cols, nr = cap.calls[("join_build_cuda", label)][1]
+    n = int(nr)
+    stats, lookup = originals["join_build"](cols, nr)
+    wstats, _ = J.join_build_plain(cols, nr)
+    if not torch.equal(stats, wstats) or not hash_table_ok(cols, nr,
+                                                           lookup):
+        fail("K5 differs from its twin at q3's build")
+    slots = lookup[1].numel()
+    bkeys = cols[0][0][:n]
+    out.append(row(
+        "join_build (K5, prepare_build + build_key_bounds)",
+        "trino_tpu_torch/csrc/join_build.cu", "trino_tpu/ops/join.py:102",
+        "join_build", 0.0, lambda: originals["join_build"](cols, nr),
+        lambda: J.join_build_plain(cols, nr),
+        # the keys read once; the lookup written as the n live keys and
+        # rows it must hold (8 + 4 bytes each), not this design's slots
+        col_bytes(cols, n) + n * 12 + 8 * J.N_STATS,
+        lambda: torch.sort(bkeys), "torch.sort of the build keys",
+        f"q3 sf1 build: cap {cols[0][0].numel()}, {n} rows, {len(cols)} "
+        f"key column(s), {slots} hash slots"))
+
+    # K5 dense mode at q3's dense build (customer)
+    dcols, dnr, dstats, size = cap.calls[("join_dense_cuda", label)][1]
+    dn = int(dnr)
+    table = originals["join_dense"](dcols, dnr, dstats, size)
+    wtable = J.join_dense_plain(dcols, dnr, dstats, size)
+    if not torch.equal(table, wtable):
+        fail("K5 dense mode differs from its twin at q3's build")
+    dkey, dnull = J._key_cols(dcols)
+    ok = (torch.arange(dkey.numel(), device=dev) < dn) & ~dnull
+    raw = (dkey - dstats[J.KMIN])[ok]
+    drows = torch.nonzero(ok).flatten().to(torch.int32)
+    lib_table = torch.full((size,), 2**31 - 1, dtype=torch.int32,
+                           device=dev)
+    out.append(row(
+        "join_dense (K5 dense mode, build_dense_table)",
+        "trino_tpu_torch/csrc/join_build.cu", "trino_tpu/ops/join.py:172",
+        "join_dense", 0.0,
+        lambda: originals["join_dense"](dcols, dnr, dstats, size),
+        lambda: J.join_dense_plain(dcols, dnr, dstats, size),
+        col_bytes(dcols, dn) + size * 4,
+        lambda: lib_table.scatter_reduce_(0, raw, drows, "amin"),
+        "Tensor.scatter_reduce_ (amin)",
+        f"q3 sf1 dense build: {dn} rows, table of {size} slots"))
+
+    # K6 at q3's largest probe (the lineitem buffer)
+    pcols, bcols, pnr, prep = cap.calls[("unique_probe_cuda", label)][1]
+    pn = int(pnr)
+    f, b, c = originals["unique_probe"](pcols, bcols, pnr, prep)
+    bnr = prep.build.num_rows
+    wst, wlk = J.join_build_plain(bcols, bnr)
+    wprep = J.Prepared(prep.build, prep.keys, wst, wlk)
+    if prep.dense is not None:
+        wprep.dense = J.join_dense_plain(bcols, bnr, wst,
+                                         prep.dense.numel())
+    wf, wb, wc = J.unique_probe_plain(pcols, bcols, pnr, wprep)
+    if int(c) != int(wc) or not torch.equal(f, wf) or not torch.equal(b,
+                                                                       wb):
+        fail("K6 differs from its twin at q3's probe")
+    route = "dense" if prep.dense is not None else "search"
+    bn = int(bnr)
+    sorted_b = torch.sort(bcols[0][0][:bn]).values
+    pk = pcols[0][0][:pn]
+    pcap = pcols[0][0].numel()
+    out.append(row(
+        "unique_probe (K6, unique_inner_probe)",
+        "trino_tpu_torch/csrc/join_probe.cu", "trino_tpu/ops/join.py:669",
+        "unique_probe", 0.0,
+        lambda: originals["unique_probe"](pcols, bcols, pnr, prep),
+        lambda: J.unique_probe_plain(pcols, bcols, pnr, wprep),
+        # the live probe keys read and found + brow (9 bytes) written once,
+        # and the build's live keys and rows (8 + 4 bytes) read once; the
+        # padding past the live rows is undefined and counts nothing
+        col_bytes(pcols, pn) + pn * 9 + bn * 12,
+        lambda: torch.searchsorted(sorted_b, pk),
+        "torch.searchsorted into the sorted build keys",
+        f"q3 sf1 probe: cap {pcap}, {pn} live, {int(c)} matched, route "
+        f"{route}, build {bn} rows"))
+
+    # K7 at q3's largest gather
+    garrays, idx = cap.calls[("gather_rows_cuda", label)][1]
+    got = originals["gather_rows"](garrays, idx)
+    want = P.gather_rows_plain(garrays, idx)
+    if not all(same_bits(x, y) for x, y in zip(got, want)):
+        fail("K7 differs from its twin at q3's gather")
+    gn = idx.numel()
+    gsrc = garrays[0].numel()
+    gstack = torch.stack([a.to(torch.int64) for a in garrays])
+    gidx = idx.to(torch.int64).clamp(0, max(gsrc - 1, 0))
+    grow_b = sum(a.element_size() for a in garrays)
+    out.append(row(
+        "gather_rows (K7, Column.gather / attach_build)",
+        "trino_tpu_torch/csrc/gather.cu", "trino_tpu/page.py:205",
+        "gather_rows", 0.0, lambda: originals["gather_rows"](garrays, idx),
+        lambda: P.gather_rows_plain(garrays, idx),
+        gn * idx.element_size() + 2 * gn * grow_b,
+        lambda: gstack.index_select(1, gidx),
+        "index_select of the stacked columns",
+        f"q3 sf1: {gn} rows gathered from {gsrc}, {len(garrays)} arrays"))
+
+    # K8 at q3's largest GROUP BY call
+    keys, states, gnr, gcap = cap.calls[("group_reduce_cuda", label)][1]
+    got = originals["group_aggregate"](keys, states, gnr, gcap)
+    want = A.group_reduce_plain(keys, states, gnr, gcap)
+    err = compare_groups("K8 main path", states, got, want)
+    n8, ng = int(gnr), int(want[3])
+    key_b = sum(k.values.element_size() + (k.valid is not None)
+                for k in keys)
+    state_b = sum((8 if s.values is not None else 0) + (s.valid is not None)
+                  + (s.mask is not None) for s in states)
+    live = torch.arange(gcap, device=dev) < n8
+    canon = torch.stack([p.to(torch.int64) for k in keys
+                         for p in A._canonical(k)], 1)[live]
+    contrib = torch.stack([s.values[:n8] if s.values is not None
+                           else torch.ones(n8, dtype=torch.int64,
+                                           device=dev)
+                           for s in states], 1)
+    contrib = contrib.view(torch.int64) if contrib.dtype != torch.int64 \
+        else contrib
+
+    def library():
+        _, inverse = torch.unique(canon, dim=0, return_inverse=True)
+        acc = torch.zeros(n8, len(states), dtype=torch.int64, device=dev)
+        return acc.index_add_(0, inverse, contrib)
+    out.append(row(
+        "group_aggregate (K8, hash_aggregate general GROUP BY)",
+        "trino_tpu_torch/csrc/group_agg.cu",
+        "trino_tpu/ops/aggregate.py:520", "group_aggregate", err,
+        lambda: originals["group_aggregate"](keys, states, gnr, gcap),
+        lambda: A.group_reduce_plain(keys, states, gnr, gcap),
+        n8 * (key_b + state_b) + ng * (key_b + 8 * len(states)),
+        library, "torch.unique(dim=0, return_inverse=True) + index_add_ "
+        "(two calls)",
+        f"q3 sf1: cap {gcap}, {n8} live rows, {ng} groups, {len(keys)} "
+        f"keys, {len(states)} states"))
     return out
 
 

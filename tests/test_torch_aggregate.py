@@ -1,11 +1,16 @@
 """hash_aggregate parity: trino_tpu_torch vs trino_tpu.ops.aggregate (CPU).
 
-The direct (dictionary-key) path runs K3's plain twin and the global path
-K4's; both are driven through PARTIAL -> FINAL, PARTIAL -> INTERMEDIATE ->
-FINAL and SINGLE over seeded pages with NULL keys, NULL values, NaN, -0.0,
-dead padding rows and an empty page, for sum/count/avg/min/max on BIGINT,
-DECIMAL and DOUBLE (plus count_if and bool_and/bool_or). Integers and
-decimals match exactly; doubles to 1e-9 relative.
+The direct (dictionary-key) path runs K3's plain twin, the general GROUP BY
+K8's and the global path K4's; all are driven through PARTIAL -> FINAL,
+PARTIAL -> INTERMEDIATE -> FINAL and SINGLE over seeded pages with NULL
+keys, NULL values, NaN, -0.0, dead padding rows and an empty page, for
+sum/count/avg/min/max on BIGINT, DECIMAL and DOUBLE (plus count_if and
+bool_and/bool_or). The general path groups on BIGINT, DOUBLE (NaN, -0.0,
++0.0 and NULL keys), DATE and mixed dictionary + integer keys. Groups
+compare as multisets (the general path emits them in hash-slot order, the
+reference in sorted order); integers and decimals match exactly, doubles
+to 1e-9 relative; a -0.0 key equals a +0.0 key (the reference emits a
+group's first sorted row, the port any of its rows).
 """
 
 import numpy as np
@@ -30,7 +35,7 @@ AGGS = [("sum", "big"), ("sum", "dec"), ("sum", "dbl"), ("count", "dbl"),
         ("count_if", "flag"), ("bool_and", "flag"), ("bool_or", "flag")]
 # (min/max over a varchar run end to end in test_torch_queries.py: an
 # all-NULL group's dictionary code does not decode in either package)
-COLS = ["k1", "k2", "big", "dec", "dbl", "day", "flag"]
+COLS = ["k1", "k2", "big", "dec", "dbl", "day", "flag", "grp", "fgrp"]
 
 
 def ty(T, spec):
@@ -40,7 +45,8 @@ def ty(T, spec):
 
 
 TYPES = {"k1": "VARCHAR", "k2": "VARCHAR", "big": "BIGINT", "dec": D,
-         "dbl": "DOUBLE", "day": "DATE", "flag": "BOOLEAN"}
+         "dbl": "DOUBLE", "day": "DATE", "flag": "BOOLEAN", "grp": "BIGINT",
+         "fgrp": "DOUBLE"}
 
 
 def seeded(seed, cap, n, null_keys=True):
@@ -52,7 +58,12 @@ def seeded(seed, cap, n, null_keys=True):
         dbl[::11] = np.nan
         dbl[1::7] = -0.0
         dbl[2::9] = 0.0
-    arrays = {"k1": k1, "k2": k2,
+    # few distinct group keys: negative and huge integers; doubles with
+    # NaN, -0.0 and +0.0
+    grp = np.array([-7, 0, 3, 2**40, -2**62], dtype=np.int64)[
+        rng.integers(0, 5, cap)]
+    fgrp = np.array([np.nan, -0.0, 0.0, 1.5, -2.25])[rng.integers(0, 5, cap)]
+    arrays = {"k1": k1, "k2": k2, "grp": grp, "fgrp": fgrp,
               "big": rng.integers(-2**40, 2**40, cap),
               "dec": rng.integers(-10**9, 10**9, cap),
               "dbl": dbl,
@@ -61,7 +72,8 @@ def seeded(seed, cap, n, null_keys=True):
     valids = {"k1": rng.random(cap) < 0.85 if null_keys else None,
               "k2": None, "big": rng.random(cap) < 0.9,
               "dec": rng.random(cap) < 0.9, "dbl": rng.random(cap) < 0.9,
-              "day": None, "flag": rng.random(cap) < 0.8}
+              "day": None, "flag": rng.random(cap) < 0.8,
+              "grp": rng.random(cap) < 0.9, "fgrp": rng.random(cap) < 0.9}
     return arrays, valids, n
 
 
@@ -81,9 +93,10 @@ def build_page(pkg_page, T, data):
         else:
             cols.append(arrays[c])
             dicts.append(None)
+    where = {} if pkg_page is RP else {"device": "cpu"}
     page = pkg_page.Page.from_numpy(cols, [ty(T, TYPES[c]) for c in COLS],
                                     valids=[valids[c] for c in COLS],
-                                    dictionaries=dicts)
+                                    dictionaries=dicts, **where)
     return pkg_page.Page(page.columns, n if pkg_page is RP
                          else PP.row_count(n, torch.device("cpu")))
 
@@ -126,12 +139,13 @@ def run_steps(pkg, pages, keys, aggs, chain):
     return A.hash_aggregate(final_keys, sp, A.Step.FINAL, chans)(merged)
 
 
-def rows(page):
+def rows(page, nkeys=0):
     """Live rows as tuples, NULL as None, dictionary codes decoded only
-    where valid (the NULL-key slot's code lies past the pool)."""
+    where valid (the NULL-key slot's code lies past the pool); a -0.0 in
+    the first nkeys (group key) columns reads as +0.0."""
     n = int(page.num_rows)
     cols = []
-    for c in page.columns:
+    for ci, c in enumerate(page.columns):
         vals = np.asarray(c.values)[:n] if not isinstance(
             c.values, torch.Tensor) else c.values[:n].numpy()
         valid = np.ones(n, dtype=bool) if c.valid is None else (
@@ -143,6 +157,8 @@ def rows(page):
                 out.append(None)
             elif c.dictionary is not None:
                 out.append(c.dictionary.values[v])
+            elif ci < nkeys and isinstance(v, float) and v == 0:
+                out.append(0.0)
             else:
                 out.append(v)
         cols.append(out)
@@ -166,7 +182,11 @@ def same_value(x, y):
 
 REF = (RA, RT, RP)
 PORT = (PA, PT, PP)
-KEYSETS = {"global": [], "one_key": ["k1"], "two_keys": ["k1", "k2"]}
+KEYSETS = {"global": [], "one_key": ["k1"], "two_keys": ["k1", "k2"],
+           # the general path (K8)
+           "bigint_key": ["grp"], "double_key": ["fgrp"],
+           "date_key": ["day"], "dict_and_int": ["k1", "grp"],
+           "three_mixed": ["fgrp", "k2", "grp"]}
 LAYOUTS = {"ragged": [(300, 211), (64, 64), (100, 0)],
            "empty": [(50, 0)],
            "single_page": [(257, 257)]}
@@ -183,8 +203,9 @@ def test_hash_aggregate_matches_reference(keys, layout, chain):
              for i, (cap, n) in enumerate(LAYOUTS[layout])]
     ref_pages = [build_page(RP, RT, data) for data in datas]
     port_pages = [build_page(PP, PT, data) for data in datas]
-    want = rows(run_steps(REF, ref_pages, KEYSETS[keys], AGGS, chain))
-    got = rows(run_steps(PORT, port_pages, KEYSETS[keys], AGGS, chain))
+    nk = len(KEYSETS[keys])
+    want = rows(run_steps(REF, ref_pages, KEYSETS[keys], AGGS, chain), nk)
+    got = rows(run_steps(PORT, port_pages, KEYSETS[keys], AGGS, chain), nk)
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert all(same_value(a, b) for a, b in zip(g, w)), (g, w)
@@ -196,11 +217,15 @@ def test_unsupported_paths_name_the_roadmap():
         PA.hash_aggregate([], sp)
     with pytest.raises(NotImplementedError, match="B8"):
         PA.hash_aggregate([], [PA.AggSpec("approx_distinct", 2, PT.BIGINT)])
+    # grouped DISTINCT still needs the sort-based path; a non-dictionary
+    # key no longer does (the general GROUP BY runs it)
+    with pytest.raises(NotImplementedError, match="B3"):
+        PA.hash_aggregate([COLS.index("big")],
+                          [PA.AggSpec("sum", 2, PT.BIGINT, distinct=True)])
     page = build_page(PP, PT, seeded(1, 10, 10))
     op = PA.hash_aggregate([COLS.index("big")],
                            [PA.AggSpec("count", None, None)])
-    with pytest.raises(NotImplementedError, match="B3"):
-        op(page)
+    assert int(op(page).num_rows) == 10
 
 
 def test_output_types_resolve_for_every_aggregate():

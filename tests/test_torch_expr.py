@@ -86,8 +86,10 @@ def make_page(pkg):
         arrays.append(vals)
         typs.append(ty(pkg.T, spec))
         valids.append(valid)
-    page = pkg.P.Page.from_numpy(arrays, typs, valids=valids)
-    return page
+    if pkg is PORT:
+        return pkg.P.Page.from_numpy(arrays, typs, valids=valids,
+                                     device="cpu")
+    return pkg.P.Page.from_numpy(arrays, typs, valids=valids)
 
 
 def col(pkg, name):

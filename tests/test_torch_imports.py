@@ -1,6 +1,7 @@
 """The port stands alone: trino_tpu_torch (and chip_smoke.py) import
-neither jax nor trino_tpu, run q6 with both made unimportable, and refuse
-to start on a missing CUDA device unless the caller asks for the CPU."""
+neither jax nor trino_tpu, run q6 and q3 with both made unimportable, and
+refuse to start on a missing CUDA device unless the caller asks for the
+CPU."""
 
 import ast
 import os
@@ -22,7 +23,10 @@ FORBIDDEN = ("jax", "jaxlib", "trino_tpu")
 
 
 def _sources():
-    files = sorted(_PKG.rglob("*.py")) + [_REPO / "chip_smoke.py"]
+    # _build/ holds what the package builds at run time, not its sources
+    files = sorted(p for p in _PKG.rglob("*.py")
+                   if "_build" not in p.relative_to(_PKG).parts) + \
+        [_REPO / "chip_smoke.py"]
     return [str(p.relative_to(_REPO)) for p in files]
 
 
@@ -40,9 +44,17 @@ def _imported_roots(path: pathlib.Path):
 def test_inventory_covers_the_slice():
     files = set(_sources())
     for rel in ("trino_tpu_torch/page.py", "trino_tpu_torch/ops/aggregate.py",
+                "trino_tpu_torch/ops/join.py",
+                "trino_tpu_torch/exec/local_planner.py",
                 "trino_tpu_torch/exec/runner.py",
                 "trino_tpu_torch/connector/tpch_gen.py", "chip_smoke.py"):
         assert rel in files
+    # every CUDA source native.py builds is in the package, and no source
+    # of csrc/ is left out of the build
+    from trino_tpu_torch import native
+    cu = {p.stem for p in (_PKG / "csrc").glob("*.cu")}
+    assert cu == set(native.SOURCES)
+    assert {"gather", "join_build", "join_probe", "group_agg"} <= cu
 
 
 @pytest.mark.parametrize("rel", _sources())
@@ -65,29 +77,36 @@ _BLOCKED_RUN = textwrap.dedent("""
     torch.set_num_threads(1)
     from trino_tpu_torch.exec import LocalQueryRunner
     runner = LocalQueryRunner.tpch("tiny", device="cpu")
-    rows = runner.execute(
-        "SELECT sum(l_extendedprice * l_discount) AS revenue FROM lineitem "
-        "WHERE l_shipdate >= DATE '1994-01-01' "
-        "AND l_shipdate < DATE '1994-01-01' + INTERVAL '1' YEAR "
-        "AND l_discount BETWEEN 0.06 - 0.01 AND 0.06 + 0.01 "
-        "AND l_quantity < 24").rows
+    rows = runner.execute(sys.argv[1]).rows
     assert not any(m.split(".")[0] in ("jax", "trino_tpu")
                    for m in sys.modules), "reference module loaded"
-    print(rows[0][0])
+    print(rows)
 """)
 
 
-def test_q6_runs_with_jax_and_reference_unimportable():
+def _run_blocked(name: str) -> None:
+    """Run one TPC-H query through the port in a process where jax and
+    trino_tpu cannot be imported; its rows must be the reference's."""
+    from tpch_sql import QUERIES
+    sql = QUERIES[name][0]
     env = dict(os.environ)
     env["PYTHONPATH"] = str(_REPO)
-    out = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], cwd=str(_REPO),
-                         env=env, capture_output=True, text=True, timeout=300)
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_RUN, sql],
+                         cwd=str(_REPO), env=env, capture_output=True,
+                         text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
-    # the same value the reference computes at tiny (tests/test_queries.py)
-    from tpch_sql import QUERIES
     from trino_tpu.exec import LocalQueryRunner as RefRunner
-    want = RefRunner.tpch("tiny").execute(QUERIES["q6"][0]).rows[0][0]
+    want = RefRunner.tpch("tiny").execute(sql).rows
     assert out.stdout.strip().splitlines()[-1] == str(want)
+
+
+def test_q6_runs_with_jax_and_reference_unimportable():
+    _run_blocked("q6")
+
+
+def test_q3_runs_with_jax_and_reference_unimportable():
+    """The join path (the K5-K8 twins) imports nothing of JAX either."""
+    _run_blocked("q3")
 
 
 def test_default_device_is_cuda():

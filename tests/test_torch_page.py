@@ -1,10 +1,10 @@
 """trino_tpu_torch.page against trino_tpu.page on seeded pages (CPU).
 
-Page.filter (K1's plain twin) and device_concat (K2's plain twin) take the
-same seeded numpy pages through both packages: NULL validity, NaN, -0.0,
-all-false and all-true masks, capacity 0 and ragged live counts. Live rows
-must match bit for bit (floats compared by their bits, so -0.0 and NaN
-count).
+Page.filter (K1's plain twin), device_concat (K2's plain twin) and
+Page.gather (K7's plain twin) take the same seeded numpy pages through both
+packages: NULL validity, NaN, -0.0, all-false and all-true masks, indices
+past both ends, capacity 0 and ragged live counts. Live rows must match bit
+for bit (floats compared by their bits, so -0.0 and NaN count).
 """
 
 import numpy as np
@@ -104,7 +104,7 @@ def test_round_trip_and_reference_conversion(cap, n):
         for x, y in zip(a, b):
             assert (x is None and y is None) or x == y or (x != x and y != y)
     direct = PP.Page.from_numpy(arrays, [port_type(t) for t in typs],
-                                valids=valids)
+                                valids=valids, device="cpu")
     assert int(direct.num_rows) == cap
     assert direct.to_host(n)[4].tolist() == ref.to_host(n)[4].tolist()
 
@@ -170,8 +170,10 @@ def test_device_concat_matches_reference(layout):
 
 
 def test_device_concat_refuses_mixed_dictionaries():
-    a = PP.Page.from_numpy([np.array(["x"], dtype=object)], [PT.VARCHAR])
-    b = PP.Page.from_numpy([np.array(["y"], dtype=object)], [PT.VARCHAR])
+    a = PP.Page.from_numpy([np.array(["x"], dtype=object)], [PT.VARCHAR],
+                           device="cpu")
+    b = PP.Page.from_numpy([np.array(["y"], dtype=object)], [PT.VARCHAR],
+                           device="cpu")
     with pytest.raises(ValueError):
         PP.device_concat([a, b])
 
@@ -197,3 +199,51 @@ def test_entry_points_need_an_explicit_cpu_device():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             PP.resolve_device(None)
+
+
+GATHERS = {"permutation": lambda rng, cap: rng.permutation(cap),
+           "past_both_ends": lambda rng, cap: rng.integers(-5, cap + 5,
+                                                            2 * cap),
+           "repeat_first": lambda rng, cap: np.zeros(cap // 2, dtype=int),
+           "empty": lambda rng, cap: np.zeros(0, dtype=int)}
+
+
+@pytest.mark.parametrize("kind", sorted(GATHERS))
+@pytest.mark.parametrize("cap,n", [(1, 1), (300, 211), (4097, 4000)])
+def test_gather_matches_reference(kind, cap, n):
+    rng = np.random.default_rng(500 + cap)
+    arrays, typs, valids = seeded_columns(rng, cap)
+    ref = ref_page(arrays, typs, valids, n)
+    port = to_port_page(ref)
+    idx = GATHERS[kind](rng, cap).astype(np.int32)
+    count = min(n, len(idx))
+    want = ref.gather(idx, count)
+    got = port.gather(torch.from_numpy(idx).to(torch.int64), count)
+    assert got.capacity == len(idx)
+    assert_same_page(want, got)
+    col = port.column(0).gather(torch.from_numpy(idx))
+    np.testing.assert_array_equal(col.values.numpy(),
+                                  np.asarray(ref.column(0).gather(idx)
+                                             .values))
+
+
+def test_constructors_default_to_cuda():
+    """Column.from_numpy, Page.from_numpy, page_from_host and
+    union_dictionaries place their tensors on cuda unless told otherwise,
+    and raise without a card."""
+    arr = np.arange(4, dtype=np.int64)
+    d = PP.Dictionary(np.array(["a", "b"], dtype=object))
+    calls = [lambda **kw: PP.Column.from_numpy(arr, PT.BIGINT, **kw),
+             lambda **kw: PP.Page.from_numpy([arr], [PT.BIGINT], **kw),
+             lambda **kw: PP.page_from_host([arr], [None], [None],
+                                            [PT.BIGINT], 4, **kw),
+             lambda **kw: PP.union_dictionaries([d, d], **kw)]
+    for call in calls:
+        assert call(device="cpu") is not None
+        if torch.cuda.is_available():
+            call()
+        else:
+            with pytest.raises(RuntimeError, match="CUDA"):
+                call()
+    page = PP.Page.from_numpy([arr], [PT.BIGINT], device="cpu")
+    assert page.device.type == "cpu" and page.column(0).device.type == "cpu"

@@ -1,12 +1,15 @@
 """End-to-end parity: trino_tpu_torch's LocalQueryRunner (device="cpu")
 against trino_tpu's LocalQueryRunner on TPC-H `tiny`.
 
-q1 and q6 (tests/tpch_sql.py) plus single-table queries in the style of
-tests/test_queries.py: scan, filter, arithmetic, global and
-dictionary-key GROUP BY, ORDER BY, LIMIT, TopN, OFFSET. Rows compare
-through tests/oracle.assert_same (decimals and integers exact, doubles to
-1e-9 relative). The EXPLAIN text of q1 and q6 must match too, so that a
-row mismatch is an execution fault and not a planning one.
+The TPC-H queries whose plans need nothing past this slice (q1, q3, q6,
+q14, q19 of tests/tpch_sql.py), single-table queries in the style of
+tests/test_queries.py (scan, filter, arithmetic, global, dictionary-key
+and general GROUP BY, ORDER BY, LIMIT, TopN, OFFSET) and joins (unique
+builds on both join routes, string keys across dictionaries, a residual
+filter, composite keys). Rows compare through tests/oracle.assert_same
+(decimals and integers exact, doubles to 1e-9 relative). The EXPLAIN text
+of the TPC-H queries must match too, so that a row mismatch is an
+execution fault and not a planning one.
 """
 
 import pytest
@@ -57,6 +60,35 @@ SINGLE_TABLE = {
                    "FROM lineitem WHERE l_shipmode IN ('MAIL', 'SHIP')",
                    False),
     "limit": ("SELECT l_orderkey FROM lineitem LIMIT 7", False),
+    "general_group_by": ("SELECT l_orderkey, l_shipdate, count(*), "
+                         "sum(l_quantity), avg(l_discount), "
+                         "max(l_extendedprice) FROM lineitem "
+                         "WHERE l_orderkey < 2000 "
+                         "GROUP BY l_orderkey, l_shipdate", False),
+    "double_key_group_by": ("SELECT CAST(l_discount AS double) * -1, "
+                            "l_returnflag, count(*), min(l_tax) "
+                            "FROM lineitem GROUP BY 1, 2", False),
+}
+
+JOINS = {
+    "fact_to_dim": ("SELECT o_orderpriority, count(*), sum(l_quantity) "
+                    "FROM lineitem JOIN orders ON l_orderkey = o_orderkey "
+                    "WHERE o_orderdate < DATE '1993-06-01' "
+                    "GROUP BY o_orderpriority", False),
+    "string_keys_across_pools": (
+        "SELECT n_nationkey, x.k FROM nation JOIN (VALUES ('GERMANY', 1), "
+        "('FRANCE', 2), ('ATLANTIS', 3)) AS x(name, k) ON n_name = x.name",
+        False),
+    "residual_filter": ("SELECT c_name, o_orderkey FROM orders JOIN "
+                        "customer ON o_custkey = c_custkey AND "
+                        "o_totalprice > c_acctbal * 40", False),
+    "composite_keys": ("SELECT count(*), sum(ps_supplycost) FROM lineitem "
+                       "JOIN partsupp ON l_partkey = ps_partkey "
+                       "AND l_suppkey = ps_suppkey", False),
+    "three_way": ("SELECT n_name, count(*) FROM customer JOIN nation ON "
+                  "c_nationkey = n_nationkey JOIN region ON n_regionkey = "
+                  "r_regionkey WHERE r_name = 'ASIA' GROUP BY n_name "
+                  "ORDER BY n_name", True),
 }
 
 
@@ -65,7 +97,7 @@ def runners():
     return RefRunner.tpch("tiny"), PortRunner.tpch("tiny", device="cpu")
 
 
-@pytest.mark.parametrize("name", ["q1", "q6"])
+@pytest.mark.parametrize("name", ["q1", "q3", "q6", "q14", "q19"])
 def test_tpch_query_matches_reference(runners, name):
     ref, port = runners
     sql, _, ordered = QUERIES[name]
@@ -91,12 +123,36 @@ def test_single_table_query_matches_reference(runners, name):
     assert_same(got, want, ordered)
 
 
+@pytest.mark.parametrize("name", sorted(JOINS))
+def test_join_query_matches_reference(runners, name):
+    ref, port = runners
+    sql, ordered = JOINS[name]
+    assert_same(port.execute(sql).rows, ref.execute(sql).rows, ordered)
+    assert port.last_joins and all(j["route"] in ("dense", "search")
+                                   for j in port.last_joins)
+
+
+def test_q3_takes_the_reference_routes(runners):
+    """q3 at tiny: both builds are unique and both key spans are small,
+    so both joins take the dense route (where the reference would take
+    its matrix-unit route for the customer join, ROADMAP B11)."""
+    _, port = runners
+    port.execute(QUERIES["q3"][0])
+    assert [j["route"] for j in port.last_joins] == ["dense", "dense"]
+    assert all(0 < j["matched"] <= j["probe_rows"]
+               for j in port.last_joins)
+
+
 def test_unported_node_names_its_roadmap_item(runners):
     _, port = runners
     from trino_tpu_torch.exec.local_planner import ExecutionError
     with pytest.raises(ExecutionError, match="ROADMAP"):
-        port.execute("SELECT n_name, r_name FROM nation JOIN region "
+        port.execute("SELECT n_name, r_name FROM nation LEFT JOIN region "
                      "ON n_regionkey = r_regionkey")
+    # a build side with duplicate keys needs the expanding probe
+    with pytest.raises(ExecutionError, match="ROADMAP B4"):
+        port.execute("SELECT count(*) FROM nation n1 JOIN nation n2 "
+                     "ON n1.n_regionkey = n2.n_regionkey")
 
 
 def test_repeat_query_reuses_built_pipelines(runners):

@@ -70,3 +70,174 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* warp_sums,
   __syncthreads();  // warp_sums may be reused by the caller's next round
   return before + x - v;
 }
+
+// Element i of an integer column of `esz` bytes, sign-extended to int64
+// (bool columns are 1-byte 0/1).
+__device__ __forceinline__ int64_t load_int(const void* p, int64_t i,
+                                            int esz) {
+  switch (esz) {
+    case 8: return static_cast<const int64_t*>(p)[i];
+    case 4: return static_cast<const int32_t*>(p)[i];
+    case 2: return static_cast<const int16_t*>(p)[i];
+    default: return static_cast<const int8_t*>(p)[i];
+  }
+}
+
+// Element i of a float32 (esz 4) or float64 column, as a double.
+__device__ __forceinline__ double load_float(const void* p, int64_t i,
+                                             int esz) {
+  return esz == 4 ? (double)static_cast<const float*>(p)[i]
+                  : static_cast<const double*>(p)[i];
+}
+
+// splitmix64 finalizer: trino_tpu/ops/join.py _mix64.
+__device__ __forceinline__ uint64_t mix64(uint64_t x) {
+  x = (x ^ (x >> 30)) * 0xBF58476D1CE4E5B9ULL;
+  x = (x ^ (x >> 27)) * 0x94D049BB133111EBULL;
+  return x ^ (x >> 31);
+}
+
+constexpr uint64_t KEY_MIX = 0x9E3779B97F4A7C15ULL;
+
+// One join-key column as trino_tpu/ops/join.py _key_u64 widens it: an
+// integer sign-extended to 64 bits, a float as its float64 bits with -0.0
+// made +0.0 (NaN keeps its bits).
+__device__ __forceinline__ uint64_t key_bits(const void* p, int64_t i,
+                                             int esz, int is_float) {
+  if (is_float) {
+    const double x = load_float(p, i, esz);
+    return (uint64_t)__double_as_longlong(x == 0.0 ? 0.0 : x);
+  }
+  return (uint64_t)load_int(p, i, esz);
+}
+
+// The join key of row i over `nkeys` columns described by `cols` (4 words
+// each: values ptr, valid ptr (0 = none), element size, is_float): one
+// column's bits, or the reference's mix of several. *null is set when any
+// column is NULL.
+__device__ __forceinline__ uint64_t join_key(const int64_t* cols,
+                                             int64_t nkeys, int64_t i,
+                                             bool* null) {
+  bool isnull = false;
+  uint64_t acc = 0;
+  for (int64_t q = 0; q < nkeys; ++q) {
+    const int64_t* c = cols + 4 * q;
+    const uint8_t* valid = reinterpret_cast<const uint8_t*>(c[1]);
+    if (valid != nullptr && !valid[i]) isnull = true;
+    const uint64_t k = key_bits(reinterpret_cast<const void*>(c[0]), i,
+                                (int)c[2], (int)c[3]);
+    if (nkeys == 1) {
+      acc = k;
+    } else {
+      acc = mix64(acc ^ mix64(k) ^ (acc * KEY_MIX));
+    }
+  }
+  *null = isnull;
+  return acc;
+}
+
+// Sum of a 64-bit value over the warp (result valid in lane 0).
+__device__ __forceinline__ unsigned long long warp_sum(unsigned long long v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// ---------------------------------------------------------------- order keys
+
+// float64 -> int64 with the same order (-0.0 < +0.0; NaN is handled apart
+// by each caller), so min/max of floats run as atomicMin/atomicMax on
+// integers. trino_tpu_torch/ops/aggregate.py ordered_key is the same map.
+__device__ __forceinline__ long long ordered_key(double x) {
+  long long b = __double_as_longlong(x);
+  return b >= 0 ? b : (b ^ 0x7fffffffffffffffLL);
+}
+
+__device__ __forceinline__ double from_key(long long k) {
+  return __longlong_as_double(k >= 0 ? k : (k ^ 0x7fffffffffffffffLL));
+}
+
+// Order keys of +inf and -inf: the identities of a float min and max.
+__device__ __forceinline__ long long key_pos_inf() {
+  return ordered_key(__longlong_as_double(0x7ff0000000000000LL));
+}
+__device__ __forceinline__ long long key_neg_inf() {
+  return ordered_key(__longlong_as_double((long long)0xfff0000000000000ULL));
+}
+
+// ------------------------------------------------- aggregate states (K3, K8)
+
+enum AggKind { SUM = 0, COUNT = 1, MIN = 2, MAX = 3 };
+// per state in a pointer table: value ptr (int64/float64 bits; unused by
+// COUNT), valid ptr, mask ptr (0 = none), kind, is_float
+constexpr int STATE_FIELDS = 5;
+
+// Initial 8-byte word of a state: sums and counts 0 (0.0 has all bits
+// zero), min/max the largest/smallest value (an order key for floats).
+__device__ __forceinline__ unsigned long long agg_identity(int kind,
+                                                           int is_float) {
+  if (kind == MIN)
+    return is_float ? (unsigned long long)key_pos_inf()
+                    : 0x7fffffffffffffffULL;
+  if (kind == MAX)
+    return is_float ? (unsigned long long)key_neg_inf()
+                    : 0x8000000000000000ULL;
+  return 0ULL;
+}
+
+// One reduction step of `kind` into the 8-byte word at `dst`: int64 sums
+// and counts as wrapping adds (exact), float64 sums with atomicAdd(double),
+// min/max on int64 values or order keys.
+__device__ __forceinline__ void agg_fold(unsigned long long* dst, int kind,
+                                         int is_float, unsigned long long v) {
+  if (kind == MIN)
+    atomicMin(reinterpret_cast<long long*>(dst), (long long)v);
+  else if (kind == MAX)
+    atomicMax(reinterpret_cast<long long*>(dst), (long long)v);
+  else if (kind == SUM && is_float)
+    atomicAdd(reinterpret_cast<double*>(dst),
+              __longlong_as_double((long long)v));
+  else
+    atomicAdd(dst, v);
+}
+
+// Folds row i of the k states described by `st` into the slot's words
+// `acc` (k of them); a NaN in a float min/max sets its flag in `nan`
+// instead (the reference's segment_min/max propagate NaN).
+__device__ __forceinline__ void agg_fold_row(const int64_t* st, int64_t k,
+                                             int64_t i,
+                                             unsigned long long* acc,
+                                             int32_t* nan) {
+  for (int64_t j = 0; j < k; ++j) {
+    const int64_t* s = st + j * STATE_FIELDS;
+    const uint8_t* v = reinterpret_cast<const uint8_t*>(s[1]);
+    const uint8_t* m = reinterpret_cast<const uint8_t*>(s[2]);
+    if ((v != nullptr && !v[i]) || (m != nullptr && !m[i])) continue;
+    const int kind = (int)s[3];
+    if (kind == COUNT) {
+      atomicAdd(acc + j, 1ULL);
+      continue;
+    }
+    const int is_float = (int)s[4];
+    const int64_t bits = reinterpret_cast<const int64_t*>(s[0])[i];
+    if (kind != SUM && is_float) {
+      const double x = __longlong_as_double(bits);
+      if (x != x) {
+        nan[j] = 1;
+        continue;
+      }
+      agg_fold(acc + j, kind, 0, (unsigned long long)ordered_key(x));
+    } else {
+      agg_fold(acc + j, kind, is_float, (unsigned long long)bits);
+    }
+  }
+}
+
+// A state's final word: a float min/max decoded from its order key, NaN
+// where flagged; every other state as accumulated.
+__device__ __forceinline__ unsigned long long agg_result(
+    int kind, int is_float, unsigned long long v, int32_t nan) {
+  if (!is_float || (kind != MIN && kind != MAX)) return v;
+  return nan ? 0x7ff8000000000000ULL
+             : (unsigned long long)__double_as_longlong(from_key((long long)v));
+}

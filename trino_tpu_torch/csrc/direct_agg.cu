@@ -29,30 +29,8 @@
 
 namespace {
 constexpr int THREADS = 256;
-enum Kind { SUM = 0, COUNT = 1, MIN = 2, MAX = 3 };
 constexpr int KEY_FIELDS = 4;    // codes ptr, valid ptr, size, stride
-constexpr int STATE_FIELDS = 5;  // value ptr, valid ptr, mask ptr, kind, is_float
-
-__device__ __forceinline__ long long ordered_key(double x) {
-  long long b = __double_as_longlong(x);
-  return b >= 0 ? b : (b ^ 0x7fffffffffffffffLL);
-}
-
-__device__ __forceinline__ double from_key(long long k) {
-  return __longlong_as_double(k >= 0 ? k : (k ^ 0x7fffffffffffffffLL));
-}
-
-__device__ __forceinline__ unsigned long long identity(int kind, int is_float) {
-  if (kind == MIN)
-    return is_float ? (unsigned long long)ordered_key(__longlong_as_double(
-                          0x7ff0000000000000LL))
-                    : 0x7fffffffffffffffULL;
-  if (kind == MAX)
-    return is_float ? (unsigned long long)ordered_key(__longlong_as_double(
-                          (long long)0xfff0000000000000ULL))
-                    : 0x8000000000000000ULL;
-  return 0ULL;  // sums and counts (0.0 has all bits zero)
-}
+// per state: STATE_FIELDS words (csrc/common.cuh)
 
 __global__ void init_kernel(const __grid_constant__ Table tbl, int64_t nkeys,
                             int64_t k, int64_t nseg,
@@ -65,26 +43,12 @@ __global__ void init_kernel(const __grid_constant__ Table tbl, int64_t nkeys,
        e < nseg * w; e += (int64_t)gridDim.x * blockDim.x) {
     const int64_t j = e % w;
     acc[e] = j == k ? 0ULL
-                    : identity((int)st[j * STATE_FIELDS + 3],
-                               (int)st[j * STATE_FIELDS + 4]);
+                    : agg_identity((int)st[j * STATE_FIELDS + 3],
+                                   (int)st[j * STATE_FIELDS + 4]);
   }
   for (int64_t e = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
        e < nseg * k; e += (int64_t)gridDim.x * blockDim.x)
     nan[e] = 0;
-}
-
-// One reduction step of `kind` into the 8-byte word at `dst`.
-__device__ __forceinline__ void fold(unsigned long long* dst, int kind,
-                                     int is_float, unsigned long long v) {
-  if (kind == MIN)
-    atomicMin(reinterpret_cast<long long*>(dst), (long long)v);
-  else if (kind == MAX)
-    atomicMax(reinterpret_cast<long long*>(dst), (long long)v);
-  else if (kind == SUM && is_float)
-    atomicAdd(reinterpret_cast<double*>(dst),
-              __longlong_as_double((long long)v));
-  else
-    atomicAdd(dst, v);
 }
 
 // COPIES slot tables per block (one per lane class when they fit): lane l
@@ -111,8 +75,8 @@ __global__ void accumulate_kernel(const __grid_constant__ Table tbl,
     for (int64_t e = threadIdx.x; e < COPIES * stride; e += blockDim.x) {
       const int64_t j = (e % stride) % w;
       acc[e] = j == k ? 0ULL
-                      : identity((int)st[j * STATE_FIELDS + 3],
-                                 (int)st[j * STATE_FIELDS + 4]);
+                      : agg_identity((int)st[j * STATE_FIELDS + 3],
+                                     (int)st[j * STATE_FIELDS + 4]);
     }
     for (int64_t e = threadIdx.x; e < nseg * k; e += blockDim.x) nan[e] = 0;
     __syncthreads();
@@ -134,29 +98,7 @@ __global__ void accumulate_kernel(const __grid_constant__ Table tbl,
     }
     unsigned long long* row = acc + copy * stride + slot * w;
     atomicAdd(row + k, 1ULL);
-    for (int64_t j = 0; j < k; ++j) {
-      const int64_t* s = st + j * STATE_FIELDS;
-      const uint8_t* v = reinterpret_cast<const uint8_t*>(s[1]);
-      const uint8_t* m = reinterpret_cast<const uint8_t*>(s[2]);
-      if ((v != nullptr && !v[i]) || (m != nullptr && !m[i])) continue;
-      const int kind = (int)s[3];
-      if (kind == COUNT) {
-        atomicAdd(row + j, 1ULL);
-        continue;
-      }
-      const int is_float = (int)s[4];
-      const int64_t bits = reinterpret_cast<const int64_t*>(s[0])[i];
-      if (kind != SUM && is_float) {
-        const double x = __longlong_as_double(bits);
-        if (x != x) {
-          nan[slot * k + j] = 1;
-          continue;
-        }
-        fold(row + j, kind, 0, (unsigned long long)ordered_key(x));
-      } else {
-        fold(row + j, kind, is_float, (unsigned long long)bits);
-      }
-    }
+    agg_fold_row(st, k, i, row, nan + slot * k);
   }
   if (!COPIES) return;
   __syncthreads();
@@ -175,7 +117,8 @@ __global__ void accumulate_kernel(const __grid_constant__ Table tbl,
     if (nan[slot * k + j]) gnan[slot * k + j] = 1;
     for (int c = 0; c < COPIES; ++c) {
       const unsigned long long v = acc[c * stride + e];
-      if (v != identity(kind, is_float)) fold(gacc + e, kind, is_float, v);
+      if (v != agg_identity(kind, is_float))
+        agg_fold(gacc + e, kind, is_float, v);
     }
   }
 }
@@ -202,13 +145,8 @@ __global__ void finalize_kernel(const __grid_constant__ Table tbl,
       for (int64_t j = 0; j < k; ++j) {
         const int kind = (int)st[j * STATE_FIELDS + 3];
         const int is_float = (int)st[j * STATE_FIELDS + 4];
-        unsigned long long v = acc[s * w + j];
-        if (is_float && (kind == MIN || kind == MAX))
-          v = nan[s * k + j]
-                  ? 0x7ff8000000000000ULL
-                  : (unsigned long long)__double_as_longlong(
-                        from_key((long long)v));
-        out[j * nseg + pos] = v;
+        out[j * nseg + pos] = agg_result(kind, is_float, acc[s * w + j],
+                                         nan[s * k + j]);
       }
     }
     carry += total;

@@ -1,0 +1,87 @@
+#pragma once
+#include "common.cuh"
+
+// Tiled stream compaction, shared by K1 (csrc/compact.cu) and K8
+// (csrc/group_agg.cu).
+//
+// Keeps the chosen rows of [0, n) in order, in three passes over tiles of
+// TILE rows and no sort: tile_count_kernel counts each tile's kept rows,
+// tile_scan_kernel turns the counts into exclusive offsets (and writes the
+// total to the device, no host sync), and the caller's scatter kernel
+// calls tile_scatter, which re-derives each kept row's in-tile rank with a
+// block scan and hands the body its output position. `Keep` is a by-value
+// functor with `int64_t limit() const` (n, read on the device) and
+// `bool operator()(int64_t i) const` for i < n.
+constexpr int TILE = 4096;  // trino_tpu_torch/page.py COMPACT_TILE
+constexpr int TILE_THREADS = 256;  // threads of a tile's block
+
+template <class Keep>
+__global__ void tile_count_kernel(const Keep keep,
+                                  int64_t* __restrict__ counts) {
+  __shared__ int warp_sums[32];
+  const int64_t n = keep.limit();
+  const int64_t base = (int64_t)blockIdx.x * TILE;
+  int c = 0;
+  for (int r = threadIdx.x; r < TILE; r += blockDim.x) {
+    const int64_t i = base + r;
+    c += (i < n && keep(i)) ? 1 : 0;
+  }
+  int total;
+  block_exclusive_scan(c, warp_sums, &total);
+  if (threadIdx.x == 0) counts[blockIdx.x] = total;
+}
+
+// One block: counts[] -> exclusive offsets in place, *total_out = the sum.
+static __global__ void tile_scan_kernel(int64_t* __restrict__ counts,
+                                        int64_t nblocks,
+                                        int32_t* __restrict__ total_out) {
+  __shared__ int warp_sums[32];
+  int64_t carry = 0;
+  for (int64_t start = 0; start < nblocks; start += blockDim.x) {
+    const int64_t i = start + threadIdx.x;
+    const int v = i < nblocks ? (int)counts[i] : 0;
+    int total;
+    const int ex = block_exclusive_scan(v, warp_sums, &total);
+    if (i < nblocks) counts[i] = carry + ex;
+    carry += total;
+  }
+  if (threadIdx.x == 0) *total_out = (int32_t)carry;
+}
+
+// Inside the scatter kernel (one block per tile, every thread of the block
+// calling it): body(i, pos) for each kept row i of this block's tile, pos
+// being its output row, so the output keeps the input's order.
+template <class Keep, class Body>
+__device__ __forceinline__ void tile_scatter(const Keep& keep, int64_t n,
+                                             const int64_t* offsets,
+                                             Body body) {
+  __shared__ int warp_sums[32];
+  const int64_t base = (int64_t)blockIdx.x * TILE;
+  int64_t out = offsets[blockIdx.x];
+  for (int r = 0; r < TILE; r += blockDim.x) {
+    const int64_t i = base + r + threadIdx.x;
+    const int f = (i < n && keep(i)) ? 1 : 0;
+    int total;
+    const int ex = block_exclusive_scan(f, warp_sums, &total);
+    if (f) body(i, out + ex);
+    out += total;
+  }
+}
+
+// Blocks for n rows in tiles (at least one, so the scan always runs).
+inline int64_t tile_blocks(int64_t n) {
+  return n > 0 ? (n + TILE - 1) / TILE : 1;
+}
+
+// Passes 1 and 2 over `cap` candidate rows: scratch (int64[tile_blocks(cap)])
+// ends as each tile's output offset and *total_out as the kept rows.
+// Returns the number of tiles, the scatter kernel's grid.
+template <class Keep>
+int64_t tile_offsets(const Keep& keep, int64_t cap, int64_t* scratch,
+                     int32_t* total_out, cudaStream_t s) {
+  const int64_t nblocks = tile_blocks(cap);
+  tile_count_kernel<<<(unsigned)nblocks, TILE_THREADS, 0, s>>>(keep,
+                                                               scratch);
+  tile_scan_kernel<<<1, 1024, 0, s>>>(scratch, nblocks, total_out);
+  return nblocks;
+}

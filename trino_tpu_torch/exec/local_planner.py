@@ -1,24 +1,39 @@
 """Local execution: lower a logical plan to streaming page pipelines.
 
-Port of `trino_tpu/exec/local_planner.py`, the subset on the TPC-H q1/q6
-path: TableScan, Values, Filter, Project, Limit, Offset, Aggregation
-(partial per page, a device-side buffer merge, final), Sort, TopN and
-Output. A node executes to an iterator of fixed-capacity Pages plus a
-symbol layout; streaming operators (filter/project/select) queue entries
-on the stream, and the consumer runs the composed chain per page, fused
-with a blocking consumer's tail (the partial aggregation).
+Port of `trino_tpu/exec/local_planner.py`, the subset on the TPC-H q1,
+q3 and q6 path: TableScan, Values, Filter, Project, Limit, Offset,
+Aggregation (partial per page, a device-side buffer merge, final), the
+INNER equi-join with a unique build side, Sort, TopN and Output. A node
+executes to an iterator of fixed-capacity Pages plus a symbol layout;
+streaming operators (filter/project/select) queue entries on the stream,
+and the consumer runs the composed chain per page, fused with a blocking
+consumer's tail (the partial aggregation).
 
-The per-page loop never reads a row count on the host: the only count
-fetch is one batched read at the merge boundary (merge_counted_rows).
+The per-page loop never reads a row count on the host: count fetches are
+batched at the merge boundary (merge_counted_rows), per probe window
+(_coalesce_stream), once per join build (_prepare_probe: max_run, the key
+span, live rows) and once per probe batch (_run_unique_inner).
 
-Every other node, and an aggregation buffer past
-`agg_spill_threshold_bytes`, raises an ExecutionError naming the ROADMAP
+The join router keeps the reference's `dense` (direct-address table) and
+`search` routes; the reference's `mxu` route (ops/join_mxu.py, ROADMAP
+B11) is not ported, so where the reference would take it the port takes
+`dense`, the reference's next choice. Not ported either, and named in
+ROADMAP: the build collection that spills under memory pressure
+(`_collect_build_resilient`) and the spilled join (A7/B9; the port
+collects the build whole and raises past `join_spill_threshold_bytes`),
+the aggregating matrix-unit join `_mxu_agg_join` (B11) and the adaptive
+partial aggregation (A7).
+
+Every other node, a join that needs the expanding probe (a duplicate
+build key, an outer kind), and an aggregation buffer past
+`agg_spill_threshold_bytes` raise an ExecutionError naming the ROADMAP
 item that ports it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -33,17 +48,24 @@ from trino_tpu_torch.expr.ir import (Call, InputRef, Literal, RowExpression,
 from trino_tpu_torch.metadata import Metadata, Session
 from trino_tpu_torch.ops import (AggSpec, SortKey, Step, hash_aggregate,
                                  order_by, top_n_masked)
+from trino_tpu_torch.ops.join import (KMAX, KMIN, MAX_RUN, N_LIVE,
+                                      attach_build, build_dense_table,
+                                      build_key_bounds, prepare_build,
+                                      range_prefilter, unique_inner_probe,
+                                      unsigned)
 from trino_tpu_torch.page import Column, Dictionary, Page, _to_device, \
-    device_concat, row_count
+    device_concat, gather_rows, row_count
 from trino_tpu_torch.planner.nodes import (
-    AggregationNode, FilterNode, LimitNode, OffsetNode, OutputNode,
-    PlanNode, ProjectNode, SortNode, Symbol, TableScanNode, TopNNode,
-    ValuesNode)
+    AggregationNode, FilterNode, JoinKind, JoinNode, LimitNode, OffsetNode,
+    OutputNode, PlanNode, ProjectNode, SortNode, Symbol, TableScanNode,
+    TopNNode, ValuesNode)
+
+# pages looked ahead per batched count fetch (the reference's window)
+_WINDOW_PAGES = 8
 
 # plan nodes of the reference this slice does not run yet -> ROADMAP item
 _LATER = {
-    "JoinNode": "A3/B4 (hash join)",
-    "SemiJoinNode": "A3/B4 (hash join)",
+    "SemiJoinNode": "B4 (semi join: the expanding probe's MARK kind)",
     "WindowNode": "A8/B7 (window functions)",
     "GroupIdNode": "A8 (grouping sets)",
     "UnionNode": "A8 (union)",
@@ -156,6 +178,8 @@ class LocalExecutionPlanner:
         self._hoist_on = bool(session.get("hoist_literals"))
         # statement parameter values (EXECUTE ... USING)
         self.exec_params: tuple = ()
+        # one entry per join run: route, build live rows, probe rows
+        self.joins: List[dict] = []
 
     # ------------------------------------------------- literal hoisting
 
@@ -415,6 +439,301 @@ class LocalExecutionPlanner:
                     8, dtype=torch.bool, device=dev), typ, None))
         return Page(tuple(cols), row_count(1, dev))
 
+    # ---------------------------------------------------------------- join
+
+    def _collect(self, stream: PageStream) -> Optional[Page]:
+        """Materialize a stream (a join build side) on the device. The
+        reference also reserves it against the memory pool (ROADMAP A6)."""
+        return self.merge_counted(list(stream.iter_pages()))
+
+    def _exec_JoinNode(self, node: JoinNode) -> PageStream:
+        if node.kind != JoinKind.INNER or not node.criteria:
+            what = "cross" if not node.criteria else node.kind
+            raise ExecutionError(
+                f"no executor for a {what} join yet: ROADMAP B4 (the "
+                "expanding probe: outer and cross joins)")
+        probe_stream = self.execute(node.left)
+        build_stream = self.execute(node.right)
+        # the reference collects an INNER build through
+        # _collect_build_resilient (spill under memory pressure): ROADMAP
+        # A7/B9; the rows are the same
+        build_page = self._collect(build_stream)
+        return self._join_with_build(node, probe_stream,
+                                     build_stream.symbols, build_page)
+
+    def _join_with_build(self, node: JoinNode, probe_stream: PageStream,
+                         build_symbols, build_page: Optional[Page]
+                         ) -> PageStream:
+        """INNER equi-join over a collected build side: the unique-build
+        path (K5 build, K6 probe, K1 compaction, K7 attach) with the
+        build's key range as a dynamic filter on the probe stream."""
+        probe_lay, _ = _layout(probe_stream.symbols)
+        build_lay, _ = _layout(build_symbols)
+        probe_keys = [probe_lay[c.left.name] for c in node.criteria]
+        build_keys = [build_lay[c.right.name] for c in node.criteria]
+        # PruneJoinColumns: emit only node.outputs' channels
+        out_symbols = node.outputs
+        out_names = {s.name for s in out_symbols}
+        probe_keep = tuple(i for i, s in enumerate(probe_stream.symbols)
+                           if s.name in out_names)
+        build_keep = tuple(i for i, s in enumerate(build_symbols)
+                           if s.name in out_names)
+        # residual non-equi filter over the joined layout, hoisted like a
+        # chain predicate
+        post_pred = None
+        post_params = ()
+        if node.filter is not None:
+            lay, typ = _layout(out_symbols)
+            post_pred, post_params = self._hoist(
+                lower_expr(node.filter, lay, typ))
+        n_probe_cols = len(probe_keep)
+
+        def unique_ops(mode: str):
+            probe_op = cached_kernel(
+                ("uprobe", tuple(probe_keys), tuple(build_keys), mode,
+                 probe_keep),
+                lambda: unique_inner_probe(probe_keys, build_keys,
+                                           lookup=mode,
+                                           probe_out=probe_keep))
+
+            def build_attach():
+                at = attach_build(n_probe_cols, build_out=build_keep)
+                fn = None if post_pred is None else compile_filter(post_pred)
+
+                def run(pre, prepared, g):
+                    out = at(pre, prepared)
+                    if fn is not None:
+                        out = out.filter(fn(out, g))
+                    return out
+                return run
+            attach_kernel = cached_kernel(
+                ("uattach", n_probe_cols, post_pred, build_keep),
+                build_attach, params=post_params)
+            return probe_op, lambda pre, prepared: attach_kernel(
+                pre, prepared, post_params)
+
+        def gen():
+            if build_page is None:
+                return                       # INNER join, empty build
+            if bool(self.session.get("spill_enabled")) and \
+                    page_bytes(build_page) > int(self.session.get(
+                        "join_spill_threshold_bytes")):
+                raise ExecutionError(
+                    "join build past join_spill_threshold_bytes: the "
+                    "spilled join is ROADMAP A7/B9")
+            aligned = self._align_join_dictionaries(
+                probe_stream, build_page, probe_keys, build_keys)
+            prepared, max_run, mode, n_live = self._prepare_probe(
+                build_keys, build_page)
+            if max_run > 1:
+                raise ExecutionError(
+                    f"join build with duplicate keys (max_run {max_run}) "
+                    "needs the expanding probe: ROADMAP B4")
+            prefilter = None
+            if self.session.get("enable_dynamic_filtering") and \
+                    not T.is_string(
+                        probe_stream.symbols[probe_keys[0]].type):
+                # the build's key range filters the probe stream (the
+                # first join key bounds any composite)
+                bounds_op = cached_kernel(
+                    ("dfbounds", build_keys[0]),
+                    lambda: build_key_bounds(build_keys))
+                pf_op = cached_kernel(
+                    ("dfrange", probe_keys[0]),
+                    lambda: range_prefilter(probe_keys[0]))
+                prefilter = (pf_op, bounds_op(prepared))
+            log = {"route": mode, "build_rows": n_live, "probe_rows": 0,
+                   "matched": 0}
+            self.joins.append(log)
+            probe_op, attach_op = unique_ops(mode)
+            yield from self._run_unique_inner(
+                self._coalesce_stream(aligned, prefilter=prefilter),
+                prepared, probe_op, attach_op, log)
+        return PageStream(gen(), out_symbols)
+
+    def _coalesce_stream(self, stream: PageStream,
+                         prefilter=None) -> PageStream:
+        """Batch filtered pages into few large probe buffers
+        (`probe_coalesce_rows`), with one batched count fetch per window of
+        _WINDOW_PAGES pages. `prefilter` is the dynamic filter (op, args),
+        applied per page before buffering and dropped for the rest of the
+        stream when the first window keeps more than 75% of its rows."""
+        target_rows = int(self.session.get("probe_coalesce_rows"))
+        row_bytes = 8 * max(len(stream.symbols), 1)
+        target_rows = max(1 << 16, min(target_rows, (1 << 29) // row_bytes))
+
+        def counts_of(pages):
+            return torch.stack([p.num_rows for p in pages]).tolist()
+
+        def gen():
+            it = stream.iter_pages()
+            buf: List[Page] = []
+            buf_rows = 0
+            use_df = prefilter is not None
+            df_measured = False
+            while True:
+                window = list(itertools.islice(it, _WINDOW_PAGES))
+                if not window:
+                    break
+                if use_df:
+                    pf_op, pf_args = prefilter
+                    filtered = [pf_op(p, *pf_args) for p in window]
+                    if not df_measured:
+                        both = counts_of(window + filtered)
+                        pre, post = both[:len(window)], both[len(window):]
+                        df_measured = True
+                        if sum(post) > 0.75 * max(sum(pre), 1):
+                            use_df = False   # not selective enough
+                        counts = post
+                    else:
+                        counts = counts_of(filtered)
+                    window = filtered
+                else:
+                    counts = counts_of(window)
+                for p, n in zip(window, counts):
+                    if n == 0:
+                        continue
+                    if n >= target_rows:
+                        yield self._merge_buf([p], n)
+                        continue
+                    buf.append(self._tight(p, n))
+                    buf_rows += n
+                    if buf_rows >= target_rows:
+                        yield self._merge_buf(buf, buf_rows)
+                        buf, buf_rows = [], 0
+            if buf:
+                yield self._merge_buf(buf, buf_rows)
+        return PageStream(gen(), stream.symbols)
+
+    def _compact_probe(self, pre: Page, found, total: int,
+                       live: int) -> Page:
+        """A probe result compacted to its matched rows (K1), skipped when
+        every live row matched."""
+        if total == live:
+            return pre
+        op = cached_kernel(("probe-compact",),
+                           lambda: lambda p, f: p.filter(f))
+        return op(pre, found)
+
+    def _run_unique_inner(self, probe_stream: PageStream, prepared,
+                          probe_op, attach_op, log: dict) -> Iterator[Page]:
+        """The unique-build INNER path: the probe (K6) per buffer, ONE
+        count fetch per batch, compaction of partly matched buffers only,
+        a shrink to live size, then the build attach (K7) at match count.
+        Output rows never exceed probe rows, so there is no overflow
+        re-run."""
+        for batch in _byte_bounded_batches(probe_stream.iter_pages(),
+                                           1 << 29):
+            results = [probe_op(page, prepared) for page in batch]
+            fetched = torch.stack(
+                [t for _, _, t in results]
+                + [pre.num_rows.to(torch.int64) for pre, _, _ in results]
+            ).tolist()
+            k = len(results)
+            for (pre, found, _), total, live in zip(results, fetched[:k],
+                                                    fetched[k:]):
+                log["probe_rows"] += live
+                log["matched"] += total
+                if total == 0:
+                    continue
+                out = self._compact_probe(pre, found, total, live)
+                yield attach_op(self._tight(out, total), prepared)
+
+    def _align_join_dictionaries(self, probe_stream: PageStream,
+                                 build_page: Page, probe_keys,
+                                 build_keys) -> PageStream:
+        """String join keys across DISTINCT dictionaries: remap probe key
+        codes onto the build side's pool (the kernels compare codes)."""
+        return self._align_probe_to_pools(
+            probe_stream,
+            {pk: build_page.columns[bk].dictionary
+             for pk, bk in zip(probe_keys, build_keys)
+             if build_page.columns[bk].dictionary is not None})
+
+    def _align_probe_to_pools(self, probe_stream: PageStream, pools
+                              ) -> PageStream:
+        """Re-encode probe key channels onto given build-side pools
+        ({probe_channel: build Dictionary}). Probe values absent from the
+        build pool map to distinct codes past the pool's end, so they never
+        match (INNER only). Each (probe pool, channel) builds its code map
+        once, on the host; the remap is a K7 gather."""
+        pools = {pk: bd for pk, bd in pools.items() if bd is not None}
+        if not pools:
+            return probe_stream
+        maps: Dict[tuple, torch.Tensor] = {}
+
+        def gen():
+            for page in probe_stream.iter_pages():
+                cols = list(page.columns)
+                changed = False
+                for pk, bd in pools.items():
+                    pc = cols[pk]
+                    if pc.dictionary is None or pc.dictionary is bd:
+                        continue
+                    key = (id(pc.dictionary), pk)
+                    tbl = maps.get(key)
+                    if tbl is None:
+                        pvals = pc.dictionary.values
+                        n_b = len(bd.values)
+                        if n_b:
+                            codes = np.minimum(
+                                np.searchsorted(bd.values, pvals),
+                                n_b - 1).astype(np.int64)
+                            present = bd.values[codes] == pvals
+                        else:
+                            codes = np.zeros(len(pvals), np.int64)
+                            present = np.zeros(len(pvals), bool)
+                        out = np.where(
+                            present, codes,
+                            n_b + np.arange(len(pvals), dtype=np.int64))
+                        if not len(out):    # an empty probe pool
+                            out = np.array([n_b], dtype=np.int64)
+                        tbl = maps[key] = _to_device(
+                            out.astype(np.int32), page.device)
+                    values, = gather_rows([tbl], pc.values)
+                    cols[pk] = Column(values, pc.valid, pc.type, bd)
+                    changed = True
+                yield Page(tuple(cols), page.num_rows) if changed else page
+        return PageStream(gen(), probe_stream.symbols)
+
+    def _prepare_build(self, build_keys, build_page: Page):
+        """K5 once per join: statistics and the hash table."""
+        prep = cached_kernel(("join-prep", tuple(build_keys)),
+                             lambda: prepare_build(build_keys))
+        return prep(build_page)
+
+    # direct-address tables: pow2 sizes; the slot cap bounds device memory
+    # (64M slots = 256 MB of int32)
+    _DENSE_MAX_SLOTS = 1 << 26
+
+    def _dense_table_for(self, prepared, build_page: Page, span: int):
+        """The dense route's decision and table (K5 dense mode): prepared
+        with its direct-address table when the live key span qualifies,
+        else None."""
+        limit = min(max(4 * build_page.capacity, 1 << 20),
+                    self._DENSE_MAX_SLOTS)
+        if not 0 < span <= limit:
+            return None
+        size = _next_pow2(span)
+        table_op = cached_kernel(("dense-table", size),
+                                 lambda: build_dense_table(size))
+        return table_op(prepared)
+
+    def _prepare_probe(self, build_keys, build_page: Page):
+        """K5 plus the per-join route: ONE host read of (live rows,
+        max_run, kmin, kmax), then `dense` when the unsigned key span fits
+        the direct-address limit, else `search` (the hash table). Returns
+        (prepared, max_run, route, build live rows)."""
+        prepared = self._prepare_build(build_keys, build_page)
+        got = prepared.stats[:KMAX + 1].tolist()
+        max_run, n_live = got[MAX_RUN], got[N_LIVE]
+        kmin, kmax = unsigned(got[KMIN]), unsigned(got[KMAX])
+        span = kmax - kmin + 1 if kmax >= kmin else 0
+        with_table = self._dense_table_for(prepared, build_page, span)
+        if with_table is not None:
+            return with_table, max_run, "dense", n_live
+        return prepared, max_run, "search", n_live
+
     def _exec_SortNode(self, node: SortNode) -> PageStream:
         src = self.execute(node.source)
         lay, _ = _layout(src.symbols)
@@ -472,6 +791,25 @@ def _reorder_stream(src: PageStream, symbols: Tuple[Symbol, ...]
                         lambda: lambda p, g: Page(
                             tuple(p.columns[c] for c in order),
                             p.num_rows), ()),))
+
+
+def _byte_bounded_batches(it: Iterator[Page], budget_bytes: int
+                          ) -> Iterator[List[Page]]:
+    """Lookahead batches bounded by bytes (and at most _WINDOW_PAGES
+    pages): one count fetch per batch without pinning unbounded
+    intermediates."""
+    batch: List[Page] = []
+    used = 0
+    for page in it:
+        nbytes = page_bytes(page)
+        if batch and (used + nbytes > budget_bytes
+                      or len(batch) >= _WINDOW_PAGES):
+            yield batch
+            batch, used = [], 0
+        batch.append(page)
+        used += nbytes
+    if batch:
+        yield batch
 
 
 def _valid_arr(valid: List[bool], cap: int, device

@@ -80,6 +80,7 @@ class LocalQueryRunner:
         self.catalogs = CatalogManager()
         self.metadata = Metadata(self.catalogs)
         self.session = session or Session()
+        self.last_joins: list = []
 
     @classmethod
     def tpch(cls, schema: str = "tiny", device=None) -> "LocalQueryRunner":
@@ -133,6 +134,8 @@ class LocalQueryRunner:
     def _run_plan(self, plan: OutputNode) -> MaterializedResult:
         executor = LocalExecutionPlanner(self.metadata, self.session,
                                          self.device)
+        # each join of the last query: route, build live rows, probe rows
+        self.last_joins = executor.joins
         stream = executor.execute(plan)
         types = [s.type for s in plan.symbols]
         rows: List[Tuple[Any, ...]] = []

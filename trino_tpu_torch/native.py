@@ -4,8 +4,8 @@ Each `csrc/<name>.cu` exposes a plain C interface (no PyTorch headers), is
 compiled by `nvcc` for `sm_90a` into a shared library at first use, and is
 bound with `ctypes`: every pointer and the stream travel as `c_void_p`,
 every size as `c_int64`. The build directory `_build/` beside this file is
-keyed by a hash of the sources and the flags, so an edited kernel rebuilds
-and an unchanged one loads in milliseconds.
+keyed by a hash of the source, the headers and the flags, so an edited
+kernel rebuilds and an unchanged one loads in milliseconds.
 
 Nothing here runs at import time: the CPU tests import every module of the
 package on a machine without `nvcc`.
@@ -14,6 +14,7 @@ package on a machine without `nvcc`.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import subprocess
@@ -26,7 +27,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # every CUDA source of the package (Triton kernels build through triton)
-SOURCES = ("compact", "concat", "direct_agg")
+SOURCES = ("compact", "concat", "direct_agg", "gather", "join_build",
+           "join_probe", "group_agg")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -40,8 +42,9 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> str:
     src = os.path.join(_CSRC, f"{name}.cu")
+    headers = sorted(glob.glob(os.path.join(_CSRC, "*.cuh")))
     h = hashlib.sha256()
-    for path in (src, os.path.join(_CSRC, "common.cuh")):
+    for path in (src, *headers):
         with open(path, "rb") as f:
             h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())

@@ -1,12 +1,14 @@
-"""Hash aggregation: the direct (dictionary-key) and global paths.
+"""Hash aggregation: the direct (dictionary-key), general and global paths.
 
 Port of `trino_tpu/ops/aggregate.py`. Aggregate state is a tuple of
 columns (avg = (sum, count)) that PARTIAL, INTERMEDIATE and FINAL steps
-produce and merge exactly as the reference does. Two device kernels live
+produce and merge exactly as the reference does. Three device kernels live
 here, each beside its plain PyTorch twin:
 
 * K3 `direct_reduce` (`_direct_aggregate`): GROUP BY over a small static
   key space of dictionary codes, `csrc/direct_agg.cu`;
+* K8 `group_reduce` (the sorted path of `hash_aggregate`): GROUP BY on
+  any other keys through a global hash table, `csrc/group_agg.cu`;
 * K4 `global_reduce` (`_global_aggregate`): no GROUP BY, a masked
   multi-column reduction to one row, a Triton kernel in this module.
 
@@ -17,10 +19,9 @@ mask is false, contribute the reducer's identity — the reference's
 `jnp.where(m, v, ident)` contributions. One definition of that encoding
 feeds both the kernels and their twins.
 
-The sort-based general GROUP BY, DISTINCT and the special aggregates
-(approx_distinct, approx_percentile, checksum, the centered moments, the
-positional and collecting aggregates) raise NotImplementedError naming
-their ROADMAP items.
+DISTINCT and the special aggregates (approx_distinct, approx_percentile,
+checksum, the centered moments, the positional and collecting aggregates)
+raise NotImplementedError naming their ROADMAP items.
 """
 
 from __future__ import annotations
@@ -354,24 +355,25 @@ _I64_MAX = (1 << 63) - 1
 _I64_MIN = -(1 << 63)
 
 
-def _ordered_key(x: torch.Tensor) -> torch.Tensor:
-    """float64 -> int64 with the same order (-0.0 < +0.0; NaN excluded)."""
+def ordered_key(x: torch.Tensor) -> torch.Tensor:
+    """float64 -> int64 with the same order (-0.0 < +0.0; NaN excluded).
+    The kernels' `ordered_key` in csrc/common.cuh is the same map."""
     b = x.view(torch.int64)
     return torch.where(b >= 0, b, b ^ _I64_MAX)
 
 
-def _from_key(k: torch.Tensor) -> torch.Tensor:
+def from_ordered_key(k: torch.Tensor) -> torch.Tensor:
     return torch.where(k >= 0, k, k ^ _I64_MAX).view(torch.float64)
 
 
-_KEY_POS_INF = 0x7FF0000000000000            # order key of +inf
-_KEY_NEG_INF = -0x7FF0000000000001           # order key of -inf
+KEY_POS_INF = 0x7FF0000000000000            # order key of +inf
+KEY_NEG_INF = -0x7FF0000000000001           # order key of -inf
 
 
 def _ident_key(s: "StateInput") -> int:
     """Identity of a min/max state in order-key space."""
     if s.is_float:
-        return _KEY_POS_INF if s.kind == MIN else _KEY_NEG_INF
+        return KEY_POS_INF if s.kind == MIN else KEY_NEG_INF
     return _I64_MAX if s.kind == MIN else _I64_MIN
 
 
@@ -391,7 +393,7 @@ def _row_contrib(s: StateInput, live: torch.Tensor):
     key = s.values
     if s.is_float:
         nan = torch.isnan(key)
-        key = _ordered_key(torch.where(nan, torch.zeros_like(key), key))
+        key = ordered_key(torch.where(nan, torch.zeros_like(key), key))
         elig = elig & ~nan
     return elig, torch.where(elig, key, _ident_key(s))
 
@@ -410,7 +412,7 @@ def _decode_minmax(s: StateInput, key: torch.Tensor,
                    has_nan: torch.Tensor) -> torch.Tensor:
     if not s.is_float:
         return key
-    return torch.where(has_nan, float("nan"), _from_key(key))
+    return torch.where(has_nan, float("nan"), from_ordered_key(key))
 
 
 # ------------------------------------------------------------------ K3
@@ -471,6 +473,37 @@ def direct_reduce_plain(keys: Sequence[KeyInput], states: Sequence[StateInput],
     return slots, results, num_groups
 
 
+def _ptr(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def _check_states(bools, states: Sequence[StateInput], cap: int,
+                  dev) -> None:
+    """A grouped kernel's inputs: every mask (key validity included) and
+    state column a contiguous [cap] tensor on the device."""
+    for b in bools + [b for s in states for b in (s.valid, s.mask)]:
+        if b is not None and (b.device != dev or b.dtype != torch.bool
+                              or b.shape != (cap,)
+                              or not b.is_contiguous()):
+            raise ValueError("masks must be contiguous bool [cap] on the "
+                             "device")
+    for s in states:
+        if s.values is not None and (
+                s.values.device != dev or s.values.shape != (cap,)
+                or s.values.dtype != (torch.float64 if s.is_float
+                                      else torch.int64)
+                or not s.values.is_contiguous()):
+            raise ValueError("state values must be contiguous int64/"
+                             "float64 [cap] on the device")
+
+
+def _state_table(states: Sequence[StateInput]) -> List[int]:
+    """The 5-word state entries of a K3/K8 pointer table."""
+    return [x for s in states for x in (_ptr(s.values), _ptr(s.valid),
+                                        _ptr(s.mask), s.kind,
+                                        int(s.is_float))]
+
+
 def direct_reduce_cuda(keys: Sequence[KeyInput], states: Sequence[StateInput],
                        num_rows: torch.Tensor, nseg: int
                        ) -> Tuple[torch.Tensor, List[torch.Tensor],
@@ -485,31 +518,12 @@ def direct_reduce_cuda(keys: Sequence[KeyInput], states: Sequence[StateInput],
                 or k.codes.shape != (cap,) or not k.codes.is_contiguous():
             raise ValueError("key codes must be contiguous int32 [cap] "
                              "on the device")
-    bools = [b for k in keys for b in (k.valid,)] + \
-        [b for s in states for b in (s.valid, s.mask)]
-    for b in bools:
-        if b is not None and (b.device != dev or b.dtype != torch.bool
-                              or b.shape != (cap,)
-                              or not b.is_contiguous()):
-            raise ValueError("masks must be contiguous bool [cap] on the "
-                             "device")
-    for s in states:
-        if s.values is not None and (
-                s.values.device != dev or s.values.shape != (cap,)
-                or s.values.dtype != (torch.float64 if s.is_float
-                                      else torch.int64)
-                or not s.values.is_contiguous()):
-            raise ValueError("state values must be contiguous int64/"
-                             "float64 [cap] on the device")
+    _check_states([k.valid for k in keys], states, cap, dev)
     k = len(states)
-
-    def ptr(t):
-        return 0 if t is None else t.data_ptr()
     table = host_table(
-        [x for kk in keys for x in (ptr(kk.codes), ptr(kk.valid),
+        [x for kk in keys for x in (_ptr(kk.codes), _ptr(kk.valid),
                                     kk.size, kk.stride)],
-        [x for s in states for x in (ptr(s.values), ptr(s.valid),
-                                     ptr(s.mask), s.kind, int(s.is_float))])
+        _state_table(states))
     acc = torch.empty(nseg * (k + 1), dtype=torch.int64, device=dev)
     nan = torch.empty(max(nseg * k, 1), dtype=torch.int32, device=dev)
     slots = torch.zeros(nseg, dtype=torch.int32, device=dev)
@@ -540,6 +554,157 @@ def direct_reduce(keys, states, num_rows, nseg):
     """K3 wrapper: plain twin on the CPU, kernel on CUDA."""
     run = direct_reduce_cuda if num_rows.is_cuda else direct_reduce_plain
     return run(keys, states, num_rows, nseg)
+
+
+# ------------------------------------------------------------------ K8
+
+
+@dataclasses.dataclass
+class GroupKey:
+    values: torch.Tensor           # any 1-, 2-, 4- or 8-byte column [cap]
+    valid: Optional[torch.Tensor]  # bool [cap]
+
+
+def _canonical(k: GroupKey) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(NULL flag, canonical int64 value) of a group key: NULL -> 0,
+    -0.0 -> +0.0, every NaN -> one bit pattern, integers widened; equal
+    canonical pairs are one group, as the reference's sort + boundary scan
+    groups rows."""
+    null = torch.zeros_like(k.values, dtype=torch.bool) if k.valid is None \
+        else ~k.valid
+    v = k.values
+    if v.is_floating_point():
+        x = v.to(torch.float64)
+        x = torch.where(x == 0, torch.zeros_like(x), x)
+        x = torch.where(torch.isnan(x), torch.full_like(x, float("nan")), x)
+        w = x.view(torch.int64)
+    else:
+        w = v.to(torch.int64)
+    return null, torch.where(null, torch.zeros_like(w), w)
+
+
+def group_reduce_plain(keys: Sequence[GroupKey], states: Sequence[StateInput],
+                       num_rows: torch.Tensor, cap: int):
+    """Plain twin of K8: (key values [cap] per key, key validity [cap] or
+    None per key, state arrays [cap] each, num_groups). Groups are the
+    distinct canonical keys of the live rows, in sorted canonical order;
+    each group's keys come from its first row; rows past num_groups are
+    zero."""
+    dev = num_rows.device
+    live = torch.arange(cap, device=dev, dtype=torch.int32) < num_rows
+    parts = []
+    for k in keys:
+        parts += list(_canonical(k))
+    canon = torch.stack([p.to(torch.int64) for p in parts], 1)[live]
+    if canon.shape[0]:
+        uniq, inverse = torch.unique(canon, dim=0, return_inverse=True)
+    else:
+        uniq = canon
+        inverse = torch.zeros(0, dtype=torch.int64, device=dev)
+    g = uniq.shape[0]
+    seg = torch.full((cap,), g, dtype=torch.int64, device=dev)
+    seg[live] = inverse
+    rows = torch.arange(cap, dtype=torch.int64, device=dev)
+    rep = torch.full((g + 1,), cap, dtype=torch.int64, device=dev) \
+        .scatter_reduce(0, seg, rows, "amin")[:g]
+
+    def pad(per_group: torch.Tensor) -> torch.Tensor:
+        out = torch.zeros(cap, dtype=per_group.dtype, device=dev)
+        out[:g] = per_group[:g]
+        return out
+
+    key_values, key_valid = [], []
+    for k in keys:
+        key_values.append(pad(k.values[rep]))
+        key_valid.append(None if k.valid is None else pad(k.valid[rep]))
+    results = []
+    for s in states:
+        elig, c = _row_contrib(s, live)
+        if s.kind in (SUM, COUNT):
+            acc = torch.zeros(g + 1, dtype=c.dtype, device=dev)
+            acc.index_add_(0, seg, c)
+            results.append(pad(acc))
+            continue
+        ident = c.new_full((g + 1,), _ident_key(s))
+        red = ident.scatter_reduce(0, seg, c,
+                                   "amin" if s.kind == MIN else "amax")
+        has_nan = torch.zeros(g + 1, dtype=torch.bool, device=dev)
+        if s.is_float:
+            has_nan[seg[_nan_any(s, live)]] = True
+        results.append(pad(_decode_minmax(s, red, has_nan)))
+    return key_values, key_valid, results, \
+        torch.tensor(g, dtype=torch.int32, device=dev)
+
+
+def hash_slots(rows: int) -> int:
+    """Slots of an open-addressing table (K5, K8): a power of two, at
+    least twice the rows, so linear probing always meets an empty slot."""
+    s = 1024
+    while s < 2 * rows:
+        s *= 2
+    return s
+
+
+def group_reduce_cuda(keys: Sequence[GroupKey], states: Sequence[StateInput],
+                      num_rows: torch.Tensor, cap: int):
+    """K8 launch: see csrc/group_agg.cu."""
+    dev = num_rows.device
+    if num_rows.dtype != torch.int32 or num_rows.dim() != 0:
+        raise ValueError("num_rows must be a 0-d int32 tensor")
+    for k in keys:
+        v = k.values
+        if v.device != dev or v.dim() != 1 or v.shape[0] != cap \
+                or not v.is_contiguous() \
+                or v.element_size() not in (1, 2, 4, 8) \
+                or (v.is_floating_point() and v.element_size() not in (4, 8)):
+            raise ValueError("group keys must be contiguous [cap] columns "
+                             "on the device")
+    _check_states([k.valid for k in keys], states, cap, dev)
+    k = len(states)
+    slots = hash_slots(cap)
+    key_values = [torch.empty(cap, dtype=kk.values.dtype, device=dev)
+                  for kk in keys]
+    key_valid = [None if kk.valid is None else
+                 torch.empty(cap, dtype=torch.bool, device=dev)
+                 for kk in keys]
+
+    table = host_table(
+        [x for kk, ov, om in zip(keys, key_values, key_valid)
+         for x in (_ptr(kk.values), _ptr(kk.valid), kk.values.element_size(),
+                   int(kk.values.is_floating_point()), _ptr(ov), _ptr(om))],
+        _state_table(states))
+    slot_rows = torch.empty(slots, dtype=torch.int32, device=dev)
+    acc = torch.empty(slots * max(k, 1), dtype=torch.int64, device=dev)
+    nan = torch.empty(slots * max(k, 1), dtype=torch.int32, device=dev)
+    scratch = torch.empty(-(-slots // 4096), dtype=torch.int64, device=dev)
+    out = torch.empty(max(k, 1) * max(cap, 1), dtype=torch.int64,
+                      device=dev)
+    num_groups = torch.empty((), dtype=torch.int32, device=dev)
+    lib = native.library("group_agg")
+    rc = lib.group_aggregate(
+        table, ctypes.c_int64(len(keys)), ctypes.c_int64(k),
+        ctypes.c_int64(cap), ctypes.c_void_p(num_rows.data_ptr()),
+        ctypes.c_int64(slots), ctypes.c_void_p(slot_rows.data_ptr()),
+        ctypes.c_void_p(acc.data_ptr()), ctypes.c_void_p(nan.data_ptr()),
+        ctypes.c_void_p(scratch.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+        ctypes.c_int64(cap), ctypes.c_void_p(num_groups.data_ptr()),
+        ctypes.c_void_p(native.stream_ptr(dev)))
+    native.check(rc, "group_aggregate")
+    group_reduce_cuda.launches += 1
+    results = []
+    for j, s in enumerate(states):
+        words = out[j * cap:(j + 1) * cap]
+        results.append(words.view(torch.float64) if s.is_float else words)
+    return key_values, key_valid, results, num_groups
+
+
+group_reduce_cuda.launches = 0
+
+
+def group_reduce(keys, states, num_rows, cap):
+    """K8 wrapper: plain twin on the CPU, kernel on CUDA."""
+    run = group_reduce_cuda if num_rows.is_cuda else group_reduce_plain
+    return run(keys, states, num_rows, cap)
 
 
 # ------------------------------------------------------------------ K4
@@ -842,9 +1007,8 @@ def hash_aggregate(
                                      partial_state_channels)
         sizes = _direct_key_sizes(page, key_channels)
         if sizes is None:
-            raise NotImplementedError(
-                "GROUP BY keys outside the direct dictionary-code path "
-                "need the sort-based aggregation (ROADMAP B3)")
+            return _group_aggregate(page, key_channels, aggs, resolved, step,
+                                    partial_state_channels)
         return _direct_aggregate(page, key_channels, aggs, resolved, step,
                                  partial_state_channels, sizes)
 
@@ -954,6 +1118,26 @@ def _direct_aggregate(page: Page, key_channels, aggs, resolved, step,
                                col.dictionary))
     out_cols.extend(_emit(aggs, resolved, step, per_agg, dicts, arrays,
                           nseg, lambda v: v))
+    return Page(tuple(out_cols), num_groups)
+
+
+def _group_aggregate(page: Page, key_channels, aggs, resolved, step,
+                     partial_state_channels) -> Page:
+    """GROUP BY on keys the direct path does not take (K8). The output
+    keeps the input's capacity (#groups <= #rows), as the reference's
+    sorted path does; groups come out in the kernel's slot order."""
+    keys = [GroupKey(page.column(ch).values.contiguous(),
+                     page.column(ch).valid) for ch in key_channels]
+    per_agg, dicts, flat = _step_inputs(page, aggs, resolved, step,
+                                        partial_state_channels)
+    key_values, key_valid, arrays, num_groups = group_reduce(
+        keys, flat, page.num_rows, page.capacity)
+    out_cols: List[Column] = []
+    for ch, values, valid in zip(key_channels, key_values, key_valid):
+        col = page.column(ch)
+        out_cols.append(Column(values, valid, col.type, col.dictionary))
+    out_cols.extend(_emit(aggs, resolved, step, per_agg, dicts, arrays,
+                          page.capacity, lambda v: v))
     return Page(tuple(out_cols), num_groups)
 
 

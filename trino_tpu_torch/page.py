@@ -7,12 +7,21 @@ equal-capacity Columns plus `num_rows`, a 0-d int32 tensor on the page's
 device: rows in [num_rows, capacity) are padding whose contents are
 undefined, so every consumer masks with `row_mask()`.
 
-Two device kernels live here, each beside its plain PyTorch twin:
+Three device kernels live here, each beside its plain PyTorch twin:
 
 * K1 `compact_rows` (Page.filter): stable compaction of the live rows where
-  a mask is true, `csrc/compact.cu`.
+  a mask is true, `csrc/compact.cu`; its range mode `compact_range` keeps
+  the rows whose key lies in [lo, hi] (the join's dynamic filter,
+  range_prefilter) without building the mask first.
 * K2 `concat_rows` (device_concat): the live prefixes of N pages packed at
   device-side running offsets, `csrc/concat.cu`.
+* K7 `gather_rows` (Column.gather / Page.gather, and the join's
+  attach_build): every array of a page gathered at one index vector,
+  clipped to the ends, `csrc/gather.cu`.
+
+The public constructors (`Column.from_numpy`, `Page.from_numpy`,
+`page_from_host`, `union_dictionaries`) place their tensors on `cuda`
+unless the caller names a device, as the runner does.
 
 A wrapper takes its plain twin only for tensors on the CPU; on a CUDA
 tensor it launches its kernel or raises.
@@ -156,10 +165,9 @@ class Column:
         return self.valid
 
     def gather(self, indices: torch.Tensor) -> "Column":
-        """copyPositions analog; out-of-range indices clip to the ends."""
-        idx = indices.long().clamp(0, max(self.capacity - 1, 0))
-        valid = None if self.valid is None else self.valid[idx]
-        return Column(self.values[idx], valid, self.type, self.dictionary)
+        """copyPositions analog; out-of-range indices clip to the ends
+        (K7)."""
+        return _rebuild((self,), gather_rows(_movable(self), indices))[0]
 
     def with_valid(self, valid: Optional[torch.Tensor]) -> "Column":
         return Column(self.values, valid, self.type, self.dictionary)
@@ -175,7 +183,8 @@ class Column:
     def from_numpy(cls, data: np.ndarray, typ: T.Type,
                    valid: Optional[np.ndarray] = None,
                    dictionary: Optional[Dictionary] = None,
-                   device="cpu") -> "Column":
+                   device=None) -> "Column":
+        device = resolve_device(device)
         if T.is_string(typ) and dictionary is None:
             dictionary, codes = Dictionary.build(data)
             data = codes
@@ -266,8 +275,12 @@ class Page:
         return compact_rows(self, mask)
 
     def gather(self, indices: torch.Tensor, count) -> "Page":
-        cols = tuple(c.gather(indices) for c in self.columns)
-        return Page(cols, row_count(count, self.device))
+        """Every column at `indices` (clipped to the ends) in one K7
+        launch; `count` becomes num_rows."""
+        moved = gather_rows([a for c in self.columns for a in _movable(c)],
+                            indices)
+        return Page(_rebuild(self.columns, moved),
+                    row_count(count, self.device))
 
     def shrink_to(self, capacity: int) -> "Page":
         """Slice every column to a smaller capacity (live rows are a
@@ -304,14 +317,15 @@ class Page:
     def from_numpy(cls, arrays: Sequence[np.ndarray], typs: Sequence[T.Type],
                    valids: Optional[Sequence[Optional[np.ndarray]]] = None,
                    dictionaries: Optional[Sequence[Optional[Dictionary]]]
-                   = None, device="cpu") -> "Page":
+                   = None, device=None) -> "Page":
+        device = resolve_device(device)
         n = len(arrays[0]) if arrays else 0
         valids = valids or [None] * len(arrays)
         dictionaries = dictionaries or [None] * len(arrays)
         cols = tuple(
             Column.from_numpy(a, t, v, d, device=device)
             for a, t, v, d in zip(arrays, typs, valids, dictionaries))
-        return cls(cols, row_count(n, torch.device(device)))
+        return cls(cols, row_count(n, device))
 
     def to_host(self, num_rows: Optional[int] = None) -> list:
         """All columns as decoded host arrays (the reference's row form)."""
@@ -344,23 +358,25 @@ def page_from_host(arrays: Sequence[np.ndarray],
                    valids: Sequence[Optional[np.ndarray]],
                    pools: Sequence[Optional[Sequence[str]]],
                    typs: Sequence[T.Type], num_rows: int,
-                   device="cpu") -> Page:
+                   device=None) -> Page:
     """Build a Page from another engine's page carried across as host
     arrays: raw values (dictionary codes for strings), validity (or None),
     and each string column's sorted pool. The same bytes fed to two
     engines give the same page."""
+    device = resolve_device(device)
     cols = []
     for a, v, pool, t in zip(arrays, valids, pools, typs):
         d = None if pool is None else Dictionary(np.asarray(pool,
                                                             dtype=object))
         cols.append(Column.from_numpy(a, t, v, d, device=device))
-    return Page(tuple(cols), row_count(num_rows, torch.device(device)))
+    return Page(tuple(cols), row_count(num_rows, device))
 
 
-def union_dictionaries(dicts: Sequence[Dictionary], device="cpu"
+def union_dictionaries(dicts: Sequence[Dictionary], device=None
                        ) -> Tuple[Dictionary, list]:
     """Rebase N dictionaries onto one union pool: (union, [int32 remap
     tensor per input]) with new_code = remap[i][old_code]."""
+    device = resolve_device(device)
     union = Dictionary(np.unique(np.concatenate([d.values for d in dicts])))
     remaps = [_to_device(np.searchsorted(union.values, d.values)
                          .astype(np.int32), device) for d in dicts]
@@ -399,13 +415,10 @@ def compact_rows_plain(arrays: Sequence[torch.Tensor], mask: torch.Tensor,
     return [a[order] for a in arrays], count
 
 
-def compact_rows_cuda(arrays: Sequence[torch.Tensor], mask: torch.Tensor,
-                      num_rows: torch.Tensor
-                      ) -> Tuple[List[torch.Tensor], torch.Tensor]:
-    """K1 launch: see csrc/compact.cu."""
-    cap = mask.shape[0]
-    dev = mask.device
-    _check_rows(arrays, mask, num_rows, cap)
+def _compact_launch(entry: str, keep_args: list, arrays, num_rows, cap: int,
+                    dev) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """One K1 launch through csrc/compact.cu's `entry` (its keep-mode
+    arguments first, then the common ones)."""
     outs = [torch.empty_like(a) for a in arrays]
     count = torch.empty((), dtype=torch.int32, device=dev)
     table = host_table([a.data_ptr() for a in arrays],
@@ -413,16 +426,25 @@ def compact_rows_cuda(arrays: Sequence[torch.Tensor], mask: torch.Tensor,
                        [a.element_size() for a in arrays])
     nblocks = max(1, -(-cap // COMPACT_TILE))
     scratch = torch.empty(nblocks, dtype=torch.int64, device=dev)
-    lib = native.library("compact")
-    rc = lib.compact_rows(
-        ctypes.c_void_p(mask.data_ptr()), ctypes.c_void_p(num_rows.data_ptr()),
-        ctypes.c_int64(cap), ctypes.c_int64(len(arrays)),
-        table,
+    rc = getattr(native.library("compact"), entry)(
+        *keep_args, ctypes.c_void_p(num_rows.data_ptr()),
+        ctypes.c_int64(cap), ctypes.c_int64(len(arrays)), table,
         ctypes.c_void_p(scratch.data_ptr()), ctypes.c_void_p(count.data_ptr()),
         ctypes.c_void_p(native.stream_ptr(dev)))
-    native.check(rc, "compact_rows")
-    compact_rows_cuda.launches += 1
+    native.check(rc, entry)
     return outs, count
+
+
+def compact_rows_cuda(arrays: Sequence[torch.Tensor], mask: torch.Tensor,
+                      num_rows: torch.Tensor
+                      ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """K1 launch: see csrc/compact.cu."""
+    cap = mask.shape[0]
+    _check_rows(arrays, mask, num_rows, cap)
+    out = _compact_launch("compact_rows", [ctypes.c_void_p(mask.data_ptr())],
+                          arrays, num_rows, cap, mask.device)
+    compact_rows_cuda.launches += 1
+    return out
 
 
 compact_rows_cuda.launches = 0
@@ -430,10 +452,13 @@ COMPACT_TILE = 4096   # rows per block; matches csrc/compact.cu
 
 
 def _check_rows(arrays, mask, num_rows, cap) -> None:
-    dev = mask.device
     if mask.dtype != torch.bool or mask.dim() != 1 \
             or not mask.is_contiguous():
         raise ValueError("mask must be a contiguous 1-D bool tensor")
+    _check_arrays(arrays, num_rows, cap, mask.device)
+
+
+def _check_arrays(arrays, num_rows, cap, dev) -> None:
     if num_rows.dtype != torch.int32 or num_rows.device != dev:
         raise ValueError("num_rows must be an int32 tensor on the mask's "
                          "device")
@@ -463,6 +488,66 @@ def compact_rows(page: Page, mask: torch.Tensor) -> Page:
     moved, count = run(arrays, mask, page.num_rows)
     if not page.columns:
         return Page((), count)
+    return Page(_rebuild(page.columns, moved), count)
+
+
+def compact_range_plain(arrays: Sequence[torch.Tensor], key: torch.Tensor,
+                        key_valid: Optional[torch.Tensor], lo: torch.Tensor,
+                        hi: torch.Tensor, num_rows: torch.Tensor
+                        ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """Plain twin of K1's range mode: the reference's range_prefilter
+    mask (key in [lo, hi], NULL keys dropped) and then the compaction."""
+    keep = (key >= lo) & (key <= hi)
+    if key_valid is not None:
+        keep = keep & key_valid
+    return compact_rows_plain(arrays, keep, num_rows)
+
+
+def compact_range_cuda(arrays: Sequence[torch.Tensor], key: torch.Tensor,
+                       key_valid: Optional[torch.Tensor], lo: torch.Tensor,
+                       hi: torch.Tensor, num_rows: torch.Tensor
+                       ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """K1 launch in range mode: see csrc/compact.cu."""
+    cap = key.shape[0]
+    dev = key.device
+    if key.dim() != 1 or not key.is_contiguous() \
+            or key.element_size() not in (1, 2, 4, 8) \
+            or (key.is_floating_point() and key.element_size() not in (4, 8)):
+        raise ValueError("range key must be a contiguous 1-D column")
+    for b in (lo, hi):
+        if b.dtype != key.dtype or b.numel() != 1 or b.device != dev:
+            raise ValueError("lo/hi must be one element of the key's type "
+                             "on its device")
+    if key_valid is not None and (key_valid.dtype != torch.bool
+                                  or key_valid.shape != key.shape
+                                  or not key_valid.is_contiguous()):
+        raise ValueError("key validity must be a contiguous bool [cap]")
+    _check_arrays(arrays, num_rows, cap, dev)
+    out = _compact_launch(
+        "compact_rows_range",
+        [ctypes.c_void_p(key.data_ptr()),
+         ctypes.c_void_p(0 if key_valid is None else key_valid.data_ptr()),
+         ctypes.c_int64(key.element_size()),
+         ctypes.c_int64(int(key.is_floating_point())),
+         ctypes.c_void_p(lo.data_ptr()), ctypes.c_void_p(hi.data_ptr())],
+        arrays, num_rows, cap, dev)
+    compact_range_cuda.launches += 1
+    return out
+
+
+compact_range_cuda.launches = 0
+
+
+def compact_range(page: Page, channel: int, lo: torch.Tensor,
+                  hi: torch.Tensor) -> Page:
+    """K1 range-mode wrapper (range_prefilter): keep the live rows whose
+    column `channel` lies in [lo, hi] and is not NULL. Plain twin on the
+    CPU, kernel on CUDA."""
+    key = page.column(channel)
+    arrays = [a for c in page.columns for a in _movable(c)]
+    run = compact_range_cuda if key.values.is_cuda else compact_range_plain
+    moved, count = run(arrays, key.values.contiguous(), key.valid, lo, hi,
+                       page.num_rows)
     return Page(_rebuild(page.columns, moved), count)
 
 
@@ -582,3 +667,58 @@ def device_concat(pages: Sequence[Page]) -> Page:
         valid = next(it) if needs_valid[ci] else None
         cols.append(Column(values, valid, ref.type, ref.dictionary))
     return Page(tuple(cols), total)
+
+
+# ------------------------------------------------------------------ K7
+
+
+def gather_rows_plain(arrays: Sequence[torch.Tensor], indices: torch.Tensor
+                      ) -> List[torch.Tensor]:
+    """Plain twin of K7: every array at `indices`, clipped to the ends (the
+    reference's jnp.take(..., mode="clip") per column)."""
+    if not arrays:
+        return []
+    idx = indices.long().clamp(0, max(arrays[0].shape[0] - 1, 0))
+    return [a[idx] for a in arrays]
+
+
+def gather_rows_cuda(arrays: Sequence[torch.Tensor], indices: torch.Tensor
+                     ) -> List[torch.Tensor]:
+    """K7 launch: see csrc/gather.cu."""
+    if not arrays:
+        return []
+    dev = indices.device
+    if indices.dim() != 1 or indices.dtype not in (torch.int32, torch.int64):
+        raise ValueError("indices must be a 1-D int32/int64 tensor")
+    idx = indices.to(torch.int64).contiguous()
+    n = idx.shape[0]
+    cap = arrays[0].shape[0]
+    for a in arrays:
+        if a.device != dev or a.dim() != 1 or a.shape[0] != cap \
+                or not a.is_contiguous() \
+                or a.element_size() not in (1, 2, 4, 8):
+            raise ValueError(f"array {a.dtype}{tuple(a.shape)} on {a.device} "
+                             "does not match the gather")
+    if cap == 0 and n > 0:
+        raise IndexError("gather from an empty page")
+    outs = [torch.empty(n, dtype=a.dtype, device=dev) for a in arrays]
+    table = host_table([a.data_ptr() for a in arrays],
+                       [o.data_ptr() for o in outs],
+                       [a.element_size() for a in arrays])
+    lib = native.library("gather")
+    rc = lib.gather_rows(ctypes.c_void_p(idx.data_ptr()), ctypes.c_int64(n),
+                         ctypes.c_int64(cap), ctypes.c_int64(len(arrays)),
+                         table, ctypes.c_void_p(native.stream_ptr(dev)))
+    native.check(rc, "gather_rows")
+    gather_rows_cuda.launches += 1
+    return outs
+
+
+gather_rows_cuda.launches = 0
+
+
+def gather_rows(arrays: Sequence[torch.Tensor], indices: torch.Tensor
+                ) -> List[torch.Tensor]:
+    """K7 wrapper: plain twin on the CPU, kernel on CUDA."""
+    run = gather_rows_cuda if indices.is_cuda else gather_rows_plain
+    return run(arrays, indices)
