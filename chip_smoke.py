@@ -7,18 +7,23 @@ Phases, each printing its lines before the next starts:
      (every csrc/*.cu built by nvcc in parallel, plus the Triton kernel);
   2. kernels against their plain PyTorch twins on seeded inputs on the
      card (NULLs, NaN, -0.0, empty pages, all-false masks, ragged
-     capacities, duplicate, negative, composite and out-of-span join
-     keys, an empty build, an all-dead probe, one 4,194,304-row page):
-     integers and masks exact, float64 sums to 1e-9 relative, GROUP BY
-     results equal as multisets of groups;
-  3. TPC-H q6 and q1 at sf1, q6 at sf10 and q3 at sf1 and sf10 from SQL
+     capacities, duplicate, negative (-1 included), composite and
+     out-of-span join keys, an empty build, an all-dead probe, one
+     4,194,304-row page; the expanding probe for every join kind on both
+     routes, null_aware on and off): integers and masks exact, float64
+     sums to 1e-9 relative, GROUP BY results equal as multisets of groups,
+     DISTINCT marks one row per distinct key;
+  3. the 22 TPC-H queries, a FULL join and a MARK query at sf1 and q6, q3,
+     q9, q13 at sf10 (spill off: the spilled join is not ported) from SQL
      through LocalQueryRunner.tpch(schema).execute(sql) on cuda, rows held
-     equal to the same queries through the port on the CPU; each q3 join's
-     route (dense or search), build live rows and probe rows;
-  4. every kernel of the path launched during phase 3 (q3 taking both
-     join routes); per kernel its launches, its time at the main path's
-     shapes (CUDA events), its bound, its plain twin's time and a one-call
-     PyTorch yardstick; each query's warm wall time and profile.
+     equal to the same queries through the port on the CPU; each join's
+     kind, route, build live rows, max_run, probe and output rows;
+  4. every kernel, every expanding-probe kind and the dense, search and
+     cross routes launched during phase 3; per kernel its launches, its
+     time at the main path's shapes (CUDA events), its bound, its plain
+     twin's time and a one-call PyTorch yardstick; each query's warm wall
+     time, idle share and top device and host costs. `[time]` lines give
+     each phase's seconds.
 The last line is {"ok": true, "device": {...}}. Any failure exits
 non-zero before it. Needs one card; imports nothing of JAX.
 """
@@ -36,24 +41,13 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
 
-Q6 = """SELECT sum(l_extendedprice * l_discount) AS revenue
-FROM lineitem
-WHERE l_shipdate >= DATE '1994-01-01'
-  AND l_shipdate < DATE '1994-01-01' + INTERVAL '1' YEAR
-  AND l_discount BETWEEN 0.06 - 0.01 AND 0.06 + 0.01
-  AND l_quantity < 24"""
-
-Q3 = """SELECT l_orderkey, sum(l_extendedprice * (1 - l_discount)) AS revenue,
-       o_orderdate, o_shippriority
-FROM customer, orders, lineitem
-WHERE c_mktsegment = 'BUILDING' AND c_custkey = o_custkey
-  AND l_orderkey = o_orderkey AND o_orderdate < DATE '1995-03-15'
-  AND l_shipdate > DATE '1995-03-15'
-GROUP BY l_orderkey, o_orderdate, o_shippriority
-ORDER BY revenue DESC, o_orderdate, l_orderkey
-LIMIT 10"""
-
-Q1 = """SELECT l_returnflag, l_linestatus, sum(l_quantity) AS sum_qty,
+# The 22 TPC-H queries of tests/tpch_sql.py, which imports the JAX
+# package, so this script carries its own copy (tests/
+# test_torch_chip_smoke.py holds the two equal): name -> (SQL, whether
+# the rows come in a defined order).
+TPCH = {
+    "q1": ("""
+SELECT l_returnflag, l_linestatus, sum(l_quantity) AS sum_qty,
        sum(l_extendedprice) AS sum_base_price,
        sum(l_extendedprice * (1 - l_discount)) AS sum_disc_price,
        sum(l_extendedprice * (1 - l_discount) * (1 + l_tax)) AS sum_charge,
@@ -62,7 +56,248 @@ Q1 = """SELECT l_returnflag, l_linestatus, sum(l_quantity) AS sum_qty,
 FROM lineitem
 WHERE l_shipdate <= DATE '1998-12-01' - INTERVAL '90' DAY
 GROUP BY l_returnflag, l_linestatus
-ORDER BY l_returnflag, l_linestatus"""
+ORDER BY l_returnflag, l_linestatus""", True),
+    "q2": ("""
+SELECT s_acctbal, s_name, n_name, p_partkey, p_mfgr, s_address, s_phone,
+       s_comment
+FROM part, supplier, partsupp, nation, region
+WHERE p_partkey = ps_partkey AND s_suppkey = ps_suppkey AND p_size = 15
+  AND p_type LIKE '%BRASS' AND s_nationkey = n_nationkey
+  AND n_regionkey = r_regionkey AND r_name = 'EUROPE'
+  AND ps_supplycost = (SELECT min(ps_supplycost)
+                       FROM partsupp, supplier, nation, region
+                       WHERE p_partkey = ps_partkey
+                         AND s_suppkey = ps_suppkey
+                         AND s_nationkey = n_nationkey
+                         AND n_regionkey = r_regionkey
+                         AND r_name = 'EUROPE')
+ORDER BY s_acctbal DESC, n_name, s_name, p_partkey LIMIT 100""", True),
+    "q3": ("""
+SELECT l_orderkey, sum(l_extendedprice * (1 - l_discount)) AS revenue,
+       o_orderdate, o_shippriority
+FROM customer, orders, lineitem
+WHERE c_mktsegment = 'BUILDING' AND c_custkey = o_custkey
+  AND l_orderkey = o_orderkey AND o_orderdate < DATE '1995-03-15'
+  AND l_shipdate > DATE '1995-03-15'
+GROUP BY l_orderkey, o_orderdate, o_shippriority
+ORDER BY revenue DESC, o_orderdate, l_orderkey
+LIMIT 10""", True),
+    "q4": ("""
+SELECT o_orderpriority, count(*) AS order_count
+FROM orders
+WHERE o_orderdate >= DATE '1993-07-01'
+  AND o_orderdate < DATE '1993-07-01' + INTERVAL '3' MONTH
+  AND EXISTS (SELECT * FROM lineitem
+              WHERE l_orderkey = o_orderkey
+                AND l_commitdate < l_receiptdate)
+GROUP BY o_orderpriority ORDER BY o_orderpriority""", True),
+    "q5": ("""
+SELECT n_name, sum(l_extendedprice * (1 - l_discount)) AS revenue
+FROM customer, orders, lineitem, supplier, nation, region
+WHERE c_custkey = o_custkey AND l_orderkey = o_orderkey
+  AND l_suppkey = s_suppkey AND c_nationkey = s_nationkey
+  AND s_nationkey = n_nationkey AND n_regionkey = r_regionkey
+  AND r_name = 'ASIA' AND o_orderdate >= DATE '1994-01-01'
+  AND o_orderdate < DATE '1994-01-01' + INTERVAL '1' YEAR
+GROUP BY n_name ORDER BY revenue DESC, n_name""", True),
+    "q6": ("""
+SELECT sum(l_extendedprice * l_discount) AS revenue
+FROM lineitem
+WHERE l_shipdate >= DATE '1994-01-01'
+  AND l_shipdate < DATE '1994-01-01' + INTERVAL '1' YEAR
+  AND l_discount BETWEEN 0.06 - 0.01 AND 0.06 + 0.01
+  AND l_quantity < 24""", False),
+    "q7": ("""
+SELECT supp_nation, cust_nation, l_year, sum(volume) AS revenue
+FROM (SELECT n1.n_name AS supp_nation, n2.n_name AS cust_nation,
+             extract(year FROM l_shipdate) AS l_year,
+             l_extendedprice * (1 - l_discount) AS volume
+      FROM supplier, lineitem, orders, customer, nation n1, nation n2
+      WHERE s_suppkey = l_suppkey AND o_orderkey = l_orderkey
+        AND c_custkey = o_custkey AND s_nationkey = n1.n_nationkey
+        AND c_nationkey = n2.n_nationkey
+        AND ((n1.n_name = 'FRANCE' AND n2.n_name = 'GERMANY')
+          OR (n1.n_name = 'GERMANY' AND n2.n_name = 'FRANCE'))
+        AND l_shipdate BETWEEN DATE '1995-01-01' AND DATE '1996-12-31')
+     AS shipping
+GROUP BY supp_nation, cust_nation, l_year
+ORDER BY supp_nation, cust_nation, l_year""", True),
+    "q8": ("""
+SELECT o_year, sum(CASE WHEN nation = 'BRAZIL' THEN volume ELSE 0 END)
+               / sum(volume) AS mkt_share
+FROM (SELECT extract(year FROM o_orderdate) AS o_year,
+             l_extendedprice * (1 - l_discount) AS volume,
+             n2.n_name AS nation
+      FROM part, supplier, lineitem, orders, customer,
+           nation n1, nation n2, region
+      WHERE p_partkey = l_partkey AND s_suppkey = l_suppkey
+        AND l_orderkey = o_orderkey AND o_custkey = c_custkey
+        AND c_nationkey = n1.n_nationkey AND n1.n_regionkey = r_regionkey
+        AND r_name = 'AMERICA' AND s_nationkey = n2.n_nationkey
+        AND o_orderdate BETWEEN DATE '1995-01-01' AND DATE '1996-12-31'
+        AND p_type = 'ECONOMY ANODIZED STEEL') AS all_nations
+GROUP BY o_year ORDER BY o_year""", True),
+    "q9": ("""
+SELECT nation, o_year, sum(amount) AS sum_profit FROM (
+  SELECT n_name AS nation, extract(year FROM o_orderdate) AS o_year,
+         l_extendedprice * (1 - l_discount) - ps_supplycost * l_quantity
+           AS amount
+  FROM part, supplier, lineitem, partsupp, orders, nation
+  WHERE s_suppkey = l_suppkey AND ps_suppkey = l_suppkey
+    AND ps_partkey = l_partkey AND p_partkey = l_partkey
+    AND o_orderkey = l_orderkey AND s_nationkey = n_nationkey
+    AND p_name LIKE '%green%'
+) profit GROUP BY nation, o_year ORDER BY nation, o_year DESC""", True),
+    "q10": ("""
+SELECT c_custkey, c_name, sum(l_extendedprice * (1 - l_discount)) AS revenue,
+       c_acctbal, n_name, c_address, c_phone, c_comment
+FROM customer, orders, lineitem, nation
+WHERE c_custkey = o_custkey AND l_orderkey = o_orderkey
+  AND o_orderdate >= DATE '1993-10-01'
+  AND o_orderdate < DATE '1993-10-01' + INTERVAL '3' MONTH
+  AND l_returnflag = 'R' AND c_nationkey = n_nationkey
+GROUP BY c_custkey, c_name, c_acctbal, c_phone, n_name, c_address, c_comment
+ORDER BY revenue DESC, c_custkey LIMIT 20""", True),
+    "q11": ("""
+SELECT ps_partkey, sum(ps_supplycost * ps_availqty) AS value
+FROM partsupp, supplier, nation
+WHERE ps_suppkey = s_suppkey AND s_nationkey = n_nationkey
+  AND n_name = 'GERMANY'
+GROUP BY ps_partkey
+HAVING sum(ps_supplycost * ps_availqty) >
+       (SELECT sum(ps_supplycost * ps_availqty) * 0.0001
+        FROM partsupp, supplier, nation
+        WHERE ps_suppkey = s_suppkey AND s_nationkey = n_nationkey
+          AND n_name = 'GERMANY')
+ORDER BY value DESC, ps_partkey""", True),
+    "q12": ("""
+SELECT l_shipmode,
+       sum(CASE WHEN o_orderpriority = '1-URGENT'
+                 OR o_orderpriority = '2-HIGH' THEN 1 ELSE 0 END)
+         AS high_line_count,
+       sum(CASE WHEN o_orderpriority <> '1-URGENT'
+                AND o_orderpriority <> '2-HIGH' THEN 1 ELSE 0 END)
+         AS low_line_count
+FROM orders, lineitem
+WHERE o_orderkey = l_orderkey AND l_shipmode IN ('MAIL', 'SHIP')
+  AND l_commitdate < l_receiptdate AND l_shipdate < l_commitdate
+  AND l_receiptdate >= DATE '1994-01-01'
+  AND l_receiptdate < DATE '1994-01-01' + INTERVAL '1' YEAR
+GROUP BY l_shipmode ORDER BY l_shipmode""", True),
+    "q13": ("""
+SELECT c_count, count(*) AS custdist
+FROM (SELECT c_custkey, count(o_orderkey) AS c_count
+      FROM customer LEFT OUTER JOIN orders
+        ON c_custkey = o_custkey AND o_comment NOT LIKE '%special%'
+      GROUP BY c_custkey) AS c_orders
+GROUP BY c_count ORDER BY custdist DESC, c_count DESC""", True),
+    "q14": ("""
+SELECT sum(CASE WHEN p_type LIKE 'PROMO%'
+                THEN l_extendedprice * (1 - l_discount) ELSE 0 END) AS promo,
+       sum(l_extendedprice * (1 - l_discount)) AS total
+FROM lineitem, part
+WHERE l_partkey = p_partkey AND l_shipdate >= DATE '1995-09-01'
+  AND l_shipdate < DATE '1995-10-01'""", False),
+    "q15": ("""
+WITH revenue AS (
+  SELECT l_suppkey AS supplier_no,
+         sum(l_extendedprice * (1 - l_discount)) AS total_revenue
+  FROM lineitem
+  WHERE l_shipdate >= DATE '1996-01-01'
+    AND l_shipdate < DATE '1996-01-01' + INTERVAL '3' MONTH
+  GROUP BY l_suppkey)
+SELECT s_suppkey, s_name, s_address, s_phone, total_revenue
+FROM supplier, revenue
+WHERE s_suppkey = supplier_no
+  AND total_revenue = (SELECT max(total_revenue) FROM revenue)
+ORDER BY s_suppkey""", True),
+    "q16": ("""
+SELECT p_brand, p_type, p_size, count(DISTINCT ps_suppkey) AS supplier_cnt
+FROM partsupp, part
+WHERE p_partkey = ps_partkey AND p_brand <> 'Brand#45'
+  AND p_type NOT LIKE 'MEDIUM POLISHED%'
+  AND p_size IN (49, 14, 23, 45, 19, 3, 36, 9)
+  AND ps_suppkey NOT IN (SELECT s_suppkey FROM supplier
+                         WHERE s_comment LIKE '%Customer%Complaints%')
+GROUP BY p_brand, p_type, p_size
+ORDER BY supplier_cnt DESC, p_brand, p_type, p_size""", True),
+    "q17": ("""
+SELECT sum(l_extendedprice) / 7.0 AS avg_yearly
+FROM lineitem, part
+WHERE p_partkey = l_partkey AND p_brand = 'Brand#23'
+  AND p_container = 'MED BOX'
+  AND l_quantity < (SELECT 0.2 * avg(l_quantity) FROM lineitem
+                    WHERE l_partkey = p_partkey)""", False),
+    "q18": ("""
+SELECT c_name, c_custkey, o_orderkey, o_orderdate, o_totalprice,
+       sum(l_quantity)
+FROM customer, orders, lineitem
+WHERE o_orderkey IN (SELECT l_orderkey FROM lineitem
+                     GROUP BY l_orderkey HAVING sum(l_quantity) > 200)
+  AND c_custkey = o_custkey AND o_orderkey = l_orderkey
+GROUP BY c_name, c_custkey, o_orderkey, o_orderdate, o_totalprice
+ORDER BY o_totalprice DESC, o_orderdate, o_orderkey LIMIT 100""", True),
+    "q19": ("""
+SELECT sum(l_extendedprice * (1 - l_discount)) AS revenue
+FROM lineitem, part
+WHERE (p_partkey = l_partkey AND p_brand = 'Brand#12'
+       AND p_container IN ('SM CASE', 'SM BOX', 'SM PACK', 'SM PKG')
+       AND l_quantity >= 1 AND l_quantity <= 11
+       AND p_size BETWEEN 1 AND 5
+       AND l_shipmode IN ('AIR', 'REG AIR')
+       AND l_shipinstruct = 'DELIVER IN PERSON')
+   OR (p_partkey = l_partkey AND p_brand = 'Brand#23'
+       AND p_container IN ('MED BAG', 'MED BOX', 'MED PKG', 'MED PACK')
+       AND l_quantity >= 10 AND l_quantity <= 20
+       AND p_size BETWEEN 1 AND 10
+       AND l_shipmode IN ('AIR', 'REG AIR')
+       AND l_shipinstruct = 'DELIVER IN PERSON')
+   OR (p_partkey = l_partkey AND p_brand = 'Brand#34'
+       AND p_container IN ('LG CASE', 'LG BOX', 'LG PACK', 'LG PKG')
+       AND l_quantity >= 20 AND l_quantity <= 30
+       AND p_size BETWEEN 1 AND 15
+       AND l_shipmode IN ('AIR', 'REG AIR')
+       AND l_shipinstruct = 'DELIVER IN PERSON')""", False),
+    "q20": ("""
+SELECT s_name, s_address
+FROM supplier, nation
+WHERE s_suppkey IN (
+    SELECT ps_suppkey FROM partsupp
+    WHERE ps_partkey IN (SELECT p_partkey FROM part
+                         WHERE p_name LIKE 'forest%')
+      AND ps_availqty > (SELECT 0.5 * sum(l_quantity) FROM lineitem
+                         WHERE l_partkey = ps_partkey
+                           AND l_suppkey = ps_suppkey
+                           AND l_shipdate >= DATE '1994-01-01'
+                           AND l_shipdate < DATE '1994-01-01'
+                                            + INTERVAL '1' YEAR))
+  AND s_nationkey = n_nationkey AND n_name = 'CANADA'
+ORDER BY s_name""", True),
+    "q21": ("""
+SELECT s_name, count(*) AS numwait
+FROM supplier, lineitem l1, orders, nation
+WHERE s_suppkey = l1.l_suppkey AND o_orderkey = l1.l_orderkey
+  AND o_orderstatus = 'F' AND l1.l_receiptdate > l1.l_commitdate
+  AND EXISTS (SELECT * FROM lineitem l2
+              WHERE l2.l_orderkey = l1.l_orderkey
+                AND l2.l_suppkey <> l1.l_suppkey)
+  AND NOT EXISTS (SELECT * FROM lineitem l3
+                  WHERE l3.l_orderkey = l1.l_orderkey
+                    AND l3.l_suppkey <> l1.l_suppkey
+                    AND l3.l_receiptdate > l3.l_commitdate)
+  AND s_nationkey = n_nationkey AND n_name = 'SAUDI ARABIA'
+GROUP BY s_name ORDER BY numwait DESC, s_name LIMIT 100""", True),
+    "q22": ("""
+SELECT cntrycode, count(*) AS numcust, sum(c_acctbal) AS totacctbal
+FROM (SELECT substring(c_phone, 1, 2) AS cntrycode, c_acctbal
+      FROM customer
+      WHERE substring(c_phone, 1, 2) IN ('13', '31', '23', '29', '30')
+        AND c_acctbal > (SELECT avg(c_acctbal) FROM customer
+                         WHERE c_acctbal > 0.00)
+        AND NOT EXISTS (SELECT * FROM orders WHERE o_custkey = c_custkey))
+     AS custsale
+GROUP BY cntrycode ORDER BY cntrycode""", True),
+}
 
 
 def say(*parts) -> None:
@@ -536,12 +771,212 @@ def check_group(g, dev) -> float:
     return worst
 
 
+def runs_case(g, dev, kind, cap, n):
+    """Build-side key columns with duplicate keys: a dense span with runs
+    of up to 40 (`dense`), sparse keys over all of int64 with a live -1
+    (`negative`), duplicate (int32, int64) pairs (`composite`)."""
+    if kind == "dense":
+        v = (torch.randint(0, max(cap // 4, 1), (cap,), generator=g) * 3
+             + 100).to(torch.int64)
+        if cap > 100:
+            v[:40] = v[0]           # one run of at least 40
+    elif kind == "negative":
+        pool = torch.randint(-2**62, 2**62, (max(cap // 3, 1),),
+                             generator=g, dtype=torch.int64)
+        v = pool[torch.randint(0, pool.numel(), (cap,), generator=g)]
+        v[::5] = -1
+    else:
+        v = torch.randint(0, 7, (cap,), generator=g, dtype=torch.int32)
+    valid = torch.rand(cap, generator=g) >= 0.05
+    cols = [(v.to(dev), valid.to(dev))]
+    if kind == "composite":
+        w = torch.randint(0, max(cap // 20, 1), (cap,), generator=g,
+                          dtype=torch.int64)
+        cols.append((w.to(dev), None))
+    return cols
+
+
+def built_pair(cols, bnr, size):
+    """(kernel Prepared, twin Prepared) of one build with runs."""
+    from trino_tpu_torch.ops import join as J
+    stats, lookup = J.join_build_cuda(cols, bnr)
+    runs, dense = J.join_runs_cuda(cols, bnr, stats, lookup, size)
+    wstats, wlookup = J.join_build_plain(cols, bnr)
+    wruns, wdense = J.join_runs_plain(cols, bnr, wstats, wlookup, size)
+    return (J.Prepared(None, (), stats, lookup, dense, runs),
+            J.Prepared(None, (), wstats, wlookup, wdense, wruns))
+
+
+def dense_size(stats) -> int:
+    from trino_tpu_torch.ops import join as J
+    kmin = J.unsigned(int(stats[J.KMIN]))
+    kmax = J.unsigned(int(stats[J.KMAX]))
+    if kmax < kmin or kmax - kmin >= (1 << 22):
+        return 0
+    return 1 << max(10, (kmax - kmin).bit_length())
+
+
+def runs_by_key(prep, twin: bool):
+    """(key, build row) pairs of a Prepared's runs, in layout order."""
+    runs, start, count = prep.runs
+    if twin:
+        keys = prep.lookup[1]
+        occ = torch.ones_like(keys, dtype=torch.bool)
+    else:
+        occ = prep.lookup[2] >= 0
+        keys = prep.lookup[1][occ]
+    counts = count[occ].to(torch.int64) if not twin else count.to(
+        torch.int64)
+    total = int(counts.sum())
+    return torch.repeat_interleave(keys, counts), runs[:total].to(
+        torch.int64)
+
+
+def runs_ok(label, kprep, wprep) -> None:
+    """K5's runs mode holds the twin's rows per key, each run ascending;
+    its dense table names the same keys as the twin's."""
+    kk, kr = runs_by_key(kprep, False)
+    wk, wr = runs_by_key(wprep, True)
+    if kk.numel() != wk.numel():
+        fail(f"K5 runs mode laid out {kk.numel()} rows, twin "
+             f"{wk.numel()} ({label})")
+    ascending = (kr[1:] > kr[:-1]) | (kk[1:] != kk[:-1])
+    if kk.numel() > 1 and not bool(ascending.all()):
+        fail(f"K5 runs mode: a run is not in ascending row order ({label})")
+    p, q = lexsort_rows([kk, kr]), lexsort_rows([wk, wr])
+    if not (torch.equal(kk[p], wk[q]) and torch.equal(kr[p], wr[q])):
+        fail(f"K5 runs mode rows per key differ from the twin ({label})")
+    if kprep.dense is not None:
+        from trino_tpu_torch.ops import join as J
+        kmin = kprep.stats[J.KMIN]
+        d = torch.arange(kprep.dense.numel(), device=kr.device)
+        kin = kprep.dense != 2**31 - 1
+        win = wprep.dense != 2**31 - 1
+        if not torch.equal(kin, win) or not torch.equal(
+                kprep.lookup[1][kprep.dense[kin].long()],
+                wprep.lookup[1][wprep.dense[win].long()]) or not torch.equal(
+                kprep.lookup[1][kprep.dense[kin].long()], (d + kmin)[kin]):
+            fail(f"K5 runs-mode dense table differs ({label})")
+
+
+EXPAND_CASES = [  # kind, build cap, live, probe cap, live
+    ("dense", 5000, 4900, 6000, 5990),
+    ("negative", 30_000, 29_000, 70_000, 65_000),
+    ("composite", 4096, 4096, 9000, 9000),
+    ("dense", 1000, 0, 500, 500),               # empty build
+    ("negative", 1000, 1000, 500, 0),           # dead probe
+    ("dense", 147_456, 147_000, 4_194_304, 4_194_304)]
+
+
+def check_runs(g, dev) -> float:
+    """K5 runs mode (and its dense table) against its twin."""
+    from trino_tpu_torch.ops import join as J
+    for kind, bcap, bn, *_ in EXPAND_CASES:
+        cols = runs_case(g, dev, kind, bcap, bn)
+        bnr = torch.tensor(bn, dtype=torch.int32, device=dev)
+        stats, _ = J.join_build_cuda(cols, bnr)
+        for size in sorted({0, dense_size(stats)}):
+            kprep, wprep = built_pair(cols, bnr, size)
+            sync()
+            runs_ok(f"{kind} build {bn}/{bcap} dense {size}", kprep, wprep)
+    return 0.0   # compared exactly
+
+
+def check_expand(g, dev) -> float:
+    """K9 for every kind on both routes against its twins: launch A's
+    counts and total, launch B's (probe row, build row) pairs and FULL's
+    build_matched, the SEMI/ANTI/MARK verdicts with null_aware on and
+    off. Runs hold equal rows per key in the same order, so every result
+    is compared exactly."""
+    from trino_tpu_torch.ops import join as J
+    K = J.JoinType
+    for kind, bcap, bn, pcap, pn in EXPAND_CASES:
+        bcols = runs_case(g, dev, kind, bcap, bn)
+        bnr = torch.tensor(bn, dtype=torch.int32, device=dev)
+        stats, _ = J.join_build_cuda(bcols, bnr)
+        pcols = probe_cols(g, bcols, pcap, dev)
+        pnr = torch.tensor(pn, dtype=torch.int32, device=dev)
+        for size in sorted({0, dense_size(stats)}):
+            label = f"{kind} build {bn}/{bcap} probe {pn}/{pcap} " \
+                    f"dense {size}"
+            kprep, wprep = built_pair(bcols, bnr, size)
+            for jk in (K.INNER, K.LEFT, K.FULL):
+                c = J.expand_count_cuda(pcols, bcols, pnr, kprep, jk)
+                w = J.expand_count_plain(pcols, bcols, pnr, wprep, jk)
+                sync()
+                if int(c.total) != int(w.total) or not torch.equal(
+                        c.emit, w.emit) or not torch.equal(c.cand_len,
+                                                           w.cand_len):
+                    fail(f"K9 {jk} counts differ ({label}): "
+                         f"{int(c.total)} vs {int(w.total)}")
+                out_cap = max(int(w.total), 1)
+                m = torch.zeros(bcap, dtype=torch.bool, device=dev)
+                wm = torch.zeros(bcap, dtype=torch.bool, device=dev)
+                p, b = J.expand_write_cuda(pcols, bcols, c, jk, out_cap, m)
+                wp, wb = J.expand_write_plain(pcols, bcols, w, jk, out_cap,
+                                              wm)
+                sync()
+                t = int(w.total)
+                if not (torch.equal(p[:t], wp[:t])
+                        and torch.equal(b[:t], wb[:t])):
+                    fail(f"K9 {jk} output rows differ ({label})")
+                if jk == K.FULL and not torch.equal(m, wm):
+                    fail(f"K9 full build_matched differs ({label})")
+            for jk in (K.SEMI, K.ANTI, K.MARK):
+                for null_aware in (True, False):
+                    f, f2 = J.probe_verdict_cuda(pcols, bcols, pnr, kprep,
+                                                 jk, null_aware)
+                    wf, wf2 = J.probe_verdict_plain(pcols, bcols, pnr,
+                                                    wprep, jk, null_aware)
+                    sync()
+                    if not torch.equal(f, wf) or (
+                            f2 is not None and not torch.equal(f2, wf2)):
+                        fail(f"K9 {jk} null_aware={null_aware} verdict "
+                             f"differs ({label})")
+    return 0.0   # compared exactly
+
+
+def check_distinct(g, dev) -> float:
+    """K8's distinct mode against its twin: exactly one marked row per
+    distinct canonical (keys, argument) among the eligible rows (which row
+    of a pair is free: they are equal under the canonical rules)."""
+    from trino_tpu_torch.ops import aggregate as A
+    for cap, ngroups in [(0, 1), (1, 1), (5000, 3), (100_000, 50_000),
+                         (4_194_304, 1_000_000)]:
+        keys = group_keys(g, cap, dev, ngroups)[:2]
+        arg = torch.randint(0, 50, (cap,), generator=g).to(torch.float64)
+        if cap >= 8:
+            arg[::6] = float("nan")
+            arg[1::8] = -0.0
+            arg[2::9] = 0.0
+        keys.append(A.GroupKey(arg.to(dev), None))
+        eligible = ((torch.rand(cap, generator=g) < 0.9)
+                    & (torch.arange(cap) < cap - cap // 10)).to(dev)
+        mark = A.distinct_mask_cuda(keys, eligible)
+        sync()
+        want = A.distinct_mask_plain(keys, eligible)
+        canon = [p.to(torch.int64) for k in keys for p in A._canonical(k)]
+        rows = torch.stack(canon, 1) if cap else torch.zeros(
+            0, len(canon), dtype=torch.int64, device=dev)
+        n_marked = int(mark.sum())
+        distinct = torch.unique(rows[mark], dim=0).shape[0] if n_marked \
+            else 0
+        if bool((mark & ~eligible).any()) or n_marked != int(want.sum()) \
+                or distinct != n_marked:
+            fail(f"K8 distinct mode marks {n_marked} rows ({distinct} "
+                 f"distinct), twin {int(want.sum())} (cap={cap})")
+    return 0.0   # compared exactly
+
+
 # ------------------------------------------------------------- phase 3/4
 
 
 class Capture:
-    """Keep the largest-capacity call of a kernel wrapper per query, so
-    phase 4 times each kernel at the shapes the main path gave it."""
+    """Keep a kernel wrapper's largest call of each query the timing rows
+    read (q6, q1 and q3 at sf1) and its largest call of all sf1 queries,
+    so phase 4 times each kernel at the shapes the main path gave it."""
+
+    TIMED = (("sf1", "q6"), ("sf1", "q1"), ("sf1", "q3"))
 
     def __init__(self):
         self.label = None
@@ -550,33 +985,56 @@ class Capture:
 
     def wrap(self, module, name, size_of):
         """Replace module.name with a recording pass-through. The kernel
-        function increments `<module>.<name>.launches` through its module
-        global, so the counter now lives on the pass-through."""
+        function increments `<module>.<name>.launches` (and K9's
+        `.by_kind`) through its module global, so the counters now live on
+        the pass-through."""
         orig = getattr(module, name)
 
+        def record(key, size, args):
+            if key not in self.calls or size > self.calls[key][0]:
+                self.calls[key] = (size, args)
+
         def wrapped(*args):
-            key = (name, self.label)
             if self.label is not None:
                 size = size_of(*args)
-                if key not in self.calls or size > self.calls[key][0]:
-                    self.calls[key] = (size, args)
+                if self.label in self.TIMED:
+                    record((name, self.label), size, args)
+                if self.label[0] == "sf1":
+                    record((name, "sf1"), size, args)
             return orig(*args)
         wrapped.launches = 0
+        if hasattr(orig, "by_kind"):
+            wrapped.by_kind = {}
         self.orig[name] = orig
         setattr(module, name, wrapped)
 
 
+def _cell(x):
+    return ("f", float(f"{x:.9g}")) if isinstance(x, float) else \
+        (type(x).__name__, x)
+
+
 def rows_equal(a, b) -> bool:
-    if len(a) != len(b):
-        return False
-    for ra, rb in zip(a, b):
+    """Rows equal in order, or (ties in an ORDER BY, groups in hash order)
+    as multisets; doubles within 1e-9 relative, the rest exactly."""
+    def same(ra, rb):
         for x, y in zip(ra, rb):
             if isinstance(x, float) and isinstance(y, float):
-                if not (x == y or abs(x - y) <= 1e-9 * max(abs(x), abs(y))):
+                if not (x == y or (x != x and y != y)
+                        or abs(x - y) <= 1e-9 * max(abs(x), abs(y))):
                     return False
             elif x != y:
                 return False
-    return True
+        return len(ra) == len(rb)
+    if len(a) != len(b):
+        return False
+    if all(same(ra, rb) for ra, rb in zip(a, b)):
+        return True
+
+    def key(r):
+        return tuple((x is None, str(_cell(x))) for x in r)
+    return all(same(ra, rb) for ra, rb in zip(sorted(a, key=key),
+                                              sorted(b, key=key)))
 
 
 def nbytes(ts) -> int:
@@ -585,6 +1043,22 @@ def nbytes(ts) -> int:
         if t is not None and t.numel():
             seen[t.data_ptr()] = t.numel() * t.element_size()
     return sum(seen.values())
+
+
+# Two more sf1 queries so that every join kind runs on the main path: a
+# FULL join (TPC-H has none) and an IN subquery inside an OR (a MARK join).
+FULL_SQL = """SELECT count(*), count(o_orderkey), count(c_custkey),
+       sum(o_totalprice)
+FROM (SELECT * FROM orders WHERE o_orderdate < DATE '1993-01-01') o
+FULL JOIN (SELECT * FROM customer WHERE c_nationkey < 5) c
+  ON o_custkey = c_custkey"""
+MARK_SQL = """SELECT o_orderpriority, count(*), sum(o_totalprice)
+FROM orders
+WHERE o_custkey IN (SELECT c_custkey FROM customer
+                    WHERE c_mktsegment = 'BUILDING')
+   OR o_totalprice > 400000
+GROUP BY o_orderpriority
+ORDER BY o_orderpriority"""
 
 
 def main() -> None:
@@ -598,6 +1072,7 @@ def main() -> None:
     dev = torch.device("cuda")
     card = card_line()
     name = torch.cuda.get_device_name(0)
+    t_start = time.perf_counter()
 
     # ---- phase 1: card and build
     say(card)   # as nvidia-smi prints it: name, power limit
@@ -616,6 +1091,7 @@ def main() -> None:
         f"{build_s:.2f} s")
 
     # ---- phase 2: kernels against plain twins
+    t_phase = time.perf_counter()
     g = torch.Generator().manual_seed(20261017)
     from trino_tpu_torch.ops import aggregate as A
     t0 = time.perf_counter()
@@ -636,8 +1112,19 @@ def main() -> None:
     say(f"[kernels] K1 range mode and K5-K8 match their plain twins on "
         f"the card (integers and masks exact, float64 sums <= 1e-9 rel, "
         f"groups as multisets): {errs}")
+    errs = {"join_runs": check_runs(g, dev),
+            "expand_count + expand_write + probe_verdict":
+                check_expand(g, dev),
+            "distinct_mask": check_distinct(g, dev)}
+    say(f"[kernels] K5 runs mode, K9 (every kind, both routes, "
+        f"null_aware on and off) and K8 distinct mode match their plain "
+        f"twins on the card (all exact; one marked row per distinct key): "
+        f"{errs}")
+    say(f"[time] phase 2 (kernels vs twins): "
+        f"{time.perf_counter() - t_phase:.1f} s")
 
     # ---- phase 3: queries from SQL on cuda vs the port on the CPU
+    t_phase = time.perf_counter()
     from trino_tpu_torch import page as P
     from trino_tpu_torch.exec import LocalQueryRunner
     from trino_tpu_torch.ops import join as J
@@ -654,6 +1141,11 @@ def main() -> None:
     cap.wrap(J, "join_dense_cuda", lambda cols, n, st, size: size)
     cap.wrap(J, "unique_probe_cuda", lambda pc, bc, *_: pc[0][0].numel())
     cap.wrap(A, "group_reduce_cuda", lambda keys, states, n, c: c)
+    cap.wrap(J, "join_runs_cuda", lambda cols, *_: cols[0][0].numel())
+    cap.wrap(J, "expand_count_cuda", lambda pc, *_: pc[0][0].numel())
+    cap.wrap(J, "expand_write_cuda", lambda pc, bc, c, kind, oc, *_: oc)
+    cap.wrap(J, "probe_verdict_cuda", lambda pc, *_: pc[0][0].numel())
+    cap.wrap(A, "distinct_mask_cuda", lambda keys, el: el.numel())
     kernels = {"compact_rows": (P, "compact_rows_cuda"),
                "compact_range": (P, "compact_range_cuda"),
                "concat_rows": (P, "concat_rows_cuda"),
@@ -661,18 +1153,32 @@ def main() -> None:
                "global_aggregate": (A, "global_reduce_triton"),
                "join_build": (J, "join_build_cuda"),
                "join_dense": (J, "join_dense_cuda"),
+               "join_runs": (J, "join_runs_cuda"),
                "unique_probe": (J, "unique_probe_cuda"),
+               "expand_count": (J, "expand_count_cuda"),
+               "expand_write": (J, "expand_write_cuda"),
+               "probe_verdict": (J, "probe_verdict_cuda"),
                "gather_rows": (P, "gather_rows_cuda"),
-               "group_aggregate": (A, "group_reduce_cuda")}
-    runs = [("sf1", "q6", Q6), ("sf1", "q1", Q1), ("sf10", "q6", Q6),
-            ("sf1", "q3", Q3), ("sf10", "q3", Q3)]
+               "group_aggregate": (A, "group_reduce_cuda"),
+               "distinct_mask": (A, "distinct_mask_cuda")}
+    runs = [("sf1", q, TPCH[q][0]) for q in TPCH]
+    runs += [("sf1", "full", FULL_SQL), ("sf1", "mark", MARK_SQL)]
+    runs += [("sf10", q, TPCH[q][0]) for q in ("q6", "q3", "q9", "q13")]
     gpu = {s: LocalQueryRunner.tpch(s) for s in ("sf1", "sf10")}
     cpu = {s: LocalQueryRunner.tpch(s, device="cpu")
            for s in ("sf1", "sf10")}
+    for runner in (gpu["sf10"], cpu["sf10"]):
+        # q9's sf10 builds pass join_spill_threshold_bytes (1 GiB), and
+        # the spilled join is not ported (ROADMAP A7/B9): these runs join
+        # in memory, as a session without spill does
+        runner.execute("SET SESSION spill_enabled = false")
     for mod, attr in kernels.values():
         getattr(mod, attr).launches = 0
+        if hasattr(getattr(mod, attr), "by_kind"):
+            getattr(mod, attr).by_kind = {}
     results = {}
     routes = set()
+    kinds = set()
     per_query = {}
     for schema, q, sql in runs:
         cap.label = (schema, q)
@@ -687,46 +1193,67 @@ def main() -> None:
             for k, (mod, attr) in kernels.items()}
         for i, j in enumerate(gpu[schema].last_joins):
             routes.add(j["route"])
-            say(f"[join] {q} {schema} join {i + 1}: route {j['route']}, "
-                f"build {j['build_rows']} live rows, probe "
-                f"{j['probe_rows']} rows, {j['matched']} matched")
+            kinds.add(j["kind"])
+            say(f"[join] {q} {schema} join {i + 1}: {j['kind']}, route "
+                f"{j['route']}, build {j['build_rows']} live rows, max_run "
+                f"{j['max_run']}, probe {j['probe_rows']} rows, output "
+                f"{j['output_rows']} rows")
     cap.label = None
     launches = {k: getattr(mod, attr).launches
                 for k, (mod, attr) in kernels.items()}
+    by_kind = {k: dict(getattr(mod, attr).by_kind)
+               for k, (mod, attr) in kernels.items()
+               if hasattr(getattr(mod, attr), "by_kind")}
     for (schema, q), (res, secs) in results.items():
         say(f"[query] {q} {schema} on cuda: {len(res.rows)} rows, first "
             f"run {secs:.2f} s (includes data generation and staging)")
+    t0 = time.perf_counter()
     for schema, q, sql in runs:
         want = cpu[schema].execute(sql).rows
-        if not rows_equal(results[(schema, q)][0].rows, want):
+        got = results[(schema, q)][0].rows
+        if not rows_equal(got, want):
             fail(f"{q} {schema}: cuda rows differ from the CPU run:\n"
-                 f"{results[(schema, q)][0].rows}\n{want}")
-        say(f"[query] {q} {schema}: cuda rows == cpu rows "
-            f"({results[(schema, q)][0].rows[0]} ...)")
+                 f"{got[:5]}\n{want[:5]}")
+        say(f"[query] {q} {schema}: cuda rows == cpu rows ({len(got)} "
+            f"rows, first {got[0] if got else None})")
+    say(f"[time] phase 3 (queries): {time.perf_counter() - t_phase:.1f} s, "
+        f"of which the CPU runs {time.perf_counter() - t0:.1f} s")
 
     # ---- phase 4: launch check and times
+    t_phase = time.perf_counter()
     missing = [k for k, n in launches.items() if n == 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
-    if routes != {"dense", "search"}:
-        fail(f"q3 took the join routes {sorted(routes)}, not both "
-             f"dense and search")
+    need = {"expand_count": {"inner", "left", "full"},
+            "probe_verdict": {"semi", "anti", "mark"}}
+    for k, want_kinds in need.items():
+        if not want_kinds <= set(by_kind[k]):
+            fail(f"{k} never launched for "
+                 f"{sorted(want_kinds - set(by_kind[k]))}: {by_kind[k]}")
+    if routes != {"dense", "search", "cross"}:
+        fail(f"the joins took the routes {sorted(routes)}, not dense, "
+             f"search and cross")
     for (schema, q), counts in per_query.items():
         say(f"[launches] {q} {schema}: "
             + ", ".join(f"{k} {n}" for k, n in counts.items() if n))
-    say(f"[launches] main path (q6 sf1, q1 sf1, q6 sf10, q3 sf1, q3 "
-        f"sf10): {launches} — {card}")
+    say(f"[launches] main path ({len(runs)} queries): {launches}; K9 by "
+        f"kind: {by_kind} — {card}")
     originals = {k: cap.orig[attr] for k, (_, attr) in kernels.items()}
     rows = kernel_rows(cap, originals, launches, dev)
     rows += kernel_rows_q3(cap, originals, launches, dev)
+    rows += kernel_rows_expand(cap, originals, launches, dev)
     for r in rows:
         dev_ms = "not measured" if r["device_ms"] is None \
             else f"{r['device_ms']:.4f} ms"
+        lib = "none" if r["library_ms"] is None \
+            else f"{r['library_ms']:.4f} ms"
         say(f"[kernel] {r['name']}: {r['ms']:.4f} ms per call (CUDA "
             f"events), device-busy {dev_ms} (profiler), bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
-            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+            f"{r['bound_ms']:.6f} ms ({r['bound_by']}), plain "
+            f"{r['plain_ms']:.4f} ms, library {lib}, "
             f"{r['shape']} — {card}")
+    say(f"[time] phase 4 kernel rows: {time.perf_counter() - t_phase:.1f} s")
+    t0 = time.perf_counter()
     from trino_tpu_torch.connector import tpch_gen
     lineitem = {s: tpch_gen.row_count("lineitem", sf)
                 for s, sf in (("sf1", 1.0), ("sf10", 10.0))}
@@ -735,10 +1262,10 @@ def main() -> None:
         sync()
         walls = []
         for _ in range(3):
-            t0 = time.perf_counter()
+            t1 = time.perf_counter()
             gpu[schema].execute(sql)
             sync()
-            walls.append(time.perf_counter() - t0)
+            walls.append(time.perf_counter() - t1)
         w = statistics.median(walls)
         say(f"[wall] {q} {schema}: warm median of 3 = {w * 1e3:.1f} ms, "
             f"{lineitem[schema] / w / 1e6:.1f} M lineitem rows/s — {card}")
@@ -753,8 +1280,11 @@ def main() -> None:
                 + ", ".join(f"{k[:60]} {t:.3f} ms" for k, t in top)
                 + f" — {card}")
         say(f"[profile] {q} {schema}: top host self time per query: "
-            + host_profile(lambda: gpu[schema].execute(sql))
+            + host_profile(lambda: gpu[schema].execute(sql), top=6)
             + f" — {card}")
+    say(f"[time] phase 4 walls and profiles: "
+        f"{time.perf_counter() - t0:.1f} s; whole run "
+        f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces",
                            "launches", "max_abs_err", "ms", "plain_ms",
@@ -1115,6 +1645,163 @@ def kernel_rows_q3(cap: Capture, originals, launches, dev):
         "(two calls)",
         f"q3 sf1: cap {gcap}, {n8} live rows, {ng} groups, {len(keys)} "
         f"keys, {len(states)} states"))
+    return out
+
+
+def kernel_rows_expand(cap: Capture, originals, launches, dev):
+    """The kernels this slice brought in, each at its largest call of the
+    sf1 queries, against its twin at those inputs."""
+    from trino_tpu_torch.ops import aggregate as A
+    from trino_tpu_torch.ops import join as J
+    out = []
+
+    def row(name, source, replaces, key, fn, plain, bound_bytes, library,
+            library_name, shape):
+        return dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=launches[key], max_abs_err=0.0, ms=cuda_ms(fn),
+            device_ms=device_profile(fn)[0], plain_ms=cuda_ms(plain),
+            bound_ms=bound_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+            library_ms=cuda_ms(library),
+            shape=f"{shape}; library = {library_name}")
+
+    def twin_prep(prep, bcols):
+        """The twins' Prepared for a build the kernels prepared."""
+        bnr = prep.build.num_rows
+        size = 0 if prep.dense is None else prep.dense.numel()
+        wst, wlk = J.join_build_plain(bcols, bnr)
+        wruns, wdense = J.join_runs_plain(bcols, bnr, wst, wlk, size)
+        return J.Prepared(prep.build, prep.keys, wst, wlk, wdense, wruns)
+
+    # K5 runs mode at the largest build of the sf1 queries
+    cols, nr, stats, lookup, size = cap.calls[("join_runs_cuda", "sf1")][1]
+    n = int(nr)
+    runs, dense = originals["join_runs"](cols, nr, stats, lookup, size)
+    wst, wlk = J.join_build_plain(cols, nr)
+    wruns, wdense = J.join_runs_plain(cols, nr, wst, wlk, size)
+    runs_ok("main path", J.Prepared(None, (), stats, lookup, dense, runs),
+            J.Prepared(None, (), wst, wlk, wdense, wruns))
+    n_live = int(stats[J.N_LIVE])
+    slots = lookup[2].numel()
+    keys5 = cols[0][0][:n]
+    out.append(row(
+        "join_runs (K5 runs mode, prepare_build bperm/run_len)",
+        "trino_tpu_torch/csrc/join_build.cu", "trino_tpu/ops/join.py:102",
+        "join_runs", lambda: originals["join_runs"](cols, nr, stats, lookup,
+                                                    size),
+        lambda: J.join_runs_plain(cols, nr, wst, wlk, size),
+        # the slot counts read once, 4 bytes of row per live build row
+        # read and written once, and the dense table of slots
+        slots * 4 + n_live * 8 + size * 4,
+        lambda: torch.argsort(keys5, stable=True),
+        "torch.argsort(stable=True) of the build keys",
+        f"sf1 build: cap {cols[0][0].numel()}, {n_live} live keyed rows, "
+        f"{slots} slots, dense table {size}, max_run "
+        f"{int(stats[J.MAX_RUN])}"))
+
+    # K9 expanding (launch A + B) at the largest expanding probe of sf1
+    pcols, bcols, pnr, prep, kind = cap.calls[("expand_count_cuda",
+                                               "sf1")][1]
+    pn = int(pnr)
+    wprep = twin_prep(prep, bcols)
+    bcap = bcols[0][0].numel()
+    c = originals["expand_count"](pcols, bcols, pnr, prep, kind)
+    w = J.expand_count_plain(pcols, bcols, pnr, wprep, kind)
+    total = int(w.total)
+    if int(c.total) != total or not torch.equal(c.emit, w.emit):
+        fail("K9 launch A differs from its twin at the main path's inputs")
+    out_cap = max(total, 1)
+    m = torch.zeros(bcap, dtype=torch.bool, device=dev)
+    p, b = originals["expand_write"](pcols, bcols, c, kind, out_cap, m)
+    wp, wb = J.expand_write_plain(pcols, bcols, w, kind, out_cap,
+                                  torch.zeros_like(m))
+    if not (torch.equal(p[:total], wp[:total])
+            and torch.equal(b[:total], wb[:total])):
+        fail("K9 launch B differs from its twin at the main path's inputs")
+
+    def expand():
+        cc = originals["expand_count"](pcols, bcols, pnr, prep, kind)
+        return originals["expand_write"](pcols, bcols, cc, kind, out_cap, m)
+
+    def expand_plain():
+        ww = J.expand_count_plain(pcols, bcols, pnr, wprep, kind)
+        return J.expand_write_plain(pcols, bcols, ww, kind, out_cap, m)
+    cands = int(w.cand_len.sum())
+    key_b = sum(v.element_size() + (m_ is not None) for v, m_ in bcols)
+    pidx = torch.arange(pcols[0][0].numel(), device=dev)
+    emit = w.emit.to(torch.int64)
+    out.append(row(
+        "expand_count + expand_write (K9, hash_join expanding)",
+        "trino_tpu_torch/csrc/join_expand.cu", "trino_tpu/ops/join.py:200",
+        "expand_count", expand, expand_plain,
+        # live probe keys read once, one lookup entry (start + length) per
+        # live probe row, a composite key's candidates' key columns, and
+        # 16 bytes of (probe row, build row) per output row written once
+        col_bytes(pcols, pn) + pn * 8
+        + (cands * key_b if len(pcols) > 1 else 0) + total * 16,
+        lambda: torch.repeat_interleave(pidx, emit),
+        "torch.repeat_interleave over the counts",
+        f"sf1 {kind} probe: cap {pcols[0][0].numel()}, {pn} live, {total} "
+        f"output rows, {len(pcols)} key column(s), route "
+        f"{'dense' if prep.dense is not None else 'search'}, build "
+        f"{int(prep.stats[J.N_LIVE])} keyed rows"))
+
+    # K9 SEMI/ANTI/MARK at the largest verdict probe of sf1
+    pcols, bcols, pnr, prep, kind, null_aware = cap.calls[
+        ("probe_verdict_cuda", "sf1")][1]
+    pn = int(pnr)
+    wprep = twin_prep(prep, bcols)
+    f, f2 = originals["probe_verdict"](pcols, bcols, pnr, prep, kind,
+                                       null_aware)
+    wf, wf2 = J.probe_verdict_plain(pcols, bcols, pnr, wprep, kind,
+                                    null_aware)
+    if not torch.equal(f, wf) or (f2 is not None
+                                  and not torch.equal(f2, wf2)):
+        fail("K9 verdict differs from its twin at the main path's inputs")
+    bn = int(prep.build.num_rows)
+    pk, bk = pcols[0][0][:pn], bcols[0][0][:bn]
+    out.append(row(
+        "probe_verdict (K9 SEMI/ANTI/MARK, hash_join + _mark_page)",
+        "trino_tpu_torch/csrc/join_expand.cu", "trino_tpu/ops/join.py:86",
+        "probe_verdict",
+        lambda: originals["probe_verdict"](pcols, bcols, pnr, prep, kind,
+                                           null_aware),
+        lambda: J.probe_verdict_plain(pcols, bcols, pnr, wprep, kind,
+                                      null_aware),
+        # live probe keys read once, one lookup entry per live row, and
+        # the verdict byte (MARK: two) written once
+        col_bytes(pcols, pn) + pn * 8 + pn * (2 if f2 is not None else 1),
+        lambda: torch.isin(pk, bk), "torch.isin of the probe keys",
+        f"sf1 {kind} (null_aware {null_aware}) probe: cap "
+        f"{pcols[0][0].numel()}, {pn} live, build {bn} rows, "
+        f"{len(pcols)} key column(s)"))
+
+    # K8 distinct mode at the largest DISTINCT aggregate of sf1 (q16)
+    keys, eligible = cap.calls[("distinct_mask_cuda", "sf1")][1]
+    mark = originals["distinct_mask"](keys, eligible)
+    want = A.distinct_mask_plain(keys, eligible)
+    canon = torch.stack([p_.to(torch.int64) for k in keys
+                         for p_ in A._canonical(k)], 1)
+    n_el = int(eligible.sum())
+    if int(mark.sum()) != int(want.sum()) or bool((mark & ~eligible).any()) \
+            or torch.unique(canon[mark], dim=0).shape[0] != int(want.sum()):
+        fail("K8 distinct mode differs from its twin at the main path's "
+             "inputs")
+    key_b = sum(k.values.element_size() + (k.valid is not None)
+                for k in keys)
+    el_rows = canon[eligible]
+    out.append(row(
+        "distinct_mask (K8 distinct mode, _distinct_first_mask)",
+        "trino_tpu_torch/csrc/group_agg.cu",
+        "trino_tpu/ops/aggregate.py:818", "distinct_mask",
+        lambda: originals["distinct_mask"](keys, eligible),
+        lambda: A.distinct_mask_plain(keys, eligible),
+        # the eligible rows' keys and argument read once, and a mask byte
+        # per row written once
+        n_el * (key_b + 1),
+        lambda: torch.unique(el_rows, dim=0), "torch.unique(dim=0)",
+        f"sf1 DISTINCT: cap {eligible.numel()}, {n_el} eligible rows, "
+        f"{int(want.sum())} distinct, {len(keys)} key columns"))
     return out
 
 

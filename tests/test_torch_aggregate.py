@@ -10,7 +10,8 @@ bool_and/bool_or). The general path groups on BIGINT, DOUBLE (NaN, -0.0,
 compare as multisets (the general path emits them in hash-slot order, the
 reference in sorted order); integers and decimals match exactly, doubles
 to 1e-9 relative; a -0.0 key equals a +0.0 key (the reference emits a
-group's first sorted row, the port any of its rows).
+group's first sorted row, the port any of its rows). DISTINCT aggregates
+(K8's distinct mode) run in a SINGLE step on the same pages.
 """
 
 import numpy as np
@@ -212,20 +213,52 @@ def test_hash_aggregate_matches_reference(keys, layout, chain):
 
 
 def test_unsupported_paths_name_the_roadmap():
-    sp = [PA.AggSpec("sum", 2, PT.BIGINT, distinct=True)]
-    with pytest.raises(NotImplementedError, match="B3"):
-        PA.hash_aggregate([], sp)
     with pytest.raises(NotImplementedError, match="B8"):
         PA.hash_aggregate([], [PA.AggSpec("approx_distinct", 2, PT.BIGINT)])
-    # grouped DISTINCT still needs the sort-based path; a non-dictionary
-    # key no longer does (the general GROUP BY runs it)
-    with pytest.raises(NotImplementedError, match="B3"):
-        PA.hash_aggregate([COLS.index("big")],
-                          [PA.AggSpec("sum", 2, PT.BIGINT, distinct=True)])
+    # DISTINCT runs in a SINGLE step only, and refuses PARTIAL/FINAL
+    # exactly where the reference does
+    sp = [PA.AggSpec("sum", 2, PT.BIGINT, distinct=True)]
+    for A in (RA, PA):
+        with pytest.raises(NotImplementedError, match="DISTINCT"):
+            A.hash_aggregate([COLS.index("big")], sp, A.Step.PARTIAL)
+    # a non-dictionary key runs (the general GROUP BY)
     page = build_page(PP, PT, seeded(1, 10, 10))
     op = PA.hash_aggregate([COLS.index("big")],
                            [PA.AggSpec("count", None, None)])
     assert int(op(page).num_rows) == 10
+
+
+# DISTINCT aggregates: (name, argument, FILTER channel or None)
+DISTINCT_AGGS = [("count", "dbl", None), ("sum", "dbl", None),
+                 ("avg", "dec", None), ("count", "big", "flag"),
+                 ("sum", "grp", None), ("avg", "fgrp", None),
+                 ("count", "fgrp", "flag"), ("sum", "day", "flag")]
+DISTINCT_KEYS = ["global", "one_key", "bigint_key", "double_key",
+                 "dict_and_int"]
+
+
+@pytest.mark.parametrize("keys,layout", [(k, lay) for k in DISTINCT_KEYS
+                                         for lay in ("ragged", "empty")])
+def test_distinct_aggregate_matches_reference(keys, layout):
+    """count/sum/avg(DISTINCT ...) in a SINGLE step, K8's distinct mode
+    (its twin) against the reference's _distinct_first_mask: NULL
+    arguments, NaN, -0.0 beside +0.0, a FILTER mask, one mask shared by
+    aggregates over one argument. Integers exact, doubles 1e-9 relative."""
+    cap, n = LAYOUTS[layout][0]
+    data = seeded(sum(map(ord, keys + layout)) + 7, cap, n)
+    key_chs = [COLS.index(k) for k in KEYSETS[keys]]
+    out = []
+    for A, T, Pg in (REF, PORT):
+        sp = [A.AggSpec(name, COLS.index(c), ty(T, TYPES[c]),
+                        None if f is None else COLS.index(f), True)
+              for name, c, f in DISTINCT_AGGS]
+        page = build_page(Pg, T, data)
+        out.append(rows(A.hash_aggregate(key_chs, sp, A.Step.SINGLE)(page),
+                        len(key_chs)))
+    got, want = out[1], out[0]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert all(same_value(a, b) for a, b in zip(g, w)), (g, w)
 
 
 def test_output_types_resolve_for_every_aggregate():

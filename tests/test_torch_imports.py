@@ -1,7 +1,7 @@
 """The port stands alone: trino_tpu_torch (and chip_smoke.py) import
-neither jax nor trino_tpu, run q6 and q3 with both made unimportable, and
-refuse to start on a missing CUDA device unless the caller asks for the
-CPU."""
+neither jax nor trino_tpu, run q6, q3 and q13 with both made
+unimportable, and refuse to start on a missing CUDA device unless the
+caller asks for the CPU."""
 
 import ast
 import os
@@ -54,7 +54,8 @@ def test_inventory_covers_the_slice():
     from trino_tpu_torch import native
     cu = {p.stem for p in (_PKG / "csrc").glob("*.cu")}
     assert cu == set(native.SOURCES)
-    assert {"gather", "join_build", "join_probe", "group_agg"} <= cu
+    assert {"gather", "join_build", "join_probe", "join_expand",
+            "group_agg"} <= cu
 
 
 @pytest.mark.parametrize("rel", _sources())
@@ -107,6 +108,12 @@ def test_q6_runs_with_jax_and_reference_unimportable():
 def test_q3_runs_with_jax_and_reference_unimportable():
     """The join path (the K5-K8 twins) imports nothing of JAX either."""
     _run_blocked("q3")
+
+
+def test_q13_runs_with_jax_and_reference_unimportable():
+    """The expanding probe (K5 runs mode and K9's twins, a LEFT join)
+    imports nothing of JAX either."""
+    _run_blocked("q13")
 
 
 def test_default_device_is_cuda():

@@ -1,5 +1,14 @@
 """trino_tpu_torch.ops.join against trino_tpu.ops.join on seeded pages (CPU).
 
+The expanding probe (hash_join, K9's plain twins over K5's runs mode) runs
+every kind (INNER over duplicate keys, LEFT, FULL with build_matched,
+SEMI, ANTI and MARK with null_aware on and off) on both routes, single and
+composite keys, with NULL keys on either side, a live key -1 on both
+sides, an empty build, an all-dead probe, probe rows matching the first
+key column only and NaN candidates that the composite check filters out;
+its rows must equal the reference's in the reference's order, and K5's
+runs the reference's (bkey_s, bperm) per key.
+
 The build statistics (K5's plain twin: live rows, NULL keys, max_run, the
 key min/max as unsigned 64-bit words), build_key_bounds, range_prefilter
 (K1's range mode), unique_inner_probe on the dense and search routes (K6's
@@ -15,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from oracle import assert_same
 from trino_tpu import page as RP
 from trino_tpu import types as RT
 from trino_tpu.ops import join as RJ
@@ -275,5 +285,159 @@ def test_string_keys_need_one_dictionary():
 
 
 def test_expanding_probe_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="B4"):
-        PJ.hash_join([0], [0], PJ.JoinType.LEFT)
+    """Every join kind runs; the matrix-unit lookup is not ported."""
+    with pytest.raises(NotImplementedError, match="B11"):
+        PJ.hash_join([0], [0], PJ.JoinType.LEFT, lookup="mxu")
+
+
+# ------------------------------------------------ the expanding probe (K9)
+
+# case -> (build cap, live build rows, probe cap, live probe rows)
+JCASES = {
+    "dups": (90, 80, 120, 110),          # duplicate keys, NULLs both sides
+    "clean": (64, 60, 100, 96),          # duplicates, no NULL build key
+    "minus_one": (70, 66, 80, 75),       # a live key -1 on both sides
+    "composite": (128, 120, 160, 150),   # (INTEGER, BIGINT), dup pairs
+    "nan_composite": (60, 60, 80, 80),   # NaN candidates all filtered out
+    "empty": (16, 0, 40, 36),            # no live build row
+    "dead_probe": (40, 40, 64, 0),       # no live probe row
+}
+
+
+def jcase(name, seed=0):
+    """(ref build, port build, ref probe, port probe, nkeys): key columns
+    first on the build side and after a BIGINT payload on the probe side;
+    build payloads are BIGINT (NULL on a tenth of the rows)."""
+    rng = np.random.default_rng(seed + sum(map(ord, name)))
+    bcap, bn, pcap, pn = JCASES[name]
+    pick = rng.integers(0, bcap, pcap)
+    miss = rng.random(pcap) < 0.25
+    if name in ("composite", "nan_composite"):
+        if name == "composite":
+            a = rng.integers(0, 5, bcap).astype(np.int32)
+            typs = ["INTEGER", "BIGINT"]
+        else:
+            a = rng.integers(0, 4, bcap).astype(np.float64)
+            a[::3] = np.nan
+            a[1::5] = 0.0
+            typs = ["DOUBLE", "BIGINT"]
+        b = rng.integers(0, 12, bcap).astype(np.int64)
+        bkeys = [a, b]
+        pa, pb_ = a[pick].copy(), b[pick].copy()
+        pb_[miss] += 100                  # matches on the first column only
+        if name == "nan_composite":
+            pa[pa == 0] = -0.0
+        pkeys = [pa, pb_]
+        bvalid = [None, rng.random(bcap) < 0.9]
+        pvalid = [rng.random(pcap) < 0.9, None]
+    else:
+        k = rng.integers(0, bcap // 3, bcap).astype(np.int64)
+        if name == "minus_one":
+            k[::4] = -1
+        bkeys, typs = [k], ["BIGINT"]
+        pk = k[pick].copy()
+        pk[miss] += 1000
+        pkeys = [pk]
+        bvalid = [None if name == "clean" else rng.random(bcap) < 0.85]
+        pvalid = [rng.random(pcap) < 0.9]
+    bpay = rng.integers(-10**6, 10**6, bcap).astype(np.int64)
+    ppay = rng.integers(-10**6, 10**6, pcap).astype(np.int64)
+    rb, pb = pages(bkeys + [bpay], typs + ["BIGINT"],
+                   bvalid + [rng.random(bcap) < 0.9], bn)
+    rp, pp = pages([ppay] + pkeys, ["BIGINT"] + typs, [None] + pvalid, pn)
+    return rb, pb, rp, pp, len(bkeys)
+
+
+def jroutes(name):
+    # a key -1 is u64::MAX, and a NaN or composite key a mixed word: their
+    # spans are far too wide for a direct-address table
+    return ["search"] if name in ("minus_one", "composite", "nan_composite") \
+        else ["search", "dense"]
+
+
+def port_runs(pb, nk, route):
+    prepared = PJ.prepare_build(list(range(nk)))(pb)
+    size = 0
+    if route == "dense":
+        kmin = PJ.unsigned(int(prepared.stats[PJ.KMIN]))
+        kmax = PJ.unsigned(int(prepared.stats[PJ.KMAX]))
+        span = kmax - kmin + 1 if kmax >= kmin else 1
+        size = 1 << max(10, (span - 1).bit_length())
+    return PJ.prepare_runs(size)(prepared)
+
+
+K = PJ.JoinType
+KINDS = [(K.INNER, True), (K.LEFT, True), (K.FULL, True),
+         (K.SEMI, True), (K.SEMI, False), (K.ANTI, True), (K.ANTI, False),
+         (K.MARK, True), (K.MARK, False)]
+HJ_CASES = [(c, r, k, na) for c in sorted(JCASES) for r in jroutes(c)
+            for k, na in KINDS]
+
+
+def live_rows(page):
+    return page.to_pylist()
+
+
+@pytest.mark.parametrize("case,route,kind,null_aware", HJ_CASES)
+def test_hash_join_matches_reference(case, route, kind, null_aware):
+    """Rows in the reference's order (probe rows in order, each key's
+    build rows ascending); FULL's build_matched mask exactly."""
+    rb, pb, rp, pp, nk = jcase(case)
+    pkeys, bkeys = list(range(1, nk + 1)), list(range(nk))
+    port = PJ.hash_join(pkeys, bkeys, kind, null_aware=null_aware,
+                        lookup=route)(pp, port_runs(pb, nk, route))
+    total = int(port[1])
+    # a capacity past every candidate expansion: the reference's total is
+    # then exact (below it, the candidate count, its re-run signal)
+    bound = pp.capacity * max(pb.capacity, 1)
+    ref = RJ.hash_join(pkeys, bkeys, kind, null_aware=null_aware,
+                       lookup=route, prepared=True,
+                       output_capacity=1 << (bound - 1).bit_length())(
+        rp, ref_prepared(rb, nk, route))
+    assert int(ref[1]) == total
+    assert_same(live_rows(port[0]), live_rows(ref[0]), True)
+    if kind == K.FULL:
+        np.testing.assert_array_equal(np.asarray(ref[2]), port[2].numpy())
+    if case in ("dups", "clean", "composite") and kind == K.INNER:
+        assert 0 < total and int(port[0].num_rows) == total
+    if case == "nan_composite" and kind == K.LEFT:
+        # a NaN key finds candidates under its mixed word, every one fails
+        # the column check, and the row null-extends
+        nan_rows = [r for r in live_rows(port[0])
+                    if isinstance(r[1], float) and r[1] != r[1]]
+        assert nan_rows and all(r[3] is None for r in nan_rows)
+
+
+@pytest.mark.parametrize("case", sorted(JCASES))
+def test_runs_mode_matches_reference(case):
+    """K5's runs mode holds each live key's build rows, ascending, as the
+    reference's (bkey_s, bperm, run_len) do."""
+    rb, pb, _, _, nk = jcase(case)
+    ref = RJ.prepare_build(list(range(nk)))(rb)
+    n_live = int(ref[3])
+    want = {}
+    for key, row in zip(np.asarray(ref[1])[:n_live].tolist(),
+                        np.asarray(ref[2])[:n_live].tolist()):
+        want.setdefault(key, []).append(row)
+    prepared = port_runs(pb, nk, "search")
+    runs, starts, counts = (t.tolist() for t in prepared.runs)
+    skeys = [PJ.unsigned(k) for k in prepared.lookup[1].tolist()]
+    got = {k: runs[s:s + c] for k, s, c in zip(skeys, starts, counts)}
+    assert got == {k: sorted(v) for k, v in want.items()}
+    assert all(v == sorted(v) for v in got.values())
+    assert sum(counts) == n_live
+    if case in ("dups", "minus_one"):
+        assert max(counts) > 1
+
+
+def test_unmatched_build_page_matches_reference():
+    rb, pb, rp, pp, nk = jcase("dups")
+    matched = np.random.default_rng(5).random(rb.capacity) < 0.5
+    meta = [(RT.BIGINT, None), (RT.VARCHAR, RP.Dictionary(
+        np.array(["x"], dtype=object)))]
+    want = RJ.unmatched_build_page(meta)(rb, matched)
+    got = PJ.unmatched_build_page(
+        [(PT.BIGINT, None), (PT.VARCHAR, PP.Dictionary(
+            np.array(["x"], dtype=object)))])(pb, torch.from_numpy(matched))
+    assert_same(live_rows(got), live_rows(want), True)
+    assert got.columns[1].dictionary.values.tolist() == ["x"]

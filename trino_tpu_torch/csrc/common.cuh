@@ -40,32 +40,34 @@ __device__ __forceinline__ void copy_elem(const void* src, int64_t si,
   }
 }
 
-// Exclusive prefix sum of one int per thread across a block whose size is
-// a multiple of 32 (at most 1024). `warp_sums` holds 32 ints of shared
-// memory. Returns the thread's exclusive prefix; *total gets the block sum.
-__device__ __forceinline__ int block_exclusive_scan(int v, int* warp_sums,
-                                                    int* total) {
+// Exclusive prefix sum of one value per thread (int or long long) across a
+// block whose size is a multiple of 32 (at most 1024). `warp_sums` holds 32
+// values of shared memory. Returns the thread's exclusive prefix; *total
+// gets the block sum.
+template <class T>
+__device__ __forceinline__ T block_exclusive_scan(T v, T* warp_sums,
+                                                  T* total) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
-  int x = v;
+  T x = v;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
-    int y = __shfl_up_sync(0xffffffffu, x, o);
+    T y = __shfl_up_sync(0xffffffffu, x, o);
     if (lane >= o) x += y;
   }
   if (lane == 31) warp_sums[warp] = x;
   __syncthreads();
   if (warp == 0) {
-    int w = lane < nwarps ? warp_sums[lane] : 0;
+    T w = lane < nwarps ? warp_sums[lane] : T(0);
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
-      int y = __shfl_up_sync(0xffffffffu, w, o);
+      T y = __shfl_up_sync(0xffffffffu, w, o);
       if (lane >= o) w += y;
     }
     warp_sums[lane] = w;  // inclusive prefix of warp totals
   }
   __syncthreads();
-  const int before = warp ? warp_sums[warp - 1] : 0;
+  const T before = warp ? warp_sums[warp - 1] : T(0);
   *total = warp_sums[nwarps - 1];
   __syncthreads();  // warp_sums may be reused by the caller's next round
   return before + x - v;
@@ -134,6 +136,57 @@ __device__ __forceinline__ uint64_t join_key(const int64_t* cols,
   }
   *null = isnull;
   return acc;
+}
+
+// Probe column value at row i == build column value at row b, compared as
+// the reference's `==` on the two value arrays (numeric, so -0.0 == +0.0
+// and NaN matches nothing); columns described as in join_key.
+__device__ __forceinline__ double key_as_double(const int64_t* c, int64_t i) {
+  const void* p = reinterpret_cast<const void*>(c[0]);
+  return c[3] ? load_float(p, i, (int)c[2])
+               : (double)load_int(p, i, (int)c[2]);
+}
+
+__device__ __forceinline__ bool same_value(const int64_t* pc, int64_t i,
+                                           const int64_t* bc, int64_t b) {
+  if (pc[3] || bc[3]) return key_as_double(pc, i) == key_as_double(bc, b);
+  return load_int(reinterpret_cast<const void*>(pc[0]), i, (int)pc[2]) ==
+         load_int(reinterpret_cast<const void*>(bc[0]), b, (int)bc[2]);
+}
+
+// Every key column of probe row i equals build row b (the composite-key
+// check: the mixed 64-bit key of two distinct tuples can coincide).
+__device__ __forceinline__ bool same_keys(const int64_t* pcols,
+                                          const int64_t* bcols, int64_t nkeys,
+                                          int64_t i, int64_t b) {
+  for (int64_t q = 0; q < nkeys; ++q)
+    if (!same_value(pcols + 4 * q, i, bcols + 4 * q, b)) return false;
+  return true;
+}
+
+// The slot holding `key` in K5's open-addressing table (csrc/join_build.cu:
+// power-of-two slots, linear probing from mix64(key), row -1 = empty), or
+// -1 when the key is absent. Read only after the build kernel has ended.
+__device__ __forceinline__ int64_t hash_find(uint64_t key,
+                                             const int64_t* slot_keys,
+                                             const int32_t* slot_rows,
+                                             int64_t slots) {
+  const uint64_t mask = (uint64_t)slots - 1;
+  uint64_t s = mix64(key) & mask;
+  while (true) {
+    if (slot_rows[s] == -1) return -1;
+    if ((uint64_t)slot_keys[s] == key) return (int64_t)s;
+    s = (s + 1) & mask;
+  }
+}
+
+// The entry of a direct-address table of `size` slots from kmin for `key`
+// (K5's dense mode), INT32_MAX when the key lies outside the span.
+__device__ __forceinline__ int32_t dense_find(uint64_t key, uint64_t kmin,
+                                              const int32_t* dense,
+                                              int64_t size) {
+  const int64_t raw = (int64_t)(key - kmin);
+  return (raw >= 0 && raw < size) ? dense[raw] : 0x7fffffff;
 }
 
 // Sum of a 64-bit value over the warp (result valid in lane 0).

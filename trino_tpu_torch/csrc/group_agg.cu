@@ -35,6 +35,17 @@
 // group's first sorted row: in a group holding both -0.0 and +0.0 the
 // reference emits -0.0 and this kernel either; the two compare equal.
 //
+// Distinct mode (group_distinct) replaces trino_tpu/ops/aggregate.py
+// _distinct_first_mask, the MarkDistinct of a DISTINCT aggregate: one more
+// lexicographic sort on (group keys, argument) and a boundary scan mark the
+// first eligible row of each distinct pair. Here the same table does it in
+// one pass: each eligible row (live, non-NULL argument, passing the
+// aggregate's FILTER) inserts its canonical (keys, argument) key, and the
+// row that claims a slot is the marked one (any one row of its pair; they
+// are equal under the canonical rules, so the aggregate above cannot tell
+// which). Bound: the live keys and the argument read once and 1 byte of
+// mask written per row.
+//
 // Bound on this card: bytes — every live row's key and state columns read
 // once and each group's output written once. The table (row, states, NaN
 // flags) is written once at init; the atomics are random 8-byte accesses,
@@ -174,6 +185,38 @@ __global__ void group_scatter_kernel(const __grid_constant__ Table tbl,
   });
 }
 
+// Distinct mode: mark[i] = 1 for the eligible row that claims its
+// canonical key's slot, 0 for every other row of the capacity.
+__global__ void distinct_kernel(const __grid_constant__ Table tbl,
+                                int64_t nkeys, int64_t cap,
+                                const uint8_t* __restrict__ eligible,
+                                int64_t slots,
+                                int32_t* __restrict__ slot_rows,
+                                uint8_t* __restrict__ mark) {
+  const int64_t* keys = tbl.v;
+  const uint64_t mask = (uint64_t)slots - 1;
+  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < cap;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    uint8_t first = 0;
+    if (eligible[i]) {
+      uint64_t s = key_hash(keys, nkeys, i) & mask;
+      while (true) {
+        int32_t r = slot_rows[s];
+        if (r == -1) {
+          r = atomicCAS(&slot_rows[s], -1, (int32_t)i);
+          if (r == -1) {
+            first = 1;
+            break;
+          }
+        }
+        if (same_key(keys, nkeys, i, r)) break;
+        s = (s + 1) & mask;
+      }
+    }
+    mark[i] = first;
+  }
+}
+
 unsigned grid_for(int64_t n) {
   int64_t blocks = (n + THREADS - 1) / THREADS;
   return (unsigned)(blocks < 1 ? 1 : (blocks > 1056 ? 1056 : blocks));
@@ -213,5 +256,24 @@ TT_EXPORT int group_aggregate(const void* table, int64_t nkeys, int64_t k,
   group_scatter_kernel<<<(unsigned)nblocks, TILE_THREADS, 0, s>>>(
       t, nkeys, k, out_cap, occ, a, fl, offs,
       static_cast<unsigned long long*>(out));
+  return (int)cudaGetLastError();
+}
+
+// Distinct mode: keys as group_aggregate's (the group keys, then the
+// aggregate's argument; output pointers unused); eligible: uint8[cap];
+// slot_rows: int32[slots] scratch (`slots` a power of two >= 2 x cap);
+// mark: uint8[cap]. Returns cudaGetLastError(), or -1 when the table
+// exceeds TABLE_MAX.
+TT_EXPORT int group_distinct(const void* table, int64_t nkeys, int64_t cap,
+                             const void* eligible, int64_t slots,
+                             void* slot_rows, void* mark, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  thread_local static Table t;
+  if (nkeys < 1 || load_table(table, KEY_FIELDS * nkeys, &t)) return -1;
+  cudaMemsetAsync(slot_rows, 0xff, slots * sizeof(int32_t), s);  // all -1
+  if (cap > 0)
+    distinct_kernel<<<grid_for(cap), THREADS, 0, s>>>(
+        t, nkeys, cap, static_cast<const uint8_t*>(eligible), slots,
+        static_cast<int32_t*>(slot_rows), static_cast<uint8_t*>(mark));
   return (int)cudaGetLastError();
 }

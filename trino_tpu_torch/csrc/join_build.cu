@@ -33,10 +33,24 @@
 // hold (12 bytes a row; this design initialises and writes 2x slots of 16
 // bytes, about 2.7x that), for the dense one its table (4 bytes a slot).
 // The inserts are random 4-to-16-byte accesses, so a table past the 50 MB
-// L2 pays a DRAM sector per row. The slot layout (row, key, count) leaves
-// room for the expanding probe: a count -> exclusive scan -> scatter pass
-// over the slots lays every key's rows out together without a redesign.
-#include "common.cuh"
+// L2 pays a DRAM sector per row.
+//
+// Runs mode (join_runs) replaces the part of prepare_build the expanding
+// probe (K9, csrc/join_expand.cu) reads: the sort permutation `bperm`
+// with `run_len`, every key's build rows laid out together. The slot
+// counts are already there, so a count -> exclusive scan -> scatter pass
+// over the slots (csrc/tile.cuh, each slot weighted by its count) gives
+// each slot's start in a `runs` array; each live row then takes a place in
+// its run (an atomic cursor per slot) and a second pass puts every run in
+// ascending build-row order (each row's rank is the number of smaller rows
+// in its run), so the probe's output order, and the float sums above it,
+// are the same from run to run. A skewed key serialises that rank count
+// (its cost grows with the square of the run; executor logs record
+// max_run). The dense table of this mode holds a key's SLOT (its run's
+// start and count), as the reference's table holds a first sorted position
+// that run_len completes. Bound: the slot counts read once and 4 bytes of
+// row per live build row read and written once (plus the dense table).
+#include "tile.cuh"
 
 namespace {
 constexpr int THREADS = 256;
@@ -217,6 +231,92 @@ __global__ void dense_kernel(const __grid_constant__ Table tbl, int64_t nkeys,
   }
 }
 
+// Runs mode. The slot counts as tile weights: a slot's run takes as many
+// places as rows hold its key (0 for an empty slot).
+struct SlotCount {
+  const int32_t* counts;
+  int64_t slots;
+
+  __device__ __forceinline__ int64_t limit() const { return slots; }
+  __device__ __forceinline__ int operator()(int64_t s) const {
+    return counts[s];
+  }
+};
+
+__global__ void runs_start_kernel(const SlotCount sc,
+                                  const int64_t* __restrict__ offsets,
+                                  int32_t* __restrict__ slot_start) {
+  tile_scatter(sc, sc.slots, offsets, [&](int64_t s, int64_t pos) {
+    slot_start[s] = (int32_t)pos;
+  });
+}
+
+// Each live non-NULL row takes the next place of its slot's run (any
+// order); runs_order_kernel then sorts each run.
+__global__ void runs_place_kernel(const __grid_constant__ Table tbl,
+                                  int64_t nkeys, int64_t cap,
+                                  const int32_t* __restrict__ num_rows,
+                                  const int64_t* __restrict__ slot_keys,
+                                  const int32_t* __restrict__ slot_rows,
+                                  int64_t slots,
+                                  const int32_t* __restrict__ slot_start,
+                                  int32_t* __restrict__ cursor,
+                                  int32_t* __restrict__ placed) {
+  int64_t n = *num_rows;
+  n = n < 0 ? 0 : (n > cap ? cap : n);
+  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    bool null;
+    const uint64_t key = join_key(tbl.v, nkeys, i, &null);
+    if (null) continue;
+    const int64_t s = hash_find(key, slot_keys, slot_rows, slots);
+    placed[slot_start[s] + atomicAdd(&cursor[s], 1)] = (int32_t)i;
+  }
+}
+
+// Row i's final place: its run's start plus the number of rows of the run
+// below i, so every run ends in ascending row order.
+__global__ void runs_order_kernel(const __grid_constant__ Table tbl,
+                                  int64_t nkeys, int64_t cap,
+                                  const int32_t* __restrict__ num_rows,
+                                  const int64_t* __restrict__ slot_keys,
+                                  const int32_t* __restrict__ slot_rows,
+                                  const int32_t* __restrict__ slot_counts,
+                                  int64_t slots,
+                                  const int32_t* __restrict__ slot_start,
+                                  const int32_t* __restrict__ placed,
+                                  int32_t* __restrict__ runs) {
+  int64_t n = *num_rows;
+  n = n < 0 ? 0 : (n > cap ? cap : n);
+  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    bool null;
+    const uint64_t key = join_key(tbl.v, nkeys, i, &null);
+    if (null) continue;
+    const int64_t s = hash_find(key, slot_keys, slot_rows, slots);
+    const int32_t start = slot_start[s], count = slot_counts[s];
+    int32_t rank = 0;
+    for (int32_t q = 0; count > 1 && q < count; ++q)
+      rank += placed[start + q] < (int32_t)i ? 1 : 0;
+    runs[start + rank] = (int32_t)i;
+  }
+}
+
+// The dense table of runs mode: key kmin + d -> the slot holding it.
+__global__ void runs_dense_kernel(const int64_t* __restrict__ slot_keys,
+                                  const int32_t* __restrict__ slot_rows,
+                                  int64_t slots,
+                                  const unsigned long long* __restrict__ stats,
+                                  int32_t* __restrict__ table, int64_t size) {
+  const uint64_t kmin = stats[KMIN];
+  for (int64_t s = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; s < slots;
+       s += (int64_t)gridDim.x * blockDim.x) {
+    if (slot_rows[s] == -1) continue;
+    const int64_t raw = (int64_t)((uint64_t)slot_keys[s] - kmin);
+    if (raw >= 0 && raw < size) table[raw] = (int32_t)s;
+  }
+}
+
 unsigned grid_for(int64_t n) {
   int64_t blocks = (n + THREADS - 1) / THREADS;
   return (unsigned)(blocks < 1 ? 1 : (blocks > 1056 ? 1056 : blocks));
@@ -264,5 +364,51 @@ TT_EXPORT int join_dense(const void* table, int64_t nkeys, int64_t cap,
       t, nkeys, cap, static_cast<const int32_t*>(num_rows),
       static_cast<const unsigned long long*>(stats),
       static_cast<int32_t*>(dense), size);
+  return (int)cudaGetLastError();
+}
+
+// Runs mode (after join_build on the same columns): runs: int32[cap], the
+// live non-NULL build rows grouped by key, each key's rows in ascending
+// order; slot_start: int32[slots], an occupied slot's first place in runs
+// (slot_counts, from join_build, its length); cursor: int32[slots] and
+// placed: int32[cap] scratch; scratch: int64[ceil(slots / 4096)]; total:
+// int32 scalar (the rows laid out). With size > 0 also the dense table
+// dense: int32[size], key kmin + d -> its slot, INT32_MAX when absent.
+// Returns cudaGetLastError(), or -1 when the table exceeds TABLE_MAX.
+TT_EXPORT int join_runs(const void* table, int64_t nkeys, int64_t cap,
+                        const void* num_rows, const void* stats,
+                        const void* slot_keys, const void* slot_rows,
+                        const void* slot_counts, int64_t slots,
+                        void* slot_start, void* cursor, void* placed,
+                        void* scratch, void* total, void* runs, void* dense,
+                        int64_t size, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  thread_local static Table t;
+  if (nkeys < 1 || load_table(table, KEY_FIELDS * nkeys, &t)) return -1;
+  const auto* keys = static_cast<const int64_t*>(slot_keys);
+  const auto* rows = static_cast<const int32_t*>(slot_rows);
+  const auto* counts = static_cast<const int32_t*>(slot_counts);
+  auto* start = static_cast<int32_t*>(slot_start);
+  auto* offsets = static_cast<int64_t*>(scratch);
+  const auto* nr = static_cast<const int32_t*>(num_rows);
+  cudaMemsetAsync(cursor, 0, slots * sizeof(int32_t), s);
+  const SlotCount sc{counts, slots};
+  const int64_t nblocks = tile_offsets(sc, slots, offsets,
+                                       static_cast<int32_t*>(total), s);
+  runs_start_kernel<<<(unsigned)nblocks, TILE_THREADS, 0, s>>>(sc, offsets,
+                                                               start);
+  runs_place_kernel<<<grid_for(cap), THREADS, 0, s>>>(
+      t, nkeys, cap, nr, keys, rows, slots, start,
+      static_cast<int32_t*>(cursor), static_cast<int32_t*>(placed));
+  runs_order_kernel<<<grid_for(cap), THREADS, 0, s>>>(
+      t, nkeys, cap, nr, keys, rows, counts, slots, start,
+      static_cast<const int32_t*>(placed), static_cast<int32_t*>(runs));
+  if (size > 0) {
+    dense_init_kernel<<<grid_for(size), THREADS, 0, s>>>(
+        static_cast<int32_t*>(dense), size);
+    runs_dense_kernel<<<grid_for(slots), THREADS, 0, s>>>(
+        keys, rows, slots, static_cast<const unsigned long long*>(stats),
+        static_cast<int32_t*>(dense), size);
+  }
   return (int)cudaGetLastError();
 }

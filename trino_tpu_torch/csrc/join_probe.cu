@@ -31,21 +31,6 @@ constexpr int THREADS = 256;
 constexpr int KEY_FIELDS = 4;  // values ptr, valid ptr, element size, is_float
 constexpr int STAT_KMIN = 4;   // csrc/join_build.cu enum Stat
 
-__device__ __forceinline__ double as_double(const int64_t* c, int64_t i) {
-  const void* p = reinterpret_cast<const void*>(c[0]);
-  return c[3] ? load_float(p, i, (int)c[2]) : (double)load_int(p, i, (int)c[2]);
-}
-
-// probe column value at row i == build column value at row b, compared as
-// the reference's `==` on the two value arrays (numeric, so -0.0 == +0.0
-// and NaN matches nothing).
-__device__ __forceinline__ bool same_value(const int64_t* pc, int64_t i,
-                                           const int64_t* bc, int64_t b) {
-  if (pc[3] || bc[3]) return as_double(pc, i) == as_double(bc, b);
-  return load_int(reinterpret_cast<const void*>(pc[0]), i, (int)pc[2]) ==
-         load_int(reinterpret_cast<const void*>(bc[0]), b, (int)bc[2]);
-}
-
 __global__ void probe_kernel(const __grid_constant__ Table tbl, int64_t nkeys,
                              int64_t cap, const int32_t* __restrict__ num_rows,
                              int dense_route,
@@ -61,7 +46,6 @@ __global__ void probe_kernel(const __grid_constant__ Table tbl, int64_t nkeys,
   int64_t n = *num_rows;
   n = n < 0 ? 0 : (n > cap ? cap : n);
   const uint64_t kmin = (uint64_t)stats[STAT_KMIN];
-  const uint64_t mask = (uint64_t)slots - 1;
   unsigned long long hits = 0;
   for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < cap;
        i += (int64_t)gridDim.x * blockDim.x) {
@@ -72,32 +56,19 @@ __global__ void probe_kernel(const __grid_constant__ Table tbl, int64_t nkeys,
       const uint64_t key = join_key(pcols, nkeys, i, &null);
       if (!null) {
         if (dense_route) {
-          const int64_t raw = (int64_t)(key - kmin);
-          if (raw >= 0 && raw < size) {
-            const int32_t r = dense[raw];
-            if (r != 0x7fffffff) {
-              f = true;
-              b = r;
-            }
+          const int32_t r = dense_find(key, kmin, dense, size);
+          if (r != 0x7fffffff) {
+            f = true;
+            b = r;
           }
         } else {
-          uint64_t s = mix64(key) & mask;
-          while (true) {
-            const int32_t r = slot_rows[s];
-            if (r == -1) break;
-            if ((uint64_t)slot_keys[s] == key) {
-              f = true;
-              b = r;
-              break;
-            }
-            s = (s + 1) & mask;
+          const int64_t s = hash_find(key, slot_keys, slot_rows, slots);
+          if (s >= 0) {
+            f = true;
+            b = slot_rows[s];
           }
         }
-        if (f && nkeys > 1) {
-          for (int64_t q = 0; q < nkeys && f; ++q)
-            f = same_value(pcols + KEY_FIELDS * q, i,
-                           bcols + KEY_FIELDS * q, b);
-        }
+        if (f && nkeys > 1) f = same_keys(pcols, bcols, nkeys, i, b);
       }
     }
     found[i] = f ? 1 : 0;

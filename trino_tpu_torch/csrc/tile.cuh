@@ -1,8 +1,8 @@
 #pragma once
 #include "common.cuh"
 
-// Tiled stream compaction, shared by K1 (csrc/compact.cu) and K8
-// (csrc/group_agg.cu).
+// Tiled stream compaction, shared by K1 (csrc/compact.cu), K5's runs mode
+// (csrc/join_build.cu) and K8 (csrc/group_agg.cu).
 //
 // Keeps the chosen rows of [0, n) in order, in three passes over tiles of
 // TILE rows and no sort: tile_count_kernel counts each tile's kept rows,
@@ -11,7 +11,9 @@
 // calls tile_scatter, which re-derives each kept row's in-tile rank with a
 // block scan and hands the body its output position. `Keep` is a by-value
 // functor with `int64_t limit() const` (n, read on the device) and
-// `bool operator()(int64_t i) const` for i < n.
+// `operator()(int64_t i) const` for i < n returning a bool (kept or not)
+// or an int weight (the row's number of output slots: K5's runs mode lays
+// out each slot's run this way; a tile's weights sum to at most 2^31 - 1).
 constexpr int TILE = 4096;  // trino_tpu_torch/page.py COMPACT_TILE
 constexpr int TILE_THREADS = 256;  // threads of a tile's block
 
@@ -24,33 +26,36 @@ __global__ void tile_count_kernel(const Keep keep,
   int c = 0;
   for (int r = threadIdx.x; r < TILE; r += blockDim.x) {
     const int64_t i = base + r;
-    c += (i < n && keep(i)) ? 1 : 0;
+    c += i < n ? (int)keep(i) : 0;
   }
   int total;
   block_exclusive_scan(c, warp_sums, &total);
   if (threadIdx.x == 0) counts[blockIdx.x] = total;
 }
 
-// One block: counts[] -> exclusive offsets in place, *total_out = the sum.
-static __global__ void tile_scan_kernel(int64_t* __restrict__ counts,
-                                        int64_t nblocks,
-                                        int32_t* __restrict__ total_out) {
-  __shared__ int warp_sums[32];
-  int64_t carry = 0;
+// One block: counts[] -> exclusive offsets in place, *total_out = the sum
+// (an int32 row count, or K9's int64 output total).
+template <class Total>
+__global__ void tile_scan_kernel(int64_t* __restrict__ counts,
+                                 int64_t nblocks,
+                                 Total* __restrict__ total_out) {
+  __shared__ long long warp_sums[32];
+  long long carry = 0;
   for (int64_t start = 0; start < nblocks; start += blockDim.x) {
     const int64_t i = start + threadIdx.x;
-    const int v = i < nblocks ? (int)counts[i] : 0;
-    int total;
-    const int ex = block_exclusive_scan(v, warp_sums, &total);
+    const long long v = i < nblocks ? (long long)counts[i] : 0LL;
+    long long total;
+    const long long ex = block_exclusive_scan(v, warp_sums, &total);
     if (i < nblocks) counts[i] = carry + ex;
     carry += total;
   }
-  if (threadIdx.x == 0) *total_out = (int32_t)carry;
+  if (threadIdx.x == 0) *total_out = (Total)carry;
 }
 
 // Inside the scatter kernel (one block per tile, every thread of the block
 // calling it): body(i, pos) for each kept row i of this block's tile, pos
-// being its output row, so the output keeps the input's order.
+// being its output row (the first of its slots for a weight), so the
+// output keeps the input's order.
 template <class Keep, class Body>
 __device__ __forceinline__ void tile_scatter(const Keep& keep, int64_t n,
                                              const int64_t* offsets,
@@ -60,7 +65,7 @@ __device__ __forceinline__ void tile_scatter(const Keep& keep, int64_t n,
   int64_t out = offsets[blockIdx.x];
   for (int r = 0; r < TILE; r += blockDim.x) {
     const int64_t i = base + r + threadIdx.x;
-    const int f = (i < n && keep(i)) ? 1 : 0;
+    const int f = i < n ? (int)keep(i) : 0;
     int total;
     const int ex = block_exclusive_scan(f, warp_sums, &total);
     if (f) body(i, out + ex);

@@ -1,31 +1,33 @@
 """Local execution: lower a logical plan to streaming page pipelines.
 
-Port of `trino_tpu/exec/local_planner.py`, the subset on the TPC-H q1,
-q3 and q6 path: TableScan, Values, Filter, Project, Limit, Offset,
-Aggregation (partial per page, a device-side buffer merge, final), the
-INNER equi-join with a unique build side, Sort, TopN and Output. A node
-executes to an iterator of fixed-capacity Pages plus a symbol layout;
-streaming operators (filter/project/select) queue entries on the stream,
-and the consumer runs the composed chain per page, fused with a blocking
-consumer's tail (the partial aggregation).
+Port of `trino_tpu/exec/local_planner.py`, the subset every TPC-H query
+runs: TableScan, Values, Filter, Project, Limit, Offset, Aggregation
+(partial per page, a device-side buffer merge, final; DISTINCT collected
+and run in one SINGLE step), joins of every kind (INNER over a unique
+build side, the expanding probe for duplicate build keys, LEFT, RIGHT as
+a flipped LEFT, FULL, cross joins), semi joins (SEMI/ANTI fused into a
+Filter, MARK otherwise), AssignUniqueId, EnforceSingleRow, Sort, TopN and
+Output. A node executes to an iterator of fixed-capacity Pages plus a
+symbol layout; streaming operators (filter/project/select) queue entries
+on the stream, and the consumer runs the composed chain per page, fused
+with a blocking consumer's tail (the partial aggregation).
 
 The per-page loop never reads a row count on the host: count fetches are
 batched at the merge boundary (merge_counted_rows), per probe window
 (_coalesce_stream), once per join build (_prepare_probe: max_run, the key
-span, live rows) and once per probe batch (_run_unique_inner).
+span, live rows) and once per probe batch (the join's output totals).
 
 The join router keeps the reference's `dense` (direct-address table) and
 `search` routes; the reference's `mxu` route (ops/join_mxu.py, ROADMAP
 B11) is not ported, so where the reference would take it the port takes
 `dense`, the reference's next choice. Not ported either, and named in
 ROADMAP: the build collection that spills under memory pressure
-(`_collect_build_resilient`) and the spilled join (A7/B9; the port
-collects the build whole and raises past `join_spill_threshold_bytes`),
-the aggregating matrix-unit join `_mxu_agg_join` (B11) and the adaptive
-partial aggregation (A7).
+(`_collect_build_resilient`) and the spilled and partitioned joins
+(A7/B9; the port collects the build whole and raises past
+`join_spill_threshold_bytes`), the aggregating matrix-unit join
+`_mxu_agg_join` (B11) and the adaptive partial aggregation (A7).
 
-Every other node, a join that needs the expanding probe (a duplicate
-build key, an outer kind), and an aggregation buffer past
+Every other node and an aggregation buffer past
 `agg_spill_threshold_bytes` raise an ExecutionError naming the ROADMAP
 item that ports it.
 """
@@ -44,28 +46,29 @@ from trino_tpu_torch.errors import GENERIC_INTERNAL_ERROR, TrinoError
 from trino_tpu_torch.exec.jit_cache import cached_kernel
 from trino_tpu_torch.expr.compiler import compile_expression, compile_filter
 from trino_tpu_torch.expr.ir import (Call, InputRef, Literal, RowExpression,
-                                     SpecialForm, SymbolRef)
+                                     SpecialForm, SpecialKind, SymbolRef)
 from trino_tpu_torch.metadata import Metadata, Session
 from trino_tpu_torch.ops import (AggSpec, SortKey, Step, hash_aggregate,
                                  order_by, top_n_masked)
-from trino_tpu_torch.ops.join import (KMAX, KMIN, MAX_RUN, N_LIVE,
+from trino_tpu_torch.ops.join import (KMAX, KMIN, MAX_RUN, N_LIVE, JoinType,
                                       attach_build, build_dense_table,
-                                      build_key_bounds, prepare_build,
+                                      build_key_bounds, hash_join,
+                                      prepare_build, prepare_runs,
                                       range_prefilter, unique_inner_probe,
-                                      unsigned)
+                                      unmatched_build_page, unsigned)
 from trino_tpu_torch.page import Column, Dictionary, Page, _to_device, \
     device_concat, gather_rows, row_count
 from trino_tpu_torch.planner.nodes import (
-    AggregationNode, FilterNode, JoinKind, JoinNode, LimitNode, OffsetNode,
-    OutputNode, PlanNode, ProjectNode, SortNode, Symbol, TableScanNode,
-    TopNNode, ValuesNode)
+    AggregationNode, FilterNode, JoinClause, JoinKind, JoinNode, LimitNode,
+    OffsetNode, OutputNode, PlanNode, ProjectNode, SemiJoinNode, SortNode,
+    Symbol, TableScanNode, TopNNode, ValuesNode)
+from trino_tpu_torch.planner.optimizer import combine, conjuncts
 
 # pages looked ahead per batched count fetch (the reference's window)
 _WINDOW_PAGES = 8
 
 # plan nodes of the reference this slice does not run yet -> ROADMAP item
 _LATER = {
-    "SemiJoinNode": "B4 (semi join: the expanding probe's MARK kind)",
     "WindowNode": "A8/B7 (window functions)",
     "GroupIdNode": "A8 (grouping sets)",
     "UnionNode": "A8 (union)",
@@ -73,9 +76,11 @@ _LATER = {
     "ExchangeNode": "A9 (multi-GPU exchange)",
     "TableWriterNode": "A10 (writes)",
     "DistinctLimitNode": "A3/B3 (sort-based aggregation)",
-    "EnforceSingleRowNode": "A6 (scalar subqueries)",
-    "AssignUniqueIdNode": "A6 (scalar subqueries)",
 }
+
+# a cross join past this many output rows per probe page raises, as the
+# reference's bounded expansion does
+_CROSS_MAX_ROWS = 4 * 1024 * 1024
 
 
 class ExecutionError(TrinoError):
@@ -178,7 +183,8 @@ class LocalExecutionPlanner:
         self._hoist_on = bool(session.get("hoist_literals"))
         # statement parameter values (EXECUTE ... USING)
         self.exec_params: tuple = ()
-        # one entry per join run: route, build live rows, probe rows
+        # one entry per join run (runner.last_joins): kind, route, build
+        # live rows, max_run, probe rows, output rows
         self.joins: List[dict] = []
 
     # ------------------------------------------------- literal hoisting
@@ -270,6 +276,12 @@ class LocalExecutionPlanner:
     # ----------------------------------------------------------- streaming
 
     def _exec_FilterNode(self, node: FilterNode) -> PageStream:
+        # a Filter over a SemiJoin that uses the match flag as a plain
+        # conjunct fuses into the SEMI/ANTI probe; any other use of the
+        # flag (inside OR/CASE/a projection) takes the MARK path
+        if isinstance(node.source, SemiJoinNode) and \
+                _semijoin_filter_mode(node) is not None:
+            return self._exec_semijoin_filter(node)
         src = self.execute(node.source)
         lay, typ = _layout(src.symbols)
         pred, prm = self._hoist(lower_expr(node.predicate, lay, typ))
@@ -381,6 +393,22 @@ class LocalExecutionPlanner:
                                  call.distinct, in2_ch, in2_type))
         key_channels_t = tuple(key_channels)
         specs_t = tuple(specs)
+        if any(spec.distinct for spec in specs):
+            # distinctness belongs to a whole group, not a page: collect
+            # and run one SINGLE-step aggregation (the reference's
+            # MarkDistinct + aggregation in one kernel call)
+            single_op = cached_kernel(
+                ("agg-single", key_channels_t, specs_t),
+                lambda: hash_aggregate(key_channels, specs, Step.SINGLE))
+
+            def gen_distinct():
+                page = self._collect(src)
+                if page is None:
+                    if not key_channels:
+                        yield self._empty_global_agg(node)
+                    return
+                yield single_op(page)
+            return PageStream(gen_distinct(), node.outputs)
         # scan -> filter -> project -> partial agg as ONE composed call
         partial_op = compose_chain(
             src.pending, ("agg-partial", key_channels_t, specs_t),
@@ -447,11 +475,12 @@ class LocalExecutionPlanner:
         return self.merge_counted(list(stream.iter_pages()))
 
     def _exec_JoinNode(self, node: JoinNode) -> PageStream:
-        if node.kind != JoinKind.INNER or not node.criteria:
-            what = "cross" if not node.criteria else node.kind
-            raise ExecutionError(
-                f"no executor for a {what} join yet: ROADMAP B4 (the "
-                "expanding probe: outer and cross joins)")
+        if node.kind == JoinKind.CROSS and not node.criteria:
+            return self._exec_cross_join(node)
+        if node.kind == JoinKind.RIGHT:
+            return self._exec_right_join(node)
+        if node.kind == JoinKind.FULL:
+            return self._exec_full_join(node)
         probe_stream = self.execute(node.left)
         build_stream = self.execute(node.right)
         # the reference collects an INNER build through
@@ -464,9 +493,11 @@ class LocalExecutionPlanner:
     def _join_with_build(self, node: JoinNode, probe_stream: PageStream,
                          build_symbols, build_page: Optional[Page]
                          ) -> PageStream:
-        """INNER equi-join over a collected build side: the unique-build
-        path (K5 build, K6 probe, K1 compaction, K7 attach) with the
-        build's key range as a dynamic filter on the probe stream."""
+        """INNER or LEFT equi-join over a collected build side: an INNER
+        join over a unique build takes the unique path (K5 build, K6
+        probe, K1 compaction, K7 attach) with the build's key range as a
+        dynamic filter on the probe stream; a build with duplicate keys or
+        a LEFT join takes the expanding probe (K5 runs mode, K9, K7)."""
         probe_lay, _ = _layout(probe_stream.symbols)
         build_lay, _ = _layout(build_symbols)
         probe_keys = [probe_lay[c.left.name] for c in node.criteria]
@@ -478,11 +509,17 @@ class LocalExecutionPlanner:
                            if s.name in out_names)
         build_keep = tuple(i for i, s in enumerate(build_symbols)
                            if s.name in out_names)
+        join_kind = JoinType.INNER if node.kind == JoinKind.INNER \
+            else JoinType.LEFT
         # residual non-equi filter over the joined layout, hoisted like a
-        # chain predicate
+        # chain predicate; INNER only (it would drop LEFT's null-extended
+        # rows; the planner never asks for it)
         post_pred = None
         post_params = ()
         if node.filter is not None:
+            if join_kind != JoinType.INNER:
+                raise ExecutionError(
+                    "non-inner join with residual filter not supported")
             lay, typ = _layout(out_symbols)
             post_pred, post_params = self._hoist(
                 lower_expr(node.filter, lay, typ))
@@ -512,25 +549,46 @@ class LocalExecutionPlanner:
             return probe_op, lambda pre, prepared: attach_kernel(
                 pre, prepared, post_params)
 
+        def expanding_ops(mode: str):
+            op = cached_kernel(
+                ("join", tuple(probe_keys), tuple(build_keys), join_kind,
+                 mode, probe_keep, build_keep),
+                lambda: hash_join(probe_keys, build_keys, join_kind,
+                                  lookup=mode, probe_out=probe_keep,
+                                  build_out=build_keep))
+            if post_pred is None:
+                return op, None
+            post = cached_kernel(("join-post", post_pred),
+                                 lambda: compile_filter(post_pred),
+                                 params=post_params)
+            return op, lambda out: out.filter(post(out, post_params))
+
         def gen():
-            if build_page is None:
-                return                       # INNER join, empty build
-            if bool(self.session.get("spill_enabled")) and \
-                    page_bytes(build_page) > int(self.session.get(
+            bp = build_page
+            if bp is None:
+                if join_kind == JoinType.INNER:
+                    return                   # INNER join, empty build
+                # LEFT join, empty build: every probe row null-extended
+                bp = self._null_build_page(build_symbols)
+            if join_kind == JoinType.INNER \
+                    and bool(self.session.get("spill_enabled")) and \
+                    page_bytes(bp) > int(self.session.get(
                         "join_spill_threshold_bytes")):
                 raise ExecutionError(
                     "join build past join_spill_threshold_bytes: the "
                     "spilled join is ROADMAP A7/B9")
-            aligned = self._align_join_dictionaries(
-                probe_stream, build_page, probe_keys, build_keys)
+            # INNER only: probe codes absent from the build pool become
+            # codes that never match, which a LEFT join would emit; LEFT
+            # keys across distinct dictionaries stay fail-loud in the probe
+            aligned = probe_stream
+            if join_kind == JoinType.INNER:
+                aligned = self._align_join_dictionaries(
+                    probe_stream, bp, probe_keys, build_keys)
             prepared, max_run, mode, n_live = self._prepare_probe(
-                build_keys, build_page)
-            if max_run > 1:
-                raise ExecutionError(
-                    f"join build with duplicate keys (max_run {max_run}) "
-                    "needs the expanding probe: ROADMAP B4")
+                build_keys, bp, expanding=join_kind != JoinType.INNER)
             prefilter = None
-            if self.session.get("enable_dynamic_filtering") and \
+            if join_kind == JoinType.INNER and \
+                    self.session.get("enable_dynamic_filtering") and \
                     not T.is_string(
                         probe_stream.symbols[probe_keys[0]].type):
                 # the build's key range filters the probe stream (the
@@ -542,14 +600,322 @@ class LocalExecutionPlanner:
                     ("dfrange", probe_keys[0]),
                     lambda: range_prefilter(probe_keys[0]))
                 prefilter = (pf_op, bounds_op(prepared))
-            log = {"route": mode, "build_rows": n_live, "probe_rows": 0,
-                   "matched": 0}
-            self.joins.append(log)
-            probe_op, attach_op = unique_ops(mode)
-            yield from self._run_unique_inner(
-                self._coalesce_stream(aligned, prefilter=prefilter),
-                prepared, probe_op, attach_op, log)
+            log = self._join_log(join_kind, mode, n_live, max_run)
+            probe_in = self._coalesce_stream(aligned, prefilter=prefilter)
+            if join_kind == JoinType.INNER and max_run <= 1:
+                probe_op, attach_op = unique_ops(mode)
+                yield from self._run_unique_inner(probe_in, prepared,
+                                                  probe_op, attach_op, log)
+                return
+            op, post = expanding_ops(mode)
+            yield from self._run_expanding(probe_in, prepared, op, log,
+                                           post=post)
         return PageStream(gen(), out_symbols)
+
+    def _join_log(self, kind: str, route: str, build_rows: int,
+                  max_run: Optional[int]) -> dict:
+        """A runner.last_joins entry, filled in as the probe runs: output
+        rows are the join's rows before any residual filter; an INNER
+        join's also count as `matched`."""
+        log = {"kind": kind, "route": route, "build_rows": build_rows,
+               "max_run": max_run, "probe_rows": 0, "output_rows": 0}
+        if kind == JoinType.INNER:
+            log["matched"] = 0
+        self.joins.append(log)
+        return log
+
+    def _run_expanding(self, probe_stream: PageStream, prepared, op, log,
+                       post=None, build_matched=None) -> Iterator[Page]:
+        """The expanding probe over a probe stream: per batch of
+        _byte_bounded_batches, K9 launch A on every page, ONE host read of
+        the exact output totals, then launch B (and the K7 gathers) at
+        next_pow2(total), so an output page ends at most 2x its live rows
+        and nothing is re-run. FULL joins pass the build_matched mask
+        launch B fills."""
+        for batch in _byte_bounded_batches(probe_stream.iter_pages(),
+                                           1 << 29):
+            counted = [op.count(page, prepared) for page in batch]
+            fetched = torch.stack(
+                [c.total for c in counted]
+                + [p.num_rows.to(torch.int64) for p in batch]).tolist()
+            k = len(batch)
+            for c, total, live in zip(counted, fetched[:k], fetched[k:]):
+                log["probe_rows"] += live
+                log["output_rows"] += total
+                if "matched" in log:
+                    log["matched"] += total
+                if total == 0:
+                    continue
+                if total > _I32_ROWS:
+                    raise ExecutionError(
+                        f"join output of {total} rows from one probe page "
+                        "exceeds a page's int32 row count")
+                out = op.emit(c, _next_pow2(total), build_matched)
+                yield out if post is None else post(out)
+
+    def _exec_right_join(self, node: JoinNode) -> PageStream:
+        """RIGHT as a LEFT join with the sides swapped (the engine always
+        probes with the preserved side), columns put back in order."""
+        flipped = JoinNode(
+            JoinKind.LEFT, node.right, node.left,
+            tuple(JoinClause(c.right, c.left) for c in node.criteria),
+            node.filter, node.distribution)
+        stream = self.execute(flipped)
+        return _reorder_stream(stream,
+                               node.left.outputs + node.right.outputs)
+
+    def _exec_full_join(self, node: JoinNode) -> PageStream:
+        """FULL outer: the LEFT-preserving expanding probe over the probe
+        pages, marking which build rows matched (K9 launch B), then the
+        never-matched live build rows null-extended (K1)."""
+        if node.filter is not None:
+            raise ExecutionError(
+                "non-inner join with residual filter not supported")
+        probe_stream = self.execute(node.left)
+        build_stream = self.execute(node.right)
+        probe_lay, _ = _layout(probe_stream.symbols)
+        build_lay, _ = _layout(build_stream.symbols)
+        probe_keys = [probe_lay[c.left.name] for c in node.criteria]
+        build_keys = [build_lay[c.right.name] for c in node.criteria]
+        build_page = self._collect(build_stream)
+        out_symbols = node.left.outputs + node.right.outputs
+        probe_meta = tuple((s.type, None) for s in node.left.outputs)
+
+        def tracked(pages):
+            # the finisher's NULL probe columns keep the dictionaries of
+            # the last probe page (concat/union safety downstream)
+            nonlocal probe_meta
+            for page in pages:
+                probe_meta = tuple((c.type, c.dictionary)
+                                   for c in page.columns)
+                yield page
+
+        def gen():
+            bp = build_page
+            if bp is None:
+                bp = self._null_build_page(build_stream.symbols)
+            prepared, max_run, mode, n_live = self._prepare_probe(
+                build_keys, bp, expanding=True)
+            op = cached_kernel(
+                ("fulljoin", tuple(probe_keys), tuple(build_keys), mode),
+                lambda: hash_join(probe_keys, build_keys, JoinType.FULL,
+                                  lookup=mode))
+            matched = torch.zeros(bp.capacity, dtype=torch.bool,
+                                  device=bp.device)
+            log = self._join_log(JoinType.FULL, mode, n_live, max_run)
+            coalesced = self._coalesce_stream(probe_stream)
+            yield from self._run_expanding(
+                PageStream(tracked(coalesced.iter_pages()),
+                           coalesced.symbols),
+                prepared, op, log, build_matched=matched)
+            rest = unmatched_build_page(probe_meta)(bp, matched)
+            n = int(rest.num_rows)
+            log["output_rows"] += n
+            if n:
+                yield self._tight(rest, n)
+        return PageStream(gen(), out_symbols)
+
+    def _null_build_page(self, symbols: Sequence[Symbol]) -> Page:
+        """An empty side (0 live rows of 8) in the given layout: the build
+        of a LEFT/FULL/ANTI join whose build side produced nothing."""
+        dev = self.device
+        cols = [Column(torch.zeros(8, dtype=s.type.dtype, device=dev),
+                       torch.zeros(8, dtype=torch.bool, device=dev),
+                       s.type, None) for s in symbols]
+        return Page(tuple(cols), row_count(0, dev))
+
+    def _exec_cross_join(self, node: JoinNode) -> PageStream:
+        """Cross join: a one-row build (a scalar subquery) is broadcast to
+        every probe row; otherwise each probe page expands to its rows x
+        the build's rows, bounded at _CROSS_MAX_ROWS. The index
+        arithmetic is torch glue; the moves are K7 gathers."""
+        probe_stream = self.execute(node.left)
+        build_stream = self.execute(node.right)
+        build_page = self._collect(build_stream)
+        out_symbols = node.left.outputs + node.right.outputs
+
+        def attach(page: Page, build: Page) -> Page:
+            one = torch.zeros(page.capacity, dtype=torch.int64,
+                              device=page.device)
+            bcols = build.gather(one, page.num_rows).columns
+            return Page(page.columns + bcols, page.num_rows)
+
+        def gen():
+            if build_page is None:
+                return
+            nb = int(build_page.num_rows)
+            log = self._join_log("cross", "cross", nb, None)
+            if nb == 1:
+                # one row per probe row; the broadcast reads no counts
+                log["probe_rows"] = log["output_rows"] = None
+                run = cached_kernel(("cross-attach",), lambda: attach)
+                for page in probe_stream.iter_pages():
+                    yield run(page, build_page)
+                return
+            for page in probe_stream.iter_pages():
+                np_rows = int(page.num_rows)
+                log["probe_rows"] += np_rows
+                if np_rows == 0:
+                    continue
+                total = np_rows * nb
+                if total > _CROSS_MAX_ROWS:
+                    raise ExecutionError(
+                        f"cross join too large ({total} rows)")
+                log["output_rows"] += total
+                idx = torch.arange(_next_pow2(total), dtype=torch.int64,
+                                   device=page.device)
+                pi = torch.clamp(idx // nb, max=page.capacity - 1)
+                bi = torch.clamp(idx % nb, max=build_page.capacity - 1)
+                yield Page(page.gather(pi, total).columns
+                           + build_page.gather(bi, total).columns, total)
+        return PageStream(gen(), out_symbols)
+
+    # ----------------------------------------------------------- semi join
+
+    def _semi_parts(self, semi: SemiJoinNode):
+        probe_stream = self.execute(semi.source)
+        build_stream = self.execute(semi.filtering_source)
+        probe_lay, _ = _layout(probe_stream.symbols)
+        build_lay, _ = _layout(build_stream.symbols)
+        probe_keys = tuple(probe_lay[s.name] for s in semi.source_keys)
+        build_keys = tuple(build_lay[s.name] for s in semi.filtering_keys)
+        return (probe_stream, build_stream, probe_keys, build_keys,
+                self._collect(build_stream))
+
+    def _exec_semijoin_filter(self, node: FilterNode) -> PageStream:
+        """Filter(SemiJoin) with the match flag as a plain conjunct: the
+        SEMI (flag) or ANTI (NOT flag) probe, K9's verdict compacted by
+        K1, then the other conjuncts. Surviving rows share one match
+        value, emitted as a constant column so pages carry the node's
+        declared outputs."""
+        semi: SemiJoinNode = node.source
+        mode, rest = _semijoin_filter_mode(node)
+        probe_stream, build_stream, probe_keys, build_keys, build_page = \
+            self._semi_parts(semi)
+        probe_lay, probe_typ = _layout(probe_stream.symbols)
+        jt = JoinType.SEMI if mode == "semi" else JoinType.ANTI
+        rest_pred = combine(rest)
+        rest_lowered, rest_params = self._hoist(
+            None if rest_pred is None else
+            lower_expr(rest_pred, probe_lay, probe_typ))
+
+        def gen():
+            bp = build_page
+            if bp is None:
+                if jt == JoinType.SEMI:
+                    return
+                bp = self._null_build_page(build_stream.symbols)
+            prepared, max_run, route, n_live = self._prepare_probe(
+                build_keys, bp, expanding=True)
+            op = cached_kernel(
+                ("semijoin", probe_keys, build_keys, jt, semi.null_aware,
+                 route),
+                lambda: hash_join(probe_keys, build_keys, jt,
+                                  null_aware=semi.null_aware, lookup=route))
+            post = None
+            if rest_lowered is not None:
+                post = cached_kernel(("semijoin-rest", rest_lowered),
+                                     lambda: compile_filter(rest_lowered),
+                                     params=rest_params)
+            log = self._join_log(jt, route, n_live, max_run)
+
+            def verdict(page):
+                out = op.verdict(page, prepared)
+                return out if post is None else out.filter(
+                    post(out, rest_params))
+            for out in self._run_verdict(probe_stream, verdict, log):
+                flag = torch.full((out.capacity,), mode == "semi",
+                                  dtype=torch.bool, device=out.device)
+                yield out.append_column(Column(flag, None, T.BOOLEAN, None))
+        return PageStream(gen(),
+                          semi.source.outputs + (semi.match_symbol,))
+
+    def _exec_SemiJoinNode(self, node: SemiJoinNode) -> PageStream:
+        """A semi join whose match flag escapes a plain Filter conjunct:
+        probe rows plus the MARK channel (HashSemiJoinOperator)."""
+        probe_stream, build_stream, probe_keys, build_keys, build_page = \
+            self._semi_parts(node)
+        out_symbols = node.source.outputs + (node.match_symbol,)
+
+        def gen():
+            if build_page is None:
+                # nothing to match: the flag is FALSE on every row
+                for page in probe_stream.iter_pages():
+                    flag = torch.zeros(page.capacity, dtype=torch.bool,
+                                       device=page.device)
+                    yield page.append_column(
+                        Column(flag, None, T.BOOLEAN, None))
+                return
+            prepared, max_run, route, n_live = self._prepare_probe(
+                build_keys, build_page, expanding=True)
+            op = cached_kernel(
+                ("markjoin", probe_keys, build_keys, node.null_aware, route),
+                lambda: hash_join(probe_keys, build_keys, JoinType.MARK,
+                                  null_aware=node.null_aware, lookup=route))
+            log = self._join_log(JoinType.MARK, route, n_live, max_run)
+            yield from self._run_verdict(
+                probe_stream, lambda page: op.verdict(page, prepared), log)
+        return PageStream(gen(), out_symbols)
+
+    def _run_verdict(self, probe_stream: PageStream, verdict, log
+                     ) -> Iterator[Page]:
+        """SEMI/ANTI/MARK over the coalesced probe stream: the verdict op
+        per page, ONE host read of the output rows per batch, each output
+        shrunk to at most 2x its live rows."""
+        pages = self._coalesce_stream(probe_stream).iter_pages()
+        for batch in _byte_bounded_batches(pages, 1 << 29):
+            outs = [verdict(page) for page in batch]
+            fetched = torch.stack([o.num_rows for o in outs]
+                                  + [p.num_rows for p in batch]).tolist()
+            k = len(batch)
+            for out, n, live in zip(outs, fetched[:k], fetched[k:]):
+                log["probe_rows"] += live
+                log["output_rows"] += n
+                if n:
+                    yield self._tight(out, n)
+
+    # ---------------------------------------------------- scalar subqueries
+
+    def _exec_AssignUniqueIdNode(self, node) -> PageStream:
+        """AssignUniqueIdOperator: tag rows with a unique BIGINT id, the
+        page's capacity offset plus the row's position. Padding rows take
+        ids too, so no count is read, and since the pages of a subtree
+        come out with the same capacities in the same order every time,
+        executing the subtree twice (a decorrelated EXISTS) gives the
+        same ids."""
+        src = self.execute(node.source)
+
+        def build():
+            def tag(page: Page, offset: int) -> Page:
+                ids = torch.arange(page.capacity, dtype=torch.int64,
+                                   device=page.device) + offset
+                return page.append_column(Column(ids, None, T.BIGINT, None))
+            return tag
+        tag = cached_kernel(("assign-unique-id",), build)
+
+        def gen():
+            offset = 0
+            for page in src.iter_pages():
+                yield tag(page, offset)
+                offset += page.capacity
+        return PageStream(gen(), node.source.outputs + (node.id_symbol,))
+
+    def _exec_EnforceSingleRowNode(self, node) -> PageStream:
+        """A scalar subquery's rows: none becomes one all-NULL row, more
+        than one raises (EnforceSingleRowOperator)."""
+        src = self.execute(node.source)
+
+        def gen():
+            page = self._collect(src)
+            if page is None:
+                yield Page(self._null_build_page(node.outputs).columns,
+                           row_count(1, self.device))
+                return
+            if int(page.num_rows) > 1:
+                raise ExecutionError(
+                    "Scalar sub-query has returned multiple rows")
+            yield page
+        return PageStream(gen(), node.outputs)
 
     def _coalesce_stream(self, stream: PageStream,
                          prefilter=None) -> PageStream:
@@ -633,6 +999,7 @@ class LocalExecutionPlanner:
             for (pre, found, _), total, live in zip(results, fetched[:k],
                                                     fetched[k:]):
                 log["probe_rows"] += live
+                log["output_rows"] += total
                 log["matched"] += total
                 if total == 0:
                     continue
@@ -706,33 +1073,35 @@ class LocalExecutionPlanner:
     # (64M slots = 256 MB of int32)
     _DENSE_MAX_SLOTS = 1 << 26
 
-    def _dense_table_for(self, prepared, build_page: Page, span: int):
-        """The dense route's decision and table (K5 dense mode): prepared
-        with its direct-address table when the live key span qualifies,
-        else None."""
+    def _dense_size(self, build_page: Page, span: int) -> int:
+        """The dense route's table size when the live key span fits the
+        direct-address limit, else 0 (the `search` route)."""
         limit = min(max(4 * build_page.capacity, 1 << 20),
                     self._DENSE_MAX_SLOTS)
-        if not 0 < span <= limit:
-            return None
-        size = _next_pow2(span)
-        table_op = cached_kernel(("dense-table", size),
-                                 lambda: build_dense_table(size))
-        return table_op(prepared)
+        return _next_pow2(span) if 0 < span <= limit else 0
 
-    def _prepare_probe(self, build_keys, build_page: Page):
+    def _prepare_probe(self, build_keys, build_page: Page,
+                       expanding: bool = False):
         """K5 plus the per-join route: ONE host read of (live rows,
         max_run, kmin, kmax), then `dense` when the unsigned key span fits
-        the direct-address limit, else `search` (the hash table). Returns
+        the direct-address limit, else `search` (the hash table). A build
+        with duplicate keys, or any `expanding` join kind, also gets K5's
+        runs mode (whose dense table holds slots, not rows). Returns
         (prepared, max_run, route, build live rows)."""
         prepared = self._prepare_build(build_keys, build_page)
         got = prepared.stats[:KMAX + 1].tolist()
         max_run, n_live = got[MAX_RUN], got[N_LIVE]
         kmin, kmax = unsigned(got[KMIN]), unsigned(got[KMAX])
         span = kmax - kmin + 1 if kmax >= kmin else 0
-        with_table = self._dense_table_for(prepared, build_page, span)
-        if with_table is not None:
-            return with_table, max_run, "dense", n_live
-        return prepared, max_run, "search", n_live
+        size = self._dense_size(build_page, span)
+        if expanding or max_run > 1:
+            prepared = cached_kernel(("join-runs", size),
+                                     lambda: prepare_runs(size))(prepared)
+        elif size:
+            prepared = cached_kernel(("dense-table", size),
+                                     lambda: build_dense_table(size))(
+                                         prepared)
+        return prepared, max_run, "dense" if size else "search", n_live
 
     def _exec_SortNode(self, node: SortNode) -> PageStream:
         src = self.execute(node.source)
@@ -810,6 +1179,45 @@ def _byte_bounded_batches(it: Iterator[Page], budget_bytes: int
         used += nbytes
     if batch:
         yield batch
+
+
+# rows a page can count (num_rows is int32)
+_I32_ROWS = (1 << 31) - 1
+
+
+def _semijoin_filter_mode(node: FilterNode):
+    """('semi' | 'anti', the other conjuncts) when the filter over a
+    SemiJoin uses its match flag only as a plain top-level conjunct (or its
+    NOT); None sends the SemiJoin down the MARK path."""
+    match_name = node.source.match_symbol.name
+    mode: Optional[str] = None
+    rest: List[RowExpression] = []
+    for c in conjuncts(node.predicate):
+        if isinstance(c, SymbolRef) and c.name == match_name:
+            mode = "semi"
+        elif isinstance(c, SpecialForm) and c.kind is SpecialKind.NOT \
+                and isinstance(c.args[0], SymbolRef) \
+                and c.args[0].name == match_name:
+            mode = "anti"
+        elif match_name in _symbol_names(c):
+            return None
+        else:
+            rest.append(c)
+    if mode is None:
+        return None
+    return mode, rest
+
+
+def _symbol_names(e: RowExpression) -> set:
+    out = set()
+
+    def visit(x):
+        if isinstance(x, SymbolRef):
+            out.add(x.name)
+        for c in x.children():
+            visit(c)
+    visit(e)
+    return out
 
 
 def _valid_arr(valid: List[bool], cap: int, device

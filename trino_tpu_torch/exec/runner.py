@@ -80,6 +80,12 @@ class LocalQueryRunner:
         self.catalogs = CatalogManager()
         self.metadata = Metadata(self.catalogs)
         self.session = session or Session()
+        # one dict per join of the last query, in the order the joins
+        # started: kind (inner, left, full, semi, anti, mark, cross), route
+        # (dense, search; cross for a cross join), build_rows (live build
+        # rows), max_run (the longest run of one build key), probe_rows and
+        # output_rows (None for a one-row cross join, which reads no
+        # counts); INNER joins also carry matched (== output_rows)
         self.last_joins: list = []
 
     @classmethod

@@ -8,7 +8,10 @@ here, each beside its plain PyTorch twin:
 * K3 `direct_reduce` (`_direct_aggregate`): GROUP BY over a small static
   key space of dictionary codes, `csrc/direct_agg.cu`;
 * K8 `group_reduce` (the sorted path of `hash_aggregate`): GROUP BY on
-  any other keys through a global hash table, `csrc/group_agg.cu`;
+  any other keys through a global hash table, `csrc/group_agg.cu`; its
+  distinct mode `distinct_mask` (`_distinct_first_mask`) marks one
+  eligible row per distinct (group keys, argument) pair for a DISTINCT
+  aggregate;
 * K4 `global_reduce` (`_global_aggregate`): no GROUP BY, a masked
   multi-column reduction to one row, a Triton kernel in this module.
 
@@ -19,9 +22,10 @@ mask is false, contribute the reducer's identity — the reference's
 `jnp.where(m, v, ident)` contributions. One definition of that encoding
 feeds both the kernels and their twins.
 
-DISTINCT and the special aggregates (approx_distinct, approx_percentile,
-checksum, the centered moments, the positional and collecting aggregates)
-raise NotImplementedError naming their ROADMAP items.
+DISTINCT runs in a SINGLE step only (its mask narrows the aggregate's
+input), as in the reference. The special aggregates (approx_distinct,
+approx_percentile, checksum, the centered moments, the positional and
+collecting aggregates) raise NotImplementedError naming ROADMAP B8.
 """
 
 from __future__ import annotations
@@ -309,9 +313,13 @@ def _filter_mask(page: Page, spec: AggSpec) -> Optional[torch.Tensor]:
     return fcol.values & fcol.valid_mask()
 
 
-def _partial_inputs(page: Page, spec: AggSpec, states) -> List[StateInput]:
-    """PARTIAL/SINGLE step: states computed from the aggregate's input."""
-    fmask = _filter_mask(page, spec)
+def _partial_inputs(page: Page, spec: AggSpec, states,
+                    dmask: Optional[torch.Tensor] = None
+                    ) -> List[StateInput]:
+    """PARTIAL/SINGLE step: states computed from the aggregate's input.
+    A DISTINCT aggregate's `dmask` (its first-row mask, which already holds
+    the FILTER) takes the FILTER's place."""
+    fmask = _filter_mask(page, spec) if dmask is None else dmask
     if spec.input is not None:
         col = page.column(spec.input)
         vals, valid = col.values, col.valid
@@ -645,12 +653,7 @@ def hash_slots(rows: int) -> int:
     return s
 
 
-def group_reduce_cuda(keys: Sequence[GroupKey], states: Sequence[StateInput],
-                      num_rows: torch.Tensor, cap: int):
-    """K8 launch: see csrc/group_agg.cu."""
-    dev = num_rows.device
-    if num_rows.dtype != torch.int32 or num_rows.dim() != 0:
-        raise ValueError("num_rows must be a 0-d int32 tensor")
+def _check_group_keys(keys: Sequence[GroupKey], cap: int, dev) -> None:
     for k in keys:
         v = k.values
         if v.device != dev or v.dim() != 1 or v.shape[0] != cap \
@@ -659,6 +662,15 @@ def group_reduce_cuda(keys: Sequence[GroupKey], states: Sequence[StateInput],
                 or (v.is_floating_point() and v.element_size() not in (4, 8)):
             raise ValueError("group keys must be contiguous [cap] columns "
                              "on the device")
+
+
+def group_reduce_cuda(keys: Sequence[GroupKey], states: Sequence[StateInput],
+                      num_rows: torch.Tensor, cap: int):
+    """K8 launch: see csrc/group_agg.cu."""
+    dev = num_rows.device
+    if num_rows.dtype != torch.int32 or num_rows.dim() != 0:
+        raise ValueError("num_rows must be a 0-d int32 tensor")
+    _check_group_keys(keys, cap, dev)
     _check_states([k.valid for k in keys], states, cap, dev)
     k = len(states)
     slots = hash_slots(cap)
@@ -705,6 +717,66 @@ def group_reduce(keys, states, num_rows, cap):
     """K8 wrapper: plain twin on the CPU, kernel on CUDA."""
     run = group_reduce_cuda if num_rows.is_cuda else group_reduce_plain
     return run(keys, states, num_rows, cap)
+
+
+def distinct_mask_plain(keys: Sequence[GroupKey],
+                        eligible: torch.Tensor) -> torch.Tensor:
+    """Plain twin of K8's distinct mode: bool[cap], true on the first
+    eligible row of each distinct canonical key (the reference's sort +
+    boundary scan marks a first row too; any one row of a pair serves)."""
+    cap = eligible.shape[0]
+    dev = eligible.device
+    parts = []
+    for k in keys:
+        parts += list(_canonical(k))
+    canon = torch.stack([p.to(torch.int64) for p in parts], 1)[eligible]
+    mark = torch.zeros(cap, dtype=torch.bool, device=dev)
+    if not canon.shape[0]:
+        return mark
+    _, inverse = torch.unique(canon, dim=0, return_inverse=True)
+    rows = torch.nonzero(eligible).flatten()
+    g = int(inverse.max()) + 1
+    first = torch.full((g,), cap, dtype=torch.int64, device=dev) \
+        .scatter_reduce(0, inverse, rows, "amin")
+    mark[first] = True
+    return mark
+
+
+def distinct_mask_cuda(keys: Sequence[GroupKey],
+                       eligible: torch.Tensor) -> torch.Tensor:
+    """K8 distinct-mode launch: see csrc/group_agg.cu group_distinct."""
+    cap = eligible.shape[0]
+    dev = eligible.device
+    if eligible.dtype != torch.bool or eligible.dim() != 1 \
+            or not eligible.is_contiguous():
+        raise ValueError("eligible must be a contiguous bool [cap] mask")
+    _check_group_keys(keys, cap, dev)
+    slots = hash_slots(cap)
+    slot_rows = torch.empty(slots, dtype=torch.int32, device=dev)
+    mark = torch.empty(cap, dtype=torch.bool, device=dev)
+    table = host_table([x for kk in keys
+                        for x in (_ptr(kk.values), _ptr(kk.valid),
+                                  kk.values.element_size(),
+                                  int(kk.values.is_floating_point()), 0, 0)])
+    lib = native.library("group_agg")
+    rc = lib.group_distinct(
+        table, ctypes.c_int64(len(keys)), ctypes.c_int64(cap),
+        ctypes.c_void_p(eligible.data_ptr()), ctypes.c_int64(slots),
+        ctypes.c_void_p(slot_rows.data_ptr()),
+        ctypes.c_void_p(mark.data_ptr()),
+        ctypes.c_void_p(native.stream_ptr(dev)))
+    native.check(rc, "group_distinct")
+    distinct_mask_cuda.launches += 1
+    return mark
+
+
+distinct_mask_cuda.launches = 0
+
+
+def distinct_mask(keys, eligible):
+    """K8 distinct-mode wrapper: plain twin on the CPU, kernel on CUDA."""
+    run = distinct_mask_cuda if eligible.is_cuda else distinct_mask_plain
+    return run(keys, eligible)
 
 
 # ------------------------------------------------------------------ K4
@@ -972,9 +1044,6 @@ def global_reduce(states, num_rows, cap):
 
 
 def _unsupported(spec: AggSpec) -> Optional[str]:
-    if spec.distinct:
-        return f"{spec.name}(DISTINCT ...) needs the sort-based path " \
-            "(ROADMAP B3)"
     if spec.name not in SUPPORTED:
         return f"{spec.name}() is a special aggregate (ROADMAP B8)"
     return None
@@ -996,6 +1065,11 @@ def hash_aggregate(
         reason = _unsupported(a)
         if reason is not None:
             raise NotImplementedError(reason)
+        if a.distinct and step != Step.SINGLE:
+            # distinctness is decidable only once a group's rows are
+            # together: the optimizer keeps DISTINCT single-step
+            raise NotImplementedError(
+                f"{a.name}(DISTINCT ...) in {step} step")
     resolved = [get_aggregate(a.name,
                               a.input_type if a.input2 is None
                               else (a.input_type, a.input2_type))
@@ -1034,9 +1108,27 @@ def _direct_key_sizes(page: Page, key_channels):
     return tuple(sizes)
 
 
-def _step_inputs(page, aggs, resolved, step, partial_state_channels):
+def _distinct_first_mask(page: Page, key_channels: Sequence[int],
+                         spec: AggSpec) -> torch.Tensor:
+    """One eligible row per distinct (group keys, argument) pair (K8
+    distinct mode): eligible = live, a non-NULL argument and the FILTER,
+    so distinctness is decided over exactly the rows the aggregate sees."""
+    col = page.column(spec.input)
+    eligible = page.row_mask() & col.valid_mask()
+    fmask = _filter_mask(page, spec)
+    if fmask is not None:
+        eligible = eligible & fmask
+    keys = [GroupKey(page.column(ch).values.contiguous(),
+                     page.column(ch).valid)
+            for ch in tuple(key_channels) + (spec.input,)]
+    return distinct_mask(keys, eligible.contiguous())
+
+
+def _step_inputs(page, aggs, resolved, step, partial_state_channels,
+                 key_channels=()):
     """(per-agg states, per-agg dictionary, flat StateInput list)."""
     per_agg, dicts, flat = [], [], []
+    dmasks: dict = {}   # DISTINCT aggregates over one argument share a mask
     for ai, (spec, fn) in enumerate(zip(aggs, resolved)):
         states = fn.state(spec.input_type)
         if step in (Step.FINAL, Step.INTERMEDIATE):
@@ -1046,7 +1138,14 @@ def _step_inputs(page, aggs, resolved, step, partial_state_channels):
         else:
             dicts.append(None if spec.input is None
                          else page.column(spec.input).dictionary)
-            flat.extend(_partial_inputs(page, spec, states))
+            dmask = None
+            if spec.distinct:
+                key = (spec.input, spec.mask_channel)
+                if key not in dmasks:
+                    dmasks[key] = _distinct_first_mask(page, key_channels,
+                                                       spec)
+                dmask = dmasks[key]
+            flat.extend(_partial_inputs(page, spec, states, dmask))
         per_agg.append(states)
     return per_agg, dicts, flat
 
@@ -1106,7 +1205,7 @@ def _direct_aggregate(page: Page, key_channels, aggs, resolved, step,
             else col.values.to(torch.int32)
         keys.append(KeyInput(codes.contiguous(), col.valid, size, stride))
     per_agg, dicts, flat = _step_inputs(page, aggs, resolved, step,
-                                        partial_state_channels)
+                                        partial_state_channels, key_channels)
     slots, arrays, num_groups = direct_reduce(keys, flat, page.num_rows, nseg)
     out_cols: List[Column] = []
     slot64 = slots.to(torch.int64)
@@ -1129,7 +1228,7 @@ def _group_aggregate(page: Page, key_channels, aggs, resolved, step,
     keys = [GroupKey(page.column(ch).values.contiguous(),
                      page.column(ch).valid) for ch in key_channels]
     per_agg, dicts, flat = _step_inputs(page, aggs, resolved, step,
-                                        partial_state_channels)
+                                        partial_state_channels, key_channels)
     key_values, key_valid, arrays, num_groups = group_reduce(
         keys, flat, page.num_rows, page.capacity)
     out_cols: List[Column] = []

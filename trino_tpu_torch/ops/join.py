@@ -1,23 +1,29 @@
-"""INNER equi-join against a unique build side: build, probe, attach.
+"""Equi-joins of every kind: build, unique probe, expanding probe, attach.
 
-Port of the part of `trino_tpu/ops/join.py` that a fact-to-dimension
-join reaches (every TPC-H join whose build key is a primary key). The
-reference sorts the build keys once and probes them with searchsorted or,
-for a dense key span, a direct-address table; the port replaces the sort
-with a hash table and keeps what each function returns. Four device
-kernels serve it, each beside its plain PyTorch twin:
+Port of `trino_tpu/ops/join.py`. The reference sorts the build keys once
+and probes them with searchsorted or, for a dense key span, a direct-
+address table; the port replaces the sort with a hash table and keeps what
+each function returns. Device kernels, each beside its plain PyTorch twin:
 
 * K5 `join_build` (prepare_build, build_key_bounds): per build row its
   64-bit key, the statistics the executor reads once per join (live rows,
   NULL keys, max_run, the unsigned key min/max, the first key's bounds)
   and an open-addressing hash table, `csrc/join_build.cu`; its dense mode
   `join_dense` (build_dense_table) fills the direct-address table of a
-  small key span.
+  small key span; its runs mode `join_runs` (the reference's bperm and
+  run_len) lays every key's build rows out together, in ascending row
+  order, for the expanding probe, with the dense table of that mode.
 * K6 `unique_probe` (unique_inner_probe): one lookup per probe row, the
   found mask, the matching build row and the match count,
   `csrc/join_probe.cu`.
-* range_prefilter runs K1's range mode (`page.compact_range`) and
-  attach_build K7 (`page.gather_rows`).
+* K9 (hash_join, _mark_page, unmatched_build_page), `csrc/join_expand.cu`:
+  `expand_count` counts each probe row's verified matches (or its one
+  null-extended row) and their int64 total, `expand_write` writes the
+  (probe row, build row) pairs at that total, and `probe_verdict` answers
+  SEMI, ANTI and MARK per probe row without expanding.
+* range_prefilter runs K1's range mode (`page.compact_range`), the
+  attaches and the expanded columns K7 (`page.gather_rows`), SEMI/ANTI
+  output and the FULL join's unmatched build rows K1 (`Page.filter`).
 
 Keys are 64-bit words held in int64 tensors (torch has no uint64
 arithmetic): the reference's uint64 mix is computed with a wrapping
@@ -25,11 +31,9 @@ multiply and a masked logical right shift, bit for bit, and unsigned
 comparisons flip the sign bit first.
 
 The twins run only for CPU tensors: they keep the build's keys sorted
-(searchsorted probes) where the kernel keeps a hash table. Both give the
-same statistics and, for each probe row, the same build row.
-
-The expanding probe (`hash_join`: duplicate build keys, LEFT, SEMI, ANTI,
-MARK) raises NotImplementedError naming ROADMAP B4.
+(searchsorted probes) where the kernels keep a hash table. Both give the
+same statistics, the same rows per key, and the same output rows in the
+same order (probe-row order, then each key's build rows in row order).
 """
 
 from __future__ import annotations
@@ -306,13 +310,17 @@ def join_dense(cols, num_rows, stats, size):
 class Prepared:
     """A built join side (the reference's LookupSource tuple): the build
     page, its key channels, K5's statistics (int64[10] on the device), its
-    lookup structure and, on the dense route, the direct-address table."""
+    lookup structure, on the dense route the direct-address table and, for
+    the expanding probe, the runs (runs mode: build rows grouped by key,
+    each slot's start and length). With runs, the dense table maps a key
+    to its slot, not to a row."""
 
     build: Page
     keys: Tuple[int, ...]
     stats: torch.Tensor
     lookup: tuple
     dense: Optional[torch.Tensor] = None
+    runs: Optional[tuple] = None
 
 
 def _page_key_cols(page: Page, channels: Sequence[int]):
@@ -520,9 +528,531 @@ def attach_build(n_probe_cols: int,
     return op
 
 
-def hash_join(*args, **kwargs):
-    """The expanding probe (duplicate build keys, LEFT/SEMI/ANTI/MARK and
-    the capacity-overflow re-run) is the next slice."""
-    raise NotImplementedError(
-        "join with duplicate build keys or a non-INNER kind needs the "
-        "expanding probe hash_join (ROADMAP B4)")
+
+
+# ------------------------------------------------------- K5 runs mode
+
+
+def join_runs_plain(cols, num_rows: torch.Tensor, stats: torch.Tensor,
+                    lookup: tuple, size: int):
+    """Plain twin of K5's runs mode: ((runs int32[cap], starts int32[u],
+    counts int32[u]), dense int32[size] or None). The live non-NULL rows
+    in unsigned key order, each key's rows ascending (one stable sort);
+    slot u is the u-th distinct key, as in the twin's sorted lookup; the
+    dense table maps key kmin + d to its slot, INT32_MAX where absent."""
+    cap = cols[0][0].shape[0]
+    dev = num_rows.device
+    live = torch.arange(cap, device=dev, dtype=torch.int32) < num_rows
+    key, null = _key_cols(cols)
+    ok = live & ~null
+    keys = key[ok]
+    order = torch.sort(keys ^ _I64_MIN, stable=True).indices
+    runs = torch.zeros(cap, dtype=torch.int32, device=dev)
+    runs[:order.numel()] = torch.nonzero(ok).flatten()[order].to(
+        torch.int32)
+    _, skeys, _ = lookup
+    if keys.numel():
+        _, counts = torch.unique_consecutive(keys[order],
+                                             return_counts=True)
+    else:
+        counts = torch.zeros(0, dtype=torch.int64, device=dev)
+    starts = torch.cumsum(counts, 0) - counts
+    dense = None
+    if size:
+        raw = skeys - stats[KMIN]
+        inb = (raw >= 0) & (raw < size)
+        dense = torch.full((size + 1,), _I32_MAX, dtype=torch.int32,
+                           device=dev)
+        dense[torch.where(inb, raw, torch.full_like(raw, size))] = \
+            torch.arange(skeys.numel(), dtype=torch.int32, device=dev)
+        dense = dense[:size]
+    return (runs, starts.to(torch.int32), counts.to(torch.int32)), dense
+
+
+def join_runs_cuda(cols, num_rows: torch.Tensor, stats: torch.Tensor,
+                   lookup: tuple, size: int):
+    """K5 runs-mode launch: see csrc/join_build.cu join_runs. Returns
+    ((runs, slot_start, slot_counts), dense slot table or None)."""
+    cap = cols[0][0].shape[0]
+    dev = num_rows.device
+    _check_key_cols(cols, cap, dev)
+    if lookup[0] != "hash":
+        raise ValueError("K5 runs mode needs the hash table K5 built on "
+                         "the card")
+    _, slot_keys, slot_rows, slot_counts = lookup
+    slots = slot_rows.shape[0]
+    slot_start = torch.empty(slots, dtype=torch.int32, device=dev)
+    cursor = torch.empty(slots, dtype=torch.int32, device=dev)
+    placed = torch.empty(max(cap, 1), dtype=torch.int32, device=dev)
+    runs = torch.empty(max(cap, 1), dtype=torch.int32, device=dev)
+    scratch = torch.empty(-(-slots // 4096), dtype=torch.int64, device=dev)
+    total = torch.empty((), dtype=torch.int32, device=dev)
+    dense = torch.empty(max(size, 1), dtype=torch.int32, device=dev)
+    lib = native.library("join_build")
+    rc = lib.join_runs(
+        host_table(_key_table(cols)), ctypes.c_int64(len(cols)),
+        ctypes.c_int64(cap), ctypes.c_void_p(num_rows.data_ptr()),
+        ctypes.c_void_p(stats.data_ptr()),
+        ctypes.c_void_p(slot_keys.data_ptr()),
+        ctypes.c_void_p(slot_rows.data_ptr()),
+        ctypes.c_void_p(slot_counts.data_ptr()), ctypes.c_int64(slots),
+        ctypes.c_void_p(slot_start.data_ptr()),
+        ctypes.c_void_p(cursor.data_ptr()),
+        ctypes.c_void_p(placed.data_ptr()),
+        ctypes.c_void_p(scratch.data_ptr()),
+        ctypes.c_void_p(total.data_ptr()), ctypes.c_void_p(runs.data_ptr()),
+        ctypes.c_void_p(dense.data_ptr()), ctypes.c_int64(size),
+        ctypes.c_void_p(native.stream_ptr(dev)))
+    native.check(rc, "join_runs")
+    join_runs_cuda.launches += 1
+    return (runs, slot_start, slot_counts), (dense if size else None)
+
+
+join_runs_cuda.launches = 0
+
+
+def join_runs(cols, num_rows, stats, lookup, size):
+    """K5 runs-mode wrapper: plain twin on the CPU, kernel on CUDA."""
+    run = join_runs_cuda if num_rows.is_cuda else join_runs_plain
+    return run(cols, num_rows, stats, lookup, size)
+
+
+def prepare_runs(size: int = 0) -> Callable[[Prepared], Prepared]:
+    """The expanding probe's build side (K5 runs mode) over a Prepared from
+    prepare_build; `size` > 0 adds the dense route's table of slots."""
+
+    def op(prepared: Prepared) -> Prepared:
+        runs, dense = join_runs(
+            _page_key_cols(prepared.build, prepared.keys),
+            prepared.build.num_rows, prepared.stats, prepared.lookup, size)
+        return dataclasses.replace(prepared, runs=runs, dense=dense)
+    return op
+
+
+# ------------------------------------------------------------------ K9
+
+# csrc/join_expand.cu enum Kind
+JOIN_KIND_CODE = {JoinType.INNER: 0, JoinType.LEFT: 1, JoinType.FULL: 2,
+                  JoinType.SEMI: 3, JoinType.ANTI: 4, JoinType.MARK: 5}
+_PRESERVING = (JoinType.LEFT, JoinType.FULL)
+
+
+@dataclasses.dataclass
+class Counted:
+    """Launch A of the expanding probe for one probe page: per probe row
+    its run (start, length) and its output rows `emit`, the int64 `total`
+    on the device and, from the kernel, each tile's first output row."""
+
+    probe: Page
+    prepared: Prepared
+    cand_start: torch.Tensor
+    cand_len: torch.Tensor
+    emit: torch.Tensor
+    total: torch.Tensor
+    offsets: Optional[torch.Tensor] = None
+
+
+def _runs_of(pcols, num_rows: torch.Tensor, prepared: Prepared):
+    """Twin lookup: (start, length) of each probe row's run (0, 0 for a
+    dead row, a NULL key or a key the build lacks)."""
+    cap = pcols[0][0].shape[0]
+    dev = num_rows.device
+    live = torch.arange(cap, device=dev, dtype=torch.int32) < num_rows
+    key, null = _key_cols(pcols)
+    ok = live & ~null
+    _, starts, counts = prepared.runs
+    nu = counts.numel()
+    if prepared.dense is not None:
+        size = prepared.dense.shape[0]
+        raw = key - prepared.stats[KMIN]
+        inb = (raw >= 0) & (raw < size)
+        u = prepared.dense[raw.clamp(0, max(size - 1, 0))].to(torch.int64)
+        found = ok & inb & (u != _I32_MAX)
+    elif nu:
+        skeys = prepared.lookup[1]
+        u = torch.searchsorted(skeys ^ _I64_MIN, key ^ _I64_MIN)
+        found = ok & (u < nu) & (skeys[u.clamp(max=nu - 1)] == key)
+    else:
+        u = torch.zeros(cap, dtype=torch.int64, device=dev)
+        found = torch.zeros(cap, dtype=torch.bool, device=dev)
+    u = torch.where(found, u, torch.zeros_like(u)).clamp(max=max(nu - 1, 0))
+    zero = torch.zeros(cap, dtype=torch.int32, device=dev)
+    if not nu:
+        return zero, zero
+    return (torch.where(found, starts[u], zero),
+            torch.where(found, counts[u], zero))
+
+
+def _candidates(pcols, bcols, runs, start, length):
+    """Twin expansion of the runs: (probe row, build row, verified) per
+    candidate, in probe-row order and run order; `verified` compares every
+    key column (a composite key's mixed word can collide)."""
+    cap = start.shape[0]
+    dev = start.device
+    length = length.to(torch.int64)
+    prow = torch.repeat_interleave(torch.arange(cap, device=dev), length)
+    first = torch.cumsum(length, 0) - length
+    within = torch.arange(prow.numel(), device=dev) - first[prow]
+    brow = runs[(start.to(torch.int64)[prow] + within)].to(torch.int64) \
+        if prow.numel() else prow
+    ok = torch.ones(prow.numel(), dtype=torch.bool, device=dev)
+    if len(pcols) > 1:
+        for (pv, _), (bv, _) in zip(pcols, bcols):
+            ok = ok & (pv[prow] == bv[brow])
+    return prow, brow, ok
+
+
+def expand_count_plain(pcols, bcols, num_rows: torch.Tensor,
+                       prepared: Prepared, kind: str) -> Counted:
+    """Plain twin of K9 launch A."""
+    cap = pcols[0][0].shape[0]
+    dev = num_rows.device
+    start, length = _runs_of(pcols, num_rows, prepared)
+    emit = length
+    if len(pcols) > 1:
+        prow, _, ok = _candidates(pcols, bcols, prepared.runs[0], start,
+                                  length)
+        emit = torch.bincount(prow[ok], minlength=cap).to(torch.int32)
+    if kind in _PRESERVING:
+        live = torch.arange(cap, device=dev, dtype=torch.int32) < num_rows
+        emit = torch.where(live, emit.clamp(min=1), torch.zeros_like(emit))
+    return Counted(None, prepared, start, length, emit,
+                   emit.sum(dtype=torch.int64))
+
+
+def _check_runs(prepared: Prepared, dev) -> None:
+    if prepared.runs is None or prepared.lookup[0] != "hash" \
+            or prepared.stats.device != dev:
+        raise ValueError("K9 needs K5's hash table and runs built on the "
+                         "card (prepare_build, prepare_runs)")
+
+
+def _runs_args(prepared: Prepared) -> list:
+    """The lookup arguments K9's launchers share (csrc/join_expand.cu)."""
+    _, slot_keys, slot_rows, _ = prepared.lookup
+    runs, slot_start, slot_counts = prepared.runs
+    dense = prepared.dense if prepared.dense is not None else slot_rows
+    return [ctypes.c_int64(int(prepared.dense is not None)),
+            ctypes.c_void_p(dense.data_ptr()),
+            ctypes.c_int64(0 if prepared.dense is None
+                           else prepared.dense.shape[0]),
+            ctypes.c_void_p(prepared.stats.data_ptr()),
+            ctypes.c_void_p(slot_keys.data_ptr()),
+            ctypes.c_void_p(slot_rows.data_ptr()),
+            ctypes.c_int64(slot_rows.shape[0]),
+            ctypes.c_void_p(slot_start.data_ptr()),
+            ctypes.c_void_p(slot_counts.data_ptr()),
+            ctypes.c_void_p(runs.data_ptr())]
+
+
+def _check_probe(pcols, bcols, num_rows: torch.Tensor, dev) -> int:
+    cap = pcols[0][0].shape[0]
+    _check_key_cols(pcols, cap, dev)
+    _check_key_cols(bcols, bcols[0][0].shape[0], dev)
+    if num_rows.dtype != torch.int32 or num_rows.dim() != 0 \
+            or num_rows.device != dev:
+        raise ValueError("num_rows must be a 0-d int32 tensor")
+    return cap
+
+
+def expand_count_cuda(pcols, bcols, num_rows: torch.Tensor,
+                      prepared: Prepared, kind: str) -> Counted:
+    """K9 launch A: see csrc/join_expand.cu expand_count."""
+    dev = num_rows.device
+    cap = _check_probe(pcols, bcols, num_rows, dev)
+    _check_runs(prepared, dev)
+    cand_start = torch.empty(cap, dtype=torch.int32, device=dev)
+    cand_len = torch.empty(cap, dtype=torch.int32, device=dev)
+    emit = torch.empty(cap, dtype=torch.int32, device=dev)
+    offsets = torch.empty(max(-(-cap // 4096), 1), dtype=torch.int64,
+                          device=dev)
+    total = torch.empty((), dtype=torch.int64, device=dev)
+    lib = native.library("join_expand")
+    rc = lib.expand_count(
+        host_table(_key_table(pcols), _key_table(bcols)),
+        ctypes.c_int64(len(pcols)), ctypes.c_int64(cap),
+        ctypes.c_void_p(num_rows.data_ptr()),
+        ctypes.c_int64(JOIN_KIND_CODE[kind]), *_runs_args(prepared),
+        ctypes.c_void_p(cand_start.data_ptr()),
+        ctypes.c_void_p(cand_len.data_ptr()),
+        ctypes.c_void_p(emit.data_ptr()), ctypes.c_void_p(offsets.data_ptr()),
+        ctypes.c_void_p(total.data_ptr()),
+        ctypes.c_void_p(native.stream_ptr(dev)))
+    native.check(rc, "expand_count")
+    expand_count_cuda.launches += 1
+    expand_count_cuda.by_kind[kind] = \
+        expand_count_cuda.by_kind.get(kind, 0) + 1
+    return Counted(None, prepared, cand_start, cand_len, emit, total, offsets)
+
+
+expand_count_cuda.launches = 0
+expand_count_cuda.by_kind = {}
+
+
+def expand_count(pcols, bcols, num_rows, prepared, kind) -> Counted:
+    """K9 launch-A wrapper: plain twin on the CPU, kernel on CUDA."""
+    run = expand_count_cuda if num_rows.is_cuda else expand_count_plain
+    return run(pcols, bcols, num_rows, prepared, kind)
+
+
+def expand_write_plain(pcols, bcols, counted: Counted, kind: str,
+                       out_cap: int, build_matched=None):
+    """Plain twin of K9 launch B: (prow int64[out_cap], brow int64[out_cap]
+    with -1 on a null-extended row); FULL sets build_matched (bool per
+    build row) where a verified match hit the row."""
+    dev = counted.emit.device
+    prow, brow, ok = _candidates(pcols, bcols, counted.prepared.runs[0],
+                                 counted.cand_start, counted.cand_len)
+    prow, brow = prow[ok], brow[ok]
+    if kind == JoinType.FULL and build_matched is not None:
+        build_matched[brow] = True
+    if kind in _PRESERVING:
+        cap = counted.emit.shape[0]
+        alone = (counted.emit > 0) & (torch.bincount(
+            prow, minlength=cap) == 0)
+        extra = torch.nonzero(alone).flatten()
+        order = torch.sort(torch.cat([prow, extra]), stable=True).indices
+        prow = torch.cat([prow, extra])[order]
+        brow = torch.cat([brow, torch.full_like(extra, -1)])[order]
+    out_p = torch.zeros(out_cap, dtype=torch.int64, device=dev)
+    out_b = torch.zeros(out_cap, dtype=torch.int64, device=dev)
+    k = min(prow.numel(), out_cap)
+    out_p[:k], out_b[:k] = prow[:k], brow[:k]
+    return out_p, out_b
+
+
+def expand_write_cuda(pcols, bcols, counted: Counted, kind: str,
+                      out_cap: int, build_matched=None):
+    """K9 launch B: see csrc/join_expand.cu expand_write."""
+    dev = counted.emit.device
+    cap = counted.emit.shape[0]
+    _check_key_cols(pcols, cap, dev)
+    bcap = bcols[0][0].shape[0]
+    _check_key_cols(bcols, bcap, dev)
+    if counted.offsets is None:
+        raise ValueError("K9 launch B needs launch A's kernel result")
+    if kind == JoinType.FULL and (
+            build_matched is None or build_matched.dtype != torch.bool
+            or build_matched.shape != (bcap,)
+            or build_matched.device != dev):
+        raise ValueError("a FULL join needs a bool build_matched per build "
+                         "row on the device")
+    prow = torch.empty(max(out_cap, 1), dtype=torch.int64, device=dev)
+    brow = torch.empty(max(out_cap, 1), dtype=torch.int64, device=dev)
+    lib = native.library("join_expand")
+    rc = lib.expand_write(
+        host_table(_key_table(pcols), _key_table(bcols)),
+        ctypes.c_int64(len(pcols)), ctypes.c_int64(cap),
+        ctypes.c_int64(JOIN_KIND_CODE[kind]),
+        ctypes.c_void_p(counted.prepared.runs[0].data_ptr()),
+        ctypes.c_void_p(counted.cand_start.data_ptr()),
+        ctypes.c_void_p(counted.cand_len.data_ptr()),
+        ctypes.c_void_p(counted.emit.data_ptr()),
+        ctypes.c_void_p(counted.offsets.data_ptr()), ctypes.c_int64(out_cap),
+        ctypes.c_void_p(prow.data_ptr()), ctypes.c_void_p(brow.data_ptr()),
+        ctypes.c_void_p(0 if kind != JoinType.FULL
+                        else build_matched.data_ptr()),
+        ctypes.c_void_p(native.stream_ptr(dev)))
+    native.check(rc, "expand_write")
+    expand_write_cuda.launches += 1
+    return prow[:out_cap], brow[:out_cap]
+
+
+expand_write_cuda.launches = 0
+
+
+def expand_write(pcols, bcols, counted, kind, out_cap, build_matched=None):
+    """K9 launch-B wrapper: plain twin on the CPU, kernel on CUDA."""
+    run = expand_write_cuda if counted.emit.is_cuda else expand_write_plain
+    return run(pcols, bcols, counted, kind, out_cap, build_matched)
+
+
+def probe_verdict_plain(pcols, bcols, num_rows: torch.Tensor,
+                        prepared: Prepared, kind: str, null_aware: bool):
+    """Plain twin of K9's SEMI/ANTI/MARK launch: (flag bool[cap], flag2
+    bool[cap] for MARK, else None), the reference's formulas."""
+    cap = pcols[0][0].shape[0]
+    dev = num_rows.device
+    live = torch.arange(cap, device=dev, dtype=torch.int32) < num_rows
+    _, pnull = _key_cols(pcols)
+    start, length = _runs_of(pcols, num_rows, prepared)
+    matched = length > 0
+    if len(pcols) > 1:
+        prow, _, ok = _candidates(pcols, bcols, prepared.runs[0], start,
+                                  length)
+        matched = torch.bincount(prow[ok], minlength=cap) > 0
+    empty = prepared.stats[N_ROWS] == 0
+    build_null = prepared.stats[HAS_NULL] != 0
+    if kind == JoinType.SEMI:
+        return matched, None
+    if kind == JoinType.ANTI:
+        if null_aware:
+            return live & torch.where(pnull, empty,
+                                      ~matched & ~build_null), None
+        return live & ~matched, None
+    return matched, matched | torch.where(pnull, empty, ~build_null)
+
+
+def probe_verdict_cuda(pcols, bcols, num_rows: torch.Tensor,
+                       prepared: Prepared, kind: str, null_aware: bool):
+    """K9 SEMI/ANTI/MARK launch: see csrc/join_expand.cu probe_verdict."""
+    dev = num_rows.device
+    cap = _check_probe(pcols, bcols, num_rows, dev)
+    _check_runs(prepared, dev)
+    flag = torch.empty(cap, dtype=torch.bool, device=dev)
+    flag2 = torch.empty(cap, dtype=torch.bool, device=dev) \
+        if kind == JoinType.MARK else None
+    lib = native.library("join_expand")
+    rc = lib.probe_verdict(
+        host_table(_key_table(pcols), _key_table(bcols)),
+        ctypes.c_int64(len(pcols)), ctypes.c_int64(cap),
+        ctypes.c_void_p(num_rows.data_ptr()),
+        ctypes.c_int64(JOIN_KIND_CODE[kind]),
+        ctypes.c_int64(int(null_aware)), *_runs_args(prepared),
+        ctypes.c_void_p(flag.data_ptr()),
+        ctypes.c_void_p(0 if flag2 is None else flag2.data_ptr()),
+        ctypes.c_void_p(native.stream_ptr(dev)))
+    native.check(rc, "probe_verdict")
+    probe_verdict_cuda.launches += 1
+    probe_verdict_cuda.by_kind[kind] = \
+        probe_verdict_cuda.by_kind.get(kind, 0) + 1
+    return flag, flag2
+
+
+probe_verdict_cuda.launches = 0
+probe_verdict_cuda.by_kind = {}
+
+
+def probe_verdict(pcols, bcols, num_rows, prepared, kind, null_aware):
+    """K9 SEMI/ANTI/MARK wrapper: plain twin on the CPU, kernel on CUDA."""
+    run = probe_verdict_cuda if num_rows.is_cuda else probe_verdict_plain
+    return run(pcols, bcols, num_rows, prepared, kind, null_aware)
+
+
+def _mark_column(flag: torch.Tensor, flag2: Optional[torch.Tensor],
+                 null_aware: bool) -> Column:
+    """The semi-join verdict as a BOOLEAN channel (the reference's
+    _mark_page): IN's three values when null-aware, else EXISTS's two."""
+    return Column(flag, flag2 if null_aware else None, T.BOOLEAN, None)
+
+
+class HashJoin:
+    """The expanding probe (reference: hash_join) of one join shape over a
+    Prepared build side with runs (prepare_build, then prepare_runs).
+
+    Output layout: probe columns (`probe_out`, default all) ++ build
+    columns (`build_out`, default all); SEMI/ANTI emit the probe columns
+    only and MARK adds a BOOLEAN channel. The executor runs `count` (K9
+    launch A) on every page of a batch, reads the totals in one host read,
+    and then `emit` (launch B and the K7 gathers) at a capacity of its
+    choice; `verdict` answers SEMI/ANTI/MARK in one launch. Calling the
+    object does both for one page, as the reference's op does: (page,
+    total), plus the build_matched mask for FULL."""
+
+    def __init__(self, probe_keys, build_keys, join_type, null_aware,
+                 lookup, probe_out, build_out):
+        if lookup not in ("search", "dense"):
+            raise NotImplementedError(
+                f"join lookup {lookup!r}: the matrix-unit probe is ROADMAP "
+                "B11")
+        self.probe_keys = tuple(probe_keys)
+        self.build_keys = tuple(build_keys)
+        self.join_type = join_type
+        self.null_aware = null_aware
+        self.lookup = lookup
+        self.probe_out = probe_out
+        self.build_out = build_out
+
+    def _cols(self, probe: Page, prepared: Prepared):
+        if (self.lookup == "dense") != (prepared.dense is not None):
+            raise ValueError(f"lookup {self.lookup!r} does not match the "
+                             "prepared build")
+        _check_dictionaries(probe, prepared.build, self.probe_keys,
+                            self.build_keys)
+        return (_page_key_cols(probe, self.probe_keys),
+                _page_key_cols(prepared.build, self.build_keys))
+
+    def count(self, probe: Page, prepared: Prepared) -> Counted:
+        pcols, bcols = self._cols(probe, prepared)
+        counted = expand_count(pcols, bcols, probe.num_rows, prepared,
+                               self.join_type)
+        counted.probe = probe
+        return counted
+
+    def emit(self, counted: Counted, out_cap: int,
+             build_matched: Optional[torch.Tensor] = None) -> Page:
+        probe, build = counted.probe, counted.prepared.build
+        pcols, bcols = self._cols(probe, counted.prepared)
+        prow, brow = expand_write(pcols, bcols, counted, self.join_type,
+                                  out_cap, build_matched)
+        p_idx = range(probe.num_columns) if self.probe_out is None \
+            else self.probe_out
+        b_idx = range(build.num_columns) if self.build_out is None \
+            else self.build_out
+        pc = [probe.columns[i] for i in p_idx]
+        bc = [build.columns[i] for i in b_idx]
+        out = _rebuild(pc, gather_rows([a for c in pc for a in _movable(c)],
+                                       prow))
+        moved = _rebuild(bc, gather_rows([a for c in bc for a in _movable(c)],
+                                         brow))
+        if self.join_type in _PRESERVING:
+            ext = brow >= 0
+            moved = tuple(Column(c.values, ext if c.valid is None
+                                 else c.valid & ext, c.type, c.dictionary)
+                          for c in moved)
+        rows = counted.total.clamp(max=out_cap).to(torch.int32)
+        return Page(out + moved, rows)
+
+    def verdict(self, probe: Page, prepared: Prepared) -> Page:
+        pcols, bcols = self._cols(probe, prepared)
+        flag, flag2 = probe_verdict(pcols, bcols, probe.num_rows, prepared,
+                                    self.join_type, self.null_aware)
+        if self.join_type == JoinType.MARK:
+            return Page(probe.columns + (_mark_column(
+                flag, flag2, self.null_aware),), probe.num_rows)
+        return probe.filter(flag)
+
+    def __call__(self, probe: Page, prepared: Prepared,
+                 output_capacity: Optional[int] = None):
+        if self.join_type in (JoinType.SEMI, JoinType.ANTI, JoinType.MARK):
+            out = self.verdict(probe, prepared)
+            return out, out.num_rows.to(torch.int64)
+        counted = self.count(probe, prepared)
+        cap = output_capacity or max(int(counted.total), 1)
+        if self.join_type != JoinType.FULL:
+            return self.emit(counted, cap), counted.total
+        matched = torch.zeros(prepared.build.capacity, dtype=torch.bool,
+                              device=prepared.build.device)
+        return self.emit(counted, cap, matched), counted.total, matched
+
+
+def hash_join(probe_keys: Sequence[int], build_keys: Sequence[int],
+              join_type: str = JoinType.INNER, null_aware: bool = True,
+              lookup: str = "search",
+              probe_out: Optional[Sequence[int]] = None,
+              build_out: Optional[Sequence[int]] = None) -> HashJoin:
+    """The expanding probe for every join kind: INNER (duplicate build
+    keys), LEFT, FULL, SEMI, ANTI and MARK. `null_aware` picks IN's
+    semantics for SEMI/ANTI/MARK (a NULL probe key or a NULL in a non-
+    empty build makes membership UNKNOWN) over EXISTS's (NULL keys never
+    match); see the reference's hash_join for the full statement."""
+    return HashJoin(probe_keys, build_keys, join_type, null_aware, lookup,
+                    probe_out, build_out)
+
+
+def unmatched_build_page(probe_meta: Sequence[Tuple[T.Type, object]]
+                         ) -> Callable[[Page, torch.Tensor], Page]:
+    """FULL-join finisher (the reference's unmatched_build_page): the live
+    build rows no probe row matched (K1 over ~matched), null-extended on
+    the probe side; `probe_meta` is (type, dictionary) per probe column so
+    the NULL columns keep the stream's dictionaries."""
+    probe_meta = tuple(probe_meta)
+
+    def op(build: Page, matched: torch.Tensor) -> Page:
+        kept = build.filter(~matched)
+        cap, dev = kept.capacity, kept.device
+        pcols = tuple(Column(torch.zeros(cap, dtype=t.dtype, device=dev),
+                             torch.zeros(cap, dtype=torch.bool, device=dev),
+                             t, d) for t, d in probe_meta)
+        return Page(pcols + kept.columns, kept.num_rows)
+    return op

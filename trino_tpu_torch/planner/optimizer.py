@@ -1206,9 +1206,11 @@ def _dp_join_tree(sources: List[PlanNode], located,
         return any(((ea & ma) and (eb & mb)) or ((eb & ma) and (ea & mb))
                    for ea, eb, _ in edge_info)
 
-    best: Dict[int, Tuple[float, Optional[Tuple[int, int]]]] = {}
+    # cost of a subtree: (cross joins, summed intermediate rows), compared
+    # in that order
+    best: Dict[int, Tuple[Tuple[int, float], Optional[Tuple[int, int]]]] = {}
     for i in range(n):
-        best[1 << i] = (0.0, None)
+        best[1 << i] = ((0, 0.0), None)
 
     full = (1 << n) - 1
     # iterate masks in popcount order so sub-results exist
@@ -1217,12 +1219,13 @@ def _dp_join_tree(sources: List[PlanNode], located,
         if mask in best:
             continue
         size = mask_rows(mask)
-        # a cross join (disconnected partition) carries a huge penalty so
-        # it survives ONLY when the equality graph is genuinely
-        # disconnected — parents then avoid any split whose subtree needs
-        # one (EliminateCrossJoins' contract)
-        CROSS_PENALTY = 1e12
-        picked: Optional[Tuple[float, Tuple[int, int]]] = None
+        # a cross join (disconnected partition) is counted before any row
+        # estimate, so it survives ONLY when the equality graph is
+        # genuinely disconnected — parents then avoid any split whose
+        # subtree needs one (EliminateCrossJoins' contract). The reference
+        # adds a fixed 1e12 instead, which connected plans' estimates
+        # outgrow at sf10 (q9 then plans a cross join of supplier and part)
+        picked: Optional[Tuple[Tuple[int, float], Tuple[int, int]]] = None
         # enumerate proper submask partitions (canonical: sub contains
         # lowest set bit, so each split is seen once)
         low = mask & (-mask)
@@ -1230,9 +1233,9 @@ def _dp_join_tree(sources: List[PlanNode], located,
         while sub:
             other = mask ^ sub
             if (sub & low) and sub in best and other in best:
-                cost = best[sub][0] + best[other][0] + size
-                if not connects(sub, other):
-                    cost += CROSS_PENALTY
+                (xa, ca), (xb, cb) = best[sub][0], best[other][0]
+                cost = (xa + xb + (0 if connects(sub, other) else 1),
+                        ca + cb + size)
                 if picked is None or cost < picked[0]:
                     picked = (cost, (sub, other))
             sub = (sub - 1) & mask
