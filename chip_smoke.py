@@ -12,18 +12,24 @@ Phases, each printing its lines before the next starts:
      4,194,304-row page; the expanding probe for every join kind on both
      routes, null_aware on and off): integers and masks exact, float64
      sums to 1e-9 relative, GROUP BY results equal as multisets of groups,
-     DISTINCT marks one row per distinct key;
+     DISTINCT marks one row per distinct key; K10's words bit for bit and
+     its permutations exactly on both sides of the one-block threshold
+     and at 4,194,304 rows; K11 (generated Triton kernels) against the
+     plain compiler over a corpus of every scalar function and special
+     form, the string paths, try_cast and the date units;
   3. the 22 TPC-H queries, a FULL join and a MARK query at sf1 and q6, q3,
      q9, q13 at sf10 (spill off: the spilled join is not ported) from SQL
      through LocalQueryRunner.tpch(schema).execute(sql) on cuda, rows held
      equal to the same queries through the port on the CPU; each join's
-     kind, route, build live rows, max_run, probe and output rows;
+     kind, route, build live rows, max_run, probe and output rows; no
+     filter or project step evaluated by the torch-op compiler and no
+     sort by the plain twin on the card;
   4. every kernel, every expanding-probe kind and the dense, search and
      cross routes launched during phase 3; per kernel its launches, its
-     time at the main path's shapes (CUDA events), its bound, its plain
-     twin's time and a one-call PyTorch yardstick; each query's warm wall
-     time, idle share and top device and host costs. `[time]` lines give
-     each phase's seconds.
+     time at the main path's shapes (CUDA events; K10 and K11 also their
+     host time per call), its bound, its plain twin's time and a one-call
+     PyTorch yardstick; each query's warm wall time, idle share and top
+     device and host costs. `[time]` lines give each phase's seconds.
 The last line is {"ok": true, "device": {...}}. Any failure exits
 non-zero before it. Needs one card; imports nothing of JAX.
 """
@@ -968,6 +974,562 @@ def check_distinct(g, dev) -> float:
     return 0.0   # compared exactly
 
 
+# ------------------------------------------------- phase 2: K10 and K11
+
+CORPUS_ROWS = 4096       # the expression corpus page: cap, live rows
+CORPUS_LIVE = 4093
+
+
+def corpus_page(device):
+    """Seeded columns of every type the expression corpus reads, with
+    NULLs, NaN, +-0.0, +-inf, zero and -1 divisors, INT64_MIN, decimal
+    half cases (x.x5), dates before 1970 and month ends, two dictionaries
+    over different pools."""
+    import numpy as np
+    from trino_tpu_torch import types as T
+    from trino_tpu_torch.page import Page, row_count
+    rng = np.random.default_rng(20261017)
+    n = CORPUS_ROWS
+
+    def pick(values, size=n):
+        return np.asarray(values)[rng.integers(0, len(values), size)]
+
+    def some(values, frac):
+        """Random values with `values` planted in a fraction of rows."""
+        out = rng.integers(-10**6, 10**6, n)
+        hit = rng.random(n) < frac
+        out[hit] = pick(values)[hit]
+        return out
+
+    i64 = [-(1 << 63), (1 << 63) - 1, -1, 0, 1, 2, -7]
+    floats = [np.nan, -0.0, 0.0, np.inf, -np.inf, 2.5, -2.5, 0.5, -1.5,
+              1e300, -3.75]
+    x = np.where(rng.random(n) < 0.3, pick(floats),
+                 rng.normal(size=n) * 10.0 ** rng.integers(-3, 4, n))
+    pools = {"s": ["", "BRASS", "COPPER", "MAIL", "PROMO BRUSHED TIN",
+                   "STEEL", "a_b%c", "Rail 5"],
+             "s2": ["AIR", "COPPER", "FOB", "SHIP", "TRUCK"],
+             "num": ["12", " 7 ", "abc", "1.5", "-3", "1998-12-01",
+                     "true", "9223372036854775807", "1e3"]}
+    cols = {
+        "b": (some(i64, 0.3).astype(np.int64), T.BIGINT, 0.85),
+        "b2": (pick([0, -1, 1, 2, 3, -5, 7, 1 << 40]).astype(np.int64),
+               T.BIGINT, 0.9),
+        "i": (some([-(1 << 31), -1, 0, 1, (1 << 31) - 1], 0.2)
+              .astype(np.int32), T.INTEGER, 0.9),
+        "m": (rng.integers(-30, 30, n).astype(np.int32), T.INTEGER, None),
+        "x": (x.astype(np.float64), T.DOUBLE, 0.9),
+        "y": ((rng.random(n) * 20 - 5).astype(np.float64), T.DOUBLE, None),
+        "r": ((rng.normal(size=n) * 100).astype(np.float32), T.REAL, 0.9),
+        "d2": (np.where(rng.random(n) < 0.4, pick([125, -125, 150, -150, 5,
+                                                   -5, 0, 49, -51]),
+                        rng.integers(-10**9, 10**9, n)).astype(np.int64),
+               T.DecimalType(12, 2), 0.9),
+        "d4": (np.where(rng.random(n) < 0.4,
+                        pick([12_345, -12_345, 5_000, -5_000, 50, -50]),
+                        rng.integers(-10**11, 10**11, n)).astype(np.int64),
+               T.DecimalType(15, 4), None),
+        "dt": (np.where(rng.random(n) < 0.3,
+                        pick([-1, 0, 59, 789, 10_956, -25_567, 11_016,
+                              11_047, -719_162 + 366]),
+                        rng.integers(-40_000, 40_000, n)).astype(np.int32),
+               T.DATE, 0.9),
+        "dt2": (rng.integers(-20_000, 30_000, n).astype(np.int32), T.DATE,
+                None),
+        "ts": ((rng.integers(-20_000, 30_000, n) * 86_400_000_000
+                + rng.integers(0, 86_400_000_000, n)).astype(np.int64),
+               T.TIMESTAMP, 0.9),
+        "p": (rng.random(n) < 0.5, T.BOOLEAN, 0.7),
+        "q": (rng.random(n) < 0.5, T.BOOLEAN, None),
+        "sh": (rng.integers(-3, 70, n).astype(np.int64), T.BIGINT, None),
+        "s": (pick(pools["s"]).astype(object), T.VARCHAR, 0.9),
+        "s2": (pick(pools["s2"]).astype(object), T.VARCHAR, None),
+        "num": (pick(pools["num"]).astype(object), T.VARCHAR, 0.95),
+    }
+    names = list(cols)
+    arrays = [cols[k][0] for k in names]
+    typs = [cols[k][1] for k in names]
+    valids = [None if cols[k][2] is None else rng.random(n) < cols[k][2]
+              for k in names]
+    page = Page.from_numpy(arrays, typs, valids=valids, device=device)
+    return Page(page.columns, row_count(CORPUS_LIVE, device)), names
+
+
+def expr_corpus(names):
+    """(case name, step mode, expression) over corpus_page's columns: every
+    scalar function of expr/functions.py, the special forms, the string
+    and dictionary paths, try_cast, the date unit calls and a padded IN
+    list (once hoisted)."""
+    from trino_tpu_torch import types as T
+    from trino_tpu_torch.expr.ir import (Call, InputRef, Literal,
+                                         SpecialForm, SpecialKind)
+    from trino_tpu_torch.page import Page  # noqa: F401 (types of the page)
+    typ = {"b": T.BIGINT, "b2": T.BIGINT, "i": T.INTEGER, "m": T.INTEGER,
+           "x": T.DOUBLE, "y": T.DOUBLE, "r": T.REAL,
+           "d2": T.DecimalType(12, 2), "d4": T.DecimalType(15, 4),
+           "dt": T.DATE, "dt2": T.DATE, "ts": T.TIMESTAMP, "p": T.BOOLEAN,
+           "q": T.BOOLEAN, "sh": T.BIGINT, "s": T.VARCHAR, "s2": T.VARCHAR,
+           "num": T.VARCHAR}
+    B, D, BOOL, V = T.BIGINT, T.DOUBLE, T.BOOLEAN, T.VARCHAR
+    DEC = T.DecimalType
+
+    def c(name):
+        return InputRef(names.index(name), typ[name])
+
+    def lit(v, t):
+        return Literal(v, t)
+
+    def f(name, t, *args):
+        return Call(name, tuple(args), t)
+
+    def sf(kind, t, *args):
+        return SpecialForm(getattr(SpecialKind, kind), tuple(args), t)
+
+    x, y, b, b2, i = c("x"), c("y"), c("b"), c("b2"), c("i")
+    d2, d4, dt, s = c("d2"), c("d4"), c("dt"), c("s")
+    cases = {
+        # arithmetic, Java integer semantics, decimals
+        "add_bigint_int": f("add", B, b, i),
+        "add_decimal_scales": f("add", DEC(16, 4), d2, d4),
+        "subtract_decimal": f("subtract", DEC(13, 2), d2, d2),
+        "subtract_double": f("subtract", D, x, y),
+        "multiply_wrap": f("multiply", B, b, b2),
+        "multiply_decimal_half_up": f("multiply", DEC(18, 4), d2, d4),
+        "divide_zero_and_min": f("divide", B, b, b2),
+        "divide_int_literal_zero": f("divide", T.INTEGER, i,
+                                     lit(0, T.INTEGER)),
+        "divide_decimal": f("divide", DEC(12, 2), d2, d4),
+        "divide_decimal_up": f("divide", DEC(18, 6), d4, d2),
+        "divide_double": f("divide", D, x, y),
+        "modulus_zero": f("modulus", B, b, b2),
+        "modulus_double": f("modulus", D, x, y),
+        "negate_bigint": f("negate", B, b),
+        "negate_double": f("negate", D, x),
+        "bitwise_and": f("bitwise_and", B, b, b2),
+        "bitwise_or": f("bitwise_or", B, b, i),
+        "bitwise_xor": f("bitwise_xor", B, b, b2),
+        "bitwise_not": f("bitwise_not", B, i),
+        "left_shift": f("bitwise_left_shift", B, b, c("sh")),
+        "logical_right_shift": f("bitwise_right_shift", B, b, c("sh")),
+        "arithmetic_right_shift": f("bitwise_right_shift_arithmetic", B, b,
+                                    c("sh")),
+        "bit_count_64": f("bit_count", B, b, lit(64, B)),
+        "bit_count_col": f("bit_count", B, b, c("sh")),
+        "width_bucket": f("width_bucket", B, x, lit(-20.0, D),
+                          lit(20.0, D), lit(8, B)),
+        # comparisons
+        "eq_mixed_ints": f("eq", BOOL, b, i),
+        "ne_doubles": f("ne", BOOL, x, y),
+        "lt_decimals": f("lt", BOOL, d2, lit(125, DEC(12, 2))),
+        "le_dates": f("le", BOOL, dt, c("dt2")),
+        "gt_nan": f("gt", BOOL, x, lit(0.0, D)),
+        "ge_int": f("ge", BOOL, i, lit(-1, T.INTEGER)),
+        # math
+        "abs_bigint": f("abs", B, b),
+        "abs_double": f("abs", D, x),
+        "ceil_decimal": f("ceil", B, d4),
+        "ceil_double": f("ceil", D, x),
+        "floor_decimal": f("floor", B, d2),
+        "floor_double": f("floor", D, x),
+        "round_decimal": f("round", B, d2),
+        "round_double": f("round", D, x),
+        "round_int": f("round", T.INTEGER, i),
+        "round_digits_double": f("round_digits", D, x, lit(2, T.INTEGER)),
+        "round_digits_decimal": f("round_digits", DEC(15, 4), d4,
+                                  lit(1, T.INTEGER)),
+        "round_digits_int": f("round_digits", B, b, lit(-2, T.INTEGER)),
+        "round_digits_col": f("round_digits", D, y, c("m")),
+        "sqrt_double": f("sqrt", D, x),
+        "sqrt_bigint": f("sqrt", D, b2),
+        "power_double": f("power", D, x, y),
+        "power_int": f("power", B, b2, lit(3, B)),
+        "exp": f("exp", D, y),
+        "ln": f("ln", D, x),
+        "log10": f("log10", D, y),
+        "log2": f("log2", D, b2),
+        "log": f("log", D, y, x),
+        "cbrt": f("cbrt", D, x),
+        "radians": f("radians", D, x),
+        "degrees": f("degrees", D, y),
+        "atan2": f("atan2", D, x, y),
+        **{fn: f(fn, D, x) for fn in ("sin", "cos", "tan", "atan", "sinh",
+                                      "cosh", "tanh")},
+        "asin": f("asin", D, f("divide", D, y, lit(15.0, D))),
+        "acos": f("acos", D, f("divide", D, x, lit(8.0, D))),
+        "pi_plus": f("add", D, x, f("pi", D)),
+        "e_times": f("multiply", D, y, f("e", D)),
+        "truncate": f("truncate", D, x),
+        "truncate_digits": f("truncate", D, y, lit(1, T.INTEGER)),
+        "sign_double": f("sign", D, x),
+        "sign_int": f("sign", T.INTEGER, i),
+        "greatest_ints": f("greatest", B, b, i, lit(3, B)),
+        "greatest_nan": f("greatest", D, x, y),
+        "least_ints": f("least", B, b, b2),
+        "least_nan": f("least", D, y, x),
+        "real_times_double": f("multiply", D, f("cast", D, c("r")), y),
+        # dates and timestamps
+        "year": f("year", B, dt),
+        "month": f("month", B, dt),
+        "day": f("day", B, dt),
+        "quarter": f("quarter", B, dt),
+        "day_of_week": f("day_of_week", B, dt),
+        "day_of_year": f("day_of_year", B, dt),
+        "week": f("week", B, dt),
+        "last_day_of_month": f("last_day_of_month", T.DATE, dt),
+        "year_of_timestamp": f("year", B, c("ts")),
+        "day_of_week_timestamp": f("day_of_week", B, c("ts")),
+        "date_add_months": f("date_add_ym", T.DATE, dt,
+                             lit(13, T.INTERVAL_YEAR_MONTH)),
+        "date_add_months_col": f("date_add_ym", T.DATE, dt, c("m")),
+        "date_add_days": f("date_add_dt", T.DATE, dt,
+                           lit(-90 * 86_400_000_000, T.INTERVAL_DAY_TIME)),
+        "date_trunc_week": f("date_trunc", T.DATE, lit("week", V), dt),
+        "date_trunc_month": f("date_trunc", T.DATE, lit("month", V), dt),
+        "date_trunc_quarter": f("date_trunc", T.DATE, lit("quarter", V), dt),
+        "date_trunc_year": f("date_trunc", T.DATE, lit("year", V), dt),
+        "date_trunc_hour": f("date_trunc", T.TIMESTAMP, lit("hour", V),
+                             c("ts")),
+        "date_diff_day": f("date_diff", B, lit("day", V), dt, c("dt2")),
+        "date_diff_week": f("date_diff", B, lit("week", V), dt, c("dt2")),
+        "date_diff_month": f("date_diff", B, lit("month", V), dt, c("dt2")),
+        "date_diff_quarter": f("date_diff", B, lit("quarter", V), dt,
+                               c("dt2")),
+        "date_diff_year": f("date_diff", B, lit("year", V), c("dt2"), dt),
+        "date_add_unit_month": f("date_add", T.DATE, lit("month", V),
+                                 c("m"), dt),
+        "date_add_unit_day": f("date_add", T.DATE, lit("day", V), c("m"),
+                               dt),
+        "date_add_unit_year": f("date_add", T.DATE, lit("year", V), c("m"),
+                                dt),
+        "timestamp_add_minutes": f("date_add", T.TIMESTAMP,
+                                   lit("minute", V), c("m"), c("ts")),
+        # casts
+        "cast_decimal_double": f("cast", D, d2),
+        "cast_double_bigint": f("cast", B, x),
+        "cast_double_integer": f("cast", T.INTEGER, x),
+        "cast_decimal_bigint": f("cast", B, d4),
+        "cast_bigint_double": f("cast", D, b),
+        "cast_int_decimal": f("cast", DEC(12, 2), i),
+        "cast_double_decimal": f("cast", DEC(12, 2), y),
+        "cast_decimal_rescale": f("cast", DEC(12, 2), d4),
+        "cast_date_timestamp": f("cast", T.TIMESTAMP, dt),
+        "cast_timestamp_date": f("cast", T.DATE, c("ts")),
+        "cast_bigint_boolean": f("cast", BOOL, b2),
+        "cast_boolean_integer": f("cast", T.INTEGER, c("p")),
+        "cast_decimal_real": f("cast", T.REAL, d2),
+        "cast_double_real": f("cast", T.REAL, x),
+        "try_cast_double_integer": f("try_cast", T.INTEGER, x),
+        "try_cast_bigint_integer": f("try_cast", T.INTEGER, b),
+        "try_cast_decimal_narrow": f("try_cast", DEC(5, 2), d4),
+        "try_cast_varchar_bigint": f("try_cast", B, c("num")),
+        "try_cast_varchar_double": f("try_cast", D, c("num")),
+        "try_cast_varchar_date": f("try_cast", T.DATE, c("num")),
+        "try_cast_varchar_varchar": f("try_cast", V, s),
+        # special forms
+        "and": sf("AND", BOOL, c("p"), c("q"), f("gt", BOOL, x, y)),
+        "or": sf("OR", BOOL, c("p"), f("lt", BOOL, b, lit(0, B))),
+        "not": sf("NOT", BOOL, c("p")),
+        "is_null": sf("IS_NULL", BOOL, x),
+        "is_null_never": sf("IS_NULL", BOOL, y),
+        "coalesce": sf("COALESCE", B, b, b2, lit(-1, B)),
+        "coalesce_strings": sf("COALESCE", V, s, s),
+        "if": sf("IF", B, c("p"), b, i),
+        "if_null_branch": sf("IF", B, f("eq", BOOL, b, b2), lit(None, B),
+                             b),
+        "if_two_dictionaries": sf("IF", V, c("q"), s, c("s2")),
+        "switch": sf("SWITCH", D, f("lt", BOOL, x, lit(0.0, D)), y,
+                     sf("IS_NULL", BOOL, b), lit(2.5, D), x),
+        "in_list": sf("IN", BOOL, b2, lit(0, B), lit(-1, B), lit(7, B)),
+        "in_strings": sf("IN", BOOL, s, lit("MAIL", V), lit("STEEL", V)),
+        "in_padded": sf("OR", BOOL, f("eq", BOOL, i, lit(1, T.INTEGER)),
+                        f("eq", BOOL, i, lit(-1, T.INTEGER)),
+                        f("eq", BOOL, i, lit(0, T.INTEGER))),
+        "between": sf("BETWEEN", BOOL, x, y, lit(3.0, D)),
+        # strings through the dictionary
+        "string_eq": f("eq", BOOL, s, lit("COPPER", V)),
+        "string_ne_absent": f("ne", BOOL, s, lit("ABSENT", V)),
+        "string_lt_flipped": f("gt", BOOL, lit("PROMO", V), s),
+        "string_le": f("le", BOOL, s, lit("MAIL", V)),
+        "string_ge": f("ge", BOOL, s, lit("D", V)),
+        "string_column_compare": f("lt", BOOL, s, s),
+        "like": f("like", BOOL, s, lit("%R%", V)),
+        "like_escape": f("like", BOOL, s, lit("a!_b%", V), lit("!", V)),
+        "lower_substr": f("lower", V, f("substr", V, s, lit(2, B),
+                                        lit(3, B))),
+        "upper_trim": f("upper", V, f("trim", V, s)),
+        "concat": f("concat", V, s, lit("-x", V)),
+        "replace": f("replace", V, s, lit("O", V), lit("0", V)),
+        "reverse_lpad": f("lpad", V, f("reverse", V, s), lit(8, B),
+                          lit("*", V)),
+        "rpad": f("rpad", V, s, lit(4, B), lit(".", V)),
+        "split_part": f("split_part", V, s, lit(" ", V), lit(2, B)),
+        "regexp_extract": f("regexp_extract", V, s, lit("[A-Z]+", V)),
+        "regexp_replace": f("regexp_replace", V, s, lit("[AEIOU]", V),
+                            lit("_", V)),
+        "concat_ws": f("concat_ws", V, lit("-", V), s, lit("z", V)),
+        "concat_ws_null_separator": f("concat_ws", V, lit(None, V), s),
+        "length": f("length", B, s),
+        "strpos": f("strpos", B, s, lit("R", V)),
+        "codepoint": f("codepoint", B, c("s2")),
+        "regexp_like": f("regexp_like", BOOL, s, lit("^[PS]", V)),
+        "starts_with": f("starts_with", BOOL, s, lit("B", V)),
+        "format_datetime": f("format_datetime", V, dt, lit("yyyy-MM", V)),
+        "date_format_timestamp": f("date_format", V, c("ts"),
+                                   lit("%Y/%m/%d", V)),
+    }
+    out = [(k, "project", e) for k, e in cases.items()]
+    out += [
+        ("filter_q6_shape", "filter", sf("AND", BOOL,
+         f("ge", BOOL, dt, lit(8766, T.DATE)),
+         f("lt", BOOL, dt, f("date_add_ym", T.DATE, lit(8766, T.DATE),
+                             lit(12, T.INTERVAL_YEAR_MONTH))),
+         sf("BETWEEN", BOOL, d2, lit(5, DEC(12, 2)), lit(7, DEC(12, 2))),
+         f("lt", BOOL, d4, lit(240_000, DEC(15, 4))))),
+        ("filter_kleene", "filter", sf("OR", BOOL, sf("NOT", BOOL, c("p")),
+                                       f("gt", BOOL, b, lit(0, B)))),
+        ("filter_like_in", "filter", sf("AND", BOOL,
+         f("like", BOOL, s, lit("%O%", V)),
+         sf("IN", BOOL, c("s2"), lit("AIR", V), lit("FOB", V)))),
+        ("filter_boolean_column", "filter", c("p")),
+        ("filter_invariant", "filter", f("lt", BOOL, lit(1, B), lit(2, B))),
+    ]
+    return out
+
+
+def sort_page(cap: int, n: int, seed: int, device):
+    """A seeded page of every sort-key type: DOUBLE with NULLs, NaN,
+    +-0.0 and +-inf, BIGINT with INT64_MIN and duplicates, INTEGER with
+    INT_MIN, DATE, BOOLEAN with NULLs, DECIMAL, dictionary codes, REAL."""
+    import numpy as np
+    from trino_tpu_torch import types as T
+    from trino_tpu_torch.page import Dictionary, Page, row_count
+    rng = np.random.default_rng(seed)
+
+    def pick(values):
+        return np.asarray(values)[rng.integers(0, len(values), cap)]
+    cols = [
+        (pick([-1.5, -0.0, 0.0, 2.25, np.nan, np.inf, -np.inf, 7.0]),
+         T.DOUBLE, rng.random(cap) < 0.85),
+        (np.where(rng.random(cap) < 0.1, -(1 << 63),
+                  rng.integers(-50, 50, cap)).astype(np.int64), T.BIGINT,
+         rng.random(cap) < 0.9),
+        (pick([-(1 << 31), -2, 0, 5, (1 << 31) - 1]).astype(np.int32),
+         T.INTEGER, None),
+        (rng.integers(-800, 800, cap).astype(np.int32), T.DATE,
+         rng.random(cap) < 0.95),
+        (rng.random(cap) < 0.5, T.BOOLEAN, rng.random(cap) < 0.7),
+        (rng.integers(-3, 4, cap).astype(np.int64) * 125,
+         T.DecimalType(12, 2), None),
+        (rng.integers(0, 4, cap).astype(np.int32), T.VARCHAR,
+         rng.random(cap) < 0.9),
+        (pick([-1.0, -0.0, 0.0, 3.5, np.nan]).astype(np.float32), T.REAL,
+         None),
+    ]
+    pool = Dictionary(np.asarray(["AIR", "MAIL", "RAIL", "SHIP"],
+                                 dtype=object))
+    page = Page.from_numpy([c[0] for c in cols], [c[1] for c in cols],
+                           valids=[c[2] for c in cols],
+                           dictionaries=[pool if c[1] == T.VARCHAR else None
+                                         for c in cols], device=device)
+    return Page(page.columns, row_count(n, device))
+
+
+SORT_KEYSETS = [  # (channel, ascending, nulls_first) per key
+    [(0, True, None)],
+    [(1, False, None)],
+    [(2, False, None), (0, True, True)],
+    [(6, True, None), (4, False, False), (0, False, None), (3, True, True)],
+    [(1, True, False), (0, False, True), (5, False, None), (2, True, None)],
+    [(7, False, None), (4, True, None)],
+]
+
+
+def check_sort(dev) -> float:
+    """K10 against its twin: the packed words bit for bit and the
+    permutation of the live prefix exactly, on both sides of the one-block
+    threshold and at a 4,194,304-row page."""
+    from trino_tpu_torch.ops import sort as S
+    sizes = [(1, 1), (100, 0), (300, 257), (4096, 4093),
+             (S.ONE_BLOCK_ROWS, S.ONE_BLOCK_ROWS),
+             (S.ONE_BLOCK_ROWS + 1, S.ONE_BLOCK_ROWS + 1),
+             (131_072, 100_003), (4_194_304, 4_194_304)]
+    for (cap, n), seed in zip(sizes, range(len(sizes))):
+        page = sort_page(cap, n, 500 + seed, dev)
+        for ks in SORT_KEYSETS:
+            keys = [S.SortKey(c, a, nf) for c, a, nf in ks]
+            got_w = S.encode_sort_keys_cuda(page, keys)
+            want_w = S.encode_sort_keys(page, keys)
+            for a, b in zip(got_w, want_w):
+                if not torch.equal(a[:n], b[:n]):
+                    fail(f"K10 words differ at cap={cap} n={n} keys={ks}")
+            got = S.sort_rows_cuda(page, keys)
+            sync()
+            want = S.sort_rows_plain(page, keys)
+            if not torch.equal(got[:n].to(torch.int64), want[:n]):
+                fail(f"K10 permutation differs at cap={cap} n={n} "
+                     f"keys={ks}")
+            if not torch.equal(got[n:].to(torch.int64),
+                               torch.arange(n, cap, device=dev)):
+                fail(f"K10 moved a dead row at cap={cap} n={n}")
+    return 0.0   # compared exactly
+
+
+def column_err(label, got, want, n) -> float:
+    """Fail unless two Columns agree on the first n rows: validity
+    exactly, values where valid (integers and codes exactly, floats to
+    1e-9 relative, NaN equal to NaN, the sign of zero kept), equal
+    dictionaries; returns the largest float difference."""
+    def full(t):
+        return None if t is None else (t.expand(n) if t.dim() == 0
+                                       else t[:n])
+    gv, wv = full(got.valid), full(want.valid)
+    ones = torch.ones(n, dtype=torch.bool, device=got.values.device)
+    gm = ones if gv is None else gv
+    wm = ones if wv is None else wv
+    if not torch.equal(gm, wm):
+        fail(f"{label}: validity differs")
+    if (got.dictionary is None) != (want.dictionary is None) or (
+            got.dictionary is not None and got.dictionary != want.dictionary):
+        fail(f"{label}: dictionary differs")
+    g, w = full(got.values)[wm], full(want.values)[wm]
+    if g.dtype != w.dtype:
+        fail(f"{label}: dtype {g.dtype} != {w.dtype}")
+    if not g.dtype.is_floating_point:
+        if not torch.equal(g, w):
+            fail(f"{label}: values differ")
+        return 0.0
+    g64, w64 = g.double(), w.double()
+    nan = torch.isnan(g64) & torch.isnan(w64)
+    close = (g64 == w64) | ((g64 - w64).abs()
+                           <= 1e-9 * torch.maximum(g64.abs(), w64.abs()))
+    sign = (w64 != 0) | (torch.signbit(g64) == torch.signbit(w64))
+    if not bool((nan | (close & sign)).all()):
+        fail(f"{label}: values differ beyond 1e-9 relative")
+    return max_abs_err(g64, w64)
+
+
+def check_expr(dev) -> float:
+    """K11 against the plain compiler on the card over the corpus: the
+    project cases 16 to a step (one kernel each), every filter case in its
+    own step, literals hoisted as the main path hoists them."""
+    from trino_tpu_torch.expr import kernel_gen as KG
+    from trino_tpu_torch.expr.hoist import hoist_literal_seq
+    page, names = corpus_page(dev)
+    n = int(page.num_rows)
+    cases = expr_corpus(names)
+    project = [(k, e) for k, m, e in cases if m == "project"]
+    err = 0.0
+    for start in range(0, len(project), 16):
+        chunk = project[start:start + 16]
+        exprs, params = hoist_literal_seq(tuple(e for _, e in chunk))
+        step = KG.project_step(exprs)
+        got = KG.expr_step_cuda(step, page, params)
+        sync()
+        want = step.plain(page, params)
+        for (name, _), g_, w_ in zip(chunk, got, want):
+            err = max(err, column_err(f"K11 {name}", g_, w_, n))
+    for name, mode, e in cases:
+        if mode != "filter":
+            continue
+        (canon,), params = hoist_literal_seq((e,))
+        step = KG.filter_step(canon)
+        got = KG.expr_step_cuda(step, page, params)
+        sync()
+        want = step.plain(page, params)
+        if not torch.equal(got[:n], want[:n]):
+            fail(f"K11 filter {name}: masks differ")
+        launched = step.compiled(page, params).prog.outputs[0].kind
+        if launched == "kernel" and bool(got[n:].any()):
+            fail(f"K11 filter {name}: a dead row passed")
+    return err
+
+
+def kernel_rows_sort_expr(cap: Capture, originals, launches, dev, card):
+    """K10 and K11 at the main path's largest calls, against their twins."""
+    from trino_tpu_torch.expr import kernel_gen as KG
+    from trino_tpu_torch.ops import sort as S
+    out = []
+
+    def host_ms(fn, iters=50):
+        """Host milliseconds per call (enqueue only, no sync)."""
+        fn()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        t1 = time.perf_counter()
+        sync()
+        return (t1 - t0) / iters * 1e3
+
+    # K10 at the largest ORDER BY / TopN sort of the sf1 queries
+    page, keys = cap.calls[("sort_rows_cuda", "sf1")][1]
+    n = int(page.num_rows)
+    got = originals["sort_rows"](page, keys)
+    want = S.sort_rows_plain(page, keys)
+    if not torch.equal(got[:n].to(torch.int64), want[:n]):
+        fail("K10 differs from its twin at the main path's inputs")
+    words = S.encode_sort_keys(page, keys)
+    word = words[-1][:n].contiguous()
+    key_b = sum(page.column(k.channel).values.element_size()
+                + (page.column(k.channel).valid is not None) for k in keys)
+    fn10 = lambda: originals["sort_rows"](page, keys)   # noqa: E731
+    out.append(dict(
+        name="sort_rows (K10, order_by/top_n_masked)", route="cuda",
+        source="trino_tpu_torch/csrc/sort.cu",
+        replaces="trino_tpu/ops/sort.py:71", launches=launches["sort_rows"],
+        max_abs_err=0.0, ms=cuda_ms(fn10), device_ms=device_profile(fn10)[0],
+        host_ms=host_ms(fn10),
+        plain_ms=cuda_ms(lambda: S.sort_rows_plain(page, keys)),
+        # the key columns of the live rows read once, the int32
+        # permutation written once
+        bound_ms=n * (key_b + 4) / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=cuda_ms(lambda: torch.sort(word, stable=True)),
+        shape=f"sf1 sort: cap {page.capacity}, {n} live rows, {len(keys)} "
+              f"keys, {len(words)} words, "
+              f"{len(S.sort_passes(S.sort_layout(page, keys)))} digit "
+              f"passes, {'one block' if page.capacity <= S.ONE_BLOCK_ROWS else 'multi-block'}; "
+              f"library = torch.sort(stable=True) of one packed word"))
+
+    # K11 at q6 sf1's largest step (its scan page's predicate)
+    step, page, params = cap.calls[("expr_step_cuda", ("sf1", "q6"))][1]
+    n = int(page.num_rows)
+    got = originals["expr_step"](step, page, params)
+    want = step.plain(page, params)
+    if step.mode == "filter":
+        if not torch.equal(got[:n], want[:n]):
+            fail("K11 differs from the plain compiler at the main path's "
+                 "inputs")
+        err, out_b = 0.0, n
+    else:
+        err = max(column_err("K11 main path", g_, w_, n)
+                  for g_, w_ in zip(got, want))
+        out_b = sum(n * (c.values.element_size() + (c.valid is not None))
+                    for c in got)
+    comp = step.compiled(page, params)
+    in_b = sum(n * (page.columns[i].values.element_size()
+                    + (page.columns[i].valid is not None))
+               for i in comp.prog.inputs)
+    fn11 = lambda: originals["expr_step"](step, page, params)  # noqa: E731
+    out.append(dict(
+        name="expr_step (K11, compile_filter/compile_expression)",
+        route="triton", source="trino_tpu_torch/expr/kernel_gen.py",
+        replaces="trino_tpu/expr/compiler.py:945",
+        launches=launches["expr_step"], max_abs_err=err, ms=cuda_ms(fn11),
+        device_ms=device_profile(fn11)[0], host_ms=host_ms(fn11),
+        plain_ms=cuda_ms(lambda: step.plain(page, params)),
+        # the referenced live columns read once, the outputs written once
+        bound_ms=(in_b + out_b) / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=None,
+        shape=f"q6 sf1 {step.mode} step: cap {page.capacity}, {n} live, "
+              f"{len(comp.prog.inputs)} input columns, "
+              f"{len(comp.prog.instrs)} primitive ops; library = none (no "
+              f"single PyTorch call computes a tree)"))
+    for r in out:
+        say(f"[kernel] {r['name']}: host {r['host_ms']:.4f} ms per call "
+            f"(enqueue), {r['ms']:.4f} ms per call (CUDA events) — {card}")
+    return out
+
+
 # ------------------------------------------------------------- phase 3/4
 
 
@@ -1120,6 +1682,18 @@ def main() -> None:
         f"null_aware on and off) and K8 distinct mode match their plain "
         f"twins on the card (all exact; one marked row per distinct key): "
         f"{errs}")
+    t0 = time.perf_counter()
+    errs = {"sort_encode + sort_radix": check_sort(dev)}
+    say(f"[kernels] K10 matches its plain twin on the card (words bit for "
+        f"bit, permutations exactly, one-block and multi-block paths, "
+        f"4,194,304 rows): {errs} in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    errs = {"expr_step": check_expr(dev)}
+    say(f"[kernels] K11 matches the plain compiler on the card over "
+        f"{len(expr_corpus(corpus_page('cpu')[1]))} corpus expressions "
+        f"(integers, codes and masks exact, doubles <= 1e-9 rel, NaN and "
+        f"-0.0 kept; compiles included): {errs} in "
+        f"{time.perf_counter() - t0:.1f} s")
     say(f"[time] phase 2 (kernels vs twins): "
         f"{time.perf_counter() - t_phase:.1f} s")
 
@@ -1127,7 +1701,10 @@ def main() -> None:
     t_phase = time.perf_counter()
     from trino_tpu_torch import page as P
     from trino_tpu_torch.exec import LocalQueryRunner
+    from trino_tpu_torch.expr import compiler as EC
+    from trino_tpu_torch.expr import kernel_gen as KG
     from trino_tpu_torch.ops import join as J
+    from trino_tpu_torch.ops import sort as S
     cap = Capture()
     cap.wrap(P, "compact_rows_cuda", lambda arrays, mask, n: mask.numel())
     cap.wrap(P, "concat_rows_cuda", lambda arrays, counts, c: c)
@@ -1146,6 +1723,17 @@ def main() -> None:
     cap.wrap(J, "expand_write_cuda", lambda pc, bc, c, kind, oc, *_: oc)
     cap.wrap(J, "probe_verdict_cuda", lambda pc, *_: pc[0][0].numel())
     cap.wrap(A, "distinct_mask_cuda", lambda keys, el: el.numel())
+    cap.wrap(S, "sort_rows_cuda", lambda page, keys: page.capacity)
+    cap.wrap(KG, "expr_step_cuda",
+             lambda step, page, params=(): page.capacity)
+    plain_sorts = []     # the sort's plain twin must not run on the card
+    real_plain_sort = S.sort_rows_plain
+
+    def counted_plain_sort(page, keys):
+        if page.device.type == "cuda" and cap.label is not None:
+            plain_sorts.append(cap.label)
+        return real_plain_sort(page, keys)
+    S.sort_rows_plain = counted_plain_sort
     kernels = {"compact_rows": (P, "compact_rows_cuda"),
                "compact_range": (P, "compact_range_cuda"),
                "concat_rows": (P, "concat_rows_cuda"),
@@ -1160,7 +1748,9 @@ def main() -> None:
                "probe_verdict": (J, "probe_verdict_cuda"),
                "gather_rows": (P, "gather_rows_cuda"),
                "group_aggregate": (A, "group_reduce_cuda"),
-               "distinct_mask": (A, "distinct_mask_cuda")}
+               "distinct_mask": (A, "distinct_mask_cuda"),
+               "sort_rows": (S, "sort_rows_cuda"),
+               "expr_step": (KG, "expr_step_cuda")}
     runs = [("sf1", q, TPCH[q][0]) for q in TPCH]
     runs += [("sf1", "full", FULL_SQL), ("sf1", "mark", MARK_SQL)]
     runs += [("sf10", q, TPCH[q][0]) for q in ("q6", "q3", "q9", "q13")]
@@ -1176,6 +1766,7 @@ def main() -> None:
         getattr(mod, attr).launches = 0
         if hasattr(getattr(mod, attr), "by_kind"):
             getattr(mod, attr).by_kind = {}
+    EC.cuda_evaluations = 0     # steps of the torch-op compiler on the card
     results = {}
     routes = set()
     kinds = set()
@@ -1199,6 +1790,16 @@ def main() -> None:
                 f"{j['max_run']}, probe {j['probe_rows']} rows, output "
                 f"{j['output_rows']} rows")
     cap.label = None
+    S.sort_rows_plain = real_plain_sort
+    if EC.cuda_evaluations:
+        fail(f"{EC.cuda_evaluations} filter/project steps on the card ran "
+             f"through the torch-op compiler, not K11")
+    if plain_sorts:
+        fail(f"sorts on the card ran the plain twin, not K10: "
+             f"{plain_sorts[:5]}")
+    say("[k11] every filter and project step on the card ran K11 (the "
+        "torch-op compiler evaluated 0 steps); every ORDER BY and TopN "
+        "sort ran K10")
     launches = {k: getattr(mod, attr).launches
                 for k, (mod, attr) in kernels.items()}
     by_kind = {k: dict(getattr(mod, attr).by_kind)
@@ -1242,6 +1843,7 @@ def main() -> None:
     rows = kernel_rows(cap, originals, launches, dev)
     rows += kernel_rows_q3(cap, originals, launches, dev)
     rows += kernel_rows_expand(cap, originals, launches, dev)
+    rows += kernel_rows_sort_expr(cap, originals, launches, dev, card)
     for r in rows:
         dev_ms = "not measured" if r["device_ms"] is None \
             else f"{r['device_ms']:.4f} ms"

@@ -90,3 +90,83 @@ int64_t tile_offsets(const Keep& keep, int64_t cap, int64_t* scratch,
   tile_scan_kernel<<<1, 1024, 0, s>>>(scratch, nblocks, total_out);
   return nblocks;
 }
+
+// ------------------------------------------------------------ binned tiles
+//
+// The same count -> scan -> stable scatter with NBINS bins in place of one
+// keep flag: K10's radix passes (csrc/sort.cu). `Bin` is a by-value functor
+// with `int operator()(int64_t i) const` in [0, NBINS). Counts are laid out
+// bin-major (counts[b * ntiles + tile]), so tile_scan_kernel over the whole
+// array gives each (bin, tile) its first output row, and a stable scatter
+// keeps the input order within a bin.
+constexpr int NBINS = 256;
+
+// counts[b * ntiles + blockIdx.x] = rows of this block's tile in bin b;
+// rows past n count nowhere.
+template <class Bin>
+__global__ void tile_bin_count_kernel(const Bin bin, const int32_t* n_ptr,
+                                      int64_t cap, int64_t ntiles,
+                                      int64_t* __restrict__ counts) {
+  __shared__ int hist[NBINS];
+  for (int b = threadIdx.x; b < NBINS; b += blockDim.x) hist[b] = 0;
+  __syncthreads();
+  int64_t n = *n_ptr;
+  n = n < 0 ? 0 : (n > cap ? cap : n);
+  const int64_t base = (int64_t)blockIdx.x * TILE;
+  for (int r = threadIdx.x; r < TILE; r += blockDim.x) {
+    const int64_t i = base + r;
+    if (i < n) atomicAdd(&hist[bin(i)], 1);
+  }
+  __syncthreads();
+  for (int b = threadIdx.x; b < NBINS; b += blockDim.x)
+    counts[(int64_t)b * ntiles + blockIdx.x] = hist[b];
+}
+
+// Inside a block (every thread calling it): body(i, pos) for each row i of
+// [lo, hi), pos = base[bin(i)] + the rows of that bin before i in [lo, hi),
+// so rows of one bin keep their order. `base` (shared, NBINS entries) holds
+// each bin's first output row on entry and is advanced past [lo, hi). Rows
+// go in rounds of blockDim.x (a multiple of 32, at most 1024): a warp ranks
+// its equal bins with __match_any_sync, and per bin an exclusive scan over
+// the warps (in warp order) places each warp's run.
+template <class Bin, class Body>
+__device__ __forceinline__ void block_bin_scatter(const Bin& bin, int64_t lo,
+                                                  int64_t hi,
+                                                  long long* base,
+                                                  Body body) {
+  __shared__ int wcount[32 * NBINS];  // [warp][bin] this round
+  __shared__ int round_total[NBINS];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  for (int64_t start = lo; start < hi; start += blockDim.x) {
+    for (int j = threadIdx.x; j < nwarps * NBINS; j += blockDim.x)
+      wcount[j] = 0;
+    __syncthreads();
+    const int64_t i = start + threadIdx.x;
+    const bool in = i < hi;
+    const int b = in ? bin(i) : 0;
+    const unsigned active = __ballot_sync(0xffffffffu, in);
+    int rank = 0;
+    if (in) {
+      const unsigned peers = __match_any_sync(active, b);
+      rank = __popc(peers & ((1u << lane) - 1u));
+      if (rank == 0) wcount[warp * NBINS + b] = __popc(peers);
+    }
+    __syncthreads();
+    for (int d = threadIdx.x; d < NBINS; d += blockDim.x) {
+      int run = 0;
+      for (int w = 0; w < nwarps; ++w) {
+        const int c = wcount[w * NBINS + d];
+        wcount[w * NBINS + d] = run;
+        run += c;
+      }
+      round_total[d] = run;
+    }
+    __syncthreads();
+    if (in) body(i, (int64_t)(base[b] + wcount[warp * NBINS + b] + rank));
+    __syncthreads();
+    for (int d = threadIdx.x; d < NBINS; d += blockDim.x)
+      base[d] += round_total[d];
+    __syncthreads();
+  }
+}

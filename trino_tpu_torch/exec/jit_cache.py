@@ -8,6 +8,11 @@ the same literal-free canonical tree (expr/hoist.py): hoisted literal
 values ride in per call as `params`, so every literal variant of a query
 shape reuses one entry. A hit whose parameter values changed since the
 last call of that key counts as a *param hit*.
+
+K11's generated kernels (expr/kernel_gen.py) live here too, one entry per
+key ("k11", step mode, the canonical trees, each input column's index,
+dtype, validity and dictionary presence, the output dtypes): the same key
+always gives the same kernel text, and no literal value is part of it.
 """
 
 from __future__ import annotations

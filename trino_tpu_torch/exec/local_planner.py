@@ -44,7 +44,7 @@ import torch
 from trino_tpu_torch import types as T
 from trino_tpu_torch.errors import GENERIC_INTERNAL_ERROR, TrinoError
 from trino_tpu_torch.exec.jit_cache import cached_kernel
-from trino_tpu_torch.expr.compiler import compile_expression, compile_filter
+from trino_tpu_torch.expr.kernel_gen import filter_step, project_step
 from trino_tpu_torch.expr.ir import (Call, InputRef, Literal, RowExpression,
                                      SpecialForm, SpecialKind, SymbolRef)
 from trino_tpu_torch.metadata import Metadata, Session
@@ -288,7 +288,7 @@ class LocalExecutionPlanner:
         return PageStream(
             src.pages, src.symbols,
             src.pending + ((("filter", pred),
-                            lambda: lambda p, g, f=compile_filter(pred):
+                            lambda: lambda p, g, f=filter_step(pred):
                             p.filter(f(p, g)), prm),))
 
     def _exec_ProjectNode(self, node: ProjectNode) -> PageStream:
@@ -298,9 +298,8 @@ class LocalExecutionPlanner:
             tuple(lower_expr(e, lay, typ) for _, e in node.assignments))
 
         def builder():
-            fns = [compile_expression(e) for e in exprs]
-            return lambda page, g: Page(tuple(fn(page, g) for fn in fns),
-                                        page.num_rows)
+            step = project_step(exprs)
+            return lambda page, g: Page(step(page, g), page.num_rows)
         return PageStream(src.pages, tuple(s for s, _ in node.assignments),
                           src.pending + ((("project", exprs), builder,
                                           prm),))
@@ -535,7 +534,7 @@ class LocalExecutionPlanner:
 
             def build_attach():
                 at = attach_build(n_probe_cols, build_out=build_keep)
-                fn = None if post_pred is None else compile_filter(post_pred)
+                fn = None if post_pred is None else filter_step(post_pred)
 
                 def run(pre, prepared, g):
                     out = at(pre, prepared)
@@ -559,7 +558,7 @@ class LocalExecutionPlanner:
             if post_pred is None:
                 return op, None
             post = cached_kernel(("join-post", post_pred),
-                                 lambda: compile_filter(post_pred),
+                                 lambda: filter_step(post_pred),
                                  params=post_params)
             return op, lambda out: out.filter(post(out, post_params))
 
@@ -815,7 +814,7 @@ class LocalExecutionPlanner:
             post = None
             if rest_lowered is not None:
                 post = cached_kernel(("semijoin-rest", rest_lowered),
-                                     lambda: compile_filter(rest_lowered),
+                                     lambda: filter_step(rest_lowered),
                                      params=rest_params)
             log = self._join_log(jt, route, n_live, max_run)
 

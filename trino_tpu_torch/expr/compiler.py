@@ -2,8 +2,13 @@
 
 Port of `trino_tpu/expr/compiler.py` (reference parity:
 sql/gen/ExpressionCompiler.java:56 + PageFunctionCompiler.java:101). Each
-tree evaluates as torch tensor ops over the page's columns; one generated
-kernel per lowered tree is ROADMAP B2.
+tree evaluates node by node as torch tensor ops over the page's columns:
+the plain form, which CPU pages run. CUDA pages run K11 instead, one
+generated Triton kernel per filter or project step (expr/kernel_gen.py),
+and the host-side work below is shared with it: each dictionary fold,
+lookup table, page-invariant subtree and padded IN vector is computed by
+one function that returns the operand (a scalar, or a device table plus
+the output dictionary), and both forms call it.
 
 Null semantics are SQL three-valued logic, carried as (values, valid) pairs:
 - default functions: result null iff any input null (RETURNS NULL ON NULL)
@@ -20,7 +25,7 @@ so string predicates cost one int32 compare/gather per row on device.
 from __future__ import annotations
 
 import re
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -178,14 +183,19 @@ def _to_page_device(t: Optional[torch.Tensor], device):
     return t.to(device)
 
 
+def invariant_value(expr: RowExpression, params=()) -> Column:
+    """A page-invariant subtree evaluated once on the host: 0-d values
+    (and validity, and a dictionary for strings) on the CPU. Scalar math
+    runs there because on the card each tiny op would cost a launch."""
+    return _eval_node(expr, _HOST_PAGE, params)
+
+
 def _eval(expr: RowExpression, page: Page, params=()) -> Column:
     if isinstance(params, _Operands) and id(expr) in params.invariant:
         key = (id(expr), page.device)
         hit = params.memo.get(key)
         if hit is None:
-            # scalar math runs on the host: on the card each tiny op would
-            # cost a kernel launch
-            col = _eval_node(expr, _HOST_PAGE, params)
+            col = invariant_value(expr, params)
             hit = params.memo[key] = Column(
                 _to_page_device(col.values, page.device),
                 _to_page_device(col.valid, page.device), col.type,
@@ -212,6 +222,16 @@ def _eval_node(expr: RowExpression, page: Page, params=()) -> Column:
     raise TypeError(f"unknown expression node: {expr!r}")
 
 
+STRING_TRANSFORMS = frozenset((
+    "lower", "upper", "trim", "ltrim", "rtrim", "substr", "substring",
+    "concat", "replace", "reverse", "lpad", "rpad", "split_part",
+    "regexp_replace", "regexp_extract", "concat_ws"))
+DATE_UNIT_CALLS = frozenset(("date_trunc", "date_diff", "date_add"))
+LIST_CALLS = frozenset(("array_ctor", "cardinality", "element_at",
+                        "map_element_at", "contains"))
+FORMAT_CALLS = frozenset(("format_datetime", "date_format"))
+
+
 def _string_side(args) -> bool:
     return any(T.is_string(a.type) for a in args)
 
@@ -223,23 +243,18 @@ def _eval_call(expr: Call, page: Page, params=()) -> Column:
         return _string_comparison(name, expr.args, page, expr.type, params)
     if name == "like":
         return _like(expr, page, params)
-    if name in ("lower", "upper", "trim", "ltrim", "rtrim", "substr",
-                "substring", "concat", "replace", "reverse", "lpad", "rpad",
-                "split_part", "regexp_replace", "regexp_extract",
-                "concat_ws"):
+    if name in STRING_TRANSFORMS:
         return _string_transform(expr, page, params)
-    if name in ("length", "codepoint", "strpos", "regexp_like",
-                "starts_with"):
+    if name in _STRING_SCALAR_FNS:
         return _string_scalar(expr, page, params)
-    if name in ("date_trunc", "date_diff", "date_add"):
+    if name in DATE_UNIT_CALLS:
         return _date_unit_call(expr, page, params)
     if name == "try_cast":
         return _try_cast(expr, page, params)
-    if name in ("array_ctor", "cardinality", "element_at",
-                "map_element_at", "contains"):
+    if name in LIST_CALLS:
         raise NotImplementedError(
             f"{name}: ARRAY/MAP list layouts are not ported yet")
-    if name in ("format_datetime", "date_format"):
+    if name in FORMAT_CALLS:
         return _format_datetime(expr, page, params)
     if name == "$in_padded":
         return _in_padded(expr, page, params)
@@ -256,12 +271,17 @@ def _eval_call(expr: Call, page: Page, params=()) -> Column:
     return Column(values, valid, expr.type, None)
 
 
+def in_padded_members(expr: Call, params) -> np.ndarray:
+    """The member vector of a padded IN list (its Param operand)."""
+    return np.asarray(params[expr.args[1].index])
+
+
 def _in_padded(expr: Call, page: Page, params=()) -> Column:
     """Padded fixed-width IN-list membership (expr/hoist._pad_in_chain):
     the member vector arrives as a 1-d operand; the result is null iff the
     needle is null."""
     col = _eval(expr.args[0], page, params)
-    vec = _to_device(np.asarray(params[expr.args[1].index]), page.device)
+    vec = _to_device(in_padded_members(expr, params), page.device)
     a, b = F._promote(col.values, vec)
     vals = (a[..., None] == b).any(dim=-1)
     return Column(vals, col.valid, expr.type, None)
@@ -271,6 +291,38 @@ def _literal_str(expr: RowExpression) -> Optional[str]:
     if isinstance(expr, Literal) and T.is_string(expr.type):
         return expr.value
     return None
+
+
+# varchar comparison with a literal -> comparison of the codes with a bound
+FOLDED_COMPARISON = {"eq": "eq", "ne": "ne", "lt": "lt", "le": "lt",
+                     "gt": "ge", "ge": "ge"}
+
+
+def fold_string_comparison(d: Optional[Dictionary], name: str,
+                           lit: str) -> Tuple[str, int]:
+    """`varchar_col <name> 'lit'` as a comparison of the int32 codes with
+    one bound of the column's sorted dictionary: (FOLDED_COMPARISON[name],
+    bound). An absent literal's code is -1, which no code equals."""
+    if d is None:
+        raise NotImplementedError("string comparison without dictionary")
+    if name in ("eq", "ne"):
+        bound = d.code_of(lit)
+    elif name in ("lt", "ge"):
+        bound = d.lower_bound(lit)
+    else:
+        bound = d.upper_bound(lit)
+    return FOLDED_COMPARISON[name], bound
+
+
+_CODE_COMPARE = {"eq": torch.eq, "ne": torch.ne, "lt": torch.lt,
+                 "ge": torch.ge}
+
+
+def check_same_dictionary(a: Optional[Dictionary],
+                          b: Optional[Dictionary]) -> None:
+    if a != b:
+        raise NotImplementedError(
+            "string column comparison across distinct dictionaries")
 
 
 def _string_comparison(name: str, args, page: Page, out_type,
@@ -290,55 +342,40 @@ def _string_comparison(name: str, args, page: Page, out_type,
                                   params)
     col = _eval(args[0], page, params)
     if b_lit is not None:
-        d = col.dictionary
-        if d is None:
-            raise NotImplementedError("string comparison without dictionary")
-        codes = col.values
-        if name == "eq":
-            code = d.code_of(b_lit)
-            vals = (codes == code) if code >= 0 else \
-                torch.zeros_like(codes, dtype=torch.bool)
-        elif name == "ne":
-            code = d.code_of(b_lit)
-            vals = (codes != code) if code >= 0 else \
-                torch.ones_like(codes, dtype=torch.bool)
-        elif name == "lt":
-            vals = codes < d.lower_bound(b_lit)
-        elif name == "le":
-            vals = codes < d.upper_bound(b_lit)
-        elif name == "gt":
-            vals = codes >= d.upper_bound(b_lit)
-        else:  # ge
-            vals = codes >= d.lower_bound(b_lit)
-        return Column(vals, col.valid, out_type, None)
+        op, bound = fold_string_comparison(col.dictionary, name, b_lit)
+        return Column(_CODE_COMPARE[op](col.values, bound), col.valid,
+                      out_type, None)
     # column vs column: only valid when both sides share one dictionary
     other = _eval(args[1], page, params)
-    if col.dictionary != other.dictionary:
-        raise NotImplementedError(
-            "string column comparison across distinct dictionaries")
+    check_same_dictionary(col.dictionary, other.dictionary)
     vals = F.lookup(name)(out_type, [T.BIGINT, T.BIGINT],
                           col.values, other.values)
     return Column(vals, _vand(col.valid, other.valid), out_type, None)
 
 
-def _like(expr: Call, page: Page, params=()) -> Column:
-    col = _eval(expr.args[0], page, params)
+def like_operand(expr: Call, d: Optional[Dictionary], device
+                 ) -> torch.Tensor:
+    """LIKE with a literal pattern: a bool table over the dictionary."""
     pattern = _literal_str(expr.args[1])
-    if pattern is None or col.dictionary is None:
+    if pattern is None or d is None:
         raise NotImplementedError("LIKE requires literal pattern + dictionary")
     escape = None
     if len(expr.args) > 2:
         escape = _literal_str(expr.args[2])
-    host = F.like_table(col.dictionary, pattern, escape)
-    table = _table(col.dictionary, ("like", pattern, escape),
-                   host.astype(np.bool_), page.device)
+    host = F.like_table(d, pattern, escape)
+    return _table(d, ("like", pattern, escape), host.astype(np.bool_),
+                  device)
+
+
+def _like(expr: Call, page: Page, params=()) -> Column:
+    col = _eval(expr.args[0], page, params)
+    table = like_operand(expr, col.dictionary, page.device)
     return Column(_take(table, col.values), col.valid, expr.type, None)
 
 
-def _column_and_literals(expr: Call, page: Page, params=()):
-    """First non-literal arg is THE column; every other arg must be a
-    literal. Returns (column, call(fn, s) applying fn with the column's
-    string at its original argument position, memo key)."""
+def column_arg(expr: Call) -> int:
+    """The one non-literal argument of a dictionary string function (the
+    first argument when all are literals); every other must be literal."""
     col_i = None
     for i, a in enumerate(expr.args):
         if not isinstance(a, Literal):
@@ -346,9 +383,12 @@ def _column_and_literals(expr: Call, page: Page, params=()):
                 raise NotImplementedError(
                     f"{expr.name} over two non-literal string args")
             col_i = i
-    if col_i is None:
-        col_i = 0   # all-literal: fold through the first arg's singleton
-    col = _eval(expr.args[col_i], page, params)
+    return 0 if col_i is None else col_i
+
+
+def _with_literals(expr: Call, col_i: int):
+    """(call(fn, s) applying fn with the column's string at its argument
+    position and the literals elsewhere, memo key)."""
     lit_by_pos = {i: a.value for i, a in enumerate(expr.args) if i != col_i}
 
     def call(fn, s):
@@ -356,48 +396,48 @@ def _column_and_literals(expr: Call, page: Page, params=()):
                 for i in range(len(expr.args))]
         return fn(*args)
     key = (col_i,) + tuple(sorted(lit_by_pos.items()))
-    return col, call, key
+    return call, key
+
+
+def string_transform_operand(expr: Call, d: Optional[Dictionary], device):
+    """A str -> str function as a dictionary remap: (output dictionary,
+    int32 remap table, bool ok table or None). NULL-producing transforms
+    carry the ok table."""
+    name = expr.name
+    if d is None:
+        raise NotImplementedError(f"{name} requires dictionary-encoded input")
+    call, akey = _with_literals(expr, column_arg(expr))
+    py = _PY_STRING_FNS[name]
+    key = (name, akey)
+    if name in _NULLABLE_STRING_FNS:
+        nd, remap, ok = F.transform_dictionary_nullable(
+            d, key, lambda s: call(py, s))
+        return (nd, _table(d, (key, "remap-null"), remap, device),
+                _table(d, (key, "ok"), ok, device))
+    nd, remap = F.transform_dictionary(d, key, lambda s: call(py, s))
+    return nd, _table(d, (key, "remap"), remap, device), None
 
 
 def _string_transform(expr: Call, page: Page, params=()) -> Column:
     """str->str functions as dictionary remap (host transform, device
     gather). NULL-producing transforms carry a per-pool ok-table."""
-    name = expr.name
-    if name == "concat_ws":
+    if expr.name == "concat_ws":
         return _concat_ws(expr, page, params)
-    col, call, akey = _column_and_literals(expr, page, params)
-    if col.dictionary is None:
-        raise NotImplementedError(f"{name} requires dictionary-encoded input")
-    py = _PY_STRING_FNS[name]
-    key = (name, akey)
-    dev = page.device
-    if name in _NULLABLE_STRING_FNS:
-        nd, remap, ok = F.transform_dictionary_nullable(
-            col.dictionary, key, lambda s: call(py, s))
-        codes = _take(_table(col.dictionary, (key, "remap-null"), remap,
-                             dev), col.values)
-        okv = _take(_table(col.dictionary, (key, "ok"), ok, dev), col.values)
-        valid = okv if col.valid is None else (okv & col.valid)
-        return Column(codes, valid, expr.type, nd)
-    nd, remap = F.transform_dictionary(col.dictionary, key,
-                                       lambda s: call(py, s))
-    codes = _take(_table(col.dictionary, (key, "remap"), remap, dev),
-                  col.values)
-    return Column(codes, col.valid, expr.type, nd)
+    col = _eval(expr.args[column_arg(expr)], page, params)
+    nd, remap, ok = string_transform_operand(expr, col.dictionary,
+                                             page.device)
+    codes = _take(remap, col.values)
+    if ok is None:
+        return Column(codes, col.valid, expr.type, nd)
+    okv = _take(ok, col.values)
+    valid = okv if col.valid is None else (okv & col.valid)
+    return Column(codes, valid, expr.type, nd)
 
 
-def _concat_ws(expr: Call, page: Page, params=()) -> Column:
-    """concat_ws(sep, v1, v2, ...): NULL value arguments are skipped; only
-    a NULL separator yields NULL (StringFunctions.java concatWs)."""
-    dev = page.device
-    sep_e = expr.args[0]
-    if not isinstance(sep_e, Literal):
+def concat_ws_column(expr: Call) -> Optional[int]:
+    """The non-literal value argument of concat_ws (None: all literal)."""
+    if not isinstance(expr.args[0], Literal):
         raise NotImplementedError("concat_ws separator must be a literal")
-    if sep_e.value is None:
-        return Column(torch.zeros((), dtype=torch.int32, device=dev),
-                      torch.zeros((), dtype=torch.bool, device=dev),
-                      expr.type, Dictionary(np.asarray([""], dtype=object)))
-    sep = str(sep_e.value)
     col_i = None
     for i, a in enumerate(expr.args[1:], start=1):
         if not isinstance(a, Literal):
@@ -405,33 +445,60 @@ def _concat_ws(expr: Call, page: Page, params=()) -> Column:
                 raise NotImplementedError(
                     "concat_ws over two non-literal string args")
             col_i = i
+    return col_i
+
+
+def concat_ws_operand(expr: Call, d: Optional[Dictionary], device):
+    """concat_ws over one dictionary column (non-NULL separator):
+    (output dictionary, int32 remap table, the code of a NULL input)."""
+    if d is None:
+        raise NotImplementedError("concat_ws requires dictionary input")
+    sep = str(expr.args[0].value)
+    col_i = concat_ws_column(expr)
     lits = {i: a.value for i, a in enumerate(expr.args) if i != col_i
             and i > 0}
-    if col_i is None:
-        joined = sep.join(str(v) for v in lits.values() if v is not None)
-        d = Dictionary(np.asarray([joined], dtype=object))
-        return Column(torch.zeros((), dtype=torch.int32, device=dev), None,
-                      expr.type, d)
-    col = _eval(expr.args[col_i], page, params)
-    if col.dictionary is None:
-        raise NotImplementedError("concat_ws requires dictionary input")
 
     def join_with(s):
         parts = [lits[i] if i != col_i else s
                  for i in range(1, len(expr.args))]
         return sep.join(str(p) for p in parts if p is not None)
 
-    cache = F._dict_cache(col.dictionary)
+    cache = F._dict_cache(d)
     ck = ("concat_ws", sep, tuple(sorted(lits.items())), col_i, "xform")
     if ck not in cache:
-        table = [join_with(s) for s in col.dictionary.values] \
-            + [join_with(None)]
+        table = [join_with(s) for s in d.values] + [join_with(None)]
         new_vals, codes = np.unique(np.asarray(table, dtype=object),
                                     return_inverse=True)
         cache[ck] = (Dictionary(new_vals), codes[:-1].astype(np.int32),
                      int(codes[-1]))
     nd, remap, null_code = cache[ck]
-    out = _take(_table(col.dictionary, ck, remap, dev), col.values)
+    return nd, _table(d, ck, remap, device), null_code
+
+
+_EMPTY_STRING = Dictionary(np.asarray([""], dtype=object))
+
+
+def _concat_ws(expr: Call, page: Page, params=()) -> Column:
+    """concat_ws(sep, v1, v2, ...): NULL value arguments are skipped; only
+    a NULL separator yields NULL (StringFunctions.java concatWs)."""
+    dev = page.device
+    if not isinstance(expr.args[0], Literal):
+        raise NotImplementedError("concat_ws separator must be a literal")
+    if expr.args[0].value is None:
+        return Column(torch.zeros((), dtype=torch.int32, device=dev),
+                      torch.zeros((), dtype=torch.bool, device=dev),
+                      expr.type, _EMPTY_STRING)
+    col_i = concat_ws_column(expr)
+    if col_i is None:
+        sep = str(expr.args[0].value)
+        joined = sep.join(str(a.value) for a in expr.args[1:]
+                          if a.value is not None)
+        d = Dictionary(np.asarray([joined], dtype=object))
+        return Column(torch.zeros((), dtype=torch.int32, device=dev), None,
+                      expr.type, d)
+    col = _eval(expr.args[col_i], page, params)
+    nd, remap, null_code = concat_ws_operand(expr, col.dictionary, dev)
+    out = _take(remap, col.values)
     if col.valid is not None:
         out = torch.where(col.valid, out,
                           device_scalar(null_code, out.dtype, dev))
@@ -448,77 +515,50 @@ _STRING_SCALAR_FNS = {
 }
 
 
+def string_scalar_operand(expr: Call, d: Optional[Dictionary], device
+                          ) -> torch.Tensor:
+    """A str -> number/bool function as a table over the dictionary."""
+    name = expr.name
+    if d is None:
+        raise NotImplementedError(f"{name} requires dictionary-encoded input")
+    call, akey = _with_literals(expr, column_arg(expr))
+    fn, dtype = _STRING_SCALAR_FNS[name]
+    host = F.dictionary_table(d, (name, akey), lambda s: call(fn, s))
+    host = host.astype(T.numpy_dtype_of(dtype)) if host.size \
+        else np.zeros(0, dtype=T.numpy_dtype_of(dtype))
+    return _table(d, (name, akey), host, device)
+
+
 def _string_scalar(expr: Call, page: Page, params=()) -> Column:
     """str -> number/bool functions as a memoized per-pool host table +
     device gather."""
-    name = expr.name
-    col, call, akey = _column_and_literals(expr, page, params)
-    if col.dictionary is None:
-        raise NotImplementedError(f"{name} requires dictionary-encoded input")
-    fn, dtype = _STRING_SCALAR_FNS[name]
-    host = F.dictionary_table(col.dictionary, (name, akey),
-                              lambda s: call(fn, s))
-    host = host.astype(T.numpy_dtype_of(dtype)) if host.size \
-        else np.zeros(0, dtype=T.numpy_dtype_of(dtype))
-    vals = _take(_table(col.dictionary, (name, akey), host, page.device),
-                 col.values)
-    return Column(vals, col.valid, expr.type, None)
+    col = _eval(expr.args[column_arg(expr)], page, params)
+    table = string_scalar_operand(expr, col.dictionary, page.device)
+    return Column(_take(table, col.values), col.valid, expr.type, None)
 
 
-_DATE_UNITS_TS = {"second": 1_000_000, "minute": 60_000_000,
-                  "hour": 3_600_000_000, "day": 86_400_000_000,
-                  "millisecond": 1_000}
-
-
-def _date_unit_call(expr: Call, page: Page, params=()) -> Column:
-    """date_trunc / date_diff / date_add with a literal unit."""
+def date_unit_static(expr: Call) -> tuple:
+    """The static arguments of F's date_trunc/date_diff/date_add device
+    function for a call with a literal unit."""
     unit_arg = expr.args[0]
     if not isinstance(unit_arg, Literal):
         raise NotImplementedError(f"{expr.name} unit must be a literal")
     unit = str(unit_arg.value).lower()
+    if expr.name == "date_trunc":
+        return (unit, expr.type)
+    if expr.name == "date_diff":
+        return (unit, expr.args[1].type, expr.args[2].type)
+    return (unit, expr.args[2].type, expr.type)
+
+
+def _date_unit_call(expr: Call, page: Page, params=()) -> Column:
+    """date_trunc / date_diff / date_add with a literal unit."""
+    static = date_unit_static(expr)
     rest = [_eval(a, page, params) for a in expr.args[1:]]
     valid = None
     for a in rest:
         valid = _vand(valid, a.valid)
-    name = expr.name
-    if name == "date_trunc":
-        (col,) = rest
-        if isinstance(expr.type, T.DateType):
-            vals = F.date_trunc_days(unit, col.values)
-        elif unit in _DATE_UNITS_TS:
-            step = _DATE_UNITS_TS[unit]
-            v = col.values.to(torch.int64)
-            vals = torch.div(torch.where(v >= 0, v, v - step + 1), step,
-                             rounding_mode="trunc") * step
-        else:
-            raise NotImplementedError(
-                f"date_trunc({unit!r}) on {expr.type.display()}")
-        return Column(vals, valid, expr.type, None)
-    if name == "date_diff":
-        a, b = rest
-        at, bt = expr.args[1].type, expr.args[2].type
-        if isinstance(at, T.DateType) and isinstance(bt, T.DateType):
-            vals = F.date_diff_days(unit, a.values, b.values)
-        elif isinstance(at, T.TimestampType) and \
-                isinstance(bt, T.TimestampType) and unit in _DATE_UNITS_TS:
-            vals = torch.div(b.values.to(torch.int64)
-                             - a.values.to(torch.int64),
-                             _DATE_UNITS_TS[unit], rounding_mode="trunc")
-        else:
-            raise NotImplementedError(
-                f"date_diff({unit!r}) over {at.display()}, {bt.display()}")
-        return Column(vals, valid, expr.type, None)
-    # date_add(unit, n, temporal)
-    n, d = rest
-    dt = expr.args[2].type
-    if isinstance(expr.type, T.DateType) and isinstance(dt, T.DateType):
-        vals = F.date_add_days(unit, n.values.to(torch.int64), d.values)
-    elif isinstance(dt, T.TimestampType) and unit in _DATE_UNITS_TS:
-        vals = d.values.to(torch.int64) + n.values.to(torch.int64) \
-            * _DATE_UNITS_TS[unit]
-    else:
-        raise NotImplementedError(
-            f"date_add({unit!r}) on {dt.display()}")
+    vals = F.lookup_device(expr.name)(*static, *[a.values for a in rest])
     return Column(vals, valid, expr.type, None)
 
 
@@ -531,7 +571,7 @@ def _try_cast(expr: Call, page: Page, params=()) -> Column:
     col = _eval(expr.args[0], page, params)
     if not T.is_string(src_t):
         values = F.lookup("cast")(target, [src_t], col.values)
-        ok = _numeric_cast_ok(col.values, src_t, target)
+        ok = F.numeric_cast_ok(src_t, target, col.values)
         valid = col.valid if ok is None else _vand(col.valid, ok)
         return Column(values, valid, target,
                       col.dictionary if T.is_string(target) else None)
@@ -539,72 +579,25 @@ def _try_cast(expr: Call, page: Page, params=()) -> Column:
         raise NotImplementedError("try_cast requires dictionary input")
     if T.is_string(target):
         return Column(col.values, col.valid, target, col.dictionary)
+    vals, ok = try_cast_operand(target, col.dictionary, page.device)
+    okv = _take(ok, col.values)
+    valid = okv if col.valid is None else (okv & col.valid)
+    return Column(_take(vals, col.values), valid, target, None)
+
+
+def try_cast_operand(target, d: Dictionary, device):
+    """TRY_CAST of a varchar dictionary to `target`: (value table, bool ok
+    table), the pool parsed on the host."""
     parse = _py_parser_for(target)
-    table = F.dictionary_table(
-        col.dictionary, ("try_cast", target.display()),
-        lambda s: parse(s))
+    table = F.dictionary_table(d, ("try_cast", target.display()),
+                               lambda s: parse(s))
     vals_np = np.asarray(
         [0 if v is None else v for v in table],
         dtype=T.to_numpy_dtype(target))
     ok_np = np.asarray([v is not None for v in table], dtype=np.bool_)
     key = ("try_cast", target.display())
-    vals = _take(_table(col.dictionary, key + ("v",), vals_np, page.device),
-                 col.values)
-    okv = _take(_table(col.dictionary, key + ("ok",), ok_np, page.device),
-                col.values)
-    valid = okv if col.valid is None else (okv & col.valid)
-    return Column(vals, valid, target, None)
-
-
-_INT_TYPES = (T.BigintType, T.IntegerType, T.SmallintType, T.TinyintType)
-
-
-_I64 = (-(1 << 63), (1 << 63) - 1)
-
-
-def _int_range_ok(v: torch.Tensor, lo: int, hi: int
-                  ) -> Optional[torch.Tensor]:
-    """v (int64) within [lo, hi]; a bound outside int64 can never be
-    violated, so that side is skipped."""
-    ok = None
-    if lo > _I64[0]:
-        ok = v >= lo
-    if hi < _I64[1]:
-        c = v <= hi
-        ok = c if ok is None else (ok & c)
-    return ok
-
-
-def _numeric_cast_ok(values: torch.Tensor, src_t, target
-                     ) -> Optional[torch.Tensor]:
-    """Out-of-range mask for TRY_CAST on numeric sources (NULL where the
-    plain CAST would fail). None = always representable."""
-    if isinstance(target, _INT_TYPES):
-        info = torch.iinfo(target.dtype)
-        if values.is_floating_point():
-            v = values
-            if int(info.max) == _I64[1]:
-                # float64(int64.max) rounds UP to exactly 2^63: exclusive
-                return torch.isfinite(v) & (v >= float(info.min)) \
-                    & (v < 9223372036854775808.0)
-            return torch.isfinite(v) & (v >= float(info.min)) \
-                & (v <= float(info.max))
-        v = values.to(torch.int64)
-        if isinstance(src_t, T.DecimalType):
-            scale = 10 ** src_t.scale
-            return _int_range_ok(v, int(info.min) * scale,
-                                 int(info.max) * scale)
-        return _int_range_ok(v, int(info.min), int(info.max))
-    if isinstance(target, T.DecimalType):
-        if values.is_floating_point():
-            bound = float(10 ** (target.precision - target.scale))
-            v = values
-            return torch.isfinite(v) & (v > -bound) & (v < bound)
-        src_scale = src_t.scale if isinstance(src_t, T.DecimalType) else 0
-        bound = 10 ** (target.precision - target.scale + src_scale)
-        v = values.to(torch.int64)
-        return _int_range_ok(v, -(bound - 1), bound - 1)
-    return None   # float/bool/date targets: saturation matches Trino
+    return (_table(d, key + ("v",), vals_np, device),
+            _table(d, key + ("ok",), ok_np, device))
 
 
 _DATE_FMT_CACHE: dict = {}
@@ -655,28 +648,47 @@ def _mysql_to_strftime(pattern: str) -> str:
     return "".join(out)
 
 
+def format_datetime_static(expr: Call) -> tuple:
+    """(source is a TIMESTAMP, first day, days) of the day table."""
+    pat = expr.args[1]
+    if not isinstance(pat, Literal):
+        raise NotImplementedError(f"{expr.name} pattern must be a literal")
+    src_t = expr.args[0].type
+    if not isinstance(src_t, (T.TimestampType, T.DateType)):
+        raise NotImplementedError(
+            f"{expr.name} over {src_t.display()}")
+    _, _, days0, ndays = _format_table(expr.name, pat.value)
+    return isinstance(src_t, T.TimestampType), days0, ndays
+
+
+def format_datetime_operand(expr: Call, device):
+    """(output dictionary, int32 code table by day offset)."""
+    d, remap, _, _ = _format_table(expr.name, expr.args[1].value)
+    return d, _table(d, ("fmt", (expr.name, expr.args[1].value)), remap,
+                     device)
+
+
 def _format_datetime(expr: Call, page: Page, params=()) -> Column:
     """format_datetime/date_format with a literal pattern over DATE (and
     day-resolution TIMESTAMP): the 1900-2100 day domain formats once into
     a memoized dictionary + code table; the device gathers by day."""
-    pat = expr.args[1]
-    if not isinstance(pat, Literal):
-        raise NotImplementedError(f"{expr.name} pattern must be a literal")
+    static = format_datetime_static(expr)
     col = _eval(expr.args[0], page, params)
-    src_t = expr.args[0].type
-    values = col.values
-    if isinstance(src_t, T.TimestampType):
-        values = torch.div(values.to(torch.int64), 86_400_000_000,
-                           rounding_mode="floor").to(torch.int32)
-    elif not isinstance(src_t, T.DateType):
-        raise NotImplementedError(
-            f"{expr.name} over {src_t.display()}")
-    key = (expr.name, pat.value)
+    off = F.day_offset(*static, col.values)
+    d, table = format_datetime_operand(expr, page.device)
+    codes = _take(table, off)
+    return Column(codes.to(torch.int32), col.valid, expr.type, d)
+
+
+def _format_table(name: str, pattern: str):
+    """The memoized day table of one pattern: (dictionary, int32 codes,
+    days0, ndays)."""
+    key = (name, pattern)
     got = _DATE_FMT_CACHE.get(key)
     if got is None:
         import datetime as _dt
-        fmt = _joda_to_strftime(pat.value) if expr.name == "format_datetime" \
-            else _mysql_to_strftime(pat.value)
+        fmt = _joda_to_strftime(pattern) if name == "format_datetime" \
+            else _mysql_to_strftime(pattern)
         base = _dt.date(_FMT_BASE_Y, 1, 1)
         days0 = (base - _dt.date(1970, 1, 1)).days
         ndays = (_dt.date(_FMT_END_Y, 1, 1) - base).days
@@ -687,12 +699,7 @@ def _format_datetime(expr: Call, page: Page, params=()) -> Column:
         uniq, remap = np.unique(strings, return_inverse=True)
         got = _DATE_FMT_CACHE[key] = (Dictionary(uniq),
                                       remap.astype(np.int32), days0, ndays)
-    d, remap, days0, ndays = got
-    off = values.to(torch.int64) - days0
-    oob = (off < 0) | (off >= ndays)
-    off = torch.where(oob, torch.full_like(off, ndays), off)
-    codes = _take(_table(d, ("fmt", key), remap, page.device), off)
-    return Column(codes.to(torch.int32), col.valid, expr.type, d)
+    return got
 
 
 def _py_parser_for(target):
@@ -895,11 +902,23 @@ def _if_merge(cond: Column, then: Column, els: Column, out_type) -> Column:
     return Column(values, valid, out_type, dictionary)
 
 
+def merge_dictionaries_operand(da: Dictionary, db: Dictionary, device):
+    """Two dictionaries rebased onto one union pool: (union, int32 remap
+    of a, int32 remap of b), memoized beside a's tables."""
+    from trino_tpu_torch.page import union_dictionaries
+    cache = F._dict_cache(da)
+    ck = ("union", db.fingerprint, str(device))
+    got = cache.get(ck)
+    if got is None:
+        merged, (ra, rb) = union_dictionaries([da, db], device=device)
+        got = cache[ck] = (merged, ra, rb)
+    return got
+
+
 def _merge_dictionaries(a: Column, b: Column):
     """Rebase two dictionary columns onto one union pool."""
-    from trino_tpu_torch.page import union_dictionaries
-    merged, (ra, rb) = union_dictionaries([a.dictionary, b.dictionary],
-                                          device=a.values.device)
+    merged, ra, rb = merge_dictionaries_operand(a.dictionary, b.dictionary,
+                                                a.values.device)
     a2 = Column(_take(ra, a.values), a.valid, a.type, merged)
     b2 = Column(_take(rb, b.values), b.valid, b.type, merged)
     return a2, b2
@@ -949,6 +968,18 @@ def _broadcast(col: Column, capacity: int) -> Column:
     return Column(values, valid, col.type, col.dictionary)
 
 
+# Steps of the plain form run on CUDA pages. The main path runs K11 there,
+# so chip_smoke.py holds this at 0 over its queries; comparisons with the
+# plain twin on the card count here too.
+cuda_evaluations = 0
+
+
+def _count(page: Page) -> None:
+    global cuda_evaluations
+    if page.device.type == "cuda":
+        cuda_evaluations += 1
+
+
 def compile_expression(expr: RowExpression) -> Callable[..., Column]:
     """Build fn(page, params=()) -> Column of per-row results (project
     channel). `params` is the positional tuple Param leaves index into."""
@@ -957,6 +988,7 @@ def compile_expression(expr: RowExpression) -> Callable[..., Column]:
     state: dict = {}
 
     def fn(page: Page, params=()) -> Column:
+        _count(page)
         ops = _operands_for(state, params, invariant)
         col = _broadcast(_eval(expr, page, ops), page.capacity)
         values = col.values.contiguous()
@@ -974,6 +1006,7 @@ def compile_filter(expr: RowExpression) -> Callable[..., torch.Tensor]:
     state: dict = {}
 
     def fn(page: Page, params=()) -> torch.Tensor:
+        _count(page)
         ops = _operands_for(state, params, invariant)
         col = _broadcast(_eval(expr, page, ops), page.capacity)
         mask = col.values

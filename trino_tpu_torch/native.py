@@ -28,7 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # every CUDA source of the package (Triton kernels build through triton)
 SOURCES = ("compact", "concat", "direct_agg", "gather", "join_build",
-           "join_probe", "join_expand", "group_agg")
+           "join_probe", "join_expand", "group_agg", "sort")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}

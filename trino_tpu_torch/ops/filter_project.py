@@ -2,9 +2,10 @@
 
 Reference parity: operator/ScanFilterAndProjectOperator.java +
 FilterAndProjectOperator.java with their compiled PageProcessor
-(operator/project/PageProcessor.java). Here: compile_filter/compile_expression
-produce torch tensor functions, and the page compaction runs K1
-(Page.filter).
+(operator/project/PageProcessor.java). A filter and a project step are
+each an expr/kernel_gen.ExprStep: on a CUDA page one generated Triton
+kernel (K11) per step, on a CPU page the plain torch-op compiler; the
+page compaction runs K1 (Page.filter).
 
 Parameterized compilation: expressions may carry `Param` leaves
 (expr/hoist.py) indexing one shared runtime values tuple for the whole
@@ -16,8 +17,8 @@ from __future__ import annotations
 
 from typing import Callable, Optional, Sequence
 
-from trino_tpu_torch.expr.compiler import compile_expression, compile_filter
 from trino_tpu_torch.expr.ir import RowExpression
+from trino_tpu_torch.expr.kernel_gen import filter_step, project_step
 from trino_tpu_torch.page import Page
 
 
@@ -30,13 +31,12 @@ def filter_project(
     projection. `params` is the default hoisted-literal tuple; callers
     running literal variants of the same compiled op pass theirs per
     call: op(page, variant_params)."""
-    filter_fn = compile_filter(filter_expr) if filter_expr is not None else None
-    project_fns = [compile_expression(p) for p in projections]
+    keep = filter_step(filter_expr) if filter_expr is not None else None
+    project = project_step(projections)
 
     def op(page: Page, call_params: tuple = params) -> Page:
-        if filter_fn is not None:
-            page = page.filter(filter_fn(page, call_params))
-        cols = tuple(fn(page, call_params) for fn in project_fns)
-        return Page(cols, page.num_rows)
+        if keep is not None:
+            page = page.filter(keep(page, call_params))
+        return Page(project(page, call_params), page.num_rows)
 
     return op
