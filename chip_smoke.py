@@ -16,20 +16,29 @@ Phases, each printing its lines before the next starts:
      its permutations exactly on both sides of the one-block threshold
      and at 4,194,304 rows; K11 (generated Triton kernels) against the
      plain compiler over a corpus of every scalar function and special
-     form, the string paths, try_cast and the date units;
+     form, the string paths, try_cast and the date units; K12 and K13
+     (the mxu route's table and lookup, in K6 and in K9 for every kind)
+     at table sizes 128 and 4096; K14/K15 (TPC-H generation) over every
+     generated column of the six tables at sf1 and one sf10 lineitem
+     chunk, bit for bit against the twins and the NumPy chunks;
   3. the 22 TPC-H queries, a FULL join and a MARK query at sf1 and q6, q3,
      q9, q13 at sf10 (spill off: the spilled join is not ported) from SQL
-     through LocalQueryRunner.tpch(schema).execute(sql) on cuda, rows held
-     equal to the same queries through the port on the CPU; each join's
-     kind, route, build live rows, max_run, probe and output rows; no
-     filter or project step evaluated by the torch-op compiler and no
-     sort by the plain twin on the card;
-  4. every kernel, every expanding-probe kind and the dense, search and
-     cross routes launched during phase 3; per kernel its launches, its
-     time at the main path's shapes (CUDA events; K10 and K11 also their
-     host time per call), its bound, its plain twin's time and a one-call
-     PyTorch yardstick; each query's warm wall time, idle share and top
-     device and host costs. `[time]` lines give each phase's seconds.
+     through LocalQueryRunner.tpch(schema).execute(sql) on cuda, tables
+     generated on the card, rows held equal to the same queries through
+     the port on the CPU with tables from NumPy; each join's kind, route,
+     build live rows, max_run, probe and output rows, each query's mxu
+     routes and mxu_joins equal to the CPU's; no filter or project step
+     evaluated by the torch-op compiler, no sort by the plain twin and no
+     generated column staged from NumPy on the card; the first-run walls
+     of q6/q9 at sf10 and each table's generation seconds at sf1/sf10,
+     K14/K15 against the NumPy path;
+  4. every kernel, every expanding-probe kind and the mxu, dense, search
+     and cross routes launched during phase 3; per kernel its launches,
+     its time at the main path's shapes (CUDA events; K10 and K11 also
+     their host time per call), its bound, its plain twin's time and a
+     one-call PyTorch yardstick; each query's warm wall time, idle share
+     and top device and host costs. `[time]` lines give each phase's
+     seconds.
 The last line is {"ok": true, "device": {...}}. Any failure exits
 non-zero before it. Needs one card; imports nothing of JAX.
 """
@@ -343,6 +352,18 @@ def cuda_ms(fn, iters: int = 20) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def host_ms(fn, iters: int = 50) -> float:
+    """Host milliseconds per call of `fn` (enqueue only, no sync)."""
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    sync()
+    return (t1 - t0) / iters * 1e3
 
 
 def device_profile(fn, iters: int = 10):
@@ -974,6 +995,261 @@ def check_distinct(g, dev) -> float:
     return 0.0   # compared exactly
 
 
+def twin_prepared(prep, bcols, nr=None):
+    """The twins' Prepared for a build the kernels prepared: K5's twin and,
+    as the kernel side has them, its runs, dense table and mxu table."""
+    from trino_tpu_torch.ops import join as J
+    from trino_tpu_torch.ops import join_mxu as JM
+    bnr = prep.build.num_rows if nr is None else nr
+    wst, wlk = J.join_build_plain(bcols, bnr)
+    w = J.Prepared(prep.build, prep.keys, wst, wlk)
+    if prep.runs is not None:
+        size = 0 if prep.dense is None else prep.dense.numel()
+        w.runs, w.dense = J.join_runs_plain(bcols, bnr, wst, wlk, size)
+    elif prep.dense is not None:
+        w.dense = J.join_dense_plain(bcols, bnr, wst, prep.dense.numel())
+    if prep.mxu is not None:
+        w.mxu = JM.mxu_table_plain(bcols, bnr, wst, wlk, w.runs,
+                                   prep.mxu.shape[0])
+    return w
+
+
+def mxu_tables_ok(label, kprep, wprep) -> None:
+    """K12's table against its twin's: counts equal per slot and, per
+    occupied slot, the same build rows at its first position (the build
+    row itself, or the key's run, laid out by each side's runs)."""
+    kt, wt = kprep.mxu.to(torch.int64), wprep.mxu.to(torch.int64)
+    if not torch.equal(kt[:, 0], wt[:, 0]):
+        fail(f"K12 counts differ from the twin ({label})")
+    occ = kt[:, 0] > 0
+    if kprep.runs is None:
+        if not torch.equal(kt[occ, 1], wt[occ, 1]):
+            fail(f"K12 first rows differ from the twin ({label})")
+        return
+    counts = kt[occ, 0]
+
+    def run_rows(table, prep):
+        start = torch.repeat_interleave(table[occ, 1], counts)
+        within = torch.arange(start.numel(), device=start.device) - \
+            torch.repeat_interleave(torch.cumsum(counts, 0) - counts, counts)
+        return prep.runs[0].to(torch.int64)[start + within]
+    if not torch.equal(run_rows(kt, kprep), run_rows(wt, wprep)):
+        fail(f"K12 run starts name other build rows than the twin's "
+             f"({label})")
+
+
+MXU_CASES = [  # build cap, live rows, key span, duplicates, probe cap, live
+    (200, 180, 100, True, 5000, 4990),
+    (100, 100, 128, False, 6000, 6000),
+    (5000, 4900, 4000, True, 70_000, 65_000),
+    (3000, 2990, 4096, False, 4_194_304, 4_194_304),
+    (1000, 0, 100, False, 500, 500),             # empty build
+    (3000, 3000, 4096, True, 1000, 0)]           # dead probe
+
+
+def mxu_case(g, dev, cap, n, span, dup):
+    """Build keys over [1000, 1000 + span) with NULLs (unique, or drawn
+    with duplicates), and the table size the router would give them."""
+    if dup or cap > span:
+        v = torch.randint(0, span, (cap,), generator=g)
+    else:
+        v = torch.randperm(span, generator=g)[:cap]
+    valid = torch.rand(cap, generator=g) >= 0.05
+    return [((v + 1000).to(torch.int64).to(dev), valid.to(dev))]
+
+
+def mxu_probe(g, bcols, cap, dev, size):
+    """Probe keys: build keys (in span), keys past kmin + size, keys below
+    kmin (their u64 difference wraps), NULLs."""
+    pc = probe_cols(g, bcols, cap, dev)
+    v, valid = pc[0]
+    k = torch.randint(0, 4, (cap,), generator=g).to(dev)
+    v = torch.where(k == 1, 1000 + size + (v.abs() % 100), v)
+    v = torch.where(k == 2, 999 - (v.abs() % 100), v)
+    return [(v.contiguous(), valid)]
+
+
+def check_mxu(g, dev) -> float:
+    """K12 (row and runs modes) and K13, the mxu mode of K6 and of K9's
+    count and verdict launches, against their twins at table sizes 128 and
+    4096: duplicate, NULL and dead build keys, an empty build, probe keys
+    in span, past kmin + size and below kmin, an all-dead probe. Each mode
+    is also timed at its largest case."""
+    from trino_tpu_torch.ops import join as J
+    from trino_tpu_torch.ops import join_mxu as JM
+    K = J.JoinType
+    timed = max(c[4] for c in MXU_CASES)
+    for bcap, bn, span, dup, pcap, pn in MXU_CASES:
+        bcols = mxu_case(g, dev, bcap, bn, span, dup)
+        bnr = torch.tensor(bn, dtype=torch.int32, device=dev)
+        stats, lookup = J.join_build_cuda(bcols, bnr)
+        wstats, wlookup = J.join_build_plain(bcols, bnr)
+        sync()
+        if not torch.equal(stats, wstats):
+            fail(f"K5 statistics (with NDISTINCT) differ on an mxu build: "
+                 f"{stats.tolist()} vs {wstats.tolist()}")
+        kmin, kmax = (J.unsigned(int(stats[J.KMIN])),
+                      J.unsigned(int(stats[J.KMAX])))
+        kspan = kmax - kmin + 1 if kmax >= kmin else 0
+        size = 1 << max((max(kspan, 1) - 1).bit_length(), 7)
+        label = f"build {bn}/{bcap} span {kspan} dup={dup} size {size} " \
+                f"probe {pn}/{pcap}"
+        pcols = mxu_probe(g, bcols, pcap, dev, size)
+        pnr = torch.tensor(pn, dtype=torch.int32, device=dev)
+        # row mode and K6
+        kp = J.Prepared(None, (), stats, lookup,
+                        mxu=JM.mxu_table_cuda(bcols, bnr, stats, lookup,
+                                              None, size))
+        wp = J.Prepared(None, (), wstats, wlookup,
+                        mxu=JM.mxu_table_plain(bcols, bnr, wstats, wlookup,
+                                               None, size))
+        sync()
+        mxu_tables_ok(label, kp, wp)
+        if int(stats[J.MAX_RUN]) <= 1:
+            f, b, c = J.unique_probe_cuda(pcols, bcols, pnr, kp)
+            wf, wb, wc = J.unique_probe_plain(pcols, bcols, pnr, wp)
+            sync()
+            if int(c) != int(wc) or not torch.equal(f, wf) \
+                    or not torch.equal(b, wb):
+                fail(f"K13 in K6 differs from its twin ({label})")
+        # runs mode and K9
+        runs, _ = J.join_runs_cuda(bcols, bnr, stats, lookup, 0)
+        wruns, _ = J.join_runs_plain(bcols, bnr, wstats, wlookup, 0)
+        kr = J.Prepared(None, (), stats, lookup, runs=runs)
+        kr.mxu = JM.mxu_table_cuda(bcols, bnr, stats, lookup, runs, size)
+        wr = J.Prepared(None, (), wstats, wlookup, runs=wruns)
+        wr.mxu = JM.mxu_table_plain(bcols, bnr, wstats, wlookup, wruns, size)
+        sync()
+        mxu_tables_ok(label + " runs", kr, wr)
+        for jk in (K.INNER, K.LEFT):
+            c = J.expand_count_cuda(pcols, bcols, pnr, kr, jk)
+            w = J.expand_count_plain(pcols, bcols, pnr, wr, jk)
+            sync()
+            if int(c.total) != int(w.total) or not torch.equal(
+                    c.emit, w.emit) or not torch.equal(c.cand_len,
+                                                       w.cand_len):
+                fail(f"K13 in K9 launch A ({jk}) differs from its twin "
+                     f"({label})")
+            t = int(w.total)
+            p_, b_ = J.expand_write_cuda(pcols, bcols, c, jk, max(t, 1))
+            wp_, wb_ = J.expand_write_plain(pcols, bcols, w, jk, max(t, 1))
+            sync()
+            if not (torch.equal(p_[:t], wp_[:t])
+                    and torch.equal(b_[:t], wb_[:t])):
+                fail(f"K9 output rows over the mxu route differ ({jk}, "
+                     f"{label})")
+        for jk in (K.SEMI, K.ANTI, K.MARK):
+            for null_aware in (True, False):
+                f, f2 = J.probe_verdict_cuda(pcols, bcols, pnr, kr, jk,
+                                             null_aware)
+                wf, wf2 = J.probe_verdict_plain(pcols, bcols, pnr, wr, jk,
+                                                null_aware)
+                sync()
+                if not torch.equal(f, wf) or (
+                        f2 is not None and not torch.equal(f2, wf2)):
+                    fail(f"K13 in K9 verdict ({jk}, null_aware "
+                         f"{null_aware}) differs from its twin ({label})")
+        if pcap == timed:
+            ms = {"K12 (runs mode)": cuda_ms(lambda: JM.mxu_table_cuda(
+                      bcols, bnr, stats, lookup, runs, size)),
+                  "K13 in K6": cuda_ms(lambda: J.unique_probe_cuda(
+                      pcols, bcols, pnr, kp)),
+                  "K13 in K9 launch A": cuda_ms(lambda: J.expand_count_cuda(
+                      pcols, bcols, pnr, kr, K.INNER)),
+                  "K13 in K9 verdict": cuda_ms(lambda: J.probe_verdict_cuda(
+                      pcols, bcols, pnr, kr, K.SEMI, True))}
+            say(f"[kernels] mxu modes at {label}: "
+                + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+                + " per call (CUDA events)")
+    return 0.0   # compared exactly
+
+
+def gen_windows(table, sf):
+    """(start, end, cap) of the first and the last scan page of a table at
+    the scan capacity (4,194,304 rows, or the table where it is smaller)."""
+    from trino_tpu_torch.connector import tpch_gen as G
+    rows = G.row_count(table, sf)
+    cap = min(1 << max(rows - 1, 1).bit_length(), 1 << 22)
+    last = (rows - 1) // cap * cap
+    return sorted({(0, min(cap, rows), cap), (last, rows, cap)})
+
+
+def host_chunk(table, sf, name, typ, start, end):
+    """The NumPy path's chunk of one column, in its staged dtype."""
+    import numpy as np
+    from trino_tpu_torch.connector import tpch_gen as G
+    from trino_tpu_torch import types as T
+    if G.string_kind(table, name) == "pooled":
+        return G.codes_chunk(table, sf, name, start, end)
+    return np.asarray(G.numeric_chunk(table, sf, name, start, end),
+                      T.to_numpy_dtype(typ))
+
+
+def check_gen_window(table, sf, start, end, cap, dev) -> int:
+    """K15 and K14 (every supported column) over one window against their
+    twins (on the card) and the NumPy host chunk, bit for bit; returns the
+    columns checked."""
+    from trino_tpu_torch.connector import tpch, tpch_dev as TD
+    from trino_tpu_torch.connector import tpch_gen as G
+    from trino_tpu_torch import types as T
+    n = end - start
+    oidx = woidx = None
+    if table == "lineitem":
+        seed, o_first, s0, norders = G.order_index_params(sf, start)
+        no = min(n, norders - o_first)
+        oidx = TD.order_index_cuda(seed, o_first, s0, start, n, no, cap, dev)
+        woidx = TD.order_index_plain(seed, o_first, s0, start, n, no, cap,
+                                     dev)
+        host = torch.from_numpy(G._lineitem_rowmap(sf, start, end)[0])
+        sync()
+        if not torch.equal(oidx, woidx) or not torch.equal(
+                oidx[:n].cpu(), host):
+            fail(f"K15 order index differs (lineitem sf{sf} [{start}, "
+                 f"{end}))")
+    checked = 0
+    for name, typ in tpch.TABLES[table][0]:
+        if not TD.supported(table, name):
+            continue
+        recipe = G.device_recipe(table, name, sf)
+        lut = None if recipe.lut is None else torch.from_numpy(
+            recipe.lut).to(dev)
+        dtype = torch.int32 if T.is_string(typ) else typ.dtype
+        got = TD.gen_column_cuda(recipe, start, n, cap, oidx, lut, dtype,
+                                 dev)
+        want = TD.gen_column_plain(recipe, start, n, cap, woidx, lut, dtype,
+                                   dev)
+        host = torch.from_numpy(host_chunk(table, sf, name, typ, start, end))
+        sync()
+        if not same_bits(got, want) or not torch.equal(got[:n].cpu(), host) \
+                or bool(got[n:].any()):
+            fail(f"K14 differs from its twin or the NumPy chunk: {table}."
+                 f"{name} sf{sf} [{start}, {end}) cap {cap}")
+        checked += 1
+    return checked
+
+
+def check_gen(dev) -> float:
+    """K14/K15 for every supported column of the six tables at sf1 (first
+    and last scan page) and one sf10 lineitem chunk that starts in the
+    middle of an order."""
+    from trino_tpu_torch.connector import tpch_gen as G
+    checked = 0
+    for table in ("supplier", "customer", "part", "partsupp", "orders",
+                  "lineitem"):
+        for start, end, cap in gen_windows(table, 1.0):
+            checked += check_gen_window(table, 1.0, start, end, cap, dev)
+    _, starts = G._line_index(10.0)
+    start = 7 * (1 << 22) + 3
+    while int(starts[int((starts <= start).sum()) - 1]) == start:
+        start += 1     # inside an order, not at its first line
+    checked += check_gen_window("lineitem", 10.0, start,
+                                start + (1 << 22), 1 << 22, dev)
+    say(f"[kernels] K14/K15: {checked} column windows bit for bit equal "
+        f"to their twins and the NumPy chunks (sf1 first and last pages, "
+        f"sf10 lineitem [{start}, {start + (1 << 22)}), mid-order)")
+    return 0.0
+
+
 # ------------------------------------------------- phase 2: K10 and K11
 
 CORPUS_ROWS = 4096       # the expression corpus page: cap, live rows
@@ -1450,17 +1726,6 @@ def kernel_rows_sort_expr(cap: Capture, originals, launches, dev, card):
     from trino_tpu_torch.ops import sort as S
     out = []
 
-    def host_ms(fn, iters=50):
-        """Host milliseconds per call (enqueue only, no sync)."""
-        fn()
-        sync()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        t1 = time.perf_counter()
-        sync()
-        return (t1 - t0) / iters * 1e3
-
     # K10 at the largest ORDER BY / TopN sort of the sf1 queries
     page, keys = cap.calls[("sort_rows_cuda", "sf1")][1]
     n = int(page.num_rows)
@@ -1545,11 +1810,12 @@ class Capture:
         self.calls = {}
         self.orig = {}
 
-    def wrap(self, module, name, size_of):
+    def wrap(self, module, name, size_of, tag_of=None):
         """Replace module.name with a recording pass-through. The kernel
         function increments `<module>.<name>.launches` (and K9's
-        `.by_kind`) through its module global, so the counters now live on
-        the pass-through."""
+        `.by_kind`, K6's and K9's `.by_route`) through its module global,
+        so the counters now live on the pass-through. `tag_of` names a
+        mode whose largest sf1 call is kept apart (K13: the mxu route)."""
         orig = getattr(module, name)
 
         def record(key, size, args):
@@ -1563,10 +1829,14 @@ class Capture:
                     record((name, self.label), size, args)
                 if self.label[0] == "sf1":
                     record((name, "sf1"), size, args)
+                    tag = tag_of(*args) if tag_of else None
+                    if tag:
+                        record((f"{name}:{tag}", "sf1"), size, args)
             return orig(*args)
         wrapped.launches = 0
-        if hasattr(orig, "by_kind"):
-            wrapped.by_kind = {}
+        for counter in ("by_kind", "by_route"):
+            if hasattr(orig, counter):
+                setattr(wrapped, counter, {})
         self.orig[name] = orig
         setattr(module, name, wrapped)
 
@@ -1621,6 +1891,74 @@ WHERE o_custkey IN (SELECT c_custkey FROM customer
    OR o_totalprice > 400000
 GROUP BY o_orderpriority
 ORDER BY o_orderpriority"""
+
+
+def mxu_of(runner):
+    """(joins on the mxu route, mxu_joins) of a runner's last query."""
+    return (sum(j["route"] == "mxu" for j in runner.last_joins),
+            runner.last_query_stats["mxu_joins"])
+
+
+def cold_walls(runner10, card) -> None:
+    """First-run (cold) walls of q6 and q9 at sf10 on the card: tables
+    generated by K14/K15 against the NumPy path (host generation and
+    pinned staging), each run with nothing staged or generated before."""
+    from trino_tpu_torch.connector import tpch, tpch_dev as TD
+    from trino_tpu_torch.exec import LocalQueryRunner
+    numpy_runner = LocalQueryRunner.tpch("sf10", device_gen=False)
+    numpy_runner.execute("SET SESSION spill_enabled = false")
+    for q in ("q6", "q9"):
+        for label, runner in (("device generation", runner10),
+                              ("NumPy path", numpy_runner)):
+            tpch.drop_cached_columns(host_chunks=True)
+            TD.drop_order_index()
+            sync()
+            t0 = time.perf_counter()
+            runner.execute(TPCH[q][0])
+            sync()
+            say(f"[cold] {q} sf10 first run with {label}: "
+                f"{time.perf_counter() - t0:.2f} s — {card}")
+    tpch.drop_cached_columns(host_chunks=True)
+
+
+def gen_times(dev, card) -> None:
+    """Per table at sf1 and sf10: seconds to generate and stage every
+    supported column of every scan page on the card (K14/K15) and through
+    the NumPy path (host generation, padding, pinned copy), nothing of the
+    table cached before either (cold_walls emptied the host cache). The
+    NumPy chunks stay in the host cache for the CPU runs that follow."""
+    from trino_tpu_torch.connector import tpch, tpch_dev as TD
+    from trino_tpu_torch import types as T
+    for schema in ("sf1", "sf10"):
+        sf = tpch.SCHEMAS[schema]
+        for table in ("supplier", "customer", "part", "partsupp", "orders",
+                      "lineitem"):
+            rows = tpch.table_row_count(table, sf)
+            cap = min(1 << max(rows - 1, 1).bit_length(), 1 << 22)
+            cols = [(n, t) for n, t in tpch.TABLES[table][0]
+                    if TD.supported(table, n)]
+            secs = {}
+            for path in ("device", "numpy"):
+                tpch.drop_cached_columns()
+                TD.drop_order_index()
+                sync()
+                t0 = time.perf_counter()
+                for off in range(0, rows, cap):
+                    hi = min(off + cap, rows)
+                    for name, typ in cols:
+                        if path == "device":
+                            TD.generate(table, sf, name, off, hi, cap,
+                                        torch.int32 if T.is_string(typ)
+                                        else typ.dtype, dev)
+                        else:
+                            tpch._staged_column(table, sf, name, typ, off,
+                                                hi, cap, dev, False)
+                sync()
+                secs[path] = time.perf_counter() - t0
+            say(f"[gen] {table} {schema} ({rows} rows, {len(cols)} "
+                f"columns): K14/K15 {secs['device']:.3f} s, NumPy path "
+                f"{secs['numpy']:.3f} s — {card}")
+        tpch.drop_cached_columns()
 
 
 def main() -> None:
@@ -1683,6 +2021,17 @@ def main() -> None:
         f"twins on the card (all exact; one marked row per distinct key): "
         f"{errs}")
     t0 = time.perf_counter()
+    errs = {"mxu_table + the mxu modes of unique_probe, expand_count and "
+            "probe_verdict": check_mxu(g, dev)}
+    say(f"[kernels] K12 and K13 (K6's and K9's mxu modes, every kind) match "
+        f"their plain twins on the card (all exact; table sizes 128 and "
+        f"4096; keys in span, past it and below kmin): {errs} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    errs = {"gen_column + order_index": check_gen(dev)}
+    say(f"[kernels] K14 and K15 match their plain twins and the NumPy "
+        f"chunks bit for bit: {errs} in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     errs = {"sort_encode + sort_radix": check_sort(dev)}
     say(f"[kernels] K10 matches its plain twin on the card (words bit for "
         f"bit, permutations exactly, one-block and multi-block paths, "
@@ -1703,9 +2052,14 @@ def main() -> None:
     from trino_tpu_torch.exec import LocalQueryRunner
     from trino_tpu_torch.expr import compiler as EC
     from trino_tpu_torch.expr import kernel_gen as KG
+    from trino_tpu_torch.connector import tpch, tpch_dev as TD
     from trino_tpu_torch.ops import join as J
+    from trino_tpu_torch.ops import join_mxu as JM
     from trino_tpu_torch.ops import sort as S
     cap = Capture()
+
+    def mxu_tag(pc, bc, nr, prep, *_):
+        return "mxu" if prep.mxu is not None else None
     cap.wrap(P, "compact_rows_cuda", lambda arrays, mask, n: mask.numel())
     cap.wrap(P, "concat_rows_cuda", lambda arrays, counts, c: c)
     cap.wrap(A, "direct_reduce_cuda",
@@ -1716,12 +2070,18 @@ def main() -> None:
              lambda arrays, idx: idx.numel() if arrays else -1)
     cap.wrap(J, "join_build_cuda", lambda cols, n: cols[0][0].numel())
     cap.wrap(J, "join_dense_cuda", lambda cols, n, st, size: size)
-    cap.wrap(J, "unique_probe_cuda", lambda pc, bc, *_: pc[0][0].numel())
+    cap.wrap(J, "unique_probe_cuda", lambda pc, bc, *_: pc[0][0].numel(),
+             mxu_tag)
     cap.wrap(A, "group_reduce_cuda", lambda keys, states, n, c: c)
     cap.wrap(J, "join_runs_cuda", lambda cols, *_: cols[0][0].numel())
-    cap.wrap(J, "expand_count_cuda", lambda pc, *_: pc[0][0].numel())
+    cap.wrap(J, "expand_count_cuda", lambda pc, *_: pc[0][0].numel(),
+             mxu_tag)
     cap.wrap(J, "expand_write_cuda", lambda pc, bc, c, kind, oc, *_: oc)
-    cap.wrap(J, "probe_verdict_cuda", lambda pc, *_: pc[0][0].numel())
+    cap.wrap(J, "probe_verdict_cuda", lambda pc, *_: pc[0][0].numel(),
+             mxu_tag)
+    cap.wrap(JM, "mxu_table_cuda", lambda cols, *_: cols[0][0].numel())
+    cap.wrap(TD, "gen_column_cuda", lambda recipe, start, n, c, *_: n)
+    cap.wrap(TD, "order_index_cuda", lambda *a: a[4])
     cap.wrap(A, "distinct_mask_cuda", lambda keys, el: el.numel())
     cap.wrap(S, "sort_rows_cuda", lambda page, keys: page.capacity)
     cap.wrap(KG, "expr_step_cuda",
@@ -1746,6 +2106,9 @@ def main() -> None:
                "expand_count": (J, "expand_count_cuda"),
                "expand_write": (J, "expand_write_cuda"),
                "probe_verdict": (J, "probe_verdict_cuda"),
+               "mxu_table": (JM, "mxu_table_cuda"),
+               "gen_column": (TD, "gen_column_cuda"),
+               "order_index": (TD, "order_index_cuda"),
                "gather_rows": (P, "gather_rows_cuda"),
                "group_aggregate": (A, "group_reduce_cuda"),
                "distinct_mask": (A, "distinct_mask_cuda"),
@@ -1754,9 +2117,19 @@ def main() -> None:
     runs = [("sf1", q, TPCH[q][0]) for q in TPCH]
     runs += [("sf1", "full", FULL_SQL), ("sf1", "mark", MARK_SQL)]
     runs += [("sf10", q, TPCH[q][0]) for q in ("q6", "q3", "q9", "q13")]
+    # the card generates its tables (K14/K15); the CPU port stages NumPy's,
+    # an independent path
     gpu = {s: LocalQueryRunner.tpch(s) for s in ("sf1", "sf10")}
-    cpu = {s: LocalQueryRunner.tpch(s, device="cpu")
+    cpu = {s: LocalQueryRunner.tpch(s, device="cpu", device_gen=False)
            for s in ("sf1", "sf10")}
+    host_staged = []     # supported columns staged from NumPy on the card
+    real_host_cached = tpch._host_cached
+
+    def watched_host_cached(key, build):
+        if cap.label is not None and TD.supported(key[0], key[2]):
+            host_staged.append(key)
+        return real_host_cached(key, build)
+    tpch._host_cached = watched_host_cached
     for runner in (gpu["sf10"], cpu["sf10"]):
         # q9's sf10 builds pass join_spill_threshold_bytes (1 GiB), and
         # the spilled join is not ported (ROADMAP A7/B9): these runs join
@@ -1764,13 +2137,15 @@ def main() -> None:
         runner.execute("SET SESSION spill_enabled = false")
     for mod, attr in kernels.values():
         getattr(mod, attr).launches = 0
-        if hasattr(getattr(mod, attr), "by_kind"):
-            getattr(mod, attr).by_kind = {}
+        for counter in ("by_kind", "by_route"):
+            if hasattr(getattr(mod, attr), counter):
+                setattr(getattr(mod, attr), counter, {})
     EC.cuda_evaluations = 0     # steps of the torch-op compiler on the card
     results = {}
     routes = set()
     kinds = set()
     per_query = {}
+    mxu_counts = {}      # (schema, q) -> (mxu routes, mxu_joins) on cuda
     for schema, q, sql in runs:
         cap.label = (schema, q)
         before = {k: getattr(mod, attr).launches
@@ -1789,8 +2164,15 @@ def main() -> None:
                 f"{j['route']}, build {j['build_rows']} live rows, max_run "
                 f"{j['max_run']}, probe {j['probe_rows']} rows, output "
                 f"{j['output_rows']} rows")
+        mxu_counts[(schema, q)] = mxu_of(gpu[schema])
     cap.label = None
     S.sort_rows_plain = real_plain_sort
+    tpch._host_cached = real_host_cached
+    if host_staged:
+        fail(f"{len(host_staged)} column slices on the card that K14 "
+             f"generates were staged from NumPy: {host_staged[:5]}")
+    say("[gen] every supported TPC-H column on the card was generated by "
+        "K14/K15 (no NumPy staging of them)")
     if EC.cuda_evaluations:
         fail(f"{EC.cuda_evaluations} filter/project steps on the card ran "
              f"through the torch-op compiler, not K11")
@@ -1805,9 +2187,13 @@ def main() -> None:
     by_kind = {k: dict(getattr(mod, attr).by_kind)
                for k, (mod, attr) in kernels.items()
                if hasattr(getattr(mod, attr), "by_kind")}
+    k13 = {k: dict(getattr(J, f"{k}_cuda").by_route)
+           for k in ("unique_probe", "expand_count", "probe_verdict")}
     for (schema, q), (res, secs) in results.items():
         say(f"[query] {q} {schema} on cuda: {len(res.rows)} rows, first "
             f"run {secs:.2f} s (includes data generation and staging)")
+    cold_walls(gpu["sf10"], card)
+    gen_times(dev, card)
     t0 = time.perf_counter()
     for schema, q, sql in runs:
         want = cpu[schema].execute(sql).rows
@@ -1815,8 +2201,13 @@ def main() -> None:
         if not rows_equal(got, want):
             fail(f"{q} {schema}: cuda rows differ from the CPU run:\n"
                  f"{got[:5]}\n{want[:5]}")
+        if mxu_of(cpu[schema]) != mxu_counts[(schema, q)]:
+            fail(f"{q} {schema}: (mxu routes, mxu_joins) "
+                 f"{mxu_counts[(schema, q)]} on cuda, "
+                 f"{mxu_of(cpu[schema])} on the CPU")
         say(f"[query] {q} {schema}: cuda rows == cpu rows ({len(got)} "
-            f"rows, first {got[0] if got else None})")
+            f"rows, first {got[0] if got else None}); mxu routes and "
+            f"mxu_joins {mxu_counts[(schema, q)]} on both")
     say(f"[time] phase 3 (queries): {time.perf_counter() - t_phase:.1f} s, "
         f"of which the CPU runs {time.perf_counter() - t0:.1f} s")
 
@@ -1831,19 +2222,22 @@ def main() -> None:
         if not want_kinds <= set(by_kind[k]):
             fail(f"{k} never launched for "
                  f"{sorted(want_kinds - set(by_kind[k]))}: {by_kind[k]}")
-    if routes != {"dense", "search", "cross"}:
+    if routes != {"dense", "search", "mxu", "cross"}:
         fail(f"the joins took the routes {sorted(routes)}, not dense, "
-             f"search and cross")
+             f"search, mxu and cross")
+    if not sum(r.get("mxu", 0) for r in k13.values()):
+        fail(f"K13 (the mxu mode of K6/K9) never launched: {k13}")
     for (schema, q), counts in per_query.items():
         say(f"[launches] {q} {schema}: "
             + ", ".join(f"{k} {n}" for k, n in counts.items() if n))
     say(f"[launches] main path ({len(runs)} queries): {launches}; K9 by "
-        f"kind: {by_kind} — {card}")
+        f"kind: {by_kind}; K6/K9 by route: {k13} — {card}")
     originals = {k: cap.orig[attr] for k, (_, attr) in kernels.items()}
     rows = kernel_rows(cap, originals, launches, dev)
     rows += kernel_rows_q3(cap, originals, launches, dev)
     rows += kernel_rows_expand(cap, originals, launches, dev)
     rows += kernel_rows_sort_expr(cap, originals, launches, dev, card)
+    rows += kernel_rows_mxu_gen(cap, originals, launches, k13, dev, card)
     for r in rows:
         dev_ms = "not measured" if r["device_ms"] is None \
             else f"{r['device_ms']:.4f} ms"
@@ -1889,8 +2283,8 @@ def main() -> None:
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces",
-                           "launches", "max_abs_err", "ms", "plain_ms",
-                           "bound_ms", "bound_by", "library_ms")}
+                           "launches", "max_abs_err", "ms", "device_ms",
+                           "plain_ms", "bound_ms", "bound_by", "library_ms")}
         for r in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -2162,16 +2556,12 @@ def kernel_rows_q3(cap: Capture, originals, launches, dev):
     pn = int(pnr)
     f, b, c = originals["unique_probe"](pcols, bcols, pnr, prep)
     bnr = prep.build.num_rows
-    wst, wlk = J.join_build_plain(bcols, bnr)
-    wprep = J.Prepared(prep.build, prep.keys, wst, wlk)
-    if prep.dense is not None:
-        wprep.dense = J.join_dense_plain(bcols, bnr, wst,
-                                         prep.dense.numel())
+    wprep = twin_prepared(prep, bcols)
     wf, wb, wc = J.unique_probe_plain(pcols, bcols, pnr, wprep)
     if int(c) != int(wc) or not torch.equal(f, wf) or not torch.equal(b,
                                                                        wb):
         fail("K6 differs from its twin at q3's probe")
-    route = "dense" if prep.dense is not None else "search"
+    route = J.route_of(prep)
     bn = int(bnr)
     sorted_b = torch.sort(bcols[0][0][:bn]).values
     pk = pcols[0][0][:pn]
@@ -2267,14 +2657,6 @@ def kernel_rows_expand(cap: Capture, originals, launches, dev):
             library_ms=cuda_ms(library),
             shape=f"{shape}; library = {library_name}")
 
-    def twin_prep(prep, bcols):
-        """The twins' Prepared for a build the kernels prepared."""
-        bnr = prep.build.num_rows
-        size = 0 if prep.dense is None else prep.dense.numel()
-        wst, wlk = J.join_build_plain(bcols, bnr)
-        wruns, wdense = J.join_runs_plain(bcols, bnr, wst, wlk, size)
-        return J.Prepared(prep.build, prep.keys, wst, wlk, wdense, wruns)
-
     # K5 runs mode at the largest build of the sf1 queries
     cols, nr, stats, lookup, size = cap.calls[("join_runs_cuda", "sf1")][1]
     n = int(nr)
@@ -2305,7 +2687,7 @@ def kernel_rows_expand(cap: Capture, originals, launches, dev):
     pcols, bcols, pnr, prep, kind = cap.calls[("expand_count_cuda",
                                                "sf1")][1]
     pn = int(pnr)
-    wprep = twin_prep(prep, bcols)
+    wprep = twin_prepared(prep, bcols)
     bcap = bcols[0][0].numel()
     c = originals["expand_count"](pcols, bcols, pnr, prep, kind)
     w = J.expand_count_plain(pcols, bcols, pnr, wprep, kind)
@@ -2345,14 +2727,14 @@ def kernel_rows_expand(cap: Capture, originals, launches, dev):
         "torch.repeat_interleave over the counts",
         f"sf1 {kind} probe: cap {pcols[0][0].numel()}, {pn} live, {total} "
         f"output rows, {len(pcols)} key column(s), route "
-        f"{'dense' if prep.dense is not None else 'search'}, build "
-        f"{int(prep.stats[J.N_LIVE])} keyed rows"))
+        f"{J.route_of(prep)}, build {int(prep.stats[J.N_LIVE])} keyed "
+        f"rows"))
 
     # K9 SEMI/ANTI/MARK at the largest verdict probe of sf1
     pcols, bcols, pnr, prep, kind, null_aware = cap.calls[
         ("probe_verdict_cuda", "sf1")][1]
     pn = int(pnr)
-    wprep = twin_prep(prep, bcols)
+    wprep = twin_prepared(prep, bcols)
     f, f2 = originals["probe_verdict"](pcols, bcols, pnr, prep, kind,
                                        null_aware)
     wf, wf2 = J.probe_verdict_plain(pcols, bcols, pnr, wprep, kind,
@@ -2376,7 +2758,7 @@ def kernel_rows_expand(cap: Capture, originals, launches, dev):
         lambda: torch.isin(pk, bk), "torch.isin of the probe keys",
         f"sf1 {kind} (null_aware {null_aware}) probe: cap "
         f"{pcols[0][0].numel()}, {pn} live, build {bn} rows, "
-        f"{len(pcols)} key column(s)"))
+        f"{len(pcols)} key column(s), route {J.route_of(prep)}"))
 
     # K8 distinct mode at the largest DISTINCT aggregate of sf1 (q16)
     keys, eligible = cap.calls[("distinct_mask_cuda", "sf1")][1]
@@ -2404,6 +2786,171 @@ def kernel_rows_expand(cap: Capture, originals, launches, dev):
         lambda: torch.unique(el_rows, dim=0), "torch.unique(dim=0)",
         f"sf1 DISTINCT: cap {eligible.numel()}, {n_el} eligible rows, "
         f"{int(want.sum())} distinct, {len(keys)} key columns"))
+    return out
+
+
+
+def kernel_rows_mxu_gen(cap: Capture, originals, launches, k13, dev, card):
+    """K12, K13 (each mode the main path launched) and K14/K15, each at its
+    largest call of the sf1 queries, against its twin at those inputs; each
+    also with its host time per call."""
+    from trino_tpu_torch.connector import tpch_dev as TD
+    from trino_tpu_torch.ops import join as J
+    from trino_tpu_torch.ops import join_mxu as JM
+    out = []
+
+    def row(name, source, replaces, n_launches, fn, plain, bound_bytes,
+            library, library_name, shape):
+        return dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=n_launches, max_abs_err=0.0, ms=cuda_ms(fn),
+            device_ms=device_profile(fn)[0], host_ms=host_ms(fn),
+            plain_ms=cuda_ms(plain),
+            bound_ms=bound_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+            library_ms=None if library is None else cuda_ms(library),
+            shape=f"{shape}; library = {library_name}")
+
+    # K12 at the largest mxu build of sf1
+    cols, nr, stats, lookup, runs, size = cap.calls[("mxu_table_cuda",
+                                                     "sf1")][1]
+    n = int(nr)
+    table = originals["mxu_table"](cols, nr, stats, lookup, runs, size)
+    kp = J.Prepared(None, (), stats, lookup, runs=runs, mxu=table)
+    wst, wlk = J.join_build_plain(cols, nr)
+    wruns = None if runs is None else J.join_runs_plain(cols, nr, wst, wlk,
+                                                        0)[0]
+    wp = J.Prepared(None, (), wst, wlk, runs=wruns,
+                    mxu=JM.mxu_table_plain(cols, nr, wst, wlk, wruns, size))
+    mxu_tables_ok("main path", kp, wp)
+    key, null = J._key_cols(cols)
+    ok = (torch.arange(key.numel(), device=dev) < n) & ~null
+    raw = (key - stats[J.KMIN])[ok]
+    rows_ = torch.nonzero(ok).flatten().to(torch.int32)
+    lib_table = torch.full((size,), 2**31 - 1, dtype=torch.int32,
+                           device=dev)
+    out.append(row(
+        "mxu_table (K12, build_count_pos_table)",
+        "trino_tpu_torch/csrc/join_mxu.cu", "trino_tpu/ops/join_mxu.py:91",
+        launches["mxu_table"],
+        lambda: originals["mxu_table"](cols, nr, stats, lookup, runs, size),
+        lambda: JM.mxu_table_plain(cols, nr, wst, wlk, wruns, size),
+        # the live keys read once, the table written once
+        col_bytes(cols, n) + size * 8,
+        lambda: lib_table.scatter_reduce_(0, raw, rows_, "amin"),
+        "Tensor.scatter_reduce_ (amin) of the rows into the table",
+        f"sf1 mxu build: cap {cols[0][0].numel()}, {n} rows, "
+        f"{int(stats[J.NDISTINCT])} distinct keys, table of {size} slots, "
+        f"{'runs' if runs is not None else 'rows'}"))
+
+    # K13 in each mode the main path launched, at its largest sf1 call
+    def lookup_lib(prep, pcols, pn):
+        kmin = prep.stats[J.KMIN]
+        size = prep.mxu.shape[0]
+        off = (pcols[0][0][:pn].to(torch.int64) - kmin).clamp(0, size - 1)
+        return lambda: prep.mxu.index_select(0, off)
+    modes = [("unique_probe", "K13 in K6, unique_inner_probe mxu",
+              "trino_tpu_torch/csrc/join_probe.cu",
+              "trino_tpu/ops/join.py:713"),
+             ("expand_count", "K13 in K9 launch A, hash_join mxu",
+              "trino_tpu_torch/csrc/join_expand.cu",
+              "trino_tpu/ops/join.py:302"),
+             ("probe_verdict", "K13 in K9 verdict, hash_join mxu",
+              "trino_tpu_torch/csrc/join_expand.cu",
+              "trino_tpu/ops/join.py:302")]
+    for k, name, source, replaces in modes:
+        n_launches = k13[k].get("mxu", 0)
+        if not n_launches:
+            say(f"[kernel] {name}: no launch on the main path")
+            continue
+        args = cap.calls[(f"{k}_cuda:mxu", "sf1")][1]
+        pcols, bcols, pnr, prep = args[:4]
+        rest = args[4:]
+        pn = int(pnr)
+        wprep = twin_prepared(prep, bcols)
+        plain = {"unique_probe": J.unique_probe_plain,
+                 "expand_count": J.expand_count_plain,
+                 "probe_verdict": J.probe_verdict_plain}[k]
+        got = originals[k](pcols, bcols, pnr, prep, *rest)
+        want = plain(pcols, bcols, pnr, wprep, *rest)
+        same = {"unique_probe": lambda a, b: all(
+                    torch.equal(x, y) for x, y in zip(a, b)),
+                "expand_count": lambda a, b: int(a.total) == int(b.total)
+                and torch.equal(a.emit, b.emit)
+                and torch.equal(a.cand_len, b.cand_len),
+                "probe_verdict": lambda a, b: torch.equal(a[0], b[0]) and (
+                    a[1] is None or torch.equal(a[1], b[1]))}[k]
+        if not same(got, want):
+            fail(f"{name} differs from its twin at the main path's inputs")
+        out_b = {"unique_probe": 9, "expand_count": 12,
+                 "probe_verdict": 2 if rest and rest[0] == "mark" else 1}[k]
+        out.append(row(
+            f"{k} mxu mode ({name})", source, replaces, n_launches,
+            lambda: originals[k](pcols, bcols, pnr, prep, *rest),
+            lambda: plain(pcols, bcols, pnr, wprep, *rest),
+            # the live probe keys and the table read once, the outputs of
+            # a live row written once
+            col_bytes(pcols, pn) + prep.mxu.numel() * 4 + pn * out_b,
+            lookup_lib(prep, pcols, pn),
+            "index_select of the table at the clamped offsets",
+            f"sf1 probe: cap {pcols[0][0].numel()}, {pn} live, table of "
+            f"{prep.mxu.shape[0]} slots, build "
+            f"{int(prep.stats[J.N_LIVE])} keyed rows"
+            + (f", {rest[0]}" if rest else "")))
+
+    # K15 and K14 at sf1 lineitem's first scan page (the largest call of
+    # both); K14 for l_receiptdate, the deepest recipe: the order date,
+    # the ship days and the receipt days, three hash draws a row
+    from trino_tpu_torch.connector import tpch, tpch_gen as G
+    sf1 = tpch.SCHEMAS["sf1"]
+    seed, o_first, s0, start, n15, norders, cap15, _ = cap.calls[
+        ("order_index_cuda", "sf1")][1]
+    oidx = originals["order_index"](seed, o_first, s0, start, n15, norders,
+                                    cap15, dev)
+    woidx = TD.order_index_plain(seed, o_first, s0, start, n15, norders,
+                                 cap15, dev)
+    if not torch.equal(oidx, woidx):
+        fail("K15 differs from its twin at the main path's inputs")
+    orders = torch.arange(norders, device=dev) + o_first
+    per_order = torch.bincount(oidx[:n15] - o_first, minlength=norders)
+    out.append(row(
+        "order_index (K15, tpch_dev._oidx_fn)",
+        "trino_tpu_torch/csrc/tpch_gen.cu",
+        "trino_tpu/connector/tpch_dev.py:90", launches["order_index"],
+        lambda: originals["order_index"](seed, o_first, s0, start, n15,
+                                         norders, cap15, dev),
+        lambda: TD.order_index_plain(seed, o_first, s0, start, n15, norders,
+                                     cap15, dev),
+        n15 * 8,   # the order index written once
+        lambda: torch.repeat_interleave(orders, per_order),
+        "repeat_interleave of the orders by their lines",
+        f"sf1 lineitem page: rows [{start}, {start + n15}), cap {cap15}, "
+        f"{norders} orders"))
+    recipe = G.device_recipe("lineitem", "l_receiptdate", sf1)
+    _, _, gn, gcap = cap.calls[("gen_column_cuda", "sf1")][1][:4]
+    seed, o_first, s0, total = G.order_index_params(sf1, 0)
+    goidx = originals["order_index"](seed, o_first, s0, 0, gn,
+                                     min(gn, total - o_first), gcap, dev)
+    got = originals["gen_column"](recipe, 0, gn, gcap, goidx, None,
+                                  torch.int32, dev)
+    want = TD.gen_column_plain(recipe, 0, gn, gcap, goidx, None,
+                               torch.int32, dev)
+    if not same_bits(got, want):
+        fail("K14 differs from its twin at the main path's inputs")
+    out.append(row(
+        "gen_column (K14, tpch_dev._chunk_fn)",
+        "trino_tpu_torch/csrc/tpch_gen.cu",
+        "trino_tpu/connector/tpch_dev.py:55", launches["gen_column"],
+        lambda: originals["gen_column"](recipe, 0, gn, gcap, goidx, None,
+                                        torch.int32, dev),
+        lambda: TD.gen_column_plain(recipe, 0, gn, gcap, goidx, None,
+                                    torch.int32, dev),
+        # the order index read once and the column written once
+        gn * 8 + gcap * 4, None,
+        "none (no PyTorch call computes a hash stream)",
+        f"sf1 lineitem first page, l_receiptdate: {gn} rows, cap {gcap}"))
+    for r in out:
+        say(f"[kernel] {r['name']}: host {r['host_ms']:.4f} ms per call "
+            f"(enqueue), {r['ms']:.4f} ms per call (CUDA events) — {card}")
     return out
 
 

@@ -47,7 +47,9 @@ def test_inventory_covers_the_slice():
                 "trino_tpu_torch/ops/join.py",
                 "trino_tpu_torch/exec/local_planner.py",
                 "trino_tpu_torch/exec/runner.py",
-                "trino_tpu_torch/connector/tpch_gen.py", "chip_smoke.py"):
+                "trino_tpu_torch/connector/tpch_gen.py",
+                "trino_tpu_torch/ops/join_mxu.py",
+                "trino_tpu_torch/connector/tpch_dev.py", "chip_smoke.py"):
         assert rel in files
     # every CUDA source native.py builds is in the package, and no source
     # of csrc/ is left out of the build
@@ -55,7 +57,7 @@ def test_inventory_covers_the_slice():
     cu = {p.stem for p in (_PKG / "csrc").glob("*.cu")}
     assert cu == set(native.SOURCES)
     assert {"gather", "join_build", "join_probe", "join_expand",
-            "group_agg"} <= cu
+            "join_mxu", "group_agg", "tpch_gen"} <= cu
 
 
 @pytest.mark.parametrize("rel", _sources())

@@ -285,9 +285,14 @@ def test_string_keys_need_one_dictionary():
 
 
 def test_expanding_probe_names_its_roadmap_item():
-    """Every join kind runs; the matrix-unit lookup is not ported."""
-    with pytest.raises(NotImplementedError, match="B11"):
-        PJ.hash_join([0], [0], PJ.JoinType.LEFT, lookup="mxu")
+    """Every join kind runs on the reference's three lookups (the
+    matrix-unit one since its lookup half was ported); another name is
+    refused."""
+    for lookup in ("search", "dense", "mxu"):
+        assert PJ.hash_join([0], [0], PJ.JoinType.LEFT,
+                            lookup=lookup).lookup == lookup
+    with pytest.raises(ValueError, match="matmul"):
+        PJ.hash_join([0], [0], PJ.JoinType.LEFT, lookup="matmul")
 
 
 # ------------------------------------------------ the expanding probe (K9)

@@ -150,8 +150,11 @@ def test_join_query_matches_reference(runners, name):
     sql, ordered = JOINS[name]
     assert_same(port.execute(sql).rows, ref.execute(sql).rows, ordered)
     assert port.last_joins and all(
-        j["route"] in ("dense", "search") or j["kind"] == "cross"
+        j["route"] in ("mxu", "dense", "search") or j["kind"] == "cross"
         for j in port.last_joins)
+    # the joins the reference routes onto its matrix-unit lookup
+    assert port.last_query_stats["mxu_joins"] == \
+        ref.last_query_stats.get("mxu_joins", 0)
 
 
 def test_scalar_subquery_with_two_rows_raises(runners):
@@ -166,12 +169,16 @@ def test_scalar_subquery_with_two_rows_raises(runners):
 
 
 def test_q3_takes_the_reference_routes(runners):
-    """q3 at tiny: both builds are unique and both key spans are small,
-    so both joins take the dense route (where the reference would take
-    its matrix-unit route for the customer join, ROADMAP B11)."""
-    _, port = runners
+    """q3 at tiny: both builds are unique and both key spans are small;
+    the customer join's span fits mxu_join_max_slots densely enough, so
+    it takes the matrix-unit route as the reference does, and the orders
+    join takes the dense route."""
+    ref, port = runners
     port.execute(QUERIES["q3"][0])
-    assert [j["route"] for j in port.last_joins] == ["dense", "dense"]
+    ref.execute(QUERIES["q3"][0])
+    assert [j["route"] for j in port.last_joins] == ["mxu", "dense"]
+    assert port.last_query_stats["mxu_joins"] == \
+        ref.last_query_stats["mxu_joins"] == 1
     assert all(0 < j["matched"] <= j["probe_rows"]
                for j in port.last_joins)
 

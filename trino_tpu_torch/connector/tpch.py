@@ -18,16 +18,21 @@ re-scope vs dbgen bit-identical rows.
 All varchar columns come dictionary-encoded; dates are int32 days since epoch;
 prices are short decimals (scaled int64).
 
-Port of `trino_tpu/connector/tpch.py` on its host-generation path: columns
-are generated with NumPy (tpch_gen) and staged to the connector's device
-through pinned memory. Device-side generation is ROADMAP B6; the rows are
-identical either way.
+Port of `trino_tpu/connector/tpch.py`. As in the reference, every numeric
+and pooled column of the six large tables is generated on the connector's
+device (`tpch_dev`: kernels K14/K15 on CUDA, their torch twins on the CPU);
+formatted strings, `l_linenumber` and region/nation are generated with
+NumPy (`tpch_gen`) and staged through pinned memory. The reference's
+switch `TRINO_TPU_DEVICE_GEN=0` (or `create_connector(device,
+device_gen=False)`) stages every column from NumPy; the staged columns are
+bit-identical either way.
 """
 
 from __future__ import annotations
 
 import collections
 import math
+import os
 import threading
 from typing import Dict, Iterator, List, Optional, Sequence
 
@@ -35,6 +40,7 @@ import numpy as np
 import torch
 
 from trino_tpu_torch import types as T
+from trino_tpu_torch.connector import tpch_dev
 from trino_tpu_torch.connector import tpch_gen as G
 from trino_tpu_torch.connector.spi import (
     ColumnHandle, ColumnMetadata, Connector, ConnectorMetadata,
@@ -237,6 +243,10 @@ class TpchSplitManager(ConnectorSplitManager):
         return [Split(handle, p, parts, host=p) for p in range(parts)]
 
 
+# device-side generation (tpch_dev): on by default; =0 forces the NumPy
+# path (the reference's switch, trino_tpu/connector/tpch.py)
+_DEVICE_GEN = os.environ.get("TRINO_TPU_DEVICE_GEN", "1") != "0"
+
 # one lock for both LRU caches: the byte accounting (USED counters vs
 # OrderedDict) must not interleave across threads
 _CACHE_LOCK = threading.RLock()
@@ -288,13 +298,30 @@ def _evict_to(dev: str, budget: int) -> None:
         _DEVICE_COL_CACHE_USED[dev] -= evicted.nbytes
 
 
+def drop_cached_columns(device=None, host_chunks: bool = False) -> None:
+    """Empty the staged-column LRU of `device` (every device when None)
+    and, with `host_chunks`, the host chunk LRU: the next scan generates
+    and stages again, as a cold first run does."""
+    global _HOST_CHUNK_CACHE_USED
+    with _CACHE_LOCK:
+        for dev in ([str(torch.device(device))] if device is not None
+                    else list(_DEVICE_COL_CACHE)):
+            _DEVICE_COL_CACHE.pop(dev, None)
+            _DEVICE_COL_CACHE_USED.pop(dev, None)
+        if host_chunks:
+            _HOST_CHUNK_CACHE.clear()
+            _HOST_CHUNK_CACHE_USED = 0
+
+
 def _staged_column(table: str, sf: float, name: str, typ: T.Type,
                    off: int, hi: int, page_capacity: int,
-                   device) -> Column:
+                   device, device_gen: bool = True) -> Column:
     """Generate + pad + stage one column slice to `device`, once per
     (table, sf, column, slice, capacity) and device, LRU-evicted under a
-    byte budget. TPC-H data is immutable generator output, so re-staging
-    identical bytes on every execution would only re-measure PCIe."""
+    byte budget: on the device itself when `device_gen` and tpch_dev
+    supports the column, else with NumPy through pinned memory. TPC-H data
+    is immutable generator output, so re-staging identical bytes on every
+    execution would only re-measure PCIe."""
     dev = str(device)
     key = (table, round(sf * 1000), name, off, hi, page_capacity)
     with _CACHE_LOCK:
@@ -305,7 +332,15 @@ def _staged_column(table: str, sf: float, name: str, typ: T.Type,
             lru.move_to_end(key)
             return col
     hkey = (table, round(sf * 1000), name, off, hi)
-    if T.is_string(typ):
+    if device_gen and tpch_dev.supported(table, name):
+        # generated ON the device: no host hashing, no column transfer
+        dtype = torch.int32 if T.is_string(typ) else typ.dtype
+        values = tpch_dev.generate(table, sf, name, off, hi, page_capacity,
+                                   dtype, device)
+        col = Column(values, None, typ,
+                     table_dictionary(table, sf, name)
+                     if T.is_string(typ) else None)
+    elif T.is_string(typ):
         d = table_dictionary(table, sf, name)
         if G.string_kind(table, name) == "pooled":
             codes = _host_cached(
@@ -334,8 +369,9 @@ def _staged_column(table: str, sf: float, name: str, typ: T.Type,
 
 
 class TpchPageSource(ConnectorPageSource):
-    def __init__(self, device):
+    def __init__(self, device, device_gen: Optional[bool] = None):
         self.device = torch.device(device)
+        self.device_gen = _DEVICE_GEN if device_gen is None else device_gen
 
     def pages(self, split: Split, columns: Sequence[ColumnHandle],
               page_capacity: int) -> Iterator[Page]:
@@ -350,11 +386,15 @@ class TpchPageSource(ConnectorPageSource):
             hi = min(off + page_capacity, end)
             n = hi - off
             cols = [_staged_column(table, sf, ch.name, ch.type, off, hi,
-                                   page_capacity, self.device)
+                                   page_capacity, self.device,
+                                   self.device_gen)
                     for ch in columns]
             yield Page(tuple(cols), row_count(n, self.device))
 
 
-def create_connector(device) -> Connector:
+def create_connector(device, device_gen: Optional[bool] = None
+                     ) -> Connector:
+    """The TPC-H connector on `device`; `device_gen` False stages every
+    column from NumPy (default: on unless TRINO_TPU_DEVICE_GEN=0)."""
     return Connector("tpch", TpchMetadata(), TpchSplitManager(),
-                     TpchPageSource(device))
+                     TpchPageSource(device, device_gen))

@@ -586,3 +586,181 @@ def object_chunk(table: str, sf: float, column: str,
         nation = numeric_chunk(t, sf, nk, start, end)
         return _phone(nation, seq)
     raise KeyError(f"{table}.{column}")
+
+
+# ------------------------------------------------------- device recipes
+#
+# What the generation kernel (K14, csrc/tpch_gen.cu) and its torch twin
+# (connector/tpch_dev.py) need to evaluate the streams above on the device,
+# computed here on the host per (table, column, sf): a recipe id, 16 int64
+# parameter words (seeds as the int64 holding their uint64 bits) and, for a
+# pooled column, the pool LUT. The recipes restate column_stream and
+# code_stream term for term; the numpy functions above stay the independent
+# check (tests/test_torch_tpch_dev.py).
+
+(R_ROWKEY, R_UI, R_RETAIL, R_PS_SUPPKEY, R_CONST, R_O_CUSTKEY,
+ R_O_ORDERSTATUS, R_L_ORDERKEY, R_L_SUPPKEY, R_L_EXTENDEDPRICE, R_L_DATE,
+ R_L_RETURNFLAG, R_L_LINESTATUS) = range(13)
+
+# parameter words: a uniform draw u_k = lo_k + (u64(seed_k, row) % span_k)
+# (k = 0, 1; span_1 = 0 leaves u_1 out), a multiplier of u_0, one
+# recipe-specific argument, the order date's draw (evaluated at the order
+# index), the current date of the status flags and a coin's seed
+(P_S0, P_LO0, P_SPAN0, P_MUL, P_S1, P_LO1, P_SPAN1, P_ARG, P_OD_S, P_OD_LO,
+ P_OD_SPAN, P_CURRENT, P_COIN) = range(13)
+N_PARAMS = 16
+
+
+def seed_word(table: str, column: str, sf: float) -> int:
+    """_seed as the int64 with the same bits (the kernel's uint64)."""
+    u = int(_seed(table, column, sf))
+    return u - (1 << 64) if u >= 1 << 63 else u
+
+
+class Recipe:
+    """One column's device recipe: `kind` (R_*), `params` (N_PARAMS int64
+    words), `needs_oidx` (lineitem's order-correlated columns read the
+    order index per row) and `lut` (int32 raw -> sorted code, or None)."""
+
+    __slots__ = ("kind", "params", "needs_oidx", "lut")
+
+    def __init__(self, kind, params, needs_oidx, lut):
+        self.kind, self.params = kind, tuple(params)
+        self.needs_oidx, self.lut = needs_oidx, lut
+
+
+_NEEDS_OIDX = {"l_orderkey", "l_shipdate", "l_commitdate", "l_receiptdate",
+               "l_returnflag", "l_linestatus"}
+
+# row-number keys: column -> rows per key (partsupp has four per part)
+_KEYS = {"s_suppkey": 1, "c_custkey": 1, "p_partkey": 1, "o_orderkey": 1,
+         "ps_partkey": 4}
+
+
+def device_recipe(table: str, column: str, sf: float) -> Recipe:
+    """The recipe of one supported column (connector/tpch_dev.supported)."""
+    p = [0] * N_PARAMS
+    p[P_MUL] = 1
+    nsupp = max(1, int(10_000 * sf))
+    npart = max(1, int(200_000 * sf))
+
+    def draw(k, tab, col, lo, hi):
+        s, l, sp = (P_S0, P_LO0, P_SPAN0) if k == 0 else \
+            (P_S1, P_LO1, P_SPAN1)
+        p[s], p[l], p[sp] = seed_word(tab, col, sf), lo, hi - lo + 1
+
+    def order_date():
+        p[P_OD_S] = seed_word("orders", "o_orderdate", sf)
+        p[P_OD_LO] = MIN_DATE
+        p[P_OD_SPAN] = MAX_ORDER_DATE - 152 - MIN_DATE + 1
+        p[P_CURRENT] = CURRENT_DATE
+
+    kind = R_UI
+    if column in _KEYS:
+        kind, p[P_ARG] = R_ROWKEY, _KEYS[column]
+    elif column in ("s_nationkey", "c_nationkey"):
+        draw(0, table, column, 0, 24)
+    elif column in ("s_acctbal", "c_acctbal"):
+        draw(0, table, column, -99999, 999999)
+    elif column == "p_size":
+        draw(0, table, column, 1, 50)
+    elif column == "p_retailprice":
+        kind = R_RETAIL
+    elif column == "ps_suppkey":
+        kind, p[P_ARG] = R_PS_SUPPKEY, nsupp
+    elif column == "ps_availqty":
+        draw(0, table, column, 1, 9999)
+    elif column == "ps_supplycost":
+        draw(0, table, column, 100, 100000)
+    elif column == "o_custkey":
+        ncust = _n("customer", sf)
+        kind, p[P_ARG] = R_O_CUSTKEY, ncust
+        draw(0, "orders", "o_custkey", 1, max(ncust, 2))
+    elif column == "o_orderdate":
+        draw(0, "orders", "o_orderdate", MIN_DATE, MAX_ORDER_DATE - 152)
+    elif column == "o_totalprice":
+        draw(0, table, column, 85000, 55558641)
+    elif column == "o_shippriority":
+        kind = R_CONST
+    elif column == "o_orderstatus":
+        kind = R_O_ORDERSTATUS
+        order_date()
+        p[P_COIN] = seed_word(table, column, sf)
+    elif column == "l_orderkey":
+        kind = R_L_ORDERKEY
+    elif column == "l_partkey":
+        draw(0, table, column, 1, npart)
+    elif column == "l_suppkey":
+        kind, p[P_ARG] = R_L_SUPPKEY, nsupp
+        draw(0, table, "l_partkey", 1, npart)
+        draw(1, table, "l_i4", 0, 3)
+    elif column == "l_quantity":
+        draw(0, table, column, 1, 50)
+        p[P_MUL] = 100
+    elif column == "l_extendedprice":
+        kind = R_L_EXTENDEDPRICE
+        draw(0, table, "l_quantity", 1, 50)
+        draw(1, table, "l_partkey", 1, npart)
+    elif column == "l_discount":
+        draw(0, table, column, 0, 10)
+    elif column == "l_tax":
+        draw(0, table, column, 0, 8)
+    elif column in ("l_shipdate", "l_receiptdate", "l_returnflag",
+                    "l_linestatus"):
+        kind = {"l_shipdate": R_L_DATE, "l_receiptdate": R_L_DATE,
+                "l_returnflag": R_L_RETURNFLAG,
+                "l_linestatus": R_L_LINESTATUS}[column]
+        order_date()
+        draw(0, table, "l_sdays", 1, 121)
+        if column in ("l_receiptdate", "l_returnflag"):
+            draw(1, table, "l_rdays", 1, 30)
+        if column == "l_returnflag":
+            p[P_COIN] = seed_word(table, column, sf)
+    elif column == "l_commitdate":
+        kind = R_L_DATE
+        order_date()
+        draw(0, table, "l_cdays", 30, 90)
+    elif column in _COMMENT_LEN:
+        draw(0, table, column, 0, _COMMENT_POOL_SIZE - 1)
+    elif column == "c_mktsegment":
+        draw(0, table, column, 0, len(_SEGMENTS) - 1)
+    elif column == "p_name":
+        draw(0, table, "p_name1", 0, len(_COLORS) - 1)
+        p[P_MUL] = len(_COLORS)
+        draw(1, table, "p_name2", 0, len(_COLORS) - 1)
+    elif column == "p_mfgr":
+        draw(0, table, "p_mfgr", 0, 4)
+    elif column == "p_brand":
+        draw(0, table, "p_mfgr", 0, 4)
+        p[P_MUL] = 5
+        draw(1, table, "p_brandn", 0, 4)
+    elif column == "p_type":
+        draw(0, table, column, 0,
+             len(_TYPE_S1) * len(_TYPE_S2) * len(_TYPE_S3) - 1)
+    elif column == "p_container":
+        draw(0, table, column, 0, len(_CONTAINERS) - 1)
+    elif column == "o_orderpriority":
+        draw(0, table, column, 0, len(_PRIORITIES) - 1)
+    elif column == "o_clerk":
+        draw(0, table, column, 0, max(2, int(1000 * sf)) - 1)
+    elif column == "l_shipinstruct":
+        draw(0, table, column, 0, len(_INSTRUCTS) - 1)
+    elif column == "l_shipmode":
+        draw(0, table, column, 0, len(_SHIPMODES) - 1)
+    else:
+        raise KeyError(f"{table}.{column} has no device recipe")
+    lut = _pool_for(table, column, sf).lut \
+        if string_kind(table, column) == "pooled" else None
+    return Recipe(kind, p, table == "lineitem" and column in _NEEDS_OIDX,
+                  lut)
+
+
+def order_index_params(sf: float, start: int) -> Tuple[int, int, int, int]:
+    """lineitem's order index for rows from `start` (K15): the line-count
+    stream's seed word, the order covering row `start`, that order's first
+    row, and the number of orders. Two host scalars of the cached line
+    index (a bisect); the device rebuilds the rest."""
+    _, starts = _line_index(sf)
+    o_first = int(np.searchsorted(starts, start, side="right")) - 1
+    return (seed_word("lineitem", "l_count", sf), o_first,
+            int(starts[o_first]), len(starts) - 1)

@@ -189,6 +189,47 @@ __device__ __forceinline__ int32_t dense_find(uint64_t key, uint64_t kmin,
   return (raw >= 0 && raw < size) ? dense[raw] : 0x7fffffff;
 }
 
+// The lookup a probe takes (trino_tpu_torch/ops/join.py ROUTE_CODE): K5's
+// hash table, a direct-address table, or the `mxu` route's table of
+// (count, first) pairs (csrc/join_mxu.cu).
+enum Route { ROUTE_SEARCH = 0, ROUTE_DENSE = 1, ROUTE_MXU = 2 };
+
+// K13, the `mxu` route's lookup (trino_tpu/ops/join_mxu.py matmul_lookup):
+// the match count of `key` in a table of `size` (count, first) pairs from
+// kmin, 0 outside the span (a key below kmin wraps to a huge difference);
+// *first gets the entry's first position when the count is not 0.
+__device__ __forceinline__ int32_t mxu_find(uint64_t key, uint64_t kmin,
+                                            const int32_t* table,
+                                            int64_t size, int32_t* first) {
+  const int64_t raw = (int64_t)(key - kmin);
+  if (raw < 0 || raw >= size) return 0;
+  const int32_t c = table[2 * raw];
+  if (c) *first = table[2 * raw + 1];
+  return c;
+}
+
+// Tables of at most this many slots (48 KB of pairs: the default
+// mxu_join_max_slots of 4,096 gives 32 KB) are staged into each block's
+// dynamic shared memory; a larger one is read where it lies (L2).
+constexpr int64_t MXU_SMEM_SLOTS = 6144;
+
+inline size_t mxu_smem_bytes(int route, int64_t size) {
+  return route == ROUTE_MXU && size <= MXU_SMEM_SLOTS
+             ? (size_t)(8 * size) : 0;
+}
+
+// Every thread of the block calls it: the table the block reads — `smem`
+// filled from `table` when it fits, else `table` itself.
+__device__ __forceinline__ const int32_t* mxu_stage(const int32_t* table,
+                                                    int64_t size,
+                                                    int32_t* smem) {
+  if (size > MXU_SMEM_SLOTS) return table;
+  for (int64_t j = threadIdx.x; j < 2 * size; j += blockDim.x)
+    smem[j] = table[j];
+  __syncthreads();
+  return smem;
+}
+
 // Sum of a 64-bit value over the warp (result valid in lane 0).
 __device__ __forceinline__ unsigned long long warp_sum(unsigned long long v) {
 #pragma unroll

@@ -14,7 +14,10 @@
 //     reads once per join (live non-NULL rows, live rows, any NULL key, the
 //     key min/max compared as UNSIGNED 64-bit as the reference's uint64
 //     keys are, and build_key_bounds' min/max of the first key column in
-//     its own type), and an insert into an open-addressing hash table:
+//     its own type, and the distinct live keys: the router's density
+//     numerator, the reference's join_mxu.distinct_live_keys, counted as
+//     the rows that claim a new slot), and an insert into an
+//     open-addressing hash table:
 //     power-of-two slots >= 2 x capacity, linear probing, a slot claimed by
 //     atomicCAS on its row (the key of a claimed slot is checked against
 //     the claiming row's key, recomputed from the immutable columns, so no
@@ -57,7 +60,7 @@ constexpr int THREADS = 256;
 constexpr int KEY_FIELDS = 4;  // values ptr, valid ptr, element size, is_float
 enum Stat {
   N_LIVE = 0, N_ROWS, HAS_NULL, MAX_RUN, KMIN, KMAX, LO, HI, LO_NAN,
-  N_STATS = 10
+  NDISTINCT, N_STATS
 };
 
 // Identities of the first key's min (lo) and max (hi): int64 values, or
@@ -122,7 +125,7 @@ __global__ void build_kernel(const __grid_constant__ Table tbl, int64_t nkeys,
   n = n < 0 ? 0 : (n > cap ? cap : n);
   const uint64_t mask = (uint64_t)slots - 1;
   unsigned long long n_live = 0, n_rows = 0, has_null = 0, max_run = 0,
-                     bnan = 0;
+                     bnan = 0, ndistinct = 0;
   unsigned long long kmin = ~0ULL, kmax = 0ULL;
   long long lo = lo_identity(first_float), hi = hi_identity(first_float);
   for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
@@ -156,9 +159,10 @@ __global__ void build_kernel(const __grid_constant__ Table tbl, int64_t nkeys,
       int r = slot_rows[s];
       if (r == -1) {
         const int prev = atomicCAS(&slot_rows[s], -1, (int)i);
-        if (prev == -1) {
+        if (prev == -1) {  // the first row of its key: one more key
           slot_keys[s] = (int64_t)key;
           r = (int)i;
+          ++ndistinct;
         } else {
           r = prev;
         }
@@ -175,6 +179,7 @@ __global__ void build_kernel(const __grid_constant__ Table tbl, int64_t nkeys,
   }
   n_live = warp_sum(n_live);
   n_rows = warp_sum(n_rows);
+  ndistinct = warp_sum(ndistinct);
   has_null = warp_max(has_null);
   max_run = warp_max(max_run);
   bnan = warp_max(bnan);
@@ -185,6 +190,7 @@ __global__ void build_kernel(const __grid_constant__ Table tbl, int64_t nkeys,
   if ((threadIdx.x & 31) == 0) {
     if (n_live) atomicAdd(&stats[N_LIVE], n_live);
     if (n_rows) atomicAdd(&stats[N_ROWS], n_rows);
+    if (ndistinct) atomicAdd(&stats[NDISTINCT], ndistinct);
     if (has_null) atomicMax(&stats[HAS_NULL], has_null);
     if (bnan) atomicMax(&stats[LO_NAN], bnan);
     atomicMax(&stats[MAX_RUN], max_run);

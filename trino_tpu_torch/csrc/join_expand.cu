@@ -15,7 +15,9 @@
 //   launch A (expand_count) — per live probe row its key (csrc/common.cuh
 //     join_key), one lookup shared with K6 (dense_find on the `dense`
 //     route, whose table holds the key's slot; hash_find on `search`),
-//     which names the key's run in K5's runs mode (start, count). For a
+//     which names the key's run in K5's runs mode (start, count); on the
+//     `mxu` route K13 (mxu_find) reads (count, run start) straight from
+//     K12's table, staged in shared memory per block. For a
 //     composite key the run is walked and only candidates equal column by
 //     column are counted, so collisions never reach the output. emit =
 //     that count, or max(count, 1) for a live LEFT/FULL row (a NULL key or
@@ -55,10 +57,11 @@ constexpr int STAT_N_ROWS = 1, STAT_HAS_NULL = 2, STAT_KMIN = 4;
 // trino_tpu_torch/ops/join.py JOIN_KIND_CODE
 enum Kind { INNER = 0, LEFT = 1, FULL = 2, SEMI = 3, ANTI = 4, MARK = 5 };
 
-// Where a probe key's candidates lie: K5's lookup (dense table of slots or
-// the hash table) and its runs.
+// Where a probe key's candidates lie: K5's lookup (dense table of slots,
+// the hash table, or on the mxu route K12's (count, run start) table) and
+// its runs.
 struct Runs {
-  int dense_route;
+  int route;
   const int32_t* dense;
   int64_t size;
   const int64_t* stats;
@@ -71,8 +74,10 @@ struct Runs {
 
   // The run of `key`: its length (0 when absent), *start its first place.
   __device__ __forceinline__ int32_t find(uint64_t key, int32_t* start) const {
+    if (route == ROUTE_MXU)
+      return mxu_find(key, (uint64_t)stats[STAT_KMIN], dense, size, start);
     int64_t s;
-    if (dense_route) {
+    if (route == ROUTE_DENSE) {
       const int32_t d = dense_find(key, (uint64_t)stats[STAT_KMIN], dense,
                                    size);
       if (d == 0x7fffffff) return 0;
@@ -86,6 +91,14 @@ struct Runs {
   }
 };
 
+// The block's copy of R: on the mxu route its table staged in shared
+// memory when it fits (every thread of the block calls this).
+__device__ __forceinline__ Runs staged(Runs R) {
+  extern __shared__ int32_t smem[];
+  if (R.route == ROUTE_MXU) R.dense = mxu_stage(R.dense, R.size, smem);
+  return R;
+}
+
 __device__ __forceinline__ int64_t live_rows(const int32_t* num_rows,
                                              int64_t cap) {
   const int64_t n = *num_rows;
@@ -97,7 +110,7 @@ __device__ __forceinline__ int64_t live_rows(const int32_t* num_rows,
 __global__ void expand_count_kernel(const __grid_constant__ Table tbl,
                                     int64_t nkeys, int64_t cap,
                                     const int32_t* __restrict__ num_rows,
-                                    int kind, const Runs R,
+                                    int kind, const Runs R0,
                                     int32_t* __restrict__ cand_start,
                                     int32_t* __restrict__ cand_len,
                                     int32_t* __restrict__ emit,
@@ -105,6 +118,7 @@ __global__ void expand_count_kernel(const __grid_constant__ Table tbl,
   __shared__ long long warp_sums[32];
   const int64_t* pcols = tbl.v;
   const int64_t* bcols = tbl.v + KEY_FIELDS * nkeys;
+  const Runs R = staged(R0);
   const int64_t n = live_rows(num_rows, cap);
   const int64_t base = (int64_t)blockIdx.x * TILE;
   long long sum = 0;
@@ -184,11 +198,12 @@ __global__ void expand_write_kernel(const __grid_constant__ Table tbl,
 __global__ void verdict_kernel(const __grid_constant__ Table tbl,
                                int64_t nkeys, int64_t cap,
                                const int32_t* __restrict__ num_rows,
-                               int kind, int null_aware, const Runs R,
+                               int kind, int null_aware, const Runs R0,
                                uint8_t* __restrict__ flag,
                                uint8_t* __restrict__ flag2) {
   const int64_t* pcols = tbl.v;
   const int64_t* bcols = tbl.v + KEY_FIELDS * nkeys;
+  const Runs R = staged(R0);
   const int64_t n = live_rows(num_rows, cap);
   const bool empty_build = R.stats[STAT_N_ROWS] == 0;
   const bool build_null = R.stats[STAT_HAS_NULL] != 0;
@@ -222,11 +237,11 @@ __global__ void verdict_kernel(const __grid_constant__ Table tbl,
   }
 }
 
-Runs make_runs(int64_t dense_route, const void* dense, int64_t size,
+Runs make_runs(int64_t route, const void* dense, int64_t size,
                const void* stats, const void* slot_keys,
                const void* slot_rows, int64_t slots, const void* slot_start,
                const void* slot_counts, const void* runs) {
-  return Runs{(int)dense_route,
+  return Runs{(int)route,
               static_cast<const int32_t*>(dense),
               size,
               static_cast<const int64_t*>(stats),
@@ -242,9 +257,10 @@ Runs make_runs(int64_t dense_route, const void* dense, int64_t size,
 // Shared arguments: table: int64 HOST array, KEY_FIELDS words per probe key
 // column, then as many per build key column (values ptr, valid ptr or 0,
 // element size, is_float); num_rows: the probe's int32 live-row scalar;
-// dense_route 1: dense int32[size] maps key kmin + d to its slot (K5
-// join_runs), else slot_keys int64[slots] / slot_rows int32[slots] (K5
-// join_build) are searched; stats: K5's int64[10]; slot_start,
+// route (csrc/common.cuh enum Route) ROUTE_DENSE: dense int32[size] maps
+// key kmin + d to its slot (K5 join_runs); ROUTE_MXU: dense is K12's
+// int32[size][2] (count, run start) table; ROUTE_SEARCH: slot_keys
+// int64[slots] / slot_rows int32[slots] (K5 join_build) are searched; stats: K5's int64[10]; slot_start,
 // slot_counts: int32[slots]; runs: int32 build rows (K5 join_runs).
 //
 // Launch A: cand_start, cand_len, emit: int32[cap]; tile_offsets:
@@ -253,7 +269,7 @@ Runs make_runs(int64_t dense_route, const void* dense, int64_t size,
 // the table exceeds TABLE_MAX.
 TT_EXPORT int expand_count(const void* table, int64_t nkeys, int64_t cap,
                            const void* num_rows, int64_t kind,
-                           int64_t dense_route, const void* dense,
+                           int64_t route, const void* dense,
                            int64_t size, const void* stats,
                            const void* slot_keys, const void* slot_rows,
                            int64_t slots, const void* slot_start,
@@ -263,12 +279,13 @@ TT_EXPORT int expand_count(const void* table, int64_t nkeys, int64_t cap,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   thread_local static Table t;  // each launch copies it as a parameter
   if (nkeys < 1 || load_table(table, 2 * KEY_FIELDS * nkeys, &t)) return -1;
-  const Runs R = make_runs(dense_route, dense, size, stats, slot_keys,
+  const Runs R = make_runs(route, dense, size, stats, slot_keys,
                            slot_rows, slots, slot_start, slot_counts, runs);
   const int64_t nblocks = tile_blocks(cap);
   auto* offsets = static_cast<int64_t*>(tile_offsets);
   if (cap > 0) {
-    expand_count_kernel<<<(unsigned)nblocks, TILE_THREADS, 0, s>>>(
+    expand_count_kernel<<<(unsigned)nblocks, TILE_THREADS,
+                          mxu_smem_bytes((int)route, size), s>>>(
         t, nkeys, cap, static_cast<const int32_t*>(num_rows), (int)kind, R,
         static_cast<int32_t*>(cand_start), static_cast<int32_t*>(cand_len),
         static_cast<int32_t*>(emit), offsets);
@@ -310,7 +327,7 @@ TT_EXPORT int expand_write(const void* table, int64_t nkeys, int64_t cap,
 // null). Lookup arguments as expand_count.
 TT_EXPORT int probe_verdict(const void* table, int64_t nkeys, int64_t cap,
                             const void* num_rows, int64_t kind,
-                            int64_t null_aware, int64_t dense_route,
+                            int64_t null_aware, int64_t route,
                             const void* dense, int64_t size,
                             const void* stats, const void* slot_keys,
                             const void* slot_rows, int64_t slots,
@@ -320,12 +337,14 @@ TT_EXPORT int probe_verdict(const void* table, int64_t nkeys, int64_t cap,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   thread_local static Table t;
   if (nkeys < 1 || load_table(table, 2 * KEY_FIELDS * nkeys, &t)) return -1;
-  const Runs R = make_runs(dense_route, dense, size, stats, slot_keys,
+  const Runs R = make_runs(route, dense, size, stats, slot_keys,
                            slot_rows, slots, slot_start, slot_counts, runs);
   if (cap > 0) {
+    const size_t smem = mxu_smem_bytes((int)route, size);
     int64_t blocks = (cap + THREADS - 1) / THREADS;
-    blocks = blocks > 4224 ? 4224 : blocks;
-    verdict_kernel<<<(unsigned)blocks, THREADS, 0, s>>>(
+    const int64_t max_blocks = smem ? 1056 : 4224;
+    blocks = blocks > max_blocks ? max_blocks : blocks;
+    verdict_kernel<<<(unsigned)blocks, THREADS, smem, s>>>(
         t, nkeys, cap, static_cast<const int32_t*>(num_rows), (int)kind,
         (int)null_aware, R, static_cast<uint8_t*>(flag),
         static_cast<uint8_t*>(flag2));

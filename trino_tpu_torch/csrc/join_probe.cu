@@ -6,8 +6,13 @@
 // mask, `brow` = the matching build ROW (0 where not found), and the number
 // of matches. The reference's `search` route is a searchsorted over the
 // sorted build keys (log n passes of the sort engine) plus a gather through
-// the sort permutation; here both routes are one kernel:
+// the sort permutation, its `mxu` route a blocked one-hot matmul against
+// the per-key (count, first) table; here every route is one kernel:
 //   dense  — one 4-byte read of the direct-address table at key - kmin;
+//   mxu    — K13 (csrc/common.cuh mxu_find): one 8-byte read of K12's
+//            (count, first) table at key - kmin, the table (at most 32 KB
+//            at the default mxu_join_max_slots) staged once per block in
+//            shared memory; `first` is the build row of the unique build;
 //   search — linear probing of K5's open-addressing hash table from
 //            mix64(key): a slot is a hit when its stored key equals the
 //            probe key, and the first empty slot ends the probe (the table
@@ -33,8 +38,8 @@ constexpr int STAT_KMIN = 4;   // csrc/join_build.cu enum Stat
 
 __global__ void probe_kernel(const __grid_constant__ Table tbl, int64_t nkeys,
                              int64_t cap, const int32_t* __restrict__ num_rows,
-                             int dense_route,
-                             const int32_t* __restrict__ dense, int64_t size,
+                             int route, const int32_t* __restrict__ dense,
+                             int64_t size,
                              const int64_t* __restrict__ stats,
                              const int64_t* __restrict__ slot_keys,
                              const int32_t* __restrict__ slot_rows,
@@ -46,6 +51,9 @@ __global__ void probe_kernel(const __grid_constant__ Table tbl, int64_t nkeys,
   int64_t n = *num_rows;
   n = n < 0 ? 0 : (n > cap ? cap : n);
   const uint64_t kmin = (uint64_t)stats[STAT_KMIN];
+  extern __shared__ int32_t smem[];
+  const int32_t* mxu =
+      route == ROUTE_MXU ? mxu_stage(dense, size, smem) : nullptr;
   unsigned long long hits = 0;
   for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < cap;
        i += (int64_t)gridDim.x * blockDim.x) {
@@ -55,11 +63,17 @@ __global__ void probe_kernel(const __grid_constant__ Table tbl, int64_t nkeys,
       bool null;
       const uint64_t key = join_key(pcols, nkeys, i, &null);
       if (!null) {
-        if (dense_route) {
+        if (route == ROUTE_DENSE) {
           const int32_t r = dense_find(key, kmin, dense, size);
           if (r != 0x7fffffff) {
             f = true;
             b = r;
+          }
+        } else if (route == ROUTE_MXU) {
+          int32_t first = 0;
+          if (mxu_find(key, kmin, mxu, size, &first)) {
+            f = true;
+            b = first;
           }
         } else {
           const int64_t s = hash_find(key, slot_keys, slot_rows, slots);
@@ -82,13 +96,14 @@ __global__ void probe_kernel(const __grid_constant__ Table tbl, int64_t nkeys,
 
 // table: int64 HOST array, KEY_FIELDS words per probe key column, then as
 // many per build key column (values ptr, valid ptr or 0, element size,
-// is_float); dense_route 1: `dense` int32[size] (K5 join_dense), else the
-// hash table slot_keys int64[slots] / slot_rows int32[slots] (K5
-// join_build); stats: K5's int64[10]; found: uint8[cap]; brow: int64[cap];
+// is_float); route (enum Route) ROUTE_DENSE: `dense` int32[size] (K5
+// join_dense); ROUTE_MXU: `dense` is K12's int32[size][2] (count, first)
+// table (csrc/join_mxu.cu); ROUTE_SEARCH: the hash table slot_keys
+// int64[slots] / slot_rows int32[slots] (K5 join_build); stats: K5's int64[10]; found: uint8[cap]; brow: int64[cap];
 // count: int64 scalar (zeroed here). Returns cudaGetLastError(), or -1 when
 // the table exceeds TABLE_MAX.
 TT_EXPORT int join_probe(const void* table, int64_t nkeys, int64_t cap,
-                         const void* num_rows, int64_t dense_route,
+                         const void* num_rows, int64_t route,
                          const void* dense, int64_t size, const void* stats,
                          const void* slot_keys, const void* slot_rows,
                          int64_t slots, void* found,
@@ -98,11 +113,15 @@ TT_EXPORT int join_probe(const void* table, int64_t nkeys, int64_t cap,
   if (nkeys < 1 || load_table(table, 2 * KEY_FIELDS * nkeys, &t)) return -1;
   cudaMemsetAsync(count, 0, sizeof(unsigned long long), s);
   if (cap > 0) {
+    const size_t smem = mxu_smem_bytes((int)route, size);
     int64_t blocks = (cap + THREADS - 1) / THREADS;
-    blocks = blocks > 4224 ? 4224 : blocks;
-    probe_kernel<<<(unsigned)blocks, THREADS, 0, s>>>(
+    // a block that stages the mxu table walks more rows, to fill it fewer
+    // times
+    const int64_t max_blocks = smem ? 1056 : 4224;
+    blocks = blocks > max_blocks ? max_blocks : blocks;
+    probe_kernel<<<(unsigned)blocks, THREADS, smem, s>>>(
         t, nkeys, cap, static_cast<const int32_t*>(num_rows),
-        (int)dense_route, static_cast<const int32_t*>(dense), size,
+        (int)route, static_cast<const int32_t*>(dense), size,
         static_cast<const int64_t*>(stats),
         static_cast<const int64_t*>(slot_keys),
         static_cast<const int32_t*>(slot_rows), slots,

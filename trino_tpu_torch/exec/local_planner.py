@@ -17,15 +17,18 @@ batched at the merge boundary (merge_counted_rows), per probe window
 (_coalesce_stream), once per join build (_prepare_probe: max_run, the key
 span, live rows) and once per probe batch (the join's output totals).
 
-The join router keeps the reference's `dense` (direct-address table) and
-`search` routes; the reference's `mxu` route (ops/join_mxu.py, ROADMAP
-B11) is not ported, so where the reference would take it the port takes
-`dense`, the reference's next choice. Not ported either, and named in
-ROADMAP: the build collection that spills under memory pressure
-(`_collect_build_resilient`) and the spilled and partitioned joins
-(A7/B9; the port collects the build whole and raises past
-`join_spill_threshold_bytes`), the aggregating matrix-unit join
-`_mxu_agg_join` (B11) and the adaptive partial aggregation (A7).
+The join router takes the reference's three routes on the reference's
+gates: `mxu` (ops/join_mxu.py: K12's per-key (count, first) table, probed
+by K13) for a single-key INNER, SEMI/ANTI or MARK join whose build key
+span fits `mxu_join_max_slots` densely enough, else `dense` (a direct-
+address table) for a span under the dense limit, else `search` (K5's hash
+table); `mxu_joins` and `mxu_flops` count what ran (runner.
+last_query_stats). Not ported, and named in ROADMAP: the build collection
+that spills under memory pressure (`_collect_build_resilient`) and the
+spilled and partitioned joins (A7/B9; the port collects the build whole
+and raises past `join_spill_threshold_bytes`), the aggregating matrix-unit
+join `_mxu_agg_join` (B11b: no TPC-H query enters it) and the adaptive
+partial aggregation (A7).
 
 Every other node and an aggregation buffer past
 `agg_spill_threshold_bytes` raise an ExecutionError naming the ROADMAP
@@ -50,12 +53,15 @@ from trino_tpu_torch.expr.ir import (Call, InputRef, Literal, RowExpression,
 from trino_tpu_torch.metadata import Metadata, Session
 from trino_tpu_torch.ops import (AggSpec, SortKey, Step, hash_aggregate,
                                  order_by, top_n_masked)
-from trino_tpu_torch.ops.join import (KMAX, KMIN, MAX_RUN, N_LIVE, JoinType,
-                                      attach_build, build_dense_table,
-                                      build_key_bounds, hash_join,
-                                      prepare_build, prepare_runs,
+from trino_tpu_torch.ops.join import (KMAX, KMIN, MAX_RUN, N_LIVE,
+                                      NDISTINCT, JoinType, attach_build,
+                                      build_dense_table, build_key_bounds,
+                                      hash_join, prepare_build, prepare_runs,
                                       range_prefilter, unique_inner_probe,
                                       unmatched_build_page, unsigned)
+from trino_tpu_torch.ops.join_mxu import (MAX_EXACT_ROWS,
+                                          build_count_pos_table,
+                                          lookup_flops)
 from trino_tpu_torch.page import Column, Dictionary, Page, _to_device, \
     device_concat, gather_rows, row_count
 from trino_tpu_torch.planner.nodes import (
@@ -186,6 +192,9 @@ class LocalExecutionPlanner:
         # one entry per join run (runner.last_joins): kind, route, build
         # live rows, max_run, probe rows, output rows
         self.joins: List[dict] = []
+        # the query's counters (runner.last_query_stats): joins routed onto
+        # the mxu lookup and their probe pages' cost-model flops
+        self.stats = {"mxu_joins": 0, "mxu_flops": 0}
 
     # ------------------------------------------------- literal hoisting
 
@@ -584,7 +593,9 @@ class LocalExecutionPlanner:
                 aligned = self._align_join_dictionaries(
                     probe_stream, bp, probe_keys, build_keys)
             prepared, max_run, mode, n_live = self._prepare_probe(
-                build_keys, bp, expanding=join_kind != JoinType.INNER)
+                build_keys, bp, expanding=join_kind != JoinType.INNER,
+                mxu_ok=(join_kind == JoinType.INNER
+                        and len(build_keys) == 1))
             prefilter = None
             if join_kind == JoinType.INNER and \
                     self.session.get("enable_dynamic_filtering") and \
@@ -600,7 +611,9 @@ class LocalExecutionPlanner:
                     lambda: range_prefilter(probe_keys[0]))
                 prefilter = (pf_op, bounds_op(prepared))
             log = self._join_log(join_kind, mode, n_live, max_run)
-            probe_in = self._coalesce_stream(aligned, prefilter=prefilter)
+            probe_in = self._mxu_stream(
+                self._coalesce_stream(aligned, prefilter=prefilter),
+                prepared)
             if join_kind == JoinType.INNER and max_run <= 1:
                 probe_op, attach_op = unique_ops(mode)
                 yield from self._run_unique_inner(probe_in, prepared,
@@ -805,7 +818,8 @@ class LocalExecutionPlanner:
                     return
                 bp = self._null_build_page(build_stream.symbols)
             prepared, max_run, route, n_live = self._prepare_probe(
-                build_keys, bp, expanding=True)
+                build_keys, bp, expanding=True,
+                mxu_ok=len(build_keys) == 1)
             op = cached_kernel(
                 ("semijoin", probe_keys, build_keys, jt, semi.null_aware,
                  route),
@@ -822,7 +836,8 @@ class LocalExecutionPlanner:
                 out = op.verdict(page, prepared)
                 return out if post is None else out.filter(
                     post(out, rest_params))
-            for out in self._run_verdict(probe_stream, verdict, log):
+            for out in self._run_verdict(probe_stream, verdict, log,
+                                         prepared):
                 flag = torch.full((out.capacity,), mode == "semi",
                                   dtype=torch.bool, device=out.device)
                 yield out.append_column(Column(flag, None, T.BOOLEAN, None))
@@ -846,22 +861,25 @@ class LocalExecutionPlanner:
                         Column(flag, None, T.BOOLEAN, None))
                 return
             prepared, max_run, route, n_live = self._prepare_probe(
-                build_keys, build_page, expanding=True)
+                build_keys, build_page, expanding=True,
+                mxu_ok=len(build_keys) == 1)
             op = cached_kernel(
                 ("markjoin", probe_keys, build_keys, node.null_aware, route),
                 lambda: hash_join(probe_keys, build_keys, JoinType.MARK,
                                   null_aware=node.null_aware, lookup=route))
             log = self._join_log(JoinType.MARK, route, n_live, max_run)
             yield from self._run_verdict(
-                probe_stream, lambda page: op.verdict(page, prepared), log)
+                probe_stream, lambda page: op.verdict(page, prepared), log,
+                prepared)
         return PageStream(gen(), out_symbols)
 
-    def _run_verdict(self, probe_stream: PageStream, verdict, log
-                     ) -> Iterator[Page]:
+    def _run_verdict(self, probe_stream: PageStream, verdict, log,
+                     prepared) -> Iterator[Page]:
         """SEMI/ANTI/MARK over the coalesced probe stream: the verdict op
         per page, ONE host read of the output rows per batch, each output
         shrunk to at most 2x its live rows."""
-        pages = self._coalesce_stream(probe_stream).iter_pages()
+        pages = self._mxu_stream(self._coalesce_stream(probe_stream),
+                                 prepared).iter_pages()
         for batch in _byte_bounded_batches(pages, 1 << 29):
             outs = [verdict(page) for page in batch]
             fetched = torch.stack([o.num_rows for o in outs]
@@ -1080,20 +1098,45 @@ class LocalExecutionPlanner:
         return _next_pow2(span) if 0 < span <= limit else 0
 
     def _prepare_probe(self, build_keys, build_page: Page,
-                       expanding: bool = False):
-        """K5 plus the per-join route: ONE host read of (live rows,
-        max_run, kmin, kmax), then `dense` when the unsigned key span fits
-        the direct-address limit, else `search` (the hash table). A build
-        with duplicate keys, or any `expanding` join kind, also gets K5's
-        runs mode (whose dense table holds slots, not rows). Returns
-        (prepared, max_run, route, build live rows)."""
+                       expanding: bool = False, mxu_ok: bool = False):
+        """K5 plus the per-join route (the reference's router): ONE host
+        read of (live rows, max_run, kmin, kmax, distinct live keys), then
+
+          'mxu'    — `mxu_ok` (one key; INNER, SEMI/ANTI or MARK),
+                     mxu_join_enabled, the unsigned key span in (0,
+                     mxu_join_max_slots], the build's capacity under
+                     MAX_EXACT_ROWS and distinct keys >= span *
+                     mxu_join_density_threshold: K12's (count, first)
+                     table of 1 << max(bit_length(span - 1), 7) slots;
+          'dense'  — the span fits the direct-address limit;
+          'search' — K5's hash table.
+
+        A build with duplicate keys, or any `expanding` join kind, also
+        gets K5's runs mode (whose dense table holds slots and whose mxu
+        table holds run starts, not rows). Returns (prepared, max_run,
+        route, build live rows)."""
         prepared = self._prepare_build(build_keys, build_page)
-        got = prepared.stats[:KMAX + 1].tolist()
+        got = prepared.stats.tolist()
         max_run, n_live = got[MAX_RUN], got[N_LIVE]
         kmin, kmax = unsigned(got[KMIN]), unsigned(got[KMAX])
         span = kmax - kmin + 1 if kmax >= kmin else 0
+        runs = expanding or max_run > 1
+        if mxu_ok and bool(self.session.get("mxu_join_enabled")) \
+                and 0 < span <= int(self.session.get("mxu_join_max_slots")) \
+                and build_page.capacity < MAX_EXACT_ROWS \
+                and got[NDISTINCT] >= span * float(self.session.get(
+                    "mxu_join_density_threshold")):
+            size = 1 << max((span - 1).bit_length(), 7)
+            if runs:
+                prepared = cached_kernel(("join-runs", 0),
+                                         lambda: prepare_runs(0))(prepared)
+            prepared = cached_kernel(("mxu-table", size),
+                                     lambda: build_count_pos_table(size))(
+                                         prepared)
+            self.stats["mxu_joins"] += 1
+            return prepared, max_run, "mxu", n_live
         size = self._dense_size(build_page, span)
-        if expanding or max_run > 1:
+        if runs:
             prepared = cached_kernel(("join-runs", size),
                                      lambda: prepare_runs(size))(prepared)
         elif size:
@@ -1101,6 +1144,21 @@ class LocalExecutionPlanner:
                                      lambda: build_dense_table(size))(
                                          prepared)
         return prepared, max_run, "dense" if size else "search", n_live
+
+    def _mxu_stream(self, stream: PageStream, prepared) -> PageStream:
+        """A probe stream of an `mxu` join adding each page's cost-model
+        flops to mxu_flops (the reference's _mxu_stream); other routes'
+        streams pass as they are."""
+        if prepared.mxu is None:
+            return stream
+        slots = prepared.mxu.shape[0]
+
+        def gen():
+            for page in stream.iter_pages():
+                self.stats["mxu_flops"] += lookup_flops(page.capacity,
+                                                        slots, 2)
+                yield page
+        return PageStream(gen(), stream.symbols)
 
     def _exec_SortNode(self, node: SortNode) -> PageStream:
         src = self.execute(node.source)

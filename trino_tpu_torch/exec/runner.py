@@ -82,18 +82,26 @@ class LocalQueryRunner:
         self.session = session or Session()
         # one dict per join of the last query, in the order the joins
         # started: kind (inner, left, full, semi, anti, mark, cross), route
-        # (dense, search; cross for a cross join), build_rows (live build
+        # (dense, search, mxu; cross for a cross join), build_rows (live build
         # rows), max_run (the longest run of one build key), probe_rows and
         # output_rows (None for a one-row cross join, which reads no
         # counts); INNER joins also carry matched (== output_rows)
         self.last_joins: list = []
+        # the last query's counters (the reference's QueryStatsCollector
+        # subset the port keeps): mxu_joins, the joins routed onto the
+        # `mxu` lookup, and mxu_flops, their probe pages' cost-model
+        # multiply-adds (ops/join_mxu.lookup_flops)
+        self.last_query_stats: dict = {"mxu_joins": 0, "mxu_flops": 0}
 
     @classmethod
-    def tpch(cls, schema: str = "tiny", device=None) -> "LocalQueryRunner":
-        """Runner over the TPC-H catalog (TpchQueryRunner)."""
+    def tpch(cls, schema: str = "tiny", device=None,
+             device_gen: Optional[bool] = None) -> "LocalQueryRunner":
+        """Runner over the TPC-H catalog (TpchQueryRunner); `device_gen`
+        False stages every table column from NumPy instead of generating
+        it on the device (default: TRINO_TPU_DEVICE_GEN, on)."""
         runner = cls(Session(catalog="tpch", schema=schema), device=device)
-        runner.catalogs.register("tpch",
-                                 tpch.create_connector(runner.device))
+        runner.catalogs.register(
+            "tpch", tpch.create_connector(runner.device, device_gen))
         return runner
 
     # ------------------------------------------------------------- execute
@@ -142,6 +150,7 @@ class LocalQueryRunner:
                                          self.device)
         # each join of the last query: route, build live rows, probe rows
         self.last_joins = executor.joins
+        self.last_query_stats = executor.stats
         stream = executor.execute(plan)
         types = [s.type for s in plan.symbols]
         rows: List[Tuple[Any, ...]] = []

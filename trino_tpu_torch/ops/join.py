@@ -7,7 +7,8 @@ each function returns. Device kernels, each beside its plain PyTorch twin:
 
 * K5 `join_build` (prepare_build, build_key_bounds): per build row its
   64-bit key, the statistics the executor reads once per join (live rows,
-  NULL keys, max_run, the unsigned key min/max, the first key's bounds)
+  NULL keys, max_run, the unsigned key min/max, the first key's bounds,
+  the distinct live keys)
   and an open-addressing hash table, `csrc/join_build.cu`; its dense mode
   `join_dense` (build_dense_table) fills the direct-address table of a
   small key span; its runs mode `join_runs` (the reference's bperm and
@@ -16,6 +17,9 @@ each function returns. Device kernels, each beside its plain PyTorch twin:
 * K6 `unique_probe` (unique_inner_probe): one lookup per probe row, the
   found mask, the matching build row and the match count,
   `csrc/join_probe.cu`.
+* K12 and K13, the `mxu` route (ops/join_mxu.py): K12 builds the per-key
+  (count, first) table a Prepared carries in `mxu`; K13 is the `mxu`
+  mode of K6 and of K9's count and verdict launches.
 * K9 (hash_join, _mark_page, unmatched_build_page), `csrc/join_expand.cu`:
   `expand_count` counts each probe row's verified matches (or its one
   null-extended row) and their int64 total, `expand_write` writes the
@@ -133,7 +137,8 @@ def _key_u64(page: Page, channels: Sequence[int]
 # ------------------------------------------------------------------ K5
 
 # int64 statistics a build writes (csrc/join_build.cu enum Stat)
-N_LIVE, N_ROWS, HAS_NULL, MAX_RUN, KMIN, KMAX, LO, HI, LO_NAN = range(9)
+N_LIVE, N_ROWS, HAS_NULL, MAX_RUN, KMIN, KMAX, LO, HI, LO_NAN, NDISTINCT = \
+    range(10)
 N_STATS = 10
 
 
@@ -148,7 +153,8 @@ def _reduce(x: torch.Tensor, ok: torch.Tensor, ident: int, lowest: bool
 
 def join_build_plain(cols, num_rows: torch.Tensor):
     """Plain twin of K5: (stats int64[10], ("sorted", keys, rows)) — the
-    live non-NULL keys in unsigned order with their first build row."""
+    live non-NULL keys in unsigned order with their first build row (their
+    number is the NDISTINCT statistic)."""
     cap = cols[0][0].shape[0]
     dev = num_rows.device
     live = torch.arange(cap, device=dev, dtype=torch.int32) < num_rows
@@ -189,11 +195,11 @@ def join_build_plain(cols, num_rows: torch.Tensor):
         skeys, srows = skeys[first_of], srows[first_of]
     else:
         max_run = torch.zeros((), dtype=torch.int64, device=dev)
-    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    ndistinct = torch.tensor(skeys.numel(), dtype=torch.int64, device=dev)
     stats = torch.stack([
         ok.sum(dtype=torch.int64), live.sum(dtype=torch.int64),
         (live & null).any().to(torch.int64), max_run.to(torch.int64),
-        kmin, kmax, lo, hi, lo_nan, zero])
+        kmin, kmax, lo, hi, lo_nan, ndistinct])
     return stats, ("sorted", skeys, srows)
 
 
@@ -310,10 +316,11 @@ def join_dense(cols, num_rows, stats, size):
 class Prepared:
     """A built join side (the reference's LookupSource tuple): the build
     page, its key channels, K5's statistics (int64[10] on the device), its
-    lookup structure, on the dense route the direct-address table and, for
-    the expanding probe, the runs (runs mode: build rows grouped by key,
-    each slot's start and length). With runs, the dense table maps a key
-    to its slot, not to a row."""
+    lookup structure, on the dense route the direct-address table, for the
+    expanding probe the runs (runs mode: build rows grouped by key, each
+    slot's start and length) and on the mxu route K12's int32 (size, 2)
+    table of (count, first). With runs, the dense table maps a key to its
+    slot, not to a row, and the mxu table's first is the run's start."""
 
     build: Page
     keys: Tuple[int, ...]
@@ -321,6 +328,33 @@ class Prepared:
     lookup: tuple
     dense: Optional[torch.Tensor] = None
     runs: Optional[tuple] = None
+    mxu: Optional[torch.Tensor] = None
+
+
+# csrc/common.cuh enum Route
+ROUTE_CODE = {"search": 0, "dense": 1, "mxu": 2}
+
+
+def route_of(prepared: Prepared) -> str:
+    """The lookup a Prepared was built for: mxu, dense or search."""
+    if prepared.mxu is not None:
+        return "mxu"
+    return "search" if prepared.dense is None else "dense"
+
+
+def _route_table(prepared: Prepared):
+    """(route code, table, slots) of a Prepared's direct-address lookup;
+    the hash table's rows for the search route."""
+    if prepared.mxu is not None:
+        return ROUTE_CODE["mxu"], prepared.mxu, prepared.mxu.shape[0]
+    if prepared.dense is not None:
+        return ROUTE_CODE["dense"], prepared.dense, prepared.dense.shape[0]
+    return ROUTE_CODE["search"], prepared.lookup[2], 0
+
+
+def _count_route(fn, prepared: Prepared) -> None:
+    route = route_of(prepared)
+    fn.by_route[route] = fn.by_route.get(route, 0) + 1
 
 
 def _page_key_cols(page: Page, channels: Sequence[int]):
@@ -391,7 +425,12 @@ def unique_probe_plain(pcols, bcols, num_rows: torch.Tensor,
     live = torch.arange(cap, device=dev, dtype=torch.int32) < num_rows
     key, null = _key_cols(pcols)
     ok = live & ~null
-    if prepared.dense is not None:
+    if prepared.mxu is not None:
+        from trino_tpu_torch.ops.join_mxu import matmul_lookup
+        cnt, first = matmul_lookup(prepared.mxu, prepared.stats[KMIN], key)
+        found = ok & (cnt > 0)
+        brow = first.to(torch.int64)
+    elif prepared.dense is not None:
         size = prepared.dense.shape[0]
         raw = key - prepared.stats[KMIN]
         inb = (raw >= 0) & (raw < size)
@@ -430,22 +469,24 @@ def unique_probe_cuda(pcols, bcols, num_rows: torch.Tensor,
     found = torch.empty(cap, dtype=torch.bool, device=dev)
     brow = torch.empty(cap, dtype=torch.int64, device=dev)
     count = torch.empty((), dtype=torch.int64, device=dev)
-    if prepared.dense is not None:
-        dense, size = prepared.dense, prepared.dense.shape[0]
-        slot_keys = slot_rows = dense
-        slots = 1
-    else:
+    if prepared.mxu is not None and prepared.runs is not None:
+        raise ValueError("K6 reads build rows: an mxu table of run starts "
+                         "belongs to the expanding probe")
+    route, table, size = _route_table(prepared)
+    if route == ROUTE_CODE["search"]:
         if prepared.lookup[0] != "hash":
             raise ValueError("K6 needs the hash table K5 built on the card")
         _, slot_keys, slot_rows, _ = prepared.lookup
-        dense, size, slots = slot_rows, 0, slot_rows.shape[0]
+        slots = slot_rows.shape[0]
+    else:
+        slot_keys = slot_rows = table
+        slots = 1
     lib = native.library("join_probe")
     rc = lib.join_probe(
         host_table(_key_table(pcols), _key_table(bcols)),
         ctypes.c_int64(len(pcols)), ctypes.c_int64(cap),
-        ctypes.c_void_p(num_rows.data_ptr()),
-        ctypes.c_int64(int(prepared.dense is not None)),
-        ctypes.c_void_p(dense.data_ptr()), ctypes.c_int64(size),
+        ctypes.c_void_p(num_rows.data_ptr()), ctypes.c_int64(route),
+        ctypes.c_void_p(table.data_ptr()), ctypes.c_int64(size),
         ctypes.c_void_p(prepared.stats.data_ptr()),
         ctypes.c_void_p(slot_keys.data_ptr()),
         ctypes.c_void_p(slot_rows.data_ptr()), ctypes.c_int64(slots),
@@ -454,10 +495,12 @@ def unique_probe_cuda(pcols, bcols, num_rows: torch.Tensor,
         ctypes.c_void_p(native.stream_ptr(dev)))
     native.check(rc, "join_probe")
     unique_probe_cuda.launches += 1
+    _count_route(unique_probe_cuda, prepared)
     return found, brow, count
 
 
 unique_probe_cuda.launches = 0
+unique_probe_cuda.by_route = {}
 
 
 def unique_probe(pcols, bcols, num_rows, prepared):
@@ -487,12 +530,13 @@ def unique_inner_probe(
     Returns (pre_page, found, match_count): pre_page is the probe columns
     (probe_out, default all) ++ a BIGINT `brow` channel in probe order,
     0 where no row matched. `lookup` names the route the Prepared was built
-    for ('dense' carries its table; 'search' uses the hash table)."""
+    for ('dense' carries its table, 'mxu' K12's (count, first) table;
+    'search' uses the hash table)."""
     probe_keys = tuple(probe_keys)
     build_keys = tuple(build_keys)
 
     def op(probe: Page, prepared: Prepared):
-        if (lookup == "dense") != (prepared.dense is not None):
+        if lookup != route_of(prepared):
             raise ValueError(f"lookup {lookup!r} does not match the "
                              "prepared build")
         _check_dictionaries(probe, prepared.build, probe_keys, build_keys)
@@ -662,6 +706,14 @@ def _runs_of(pcols, num_rows: torch.Tensor, prepared: Prepared):
     ok = live & ~null
     _, starts, counts = prepared.runs
     nu = counts.numel()
+    if prepared.mxu is not None:
+        # K13's twin: the table holds (run length, run start) per key
+        from trino_tpu_torch.ops.join_mxu import matmul_lookup
+        cnt, first = matmul_lookup(prepared.mxu, prepared.stats[KMIN], key)
+        found = ok & (cnt > 0)
+        zero = torch.zeros(cap, dtype=torch.int32, device=dev)
+        return (torch.where(found, first, zero),
+                torch.where(found, cnt, zero))
     if prepared.dense is not None:
         size = prepared.dense.shape[0]
         raw = key - prepared.stats[KMIN]
@@ -731,11 +783,9 @@ def _runs_args(prepared: Prepared) -> list:
     """The lookup arguments K9's launchers share (csrc/join_expand.cu)."""
     _, slot_keys, slot_rows, _ = prepared.lookup
     runs, slot_start, slot_counts = prepared.runs
-    dense = prepared.dense if prepared.dense is not None else slot_rows
-    return [ctypes.c_int64(int(prepared.dense is not None)),
-            ctypes.c_void_p(dense.data_ptr()),
-            ctypes.c_int64(0 if prepared.dense is None
-                           else prepared.dense.shape[0]),
+    route, table, size = _route_table(prepared)
+    return [ctypes.c_int64(route), ctypes.c_void_p(table.data_ptr()),
+            ctypes.c_int64(size),
             ctypes.c_void_p(prepared.stats.data_ptr()),
             ctypes.c_void_p(slot_keys.data_ptr()),
             ctypes.c_void_p(slot_rows.data_ptr()),
@@ -782,11 +832,13 @@ def expand_count_cuda(pcols, bcols, num_rows: torch.Tensor,
     expand_count_cuda.launches += 1
     expand_count_cuda.by_kind[kind] = \
         expand_count_cuda.by_kind.get(kind, 0) + 1
+    _count_route(expand_count_cuda, prepared)
     return Counted(None, prepared, cand_start, cand_len, emit, total, offsets)
 
 
 expand_count_cuda.launches = 0
 expand_count_cuda.by_kind = {}
+expand_count_cuda.by_route = {}
 
 
 def expand_count(pcols, bcols, num_rows, prepared, kind) -> Counted:
@@ -916,11 +968,13 @@ def probe_verdict_cuda(pcols, bcols, num_rows: torch.Tensor,
     probe_verdict_cuda.launches += 1
     probe_verdict_cuda.by_kind[kind] = \
         probe_verdict_cuda.by_kind.get(kind, 0) + 1
+    _count_route(probe_verdict_cuda, prepared)
     return flag, flag2
 
 
 probe_verdict_cuda.launches = 0
 probe_verdict_cuda.by_kind = {}
+probe_verdict_cuda.by_route = {}
 
 
 def probe_verdict(pcols, bcols, num_rows, prepared, kind, null_aware):
@@ -951,10 +1005,8 @@ class HashJoin:
 
     def __init__(self, probe_keys, build_keys, join_type, null_aware,
                  lookup, probe_out, build_out):
-        if lookup not in ("search", "dense"):
-            raise NotImplementedError(
-                f"join lookup {lookup!r}: the matrix-unit probe is ROADMAP "
-                "B11")
+        if lookup not in ROUTE_CODE:
+            raise ValueError(f"join lookup {lookup!r}")
         self.probe_keys = tuple(probe_keys)
         self.build_keys = tuple(build_keys)
         self.join_type = join_type
@@ -964,7 +1016,7 @@ class HashJoin:
         self.build_out = build_out
 
     def _cols(self, probe: Page, prepared: Prepared):
-        if (self.lookup == "dense") != (prepared.dense is not None):
+        if self.lookup != route_of(prepared):
             raise ValueError(f"lookup {self.lookup!r} does not match the "
                              "prepared build")
         _check_dictionaries(probe, prepared.build, self.probe_keys,
