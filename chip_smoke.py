@@ -20,9 +20,13 @@ Phases, each printing its lines before the next starts:
      (the mxu route's table and lookup, in K6 and in K9 for every kind)
      at table sizes 128 and 4096; K14/K15 (TPC-H generation) over every
      generated column of the six tables at sf1 and one sf10 lineitem
-     chunk, bit for bit against the twins and the NumPy chunks;
+     chunk, bit for bit against the twins and the NumPy chunks; K16-K19
+     (the spilled join's keys and probe, the spill partitioner in hash,
+     rank and range modes, the bypass states) over NULL, dead, -1, NaN,
+     -0.0, bool and code keys, duplicate and empty builds, wide spans,
+     salts 0-3, 1/4/16 partitions and NULLs first and last, bit for bit;
   3. the 22 TPC-H queries, a FULL join and a MARK query at sf1 and q6, q3,
-     q9, q13 at sf10 (spill off: the spilled join is not ported) from SQL
+     q9, q13 at sf10 (the reference's default session, spill on) from SQL
      through LocalQueryRunner.tpch(schema).execute(sql) on cuda, tables
      generated on the card, rows held equal to the same queries through
      the port on the CPU with tables from NumPy; each join's kind, route,
@@ -31,9 +35,16 @@ Phases, each printing its lines before the next starts:
      evaluated by the torch-op compiler, no sort by the plain twin and no
      generated column staged from NumPy on the card; the first-run walls
      of q6/q9 at sf10 and each table's generation seconds at sf1/sf10,
-     K14/K15 against the NumPy path;
+     K14/K15 against the NumPy path; each sf10 join's route with its build,
+     device and host bytes and each sf10 query's spill counters; then the
+     forced-threshold path (FORCED: q3 and q9 past a lowered join
+     threshold, a composite unique build, the lineitem self-join, a
+     high-NDV GROUP BY and a spilled ORDER BY at sf1), each equal to the
+     card's run of the same SQL under the default session, which must
+     launch K16-K19 and take spill-dense, spill-search and partitioned;
   4. every kernel, every expanding-probe kind and the mxu, dense, search
-     and cross routes launched during phase 3; per kernel its launches,
+     and cross routes launched during phase 3 (K16-K19 on the forced
+     path; the host attach's ms per batch); per kernel its launches,
      its time at the main path's shapes (CUDA events; K10 and K11 also
      their host time per call), its bound, its plain twin's time and a
      one-call PyTorch yardstick; each query's warm wall time, idle share
@@ -417,6 +428,8 @@ def same_bits(x: torch.Tensor, y: torch.Tensor) -> bool:
         return False
     if x.dtype in (torch.float64, torch.int64):
         return torch.equal(x.view(torch.int64), y.view(torch.int64))
+    if x.dtype == torch.float32:
+        return torch.equal(x.view(torch.int32), y.view(torch.int32))
     return torch.equal(x, y)
 
 
@@ -1720,6 +1733,248 @@ def check_expr(dev) -> float:
     return err
 
 
+# ------------------------------------------- K16-K19 (the spill slice)
+
+
+def spill_key_cols(g, kind, cap, n, dup, dev):
+    """Build key columns (values, valid) of one K16/K17 case: NULL keys,
+    a live key of -1, dead rows past n; `dup` repeats a key."""
+    if kind == "dense":          # a shuffled surrogate span
+        v = torch.randperm(cap, generator=g).to(torch.int64) + 1000
+    elif kind == "minus1":       # a live key of -1 (u64::MAX, the mask)
+        v = torch.randperm(cap, generator=g).to(torch.int64) - 1
+    elif kind == "wide":         # a key span past 2^28: the search mode
+        v = torch.randint(-2**40, 2**40, (cap,), generator=g,
+                          dtype=torch.int64) * 3
+        v[0] = -1
+    elif kind == "float":        # NaN, -0.0 and +0.0 among the keys
+        v = torch.randperm(cap, generator=g).to(torch.float64) * 0.5
+        if cap > 16:
+            v[3] = float("nan")
+            v[5] = -0.0
+            v[7] = 1e300
+    elif kind == "codes":        # dictionary codes (int32)
+        v = torch.randperm(cap, generator=g).to(torch.int32)
+    elif kind == "bool":
+        v = torch.arange(cap) % 2 == 0
+    else:                        # composite (int32, int64)
+        v = torch.randperm(cap, generator=g).to(torch.int32) % max(cap, 1)
+    if dup and cap > 8:
+        v[cap // 2] = v[1]
+    valid = torch.rand(cap, generator=g) >= 0.05
+    if kind == "bool":
+        valid = torch.ones(cap, dtype=torch.bool)
+    cols = [(v.contiguous().to(dev), valid.to(dev))]
+    if kind == "composite":
+        w = torch.arange(cap, dtype=torch.int64) * 11 - 7
+        if dup and cap > 8:
+            w[cap // 2] = w[1]
+        cols.append((w.to(dev), None))
+    return cols
+
+
+SPILL_JOIN_CASES = [  # kind, cap, live rows, duplicate, probe cap, live
+    ("dense", 8192, 8000, False, 20_000, 19_000),
+    ("dense", 8192, 8192, True, 4096, 4096),
+    ("minus1", 4096, 4096, False, 8192, 8192),
+    ("wide", 50_000, 49_000, False, 70_000, 69_000),
+    ("float", 4096, 4000, False, 8192, 8000),
+    ("codes", 2048, 2048, False, 4096, 4000),
+    ("bool", 8, 2, False, 64, 60),
+    ("composite", 3000, 2900, False, 6000, 6000),
+    ("composite", 3000, 3000, True, 100, 100),
+    ("dense", 1024, 0, False, 512, 512),                 # empty build
+    ("wide", 1024, 1024, False, 512, 0),                 # dead probe
+    ("dense", 131_072, 131_000, False, 4_194_304, 4_194_304),
+]
+
+
+def check_spill_join(g, dev) -> float:
+    """K16 (sorted keys, permutation, statistics), K5's dense mode with
+    the permutation as payload, and K17 in both modes, against their
+    twins: everything bit for bit."""
+    from trino_tpu_torch.ops import join as J
+    for kind, bcap, bn, dup, pcap, pn in SPILL_JOIN_CASES:
+        label = f"{kind} build {bn}/{bcap} probe {pn}/{pcap} dup={dup}"
+        bcols = spill_key_cols(g, kind, bcap, bn, dup, dev)
+        bnr = torch.tensor(bn, dtype=torch.int32, device=dev)
+        keys, perm, stats = J.spill_prep_cuda(bcols, bnr)
+        sync()
+        wkeys, wperm, wstats = J.spill_prep_plain(bcols, bnr)
+        if not torch.equal(stats, wstats):
+            fail(f"K16 statistics differ ({label}):\n{stats.tolist()}\n"
+                 f"{wstats.tolist()}")
+        if not torch.equal(keys, wkeys) or not torch.equal(perm, wperm):
+            fail(f"K16 sorted keys or permutation differ ({label})")
+        if dup and bn > bcap // 2 and int(stats[J.SPILL_UNIQUE]):
+            fail(f"K16 missed the duplicate key ({label})")
+        pcols = probe_cols(g, bcols, pcap, dev)
+        pnr = torch.tensor(pn, dtype=torch.int32, device=dev)
+        kmin, kmax = (J.unsigned(int(stats[J.KMIN])),
+                      J.unsigned(int(stats[J.KMAX])))
+        modes = [(J.SPILL_SEARCH, (keys, perm), (wkeys, wperm))]
+        if len(bcols) == 1 and kmax >= kmin \
+                and kmax - kmin < J.SPILL_DENSE_MAX_SPAN:
+            size = 1 << max(10, (kmax - kmin).bit_length())
+            table = J.build_dense_table_rows(size)(keys, perm, stats)
+            sync()
+            wtable = J.join_dense_plain(
+                [(wkeys, None)], wstats[J.N_LIVE].to(torch.int32), wstats,
+                size, wperm)
+            if not torch.equal(table, wtable):
+                fail(f"K5 dense mode over K16's keys differs ({label})")
+            modes.append((J.SPILL_DENSE, table, wtable))
+        for mode, lookup, wlookup in modes:
+            f, b, c = J.spill_probe_cuda(pcols, pnr, mode, lookup, stats)
+            sync()
+            wf, wb, wc = J.spill_probe_plain(pcols, pnr, mode, wlookup,
+                                             wstats)
+            if int(c) != int(wc) or not torch.equal(f, wf) \
+                    or not torch.equal(b, wb):
+                fail(f"K17 mode {mode} differs ({label}): count {int(c)} "
+                     f"vs {int(wc)}")
+    return 0.0   # compared exactly
+
+
+def spill_page_cols(g, cap, dev):
+    """The columns a K18 page carries: an int64 key with NULLs, a float64
+    with NaN/-0.0/+0.0 and ties, a bool, int32 dictionary codes with few
+    values (ties), and an int16 payload."""
+    k = torch.randint(0, cap // 3 + 2, (cap,), generator=g,
+                      dtype=torch.int64) - 1
+    kv = torch.rand(cap, generator=g) >= 0.1
+    f = (torch.randint(-50, 50, (cap,), generator=g) * 0.25).to(
+        torch.float64)
+    if cap > 32:
+        f[::9] = float("nan")
+        f[1::13] = -0.0
+        f[2::17] = 0.0
+        f[3::19] = float("-inf")
+    fv = torch.rand(cap, generator=g) >= 0.1
+    b = torch.rand(cap, generator=g) < 0.5
+    codes = torch.randint(0, 7, (cap,), generator=g, dtype=torch.int32)
+    pay = torch.randint(-2**15, 2**15 - 1, (cap,), generator=g,
+                        dtype=torch.int16)
+    return [(k.to(dev), kv.to(dev)), (f.to(dev), fv.to(dev)),
+            (b.to(dev), None), (codes.to(dev), None), (pay.to(dev), None)]
+
+
+def check_spill_part(g, dev) -> float:
+    """K18's hash mode (salts 0-3, npart 1, 4 and 16), rank mode (each
+    key type, both directions, NULLs first and last) and range mode
+    (rank_bounds' quantiles with ties, K10 under them) against the
+    twins: pids, counts and every moved column bit for bit."""
+    from trino_tpu_torch.exec import spill as SP
+    from trino_tpu_torch.ops.sort import sort_u64_cuda
+    for cap, n in ((8192, 8000), (4096, 0), (2048, 2048),
+                   (4_194_304, 4_194_000)):
+        cols = spill_page_cols(g, cap, dev)
+        arrays = [a for v, m in cols for a in ((v,) if m is None
+                                               else (v, m))]
+        nr = torch.tensor(n, dtype=torch.int32, device=dev)
+        key_sets = ([cols[0]], [cols[1]], [cols[2], cols[3]],
+                    [cols[0], cols[1], cols[3]])
+        for keys in key_sets:
+            for npart in (1, 4, 16):
+                for salt in (0, 1, 2, 3):
+                    if cap > 8192 and (salt > 1 or npart != 16):
+                        continue
+                    spec = (SP.MODE_HASH, salt)
+                    got, cnt = SP.partition_rows_cuda(arrays, keys, nr,
+                                                      spec, npart)
+                    sync()
+                    want, wcnt = SP.partition_rows_plain(arrays, keys, nr,
+                                                         spec, npart)
+                    if not torch.equal(cnt, wcnt) or not all(
+                            same_bits(a, b) for a, b in zip(got, want)):
+                        fail(f"K18 hash mode differs (cap {cap}, rows {n},"
+                             f" {len(keys)} keys, npart {npart}, salt "
+                             f"{salt}): {cnt.tolist()} vs {wcnt.tolist()}")
+        live = torch.arange(cap, device=dev) < n
+        for values, valid in cols[:4]:
+            for asc in (True, False):
+                for nf in (True, False):
+                    r = SP.rank_rows_cuda(values, valid, asc, nf)
+                    sync()
+                    wr = SP.rank_rows_plain(values, valid, asc, nf)
+                    if not torch.equal(r, wr):
+                        fail(f"K18 rank mode differs ({values.dtype}, asc "
+                             f"{asc}, nulls first {nf}, cap {cap})")
+                    masked = torch.where(live, r, torch.full_like(r, -1))
+                    s = sort_u64_cuda(masked)
+                    ws = masked[torch.sort(masked ^ (-(1 << 63)),
+                                           stable=True).indices]
+                    if not torch.equal(s, ws):
+                        fail(f"K10 over K18's ranks differs (cap {cap})")
+                    for npart in (4, 16):
+                        bounds = SP.rank_bounds(npart)(r, live, nr)
+                        spec = (SP.MODE_RANGE, asc, nf, bounds)
+                        got, cnt = SP.partition_rows_cuda(
+                            arrays, [(values, valid)], nr, spec, npart)
+                        sync()
+                        want, wcnt = SP.partition_rows_plain(
+                            arrays, [(values, valid)], nr, spec, npart)
+                        if not torch.equal(cnt, wcnt) or not all(
+                                same_bits(a, b) for a, b in zip(got, want)):
+                            fail(f"K18 range mode differs ({values.dtype}, "
+                                 f"asc {asc}, nulls first {nf}, npart "
+                                 f"{npart}, cap {cap})")
+    return 0.0   # compared exactly
+
+
+def check_bypass(g, dev) -> float:
+    """K19 against its twin over every state kind: count, integer and
+    float sums, min/max of int64, int32, float64 (NaN), float32 and bool,
+    a precomputed contribution, with validity, FILTER masks and dead
+    rows; more than 8 states (two launches)."""
+    from trino_tpu_torch.ops import aggregate as A
+    err = 0.0
+    for cap, n in ((4096, 4000), (1024, 0), (4_194_304, 4_194_304)):
+        def col(dtype):
+            if dtype == torch.bool:
+                return torch.rand(cap, generator=g).to(dev) < 0.5
+            if dtype.is_floating_point:
+                x = (torch.randn(cap, generator=g) * 100).to(dtype)
+                if cap > 16:
+                    x[::7] = float("nan")
+                    x[1::11] = -0.0
+                return x.to(dev)
+            return torch.randint(-2**30, 2**30, (cap,), generator=g).to(
+                dtype).to(dev)
+
+        def mask():
+            return (torch.rand(cap, generator=g) < 0.8).to(dev)
+        i64, f64 = col(torch.int64), col(torch.float64)
+        states = [
+            (A.StateInput(None, mask(), None, A.COUNT, False), torch.int64),
+            (A.StateInput(i64, mask(), mask(), A.SUM, False), torch.int64),
+            (A.StateInput(f64, mask(), None, A.SUM, True), torch.float64),
+            (A.StateInput(i64, None, mask(), A.MIN, False), torch.int64),
+            (A.StateInput(col(torch.int32).to(torch.int64), mask(), None,
+                          A.MAX, False), torch.int32),
+            (A.StateInput(f64, mask(), mask(), A.MIN, True), torch.float64),
+            (A.StateInput(col(torch.float32).to(torch.float64), mask(),
+                          None, A.MAX, True), torch.float32),
+            (A.StateInput(col(torch.bool).to(torch.int64), mask(), None,
+                          A.MIN, False), torch.bool),
+            (A.StateInput(i64, None, None, A.MIN, False), torch.int64),
+            (A.StateInput(None, None, mask(), A.COUNT, False), torch.int64),
+        ]
+        copies = [False] * (len(states) - 2) + [True, False]
+        nr = torch.tensor(n, dtype=torch.int32, device=dev)
+        sts = [s for s, _ in states]
+        dts = [d for _, d in states]
+        got = A.passthrough_triton(sts, copies, nr, cap, dts)
+        sync()
+        want = A.passthrough_plain(sts, copies, nr, cap, dts)
+        for j, (a, b) in enumerate(zip(got, want)):
+            if not same_bits(a, b):
+                fail(f"K19 state {j} ({dts[j]}) differs from its twin "
+                     f"(cap {cap}, rows {n})")
+            err = max(err, max_abs_err(a, b))
+    return err
+
+
 def kernel_rows_sort_expr(cap: Capture, originals, launches, dev, card):
     """K10 and K11 at the main path's largest calls, against their twins."""
     from trino_tpu_torch.expr import kernel_gen as KG
@@ -1800,8 +2055,9 @@ def kernel_rows_sort_expr(cap: Capture, originals, launches, dev, card):
 
 class Capture:
     """Keep a kernel wrapper's largest call of each query the timing rows
-    read (q6, q1 and q3 at sf1) and its largest call of all sf1 queries,
-    so phase 4 times each kernel at the shapes the main path gave it."""
+    read (q6, q1 and q3 at sf1), its largest call of all sf1 queries and
+    of the forced-threshold runs (label ("forced", run)), so phase 4
+    times each kernel at the shapes its path gave it."""
 
     TIMED = (("sf1", "q6"), ("sf1", "q1"), ("sf1", "q3"))
 
@@ -1827,14 +2083,15 @@ class Capture:
                 size = size_of(*args)
                 if self.label in self.TIMED:
                     record((name, self.label), size, args)
-                if self.label[0] == "sf1":
-                    record((name, "sf1"), size, args)
+                scope = self.label[0]    # sf1, sf10 or forced
+                if scope in ("sf1", "forced"):
+                    record((name, scope), size, args)
                     tag = tag_of(*args) if tag_of else None
                     if tag:
-                        record((f"{name}:{tag}", "sf1"), size, args)
+                        record((f"{name}:{tag}", scope), size, args)
             return orig(*args)
         wrapped.launches = 0
-        for counter in ("by_kind", "by_route"):
+        for counter in ("by_kind", "by_route", "by_mode"):
             if hasattr(orig, counter):
                 setattr(wrapped, counter, {})
         self.orig[name] = orig
@@ -1893,6 +2150,138 @@ GROUP BY o_orderpriority
 ORDER BY o_orderpriority"""
 
 
+def reset_counts(kernels) -> None:
+    """Every listed kernel's launch counters to 0 (a path's start)."""
+    for mod, attr in kernels.values():
+        fn = getattr(mod, attr)
+        fn.launches = 0
+        for counter in ("by_kind", "by_route", "by_mode"):
+            if hasattr(fn, counter):
+                setattr(fn, counter, {})
+
+
+def join_line(q, schema, i, j) -> str:
+    line = (f"[join] {q} {schema} join {i + 1}: {j['kind']}, route "
+            f"{j['route']}, build {j['build_rows']} live rows, max_run "
+            f"{j['max_run']}, probe {j['probe_rows']} rows, output "
+            f"{j['output_rows']} rows")
+    if "build_bytes" in j:
+        line += (f"; build {j['build_bytes']} bytes, device holds "
+                 f"{j['device_bytes']} bytes, host holds {j['host_bytes']}"
+                 f" bytes")
+    if "depth" in j:
+        line += f", recursion depth {j['depth']}"
+    return line
+
+
+SPILL_COUNTERS = ("spilled_bytes", "agg_recursions", "join_recursions",
+                  "heavy_key_splits", "spill_fallbacks",
+                  "agg_mode_downgrades", "agg_mode_upgrades")
+
+
+def spill_counters(runner) -> dict:
+    return {k: runner.last_query_stats[k] for k in SPILL_COUNTERS}
+
+
+def rows_same_multiset(a, b, nkeys: int) -> bool:
+    """Rows equal as multisets, sorted by their first `nkeys` columns
+    (integer keys, no NULLs), the rest compared as rows_equal does: for
+    the million-row results of the forced runs."""
+    if len(a) != len(b):
+        return False
+    return rows_equal(sorted(a, key=lambda r: r[:nkeys]),
+                      sorted(b, key=lambda r: r[:nkeys]))
+
+
+# The forced-threshold runs at sf1 (the spill path): each SQL under
+# lowered thresholds against the card's own run of it under the default
+# session. label -> (SQL, session properties, what it puts on the card,
+# how its rows compare: "order", "multiset" or the key count to sort by)
+SELF_JOIN_SQL = ("SELECT count(*), sum(l2.l_extendedprice) FROM lineitem l1 "
+                 "JOIN lineitem l2 ON l1.l_orderkey = l2.l_orderkey")
+GROUPS_SQL = ("SELECT l_orderkey, l_linenumber, sum(l_extendedprice) AS s "
+              "FROM lineitem GROUP BY l_orderkey, l_linenumber")
+SORT_SPILL_SQL = ("SELECT l_orderkey, l_partkey, l_shipdate, l_comment "
+                  "FROM lineitem ORDER BY l_shipdate DESC, l_orderkey, "
+                  "l_linenumber")
+COMPOSITE_SQL = ("SELECT count(*), sum(l.l_linenumber), sum(o.o_totalprice) "
+                 "FROM (SELECT l_orderkey, l_linenumber, l_orderkey % 1000 "
+                 "AS k2 FROM lineitem) l JOIN (SELECT o_orderkey, "
+                 "o_totalprice, o_orderkey % 1000 AS k2 FROM orders) o ON "
+                 "l.l_orderkey = o.o_orderkey AND l.k2 = o.k2")
+FORCED = {
+    "a": (TPCH["q3"][0], {"join_spill_threshold_bytes": 1 << 20},
+          "q3, its builds past 1 MiB: spill-dense (K16, K5 dense mode over "
+          "K16's keys, K17 dense mode)", "multiset"),
+    "b": (TPCH["q9"][0], {"join_spill_threshold_bytes": 1 << 20},
+          "q9, its builds past 1 MiB (the composite partsupp build)",
+          "multiset"),
+    "b2": (COMPOSITE_SQL, {"join_spill_threshold_bytes": 1 << 20},
+           "a composite unique build past 1 MiB: spill-search (K17 search "
+           "mode) and the host attach", "multiset"),
+    "c": (SELF_JOIN_SQL, {"join_spill_threshold_bytes": 4 << 20},
+          "the lineitem self-join past 4 MiB: partitioned (K18 hash mode) "
+          "with recursion", "multiset"),
+    "d": (GROUPS_SQL, {"agg_spill_threshold_bytes": 32 << 20,
+                       "scan_page_capacity": 1 << 20},
+          "GROUP BY l_orderkey, l_linenumber past 32 MiB: the downgrade to "
+          "bypass (K19) and the aggregation spill", 2),
+    "e": (SORT_SPILL_SQL, {"sort_spill_threshold_bytes": 64 << 20},
+          "ORDER BY past 64 MiB: range partitions (K18 rank and range "
+          "modes, K10 under rank_bounds)", "order"),
+}
+
+
+def forced_runs(runner, cap, spill_kernels, card):
+    """The spill path: every FORCED SQL on the card under the default
+    session, then (counts set to 0 before, read after) under its lowered
+    thresholds; rows equal, routes and spill counters printed. Returns
+    (launches, by_mode, routes) of the forced runs."""
+    default = {}
+    for label, (sql, _, _, _) in FORCED.items():
+        t0 = time.perf_counter()
+        default[label] = runner.execute(sql).rows
+        sync()
+        say(f"[forced] {label} default session: {len(default[label])} "
+            f"rows in {time.perf_counter() - t0:.2f} s")
+    reset_counts(spill_kernels)
+    routes = set()
+    for label, (sql, props, what, compare) in FORCED.items():
+        cap.label = ("forced", label)
+        for k, v in props.items():
+            runner.session.set(k, v)
+        t0 = time.perf_counter()
+        got = runner.execute(sql).rows
+        sync()
+        secs = time.perf_counter() - t0
+        for k in props:
+            runner.session.properties.pop(k, None)
+        want = default[label]
+        if compare == "order":
+            same = got == want
+        elif compare == "multiset":
+            same = rows_equal(got, want)
+        else:
+            same = rows_same_multiset(got, want, compare)
+        if not same:
+            fail(f"forced run {label} ({what}): rows differ from the "
+                 f"default session's:\n{got[:3]}\n{want[:3]}")
+        for i, j in enumerate(runner.last_joins):
+            routes.add(j["route"])
+            say(join_line(f"forced-{label}", "sf1", i, j))
+        say(f"[forced] {label}: {what}: {len(got)} rows equal to the "
+            f"default session's ({'in order' if compare == 'order' else 'as a multiset'}) "
+            f"in {secs:.2f} s; {props}; spill counters "
+            f"{spill_counters(runner)} — {card}")
+    cap.label = None
+    launches = {k: getattr(mod, attr).launches
+                for k, (mod, attr) in spill_kernels.items()}
+    by_mode = {k: dict(getattr(mod, attr).by_mode)
+               for k, (mod, attr) in spill_kernels.items()
+               if hasattr(getattr(mod, attr), "by_mode")}
+    return launches, by_mode, routes
+
+
 def mxu_of(runner):
     """(joins on the mxu route, mxu_joins) of a runner's last query."""
     return (sum(j["route"] == "mxu" for j in runner.last_joins),
@@ -1906,7 +2295,6 @@ def cold_walls(runner10, card) -> None:
     from trino_tpu_torch.connector import tpch, tpch_dev as TD
     from trino_tpu_torch.exec import LocalQueryRunner
     numpy_runner = LocalQueryRunner.tpch("sf10", device_gen=False)
-    numpy_runner.execute("SET SESSION spill_enabled = false")
     for q in ("q6", "q9"):
         for label, runner in (("device generation", runner10),
                               ("NumPy path", numpy_runner)):
@@ -2037,6 +2425,19 @@ def main() -> None:
         f"bit, permutations exactly, one-block and multi-block paths, "
         f"4,194,304 rows): {errs} in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    errs = {"spill_prep + join_dense (payload) + spill_probe":
+                check_spill_join(g, dev),
+            "partition_rows + rank_rows + rank_bounds":
+                check_spill_part(g, dev),
+            "passthrough": check_bypass(g, dev)}
+    say(f"[kernels] K16, K5's dense mode over K16's keys, K17 (dense and "
+        f"search modes), K18 (hash mode at salts 0-3 and 1/4/16 "
+        f"partitions, rank and range modes, NULLs first and last both "
+        f"ways) and K19 (Triton, first call compiles) match their plain "
+        f"twins on the card (ids, counts, permutations, positions and "
+        f"moved columns bit for bit): {errs} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     errs = {"expr_step": check_expr(dev)}
     say(f"[kernels] K11 matches the plain compiler on the card over "
         f"{len(expr_corpus(corpus_page('cpu')[1]))} corpus expressions "
@@ -2069,7 +2470,7 @@ def main() -> None:
     cap.wrap(P, "gather_rows_cuda",
              lambda arrays, idx: idx.numel() if arrays else -1)
     cap.wrap(J, "join_build_cuda", lambda cols, n: cols[0][0].numel())
-    cap.wrap(J, "join_dense_cuda", lambda cols, n, st, size: size)
+    cap.wrap(J, "join_dense_cuda", lambda cols, n, st, size, *_: size)
     cap.wrap(J, "unique_probe_cuda", lambda pc, bc, *_: pc[0][0].numel(),
              mxu_tag)
     cap.wrap(A, "group_reduce_cuda", lambda keys, states, n, c: c)
@@ -2086,6 +2487,29 @@ def main() -> None:
     cap.wrap(S, "sort_rows_cuda", lambda page, keys: page.capacity)
     cap.wrap(KG, "expr_step_cuda",
              lambda step, page, params=(): page.capacity)
+    from trino_tpu_torch.exec import local_planner as LP
+    from trino_tpu_torch.exec import spill as SP
+    cap.wrap(J, "spill_prep_cuda", lambda cols, n: cols[0][0].numel())
+    cap.wrap(J, "spill_probe_cuda", lambda pc, *_: pc[0][0].numel(),
+             lambda pc, n, mode, *_: "dense" if mode == J.SPILL_DENSE
+             else "search")
+    cap.wrap(SP, "partition_rows_cuda",
+             lambda arrays, kc, *_: kc[0][0].numel() * len(arrays),
+             lambda arrays, kc, n, spec, npart: "hash"
+             if spec[0] == SP.MODE_HASH else "range")
+    cap.wrap(SP, "rank_rows_cuda", lambda values, *_: values.numel())
+    cap.wrap(A, "passthrough_triton",
+             lambda states, copies, n, c, dtypes: c * len(states))
+    real_attach = LP.attach_build_host
+
+    def watched_attach(pre, *args, **kw):
+        # the host attach's largest sf1 batch, timed in phase 4
+        key = ("attach_build_host", "forced")
+        if cap.label is not None and cap.label[0] == "forced" and (
+                key not in cap.calls or pre.capacity > cap.calls[key][0]):
+            cap.calls[key] = (pre.capacity, ((pre,) + args, kw))
+        return real_attach(pre, *args, **kw)
+    LP.attach_build_host = watched_attach
     plain_sorts = []     # the sort's plain twin must not run on the card
     real_plain_sort = S.sort_rows_plain
 
@@ -2114,6 +2538,14 @@ def main() -> None:
                "distinct_mask": (A, "distinct_mask_cuda"),
                "sort_rows": (S, "sort_rows_cuda"),
                "expr_step": (KG, "expr_step_cuda")}
+    # K16-K19: the memory-bounded paths' kernels (the sf10 runs may
+    # launch them; the forced-threshold path below must)
+    spill_kernels = {"spill_prep": (J, "spill_prep_cuda"),
+                     "spill_probe": (J, "spill_probe_cuda"),
+                     "spill_partition": (SP, "partition_rows_cuda"),
+                     "spill_rank": (SP, "rank_rows_cuda"),
+                     "bypass_partial": (A, "passthrough_triton")}
+    all_kernels = {**kernels, **spill_kernels}
     runs = [("sf1", q, TPCH[q][0]) for q in TPCH]
     runs += [("sf1", "full", FULL_SQL), ("sf1", "mark", MARK_SQL)]
     runs += [("sf10", q, TPCH[q][0]) for q in ("q6", "q3", "q9", "q13")]
@@ -2130,16 +2562,7 @@ def main() -> None:
             host_staged.append(key)
         return real_host_cached(key, build)
     tpch._host_cached = watched_host_cached
-    for runner in (gpu["sf10"], cpu["sf10"]):
-        # q9's sf10 builds pass join_spill_threshold_bytes (1 GiB), and
-        # the spilled join is not ported (ROADMAP A7/B9): these runs join
-        # in memory, as a session without spill does
-        runner.execute("SET SESSION spill_enabled = false")
-    for mod, attr in kernels.values():
-        getattr(mod, attr).launches = 0
-        for counter in ("by_kind", "by_route"):
-            if hasattr(getattr(mod, attr), counter):
-                setattr(getattr(mod, attr), counter, {})
+    reset_counts(all_kernels)
     EC.cuda_evaluations = 0     # steps of the torch-op compiler on the card
     results = {}
     routes = set()
@@ -2149,21 +2572,21 @@ def main() -> None:
     for schema, q, sql in runs:
         cap.label = (schema, q)
         before = {k: getattr(mod, attr).launches
-                  for k, (mod, attr) in kernels.items()}
+                  for k, (mod, attr) in all_kernels.items()}
         t0 = time.perf_counter()
         res = gpu[schema].execute(sql)
         sync()
         results[(schema, q)] = (res, time.perf_counter() - t0)
         per_query[(schema, q)] = {
             k: getattr(mod, attr).launches - before[k]
-            for k, (mod, attr) in kernels.items()}
+            for k, (mod, attr) in all_kernels.items()}
         for i, j in enumerate(gpu[schema].last_joins):
             routes.add(j["route"])
             kinds.add(j["kind"])
-            say(f"[join] {q} {schema} join {i + 1}: {j['kind']}, route "
-                f"{j['route']}, build {j['build_rows']} live rows, max_run "
-                f"{j['max_run']}, probe {j['probe_rows']} rows, output "
-                f"{j['output_rows']} rows")
+            say(join_line(q, schema, i, j))
+        if schema == "sf10":
+            say(f"[spill] {q} sf10 (default session): "
+                f"{spill_counters(gpu[schema])}")
         mxu_counts[(schema, q)] = mxu_of(gpu[schema])
     cap.label = None
     S.sort_rows_plain = real_plain_sort
@@ -2183,7 +2606,10 @@ def main() -> None:
         "torch-op compiler evaluated 0 steps); every ORDER BY and TopN "
         "sort ran K10")
     launches = {k: getattr(mod, attr).launches
-                for k, (mod, attr) in kernels.items()}
+                for k, (mod, attr) in all_kernels.items()}
+    spill_main = {k: dict(getattr(mod, attr).by_mode)
+                  for k, (mod, attr) in spill_kernels.items()
+                  if hasattr(getattr(mod, attr), "by_mode")}
     by_kind = {k: dict(getattr(mod, attr).by_kind)
                for k, (mod, attr) in kernels.items()
                if hasattr(getattr(mod, attr), "by_kind")}
@@ -2208,12 +2634,32 @@ def main() -> None:
         say(f"[query] {q} {schema}: cuda rows == cpu rows ({len(got)} "
             f"rows, first {got[0] if got else None}); mxu routes and "
             f"mxu_joins {mxu_counts[(schema, q)]} on both")
+    t_cpu = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    spill_launches, spill_modes, spill_routes = forced_runs(
+        gpu["sf1"], cap, spill_kernels, card)
+    missing = [k for k, n in spill_launches.items() if n == 0]
+    if missing:
+        fail(f"the forced-threshold runs never launched {missing}")
+    for k, modes in (("spill_probe", {"dense", "search"}),
+                     ("spill_partition", {"hash", "range"})):
+        if not modes <= set(spill_modes[k]):
+            fail(f"{k} never ran {sorted(modes - set(spill_modes[k]))} "
+                 f"in the forced runs: {spill_modes[k]}")
+    want_routes = {"spill-dense", "spill-search", "partitioned"}
+    if not want_routes <= spill_routes | routes:
+        fail(f"the spilled routes {sorted(want_routes - spill_routes)} "
+             f"were never taken on the card")
+    say(f"[launches] forced-threshold path ({len(FORCED)} runs): "
+        f"{spill_launches}; by mode {spill_modes}; routes "
+        f"{sorted(spill_routes)} — {card}")
     say(f"[time] phase 3 (queries): {time.perf_counter() - t_phase:.1f} s, "
-        f"of which the CPU runs {time.perf_counter() - t0:.1f} s")
+        f"of which the CPU runs {t_cpu:.1f} s and the forced-threshold "
+        f"runs {time.perf_counter() - t0:.1f} s")
 
     # ---- phase 4: launch check and times
     t_phase = time.perf_counter()
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [k for k in kernels if launches[k] == 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
     need = {"expand_count": {"inner", "left", "full"},
@@ -2222,7 +2668,7 @@ def main() -> None:
         if not want_kinds <= set(by_kind[k]):
             fail(f"{k} never launched for "
                  f"{sorted(want_kinds - set(by_kind[k]))}: {by_kind[k]}")
-    if routes != {"dense", "search", "mxu", "cross"}:
+    if not {"dense", "search", "mxu", "cross"} <= routes:
         fail(f"the joins took the routes {sorted(routes)}, not dense, "
              f"search, mxu and cross")
     if not sum(r.get("mxu", 0) for r in k13.values()):
@@ -2238,6 +2684,10 @@ def main() -> None:
     rows += kernel_rows_expand(cap, originals, launches, dev)
     rows += kernel_rows_sort_expr(cap, originals, launches, dev, card)
     rows += kernel_rows_mxu_gen(cap, originals, launches, k13, dev, card)
+    originals.update({k: cap.orig[attr]
+                      for k, (_, attr) in spill_kernels.items()})
+    rows += kernel_rows_spill(cap, originals, launches, spill_launches,
+                              spill_main, spill_modes, dev, card)
     for r in rows:
         dev_ms = "not measured" if r["device_ms"] is None \
             else f"{r['device_ms']:.4f} ms"
@@ -2528,7 +2978,7 @@ def kernel_rows_q3(cap: Capture, originals, launches, dev):
         f"key column(s), {slots} hash slots"))
 
     # K5 dense mode at q3's dense build (customer)
-    dcols, dnr, dstats, size = cap.calls[("join_dense_cuda", label)][1]
+    dcols, dnr, dstats, size = cap.calls[("join_dense_cuda", label)][1][:4]
     dn = int(dnr)
     table = originals["join_dense"](dcols, dnr, dstats, size)
     wtable = J.join_dense_plain(dcols, dnr, dstats, size)
@@ -2951,6 +3401,190 @@ def kernel_rows_mxu_gen(cap: Capture, originals, launches, k13, dev, card):
     for r in out:
         say(f"[kernel] {r['name']}: host {r['host_ms']:.4f} ms per call "
             f"(enqueue), {r['ms']:.4f} ms per call (CUDA events) — {card}")
+    return out
+
+
+def kernel_rows_spill(cap: Capture, originals, launches, spill_launches,
+                      spill_main, spill_modes, dev, card):
+    """K16, K17 (both modes), K18 (hash, range and rank modes) and K19,
+    each at its largest call of the forced-threshold runs at sf1
+    against its twin at those inputs, with its host time per call; and
+    the host attach's milliseconds per batch. Launches are those of every
+    configuration: the main path and the forced runs."""
+    from trino_tpu_torch.exec import spill as SP
+    from trino_tpu_torch.ops import aggregate as A
+    from trino_tpu_torch.ops import join as J
+    out = []
+    i64_min = -(1 << 63)
+
+    def total(k, mode=None):
+        if mode is None:
+            return launches[k] + spill_launches[k]
+        return spill_main.get(k, {}).get(mode, 0) + \
+            spill_modes.get(k, {}).get(mode, 0)
+
+    def row(name, source, replaces, n_launches, fn, plain, bound_bytes,
+            library, library_name, shape, route="cuda"):
+        return dict(
+            name=name, route=route, source=source, replaces=replaces,
+            launches=n_launches, max_abs_err=0.0, ms=cuda_ms(fn),
+            device_ms=device_profile(fn)[0], host_ms=host_ms(fn),
+            plain_ms=cuda_ms(plain),
+            bound_ms=bound_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+            library_ms=None if library is None else cuda_ms(library),
+            shape=f"{shape}; library = {library_name}")
+
+    # K16 at its largest sf1 build
+    cols, nr = cap.calls[("spill_prep_cuda", "forced")][1]
+    bcap, n = cols[0][0].numel(), int(nr)
+    got = originals["spill_prep"](cols, nr)
+    want = J.spill_prep_plain(cols, nr)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        fail("K16 differs from its twin at the main path's inputs")
+    key, null = J._key_cols(cols)
+    dead = (torch.arange(bcap, device=dev) >= n) | null
+    masked = torch.where(dead, torch.full_like(key, -1), key) ^ i64_min
+    out.append(row(
+        "spill_prep (K16, prepare_build_spilled)",
+        "trino_tpu_torch/csrc/join_spill.cu", "trino_tpu/ops/join.py:485",
+        total("spill_prep"), lambda: originals["spill_prep"](cols, nr),
+        lambda: J.spill_prep_plain(cols, nr),
+        # the key columns read once, the sorted keys and permutation
+        # written once
+        col_bytes(cols, bcap) + bcap * 12,
+        lambda: torch.sort(masked, stable=True),
+        "torch.sort(stable=True) of the masked keys",
+        f"sf1 spilled build: cap {bcap}, {n} live rows, "
+        f"{int(got[2][J.N_LIVE])} keyed, {len(cols)} key column(s)"))
+
+    # K17 in each mode at its largest sf1 probe
+    for tag, mode, replaces in (
+            ("dense", J.SPILL_DENSE, "trino_tpu/ops/join.py:533"),
+            ("search", J.SPILL_SEARCH, "trino_tpu/ops/join.py:584")):
+        pcols, pnr, m, lookup, stats = cap.calls[
+            (f"spill_probe_cuda:{tag}", "forced")][1]
+        pn, pcap = int(pnr), pcols[0][0].numel()
+        got = originals["spill_probe"](pcols, pnr, m, lookup, stats)
+        want = J.spill_probe_plain(pcols, pnr, m, lookup, stats)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            fail(f"K17 {tag} mode differs from its twin at the main path's "
+                 f"inputs")
+        pkey, _ = J._key_cols(pcols)
+        if m == J.SPILL_DENSE:
+            table = lookup
+            held = table.numel() * 4
+            off = (pkey - stats[J.KMIN]).clamp(0, table.numel() - 1)
+            lib = (lambda t=table, o=off: t.index_select(0, o))
+            lib_name = "index_select of the row table at the offsets"
+            desc = f"row table of {table.numel()} slots"
+        else:
+            bkeys, bperm = lookup
+            held = bkeys.numel() * 12
+            flipped = bkeys ^ i64_min
+            pflip = pkey ^ i64_min
+            lib = (lambda f=flipped, p=pflip: torch.searchsorted(f, p))
+            lib_name = "torch.searchsorted over the sorted keys"
+            desc = f"{bkeys.numel()} sorted keys"
+        out.append(row(
+            f"spill_probe {tag} mode (K17, spilled_"
+            f"{'dense' if tag == 'dense' else 'unique'}_probe)",
+            "trino_tpu_torch/csrc/join_spill.cu", replaces,
+            total("spill_probe", tag),
+            lambda: originals["spill_probe"](pcols, pnr, m, lookup, stats),
+            lambda: J.spill_probe_plain(pcols, pnr, m, lookup, stats),
+            # the probe keys and the lookup read once, found (1 byte) and
+            # brow (8 bytes) of every row written once
+            col_bytes(pcols, pcap) + held + pcap * 9, lib, lib_name,
+            f"sf1 spilled probe: cap {pcap}, {pn} live, {desc}"))
+
+    # K18 in hash and range mode at its largest sf1 page
+    for tag, replaces in (("hash", "trino_tpu/exec/spill.py:88"),
+                          ("range", "trino_tpu/exec/spill.py:164")):
+        arrays, key_cols, nr, spec, npart = cap.calls[
+            (f"partition_rows_cuda:{tag}", "forced")][1]
+        pcap = key_cols[0][0].numel()
+        got = originals["spill_partition"](arrays, key_cols, nr, spec, npart)
+        want = SP.partition_rows_plain(arrays, key_cols, nr, spec, npart)
+        if not torch.equal(got[1], want[1]) or not all(
+                same_bits(a, b) for a, b in zip(got[0], want[0])):
+            fail(f"K18 {tag} mode differs from its twin at the main path's "
+                 f"inputs")
+        pid = SP._pids_plain(key_cols, nr, spec, npart)
+
+        def lib(pid=pid, arrays=arrays):
+            perm = torch.argsort(pid, stable=True)
+            return [a.index_select(0, perm) for a in arrays]
+        moved = sum(a.numel() * a.element_size() for a in arrays)
+        out.append(row(
+            f"spill_partition {tag} mode (K18, partition_by_{tag})",
+            "trino_tpu_torch/csrc/spill_part.cu", replaces,
+            total("spill_partition", tag),
+            lambda: originals["spill_partition"](arrays, key_cols, nr, spec,
+                                                 npart),
+            lambda: SP.partition_rows_plain(arrays, key_cols, nr, spec,
+                                            npart),
+            # every moved array read and written once, the key columns
+            # read once, the counts written
+            2 * moved + col_bytes(key_cols, pcap) + npart * 8, lib,
+            "argsort(pid, stable=True) and one index_select per array",
+            f"sf1 page: cap {pcap}, {int(nr)} live rows, {len(arrays)} "
+            f"arrays, {npart} partitions"))
+
+    # K18's rank mode
+    values, valid, asc, nf = cap.calls[("rank_rows_cuda", "forced")][1]
+    rcap = values.numel()
+    if not torch.equal(originals["spill_rank"](values, valid, asc, nf),
+                       SP.rank_rows_plain(values, valid, asc, nf)):
+        fail("K18 rank mode differs from its twin at the main path's inputs")
+    out.append(row(
+        "spill_rank (K18 rank mode, leading_rank)",
+        "trino_tpu_torch/csrc/spill_part.cu", "trino_tpu/exec/spill.py:112",
+        total("spill_rank"),
+        lambda: originals["spill_rank"](values, valid, asc, nf),
+        lambda: SP.rank_rows_plain(values, valid, asc, nf),
+        col_bytes([(values, valid)], rcap) + rcap * 8, None,
+        "none (no PyTorch call computes the rank)",
+        f"sf1 sort spill: cap {rcap}, {values.dtype}"))
+
+    # K19 at its largest sf1 page
+    states, copies, nr, c, dtypes = cap.calls[("passthrough_triton",
+                                               "forced")][1]
+    got = originals["bypass_partial"](states, copies, nr, c, dtypes)
+    want = A.passthrough_plain(states, copies, nr, c, dtypes)
+    if not all(same_bits(a, b) for a, b in zip(got, want)):
+        fail("K19 differs from its twin at the main path's inputs")
+    read = sum(t.numel() * t.element_size() for st in states
+               for t in (st.values, st.valid, st.mask) if t is not None)
+    written = sum(t.numel() * t.element_size() for t in got)
+    out.append(row(
+        "bypass_partial (K19, passthrough_partial)",
+        "trino_tpu_torch/ops/aggregate.py",
+        "trino_tpu/ops/aggregate.py:916", total("bypass_partial"),
+        lambda: originals["bypass_partial"](states, copies, nr, c, dtypes),
+        lambda: A.passthrough_plain(states, copies, nr, c, dtypes),
+        read + written, None, "none (no single PyTorch call)",
+        f"sf1 bypass page: cap {c}, {int(nr)} live rows, {len(states)} "
+        f"states", route="triton"))
+    for r in out:
+        say(f"[kernel] {r['name']}: host {r['host_ms']:.4f} ms per call "
+            f"(enqueue), {r['ms']:.4f} ms per call (CUDA events) — {card}")
+
+    # the host attach of the spilled join, per batch (it waits for the
+    # card once: its time is the batch's wall on the host)
+    from trino_tpu_torch.ops.join import attach_build_host
+    args, kw = cap.calls[("attach_build_host", "forced")][1]
+
+    def attach():
+        return attach_build_host(*args, **kw)
+    attach()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        attach()
+    sync()
+    say(f"[host] attach_build_host: {(time.perf_counter() - t0) / 5e-3:.3f}"
+        f" ms per batch of {int(args[0].num_rows)} matched rows (cap "
+        f"{args[0].capacity}, {len(args[2])} host columns) — {card}")
     return out
 
 

@@ -49,7 +49,10 @@ def test_inventory_covers_the_slice():
                 "trino_tpu_torch/exec/runner.py",
                 "trino_tpu_torch/connector/tpch_gen.py",
                 "trino_tpu_torch/ops/join_mxu.py",
-                "trino_tpu_torch/connector/tpch_dev.py", "chip_smoke.py"):
+                "trino_tpu_torch/connector/tpch_dev.py",
+                "trino_tpu_torch/exec/spill.py",
+                "trino_tpu_torch/exec/memory.py",
+                "trino_tpu_torch/exec/adaptive.py", "chip_smoke.py"):
         assert rel in files
     # every CUDA source native.py builds is in the package, and no source
     # of csrc/ is left out of the build
@@ -57,7 +60,8 @@ def test_inventory_covers_the_slice():
     cu = {p.stem for p in (_PKG / "csrc").glob("*.cu")}
     assert cu == set(native.SOURCES)
     assert {"gather", "join_build", "join_probe", "join_expand",
-            "join_mxu", "group_agg", "tpch_gen"} <= cu
+            "join_mxu", "group_agg", "tpch_gen", "join_spill",
+            "spill_part"} <= cu
 
 
 @pytest.mark.parametrize("rel", _sources())
@@ -78,29 +82,42 @@ _BLOCKED_RUN = textwrap.dedent("""
     sys.meta_path.insert(0, Block())
     import torch
     torch.set_num_threads(1)
+    import json
     from trino_tpu_torch.exec import LocalQueryRunner
     runner = LocalQueryRunner.tpch("tiny", device="cpu")
+    for k, v in json.loads(sys.argv[2] if len(sys.argv) > 2 else "{}").items():
+        runner.session.set(k, v)
     rows = runner.execute(sys.argv[1]).rows
+    print([j["route"] for j in runner.last_joins])
     assert not any(m.split(".")[0] in ("jax", "trino_tpu")
                    for m in sys.modules), "reference module loaded"
     print(rows)
 """)
 
 
-def _run_blocked(name: str) -> None:
-    """Run one TPC-H query through the port in a process where jax and
-    trino_tpu cannot be imported; its rows must be the reference's."""
+def _run_blocked(name: str, session=None) -> list:
+    """Run one TPC-H query (or SQL) through the port in a process where jax
+    and trino_tpu cannot be imported, under `session` properties; its rows
+    must be the reference's. Returns the port's join routes."""
+    import json
     from tpch_sql import QUERIES
-    sql = QUERIES[name][0]
+    sql = QUERIES[name][0] if name in QUERIES else name
+    session = session or {}
     env = dict(os.environ)
     env["PYTHONPATH"] = str(_REPO)
-    out = subprocess.run([sys.executable, "-c", _BLOCKED_RUN, sql],
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_RUN, sql,
+                          json.dumps(session)],
                          cwd=str(_REPO), env=env, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     from trino_tpu.exec import LocalQueryRunner as RefRunner
-    want = RefRunner.tpch("tiny").execute(sql).rows
-    assert out.stdout.strip().splitlines()[-1] == str(want)
+    ref = RefRunner.tpch("tiny")
+    for k, v in session.items():
+        ref.session.set(k, v)
+    want = ref.execute(sql).rows
+    *_, routes, rows = out.stdout.strip().splitlines()
+    assert rows == str(want)
+    return routes
 
 
 def test_q6_runs_with_jax_and_reference_unimportable():
@@ -126,3 +143,25 @@ def test_default_device_is_cuda():
         with pytest.raises(RuntimeError, match="CUDA"):
             LocalQueryRunner.tpch("tiny")
     assert LocalQueryRunner.tpch("tiny", device="cpu").device.type == "cpu"
+
+
+def test_spilled_join_runs_with_jax_and_reference_unimportable():
+    """The spilled join (K16, K17 and the host attach through their twins)
+    imports nothing of JAX either."""
+    routes = _run_blocked(
+        "SELECT o_orderkey, c_name FROM orders, customer WHERE "
+        "o_custkey = c_custkey AND o_orderkey <= 100",
+        {"join_spill_threshold_bytes": 1024})
+    assert "spill-dense" in routes
+
+
+def test_partitioned_join_runs_with_jax_and_reference_unimportable():
+    """The partitioned join (K18's twin, the host stores, the recursion)
+    and the aggregation spill import nothing of JAX either."""
+    routes = _run_blocked(
+        "SELECT count(*), sum(l2.l_extendedprice) FROM lineitem l1 JOIN "
+        "lineitem l2 ON l1.l_orderkey = l2.l_orderkey",
+        {"page_capacity": 2048, "scan_page_capacity": 2048,
+         "spill_partition_count": 4, "join_spill_threshold_bytes": 16384,
+         "spill_max_recursion": 2})
+    assert "partitioned" in routes

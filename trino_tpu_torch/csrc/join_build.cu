@@ -29,7 +29,8 @@
 //     address table [next_pow2(span)] holding the build ROW of key
 //     kmin + s, INT32_MAX where no key is present (the reference stores
 //     the first sorted position; for the unique build both name the same
-//     row).
+//     row). With a payload it stores the payload instead: the spilled
+//     join's build row of each sorted key (K16's permutation).
 //
 // Bound on this card: bytes — the live rows' key columns read once and a
 // lookup written once: for the hash table, the live keys and rows it must
@@ -223,6 +224,7 @@ __global__ void dense_init_kernel(int32_t* __restrict__ table, int64_t size) {
 __global__ void dense_kernel(const __grid_constant__ Table tbl, int64_t nkeys,
                              int64_t cap, const int32_t* __restrict__ num_rows,
                              const unsigned long long* __restrict__ stats,
+                             const int32_t* __restrict__ payload,
                              int32_t* __restrict__ table, int64_t size) {
   int64_t n = *num_rows;
   n = n < 0 ? 0 : (n > cap ? cap : n);
@@ -233,7 +235,8 @@ __global__ void dense_kernel(const __grid_constant__ Table tbl, int64_t nkeys,
     const uint64_t key = join_key(tbl.v, nkeys, i, &null);
     if (null) continue;
     const int64_t raw = (int64_t)(key - kmin);
-    if (raw >= 0 && raw < size) atomicMin(&table[raw], (int32_t)i);
+    if (raw >= 0 && raw < size)
+      atomicMin(&table[raw], payload ? payload[i] : (int32_t)i);
   }
 }
 
@@ -357,10 +360,14 @@ TT_EXPORT int join_build(const void* table, int64_t nkeys, int64_t cap,
 
 // The direct-address table of the dense route: dense: int32[size], key
 // kmin + s -> its build row, INT32_MAX when absent; stats as join_build
-// wrote it (kmin is read on the device).
+// wrote it (kmin is read on the device). With a payload (int32[cap] or
+// null) a slot holds the smallest payload of its key's rows instead of
+// the row: the spilled join's table over the sorted keys with their
+// permutation (trino_tpu/ops/join.py build_dense_table_rows).
 TT_EXPORT int join_dense(const void* table, int64_t nkeys, int64_t cap,
-                         const void* num_rows, const void* stats, void* dense,
-                         int64_t size, void* stream) {
+                         const void* num_rows, const void* stats,
+                         const void* payload, void* dense, int64_t size,
+                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   thread_local static Table t;
   if (nkeys < 1 || load_table(table, KEY_FIELDS * nkeys, &t)) return -1;
@@ -369,7 +376,8 @@ TT_EXPORT int join_dense(const void* table, int64_t nkeys, int64_t cap,
   dense_kernel<<<grid_for(cap), THREADS, 0, s>>>(
       t, nkeys, cap, static_cast<const int32_t*>(num_rows),
       static_cast<const unsigned long long*>(stats),
-      static_cast<int32_t*>(dense), size);
+      static_cast<const int32_t*>(payload), static_cast<int32_t*>(dense),
+      size);
   return (int)cudaGetLastError();
 }
 

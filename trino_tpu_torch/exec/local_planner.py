@@ -23,16 +23,31 @@ by K13) for a single-key INNER, SEMI/ANTI or MARK join whose build key
 span fits `mxu_join_max_slots` densely enough, else `dense` (a direct-
 address table) for a span under the dense limit, else `search` (K5's hash
 table); `mxu_joins` and `mxu_flops` count what ran (runner.
-last_query_stats). Not ported, and named in ROADMAP: the build collection
-that spills under memory pressure (`_collect_build_resilient`) and the
-spilled and partitioned joins (A7/B9; the port collects the build whole
-and raises past `join_spill_threshold_bytes`), the aggregating matrix-unit
-join `_mxu_agg_join` (B11b: no TPC-H query enters it) and the adaptive
-partial aggregation (A7).
+last_query_stats).
 
-Every other node and an aggregation buffer past
-`agg_spill_threshold_bytes` raise an ExecutionError naming the ROADMAP
-item that ports it.
+Memory-bounded execution, as the reference runs it under its default
+session (spill on): every blocking collect reserves its bytes against the
+query's `query_max_memory` ledger (exec/memory.py). An INNER build collects
+with incremental reservation (`_collect_build_resilient`), and pressure
+mid-collect streams the build into the partitioned join. A build past
+`join_spill_threshold_bytes` takes the spilled join (`spill-dense` or
+`spill-search`: K16's sorted keys or K5's row table on the device, the
+payload on the host, K17's probe, the host attach) or, for duplicate,
+string or skewed keys, the recursive hybrid partitioned join
+(`partitioned`: K18 partitions both sides to host stores, each
+co-partition joins in memory on the `dense`/`search` routes, over-budget
+partitions repartition under a fresh salt, split out heavy keys, or fall
+back to chunked builds). The aggregation compacts a partial buffer past
+`agg_spill_threshold_bytes`, spills groups that do not collapse to host
+hash partitions and walks the adaptive modes (full, shrunken, bypass:
+K19's per-row states); the sort spills range partitions of its leading
+key. The aggregating matrix-unit join `_mxu_agg_join` (B11b: no TPC-H
+query enters it) is not ported; the low-memory killer, the memory-pressure
+re-run, fault injection and cancellation are ROADMAP A.6 (`_fault_site`
+and `_checkpoint` are their hooks).
+
+Every other node raises an ExecutionError naming the ROADMAP item that
+ports it.
 """
 
 from __future__ import annotations
@@ -46,19 +61,31 @@ import torch
 
 from trino_tpu_torch import types as T
 from trino_tpu_torch.errors import GENERIC_INTERNAL_ERROR, TrinoError
+from trino_tpu_torch.exec.adaptive import AdaptiveQueryState, AggMode
 from trino_tpu_torch.exec.jit_cache import cached_kernel
+from trino_tpu_torch.exec.memory import (NODE_POOL, ClusterOutOfMemoryError,
+                                         ExceededMemoryLimitError,
+                                         QueryMemoryContext, page_bytes)
+from trino_tpu_torch.exec.spill import (SPILL_LEDGER, HostPartitionStore,
+                                        detect_partition_heavy_keys,
+                                        leading_rank, partition_by_hash,
+                                        partition_by_range,
+                                        partition_key_hashes, rank_bounds,
+                                        resolve_spill_limit, split_partition)
 from trino_tpu_torch.expr.kernel_gen import filter_step, project_step
 from trino_tpu_torch.expr.ir import (Call, InputRef, Literal, RowExpression,
                                      SpecialForm, SpecialKind, SymbolRef)
 from trino_tpu_torch.metadata import Metadata, Session
 from trino_tpu_torch.ops import (AggSpec, SortKey, Step, hash_aggregate,
                                  order_by, top_n_masked)
-from trino_tpu_torch.ops.join import (KMAX, KMIN, MAX_RUN, N_LIVE,
-                                      NDISTINCT, JoinType, attach_build,
-                                      build_dense_table, build_key_bounds,
-                                      hash_join, prepare_build, prepare_runs,
-                                      range_prefilter, unique_inner_probe,
-                                      unmatched_build_page, unsigned)
+from trino_tpu_torch.ops.aggregate import passthrough_partial
+from trino_tpu_torch.ops.join import (
+    KMAX, KMIN, MAX_RUN, N_LIVE, N_ROWS, NDISTINCT, SPILL_DENSE_MAX_SPAN,
+    SPILL_UNIQUE, JoinType, attach_build, attach_build_host,
+    build_dense_table, build_dense_table_rows, build_key_bounds, hash_join,
+    prepare_build, prepare_build_spilled, prepare_runs, range_prefilter,
+    spilled_dense_probe, spilled_unique_probe, unique_inner_probe,
+    unmatched_build_page, unsigned)
 from trino_tpu_torch.ops.join_mxu import (MAX_EXACT_ROWS,
                                           build_count_pos_table,
                                           lookup_flops)
@@ -125,8 +152,11 @@ def _next_pow2(n: int) -> int:
     return out
 
 
-def page_bytes(page: Page) -> int:
-    return sum(c.nbytes for c in page.columns)
+# runner.last_query_stats keys (the reference's QueryStatsCollector names)
+QUERY_COUNTERS = ("mxu_joins", "mxu_flops", "spilled_bytes",
+                  "agg_recursions", "join_recursions", "heavy_key_splits",
+                  "spill_fallbacks", "agg_mode_downgrades",
+                  "agg_mode_upgrades")
 
 
 @dataclasses.dataclass
@@ -192,9 +222,45 @@ class LocalExecutionPlanner:
         # one entry per join run (runner.last_joins): kind, route, build
         # live rows, max_run, probe rows, output rows
         self.joins: List[dict] = []
-        # the query's counters (runner.last_query_stats): joins routed onto
-        # the mxu lookup and their probe pages' cost-model flops
-        self.stats = {"mxu_joins": 0, "mxu_flops": 0}
+        # the query's counters (runner.last_query_stats), under the
+        # reference's names: joins routed onto the mxu lookup and their
+        # probe pages' cost-model flops; bytes flushed to host spill
+        # partitions; the adaptive and recursive-spill events
+        self.stats = dict.fromkeys(QUERY_COUNTERS, 0)
+        # the query's reservation ledger under query_max_memory, mirrored
+        # into the process node pool (closed by the runner)
+        self.memory = QueryMemoryContext(
+            int(session.get("query_max_memory")), pool=NODE_POOL)
+        # adaptive strategy state shared by the query's operators
+        self.adaptive = AdaptiveQueryState()
+
+    # ----------------------------------------------- spill and memory
+
+    def _checkpoint(self) -> None:
+        """Cooperative checkpoint at a page-batch boundary: a query marked
+        by the memory pool stops here (deadlines and cancellation are
+        ROADMAP A.6)."""
+        self.memory.poll()
+
+    def _fault_site(self, site: str, detail: str = "") -> None:
+        """Fault-injection site; chaos testing is ROADMAP A.6."""
+
+    def _record_spill(self, nbytes: int) -> None:
+        """Bytes flushed to host partitions (QueryStats.spilledDataSize)."""
+        self.stats["spilled_bytes"] += int(nbytes)
+
+    def _new_spill_store(self, npart: int) -> HostPartitionStore:
+        """A HostPartitionStore charged against the process SpillLedger
+        under this query's `spill_max_bytes` budget; restages go to this
+        executor's device."""
+        return HostPartitionStore(
+            npart, ledger=SPILL_LEDGER, query_id=self.memory.query_id,
+            limit=resolve_spill_limit(self.session), device=self.device)
+
+    def _adaptive_event(self, name: str, n: int = 1) -> None:
+        """Count one adaptive strategy event (agg_mode_downgrades,
+        join_recursions, heavy_key_splits, spill_fallbacks, ...)."""
+        self.stats[name] += n
 
     # ------------------------------------------------- literal hoisting
 
@@ -415,12 +481,20 @@ class LocalExecutionPlanner:
                     if not key_channels:
                         yield self._empty_global_agg(node)
                     return
-                yield single_op(page)
+                try:
+                    yield single_op(page)
+                finally:
+                    self._free_collected(page)
             return PageStream(gen_distinct(), node.outputs)
         # scan -> filter -> project -> partial agg as ONE composed call
         partial_op = compose_chain(
             src.pending, ("agg-partial", key_channels_t, specs_t),
             lambda: hash_aggregate(key_channels, specs, Step.PARTIAL))
+        # the adaptive bypass: the same chain ending in one PARTIAL-layout
+        # state row per input row (K19), no grouping
+        bypass_op = compose_chain(
+            src.pending, ("agg-bypass", key_channels_t, specs_t),
+            lambda: passthrough_partial(key_channels, specs))
         from trino_tpu_torch.ops.aggregate import get_aggregate
         nkeys = len(key_channels)
         state_channels = []
@@ -435,32 +509,251 @@ class LocalExecutionPlanner:
             ("agg-final", nkeys, specs_t),
             lambda: hash_aggregate(final_keys, specs, Step.FINAL,
                                    state_channels))
+        intermediate_op = cached_kernel(
+            ("agg-intermediate", nkeys, specs_t),
+            lambda: hash_aggregate(final_keys, specs, Step.INTERMEDIATE,
+                                   state_channels))
         threshold = int(self.session.get("agg_spill_threshold_bytes"))
+        npart = int(self.session.get("spill_partition_count"))
         spillable = bool(self.session.get("spill_enabled")) \
             and bool(key_channels)
 
+        def part_op_for(salt: int):
+            return cached_kernel(
+                ("agg-spill-part", nkeys, npart, salt),
+                lambda: partition_by_hash(final_keys, npart, salt=salt))
+
         def gen():
-            # no per-page num_rows sync: empty pages produce neutral
-            # partial states that merge correctly
+            # No per-page count read: empty pages give neutral partial
+            # states. A buffer past the threshold compacts (INTERMEDIATE);
+            # groups that do not collapse spill to host hash partitions,
+            # finalized one bounded partition at a time. The controller
+            # walks full -> shrunken -> bypass on the observed reduction
+            # ratio at each compaction, and back up when it recovers.
+            ctl = None
+            # adaptive modes only where spill can absorb them
+            if bool(self.session.get("adaptive_partial_agg")) and spillable:
+                ctl = self.adaptive.agg_controller(
+                    ("agg", tuple(s.name for s in node.group_by),
+                     tuple(s.name for s, _ in node.aggregations)),
+                    ndv=node.ndv_estimate, rows=node.rows_estimate,
+                    allow_bypass=spillable)
+            store = None
             buf: List[Page] = []
             buf_bytes = 0
-            for page in src.pages:
-                pp = partial_op(page)
-                buf.append(pp)
-                buf_bytes += page_bytes(pp)
-                if spillable and buf_bytes >= threshold:
-                    raise ExecutionError(
-                        "aggregation buffer past agg_spill_threshold_bytes"
-                        ": spill is ROADMAP A7/B10")
-            merged, _ = self.merge_counted_rows(buf)
-            if merged is None:
-                # no input pages, or every partial empty (grouped agg ->
-                # no output; a global agg's partials always carry a row)
-                if not key_channels:
-                    yield self._empty_global_agg(node)
-                return
-            yield final_op(merged)
+            any_pages = False
+            # the ratio's denominator is RAW input rows in every mode:
+            # page counts are read in one batch at the compaction, and a
+            # re-buffered compacted page carries its history forward
+            raw_counts: List[torch.Tensor] = []
+            raw_carry = 0
+
+            def compact_buffer():
+                nonlocal buf, buf_bytes
+                merged, rows_in = self.merge_counted_rows(buf)
+                buf, buf_bytes = [], 0
+                if merged is None:
+                    return None, rows_in, 0
+                out = intermediate_op(merged)
+                n = int(out.num_rows)
+                if n == 0:
+                    return None, rows_in, 0
+                return self._tight(out, n), rows_in, n
+
+            def raw_rows_in():
+                nonlocal raw_counts, raw_carry
+                total = raw_carry
+                if raw_counts:
+                    total += sum(torch.stack(raw_counts).tolist())
+                raw_counts = []
+                return total
+
+            def observe(rows_in, groups_out):
+                if ctl is None or rows_in <= 0:
+                    return
+                transition = ctl.observe(rows_in, groups_out)
+                if transition is not None:
+                    self._adaptive_event(
+                        "agg_mode_downgrades" if transition == "downgrade"
+                        else "agg_mode_upgrades")
+
+            def spill(combined):
+                nonlocal store
+                self._fault_site("spill", "agg")
+                self._record_spill(page_bytes(combined))
+                if store is None:
+                    store = self._new_spill_store(npart)
+                sorted_pg, counts = part_op_for(0)(combined)
+                store.spill_partitioned(sorted_pg, counts.tolist())
+
+            try:
+                for page in src.pages:
+                    self._checkpoint()
+                    any_pages = True
+                    mode = ctl.mode if ctl is not None else AggMode.FULL
+                    pp = partial_op(page) if mode == AggMode.FULL \
+                        else bypass_op(page)
+                    buf.append(pp)
+                    raw_counts.append(page.num_rows)
+                    buf_bytes += page_bytes(pp)
+                    if not (spillable and buf_bytes >= threshold):
+                        continue
+                    if mode == AggMode.BYPASS:
+                        probe = ctl.should_probe()
+                        ctl.note_flush()
+                        if not probe:
+                            # full bypass: per-row states straight to host
+                            # partitions; the finalize groups them once
+                            merged, _ = self.merge_counted_rows(buf)
+                            buf, buf_bytes = [], 0
+                            raw_counts, raw_carry = [], 0
+                            if merged is not None:
+                                spill(merged)
+                            continue
+                    elif ctl is not None:
+                        ctl.note_flush()
+                    rows_raw = raw_rows_in()
+                    combined, _, groups_out = compact_buffer()
+                    observe(rows_raw, groups_out)
+                    if combined is None:
+                        raw_carry = 0
+                        continue
+                    cb = page_bytes(combined)
+                    if cb >= threshold // 2:
+                        spill(combined)        # groups are not collapsing
+                        raw_carry = 0
+                    else:
+                        buf, buf_bytes = [combined], cb
+                        raw_carry = rows_raw   # history rides along
+
+                if store is None:
+                    if not any_pages:
+                        if not key_channels:
+                            yield self._empty_global_agg(node)
+                        return
+                    merged, _ = self.merge_counted_rows(buf)
+                    if merged is None:
+                        # every partial empty (grouped agg -> no output; a
+                        # global agg's partials always carry a row)
+                        if not key_channels:
+                            yield self._empty_global_agg(node)
+                        return
+                    yield final_op(merged)
+                    return
+                rows_raw = raw_rows_in()
+                combined, _, groups_out = compact_buffer()
+                observe(rows_raw, groups_out)
+                if combined is not None:
+                    spill(combined)
+                yield from self._finalize_agg_spill(
+                    store, 0, final_op, intermediate_op, part_op_for,
+                    final_keys, threshold)
+            finally:
+                if store is not None:
+                    store.close()
         return PageStream(gen(), node.outputs)
+
+    def _finalize_agg_spill(self, store, depth: int, final_op,
+                            intermediate_op, part_op_for, key_idxs,
+                            threshold: int) -> Iterator[Page]:
+        """Finalize spilled hash partitions (the robust dynamic hybrid
+        discipline): a partition within budget restages and finalizes in
+        one call; one still over budget first splits out heavy keys
+        (re-hashing never separates one key's rows: they fold chunk-wise,
+        INTERMEDIATE collapsing a heavy key to one state row per chunk),
+        then repartitions under a fresh hash salt up to
+        `spill_max_recursion`, and at the maximum depth falls back to the
+        bounded chunked fold."""
+        threshold = self._spill_budget(threshold)
+        max_rec = int(self.session.get("spill_max_recursion"))
+        heavy_limit = int(self.session.get("spill_heavy_key_limit"))
+        npart = store.npart
+
+        def stage_final(p: int, nrows: int) -> Iterator[Page]:
+            pg = store.restage(p, _next_pow2(max(nrows, 1)))
+            store.drop(p)
+            held = page_bytes(pg)
+            self.memory.reserve(held, "agg-restage")
+            try:
+                yield final_op(pg)
+            finally:
+                self.memory.free(held, "agg-restage")
+
+        for p in range(npart):
+            self._checkpoint()
+            nrows = store.partition_rows(p)
+            if nrows == 0:
+                continue
+            if store.partition_bytes(p) <= max(threshold, 1):
+                yield from stage_final(p, nrows)
+                continue
+            chunk_rows = store.chunk_rows_for(p, threshold)
+            if heavy_limit > 0 and depth < max_rec and npart > 1:
+                hashes = partition_key_hashes(store, p, key_idxs)
+                heavy = detect_partition_heavy_keys(
+                    store, p, key_idxs, heavy_limit,
+                    max(2, nrows // (2 * max(npart, 2))),
+                    piece_hashes=hashes)
+                if len(heavy):
+                    self._fault_site("spill", "agg-heavy")
+                    self._adaptive_event("heavy_key_splits")
+                    sub = split_partition(store, p, key_idxs, heavy,
+                                          piece_hashes=hashes)
+                    try:
+                        yield from self._agg_chunk_fold(
+                            sub, 0, final_op, intermediate_op, chunk_rows)
+                    finally:
+                        sub.close()
+                    nrows = store.partition_rows(p)
+                    if nrows == 0:
+                        continue
+                    if store.partition_bytes(p) <= max(threshold, 1):
+                        yield from stage_final(p, nrows)
+                        continue
+            if depth >= max_rec or npart <= 1:
+                # bounded depth: an irreducible partition folds in bounded
+                # chunks instead of recursing forever
+                self._fault_site("spill", "agg-fallback")
+                self._adaptive_event("spill_fallbacks")
+                yield from self._agg_chunk_fold(
+                    store, p, final_op, intermediate_op, chunk_rows)
+                continue
+            # repartition under a fresh salt: the keys redistribute
+            self._fault_site("spill", "agg-recurse")
+            self._adaptive_event("agg_recursions")
+            child = self._new_spill_store(npart)
+            try:
+                op = part_op_for(depth + 1)
+                # drain: each piece releases before the child charges the
+                # next, so the partition is never held twice
+                for chunk in store.drain_partition_chunks(p, chunk_rows):
+                    self._checkpoint()
+                    sorted_pg, counts = op(chunk)
+                    child.spill_partitioned(sorted_pg, counts.tolist())
+                store.drop(p)
+                yield from self._finalize_agg_spill(
+                    child, depth + 1, final_op, intermediate_op,
+                    part_op_for, key_idxs, threshold)
+            finally:
+                child.close()
+
+    def _agg_chunk_fold(self, store, p: int, final_op, intermediate_op,
+                        chunk_rows: int) -> Iterator[Page]:
+        """Bounded chunked merge of one partition: restage at most
+        chunk_rows at a time, INTERMEDIATE-fold into the carried state
+        (K2 appends the chunk), finalize once. The heavy-key path and the
+        maximum-depth fallback both end here."""
+        state = None
+        for chunk in store.drain_partition_chunks(p, chunk_rows):
+            self._checkpoint()
+            merged = chunk if state is None \
+                else device_concat([state, chunk])
+            out = intermediate_op(merged)
+            n = int(out.num_rows)
+            state = self._tight(out, n) if n else None
+        store.drop(p)
+        if state is not None:
+            yield final_op(state)
 
     def _empty_global_agg(self, node: AggregationNode) -> Page:
         cols = []
@@ -478,9 +771,21 @@ class LocalExecutionPlanner:
     # ---------------------------------------------------------------- join
 
     def _collect(self, stream: PageStream) -> Optional[Page]:
-        """Materialize a stream (a join build side) on the device. The
-        reference also reserves it against the memory pool (ROADMAP A6)."""
-        return self.merge_counted(list(stream.iter_pages()))
+        """Materialize a stream (a blocking operator's input) on the
+        device, reserved against query_max_memory; freed at operator scope
+        by _free_collected."""
+        page = self.merge_counted(list(stream.iter_pages()))
+        if page is None:
+            return None
+        self._fault_site("memory", "collect")
+        self.memory.reserve(page_bytes(page), "collect")
+        return page
+
+    def _free_collected(self, page: Optional[Page]) -> None:
+        """Release a _collect reservation (else a query's peak would count
+        every build side and sort input it ever held)."""
+        if page is not None:
+            self.memory.free(page_bytes(page), "collect")
 
     def _exec_JoinNode(self, node: JoinNode) -> PageStream:
         if node.kind == JoinKind.CROSS and not node.criteria:
@@ -491,21 +796,34 @@ class LocalExecutionPlanner:
             return self._exec_full_join(node)
         probe_stream = self.execute(node.left)
         build_stream = self.execute(node.right)
-        # the reference collects an INNER build through
-        # _collect_build_resilient (spill under memory pressure): ROADMAP
-        # A7/B9; the rows are the same
-        build_page = self._collect(build_stream)
+        # an INNER build under spill collects with incremental reservation:
+        # memory pressure mid-collect switches to the streaming partitioned
+        # join (the build pages partition to host one at a time)
+        build_iter = None
+        if node.kind == JoinKind.INNER \
+                and bool(self.session.get("spill_enabled")) \
+                and int(self.session.get("spill_partition_count")) > 1:
+            build_page, build_iter = \
+                self._collect_build_resilient(build_stream)
+        else:
+            build_page = self._collect(build_stream)
         return self._join_with_build(node, probe_stream,
-                                     build_stream.symbols, build_page)
+                                     build_stream.symbols, build_page,
+                                     build_iter)
 
     def _join_with_build(self, node: JoinNode, probe_stream: PageStream,
-                         build_symbols, build_page: Optional[Page]
-                         ) -> PageStream:
+                         build_symbols, build_page: Optional[Page],
+                         build_iter=None) -> PageStream:
         """INNER or LEFT equi-join over a collected build side: an INNER
         join over a unique build takes the unique path (K5 build, K6
         probe, K1 compaction, K7 attach) with the build's key range as a
         dynamic filter on the probe stream; a build with duplicate keys or
-        a LEFT join takes the expanding probe (K5 runs mode, K9, K7)."""
+        a LEFT join takes the expanding probe (K5 runs mode, K9, K7). An
+        INNER build past join_spill_threshold_bytes takes the spilled join
+        (K16, K17, the host attach) or, for duplicate or string keys, the
+        partitioned join (K18); `build_iter` is a build that overflowed
+        its reservation mid-collect, which streams into the partitioned
+        join. Frees the collected page."""
         probe_lay, _ = _layout(probe_stream.symbols)
         build_lay, _ = _layout(build_symbols)
         probe_keys = [probe_lay[c.left.name] for c in node.criteria]
@@ -571,20 +889,28 @@ class LocalExecutionPlanner:
                                  params=post_params)
             return op, lambda out: out.filter(post(out, post_params))
 
+        node_id = ("join", tuple(c.left.name for c in node.criteria),
+                   tuple(c.right.name for c in node.criteria))
+
         def gen():
+            if build_iter is not None:
+                yield from self._run_overflowed_build(
+                    probe_stream, build_iter, build_symbols, probe_keys,
+                    build_keys, expanding_ops, node_id)
+                return
+            owned = [build_page]     # a spill path takes it over
+            try:
+                yield from body(owned)
+            finally:
+                self._free_collected(owned[0])
+
+        def body(owned):
             bp = build_page
             if bp is None:
                 if join_kind == JoinType.INNER:
                     return                   # INNER join, empty build
                 # LEFT join, empty build: every probe row null-extended
                 bp = self._null_build_page(build_symbols)
-            if join_kind == JoinType.INNER \
-                    and bool(self.session.get("spill_enabled")) and \
-                    page_bytes(bp) > int(self.session.get(
-                        "join_spill_threshold_bytes")):
-                raise ExecutionError(
-                    "join build past join_spill_threshold_bytes: the "
-                    "spilled join is ROADMAP A7/B9")
             # INNER only: probe codes absent from the build pool become
             # codes that never match, which a LEFT join would emit; LEFT
             # keys across distinct dictionaries stay fail-loud in the probe
@@ -592,6 +918,16 @@ class LocalExecutionPlanner:
             if join_kind == JoinType.INNER:
                 aligned = self._align_join_dictionaries(
                     probe_stream, bp, probe_keys, build_keys)
+            if join_kind == JoinType.INNER and build_page is not None \
+                    and bool(self.session.get("spill_enabled")) and \
+                    page_bytes(build_page) > int(self.session.get(
+                        "join_spill_threshold_bytes")):
+                owned[0] = None
+                yield from self._run_spilled_inner(
+                    aligned, build_page, probe_keys, build_keys, post_pred,
+                    post_params, probe_keep, build_keep, expanding_ops,
+                    skew_hint=node.build_skew_estimate, node_id=node_id)
+                return
             prepared, max_run, mode, n_live = self._prepare_probe(
                 build_keys, bp, expanding=join_kind != JoinType.INNER,
                 mxu_ok=(join_kind == JoinType.INNER
@@ -611,6 +947,9 @@ class LocalExecutionPlanner:
                     lambda: range_prefilter(probe_keys[0]))
                 prefilter = (pf_op, bounds_op(prepared))
             log = self._join_log(join_kind, mode, n_live, max_run)
+            # an in-memory build holds its page on the device
+            log.update(build_bytes=page_bytes(bp), device_bytes=page_bytes(
+                bp), host_bytes=0)
             probe_in = self._mxu_stream(
                 self._coalesce_stream(aligned, prefilter=prefilter),
                 prepared)
@@ -841,7 +1180,13 @@ class LocalExecutionPlanner:
                 flag = torch.full((out.capacity,), mode == "semi",
                                   dtype=torch.bool, device=out.device)
                 yield out.append_column(Column(flag, None, T.BOOLEAN, None))
-        return PageStream(gen(),
+
+        def owned():
+            try:
+                yield from gen()
+            finally:
+                self._free_collected(build_page)
+        return PageStream(owned(),
                           semi.source.outputs + (semi.match_symbol,))
 
     def _exec_SemiJoinNode(self, node: SemiJoinNode) -> PageStream:
@@ -871,7 +1216,13 @@ class LocalExecutionPlanner:
             yield from self._run_verdict(
                 probe_stream, lambda page: op.verdict(page, prepared), log,
                 prepared)
-        return PageStream(gen(), out_symbols)
+
+        def owned():
+            try:
+                yield from gen()
+            finally:
+                self._free_collected(build_page)
+        return PageStream(owned(), out_symbols)
 
     def _run_verdict(self, probe_stream: PageStream, verdict, log,
                      prepared) -> Iterator[Page]:
@@ -1023,6 +1374,553 @@ class LocalExecutionPlanner:
                 out = self._compact_probe(pre, found, total, live)
                 yield attach_op(self._tight(out, total), prepared)
 
+    # ------------------------------------------------------- spilled joins
+
+    def _run_overflowed_build(self, probe_stream, build_iter, build_symbols,
+                              probe_keys, build_keys, join_op, node_id
+                              ) -> Iterator[Page]:
+        """The build overflowed its reservation mid-collect: the streaming
+        partitioned join consumes the rest of it. String keys first stage
+        the whole build on the host and rebase every page onto ONE union
+        pool (the co-partition hash compares dictionary codes), and the
+        probe re-encodes onto it."""
+        if not any(T.is_string(build_symbols[bk].type) for bk in build_keys):
+            yield from self._run_partitioned_inner(
+                probe_stream, build_iter, probe_keys, build_keys, join_op,
+                node_id=node_id)
+            return
+        stage, pools = self._restage_string_build(build_iter, build_keys)
+        if stage is None:
+            return          # empty build, INNER: no output rows
+        try:
+            aligned = self._align_probe_to_pools(
+                probe_stream, {pk: pools[bk] for pk, bk in
+                               zip(probe_keys, build_keys) if bk in pools})
+            replay = stage.drain_partition_chunks(
+                0, stage.chunk_rows_for(0, self._spill_budget(int(
+                    self.session.get("join_spill_threshold_bytes")))))
+            yield from self._run_partitioned_inner(
+                aligned, replay, probe_keys, build_keys, join_op,
+                node_id=node_id)
+        finally:
+            stage.close()
+
+    def _run_spilled_inner(self, probe_stream, build_page, probe_keys,
+                           build_keys, post_pred, post_params, probe_keep,
+                           build_keep, join_op, skew_hint=None,
+                           node_id=None) -> Iterator[Page]:
+        """The spilled INNER join (HashBuilderOperator's spill states):
+        K16 sorts the build keys on the device, the build's payload columns
+        move to host memory, and the device keeps only the sorted keys and
+        permutation (about 12 bytes a row; `spill-search`, probed by K17's
+        search mode) or, for a key span up to 2^28, a table of build rows
+        (4 bytes a slot, K5's dense mode; `spill-dense`, K17's dense
+        mode). Matched rows' build columns are gathered on the host
+        (attach_build_host). Duplicate-key and string-keyed builds, and
+        builds the CBO expects skewed, take the partitioned join. Frees
+        the collected build page."""
+        self._fault_site("spill", "join-build")
+        npart = int(self.session.get("spill_partition_count"))
+        partitioned_ok = npart > 1
+        # string keys compare by per-dictionary code, which the spilled
+        # probe cannot guard; the partitioned path restages whole pages
+        string_keyed = any(build_page.columns[bk].dictionary is not None
+                           for bk in build_keys)
+        is_unique = False
+        cbo_partitioned = (partitioned_ok and skew_hint is not None
+                           and skew_hint > 2.0)
+        if not string_keyed and not cbo_partitioned:
+            try:
+                prep = cached_kernel(
+                    ("spill-prep", tuple(build_keys)),
+                    lambda: prepare_build_spilled(build_keys))
+                bkey_s, bperm, sstats = prep(build_page)
+                got = sstats.tolist()       # one host read
+                is_unique = bool(got[SPILL_UNIQUE])
+                n_rows, n_live = got[N_ROWS], got[N_LIVE]
+                kmin, kmax = unsigned(got[KMIN]), unsigned(got[KMAX])
+            except BaseException:
+                self._free_collected(build_page)
+                raise
+        if string_keyed or cbo_partitioned or not is_unique:
+            if partitioned_ok:
+                yield from self._run_partitioned_inner(
+                    probe_stream, build_page, probe_keys, build_keys,
+                    join_op, node_id=node_id)
+                return
+            # partitioning off (spill_partition_count <= 1): the in-memory
+            # expanding join
+            try:
+                prepared, max_run, route, n_live = self._prepare_probe(
+                    build_keys, build_page, expanding=True)
+                log = self._join_log(JoinType.INNER, route, n_live, max_run)
+                op, post = join_op(route)
+                yield from self._run_expanding(
+                    self._coalesce_stream(probe_stream), prepared, op, log,
+                    post=post)
+            finally:
+                self._free_collected(build_page)
+            return
+        # the pre page carries the kept probe columns (plus the key columns
+        # a composite key re-checks, dropped after the attach); only the
+        # kept build columns (and those keys) move to the host
+        composite = len(probe_keys) > 1
+        probe_out = list(probe_keep)
+        extra_p = [k for k in probe_keys if k not in probe_out] \
+            if composite else []
+        probe_out_full = tuple(probe_out + extra_p)
+        n_pre_cols = len(probe_out_full)
+        host_idx = list(build_keep) + \
+            ([k for k in build_keys if k not in build_keep]
+             if composite else [])
+        emit = tuple(range(len(build_keep)))
+        verify = None
+        if composite:
+            verify = [(probe_out_full.index(pk), host_idx.index(bk))
+                      for pk, bk in zip(probe_keys, build_keys)]
+        build_bytes = page_bytes(build_page)
+        try:
+            host_cols = [self._stage_column_host(build_page.columns[ci],
+                                                 n_rows)
+                         for ci in host_idx]
+        except BaseException:
+            self._free_collected(build_page)
+            raise
+        host_bytes = sum(v.numel() * v.element_size()
+                         + (0 if m is None else m.numel())
+                         for v, m, _, _ in host_cols)
+        self._record_spill(host_bytes)
+        self._free_collected(build_page)
+        span = kmax - kmin + 1 if kmax >= kmin else 0
+        spill_dense = 0 < span <= SPILL_DENSE_MAX_SPAN
+        if spill_dense:
+            size = _next_pow2(span)
+            table = cached_kernel(("dense-table-rows", size),
+                                  lambda: build_dense_table_rows(size))(
+                                      bkey_s, bperm, sstats)
+            bkey_s = bperm = None       # the table replaces them
+            held_bytes = table.numel() * table.element_size()
+            probe_op = cached_kernel(
+                ("spill-probe-dense", tuple(probe_keys), probe_out_full),
+                lambda: spilled_dense_probe(probe_keys,
+                                            probe_out=probe_out_full))
+        else:
+            held_bytes = bkey_s.numel() * bkey_s.element_size() \
+                + bperm.numel() * bperm.element_size()
+            probe_op = cached_kernel(
+                ("spill-probe", tuple(probe_keys), probe_out_full),
+                lambda: spilled_unique_probe(probe_keys,
+                                             probe_out=probe_out_full))
+        self.memory.reserve(held_bytes, "join-spill-keys")
+        log = self._join_log(JoinType.INNER,
+                             "spill-dense" if spill_dense else "spill-search",
+                             n_live, 1)
+        log.update(build_bytes=build_bytes, device_bytes=held_bytes,
+                   host_bytes=host_bytes)
+        post_filter = None if post_pred is None else filter_step(post_pred)
+        drop_extra = None
+        if extra_p:
+            drop_extra = tuple(range(len(probe_keep))) + tuple(
+                range(n_pre_cols, n_pre_cols + len(build_keep)))
+        try:
+            pages = self._coalesce_stream(probe_stream).iter_pages()
+            for batch in _byte_bounded_batches(pages, 1 << 29):
+                if spill_dense:
+                    results = [probe_op(p, table, sstats) for p in batch]
+                else:
+                    results = [probe_op(p, bkey_s, bperm, sstats)
+                               for p in batch]
+                fetched = torch.stack(
+                    [t for _, _, t in results]
+                    + [pre.num_rows.to(torch.int64)
+                       for pre, _, _ in results]).tolist()
+                k = len(results)
+                for (pre, found, _), total, live in zip(
+                        results, fetched[:k], fetched[k:]):
+                    log["probe_rows"] += live
+                    log["output_rows"] += total
+                    log["matched"] += total
+                    if total == 0:
+                        continue
+                    pre = self._compact_probe(pre, found, total, live)
+                    pre = self._tight(pre, total)
+                    out = attach_build_host(pre, n_pre_cols, host_cols,
+                                            verify=verify, emit=emit)
+                    if drop_extra is not None:
+                        out = out.select_columns(drop_extra)
+                    if post_filter is not None:
+                        out = out.filter(post_filter(out, post_params))
+                    yield out
+        finally:
+            self.memory.free(held_bytes, "join-spill-keys")
+
+    # device transient for staging one spilled-build column chunk
+    _SPILL_STAGE_CHUNK_BYTES = 128 << 20
+
+    def _stage_column_host(self, c: Column, n_rows: int):
+        """One build payload column copied to host memory (pinned for a
+        CUDA page) in bounded chunks, each reserved against the query
+        ledger while it transfers. Returns (values, valid, type,
+        dictionary) as attach_build_host reads them."""
+        n = max(n_rows, 1)
+        width = c.values.element_size() + (1 if c.valid is not None else 0)
+        chunk = max(1 << 16, self._SPILL_STAGE_CHUNK_BYTES // max(width, 1))
+        cuda = c.values.is_cuda
+        vals = torch.empty(n, dtype=c.values.dtype, pin_memory=cuda)
+        valid = None if c.valid is None else torch.empty(
+            n, dtype=torch.bool, pin_memory=cuda)
+        off = 0
+        while off < n:
+            hi = min(off + chunk, n)
+            held = (hi - off) * width
+            self.memory.reserve(held, "spill-stage")
+            try:
+                self._checkpoint()
+                vals[off:hi].copy_(c.values[off:hi], non_blocking=cuda)
+                if valid is not None:
+                    valid[off:hi].copy_(c.valid[off:hi], non_blocking=cuda)
+                if cuda:
+                    torch.cuda.current_stream(c.values.device).synchronize()
+            finally:
+                self.memory.free(held, "spill-stage")
+            off = hi
+        return vals, valid, c.type, c.dictionary
+
+    def _collect_build_resilient(self, stream: PageStream):
+        """Collect a join build side with INCREMENTAL reservation: each page
+        reserves before the next materializes, so memory pressure shows
+        mid-collect, where it is a strategy switch: the pages so far
+        chained with the rest of the stream go to the streaming
+        partitioned join. Returns (page, None) when the build fit, (None,
+        iterator) on pressure, (None, None) for an empty build."""
+        self._fault_site("memory", "collect")
+        pages: List[Page] = []
+        held = 0
+        it = stream.iter_pages()
+        try:
+            for page in it:
+                self._checkpoint()
+                b = page_bytes(page)
+                try:
+                    self.memory.reserve(b, "collect")
+                except (ExceededMemoryLimitError, ClusterOutOfMemoryError):
+                    # hand back every held byte: the pressure is relieved
+                    # by NOT materializing this build
+                    self.memory.free(held, "collect")
+                    self.memory.clear_kill()
+                    pages.append(page)
+                    return None, _drain_then(pages, it)
+                held += b
+                pages.append(page)
+        except BaseException:
+            self.memory.free(held, "collect")
+            raise
+        merged = self.merge_counted(pages)
+        # swap the per-page reservations for the merged page's bytes, the
+        # free first (holding both could trip a limit the page fits under)
+        self.memory.free(held, "collect")
+        if merged is None:
+            return None, None
+        try:
+            self.memory.reserve(page_bytes(merged), "collect")
+        except (ExceededMemoryLimitError, ClusterOutOfMemoryError):
+            # even the merged page is over the line: it becomes the
+            # (single-page) streaming build
+            self.memory.clear_kill()
+            return None, iter([merged])
+        return merged, None
+
+    def _spill_budget(self, threshold: int) -> int:
+        """The per-partition device budget for restage and recursion
+        decisions: the spill threshold, shrunk under an active memory limit
+        so a restaged partition's reservation can always be granted."""
+        budget = int(threshold)
+        limit = self.memory.limit
+        if limit:
+            budget = min(budget, max(int(limit) // 4, 1 << 16))
+        pool = self.memory.pool
+        if pool is not None and pool.limit:
+            budget = min(budget, max(int(pool.limit) // 4, 1 << 16))
+        return max(budget, 1)
+
+    def _run_partitioned_inner(self, probe_stream, build_source,
+                               probe_keys, build_keys, join_op,
+                               node_id=None) -> Iterator[Page]:
+        """The robust dynamic hybrid hash join, for duplicate-key, skewed
+        and string-keyed builds past the threshold: both sides hash-
+        partition into host stores (K18), then every co-partition joins
+        with the in-memory kernels when its build fits the spill budget,
+        and degrades when it does not (_join_partitions: salted recursive
+        repartition, heavy-key splitting, the bounded chunked-build
+        fallback). The device holds at most one partition's build and one
+        probe chunk at any depth. `build_source` is the collected page
+        (freed here) or the overflowed build's page iterator."""
+        npart = int(self.session.get("spill_partition_count"))
+        threshold = self._spill_budget(
+            int(self.session.get("join_spill_threshold_bytes")))
+        bkeys_t, pkeys_t = tuple(build_keys), tuple(probe_keys)
+        build_is_page = isinstance(build_source, Page)
+
+        def part_op(keys, salt):
+            return cached_kernel(
+                ("join-spill-part", keys, npart, salt),
+                lambda: partition_by_hash(keys, npart, salt=salt))
+
+        try:
+            bstore = self._new_spill_store(npart)
+            pstore = self._new_spill_store(npart)
+        except BaseException:
+            if build_is_page:
+                self._free_collected(build_source)
+            raise
+        log = self._join_log(JoinType.INNER, "partitioned", 0, 0)
+        log.update(depth=0, build_bytes=0, device_bytes=0, host_bytes=0)
+        try:
+            self._fault_site("spill", "join-part")
+            bop = part_op(bkeys_t, 0)
+            if build_is_page:
+                log["build_bytes"] = page_bytes(build_source)
+                self._record_spill(log["build_bytes"])
+                try:
+                    sorted_pg, counts = bop(build_source)
+                    bstore.spill_partitioned(sorted_pg, counts.tolist())
+                finally:
+                    self._free_collected(build_source)
+            else:
+                # the overflowed build streams: its pages partition to the
+                # host one at a time, never resident whole
+                for bpage in build_source:
+                    self._checkpoint()
+                    log["build_bytes"] += page_bytes(bpage)
+                    sorted_pg, counts = bop(bpage)
+                    bstore.spill_partitioned(sorted_pg, counts.tolist())
+                self._record_spill(bstore.bytes)
+            pages = probe_stream if isinstance(probe_stream, Iterator) \
+                else self._coalesce_stream(probe_stream).iter_pages()
+            pop = part_op(pkeys_t, 0)
+            for page in pages:
+                self._checkpoint()
+                sorted_pg, counts = pop(page)
+                pstore.spill_partitioned(sorted_pg, counts.tolist())
+            self._record_spill(pstore.bytes)
+            log["host_bytes"] = bstore.bytes + pstore.bytes
+            yield from self._join_partitions(
+                bstore, pstore, 0, bkeys_t, pkeys_t, join_op, part_op,
+                threshold, log, node_id)
+        finally:
+            bstore.close()
+            pstore.close()
+
+    def _join_partitions(self, bstore, pstore, depth: int, bkeys, pkeys,
+                         join_op, part_op, threshold: int, log,
+                         node_id=None) -> Iterator[Page]:
+        """One round of the hybrid join over co-partitioned stores. Per
+        partition: within budget, the in-memory join; heavy build keys
+        (no re-hash splits them) split out of both sides into the chunked-
+        build pass (build chunks replicate, the probe partition streams
+        through each); still over budget, a salted repartition of BOTH
+        sides up to `spill_max_recursion`; at the maximum depth, the
+        bounded chunked-build fallback."""
+        max_rec = int(self.session.get("spill_max_recursion"))
+        heavy_limit = int(self.session.get("spill_heavy_key_limit"))
+        npart = bstore.npart
+        log["depth"] = max(log["depth"], depth)
+        for p in range(npart):
+            self._checkpoint()
+            brows = bstore.partition_rows(p)
+            prows = pstore.partition_rows(p)
+            if brows == 0 or prows == 0:
+                bstore.drop(p)
+                pstore.drop(p)
+                continue
+            if bstore.partition_bytes(p) <= max(threshold, 1):
+                yield from self._join_one_partition(
+                    bstore, pstore, p, bkeys, join_op, threshold, log)
+                continue
+            if heavy_limit > 0 and depth < max_rec and npart > 1:
+                bhashes = partition_key_hashes(bstore, p, bkeys)
+                heavy = detect_partition_heavy_keys(
+                    bstore, p, bkeys, heavy_limit,
+                    max(2, brows // (2 * max(npart, 2))),
+                    piece_hashes=bhashes)
+                if len(heavy):
+                    self._fault_site("spill", "join-heavy")
+                    self._adaptive_event("heavy_key_splits")
+                    if node_id is not None:
+                        self.adaptive.record_join_heavy(node_id, heavy)
+                    hb = split_partition(bstore, p, bkeys, heavy,
+                                         piece_hashes=bhashes)
+                    hp = split_partition(pstore, p, pkeys, heavy)
+                    try:
+                        yield from self._join_chunked_build(
+                            hb, hp, 0, bkeys, join_op, threshold, log)
+                    finally:
+                        hb.close()
+                        hp.close()
+                    if bstore.partition_rows(p) == 0 or \
+                            pstore.partition_rows(p) == 0:
+                        bstore.drop(p)
+                        pstore.drop(p)
+                        continue
+                    if bstore.partition_bytes(p) <= max(threshold, 1):
+                        yield from self._join_one_partition(
+                            bstore, pstore, p, bkeys, join_op, threshold,
+                            log)
+                        continue
+            if depth >= max_rec or npart <= 1:
+                self._fault_site("spill", "join-fallback")
+                self._adaptive_event("spill_fallbacks")
+                yield from self._join_chunked_build(
+                    bstore, pstore, p, bkeys, join_op, threshold, log)
+                continue
+            self._fault_site("spill", "join-recurse")
+            self._adaptive_event("join_recursions")
+            childb = self._new_spill_store(npart)
+            childp = self._new_spill_store(npart)
+            try:
+                bop = part_op(bkeys, depth + 1)
+                # drain both sides: never parent AND child copies of one
+                # side against the budget
+                for chunk in bstore.drain_partition_chunks(
+                        p, bstore.chunk_rows_for(p, threshold)):
+                    self._checkpoint()
+                    spg, cnt = bop(chunk)
+                    childb.spill_partitioned(spg, cnt.tolist())
+                bstore.drop(p)
+                pop = part_op(pkeys, depth + 1)
+                for chunk in pstore.drain_partition_chunks(
+                        p, pstore.chunk_rows_for(p, threshold)):
+                    self._checkpoint()
+                    spg, cnt = pop(chunk)
+                    childp.spill_partitioned(spg, cnt.tolist())
+                pstore.drop(p)
+                yield from self._join_partitions(
+                    childb, childp, depth + 1, bkeys, pkeys, join_op,
+                    part_op, threshold, log, node_id)
+            finally:
+                childb.close()
+                childp.close()
+
+    def _join_build_chunk(self, bpage: Page, probe_pages, bkeys, join_op,
+                          log) -> Iterator[Page]:
+        """One in-memory build (a partition or a chunk of one) joined with
+        probe pages: K5 with the dense route where the span fits, never
+        `mxu` (the reference's _prepare_with_dense), then the expanding
+        probe (K9)."""
+        prepared, max_run, route, n_live = self._prepare_probe(
+            list(bkeys), bpage, expanding=True)
+        log["build_rows"] += n_live
+        log["max_run"] = max(log["max_run"], max_run)
+        log["device_bytes"] = max(log["device_bytes"], page_bytes(bpage))
+        op, post = join_op(route)
+        yield from self._run_expanding(PageStream(probe_pages, ()),
+                                       prepared, op, log, post=post)
+
+    def _join_one_partition(self, bstore, pstore, p: int, bkeys, join_op,
+                            threshold: int, log) -> Iterator[Page]:
+        """In-memory join of one co-partition: the build side restaged
+        (reserved against the query ledger) and prepared once, the probe
+        partition streamed through in bounded chunks."""
+        nrows = bstore.partition_rows(p)
+        bpage = bstore.restage(p, _next_pow2(max(nrows, 1)))
+        bstore.drop(p)
+        held = page_bytes(bpage)
+        self.memory.reserve(held, "join-part-build")
+        try:
+            yield from self._join_build_chunk(
+                bpage, pstore.drain_partition_chunks(
+                    p, pstore.chunk_rows_for(p, threshold)),
+                bkeys, join_op, log)
+            pstore.drop(p)
+        finally:
+            self.memory.free(held, "join-part-build")
+
+    def _join_chunked_build(self, bstore, pstore, p: int, bkeys, join_op,
+                            threshold: int, log) -> Iterator[Page]:
+        """Bounded chunked-build join: an INNER join distributes over
+        DISJOINT build chunks (a probe row meets each of its key's build
+        rows in exactly one chunk), so the probe partition joined against
+        budget-sized build chunks is right at any build size: more passes,
+        never more memory."""
+        pchunk_rows = pstore.chunk_rows_for(p, threshold)
+        # build chunks drain (one pass); the probe partition stays, it
+        # re-streams once per build chunk
+        for bchunk in bstore.drain_partition_chunks(
+                p, bstore.chunk_rows_for(p, threshold)):
+            self._checkpoint()
+            held = page_bytes(bchunk)
+            self.memory.reserve(held, "join-chunk-build")
+            try:
+                yield from self._join_build_chunk(
+                    bchunk, pstore.iter_partition_chunks(p, pchunk_rows),
+                    bkeys, join_op, log)
+            finally:
+                self.memory.free(held, "join-chunk-build")
+        bstore.drop(p)
+        pstore.drop(p)
+
+    def _restage_string_build(self, build_source, build_keys):
+        """Overflow hand-off for STRING-keyed builds: pages of a streaming
+        build may encode one key column against DISTINCT pools, and the
+        co-partition hash compares codes, so the whole build stages on the
+        host FIRST (a single-partition store: one device compaction per
+        page, K18 with one partition), then every dictionary column whose
+        pieces span several pools is rebased onto their union with a host
+        code remap. Returns (stage, {build channel: dictionary}); the
+        caller drains partition 0 as the build, aligns the probe to the
+        pools, and closes the stage. (None, {}) = empty build."""
+        from trino_tpu_torch.page import union_dictionaries
+        bkeys_t = tuple(build_keys)
+        compact = cached_kernel(
+            ("join-spill-part", bkeys_t, 1, 0),
+            lambda: partition_by_hash(bkeys_t, 1, salt=0))
+        stage = self._new_spill_store(1)
+        try:
+            piece_dicts: List[list] = []
+            for page in build_source:
+                self._checkpoint()
+                self._fault_site("spill", "join-string-stage")
+                sorted_pg, counts = compact(page)
+                before = len(stage.pieces[0])
+                stage.spill_partitioned(sorted_pg, counts.tolist())
+                if len(stage.pieces[0]) > before:
+                    piece_dicts.append([c.dictionary for c in page.columns])
+            self._record_spill(stage.bytes)
+            if stage.meta is None:
+                stage.close()
+                return None, {}
+            for ci in range(len(stage.meta)):
+                dicts = [pd[ci] for pd in piece_dicts]
+                if dicts[0] is None:
+                    continue
+                uniq: List = []
+                for d in dicts:
+                    if not any(d is u or d.fingerprint == u.fingerprint
+                               for u in uniq):
+                        uniq.append(d)
+                final = uniq[0]
+                if len(uniq) > 1:
+                    union, remaps = union_dictionaries(uniq, device="cpu")
+                    by_fp = {u.fingerprint: r.to(torch.int64)
+                             for u, r in zip(uniq, remaps)}
+                    for piece, d in zip(stage.pieces[0], dicts):
+                        tbl = by_fp[d.fingerprint]
+                        vals = piece[ci][0]
+                        # padding and NULL codes (< 0) pass through
+                        remapped = torch.where(
+                            vals >= 0, tbl[vals.clamp(0, len(tbl) - 1).to(
+                                torch.int64)].to(vals.dtype), vals)
+                        piece[ci] = (remapped, piece[ci][1])
+                    final = union
+                typ, _ = stage.meta[ci]
+                stage.meta[ci] = (typ, final)
+            pools = {bk: stage.meta[bk][1] for bk in bkeys_t
+                     if stage.meta[bk][1] is not None}
+            return stage, pools
+        except BaseException:
+            stage.close()
+            raise
+
     def _align_join_dictionaries(self, probe_stream: PageStream,
                                  build_page: Page, probe_keys,
                                  build_keys) -> PageStream:
@@ -1169,9 +2067,77 @@ class LocalExecutionPlanner:
                                 lambda: order_by(keys))
 
         def gen():
-            page = self.merge_counted(list(src.iter_pages()))
-            if page is not None:
-                yield sort_op(page)
+            # sort spill: an input past sort_spill_threshold_bytes flushes
+            # to host RANGE partitions of the leading sort key (K18; ties
+            # and NULLs never straddle a partition), then each partition
+            # restages, sorts whole (K10) and emits in partition order,
+            # which is the global order
+            threshold = int(self.session.get("sort_spill_threshold_bytes"))
+            npart = int(self.session.get("spill_partition_count"))
+            spillable = bool(self.session.get("spill_enabled")) and keys
+            k0 = keys[0]
+            store = None
+            bounds = None
+            part_op = None
+            buf: List[Page] = []
+            buf_bytes = 0
+
+            def flush():
+                nonlocal store, bounds, part_op, buf, buf_bytes
+                self._fault_site("spill", "sort")
+                merged = self.merge_counted(buf)
+                buf, buf_bytes = [], 0
+                if merged is None:
+                    return
+                self._record_spill(page_bytes(merged))
+                if bounds is None:
+                    store = self._new_spill_store(npart)
+                    nf = k0.resolved_nulls_first()
+                    rank_op = cached_kernel(
+                        ("sort-spill-rank", k0.channel, k0.ascending, nf),
+                        lambda: leading_rank(k0.channel, k0.ascending, nf))
+                    bounds_op = cached_kernel(
+                        ("sort-spill-bounds", npart),
+                        lambda: rank_bounds(npart))
+                    part_op = cached_kernel(
+                        ("sort-spill-part", k0.channel, k0.ascending, nf,
+                         npart),
+                        lambda: partition_by_range(k0.channel, k0.ascending,
+                                                   nf, npart))
+                    bounds = bounds_op(rank_op(merged), merged.row_mask(),
+                                       merged.num_rows)
+                sorted_pg, counts = part_op(merged, bounds)
+                store.spill_partitioned(sorted_pg, counts.tolist())
+
+            try:
+                for page in src.iter_pages():
+                    self._checkpoint()
+                    buf.append(page)
+                    buf_bytes += page_bytes(page)
+                    if spillable and buf_bytes >= threshold:
+                        flush()
+                if store is None:
+                    page = self.merge_counted(buf)
+                    if page is None:
+                        return
+                    self.memory.reserve(page_bytes(page), "collect")
+                    try:
+                        yield sort_op(page)
+                    finally:
+                        self._free_collected(page)
+                    return
+                if buf:
+                    flush()
+                for p in range(npart):
+                    nrows = store.partition_rows(p)
+                    if nrows == 0:
+                        continue
+                    pg = store.restage(p, _next_pow2(max(nrows, 1)))
+                    store.drop(p)
+                    yield sort_op(pg)
+            finally:
+                if store is not None:
+                    store.close()
         return PageStream(gen(), src.symbols)
 
     def _exec_TopNNode(self, node: TopNNode) -> PageStream:
@@ -1284,3 +2250,12 @@ def _valid_arr(valid: List[bool], cap: int, device
     arr = np.zeros(cap, dtype=bool)
     arr[:len(valid)] = valid
     return _to_device(arr, device)
+
+
+def _drain_then(pages: List[Page], rest: Iterator[Page]) -> Iterator[Page]:
+    """The buffered pages, each reference dropped as it is consumed
+    (itertools.chain would pin the whole list, and its device memory,
+    until the end), then the rest of the live stream."""
+    while pages:
+        yield pages.pop(0)
+    yield from rest

@@ -7,9 +7,11 @@ SHOW ...). The runner runs on `cuda` unless the caller passes a device
 (`device="cpu"` for the tests); without CUDA and without an explicit
 device it raises.
 
-Left out of this slice (ROADMAP A6/A7/A10): the plan, result, scan and
-table caches, materialized views, retries, fault injection, deadlines, the
-query tracker and the memory pool, DDL/DML and prepared statements.
+Every query gets a memory context under `query_max_memory`, attached to
+the process node pool (exec/memory.py). Left out (ROADMAP A6/A10): the
+plan, result, scan and table caches, materialized views, retries and the
+memory-pressure re-run, the low-memory killer, fault injection,
+deadlines, the query tracker, DDL/DML and prepared statements.
 """
 
 from __future__ import annotations
@@ -22,7 +24,9 @@ from typing import Any, List, Optional, Tuple
 from trino_tpu_torch import types as T
 from trino_tpu_torch.connector import tpch
 from trino_tpu_torch.connector.spi import CatalogManager
-from trino_tpu_torch.exec.local_planner import LocalExecutionPlanner
+from trino_tpu_torch.exec.local_planner import (QUERY_COUNTERS,
+                                                LocalExecutionPlanner)
+from trino_tpu_torch.exec.memory import NODE_POOL
 from trino_tpu_torch.metadata import Metadata, Session
 from trino_tpu_torch.page import resolve_device
 from trino_tpu_torch.planner import LogicalPlanner
@@ -82,16 +86,26 @@ class LocalQueryRunner:
         self.session = session or Session()
         # one dict per join of the last query, in the order the joins
         # started: kind (inner, left, full, semi, anti, mark, cross), route
-        # (dense, search, mxu; cross for a cross join), build_rows (live build
-        # rows), max_run (the longest run of one build key), probe_rows and
+        # (dense, search, mxu; cross for a cross join; spill-dense,
+        # spill-search and partitioned for a build past
+        # join_spill_threshold_bytes), build_rows (live build rows),
+        # max_run (the longest run of one build key), probe_rows and
         # output_rows (None for a one-row cross join, which reads no
-        # counts); INNER joins also carry matched (== output_rows)
+        # counts); INNER joins also carry matched (== output_rows); the
+        # spilled routes also build_bytes (the collected build),
+        # device_bytes (held on the device while probing) and host_bytes
+        # (spilled to host memory), a partitioned join its recursion depth
         self.last_joins: list = []
         # the last query's counters (the reference's QueryStatsCollector
-        # subset the port keeps): mxu_joins, the joins routed onto the
-        # `mxu` lookup, and mxu_flops, their probe pages' cost-model
-        # multiply-adds (ops/join_mxu.lookup_flops)
-        self.last_query_stats: dict = {"mxu_joins": 0, "mxu_flops": 0}
+        # subset the port keeps, exec/local_planner.QUERY_COUNTERS):
+        # mxu_joins, the joins routed onto the `mxu` lookup, and
+        # mxu_flops, their probe pages' cost-model multiply-adds
+        # (ops/join_mxu.lookup_flops); spilled_bytes, the bytes flushed to
+        # host spill partitions; agg_recursions and join_recursions (salted
+        # repartitions), heavy_key_splits, spill_fallbacks (bounded
+        # chunked passes at the maximum depth), agg_mode_downgrades and
+        # agg_mode_upgrades (the adaptive partial aggregation's moves)
+        self.last_query_stats: dict = dict.fromkeys(QUERY_COUNTERS, 0)
 
     @classmethod
     def tpch(cls, schema: str = "tiny", device=None,
@@ -151,17 +165,24 @@ class LocalQueryRunner:
         # each join of the last query: route, build live rows, probe rows
         self.last_joins = executor.joins
         self.last_query_stats = executor.stats
-        stream = executor.execute(plan)
         types = [s.type for s in plan.symbols]
         rows: List[Tuple[Any, ...]] = []
-        for page in stream.iter_pages():
-            n = int(page.num_rows)
-            if n == 0:
-                continue
-            cols = page.to_host(n)
-            rows.extend(tuple(_to_python(cols[j][i], types[j])
-                              for j in range(len(cols)))
-                        for i in range(n))
+        try:
+            stream = executor.execute(plan)
+            for page in stream.iter_pages():
+                n = int(page.num_rows)
+                if n == 0:
+                    continue
+                cols = page.to_host(n)
+                rows.extend(tuple(_to_python(cols[j][i], types[j])
+                                  for j in range(len(cols)))
+                            for i in range(n))
+        finally:
+            # the query's reservations end with it (a nonzero ledger on a
+            # finished query is a leak, counted on the pool)
+            leaked = executor.memory.close()
+            if leaked:
+                NODE_POOL.record_leak(leaked)
         return MaterializedResult(list(plan.column_names), types, rows,
                                   row_count=len(rows))
 

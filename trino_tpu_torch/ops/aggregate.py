@@ -13,7 +13,9 @@ here, each beside its plain PyTorch twin:
   eligible row per distinct (group keys, argument) pair for a DISTINCT
   aggregate;
 * K4 `global_reduce` (`_global_aggregate`): no GROUP BY, a masked
-  multi-column reduction to one row, a Triton kernel in this module.
+  multi-column reduction to one row, a Triton kernel in this module;
+* K19 `passthrough` (passthrough_partial): the adaptive bypass's
+  PARTIAL-layout state row per input row, a Triton kernel in this module.
 
 Every state reaches a kernel as a `StateInput`: a value tensor (int64 or
 float64), an optional validity and an optional FILTER mask, and a kind
@@ -1038,6 +1040,267 @@ def global_reduce(states, num_rows, cap):
     """K4 wrapper: plain twin on the CPU, Triton kernel on CUDA."""
     run = global_reduce_triton if num_rows.is_cuda else global_reduce_plain
     return run(states, num_rows, cap)
+
+
+# ------------------------------------------------------------------ K19
+
+_BYPASS_BLOCK = 1024
+_BYPASS_KERNEL: dict = {}
+
+
+def _state_identity(s: StateInput, dtype) -> int:
+    """The identity a min/max state holds for a row that contributes
+    nothing, in its state dtype (the reference's _ident_for); floats use
+    +-inf in the kernel."""
+    if dtype == torch.bool:
+        return int(s.kind == MIN)
+    if dtype.is_floating_point:
+        return 0
+    info = torch.iinfo(dtype)
+    return info.max if s.kind == MIN else info.min
+
+
+def passthrough_plain(states: Sequence[StateInput], copies: Sequence[bool],
+                      num_rows: torch.Tensor, cap: int,
+                      dtypes: Sequence[torch.dtype]) -> List[torch.Tensor]:
+    """Plain twin of K19: per state, every row's own contribution in its
+    state dtype — count 1/0, a sum's value or 0, a min/max's value or the
+    state's identity (a row past num_rows, NULL or filtered out
+    contributes nothing); a `copies` state (a precomputed contribution)
+    passes through."""
+    dev = num_rows.device
+    live = torch.arange(cap, device=dev, dtype=torch.int32) < num_rows
+    out = []
+    for s, copy, dtype in zip(states, copies, dtypes):
+        if copy:
+            out.append(s.values.to(dtype))
+            continue
+        elig = live
+        if s.valid is not None:
+            elig = elig & s.valid
+        if s.mask is not None:
+            elig = elig & s.mask
+        if s.kind == COUNT:
+            out.append(elig.to(dtype))
+            continue
+        if s.kind == SUM:
+            ident = torch.zeros((), dtype=s.values.dtype, device=dev)
+        elif s.is_float:
+            ident = torch.tensor(float("inf") if s.kind == MIN
+                                 else float("-inf"), dtype=s.values.dtype,
+                                 device=dev)
+        else:
+            ident = torch.tensor(_state_identity(s, dtype),
+                                 dtype=s.values.dtype, device=dev)
+        out.append(torch.where(elig, s.values, ident).to(dtype))
+    return out
+
+
+def _bypass_kernel():
+    """Build (once per process) K19's Triton program.
+
+    Replaces trino_tpu/ops/aggregate.py passthrough_partial (:916), whose
+    per-state `contrib(vals, mask).astype(dtype)` XLA fuses into one
+    elementwise pass. Bound on this card: bytes — each state's value,
+    validity and FILTER mask read once, its contribution written once.
+    One program per 1024-row block writes every state (up to 8 per
+    launch): a masked select, no reduction, no cross-row step, stored in
+    the state's own dtype."""
+    if _BYPASS_KERNEL:
+        return _BYPASS_KERNEL["k"]
+    import triton
+    import triton.language as tl
+    globals()["tl"] = tl
+
+    @triton.jit
+    def bypass_kernel(num_rows_ptr,
+                      v0, v1, v2, v3, v4, v5, v6, v7,
+                      a0, a1, a2, a3, a4, a5, a6, a7,
+                      m0, m1, m2, m3, m4, m5, m6, m7,
+                      o0, o1, o2, o3, o4, o5, o6, o7,
+                      i0, i1, i2, i3, i4, i5, i6, i7, cap,
+                      K: tl.constexpr, KINDS: tl.constexpr,
+                      FLOATS: tl.constexpr, VALIDS: tl.constexpr,
+                      MASKS: tl.constexpr, COPIES: tl.constexpr,
+                      BLOCK: tl.constexpr):
+        pid = tl.program_id(0)
+        n = tl.load(num_rows_ptr).to(tl.int64)
+        offs = pid.to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
+        inb = offs < cap
+        live = offs < n
+        for j in tl.static_range(K):
+            if j == 0:
+                vp = v0
+                ap = a0
+                mp = m0
+                op = o0
+                ident = i0
+            elif j == 1:
+                vp = v1
+                ap = a1
+                mp = m1
+                op = o1
+                ident = i1
+            elif j == 2:
+                vp = v2
+                ap = a2
+                mp = m2
+                op = o2
+                ident = i2
+            elif j == 3:
+                vp = v3
+                ap = a3
+                mp = m3
+                op = o3
+                ident = i3
+            elif j == 4:
+                vp = v4
+                ap = a4
+                mp = m4
+                op = o4
+                ident = i4
+            elif j == 5:
+                vp = v5
+                ap = a5
+                mp = m5
+                op = o5
+                ident = i5
+            elif j == 6:
+                vp = v6
+                ap = a6
+                mp = m6
+                op = o6
+                ident = i6
+            else:
+                vp = v7
+                ap = a7
+                mp = m7
+                op = o7
+                ident = i7
+            elig = live
+            if (VALIDS >> j) & 1:
+                elig = elig & (tl.load(ap + offs, mask=inb, other=0) != 0)
+            if (MASKS >> j) & 1:
+                elig = elig & (tl.load(mp + offs, mask=inb, other=0) != 0)
+            if (COPIES >> j) & 1:
+                c = tl.load(vp + offs, mask=inb, other=0)
+            elif ((KINDS >> (2 * j)) & 3) == 1:
+                c = elig.to(tl.int64)
+            elif ((KINDS >> (2 * j)) & 3) == 0:
+                c = tl.load(vp + offs, mask=inb & elig, other=0)
+            else:
+                x = tl.load(vp + offs, mask=inb, other=0)
+                if (FLOATS >> j) & 1:
+                    if ((KINDS >> (2 * j)) & 3) == 2:
+                        c = tl.where(elig, x, float("inf"))
+                    else:
+                        c = tl.where(elig, x, float("-inf"))
+                else:
+                    c = tl.where(elig, x, ident)
+            tl.store(op + offs, c.to(op.dtype.element_ty), mask=inb)
+
+    _BYPASS_KERNEL["k"] = bypass_kernel
+    return bypass_kernel
+
+
+def passthrough_triton(states: Sequence[StateInput], copies: Sequence[bool],
+                       num_rows: torch.Tensor, cap: int,
+                       dtypes: Sequence[torch.dtype]) -> List[torch.Tensor]:
+    """K19 launch (one Triton program per group of up to 8 states)."""
+    dev = num_rows.device
+    if num_rows.dtype != torch.int32 or num_rows.dim() != 0:
+        raise ValueError("num_rows must be a 0-d int32 tensor")
+    for s in states:
+        for b in (s.valid, s.mask):
+            if b is not None and (b.device != dev or b.dtype != torch.bool
+                                  or b.shape != (cap,)
+                                  or not b.is_contiguous()):
+                raise ValueError("masks must be contiguous bool [cap]")
+        if s.values is not None and (s.values.device != dev
+                                     or s.values.shape != (cap,)
+                                     or not s.values.is_contiguous()):
+            raise ValueError("state values must be contiguous [cap]")
+    kernel = _bypass_kernel()
+    dummy_i = torch.empty(1, dtype=torch.int64, device=dev)  # never read
+    dummy_b = torch.empty(1, dtype=torch.bool, device=dev)
+    outs = [torch.empty(cap, dtype=d, device=dev) for d in dtypes]
+    nblocks = max(1, -(-cap // _BYPASS_BLOCK))
+    for g in range(0, len(states), _TRITON_MAX_STATES):
+        group = list(states[g:g + _TRITON_MAX_STATES])
+        gcopy = list(copies[g:g + _TRITON_MAX_STATES])
+        gout = outs[g:g + _TRITON_MAX_STATES]
+        k = len(group)
+        pad = _TRITON_MAX_STATES - k
+        vals = [s.values if s.values is not None else dummy_i
+                for s in group] + [dummy_i] * pad
+        valids = [s.valid if s.valid is not None else dummy_b
+                  for s in group] + [dummy_b] * pad
+        masks = [s.mask if s.mask is not None else dummy_b
+                 for s in group] + [dummy_b] * pad
+        idents = [_state_identity(s, o.dtype) for s, o in zip(group, gout)] \
+            + [0] * pad
+        kinds = sum(s.kind << (2 * j) for j, s in enumerate(group))
+        floats = sum(int(s.is_float) << j for j, s in enumerate(group))
+        has_v = sum(int(s.valid is not None) << j
+                    for j, s in enumerate(group))
+        has_m = sum(int(s.mask is not None) << j for j, s in enumerate(group))
+        cps = sum(int(c) << j for j, c in enumerate(gcopy))
+        kernel[(nblocks,)](
+            num_rows, *vals, *valids, *masks, *(gout + [dummy_i] * pad),
+            *idents, cap, K=k, KINDS=kinds, FLOATS=floats, VALIDS=has_v,
+            MASKS=has_m, COPIES=cps, BLOCK=_BYPASS_BLOCK, num_warps=4)
+    passthrough_triton.launches += 1
+    return outs
+
+
+passthrough_triton.launches = 0
+
+
+def passthrough(states, copies, num_rows, cap, dtypes):
+    """K19 wrapper: plain twin on the CPU, Triton kernel on CUDA."""
+    run = passthrough_triton if num_rows.is_cuda else passthrough_plain
+    return run(states, copies, num_rows, cap, dtypes)
+
+
+def passthrough_partial(key_channels: Sequence[int],
+                        aggs: Sequence[AggSpec]) -> Callable[[Page], Page]:
+    """BYPASS-mode partial aggregation ("Partial Partial Aggregates" full
+    bypass): ONE PARTIAL-layout state row per INPUT row — the key columns
+    pass through, each aggregate's state columns hold that row's
+    contribution (K19) — with no grouping. Layout-identical to
+    Step.PARTIAL, so bypass pages, partial pages and compacted
+    intermediate pages mix in one buffer or spill store; the adaptive
+    executor sends pages here when the observed NDV is about the row
+    count."""
+    key_channels = tuple(key_channels)
+    for a in aggs:
+        reason = _unsupported(a)
+        if reason is not None:
+            raise NotImplementedError(reason)
+        if a.distinct or a.name in SINGLE_STEP_AGGREGATES:
+            # as in PARTIAL: these need a whole group in one call
+            raise NotImplementedError(f"{a.name}() in bypass partial")
+    resolved = [get_aggregate(a.name,
+                              a.input_type if a.input2 is None
+                              else (a.input_type, a.input2_type))
+                for a in aggs]
+
+    def op(page: Page) -> Page:
+        per_agg, dicts, flat = _step_inputs(page, aggs, resolved,
+                                            Step.PARTIAL, None)
+        scs = [sc for states in per_agg for sc in states]
+        arrays = passthrough(flat, [sc.source == "contrib" for sc in scs],
+                             page.num_rows, page.capacity,
+                             [sc.type.dtype for sc in scs])
+        out = [page.column(ch) for ch in key_channels]
+        it = iter(arrays)
+        for states, d in zip(per_agg, dicts):
+            for sc in states:
+                out.append(Column(next(it), None, sc.type,
+                                  d if T.is_string(sc.type) else None))
+        return Page(tuple(out), page.num_rows)
+
+    return op
 
 
 # ------------------------------------------------------- hash_aggregate

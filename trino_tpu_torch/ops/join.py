@@ -25,6 +25,13 @@ each function returns. Device kernels, each beside its plain PyTorch twin:
   null-extended row) and their int64 total, `expand_write` writes the
   (probe row, build row) pairs at that total, and `probe_verdict` answers
   SEMI, ANTI and MARK per probe row without expanding.
+* K16 `spill_prep` (prepare_build_spilled), `csrc/join_spill.cu` around
+  K10's radix passes: a spilled build's sorted masked keys, their
+  permutation and its statistics; build_dense_table_rows is K5's dense
+  mode with that permutation as payload. K17 `spill_probe`
+  (spilled_dense_probe, spilled_unique_probe): one table read or one
+  lower bound per probe row. attach_build_host gathers the matched build
+  rows from host memory.
 * range_prefilter runs K1's range mode (`page.compact_range`), the
   attaches and the expanded columns K7 (`page.gather_rows`), SEMI/ANTI
   output and the FULL join's unmatched build rows K1 (`Page.filter`).
@@ -266,9 +273,11 @@ def join_build(cols, num_rows: torch.Tensor):
 
 
 def join_dense_plain(cols, num_rows: torch.Tensor, stats: torch.Tensor,
-                     size: int) -> torch.Tensor:
+                     size: int, payload: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
     """Plain twin of K5's dense mode: int32[size], key kmin + s -> the
-    smallest build row holding it, INT32_MAX where absent."""
+    smallest build row holding it (the smallest `payload` of those rows
+    when one is given), INT32_MAX where absent."""
     cap = cols[0][0].shape[0]
     dev = num_rows.device
     live = torch.arange(cap, device=dev, dtype=torch.int32) < num_rows
@@ -277,13 +286,15 @@ def join_dense_plain(cols, num_rows: torch.Tensor, stats: torch.Tensor,
     inb = live & ~null & (raw >= 0) & (raw < size)
     slot = torch.where(inb, raw, torch.full_like(raw, size))
     table = torch.full((size + 1,), _I32_MAX, dtype=torch.int32, device=dev)
-    table.scatter_reduce_(0, slot, torch.arange(cap, dtype=torch.int32,
-                                                device=dev), "amin")
+    values = torch.arange(cap, dtype=torch.int32, device=dev) \
+        if payload is None else payload.to(torch.int32)
+    table.scatter_reduce_(0, slot, values, "amin")
     return table[:size]
 
 
 def join_dense_cuda(cols, num_rows: torch.Tensor, stats: torch.Tensor,
-                    size: int) -> torch.Tensor:
+                    size: int, payload: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
     """K5 dense-mode launch: see csrc/join_build.cu join_dense."""
     cap = cols[0][0].shape[0]
     dev = num_rows.device
@@ -291,12 +302,19 @@ def join_dense_cuda(cols, num_rows: torch.Tensor, stats: torch.Tensor,
     if stats.dtype != torch.int64 or stats.shape != (N_STATS,) \
             or stats.device != dev:
         raise ValueError("stats must be K5's int64[10] on the device")
+    if payload is not None and (payload.dtype != torch.int32
+                                or payload.shape != (cap,)
+                                or payload.device != dev
+                                or not payload.is_contiguous()):
+        raise ValueError("payload must be a contiguous int32 [cap]")
     table = torch.empty(size, dtype=torch.int32, device=dev)
     lib = native.library("join_build")
     rc = lib.join_dense(
         host_table(_key_table(cols)), ctypes.c_int64(len(cols)),
         ctypes.c_int64(cap), ctypes.c_void_p(num_rows.data_ptr()),
-        ctypes.c_void_p(stats.data_ptr()), ctypes.c_void_p(table.data_ptr()),
+        ctypes.c_void_p(stats.data_ptr()),
+        ctypes.c_void_p(0 if payload is None else payload.data_ptr()),
+        ctypes.c_void_p(table.data_ptr()),
         ctypes.c_int64(size), ctypes.c_void_p(native.stream_ptr(dev)))
     native.check(rc, "join_dense")
     join_dense_cuda.launches += 1
@@ -306,10 +324,10 @@ def join_dense_cuda(cols, num_rows: torch.Tensor, stats: torch.Tensor,
 join_dense_cuda.launches = 0
 
 
-def join_dense(cols, num_rows, stats, size):
+def join_dense(cols, num_rows, stats, size, payload=None):
     """K5 dense-mode wrapper: plain twin on the CPU, kernel on CUDA."""
     run = join_dense_cuda if num_rows.is_cuda else join_dense_plain
-    return run(cols, num_rows, stats, size)
+    return run(cols, num_rows, stats, size, payload)
 
 
 @dataclasses.dataclass
@@ -1108,3 +1126,283 @@ def unmatched_build_page(probe_meta: Sequence[Tuple[T.Type, object]]
                              t, d) for t, d in probe_meta)
         return Page(pcols + kept.columns, kept.num_rows)
     return op
+
+
+# ------------------------------------------------------ K16, K17: spill
+
+# K16's statistic slots (int64[N_STATS], K5's layout where they agree):
+# N_LIVE, N_ROWS, HAS_NULL, KMIN and KMAX, with is_unique in MAX_RUN's
+SPILL_UNIQUE = MAX_RUN
+# K17's modes (csrc/join_spill.cu)
+SPILL_DENSE, SPILL_SEARCH = 0, 1
+# the reference's spill gate: a dense row table up to this key span
+SPILL_DENSE_MAX_SPAN = 1 << 28
+
+
+def spill_prep_plain(cols, num_rows: torch.Tensor):
+    """Plain twin of K16: (sorted key words int64[cap], permutation
+    int32[cap], stats int64[N_STATS]). Dead and NULL-keyed rows are masked
+    to u64::MAX and every row is ordered stably by (key unsigned, dead),
+    so a live key of -1 sorts before the masked rows."""
+    cap = cols[0][0].shape[0]
+    dev = num_rows.device
+    live = torch.arange(cap, device=dev, dtype=torch.int32) < num_rows
+    key, null = _key_cols(cols)
+    dead = ~live | null
+    masked = torch.where(dead, torch.full_like(key, -1), key)
+    from trino_tpu_torch.ops.sort import sort_permutation
+    perm = sort_permutation([masked ^ _I64_MIN, dead])
+    keys = masked[perm]
+    dead_s = dead[perm]
+    dup = (keys[1:] == keys[:-1]) & ~dead_s[1:]
+    ok = ~dead
+    flipped = key ^ _I64_MIN
+    stats = torch.zeros(N_STATS, dtype=torch.int64, device=dev)
+    stats[N_LIVE] = ok.sum()
+    stats[N_ROWS] = live.sum()
+    stats[HAS_NULL] = (live & null).any().to(torch.int64)
+    stats[SPILL_UNIQUE] = (~dup.any()).to(torch.int64)
+    stats[KMIN] = _reduce(flipped, ok, _I64_MAX, True) ^ _I64_MIN
+    stats[KMAX] = _reduce(flipped, ok, _I64_MIN, False) ^ _I64_MIN
+    return keys, perm.to(torch.int32), stats
+
+
+def spill_prep_cuda(cols, num_rows: torch.Tensor):
+    """K16 launch: see csrc/join_spill.cu spill_prep; the sort between its
+    two launches is K10's radix passes (ops/sort.py radix_sort_words)."""
+    from trino_tpu_torch.ops.sort import radix_sort_words
+    cap = cols[0][0].shape[0]
+    dev = num_rows.device
+    _check_key_cols(cols, cap, dev)
+    if num_rows.dtype != torch.int32 or num_rows.dim() != 0:
+        raise ValueError("num_rows must be a 0-d int32 tensor")
+    words = torch.empty((2, cap), dtype=torch.int64, device=dev)
+    stats = torch.zeros(N_STATS, dtype=torch.int64, device=dev)
+    lib = native.library("join_spill")
+    rc = lib.spill_prep(
+        host_table(_key_table(cols)), ctypes.c_int64(len(cols)),
+        ctypes.c_int64(cap), ctypes.c_void_p(num_rows.data_ptr()),
+        ctypes.c_void_p(words.data_ptr()), ctypes.c_void_p(stats.data_ptr()),
+        ctypes.c_void_p(native.stream_ptr(dev)))
+    native.check(rc, "spill_prep")
+    every = torch.full((), cap, dtype=torch.int32, device=dev)
+    # least significant first: the dead word's top byte, then the key's
+    perm = radix_sort_words(words, every,
+                            [(1, 56)] + [(0, 8 * b) for b in range(8)])
+    keys = torch.empty(cap, dtype=torch.int64, device=dev)
+    rc = lib.spill_prep_finish(
+        ctypes.c_int64(cap), ctypes.c_void_p(words.data_ptr()),
+        ctypes.c_void_p(perm.data_ptr()), ctypes.c_void_p(keys.data_ptr()),
+        ctypes.c_void_p(stats.data_ptr()),
+        ctypes.c_void_p(native.stream_ptr(dev)))
+    native.check(rc, "spill_prep_finish")
+    spill_prep_cuda.launches += 1
+    return keys, perm, stats
+
+
+spill_prep_cuda.launches = 0
+
+
+def spill_prep(cols, num_rows):
+    """K16 wrapper: plain twin on the CPU, kernel on CUDA."""
+    run = spill_prep_cuda if num_rows.is_cuda else spill_prep_plain
+    return run(cols, num_rows)
+
+
+def spill_probe_plain(pcols, num_rows: torch.Tensor, mode: int, lookup,
+                      stats: torch.Tensor):
+    """Plain twin of K17: (found bool[cap], brow int64[cap], count int64).
+    `lookup` is the dense row table (SPILL_DENSE) or (sorted keys,
+    permutation) (SPILL_SEARCH); brow is 0 where a dense probe found
+    nothing and the permutation at the clamped lower bound when
+    searching, as the reference leaves them."""
+    cap = pcols[0][0].shape[0]
+    dev = num_rows.device
+    live = torch.arange(cap, device=dev, dtype=torch.int32) < num_rows
+    key, null = _key_cols(pcols)
+    ok = live & ~null
+    if mode == SPILL_DENSE:
+        size = lookup.shape[0]
+        raw = key - stats[KMIN]
+        inb = (raw >= 0) & (raw < size)
+        row = lookup[raw.clamp(0, max(size - 1, 0))]
+        found = ok & inb & (row != _I32_MAX)
+        brow = torch.where(found, row.to(torch.int64), torch.zeros_like(key))
+    else:
+        bkeys, bperm = lookup
+        n = bkeys.shape[0]
+        lo = torch.searchsorted(bkeys ^ _I64_MIN, key ^ _I64_MIN)
+        lc = lo.clamp(max=max(n - 1, 0))
+        found = ok & (lo < stats[N_LIVE]) & (bkeys[lc] == key)
+        brow = bperm[lc].to(torch.int64)
+    return found, brow, found.sum(dtype=torch.int64)
+
+
+def spill_probe_cuda(pcols, num_rows: torch.Tensor, mode: int, lookup,
+                     stats: torch.Tensor):
+    """K17 launch: see csrc/join_spill.cu spill_probe."""
+    cap = pcols[0][0].shape[0]
+    dev = num_rows.device
+    _check_key_cols(pcols, cap, dev)
+    if num_rows.dtype != torch.int32 or num_rows.dim() != 0:
+        raise ValueError("num_rows must be a 0-d int32 tensor")
+    if mode == SPILL_DENSE:
+        table = lookup
+        bkeys = bperm = lookup
+        size, nbuild = table.shape[0], 0
+        if table.dtype != torch.int32 or table.device != dev:
+            raise ValueError("the dense row table must be int32 on the "
+                             "device")
+    else:
+        bkeys, bperm = lookup
+        table, size, nbuild = bkeys, 0, bkeys.shape[0]
+        if bkeys.dtype != torch.int64 or bperm.dtype != torch.int32 \
+                or bperm.shape != bkeys.shape or bkeys.device != dev \
+                or bperm.device != dev:
+            raise ValueError("search mode needs int64 sorted keys and their "
+                             "int32 permutation on the device")
+    found = torch.empty(cap, dtype=torch.bool, device=dev)
+    brow = torch.empty(cap, dtype=torch.int64, device=dev)
+    count = torch.empty((), dtype=torch.int64, device=dev)
+    rc = native.library("join_spill").spill_probe(
+        host_table(_key_table(pcols)), ctypes.c_int64(len(pcols)),
+        ctypes.c_int64(cap), ctypes.c_void_p(num_rows.data_ptr()),
+        ctypes.c_int64(mode), ctypes.c_void_p(table.data_ptr()),
+        ctypes.c_int64(size), ctypes.c_void_p(bkeys.data_ptr()),
+        ctypes.c_void_p(bperm.data_ptr()), ctypes.c_int64(nbuild),
+        ctypes.c_void_p(stats.data_ptr()), ctypes.c_void_p(found.data_ptr()),
+        ctypes.c_void_p(brow.data_ptr()), ctypes.c_void_p(count.data_ptr()),
+        ctypes.c_void_p(native.stream_ptr(dev)))
+    native.check(rc, "spill_probe")
+    spill_probe_cuda.launches += 1
+    m = "dense" if mode == SPILL_DENSE else "search"
+    spill_probe_cuda.by_mode[m] = spill_probe_cuda.by_mode.get(m, 0) + 1
+    return found, brow, count
+
+
+spill_probe_cuda.launches = 0
+spill_probe_cuda.by_mode = {}
+
+
+def spill_probe(pcols, num_rows, mode, lookup, stats):
+    """K17 wrapper: plain twin on the CPU, kernel on CUDA."""
+    run = spill_probe_cuda if num_rows.is_cuda else spill_probe_plain
+    return run(pcols, num_rows, mode, lookup, stats)
+
+
+def prepare_build_spilled(build_keys: Sequence[int]):
+    """The spilling build phase (HashBuilderOperator's spill state, K16):
+    op(build_page) -> (sorted key words, permutation, stats). The device
+    then holds only what probing needs; the executor moves the payload
+    columns to host memory and gathers matched rows there
+    (attach_build_host). stats[N_LIVE, N_ROWS, HAS_NULL, SPILL_UNIQUE,
+    KMIN, KMAX] are the reference's (n_live, n_build_rows, has_null,
+    is_unique, kmin, kmax), read with one host fetch."""
+    build_keys = tuple(build_keys)
+
+    def prep(build: Page):
+        return spill_prep(_page_key_cols(build, build_keys), build.num_rows)
+    return prep
+
+
+def build_dense_table_rows(size: int):
+    """The spilled-dense build finisher (K5's dense mode with the
+    permutation as payload): table[key - kmin] = the ORIGINAL build row of
+    that unique key, INT32_MAX elsewhere; the probe then needs only this
+    table on the device (4 bytes a slot instead of 12 a row)."""
+
+    def op(bkey_s: torch.Tensor, bperm: torch.Tensor,
+           stats: torch.Tensor) -> torch.Tensor:
+        n_live = stats[N_LIVE].to(torch.int32)
+        return join_dense([(bkey_s, None)], n_live, stats, size, bperm)
+    return op
+
+
+def _spilled_pre(probe: Page, probe_out, brow) -> Page:
+    brow_col = Column(brow, None, T.BIGINT, None)
+    p_idx = range(probe.num_columns) if probe_out is None else probe_out
+    return Page(tuple(probe.columns[i] for i in p_idx) + (brow_col,),
+                probe.num_rows)
+
+
+def spilled_dense_probe(probe_keys: Sequence[int],
+                        probe_out: Optional[Sequence[int]] = None):
+    """Probe a spilled build through its dense row table (K17 dense mode):
+    op(probe, table, stats) -> (pre page, found, match count); the
+    executor compacts (K1) only when some live row found nothing."""
+    probe_keys = tuple(probe_keys)
+
+    def op(probe: Page, table: torch.Tensor, stats: torch.Tensor):
+        found, brow, count = spill_probe(
+            _page_key_cols(probe, probe_keys), probe.num_rows, SPILL_DENSE,
+            table, stats)
+        return _spilled_pre(probe, probe_out, brow), found, count
+    return op
+
+
+def spilled_unique_probe(probe_keys: Sequence[int],
+                         probe_out: Optional[Sequence[int]] = None):
+    """Probe a spilled build's sorted keys (K17 search mode): op(probe,
+    bkey_s, bperm, stats) -> (pre page, found, match count). Composite
+    keys are re-checked on the host by attach_build_host."""
+    probe_keys = tuple(probe_keys)
+
+    def op(probe: Page, bkey_s: torch.Tensor, bperm: torch.Tensor,
+           stats: torch.Tensor):
+        found, brow, count = spill_probe(
+            _page_key_cols(probe, probe_keys), probe.num_rows, SPILL_SEARCH,
+            (bkey_s, bperm), stats)
+        return _spilled_pre(probe, probe_out, brow), found, count
+    return op
+
+
+def attach_build_host(pre: Page, n_probe_cols: int, host_cols,
+                      verify: Optional[Sequence[Tuple[int, int]]] = None,
+                      emit: Optional[Sequence[int]] = None) -> Page:
+    """The spilled path's attach, on the host: the matched rows' build
+    columns gathered from host tensors (pinned for a CUDA page) at their
+    original rows, staged at the pre page's capacity in one copy per
+    column. `host_cols` is [(values, valid or None, type, dictionary)];
+    `verify` = [(probe channel, host column)] pairs re-checked for
+    composite keys (hash collisions; mismatches leave through K1);
+    `emit` selects the host columns emitted (default all)."""
+    n = int(pre.num_rows)
+    dev = pre.device
+    cuda = dev.type == "cuda"
+
+    def fetch(t: torch.Tensor) -> torch.Tensor:
+        h = torch.empty(n, dtype=t.dtype, pin_memory=cuda)
+        h.copy_(t[:n], non_blocking=cuda)
+        return h
+    brow = fetch(pre.columns[n_probe_cols].values)
+    probe_keys = [(bci, fetch(pre.columns[pch].values))
+                  for pch, bci in (verify or ())]
+    if cuda:
+        torch.cuda.current_stream(dev).synchronize()
+    keep = None
+    for bci, pv in probe_keys:
+        eq = pv == host_cols[bci][0][brow]
+        keep = eq if keep is None else keep & eq
+    sel = None
+    if keep is not None and not bool(keep.all()):
+        sel = torch.nonzero(keep).flatten()
+        brow = brow[sel]
+    cap = pre.capacity
+    m = brow.shape[0]
+
+    def stage(t: torch.Tensor) -> torch.Tensor:
+        out = torch.zeros(cap, dtype=t.dtype, pin_memory=cuda)
+        torch.index_select(t, 0, brow, out=out[:m])
+        return out.to(dev, non_blocking=True) if cuda else out
+    emit_cols = host_cols if emit is None else [host_cols[i] for i in emit]
+    bcols = [Column(stage(values), None if valid is None else stage(valid),
+                    typ, d) for values, valid, typ, d in emit_cols]
+    pcols = pre.columns[:n_probe_cols]
+    nrows = pre.num_rows
+    if sel is not None:
+        keep_dev = torch.zeros(cap, dtype=torch.bool)
+        keep_dev[sel] = True
+        filtered = Page(pcols, pre.num_rows).filter(
+            keep_dev.to(dev, non_blocking=cuda) if cuda else keep_dev)
+        pcols, nrows = filtered.columns, filtered.num_rows
+    return Page(tuple(pcols) + tuple(bcols), nrows)

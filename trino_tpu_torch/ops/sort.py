@@ -240,7 +240,23 @@ def sort_rows_cuda(page: Page, keys: Sequence[SortKey]) -> torch.Tensor:
     words = torch.empty((layout[-1].word + 1, cap), dtype=torch.int64,
                         device=dev)
     _encode(page, keys, layout, words)
-    passes = sort_passes(layout)
+    perm = radix_sort_words(words, page.num_rows, sort_passes(layout))
+    sort_rows_cuda.launches += 1
+    return perm
+
+
+sort_rows_cuda.launches = 0
+
+
+def radix_sort_words(words: torch.Tensor, num_rows: torch.Tensor,
+                     passes: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """K10's radix launch over words [nwords, cap] (each word stored with
+    its sign bit flipped) for the 8-bit digit `passes`, least significant
+    first: the int32 permutation that sorts the live prefix stably (rows
+    past num_rows keep their places). The sort of K16 (ops/join.py) and
+    of rank_bounds (exec/spill.py) reuse it."""
+    dev = words.device
+    cap = words.shape[1]
     perm = torch.empty(cap, dtype=torch.int32, device=dev)
     tmp = torch.empty(cap, dtype=torch.int32, device=dev)
     one_block = cap <= ONE_BLOCK_ROWS
@@ -248,18 +264,24 @@ def sort_rows_cuda(page: Page, keys: Sequence[SortKey]) -> torch.Tensor:
     hist = torch.empty(1 if one_block else 256 * ntiles + 1,
                        dtype=torch.int64, device=dev)
     rc = native.library("sort").sort_radix(
-        ctypes.c_void_p(page.num_rows.data_ptr()), ctypes.c_int64(cap),
+        ctypes.c_void_p(num_rows.data_ptr()), ctypes.c_int64(cap),
         ctypes.c_void_p(words.data_ptr()), ctypes.c_int64(len(passes)),
         host_table([w for w, _ in passes], [s for _, s in passes]),
         ctypes.c_void_p(perm.data_ptr()), ctypes.c_void_p(tmp.data_ptr()),
         ctypes.c_void_p(hist.data_ptr()), ctypes.c_int64(int(one_block)),
         ctypes.c_void_p(native.stream_ptr(dev)))
     native.check(rc, "sort_radix")
-    sort_rows_cuda.launches += 1
     return perm
 
 
-sort_rows_cuda.launches = 0
+def sort_u64_cuda(words: torch.Tensor) -> torch.Tensor:
+    """int64 words holding u64 values, sorted in unsigned order by K10's
+    radix passes (all eight bytes; every row sorted)."""
+    cap = words.shape[0]
+    n = torch.full((), cap, dtype=torch.int32, device=words.device)
+    perm = radix_sort_words((words ^ _I64_MIN).reshape(1, cap), n,
+                            [(0, 8 * b) for b in range(8)])
+    return words[perm.to(torch.int64)]
 
 
 def encode_sort_keys_cuda(page: Page, keys: Sequence[SortKey]
