@@ -16,6 +16,8 @@ reference took (learned by wrapping the reference planner's methods at
 test time), and its counters the reference's; the spill ledger ends at 0.
 """
 
+import gc
+
 import pytest
 import torch
 
@@ -121,6 +123,7 @@ def run_both(monkeypatch, sql, props, ordered=None):
     for name in COUNTERS:
         assert port.last_query_stats[name] == \
             ref.last_query_stats.get(name, 0), name
+    gc.collect()    # an abandoned operator's stores close when collected
     assert SPILL_LEDGER.reserved == 0
     return port, got
 
@@ -236,6 +239,7 @@ def test_spill_budget_exceeded_is_classified():
         port.execute(AGG_SQL)
     assert ei.value.error_name == "EXCEEDED_SPILL_LIMIT"
     assert not ei.value.retryable
+    gc.collect()
     assert SPILL_LEDGER.reserved == 0 and SPILL_LEDGER.denials > 0
 
 
