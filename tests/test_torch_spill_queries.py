@@ -273,3 +273,35 @@ def test_string_key_build_overflows_mid_collect(monkeypatch):
     assert rows == baseline and rows[0][0] > 1000
     assert [j["route"] for j in port.last_joins] == ["partitioned"]
     assert port.last_query_stats["spilled_bytes"] > 0
+
+
+def test_result_conversion_matches_per_cell():
+    """The runner converts result columns at once (the forced spill runs
+    return millions of rows); the values and their Python types equal the
+    per-cell conversion's for every type, NULLs included."""
+    from trino_tpu_torch.exec import runner as R
+    from trino_tpu_torch.exec.local_planner import LocalExecutionPlanner
+    from trino_tpu_torch.sql import parse_statement
+    port = PortRunner.tpch("tiny", device="cpu")
+    sql = ("SELECT o_orderkey, CASE WHEN o_orderkey % 3 = 0 THEN NULL ELSE "
+           "o_totalprice END, CASE WHEN o_orderkey % 5 = 0 THEN NULL ELSE "
+           "o_orderdate END, CASE WHEN o_orderkey % 7 = 0 THEN NULL ELSE "
+           "o_comment END, o_orderkey % 2 = 0, CAST(o_totalprice AS real), "
+           "CAST(o_orderkey AS integer), CAST(o_totalprice AS double) "
+           "FROM orders")
+    plan = port._plan(parse_statement(sql))
+    types = [s.type for s in plan.symbols]
+    executor = LocalExecutionPlanner(port.metadata, port.session, "cpu")
+    checked = 0
+    for page in executor.execute(plan).iter_pages():
+        n = int(page.num_rows)
+        cols = page.to_host(n)
+        per_cell = [tuple(R._to_python(cols[j][i], types[j])
+                          for j in range(len(cols))) for i in range(n)]
+        at_once = list(zip(*(R.column_values(c, t)
+                             for c, t in zip(cols, types))))
+        assert at_once == per_cell
+        assert [[type(x) for x in r] for r in at_once] == \
+            [[type(x) for x in r] for r in per_cell]
+        checked += n
+    assert checked == 15000
