@@ -25,15 +25,26 @@ Phases, each printing its lines before the next starts:
      rank and range modes, the bypass states) over NULL, dead, -1, NaN,
      -0.0, bool and code keys, duplicate and empty builds, wide spans,
      salts 0-3, 1/4/16 partitions and NULLs first and last, bit for bit;
-  3. the 22 TPC-H queries, a FULL join and a MARK query at sf1 and q6, q3,
-     q9, q13 at sf10 (the reference's default session, spill on) from SQL
+     K20-K23 (the window operator: segment bounds, ranking and value
+     functions, framed aggregates, bounded min/max) over WIN_PAGES (a
+     4,194,304-row page; NULL, NaN and -0.0 keys; an empty page; one-row
+     partitions; no partition keys; no order keys; dictionary keys) and
+     every function under whole, running and bounded frames (0 PRECEDING
+     AND 0 FOLLOWING, and frames wider than the partition), K20 bit for
+     bit, the others exactly but for doubles (1e-9 of the partition's
+     |x| sum);
+  3. the 22 TPC-H queries, a FULL join, a MARK query and the window,
+     grouping-set and UNION queries W1-W6 and W8 at sf1, and q6, q3, q9,
+     q13 and W7 at sf10 (the reference's default session, spill on) from SQL
      through LocalQueryRunner.tpch(schema).execute(sql) on cuda, tables
      generated on the card, rows held equal to the same queries through
      the port on the CPU with tables from NumPy; each join's kind, route,
      build live rows, max_run, probe and output rows, each query's mxu
      routes and mxu_joins equal to the CPU's; no filter or project step
-     evaluated by the torch-op compiler, no sort by the plain twin and no
-     generated column staged from NumPy on the card; the first-run walls
+     evaluated by the torch-op compiler, no sort by the plain twin, no
+     window function by a plain twin and no generated column staged from
+     NumPy on the card; each WindowNode's rows, partitions, peer groups,
+     functions and frames (`[window]`); the first-run walls
      of q6/q9 at sf10 and each table's generation seconds at sf1/sf10,
      K14/K15 against the NumPy path; each sf10 join's route with its build,
      device and host bytes and each sf10 query's spill counters; then the
@@ -44,7 +55,9 @@ Phases, each printing its lines before the next starts:
      launch K16-K19 and take spill-dense, spill-search and partitioned;
   4. every kernel, every expanding-probe kind and the mxu, dense, search
      and cross routes launched during phase 3 (K16-K19 on the forced
-     path; the host attach's ms per batch); per kernel its launches,
+     path; the host attach's ms per batch beside a pinned copy of the
+     bytes it moves; K20-K23 at the window queries' largest sf1 calls);
+     per kernel its launches,
      its time at the main path's shapes (CUDA events; K10 and K11 also
      their host time per call), its bound, its plain twin's time and a
      one-call PyTorch yardstick; each query's warm wall time, idle share
@@ -323,6 +336,96 @@ FROM (SELECT substring(c_phone, 1, 2) AS cntrycode, c_acctbal
         AND NOT EXISTS (SELECT * FROM orders WHERE o_custkey = c_custkey))
      AS custsale
 GROUP BY cntrycode ORDER BY cntrycode""", True),
+}
+
+
+# The window, grouping-set and UNION queries of the window slice (W1-W8):
+# name -> (schema, label, SQL). ROWS frames, row_number, lead/lag and
+# first/last/nth_value order on a unique key, so that the card and the
+# CPU cannot differ within ties; the rows compare as multisets.
+# tests/test_torch_window_queries.py runs the same texts at tiny against
+# the reference.
+WINDOW_QUERIES = {
+    "W1": ("sf1", "topn_per_group", """SELECT o_custkey, o_orderkey, o_totalprice, rn, rk, running
+FROM (SELECT o_custkey, o_orderkey, o_totalprice,
+             row_number() OVER (PARTITION BY o_custkey
+                                ORDER BY o_totalprice DESC, o_orderkey) AS rn,
+             rank() OVER (PARTITION BY o_custkey ORDER BY o_orderdate) AS rk,
+             sum(o_totalprice) OVER (PARTITION BY o_custkey
+                                     ORDER BY o_orderdate) AS running
+      FROM orders) t
+WHERE rn <= 2"""),
+    "W2": ("sf1", "bounded", """SELECT l_partkey, count(*), sum(a), max(m), min(prev)
+FROM (SELECT l_partkey,
+             avg(l_quantity) OVER (PARTITION BY l_partkey
+                 ORDER BY l_orderkey, l_linenumber
+                 ROWS BETWEEN 3 PRECEDING AND 3 FOLLOWING) AS a,
+             max(l_extendedprice) OVER (PARTITION BY l_partkey
+                 ORDER BY l_orderkey, l_linenumber
+                 ROWS BETWEEN 2 PRECEDING AND 2 FOLLOWING) AS m,
+             lag(l_shipdate) OVER (PARTITION BY l_partkey
+                 ORDER BY l_orderkey, l_linenumber) AS prev
+      FROM lineitem) t
+WHERE prev IS NOT NULL
+GROUP BY l_partkey"""),
+    "W3": ("sf1", "rollup_rank", """SELECT o_orderpriority, o_orderstatus, sum(o_totalprice) AS s,
+       grouping(o_orderpriority, o_orderstatus) AS g,
+       rank() OVER (PARTITION BY grouping(o_orderpriority, o_orderstatus)
+                    ORDER BY sum(o_totalprice) DESC) AS r
+FROM orders
+GROUP BY ROLLUP (o_orderpriority, o_orderstatus)"""),
+    "W4": ("sf1", "cube", """SELECT o_orderstatus, o_orderpriority, count(*), sum(o_totalprice)
+FROM orders
+GROUP BY CUBE (o_orderstatus, o_orderpriority)"""),
+    "W5": ("sf1", "union_all", """SELECT k, count(*), sum(v)
+FROM (SELECT o_orderkey AS k, o_totalprice AS v FROM orders
+      WHERE o_orderdate < DATE '1993-01-01'
+      UNION ALL
+      SELECT l_orderkey AS k, l_extendedprice AS v FROM lineitem
+      WHERE l_shipdate > DATE '1998-11-01') t
+GROUP BY k"""),
+    "W6": ("sf1", "union_str", """SELECT c_mktsegment FROM customer
+UNION
+SELECT n_name FROM nation"""),
+    "W7": ("sf10", "share", """SELECT l_suppkey, l_orderkey, l_linenumber, share, r
+FROM (SELECT l_suppkey, l_orderkey, l_linenumber,
+             CAST(l_extendedprice AS double)
+               / sum(CAST(l_extendedprice AS double))
+                 OVER (PARTITION BY l_suppkey) AS share,
+             rank() OVER (PARTITION BY l_suppkey
+                          ORDER BY l_extendedprice DESC, l_orderkey,
+                                   l_linenumber) AS r
+      FROM lineitem) t
+WHERE r <= 3"""),
+    "W8": ("sf1", "rank_dist", """SELECT o_orderpriority, count(*), sum(dr), sum(pr), sum(cd), sum(nt),
+       min(fv), max(lv), sum(nv), count(nv), sum(ld), sum(mn), count(mn),
+       sum(cnt)
+FROM (SELECT o_orderpriority,
+             dense_rank() OVER (PARTITION BY o_custkey
+                                ORDER BY o_orderdate) AS dr,
+             percent_rank() OVER (PARTITION BY o_custkey
+                                  ORDER BY o_orderdate) AS pr,
+             cume_dist() OVER (PARTITION BY o_custkey
+                               ORDER BY o_orderdate) AS cd,
+             ntile(4) OVER (PARTITION BY o_custkey ORDER BY o_orderkey) AS nt,
+             first_value(o_clerk) OVER (PARTITION BY o_custkey
+                                        ORDER BY o_orderkey) AS fv,
+             last_value(o_clerk) OVER (PARTITION BY o_custkey
+                 ORDER BY o_orderkey
+                 ROWS BETWEEN UNBOUNDED PRECEDING AND UNBOUNDED FOLLOWING)
+               AS lv,
+             nth_value(o_orderkey, 2) OVER (PARTITION BY o_custkey
+                 ORDER BY o_orderkey
+                 ROWS BETWEEN UNBOUNDED PRECEDING AND UNBOUNDED FOLLOWING)
+               AS nv,
+             lead(o_shippriority, 2, -1) OVER (PARTITION BY o_custkey
+                                               ORDER BY o_orderkey) AS ld,
+             min(o_totalprice) OVER (PARTITION BY o_custkey
+                 ORDER BY o_orderkey
+                 ROWS BETWEEN 1 FOLLOWING AND UNBOUNDED FOLLOWING) AS mn,
+             count(*) OVER (PARTITION BY o_custkey) AS cnt
+      FROM orders) t
+GROUP BY o_orderpriority"""),
 }
 
 
@@ -1975,6 +2078,211 @@ def check_bypass(g, dev) -> float:
     return err
 
 
+# ------------------------------------------- K20-K23 (the window slice)
+
+# (function, argument columns, output type) of the phase 2 window checks;
+# a type is a name of trino_tpu_torch.types or ("DecimalType", p, s)
+WIN_AGG = [("sum", ("xi",), "BIGINT"), ("sum", ("xd",), "DOUBLE"),
+           ("avg", ("xdec",), ("DecimalType", 12, 2)),
+           ("avg", ("xi",), "DOUBLE"), ("avg", ("xd",), "DOUBLE"),
+           ("count", ("xd",), "BIGINT"), ("count", (), "BIGINT"),
+           ("min", ("xi",), "BIGINT"), ("max", ("xd",), "DOUBLE"),
+           ("min", ("xc",), "VARCHAR"), ("max", ("x32",), "INTEGER"),
+           ("min", ("xdec",), ("DecimalType", 12, 2))]
+WIN_VALUE = [("first_value", ("xd",), "DOUBLE"),
+             ("last_value", ("xc",), "VARCHAR"),
+             ("nth_value", ("xi", "nth"), "BIGINT")]
+WIN_RANK = [("row_number", (), "BIGINT"), ("rank", (), "BIGINT"),
+            ("dense_rank", (), "BIGINT"), ("percent_rank", (), "DOUBLE"),
+            ("cume_dist", (), "DOUBLE"), ("ntile", ("k",), "BIGINT"),
+            ("lead", ("xi",), "BIGINT"), ("lag", ("xd", "off"), "DOUBLE"),
+            ("lead", ("xc", "off", "xc2"), "VARCHAR"),
+            ("lag", ("x32", "off", "xi"), "BIGINT")]
+# frame -> (whole, rows, bounds): whole, running ROWS, running RANGE and
+# bounded ROWS frames, 0 PRECEDING AND 0 FOLLOWING and frames wider than
+# any partition (K23's doubling table past 64 rows) included
+WIN_FRAMES = {
+    "whole": (True, False, None), "rows": (False, True, None),
+    "range": (False, False, None),
+    **{f"b{s}_{e}": (False, True, (s, e)) for s, e in (
+        (None, 0), (0, None), (-3, 3), (-2, 2), (0, 0), (1, 3),
+        (-500, 500), (-5000, None), (None, 5000))}}
+WIN_BIG_FRAMES = ("whole", "rows", "range", "bNone_0", "b0_None", "b-3_3",
+                  "b-2_2", "b-500_500")
+WIN_COLS = ("pk", "pd", "pb", "pc", "ok", "od", "row", "xi", "xd", "xdec",
+            "x32", "xc", "xc2", "off", "nth", "k", "absd")
+# page -> (capacity, live rows, partitions of pk, partition columns, order
+# keys as (column, ascending, nulls_first), frames)
+WIN_PAGES = {
+    "4M rows": (4_194_304, 4_194_304 - 777, 150_000, ("pk",),
+                (("ok", True, None), ("row", True, None)), WIN_BIG_FRAMES),
+    "NULL, NaN and -0.0 keys": (8192, 8000, 50, ("pd", "pb"),
+                                (("od", False, None), ("row", True, None)),
+                                tuple(WIN_FRAMES)),
+    "empty page": (4096, 0, 10, ("pk",), (("row", True, None),),
+                   ("whole", "rows", "range", "b-2_2")),
+    "one-row partitions": (4096, 4000, 0, ("row",), (("ok", True, None),),
+                           tuple(WIN_FRAMES)),
+    "no partition keys": (4096, 3000, 10, (),
+                          (("ok", True, False), ("row", True, None)),
+                          tuple(WIN_FRAMES)),
+    "no order keys": (4096, 4096, 40, ("pk",), (), ("whole",)),
+    "dictionary keys": (4096, 4000, 10, ("pc",),
+                        (("xc", False, True), ("row", False, None)),
+                        tuple(WIN_FRAMES)),
+}
+
+
+def win_type(spec):
+    from trino_tpu_torch import types as T
+    return getattr(T, spec[0])(*spec[1:]) if isinstance(spec, tuple) \
+        else getattr(T, spec)
+
+
+def window_page(g, cap: int, n: int, nparts: int, dev):
+    """A seeded page of WIN_COLS: partition keys with NULLs (pk BIGINT; pd
+    DOUBLE with NaN, -0.0 and +0.0; pb BOOLEAN; pc dictionary codes),
+    order keys with ties (ok INTEGER with NULLs, od DOUBLE), a unique row
+    id, arguments of every kind with NULLs (xd with NaN, +-inf and -0.0),
+    lead/lag offsets 0..3, nth_value's n in -1..4, ntile's 3 and |xd|
+    where finite (the float tolerance's scale)."""
+    import numpy as np
+    from trino_tpu_torch import page as P
+    from trino_tpu_torch import types as T
+
+    def ints(lo, hi):
+        return torch.randint(lo, hi, (cap,), generator=g)
+
+    def mask(p):
+        return torch.rand(cap, generator=g) < p
+
+    def pick(values):
+        v = torch.tensor(values, dtype=torch.float64)
+        return v[torch.randint(0, len(values), (cap,), generator=g)]
+    xd = torch.where(mask(0.5), torch.randn(cap, generator=g,
+                                            dtype=torch.float64) * 1e3,
+                     pick([-1.5, -0.0, 0.0, 2.25, 1e6, float("nan"),
+                           float("inf"), float("-inf")]))
+    pool_a = P.Dictionary(np.asarray(["AIR", "MAIL", "RAIL", "SHIP"],
+                                     dtype=object))
+    pool_b = P.Dictionary(np.asarray(["FOB", "MAIL", "TRUCK"], dtype=object))
+    cols = {
+        "pk": (ints(0, max(nparts, 1)), mask(0.95), T.BIGINT, None),
+        "pd": (pick([float("nan"), -0.0, 0.0, 1.5, 2.5]), mask(0.9),
+               T.DOUBLE, None),
+        "pb": (mask(0.5), mask(0.8), T.BOOLEAN, None),
+        "pc": (ints(0, 4).to(torch.int32), mask(0.9), T.VARCHAR, pool_a),
+        "ok": (ints(-3, 4).to(torch.int32), mask(0.85), T.INTEGER, None),
+        "od": (pick([-0.0, 0.0, 1.0, float("nan")]), None, T.DOUBLE, None),
+        "row": (torch.randperm(cap, generator=g), None, T.BIGINT, None),
+        "xi": (ints(-10 ** 6, 10 ** 6), mask(0.8), T.BIGINT, None),
+        "xd": (xd, mask(0.85), T.DOUBLE, None),
+        "xdec": (ints(-99999, 99999), mask(0.8), T.DecimalType(12, 2),
+                 None),
+        "x32": (ints(-50, 50).to(torch.int32), None, T.INTEGER, None),
+        "xc": (ints(0, 4).to(torch.int32), mask(0.85), T.VARCHAR, pool_a),
+        "xc2": (ints(0, 3).to(torch.int32), mask(0.85), T.VARCHAR, pool_b),
+        "off": (ints(0, 4), None, T.BIGINT, None),
+        "nth": (ints(-1, 5), None, T.BIGINT, None),
+        "k": (torch.full((cap,), 3, dtype=torch.int64), None, T.BIGINT,
+              None),
+        "absd": (torch.where(torch.isfinite(xd), xd.abs(),
+                             torch.zeros_like(xd)), None, T.DOUBLE, None),
+    }
+    page = P.Page(tuple(P.Column(v.to(dev), None if m is None else m.to(dev),
+                                 t, d) for v, m, t, d in
+                        (cols[c] for c in WIN_COLS)), n)
+    return page, {c: i for i, c in enumerate(WIN_COLS)}
+
+
+def window_specs(ch, frame):
+    from trino_tpu_torch.ops import window as W
+    whole, rows, bounds = WIN_FRAMES[frame]
+    cases = WIN_AGG + WIN_VALUE + (WIN_RANK if frame == "range" else [])
+    return [W.WindowSpec(name, tuple(ch[a] for a in args), win_type(out),
+                         whole, rows, bounds) for name, args, out in cases]
+
+
+def window_err(label, got, want, n: int, scale=None) -> float:
+    """A window output column against its twin's on the live rows:
+    validity exactly, values where valid: integers and codes exactly,
+    doubles to 1e-9 relative to the larger of the value and `scale` (the
+    partition's sum of |x|, which bounds every prefix the two scans add
+    in their own orders; NaN equals NaN, -0.0 equals +0.0)."""
+    gv = got.valid_mask()[:n]
+    wv = want.valid_mask()[:n]
+    if not torch.equal(gv, wv):
+        fail(f"{label}: validity differs from the twin "
+             f"({int((gv != wv).sum())} rows)")
+    if got.values.dtype != want.values.dtype or (
+            got.dictionary != want.dictionary):
+        fail(f"{label}: type or dictionary differs from the twin")
+    a, b = got.values[:n][wv], want.values[:n][wv]
+    if not a.is_floating_point():
+        if not torch.equal(a, b):
+            fail(f"{label}: values differ from the twin")
+        return 0.0
+    a, b = a.to(torch.float64), b.to(torch.float64)
+    s = b.abs() if scale is None else torch.maximum(b.abs(),
+                                                    scale[:n][wv])
+    ok = (a == b) | (torch.isnan(a) & torch.isnan(b)) | (
+        (a - b).abs() <= 1e-9 * s)
+    if not bool(ok.all()):
+        bad = (~ok).nonzero()[:3].flatten()
+        fail(f"{label}: values differ from the twin beyond 1e-9 of the "
+             f"partition's |x| sum: {a[bad].tolist()} vs {b[bad].tolist()}")
+    return max_abs_err(a, b)
+
+
+def check_window(g, dev) -> float:
+    """K20-K23 against their twins on the card: K20's six arrays bit for
+    bit on every row; each K21, K22 and K23 output (fed K20's arrays)
+    on the live rows, over WIN_PAGES x their frames x every function."""
+    from trino_tpu_torch import page as P
+    from trino_tpu_torch.ops import sort as S
+    from trino_tpu_torch.ops import window as W
+    err = 0.0
+    for label, (cap, n, nparts, part, okeys, frames) in WIN_PAGES.items():
+        page, ch = window_page(g, cap, n, nparts, dev)
+        keys = tuple(S.SortKey(ch[c]) for c in part) + tuple(
+            S.SortKey(ch[c], a, nf) for c, a, nf in okeys)
+        if keys:
+            page = page.gather(S.sort_rows(page, keys), page.num_rows)
+        pch = tuple(ch[c] for c in part)
+        och = tuple(ch[c] for c, _, _ in okeys)
+        b = W.window_bounds_cuda(page, pch, och)
+        want = W.window_bounds_plain(page, pch, och)
+        for f in ("seg_start", "seg_len", "peer_start", "peer_len",
+                  "seg_id", "peer_id"):
+            if not torch.equal(getattr(b, f), getattr(want, f)):
+                fail(f"K20 {f} differs from its twin on the {label} page")
+        scale = W.frame_aggregate_plain(W.WindowSpec(
+            "sum", (ch["absd"],), win_type("DOUBLE"), True, False), page,
+            b).values
+        for frame in frames:
+            for spec in window_specs(ch, frame):
+                what = f"{spec.name}({spec.arg_channels}) {frame} on the " \
+                       f"{label} page"
+                if spec.name in W.RANKING or spec.name in W.VALUE:
+                    err = max(err, window_err(
+                        f"K21 {what}", W.rank_value_triton(spec, page, b),
+                        W.rank_value_plain(spec, page, b), n))
+                    continue
+                if W.two_sided_minmax(spec):
+                    err = max(err, window_err(
+                        f"K23 {what}",
+                        P.Column(*W.bounded_minmax_cuda(spec, page, b),
+                                 spec.out_type),
+                        P.Column(*W._bounded_minmax(spec, page, b),
+                                 spec.out_type), n))
+                    continue
+                err = max(err, window_err(
+                    f"K22 {what}", W.frame_aggregate_cuda(spec, page, b),
+                    W.frame_aggregate_plain(spec, page, b), n, scale))
+    sync()
+    return err
+
+
 def kernel_rows_sort_expr(cap: Capture, originals, launches, dev, card):
     """K10 and K11 at the main path's largest calls, against their twins."""
     from trino_tpu_torch.expr import kernel_gen as KG
@@ -2438,6 +2746,16 @@ def main() -> None:
         f"moved columns bit for bit): {errs} in "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    errs = {"window_bounds + rank_value + frame_aggregate + bounded_minmax":
+            check_window(g, dev)}
+    say(f"[kernels] K20-K23 match their plain twins on the card (K20's "
+        f"arrays bit for bit on every row; K21-K23 on the live rows: "
+        f"validity, integers, decimals and codes exact, doubles <= 1e-9 of "
+        f"the partition's |x| sum; pages: {', '.join(WIN_PAGES)}; every "
+        f"function under whole, running ROWS and RANGE and bounded frames "
+        f"to +-5000 rows; K21's Triton programs compiled on first call): "
+        f"{errs} in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     errs = {"expr_step": check_expr(dev)}
     say(f"[kernels] K11 matches the plain compiler on the card over "
         f"{len(expr_corpus(corpus_page('cpu')[1]))} corpus expressions "
@@ -2500,6 +2818,13 @@ def main() -> None:
     cap.wrap(SP, "rank_rows_cuda", lambda values, *_: values.numel())
     cap.wrap(A, "passthrough_triton",
              lambda states, copies, n, c, dtypes: c * len(states))
+    from trino_tpu_torch.ops import window as PW
+    cap.wrap(PW, "window_bounds_cuda", lambda page, p, o: page.capacity)
+    cap.wrap(PW, "rank_value_triton", lambda spec, page, b: page.capacity)
+    cap.wrap(PW, "frame_aggregate_cuda", lambda spec, page, b: page.capacity,
+             lambda spec, page, b: "whole" if PW.frame_kind(spec) == "whole"
+             and spec.name in ("sum", "count") else None)
+    cap.wrap(PW, "bounded_minmax_cuda", lambda spec, page, b: page.capacity)
     real_attach = LP.attach_build_host
 
     def watched_attach(pre, *args, **kw):
@@ -2518,6 +2843,22 @@ def main() -> None:
             plain_sorts.append(cap.label)
         return real_plain_sort(page, keys)
     S.sort_rows_plain = counted_plain_sort
+    # no window function may run through a plain twin on the card
+    win_plain = []
+    real_win_plain = {k: getattr(PW, k) for k in (
+        "window_bounds_plain", "rank_value_plain", "frame_aggregate_plain",
+        "_bounded_minmax")}
+
+    def counted_win_plain(k):
+        def run(*args):
+            if cap.label is not None and any(
+                    isinstance(a, P.Page) and a.device.type == "cuda"
+                    for a in args):
+                win_plain.append((k, cap.label))
+            return real_win_plain[k](*args)
+        return run
+    for k in real_win_plain:
+        setattr(PW, k, counted_win_plain(k))
     kernels = {"compact_rows": (P, "compact_rows_cuda"),
                "compact_range": (P, "compact_range_cuda"),
                "concat_rows": (P, "concat_rows_cuda"),
@@ -2537,7 +2878,11 @@ def main() -> None:
                "group_aggregate": (A, "group_reduce_cuda"),
                "distinct_mask": (A, "distinct_mask_cuda"),
                "sort_rows": (S, "sort_rows_cuda"),
-               "expr_step": (KG, "expr_step_cuda")}
+               "expr_step": (KG, "expr_step_cuda"),
+               "window_bounds": (PW, "window_bounds_cuda"),
+               "rank_value": (PW, "rank_value_triton"),
+               "frame_aggregate": (PW, "frame_aggregate_cuda"),
+               "bounded_minmax": (PW, "bounded_minmax_cuda")}
     # K16-K19: the memory-bounded paths' kernels (the sf10 runs may
     # launch them; the forced-threshold path below must)
     spill_kernels = {"spill_prep": (J, "spill_prep_cuda"),
@@ -2548,7 +2893,11 @@ def main() -> None:
     all_kernels = {**kernels, **spill_kernels}
     runs = [("sf1", q, TPCH[q][0]) for q in TPCH]
     runs += [("sf1", "full", FULL_SQL), ("sf1", "mark", MARK_SQL)]
+    win_runs = [(schema, w, sql)
+                for w, (schema, _, sql) in WINDOW_QUERIES.items()]
+    runs += [r for r in win_runs if r[0] == "sf1"]
     runs += [("sf10", q, TPCH[q][0]) for q in ("q6", "q3", "q9", "q13")]
+    runs += [r for r in win_runs if r[0] == "sf10"]
     # the card generates its tables (K14/K15); the CPU port stages NumPy's,
     # an independent path
     gpu = {s: LocalQueryRunner.tpch(s) for s in ("sf1", "sf10")}
@@ -2584,12 +2933,19 @@ def main() -> None:
             routes.add(j["route"])
             kinds.add(j["kind"])
             say(join_line(q, schema, i, j))
+        for i, w in enumerate(gpu[schema].last_windows):
+            say(f"[window] {q} {schema} window {i + 1}: {w['rows']} rows, "
+                f"{w['partitions']} partitions, {w['peer_groups']} peer "
+                f"groups, functions {w['functions']}, frames "
+                f"{w['frames']}")
         if schema == "sf10":
             say(f"[spill] {q} sf10 (default session): "
                 f"{spill_counters(gpu[schema])}")
         mxu_counts[(schema, q)] = mxu_of(gpu[schema])
     cap.label = None
     S.sort_rows_plain = real_plain_sort
+    for k, fn in real_win_plain.items():
+        setattr(PW, k, fn)
     tpch._host_cached = real_host_cached
     if host_staged:
         fail(f"{len(host_staged)} column slices on the card that K14 "
@@ -2605,6 +2961,11 @@ def main() -> None:
     say("[k11] every filter and project step on the card ran K11 (the "
         "torch-op compiler evaluated 0 steps); every ORDER BY and TopN "
         "sort ran K10")
+    if win_plain:
+        fail(f"window functions on the card ran a plain twin: "
+             f"{win_plain[:5]}")
+    say(f"[window] window functions through a plain twin on the card: "
+        f"{len(win_plain)} (every one ran K20-K23)")
     launches = {k: getattr(mod, attr).launches
                 for k, (mod, attr) in all_kernels.items()}
     spill_main = {k: dict(getattr(mod, attr).by_mode)
@@ -2688,6 +3049,7 @@ def main() -> None:
                       for k, (_, attr) in spill_kernels.items()})
     rows += kernel_rows_spill(cap, originals, launches, spill_launches,
                               spill_main, spill_modes, dev, card)
+    rows += kernel_rows_window(cap, originals, launches, dev, card)
     for r in rows:
         dev_ms = "not measured" if r["device_ms"] is None \
             else f"{r['device_ms']:.4f} ms"
@@ -3582,11 +3944,177 @@ def kernel_rows_spill(cap: Capture, originals, launches, spill_launches,
     for _ in range(5):
         attach()
     sync()
-    say(f"[host] attach_build_host: {(time.perf_counter() - t0) / 5e-3:.3f}"
-        f" ms per batch of {int(args[0].num_rows)} matched rows (cap "
-        f"{args[0].capacity}, {len(args[2])} host columns) — {card}")
+    per_batch = (time.perf_counter() - t0) / 5e-3
+    # its bound: the bytes it moves across PCIe (each matched row's build
+    # row and verified probe keys to the host, 8 bytes each; every emitted
+    # column staged at the page's capacity to the card), timed as one
+    # pinned host-to-device copy of as many bytes
+    pre = args[0]
+    n_rows, pcap = int(pre.num_rows), pre.capacity
+    host_cols = args[2]
+    emit = kw.get("emit")
+    emitted = host_cols if emit is None else [host_cols[i] for i in emit]
+    moved = n_rows * 8 * (1 + len(kw.get("verify") or ())) + sum(
+        pcap * (v.element_size() + (0 if m is None else 1))
+        for v, m, _, _ in emitted)
+    pinned = torch.empty(moved, dtype=torch.uint8, pin_memory=True)
+    copy_ms = cuda_ms(lambda: pinned.to(dev, non_blocking=True), 10)
+    say(f"[host] attach_build_host: {per_batch:.3f} ms per batch of "
+        f"{n_rows} matched rows (cap {pcap}, {len(host_cols)} host "
+        f"columns, {len(emitted)} emitted); it moves {moved} bytes across "
+        f"PCIe, and a pinned host-to-device copy of {moved} bytes takes "
+        f"{copy_ms:.3f} ms (its bound) — {card}")
     return out
 
+
+
+def kernel_rows_window(cap: Capture, originals, launches, dev, card):
+    """K20-K23 at their largest call of the sf1 window queries (W1-W6,
+    W8), and K22 at its largest whole-partition sum or count beside
+    torch.segment_reduce, each against its twin at those inputs."""
+    from trino_tpu_torch import page as P
+    from trino_tpu_torch.ops import window as W
+    out = []
+
+    def row(name, source, replaces, n_launches, fn, plain, bound_bytes,
+            library, library_name, shape, err, route="cuda"):
+        return dict(
+            name=name, route=route, source=source, replaces=replaces,
+            launches=n_launches, max_abs_err=err, ms=cuda_ms(fn),
+            device_ms=device_profile(fn)[0], host_ms=host_ms(fn),
+            plain_ms=cuda_ms(plain),
+            bound_ms=bound_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+            library_ms=None if library is None else cuda_ms(library),
+            shape=f"{shape}; library = {library_name}")
+
+    def arg_bytes(page, spec, rows):
+        """The spec's argument columns (values and validity) over rows."""
+        return sum(col_bytes([(page.column(c).values, page.column(c).valid)],
+                             rows) for c in spec.arg_channels)
+
+    def out_bytes(col, rows):
+        return col_bytes([(col.values, col.valid)], rows)
+
+    # K20 at its largest sf1 call
+    page, pch, och = cap.calls[("window_bounds_cuda", "sf1")][1]
+    pcap = page.capacity
+    got = originals["window_bounds"](page, pch, och)
+    want = W.window_bounds_plain(page, pch, och)
+    for f in ("seg_start", "seg_len", "peer_start", "peer_len", "seg_id",
+              "peer_id"):
+        if not torch.equal(getattr(got, f), getattr(want, f)):
+            fail(f"K20 {f} differs from its twin at the main path's inputs")
+    keys = [(page.column(c).values, page.column(c).valid) for c in pch + och]
+    out.append(row(
+        "window_bounds (K20, window)", "trino_tpu_torch/csrc/window.cu",
+        "trino_tpu/ops/window.py:58", launches["window_bounds"],
+        lambda: originals["window_bounds"](page, pch, och),
+        lambda: W.window_bounds_plain(page, pch, och),
+        # the key columns read once, four int64 and two int32 arrays written
+        col_bytes(keys, pcap) + 40 * pcap, None,
+        "none (no PyTorch call computes the segment and peer arrays)",
+        f"sf1 window page: cap {pcap}, {int(page.num_rows)} live rows, "
+        f"{len(pch)} partition and {len(och)} order keys", 0.0))
+
+    # K21 at its largest sf1 call
+    spec, page, b = cap.calls[("rank_value_triton", "sf1")][1]
+    pcap = page.capacity
+    got = originals["rank_value"](spec, page, b)
+    want = W.rank_value_plain(spec, page, b)
+    err = window_err("K21 at the main path's inputs", got, want,
+                     int(page.num_rows))
+    # seg_start and seg_len, the peer arrays the function reads, its
+    # arguments at one row each, the output written once
+    reads = {"rank": 8, "dense_rank": 4, "percent_rank": 8,
+             "cume_dist": 16}.get(spec.name, 0)
+    if W.frame_kind(spec) == "range" and spec.name in (
+            "first_value", "last_value", "nth_value"):
+        reads = 16
+    out.append(row(
+        f"rank_value (K21, _eval: {spec.name})",
+        "trino_tpu_torch/ops/window.py",
+        "trino_tpu/ops/window.py:126", launches["rank_value"],
+        lambda: originals["rank_value"](spec, page, b),
+        lambda: W.rank_value_plain(spec, page, b),
+        (16 + reads) * pcap + arg_bytes(page, spec, pcap)
+        + out_bytes(got, pcap), None,
+        "none (no single PyTorch call computes a window function)",
+        f"sf1 window page: cap {pcap}, {int(page.num_rows)} live rows, "
+        f"{spec.name} over a {W.frame_kind(spec)} frame", err,
+        route="triton"))
+
+    # K22 at its largest sf1 call, and at its largest whole-partition
+    # sum or count beside torch.segment_reduce
+    for key, what in ((("frame_aggregate_cuda", "sf1"), "largest call"),
+                      (("frame_aggregate_cuda:whole", "sf1"),
+                       "whole-partition")):
+        if key not in cap.calls:
+            continue
+        spec, page, b = cap.calls[key][1]
+        pcap, n = page.capacity, int(page.num_rows)
+        got = originals["frame_aggregate"](spec, page, b)
+        want = W.frame_aggregate_plain(spec, page, b)
+        err = window_err("K22 at the main path's inputs", got, want, n)
+        library, library_name = None, \
+            "none (no PyTorch call computes a segmented scan read per row)"
+        if W.frame_kind(spec) == "whole":
+            starts = b.seg_start[:n] == torch.arange(n, device=dev)
+            lengths = b.seg_len[:n][starts]
+            col = page.column(spec.arg_channels[0]) if spec.arg_channels \
+                else None
+            x = torch.ones(n, dtype=torch.float64, device=dev) if col is None \
+                else torch.where(col.valid_mask()[:n], col.values[:n],
+                                 torch.zeros_like(col.values[:n])).to(
+                                     torch.float64)
+            library = (lambda x=x, lengths=lengths: torch.segment_reduce(
+                x, "sum", lengths=lengths))
+            library_name = ("torch.segment_reduce(sum) over the partitions "
+                            "(one value per partition, not per row)")
+        reads = 32 if W.frame_kind(spec) == "range" else 16
+        out.append(row(
+            f"frame_aggregate (K22, _eval_aggregate: {spec.name} over a "
+            f"{W.frame_kind(spec)} frame, {what})",
+            "trino_tpu_torch/csrc/window.cu", "trino_tpu/ops/window.py:276",
+            launches["frame_aggregate"],
+            lambda: originals["frame_aggregate"](spec, page, b),
+            lambda: W.frame_aggregate_plain(spec, page, b),
+            # the argument and K20's arrays read once, the output written
+            arg_bytes(page, spec, pcap) + reads * pcap
+            + out_bytes(got, pcap),
+            library, library_name,
+            f"sf1 window page: cap {pcap}, {n} live rows", err))
+
+    # K23 at its largest sf1 call
+    spec, page, b = cap.calls[("bounded_minmax_cuda", "sf1")][1]
+    pcap, n = page.capacity, int(page.num_rows)
+    got = P.Column(*originals["bounded_minmax"](spec, page, b),
+                   spec.out_type)
+    err = window_err("K23 at the main path's inputs", got, P.Column(
+        *W._bounded_minmax(spec, page, b), spec.out_type), n)
+    bs, be = spec.bounds
+    library, library_name = None, "none (an asymmetric frame)"
+    if bs == -be:
+        x = page.column(spec.arg_channels[0]).values.to(torch.float64)
+        x = (x if spec.name == "max" else -x).reshape(1, 1, -1)
+        library = (lambda x=x: torch.nn.functional.max_pool1d(
+            x, 2 * be + 1, stride=1, padding=be))
+        library_name = (f"max_pool1d over {2 * be + 1} rows (no partition "
+                        f"clipping, no NULLs)")
+    out.append(row(
+        f"bounded_minmax (K23, _bounded_minmax: {spec.name} ROWS {bs}..{be})",
+        "trino_tpu_torch/csrc/window.cu", "trino_tpu/ops/window.py:372",
+        launches["bounded_minmax"],
+        lambda: originals["bounded_minmax"](spec, page, b),
+        lambda: W._bounded_minmax(spec, page, b),
+        # the argument, seg_start and seg_len read once, the values and
+        # validity written
+        arg_bytes(page, spec, pcap) + 16 * pcap + out_bytes(got, pcap),
+        library, library_name,
+        f"sf1 window page: cap {pcap}, {n} live rows", err))
+    for r in out:
+        say(f"[kernel] {r['name']}: host {r['host_ms']:.4f} ms per call "
+            f"(enqueue), {r['ms']:.4f} ms per call (CUDA events) — {card}")
+    return out
 
 if __name__ == "__main__":
     main()

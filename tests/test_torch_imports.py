@@ -52,7 +52,8 @@ def test_inventory_covers_the_slice():
                 "trino_tpu_torch/connector/tpch_dev.py",
                 "trino_tpu_torch/exec/spill.py",
                 "trino_tpu_torch/exec/memory.py",
-                "trino_tpu_torch/exec/adaptive.py", "chip_smoke.py"):
+                "trino_tpu_torch/exec/adaptive.py",
+                "trino_tpu_torch/ops/window.py", "chip_smoke.py"):
         assert rel in files
     # every CUDA source native.py builds is in the package, and no source
     # of csrc/ is left out of the build
@@ -61,7 +62,7 @@ def test_inventory_covers_the_slice():
     assert cu == set(native.SOURCES)
     assert {"gather", "join_build", "join_probe", "join_expand",
             "join_mxu", "group_agg", "tpch_gen", "join_spill",
-            "spill_part"} <= cu
+            "spill_part", "window"} <= cu
 
 
 @pytest.mark.parametrize("rel", _sources())
@@ -165,3 +166,15 @@ def test_partitioned_join_runs_with_jax_and_reference_unimportable():
          "spill_partition_count": 4, "join_spill_threshold_bytes": 16384,
          "spill_max_recursion": 2})
     assert "partitioned" in routes
+
+
+def test_window_rollup_union_run_with_jax_and_reference_unimportable():
+    """The window operator (K20-K23's twins behind K10's), the GroupId
+    lowering of a ROLLUP and the UNION lowering with its dictionary
+    remap import nothing of JAX either."""
+    _run_blocked(
+        "SELECT name, g, s, rank() OVER (PARTITION BY g ORDER BY s DESC), "
+        "sum(s) OVER (PARTITION BY g ORDER BY name ROWS BETWEEN 1 "
+        "PRECEDING AND 1 FOLLOWING) FROM (SELECT name, grouping(name) AS g, "
+        "count(*) AS s FROM (SELECT n_name AS name FROM nation UNION ALL "
+        "SELECT r_name FROM region) u GROUP BY ROLLUP (name)) t")

@@ -6,11 +6,13 @@ runs: TableScan, Values, Filter, Project, Limit, Offset, Aggregation
 and run in one SINGLE step), joins of every kind (INNER over a unique
 build side, the expanding probe for duplicate build keys, LEFT, RIGHT as
 a flipped LEFT, FULL, cross joins), semi joins (SEMI/ANTI fused into a
-Filter, MARK otherwise), AssignUniqueId, EnforceSingleRow, Sort, TopN and
-Output. A node executes to an iterator of fixed-capacity Pages plus a
-symbol layout; streaming operators (filter/project/select) queue entries
-on the stream, and the consumer runs the composed chain per page, fused
-with a blocking consumer's tail (the partial aggregation).
+Filter, MARK otherwise), AssignUniqueId, EnforceSingleRow, Sort, TopN,
+Window (ops/window.py: K20-K23 after K10's sort), GroupId (ROLLUP, CUBE,
+GROUPING SETS), Union and Output. A node executes to an iterator of
+fixed-capacity Pages plus a symbol layout; streaming operators
+(filter/project/select) queue entries on the stream, and the consumer runs
+the composed chain per page, fused with a blocking consumer's tail (the
+partial aggregation).
 
 The per-page loop never reads a row count on the host: count fetches are
 batched at the merge boundary (merge_counted_rows), per probe window
@@ -52,6 +54,7 @@ ports it.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import itertools
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
@@ -89,12 +92,15 @@ from trino_tpu_torch.ops.join import (
 from trino_tpu_torch.ops.join_mxu import (MAX_EXACT_ROWS,
                                           build_count_pos_table,
                                           lookup_flops)
+from trino_tpu_torch.ops.window import AGGREGATE, RANKING, WindowSpec, \
+    frame_kind, window
 from trino_tpu_torch.page import Column, Dictionary, Page, _to_device, \
-    device_concat, gather_rows, row_count
+    device_concat, gather_rows, row_count, union_dictionaries
 from trino_tpu_torch.planner.nodes import (
-    AggregationNode, FilterNode, JoinClause, JoinKind, JoinNode, LimitNode,
-    OffsetNode, OutputNode, PlanNode, ProjectNode, SemiJoinNode, SortNode,
-    Symbol, TableScanNode, TopNNode, ValuesNode)
+    AggregationNode, FilterNode, GroupIdNode, JoinClause, JoinKind, JoinNode,
+    LimitNode, OffsetNode, OutputNode, PlanNode, ProjectNode, SemiJoinNode,
+    SortNode, Symbol, TableScanNode, TopNNode, UnionNode, ValuesNode,
+    WindowNode)
 from trino_tpu_torch.planner.optimizer import combine, conjuncts
 
 # pages looked ahead per batched count fetch (the reference's window)
@@ -102,10 +108,7 @@ _WINDOW_PAGES = 8
 
 # plan nodes of the reference this slice does not run yet -> ROADMAP item
 _LATER = {
-    "WindowNode": "A8/B7 (window functions)",
-    "GroupIdNode": "A8 (grouping sets)",
-    "UnionNode": "A8 (union)",
-    "UnnestNode": "A8 (unnest)",
+    "UnnestNode": "A8/B13 (unnest)",
     "ExchangeNode": "A9 (multi-GPU exchange)",
     "TableWriterNode": "A10 (writes)",
     "DistinctLimitNode": "A3/B3 (sort-based aggregation)",
@@ -222,6 +225,9 @@ class LocalExecutionPlanner:
         # one entry per join run (runner.last_joins): kind, route, build
         # live rows, max_run, probe rows, output rows
         self.joins: List[dict] = []
+        # one entry per WindowNode run (runner.last_windows): input rows,
+        # partitions, peer groups, functions by kind, frames by kind
+        self.windows: List[dict] = []
         # the query's counters (runner.last_query_stats), under the
         # reference's names: joins routed onto the mxu lookup and their
         # probe pages' cost-model flops; bytes flushed to host spill
@@ -767,6 +773,35 @@ class LocalExecutionPlanner:
                 cols.append(Column(values, torch.zeros(
                     8, dtype=torch.bool, device=dev), typ, None))
         return Page(tuple(cols), row_count(1, dev))
+
+    def _exec_GroupIdNode(self, node: GroupIdNode) -> PageStream:
+        """Each source page once per grouping set, in set order: keys
+        outside the set get an all-false validity, and a BIGINT group-id
+        column (the set's index) is appended."""
+        src = self.execute(node.source)
+        lay, _ = _layout(src.symbols)
+        all_group = tuple(dict.fromkeys(
+            s for gs in node.grouping_sets for s in gs))
+
+        def gen():
+            for page in src.iter_pages():
+                dev = page.device
+                for set_idx, gset in enumerate(node.grouping_sets):
+                    in_set = {s.name for s in gset}
+                    cols = []
+                    for sym in all_group + node.passthrough:
+                        c = page.column(lay[sym.name])
+                        if sym in all_group and sym.name not in in_set:
+                            # null out keys excluded from this grouping set
+                            c = Column(c.values, torch.zeros(
+                                page.capacity, dtype=torch.bool, device=dev),
+                                c.type, c.dictionary)
+                        cols.append(c)
+                    cols.append(Column(torch.full(
+                        (page.capacity,), set_idx, dtype=torch.int64,
+                        device=dev), None, T.BIGINT, None))
+                    yield Page(tuple(cols), page.num_rows)
+        return PageStream(gen(), node.outputs)
 
     # ---------------------------------------------------------------- join
 
@@ -2165,6 +2200,132 @@ class LocalExecutionPlanner:
                 yield merge_kernel(merged, int(count))
         return PageStream(gen(), src.symbols)
 
+    def _exec_UnionNode(self, node: UnionNode) -> PageStream:
+        nsyms = len(node.symbols)
+
+        def gen():
+            # start every child and peek one page each: string columns from
+            # different tables carry different dictionaries, and blocking
+            # consumers (sort, aggregation, join build) concatenate across
+            # children, so each is re-encoded onto a shared union pool (K7
+            # gathers the codes through the remap). Pages of one child
+            # share a per-column dictionary, so one peek suffices.
+            children = []
+            for j, child in enumerate(node.children):
+                stream = self.execute(child)
+                lay, _ = _layout(stream.symbols)
+                order = [lay[node.mappings[i][j].name] for i in range(nsyms)]
+                it = iter(stream.iter_pages())
+                first = next(it, None)
+                children.append([it, first, order])
+            remaps = _union_dictionary_remaps(node.symbols, children,
+                                              self.device)
+            for it, first, order in children:
+                for page in _chain_first(first, it):
+                    if int(page.num_rows) == 0:
+                        continue
+                    cols = []
+                    for i, ch in enumerate(order):
+                        col = page.column(ch)
+                        remap = remaps[i].get(id(col.dictionary)) \
+                            if remaps[i] else None
+                        if remap is not None:
+                            table, union_dict = remap
+                            codes = gather_rows([table],
+                                                col.values.clamp(min=0))[0]
+                            col = Column(codes, col.valid, col.type,
+                                         union_dict)
+                        cols.append(col)
+                    yield Page(tuple(cols), page.num_rows)
+        return PageStream(gen(), node.symbols)
+
+    def _exec_WindowNode(self, node: WindowNode) -> PageStream:
+        """WindowOperator: blocking sort-partitioned evaluation
+        (ops/window.py). The input is collected under query_max_memory."""
+        src = self.execute(node.source)
+        lay, _ = _layout(src.symbols)
+        part = tuple(lay[s.name] for s in node.partition_by)
+        okeys = tuple(SortKey(lay[o.symbol.name], o.ascending, o.nulls_first)
+                      for o in node.order_by)
+        specs = []
+        for out_sym, wf in node.functions:
+            whole, bounds = self._lower_frame(node, wf)
+            args = []
+            for a in wf.args:
+                if not isinstance(a, SymbolRef):
+                    raise ExecutionError("window args must be pre-projected")
+                args.append(lay[a.name])
+            specs.append(WindowSpec(wf.name.lower(), tuple(args),
+                                    out_sym.type, whole,
+                                    wf.frame_type == "ROWS", bounds))
+        win = cached_kernel(
+            ("window", part, okeys, tuple(specs)),
+            lambda: window(part, okeys, specs))
+        entry = {"rows": 0, "partitions": 0, "peer_groups": 0,
+                 "functions": dict(collections.Counter(
+                     "ranking" if s.name in RANKING else "aggregate"
+                     if s.name in AGGREGATE else "value" for s in specs)),
+                 "frames": dict(collections.Counter(
+                     frame_kind(s) for s in specs))}
+        self.windows.append(entry)
+
+        def gen():
+            page = self._collect(src)
+            if page is None:
+                return
+            try:
+                stats = {}
+                out = win(page, stats)
+                entry["rows"], entry["partitions"], entry["peer_groups"] = \
+                    torch.stack([page.num_rows.to(torch.int64),
+                                 stats["partitions"],
+                                 stats["peer_groups"]]).tolist()
+                yield out
+            finally:
+                self._free_collected(page)
+        return PageStream(gen(), node.outputs)
+
+    @staticmethod
+    def _lower_frame(node: WindowNode, wf):
+        """WindowFunction frame -> (frame_whole, bounds) for WindowSpec.
+
+        Ranking functions ignore frames (SQL). The default/unbounded frames
+        map onto the whole/running paths; literal ROWS offsets become
+        static (start_off, end_off) bounds; value-based RANGE offsets and
+        GROUPS frames fail loud (FramedWindowFunction.java,
+        sql/planner/plan/WindowNode.Frame)."""
+
+        def literal_offset(value, kind: str) -> int:
+            if not isinstance(value, Literal) or \
+                    not isinstance(value.value, int):
+                raise ExecutionError(
+                    "window frame offsets must be integer literals")
+            v = int(value.value)
+            if v < 0:
+                raise ExecutionError("window frame offset must be >= 0")
+            return -v if kind == "PRECEDING" else v
+
+        if wf.name.lower() in RANKING:
+            return (not node.order_by), None
+        st, sv = wf.start_type, wf.start_value
+        et, ev = wf.end_type, wf.end_value
+        if st == "UNBOUNDED_PRECEDING" and et == "UNBOUNDED_FOLLOWING":
+            return True, None
+        if not node.order_by:
+            return True, None
+        if st == "UNBOUNDED_PRECEDING" and et == "CURRENT_ROW":
+            return False, None                     # running frame
+        if wf.frame_type == "GROUPS":
+            raise ExecutionError("GROUPS window frames not supported")
+        if wf.frame_type == "RANGE":
+            raise ExecutionError(
+                "RANGE frames with value offsets not supported")
+        start_off = None if st == "UNBOUNDED_PRECEDING" else (
+            0 if st == "CURRENT_ROW" else literal_offset(sv, st))
+        end_off = None if et == "UNBOUNDED_FOLLOWING" else (
+            0 if et == "CURRENT_ROW" else literal_offset(ev, et))
+        return False, (start_off, end_off)
+
     def _exec_OutputNode(self, node: OutputNode) -> PageStream:
         src = self.execute(node.source)
         return _reorder_stream(src, node.symbols)
@@ -2250,6 +2411,36 @@ def _valid_arr(valid: List[bool], cap: int, device
     arr = np.zeros(cap, dtype=bool)
     arr[:len(valid)] = valid
     return _to_device(arr, device)
+
+
+def _chain_first(first: Optional[Page], rest: Iterator[Page]
+                 ) -> Iterator[Page]:
+    if first is not None:
+        yield first
+    yield from rest
+
+
+def _union_dictionary_remaps(symbols, children, device):
+    """Per output column: None when all children already share a
+    dictionary, else {id(child dictionary): (code remap tensor, union
+    dictionary)}."""
+    remaps: List[Optional[Dict[int, tuple]]] = []
+    for i, _ in enumerate(symbols):
+        dicts = []
+        for _, first, order in children:
+            if first is None:
+                continue
+            d = first.column(order[i]).dictionary
+            if d is not None:
+                dicts.append(d)
+        uniq = {id(d): d for d in dicts}
+        if len(uniq) <= 1:
+            remaps.append(None)
+            continue
+        union, tables = union_dictionaries(list(uniq.values()),
+                                           device=device)
+        remaps.append({did: (tbl, union) for did, tbl in zip(uniq, tables)})
+    return remaps
 
 
 def _drain_then(pages: List[Page], rest: Iterator[Page]) -> Iterator[Page]:

@@ -133,6 +133,11 @@ class LocalQueryRunner:
         # chunked passes at the maximum depth), agg_mode_downgrades and
         # agg_mode_upgrades (the adaptive partial aggregation's moves)
         self.last_query_stats: dict = dict.fromkeys(QUERY_COUNTERS, 0)
+        # one dict per WindowNode of the last query: rows (its input's live
+        # rows), partitions and peer_groups (live), functions (count per
+        # kind: ranking, value, aggregate) and frames (count per kind:
+        # whole, rows, range, bounded)
+        self.last_windows: list = []
 
     @classmethod
     def tpch(cls, schema: str = "tiny", device=None,
@@ -192,6 +197,7 @@ class LocalQueryRunner:
         # each join of the last query: route, build live rows, probe rows
         self.last_joins = executor.joins
         self.last_query_stats = executor.stats
+        self.last_windows = executor.windows
         types = [s.type for s in plan.symbols]
         rows: List[Tuple[Any, ...]] = []
         try:

@@ -29,7 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # every CUDA source of the package (Triton kernels build through triton)
 SOURCES = ("compact", "concat", "direct_agg", "gather", "join_build",
            "join_probe", "join_expand", "join_mxu", "group_agg", "sort",
-           "tpch_gen", "join_spill", "spill_part")
+           "tpch_gen", "join_spill", "spill_part", "window")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
