@@ -3970,8 +3970,10 @@ def kernel_rows_spill(cap: Capture, originals, launches, spill_launches,
 
 def kernel_rows_window(cap: Capture, originals, launches, dev, card):
     """K20-K23 at their largest call of the sf1 window queries (W1-W6,
-    W8), and K22 at its largest whole-partition sum or count beside
-    torch.segment_reduce, each against its twin at those inputs."""
+    W8), K22 also at its largest whole-partition sum or count beside
+    torch.segment_reduce, K23 also through its doubling table; each
+    against its twin at those inputs. Bounds count the live rows: nothing
+    reads a dead row's output."""
     from trino_tpu_torch import page as P
     from trino_tpu_torch.ops import window as W
     out = []
@@ -3997,7 +3999,7 @@ def kernel_rows_window(cap: Capture, originals, launches, dev, card):
 
     # K20 at its largest sf1 call
     page, pch, och = cap.calls[("window_bounds_cuda", "sf1")][1]
-    pcap = page.capacity
+    pcap, n = page.capacity, int(page.num_rows)
     got = originals["window_bounds"](page, pch, och)
     want = W.window_bounds_plain(page, pch, och)
     for f in ("seg_start", "seg_len", "peer_start", "peer_len", "seg_id",
@@ -4011,18 +4013,17 @@ def kernel_rows_window(cap: Capture, originals, launches, dev, card):
         lambda: originals["window_bounds"](page, pch, och),
         lambda: W.window_bounds_plain(page, pch, och),
         # the key columns read once, four int64 and two int32 arrays written
-        col_bytes(keys, pcap) + 40 * pcap, None,
+        col_bytes(keys, n) + 40 * n, None,
         "none (no PyTorch call computes the segment and peer arrays)",
-        f"sf1 window page: cap {pcap}, {int(page.num_rows)} live rows, "
+        f"sf1 window page: cap {pcap}, {n} live rows, "
         f"{len(pch)} partition and {len(och)} order keys", 0.0))
 
     # K21 at its largest sf1 call
     spec, page, b = cap.calls[("rank_value_triton", "sf1")][1]
-    pcap = page.capacity
+    pcap, n = page.capacity, int(page.num_rows)
     got = originals["rank_value"](spec, page, b)
     want = W.rank_value_plain(spec, page, b)
-    err = window_err("K21 at the main path's inputs", got, want,
-                     int(page.num_rows))
+    err = window_err("K21 at the main path's inputs", got, want, n)
     # seg_start and seg_len, the peer arrays the function reads, its
     # arguments at one row each, the output written once
     reads = {"rank": 8, "dense_rank": 4, "percent_rank": 8,
@@ -4036,10 +4037,9 @@ def kernel_rows_window(cap: Capture, originals, launches, dev, card):
         "trino_tpu/ops/window.py:126", launches["rank_value"],
         lambda: originals["rank_value"](spec, page, b),
         lambda: W.rank_value_plain(spec, page, b),
-        (16 + reads) * pcap + arg_bytes(page, spec, pcap)
-        + out_bytes(got, pcap), None,
-        "none (no single PyTorch call computes a window function)",
-        f"sf1 window page: cap {pcap}, {int(page.num_rows)} live rows, "
+        (16 + reads) * n + arg_bytes(page, spec, n) + out_bytes(got, n),
+        None, "none (no single PyTorch call computes a window function)",
+        f"sf1 window page: cap {pcap}, {n} live rows, "
         f"{spec.name} over a {W.frame_kind(spec)} frame", err,
         route="triton"))
 
@@ -4079,8 +4079,7 @@ def kernel_rows_window(cap: Capture, originals, launches, dev, card):
             lambda: originals["frame_aggregate"](spec, page, b),
             lambda: W.frame_aggregate_plain(spec, page, b),
             # the argument and K20's arrays read once, the output written
-            arg_bytes(page, spec, pcap) + reads * pcap
-            + out_bytes(got, pcap),
+            arg_bytes(page, spec, n) + reads * n + out_bytes(got, n),
             library, library_name,
             f"sf1 window page: cap {pcap}, {n} live rows", err))
 
@@ -4108,9 +4107,25 @@ def kernel_rows_window(cap: Capture, originals, launches, dev, card):
         lambda: W._bounded_minmax(spec, page, b),
         # the argument, seg_start and seg_len read once, the values and
         # validity written
-        arg_bytes(page, spec, pcap) + 16 * pcap + out_bytes(got, pcap),
+        arg_bytes(page, spec, n) + 16 * n + out_bytes(got, n),
         library, library_name,
         f"sf1 window page: cap {pcap}, {n} live rows", err))
+    # the same call through K23's doubling table (the path of frames past
+    # its halo's width), held to the halo's output bit for bit
+    table = (be - bs + 1).bit_length()
+    got_t = P.Column(*originals["bounded_minmax"](spec, page, b, table),
+                     spec.out_type)
+    if not (torch.equal(got_t.values[:n], got.values[:n])
+            and torch.equal(got_t.valid[:n], got.valid[:n])):
+        fail("K23's doubling table differs from its halo path at the main "
+             "path's inputs")
+    halo_ms = cuda_ms(lambda: originals["bounded_minmax"](spec, page, b))
+    table_ms = cuda_ms(lambda: originals["bounded_minmax"](spec, page, b,
+                                                           table))
+    say(f"[kernel] bounded_minmax (K23) at W2's call, {spec.name} ROWS "
+        f"{bs}..{be} over cap {pcap} ({n} live rows): halo path "
+        f"{halo_ms:.4f} ms, doubling table ({table} levels) {table_ms:.4f} "
+        f"ms per call (CUDA events, same call) — {card}")
     for r in out:
         say(f"[kernel] {r['name']}: host {r['host_ms']:.4f} ms per call "
             f"(enqueue), {r['ms']:.4f} ms per call (CUDA events) — {card}")

@@ -33,6 +33,8 @@
 //       inside the segment, beside the OR of the rows' validity), one
 //       launch per level, then two reads per row. Both exact: min, max and
 //       OR do not round, and two overlapping reads change none of them.
+//       `window_minmax_levels` says how many table levels a frame needs
+//       (0: the halo serves it); this file alone owns that threshold.
 //
 // Bound on this card: bytes. K20 reads the key columns once and writes
 // 40 bytes a row; K22 reads the argument and its validity and writes the
@@ -46,7 +48,7 @@ namespace {
 constexpr int WTILE = 4096;      // rows per tile (ops/window.py WINDOW_TILE)
 constexpr int WTHREADS = 256;    // threads per tile block
 constexpr int PER_THREAD = WTILE / WTHREADS;
-constexpr int MINMAX_NARROW = 64;   // ops/window.py MINMAX_NARROW
+constexpr int MINMAX_NARROW = 64;   // widest frame K23's halo path takes
 constexpr int MINMAX_ROWS = 1024;   // rows per block of K23's halo path
 
 __device__ __forceinline__ int64_t live_rows(const int32_t* n_ptr,
@@ -494,7 +496,7 @@ struct MinmaxArgs {
   const int64_t* seg_start;
   const int64_t* seg_len;
   const int32_t* seg_id;
-  int64_t* levels;       // wide frames: kmax + 1 levels of values
+  int64_t* levels;       // the doubling table: nlevels levels of values
   uint8_t* any_levels;   // and of "holds a non-NULL row"
   void* out;
   uint8_t* valid;
@@ -616,16 +618,27 @@ __global__ void minmax_query_kernel(const MinmaxArgs a, int kmax) {
   }
 }
 
+// Levels of the doubling table a frame of `width` rows needs: floor(log2
+// width) + 1, so that two level-k reads cover any clipped frame.
+int64_t table_levels(int64_t width) {
+  int64_t levels = 1;
+  while (width >= (2LL << (levels - 1))) ++levels;
+  return levels;
+}
+
+// nlevels == 0: the halo path; else the doubling table with that many
+// levels.
 template <bool MAX, bool FLT>
-void minmax_launch(const MinmaxArgs& a, int kmax, cudaStream_t st) {
+void minmax_launch(const MinmaxArgs& a, int nlevels, cudaStream_t st) {
   const int64_t width = a.be - a.bs + 1;
-  if (width <= MINMAX_NARROW) {
+  if (nlevels == 0) {
     const int64_t blocks = (a.cap + MINMAX_ROWS - 1) / MINMAX_ROWS;
     const size_t smem = (sizeof(long long) + 1) *
                         (MINMAX_ROWS + (width > 1 ? width : 1) - 1);
     minmax_halo_kernel<MAX, FLT><<<(unsigned)blocks, 256, smem, st>>>(a);
     return;
   }
+  const int kmax = nlevels - 1;
   minmax_level0_kernel<FLT><<<grid_for(a.cap, 256), 256, 0, st>>>(a);
   for (int k = 1; k <= kmax; ++k)
     minmax_level_kernel<MAX, FLT><<<grid_for(a.cap, 256), 256, 0, st>>>(a,
@@ -729,23 +742,35 @@ TT_EXPORT int window_scan(const void* num_rows, int64_t cap, const void* x,
   return (int)cudaGetLastError();
 }
 
+// The doubling-table levels K23 runs a bounded frame [bs, be] with: 0
+// where the frame is at most MINMAX_NARROW rows wide (the halo path),
+// else table_levels(width).
+TT_EXPORT int window_minmax_levels(int64_t bs, int64_t be) {
+  const int64_t width = be - bs + 1;
+  return width <= MINMAX_NARROW ? 0 : (int)table_levels(width);
+}
+
 // K23. x: the argument, x_valid its validity (0: none); is_max; bs <= be
 // not required (an inverted frame is empty everywhere); neutral: the
-// identity word; seg arrays: K20's; levels: int64[(kmax + 1) * cap] and
-// any_levels: uint8[(kmax + 1) * cap] scratch for a frame wider than
-// MINMAX_NARROW (else 0); out: [cap] in x's type; valid: bool[cap]. Returns
-// cudaGetLastError(), or -1 when a wide frame has no levels.
+// identity word; seg arrays: K20's; nlevels: 0 for the halo path (a frame
+// of at most MINMAX_NARROW rows), else the doubling table's levels, at
+// least table_levels(width), with levels: int64[nlevels * cap] and
+// any_levels: uint8[nlevels * cap] scratch; out: [cap] in x's type;
+// valid: bool[cap]. Returns cudaGetLastError(), or -1 when the halo is
+// asked for a wide frame or the table has too few levels.
 TT_EXPORT int window_minmax(const void* num_rows, int64_t cap, const void* x,
                             const void* x_valid, int64_t x_esz,
                             int64_t x_float, int64_t is_max, int64_t bs,
                             int64_t be, int64_t neutral,
                             const void* seg_start, const void* seg_len,
                             const void* seg_id, void* levels,
-                            void* any_levels, int64_t kmax, void* out,
+                            void* any_levels, int64_t nlevels, void* out,
                             void* valid, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (be - bs + 1 > MINMAX_NARROW &&
-      (levels == nullptr || any_levels == nullptr))
+  const int64_t width = be - bs + 1;
+  if (nlevels == 0 ? width > MINMAX_NARROW
+                   : (levels == nullptr || any_levels == nullptr ||
+                      nlevels < table_levels(width)))
     return -1;
   if (cap == 0) return (int)cudaGetLastError();
   const MinmaxArgs a{static_cast<const int32_t*>(num_rows), cap, x,
@@ -757,11 +782,11 @@ TT_EXPORT int window_minmax(const void* num_rows, int64_t cap, const void* x,
                      static_cast<uint8_t*>(any_levels), out,
                      static_cast<uint8_t*>(valid)};
   if (is_max) {
-    if (x_float) minmax_launch<true, true>(a, (int)kmax, st);
-    else minmax_launch<true, false>(a, (int)kmax, st);
+    if (x_float) minmax_launch<true, true>(a, (int)nlevels, st);
+    else minmax_launch<true, false>(a, (int)nlevels, st);
   } else {
-    if (x_float) minmax_launch<false, true>(a, (int)kmax, st);
-    else minmax_launch<false, false>(a, (int)kmax, st);
+    if (x_float) minmax_launch<false, true>(a, (int)nlevels, st);
+    else minmax_launch<false, false>(a, (int)nlevels, st);
   }
   return (int)cudaGetLastError();
 }

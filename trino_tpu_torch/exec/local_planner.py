@@ -211,6 +211,25 @@ def compose_chain(pending, tail_key=None, tail_builder=None):
     return call
 
 
+class WindowLog(list):
+    """One dict per WindowNode run (runner.last_windows): input rows,
+    partitions, peer groups, functions by kind, frames by kind. The three
+    counts stay on the device while the query runs and come over in one
+    read when the log is first read (`entries`)."""
+
+    def __init__(self):
+        super().__init__()
+        self.pending: List[Tuple[dict, torch.Tensor]] = []
+
+    def entries(self) -> "WindowLog":
+        if self.pending:
+            pending, self.pending = self.pending, []
+            counts = torch.stack([c for _, c in pending]).tolist()
+            for (entry, _), (rows, parts, peers) in zip(pending, counts):
+                entry.update(rows=rows, partitions=parts, peer_groups=peers)
+        return self
+
+
 class LocalExecutionPlanner:
     """Single-process executor over one device."""
 
@@ -225,9 +244,8 @@ class LocalExecutionPlanner:
         # one entry per join run (runner.last_joins): kind, route, build
         # live rows, max_run, probe rows, output rows
         self.joins: List[dict] = []
-        # one entry per WindowNode run (runner.last_windows): input rows,
-        # partitions, peer groups, functions by kind, frames by kind
-        self.windows: List[dict] = []
+        # one entry per WindowNode run (runner.last_windows)
+        self.windows = WindowLog()
         # the query's counters (runner.last_query_stats), under the
         # reference's names: joins routed onto the mxu lookup and their
         # probe pages' cost-model flops; bytes flushed to host spill
@@ -2276,10 +2294,9 @@ class LocalExecutionPlanner:
             try:
                 stats = {}
                 out = win(page, stats)
-                entry["rows"], entry["partitions"], entry["peer_groups"] = \
-                    torch.stack([page.num_rows.to(torch.int64),
-                                 stats["partitions"],
-                                 stats["peer_groups"]]).tolist()
+                self.windows.pending.append((entry, torch.stack([
+                    page.num_rows.to(torch.int64), stats["partitions"],
+                    stats["peer_groups"]])))
                 yield out
             finally:
                 self._free_collected(page)

@@ -27,7 +27,8 @@ from trino_tpu_torch import types as T
 from trino_tpu_torch.connector import tpch
 from trino_tpu_torch.connector.spi import CatalogManager
 from trino_tpu_torch.exec.local_planner import (QUERY_COUNTERS,
-                                                LocalExecutionPlanner)
+                                                LocalExecutionPlanner,
+                                                WindowLog)
 from trino_tpu_torch.exec.memory import NODE_POOL
 from trino_tpu_torch.metadata import Metadata, Session
 from trino_tpu_torch.page import resolve_device
@@ -133,11 +134,15 @@ class LocalQueryRunner:
         # chunked passes at the maximum depth), agg_mode_downgrades and
         # agg_mode_upgrades (the adaptive partial aggregation's moves)
         self.last_query_stats: dict = dict.fromkeys(QUERY_COUNTERS, 0)
-        # one dict per WindowNode of the last query: rows (its input's live
-        # rows), partitions and peer_groups (live), functions (count per
-        # kind: ranking, value, aggregate) and frames (count per kind:
-        # whole, rows, range, bounded)
-        self.last_windows: list = []
+        self._last_windows = WindowLog()
+
+    @property
+    def last_windows(self) -> list:
+        """One dict per WindowNode of the last query: rows (its input's
+        live rows), partitions and peer_groups (live), functions (count per
+        kind: ranking, value, aggregate) and frames (count per kind: whole,
+        rows, range, bounded). The first read fetches the counts."""
+        return self._last_windows.entries()
 
     @classmethod
     def tpch(cls, schema: str = "tiny", device=None,
@@ -197,7 +202,7 @@ class LocalQueryRunner:
         # each join of the last query: route, build live rows, probe rows
         self.last_joins = executor.joins
         self.last_query_stats = executor.stats
-        self.last_windows = executor.windows
+        self._last_windows = executor.windows
         types = [s.type for s in plan.symbols]
         rows: List[Tuple[Any, ...]] = []
         try:

@@ -209,15 +209,17 @@ def window_bounds_cuda(page: Page, partition_channels: Sequence[int],
     first = torch.empty((2, max(cap, 1)), dtype=torch.int64, device=dev)
     i64 = [torch.empty(cap, dtype=torch.int64, device=dev) for _ in range(4)]
     i32 = [torch.empty(cap, dtype=torch.int32, device=dev) for _ in range(2)]
-    rc = native.library("window").window_bounds(
-        ctypes.c_void_p(page.num_rows.data_ptr()), ctypes.c_int64(cap),
-        ctypes.c_int64(len(partition_channels)),
-        ctypes.c_int64(len(order_channels)), host_table(table),
-        ctypes.c_void_p(counts.data_ptr()), ctypes.c_void_p(first.data_ptr()),
-        *(ctypes.c_void_p(t.data_ptr()) for t in i32 + i64),
-        ctypes.c_void_p(native.stream_ptr(dev)))
-    native.check(rc, "window_bounds")
-    window_bounds_cuda.launches += 1
+    if cap:
+        rc = native.library("window").window_bounds(
+            ctypes.c_void_p(page.num_rows.data_ptr()), ctypes.c_int64(cap),
+            ctypes.c_int64(len(partition_channels)),
+            ctypes.c_int64(len(order_channels)), host_table(table),
+            ctypes.c_void_p(counts.data_ptr()),
+            ctypes.c_void_p(first.data_ptr()),
+            *(ctypes.c_void_p(t.data_ptr()) for t in i32 + i64),
+            ctypes.c_void_p(native.stream_ptr(dev)))
+        native.check(rc, "window_bounds")
+        window_bounds_cuda.launches += 1
     seg_start, seg_len, peer_start, peer_len = i64
     return Bounds(seg_start, seg_len, peer_start, peer_len, *i32)
 
@@ -575,7 +577,7 @@ def rank_value_triton(spec: WindowSpec, page: Page, b: Bounds) -> Column:
             HAS_BS=bounded and spec.bounds[0] is not None,
             HAS_BE=bounded and spec.bounds[1] is not None,
             BLOCK=RANK_VALUE_BLOCK, num_warps=4)
-    rank_value_triton.launches += 1
+        rank_value_triton.launches += 1
     return Column(out, valid, spec.out_type, out_dict)
 
 
@@ -790,24 +792,26 @@ def frame_aggregate_cuda(spec: WindowSpec, page: Page, b: Bounds
     tiles = torch.empty((3, ntiles), dtype=torch.int64, device=dev)
     pref = torch.empty((2, max(cap, 1)), dtype=torch.int64, device=dev)
     bs, be = spec.bounds if spec.bounds is not None else (None, None)
-    rc = native.library("window").window_scan(
-        ctypes.c_void_p(page.num_rows.data_ptr()), ctypes.c_int64(cap),
-        ctypes.c_void_p(0 if x is None else x.data_ptr()),
-        ctypes.c_void_p(0 if xvalid is None else xvalid.data_ptr()),
-        ctypes.c_int64(0 if x is None else x.element_size()),
-        ctypes.c_int64(int(is_float)), ctypes.c_int64(op),
-        ctypes.c_int64(read), ctypes.c_int64(int(bs is not None)),
-        ctypes.c_int64(bs or 0), ctypes.c_int64(int(be is not None)),
-        ctypes.c_int64(be or 0), ctypes.c_int64(neutral),
-        ctypes.c_int64(avg), ctypes.c_int64(out.element_size()),
-        ctypes.c_int64(int(dtype.is_floating_point)),
-        *(ctypes.c_void_p(t.data_ptr()) for t in (
-            b.seg_start, b.seg_len, b.peer_start, b.peer_len, tiles, pref)),
-        ctypes.c_void_p(out.data_ptr()),
-        ctypes.c_void_p(0 if valid is None else valid.data_ptr()),
-        ctypes.c_void_p(native.stream_ptr(dev)))
-    native.check(rc, "window_scan")
-    frame_aggregate_cuda.launches += 1
+    if cap:
+        rc = native.library("window").window_scan(
+            ctypes.c_void_p(page.num_rows.data_ptr()), ctypes.c_int64(cap),
+            ctypes.c_void_p(0 if x is None else x.data_ptr()),
+            ctypes.c_void_p(0 if xvalid is None else xvalid.data_ptr()),
+            ctypes.c_int64(0 if x is None else x.element_size()),
+            ctypes.c_int64(int(is_float)), ctypes.c_int64(op),
+            ctypes.c_int64(read), ctypes.c_int64(int(bs is not None)),
+            ctypes.c_int64(bs or 0), ctypes.c_int64(int(be is not None)),
+            ctypes.c_int64(be or 0), ctypes.c_int64(neutral),
+            ctypes.c_int64(avg), ctypes.c_int64(out.element_size()),
+            ctypes.c_int64(int(dtype.is_floating_point)),
+            *(ctypes.c_void_p(t.data_ptr()) for t in (
+                b.seg_start, b.seg_len, b.peer_start, b.peer_len, tiles,
+                pref)),
+            ctypes.c_void_p(out.data_ptr()),
+            ctypes.c_void_p(0 if valid is None else valid.data_ptr()),
+            ctypes.c_void_p(native.stream_ptr(dev)))
+        native.check(rc, "window_scan")
+        frame_aggregate_cuda.launches += 1
     return Column(out, valid, spec.out_type,
                   dictionary if spec.name in ("min", "max") else None)
 
@@ -866,14 +870,12 @@ def _bounded_minmax(spec: WindowSpec, page: Page, b: Bounds
     return torch.where(nonempty, res, neutral), cnts > 0
 
 
-# frames up to this many rows take K23's shared-memory halo path; wider
-# ones its doubling table (csrc/window.cu MINMAX_NARROW)
-MINMAX_NARROW = 64
-
-
-def bounded_minmax_cuda(spec: WindowSpec, page: Page, b: Bounds
+def bounded_minmax_cuda(spec: WindowSpec, page: Page, b: Bounds,
+                        nlevels: Optional[int] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K23 launch: see csrc/window.cu."""
+    """K23 launch: see csrc/window.cu. `nlevels` rows of doubling table
+    (by default as many as window.cu asks for the frame: 0, its halo
+    path, for a narrow one); a narrow frame given levels runs the table."""
     dev = page.device
     cap = page.capacity
     col = page.column(spec.arg_channels[0])
@@ -883,32 +885,35 @@ def bounded_minmax_cuda(spec: WindowSpec, page: Page, b: Bounds
         raise ValueError("window min/max argument must be a contiguous "
                          "[capacity] column")
     bs, be = spec.bounds
-    width = be - bs + 1
-    k_max = max(width.bit_length() - 1, 0)
-    wide = 0 if width <= MINMAX_NARROW else (k_max + 1) * cap
-    levels = torch.empty(wide, dtype=torch.int64, device=dev)
-    any_levels = torch.empty(wide, dtype=torch.uint8, device=dev)
+    lib = native.library("window")
+    if nlevels is None:
+        nlevels = lib.window_minmax_levels(ctypes.c_int64(bs),
+                                           ctypes.c_int64(be))
+    levels = torch.empty(nlevels * cap, dtype=torch.int64, device=dev)
+    any_levels = torch.empty(nlevels * cap, dtype=torch.uint8, device=dev)
     out = torch.empty(cap, dtype=x.dtype, device=dev)
     valid = torch.empty(cap, dtype=torch.bool, device=dev)
-    rc = native.library("window").window_minmax(
-        ctypes.c_void_p(page.num_rows.data_ptr()), ctypes.c_int64(cap),
-        ctypes.c_void_p(x.data_ptr()),
-        ctypes.c_void_p(0 if col.valid is None else col.valid.data_ptr()),
-        ctypes.c_int64(x.element_size()),
-        ctypes.c_int64(int(x.is_floating_point())),
-        ctypes.c_int64(int(spec.name == "max")), ctypes.c_int64(bs),
-        ctypes.c_int64(be), ctypes.c_int64(
-            _word(_neutral(spec.name, x.dtype), x.dtype)),
-        ctypes.c_void_p(b.seg_start.data_ptr()),
-        ctypes.c_void_p(b.seg_len.data_ptr()),
-        ctypes.c_void_p(b.seg_id.data_ptr()),
-        ctypes.c_void_p(levels.data_ptr() if wide else 0),
-        ctypes.c_void_p(any_levels.data_ptr() if wide else 0),
-        ctypes.c_int64(k_max), ctypes.c_void_p(out.data_ptr()),
-        ctypes.c_void_p(valid.data_ptr()),
-        ctypes.c_void_p(native.stream_ptr(dev)))
-    native.check(rc, "window_minmax")
-    bounded_minmax_cuda.launches += 1
+    if cap:
+        rc = lib.window_minmax(
+            ctypes.c_void_p(page.num_rows.data_ptr()), ctypes.c_int64(cap),
+            ctypes.c_void_p(x.data_ptr()),
+            ctypes.c_void_p(0 if col.valid is None
+                            else col.valid.data_ptr()),
+            ctypes.c_int64(x.element_size()),
+            ctypes.c_int64(int(x.is_floating_point())),
+            ctypes.c_int64(int(spec.name == "max")), ctypes.c_int64(bs),
+            ctypes.c_int64(be), ctypes.c_int64(
+                _word(_neutral(spec.name, x.dtype), x.dtype)),
+            ctypes.c_void_p(b.seg_start.data_ptr()),
+            ctypes.c_void_p(b.seg_len.data_ptr()),
+            ctypes.c_void_p(b.seg_id.data_ptr()),
+            ctypes.c_void_p(levels.data_ptr() if nlevels else 0),
+            ctypes.c_void_p(any_levels.data_ptr() if nlevels else 0),
+            ctypes.c_int64(nlevels), ctypes.c_void_p(out.data_ptr()),
+            ctypes.c_void_p(valid.data_ptr()),
+            ctypes.c_void_p(native.stream_ptr(dev)))
+        native.check(rc, "window_minmax")
+        bounded_minmax_cuda.launches += 1
     return out, valid
 
 
