@@ -32,7 +32,12 @@ Phases, each printing its lines before the next starts:
      every function under whole, running and bounded frames (0 PRECEDING
      AND 0 FOLLOWING, and frames wider than the partition), K20 bit for
      bit, the others exactly but for doubles (1e-9 of the partition's
-     |x| sum);
+     |x| sum); K24-K27 (the fused aggregating join's table in both
+     modes, lookup, key bounds and NULL masks) over AGG_CASES (128 to
+     65,536 slots, 8 and 256 keys under 1.5M build rows, NULL and dead
+     rows, negative and double keys, sums past 2^53, an all-NULL column,
+     an empty build, a dead probe): integers, masks and mag_ok exact,
+     float64 sums to 1e-9 relative;
   3. the 22 TPC-H queries, a FULL join, a MARK query and the window,
      grouping-set and UNION queries W1-W6 and W8 at sf1, and q6, q3, q9,
      q13 and W7 at sf10 (the reference's default session, spill on) from SQL
@@ -45,7 +50,7 @@ Phases, each printing its lines before the next starts:
      window function by a plain twin and no generated column staged from
      NumPy on the card; each WindowNode's rows, partitions, peer groups,
      functions and frames (`[window]`); the first-run walls
-     of q6/q9 at sf10 and each table's generation seconds at sf1/sf10,
+     of q6/q9 at sf1 and each table's generation seconds at sf1/sf10,
      K14/K15 against the NumPy path; each sf10 join's route with its build,
      device and host bytes and each sf10 query's spill counters; then the
      forced-threshold path (FORCED: q3 and q9 past a lowered join
@@ -53,10 +58,20 @@ Phases, each printing its lines before the next starts:
      high-NDV GROUP BY and a spilled ORDER BY at sf1), each equal to the
      card's run of the same SQL under the default session, which must
      launch K16-K19 and take spill-dense, spill-search and partitioned;
+     then TPCDS at sf1: the TPC-DS queries of tests/test_tpcds.py, the two
+     router variants of tests/test_mxu_join.py and G1-G4, the shapes of
+     the fused aggregating join (G3 on TPC-H sf1), tables staged from
+     NumPy; rows, join routes, mxu_joins and mxu_flops equal to the CPU
+     port's, no fused join through a plain twin (`[fused]`); q72, whose
+     inventory x catalog_sales join on item_sk alone needs more than the
+     card's memory at sf1, reports the join that stopped it
+     (`[ds-stopped]`) and is not compared;
   4. every kernel, every expanding-probe kind and the mxu, dense, search
      and cross routes launched during phase 3 (K16-K19 on the forced
      path; the host attach's ms per batch beside a pinned copy of the
-     bytes it moves; K20-K23 at the window queries' largest sf1 calls);
+     bytes it moves; K20-K23 at the window queries' largest sf1 calls;
+     K24-K27 at their largest call of the TPC-DS runs, K24 also through
+     its global-atomics mode);
      per kernel its launches,
      its time at the main path's shapes (CUDA events; K10 and K11 also
      their host time per call), its bound, its plain twin's time and a
@@ -427,6 +442,157 @@ FROM (SELECT o_orderpriority,
       FROM orders) t
 GROUP BY o_orderpriority"""),
 }
+
+
+# The TPC-DS queries of tests/test_tpcds.py and the two router variants of
+# tests/test_mxu_join.py (q72 and q64's core under the forced session:
+# density threshold 0, 65,536 slots), then G1-G4, the shapes that enter
+# the fused aggregating join (B11b): name -> (catalog, session, SQL,
+# whether the rows come in a defined order). tests/test_torch_tpcds.py and
+# tests/test_torch_join_mxu_agg.py hold these texts equal to the tests'
+# and run them at tiny against the reference; phase 3 runs them at sf1.
+FORCED_MXU = (("mxu_join_density_threshold", 0.0),
+              ("mxu_join_max_slots", 65536))
+TPCDS = {
+    "ds_scan": ("tpcds", (), (
+        "SELECT count(*), count(DISTINCT d_year) FROM date_dim "
+        "WHERE d_year BETWEEN 1998 AND 2002"), False),
+    "ds_q3": ("tpcds", (), """
+SELECT d_year, i_brand_id, i_brand, sum(ss_ext_sales_price) AS sum_agg
+FROM date_dim, store_sales, item
+WHERE d_date_sk = ss_sold_date_sk AND ss_item_sk = i_item_sk
+  AND i_manufact_id = 436 AND d_moy = 12
+GROUP BY d_year, i_brand_id, i_brand
+ORDER BY d_year, sum_agg DESC, i_brand_id LIMIT 100""", True),
+    "ds_q42": ("tpcds", (), """
+SELECT d_year, i_category_id, i_category, sum(ss_ext_sales_price)
+FROM date_dim, store_sales, item
+WHERE d_date_sk = ss_sold_date_sk AND ss_item_sk = i_item_sk
+  AND i_manufact_id > 500 AND d_year = 2000 AND d_moy = 11
+GROUP BY d_year, i_category_id, i_category
+ORDER BY 4 DESC, d_year, i_category_id, i_category LIMIT 100""", True),
+    "ds_q64": ("tpcds", (), """
+WITH cs_ui AS (
+  SELECT cs_item_sk,
+         sum(cs_ext_list_price) AS sale,
+         sum(cr_refunded_cash + cr_return_amount) AS refund
+  FROM catalog_sales, catalog_returns
+  WHERE cs_item_sk = cr_item_sk AND cs_order_number = cr_order_number
+  GROUP BY cs_item_sk
+  HAVING sum(cs_ext_list_price) > 2 * sum(cr_refunded_cash
+                                          + cr_return_amount))
+SELECT i_product_name, s_store_name, s_zip, d1.d_year,
+       count(*) AS cnt,
+       sum(ss_wholesale_cost) AS s1, sum(ss_list_price) AS s2,
+       sum(ss_coupon_amt) AS s3
+FROM store_sales, store_returns, cs_ui, date_dim d1,
+     customer, customer_demographics cd1, household_demographics hd1,
+     customer_address ad1, income_band ib1, item, store
+WHERE ss_store_sk = s_store_sk
+  AND ss_sold_date_sk = d1.d_date_sk
+  AND ss_customer_sk = c_customer_sk
+  AND ss_cdemo_sk = cd1.cd_demo_sk
+  AND ss_hdemo_sk = hd1.hd_demo_sk
+  AND ss_addr_sk = ad1.ca_address_sk
+  AND ss_item_sk = i_item_sk
+  AND ss_item_sk = sr_item_sk
+  AND ss_ticket_number = sr_ticket_number
+  AND ss_item_sk = cs_ui.cs_item_sk
+  AND hd1.hd_income_band_sk = ib1.ib_income_band_sk
+  AND i_color IN ('maroon', 'burnished', 'dim', 'steel', 'navajo',
+                  'chocolate')
+  AND i_current_price BETWEEN 35 AND 45
+GROUP BY i_product_name, s_store_name, s_zip, d1.d_year
+ORDER BY i_product_name, s_store_name, cnt LIMIT 100""", True),
+    "ds_q72": ("tpcds", (), """
+SELECT i_item_desc, w_warehouse_name, d1.d_week_seq,
+       sum(CASE WHEN p_promo_sk IS NULL THEN 1 ELSE 0 END) no_promo,
+       sum(CASE WHEN p_promo_sk IS NOT NULL THEN 1 ELSE 0 END) promo,
+       count(*) total_cnt
+FROM catalog_sales
+JOIN inventory ON (cs_item_sk = inv_item_sk)
+JOIN warehouse ON (w_warehouse_sk = inv_warehouse_sk)
+JOIN item ON (i_item_sk = cs_item_sk)
+JOIN customer_demographics ON (cs_bill_cdemo_sk = cd_demo_sk)
+JOIN household_demographics ON (cs_bill_hdemo_sk = hd_demo_sk)
+JOIN date_dim d1 ON (cs_sold_date_sk = d1.d_date_sk)
+JOIN date_dim d2 ON (inv_date_sk = d2.d_date_sk)
+JOIN date_dim d3 ON (cs_ship_date_sk = d3.d_date_sk)
+LEFT JOIN promotion ON (cs_promo_sk = p_promo_sk)
+LEFT JOIN catalog_returns ON (cr_item_sk = cs_item_sk
+                              AND cr_order_number = cs_order_number)
+WHERE d1.d_week_seq = d2.d_week_seq
+  AND inv_quantity_on_hand < cs_quantity
+  AND d3.d_date > d1.d_date + INTERVAL '5' DAY
+  AND hd_buy_potential = '>10000'
+  AND d1.d_year = 1999
+  AND cd_marital_status = 'D'
+GROUP BY i_item_desc, w_warehouse_name, d1.d_week_seq
+ORDER BY total_cnt DESC, i_item_desc, w_warehouse_name, d1.d_week_seq
+LIMIT 100""", True),
+    "ds_inventory_week": ("tpcds", (), (
+        "SELECT w_state, count(*) FROM inventory, warehouse, date_dim "
+        "WHERE inv_warehouse_sk = w_warehouse_sk "
+        "AND inv_date_sk = d_date_sk AND d_year = 2000 "
+        "AND inv_quantity_on_hand < 10 GROUP BY w_state"), False),
+    "ds_q72_router": ("tpcds", FORCED_MXU, """
+SELECT i_item_desc, w_warehouse_name, d1.d_week_seq, count(*) total_cnt
+FROM catalog_sales
+JOIN inventory ON (cs_item_sk = inv_item_sk)
+JOIN warehouse ON (w_warehouse_sk = inv_warehouse_sk)
+JOIN item ON (i_item_sk = cs_item_sk)
+JOIN date_dim d1 ON (cs_sold_date_sk = d1.d_date_sk)
+JOIN date_dim d2 ON (inv_date_sk = d2.d_date_sk)
+WHERE d1.d_week_seq = d2.d_week_seq
+  AND inv_quantity_on_hand < cs_quantity AND d1.d_year = 1999
+GROUP BY i_item_desc, w_warehouse_name, d1.d_week_seq
+ORDER BY total_cnt DESC, i_item_desc, w_warehouse_name, d1.d_week_seq
+LIMIT 100""", True),
+    "ds_q64_router": ("tpcds", FORCED_MXU, """
+SELECT i_product_name, d1.d_year, count(*) AS cnt,
+       sum(ss_wholesale_cost) AS s1
+FROM store_sales, store_returns, date_dim d1, item
+WHERE ss_sold_date_sk = d1.d_date_sk
+  AND ss_item_sk = i_item_sk
+  AND ss_item_sk = sr_item_sk
+  AND ss_ticket_number = sr_ticket_number
+  AND i_current_price BETWEEN 35 AND 45
+GROUP BY i_product_name, d1.d_year
+ORDER BY i_product_name, d1.d_year, cnt LIMIT 100""", True),
+    "G1": ("tpcds", (), """SELECT ss_sold_date_sk, count(*), sum(ss_quantity),
+       sum(s_number_employees), count(s_store_name)
+FROM store_sales, store WHERE ss_store_sk = s_store_sk
+GROUP BY ss_sold_date_sk""", False),
+    "G2": ("tpcds", FORCED_MXU, """SELECT ss_store_sk, count(*), sum(ss_quantity),
+       sum(i_brand_id), count(i_brand)
+FROM store_sales, item WHERE ss_item_sk = i_item_sk
+GROUP BY ss_store_sk""", False),
+    "G3": ("tpch", FORCED_MXU, """SELECT g, count(*), sum(v), sum(w)
+FROM (SELECT l_orderkey % 256 AS k, l_suppkey % 16 AS g,
+             l_linenumber AS v FROM lineitem) p,
+     (SELECT o_orderkey % 256 AS k, o_custkey AS w FROM orders) b
+WHERE p.k = b.k GROUP BY g""", False),
+    "G4": ("tpcds", (), """SELECT DISTINCT ss_sold_date_sk
+FROM store_sales, store WHERE ss_store_sk = s_store_sk""", False),
+}
+
+
+def tpcds_runners(schema: str, device=None, device_gen=None) -> dict:
+    """One runner per (catalog, session) of TPCDS at `schema` (TPC-DS
+    through `USE tpcds.<schema>`)."""
+    from trino_tpu_torch.exec import LocalQueryRunner
+    out = {}
+    for catalog, session, _, _ in TPCDS.values():
+        if (catalog, session) in out:
+            continue
+        r = LocalQueryRunner.tpch(schema, device=device,
+                                  device_gen=device_gen)
+        if catalog == "tpcds":
+            r.execute(f"USE tpcds.{schema}")
+        for k, v in session:
+            r.session.set(k, v)
+        out[(catalog, session)] = r
+    return out
 
 
 def say(*parts) -> None:
@@ -1278,6 +1444,164 @@ def check_mxu(g, dev) -> float:
                 + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
                 + " per call (CUDA events)")
     return 0.0   # compared exactly
+
+
+# --------------------------------------------- the aggregating join
+
+
+AGG_CASES = [  # label, build cap, live rows, key kind, distinct keys,
+               # slots, probe cap, live probe rows
+    ("span 100", 5000, 4990, "int", 100, 128, 70_000, 65_000),
+    ("span 4096", 40_000, 39_000, "int", 4096, 4096, 100_000, 99_000),
+    ("32768 slots (G2 at sf1)", 18_000, 18_000, "int", 18_000, 32768,
+     4_194_304, 2_880_404),
+    ("65536 slots", 200_000, 199_000, "int", 65536, 65536, 1_000_000,
+     999_000),
+    ("8 keys under 1.5M build rows", 1_500_000, 1_500_000, "int", 8, 128,
+     4_194_304, 4_194_304),
+    ("256 keys under 1.5M build rows (G3)", 1_500_000, 1_500_000, "int",
+     256, 256, 4_194_304, 4_194_304),
+    ("negative keys", 3000, 3000, "negative", 100, 128, 10_000, 10_000),
+    ("double keys (-0.0 among them)", 3000, 2990, "double", 200, 256,
+     10_000, 9_000),
+    ("integer sums past 2^53", 1000, 1000, "big", 64, 128, 5000, 5000),
+    ("empty build", 1000, 0, "int", 100, 128, 5000, 5000),
+    ("dead probe", 3000, 3000, "int", 100, 128, 1000, 0)]
+
+
+def agg_case(g, dev, cap, kind, distinct):
+    """(key column, base key word, value columns) of one build: keys over
+    `distinct` values from a base (negative keys from -50, whose u64 words
+    wrap; double keys as consecutive doubles from 1.0, with -0.0 keys
+    below the span), an int64 column with NULLs (each value about 2^50
+    for "big"),
+    a float64 column with NULLs, an int32 column, an all-NULL column."""
+    pick = torch.randint(0, distinct, (cap,), generator=g)
+    if kind == "negative":
+        keys, base = pick - 50, -50
+    elif kind == "double":
+        base = int(torch.tensor(1.0, dtype=torch.float64).view(torch.int64))
+        keys = (pick + base).view(torch.float64).clone()
+        keys[torch.rand(cap, generator=g) < 0.05] = -0.0
+
+    else:
+        keys, base = pick + 1000, 1000
+    kvalid = torch.rand(cap, generator=g) >= 0.05
+    a = torch.randint(-10**6, 10**6, (cap,), generator=g)
+    if kind == "big":
+        a = a + (1 << 50)
+    cols = {"a": (a, torch.rand(cap, generator=g) >= 0.1),
+            "d": (torch.randn(cap, generator=g, dtype=torch.float64) * 1e3,
+                  torch.rand(cap, generator=g) >= 0.1),
+            "c": (torch.randint(-1000, 1000, (cap,), generator=g,
+                                dtype=torch.int32), None),
+            "z": (torch.randint(0, 9, (cap,), generator=g),
+                  torch.zeros(cap, dtype=torch.bool))}
+    mv = lambda t: None if t is None else t.to(dev)  # noqa: E731
+    return ((keys.to(dev), kvalid.to(dev)), base,
+            {k: (v.to(dev), mv(m)) for k, (v, m) in cols.items()})
+
+
+def check_agg_join(g, dev) -> float:
+    """K24 (both modes), K25, K26 and K27 against their twins over
+    AGG_CASES: K26's five words, K24's integer columns, info words and
+    K25's outputs and live mask exactly, K24's float64 sums to 1e-9
+    relative (the order of its atomics), K27's masks exactly. Each kernel
+    is timed at the largest case of its kind. Returns the largest float64
+    error."""
+    from trino_tpu_torch.ops import join_mxu as JM
+    worst = 0.0
+    for label, bcap, bn, kind, distinct, slots, pcap, pn in AGG_CASES:
+        key, base, cols = agg_case(g, dev, bcap, kind, distinct)
+        bnr = torch.tensor(bn, dtype=torch.int32, device=dev)
+        got = JM.key_bounds_triton(key[0], key[1], bnr)
+        want = JM.key_bounds_plain(key[0], key[1], bnr)
+        sync()
+        if not torch.equal(got, want):
+            fail(f"K26 differs from its twin ({label}): {got.tolist()} vs "
+                 f"{want.tolist()}")
+        kmin = torch.tensor([base], dtype=torch.int64, device=dev)
+        vecs = [(JM.VEC_CNT, None, None), (JM.VEC_SUM_I, *cols["a"]),
+                (JM.VEC_SUM_F, *cols["d"]), (JM.VEC_VALIDCNT, *cols["a"]),
+                (JM.VEC_SUM_I, *cols["c"]), (JM.VEC_VALIDCNT, *cols["z"]),
+                (JM.VEC_SUM_I, *cols["z"])]
+        wt, winfo = JM.agg_table_plain(key, vecs, bnr, kmin, slots)
+        for mode in (JM.AGG_TABLE_AUTO, JM.AGG_TABLE_GLOBAL):
+            kt, kinfo = JM.agg_table_cuda(key, vecs, bnr, kmin, slots,
+                                          mode)
+            sync()
+            if not torch.equal(kinfo[:3], winfo[:3]):
+                fail(f"K24 info (mode {mode}) differs from its twin "
+                     f"({label}): {kinfo.tolist()} vs {winfo.tolist()}")
+            for i, (vk, _, _) in enumerate(vecs):
+                x = JM.table_column(kt, vk, i)
+                y = JM.table_column(wt, vk, i)
+                if vk == JM.VEC_SUM_F:
+                    if not close_f64(x, y):
+                        fail(f"K24 float sums differ ({label}, mode {mode})")
+                    worst = max(worst, max_abs_err(x, y))
+                elif not torch.equal(x, y):
+                    fail(f"K24 column {i} differs from its twin ({label}, "
+                         f"mode {mode})")
+        if kind == "big" and int(winfo[JM.INFO_MAG_OK]):
+            fail("K24's twin left mag_ok set past 2^53")
+        # the probe: build keys, keys past the span and below kmin, NULLs
+        pick = torch.randint(0, max(bcap, 1), (pcap,), generator=g).to(dev)
+        pk = key[0][pick] if bcap else torch.zeros(pcap, dtype=key[0].dtype,
+                                                   device=dev)
+        r = torch.randint(0, 4, (pcap,), generator=g).to(dev)
+        if key[0].is_floating_point():
+            bits = pk.view(torch.int64)
+            bits = torch.where(r == 1, bits + slots + 7, bits)
+            pk = bits.view(torch.float64)
+        else:
+            pk = torch.where(r == 1, pk + slots + 7, pk)
+            pk = torch.where(r == 2, pk - slots - 9, pk)
+        pkey = (pk.contiguous(),
+                (torch.rand(pcap, generator=g) >= 0.05).to(dev))
+        pnr = torch.tensor(pn, dtype=torch.int32, device=dev)
+        pv = (torch.randint(-10**9, 10**9, (pcap,), generator=g).to(dev),
+              (torch.rand(pcap, generator=g) >= 0.1).to(dev))
+        pf = ((torch.randn(pcap, generator=g, dtype=torch.float64)
+               * 1e3).to(dev), None)
+        pc = (torch.randint(-100, 100, (pcap,), generator=g,
+                            dtype=torch.int32).to(dev), None)
+        outs = [(JM.OP_PAIRS, 0, None, None), (JM.OP_CNTP, 0, *pv),
+                (JM.OP_SUMP_I, 0, *pv), (JM.OP_SUMP_F, 0, *pf),
+                (JM.OP_SUMP_I, 0, *pc), (JM.OP_TABLE_I, 3, None, None),
+                (JM.OP_TABLE_F, 2, None, None), (JM.OP_TABLE_I, 1, None, None),
+                (JM.OP_TABLE_I, 5, None, None), (JM.OP_TABLE_I, 6, None, None)]
+        kg, klive = JM.agg_lookup_cuda(pkey, pnr, wt, kmin, outs)
+        wg, wlive = JM.agg_lookup_plain(pkey, pnr, wt, kmin, outs)
+        sync()
+        if not torch.equal(klive, wlive):
+            fail(f"K25's live mask differs from its twin ({label})")
+        for i, (x, y) in enumerate(zip(kg, wg)):
+            if not same_bits(x, y):
+                fail(f"K25 output {i} differs from its twin ({label})")
+        helpers = [kg[5], kg[8]]
+        km = JM.agg_post_triton(helpers)
+        wm = JM.agg_post_plain(helpers)
+        sync()
+        if not all(torch.equal(x, y) for x, y in zip(km, wm)):
+            fail(f"K27 differs from its twin ({label})")
+        if label.startswith(("256 keys", "32768 slots")):
+            ms = {"K24 shared copy": cuda_ms(lambda: JM.agg_table_cuda(
+                      key, vecs, bnr, kmin, slots, JM.AGG_TABLE_AUTO)),
+                  "K24 global atomics": cuda_ms(lambda: JM.agg_table_cuda(
+                      key, vecs, bnr, kmin, slots, JM.AGG_TABLE_GLOBAL)),
+                  "K26": cuda_ms(lambda: JM.key_bounds_triton(
+                      key[0], key[1], bnr)),
+                  "K25": cuda_ms(lambda: JM.agg_lookup_cuda(
+                      pkey, pnr, wt, kmin, outs)),
+                  "K27 (2 helpers)": cuda_ms(
+                      lambda: JM.agg_post_triton(helpers))}
+            say(f"[kernels] aggregating join at {label} (build {bn}/"
+                f"{bcap}, {len(vecs)} vectors, probe {pn}/{pcap}, "
+                f"{len(outs)} outputs): "
+                + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+                + " per call (CUDA events)")
+    return worst
 
 
 def gen_windows(table, sf):
@@ -2374,12 +2698,15 @@ class Capture:
         self.calls = {}
         self.orig = {}
 
-    def wrap(self, module, name, size_of, tag_of=None):
+    def wrap(self, module, name, size_of, tag_of=None,
+             scopes=("sf1", "forced")):
         """Replace module.name with a recording pass-through. The kernel
         function increments `<module>.<name>.launches` (and K9's
         `.by_kind`, K6's and K9's `.by_route`) through its module global,
         so the counters now live on the pass-through. `tag_of` names a
-        mode whose largest sf1 call is kept apart (K13: the mxu route)."""
+        mode whose largest sf1 call is kept apart (K13: the mxu route);
+        `scopes` the run scopes whose largest call is kept (K24-K27: "ds",
+        the TPC-DS and G1-G4 runs)."""
         orig = getattr(module, name)
 
         def record(key, size, args):
@@ -2391,8 +2718,8 @@ class Capture:
                 size = size_of(*args)
                 if self.label in self.TIMED:
                     record((name, self.label), size, args)
-                scope = self.label[0]    # sf1, sf10 or forced
-                if scope in ("sf1", "forced"):
+                scope = self.label[0]    # sf1, sf10, forced or ds
+                if scope in scopes:
                     record((name, scope), size, args)
                     tag = tag_of(*args) if tag_of else None
                     if tag:
@@ -2596,15 +2923,25 @@ def mxu_of(runner):
             runner.last_query_stats["mxu_joins"])
 
 
-def cold_walls(runner10, card) -> None:
-    """First-run (cold) walls of q6 and q9 at sf10 on the card: tables
+def ds_counters(runner) -> dict:
+    """A runner's last query: its join routes in order, mxu_joins and
+    mxu_flops."""
+    return {"routes": [j["route"] for j in runner.last_joins],
+            "mxu_joins": runner.last_query_stats["mxu_joins"],
+            "mxu_flops": runner.last_query_stats["mxu_flops"]}
+
+
+def cold_walls(runner1, card) -> None:
+    """First-run (cold) walls of q6 and q9 at sf1 on the card: tables
     generated by K14/K15 against the NumPy path (host generation and
-    pinned staging), each run with nothing staged or generated before."""
+    pinned staging), each run with nothing staged or generated before
+    (sf1 keeps the NumPy path's runs to seconds; gen_times gives each sf10
+    table's generation seconds on both paths)."""
     from trino_tpu_torch.connector import tpch, tpch_dev as TD
     from trino_tpu_torch.exec import LocalQueryRunner
-    numpy_runner = LocalQueryRunner.tpch("sf10", device_gen=False)
+    numpy_runner = LocalQueryRunner.tpch("sf1", device_gen=False)
     for q in ("q6", "q9"):
-        for label, runner in (("device generation", runner10),
+        for label, runner in (("device generation", runner1),
                               ("NumPy path", numpy_runner)):
             tpch.drop_cached_columns(host_chunks=True)
             TD.drop_order_index()
@@ -2612,7 +2949,7 @@ def cold_walls(runner10, card) -> None:
             t0 = time.perf_counter()
             runner.execute(TPCH[q][0])
             sync()
-            say(f"[cold] {q} sf10 first run with {label}: "
+            say(f"[cold] {q} sf1 first run with {label}: "
                 f"{time.perf_counter() - t0:.2f} s — {card}")
     tpch.drop_cached_columns(host_chunks=True)
 
@@ -2667,7 +3004,7 @@ def main() -> None:
         sys.exit(2)
     dev = torch.device("cuda")
     card = card_line()
-    name = torch.cuda.get_device_name(0)
+    card_name = torch.cuda.get_device_name(0)
     t_start = time.perf_counter()
 
     # ---- phase 1: card and build
@@ -2723,6 +3060,17 @@ def main() -> None:
         f"their plain twins on the card (all exact; table sizes 128 and "
         f"4096; keys in span, past it and below kmin): {errs} in "
         f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    errs = {"agg_table + agg_lookup + key_bounds + agg_post":
+            check_agg_join(g, dev)}
+    say(f"[kernels] K24 (both modes), K25, K26 and K27 (Triton, first call "
+        f"compiles) match their plain twins on the card (K26's words, K24's "
+        f"counts, integer sums, distinct slots, live rows and mag_ok, K25's "
+        f"outputs and live mask, K27's masks exactly; float64 sums <= 1e-9 "
+        f"rel; {len(AGG_CASES)} cases: 128 to 65,536 slots, 8 and 256 keys "
+        f"under 1.5M build rows, NULL and dead rows, negative and double "
+        f"keys, sums past 2^53, an all-NULL column, an empty build, a dead "
+        f"probe): {errs} in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     errs = {"gen_column + order_index": check_gen(dev)}
     say(f"[kernels] K14 and K15 match their plain twins and the NumPy "
@@ -2825,6 +3173,15 @@ def main() -> None:
              lambda spec, page, b: "whole" if PW.frame_kind(spec) == "whole"
              and spec.name in ("sum", "count") else None)
     cap.wrap(PW, "bounded_minmax_cuda", lambda spec, page, b: page.capacity)
+    ds = ("ds",)
+    cap.wrap(JM, "agg_table_cuda", lambda key, vecs, *_: key[0].numel()
+             * len(vecs), scopes=ds)
+    cap.wrap(JM, "agg_lookup_cuda", lambda key, nr, tab, km, outs:
+             key[0].numel() * len(outs), scopes=ds)
+    cap.wrap(JM, "key_bounds_triton", lambda values, *_: values.numel(),
+             scopes=ds)
+    cap.wrap(JM, "agg_post_triton",
+             lambda hs: hs[0].numel() * len(hs) if hs else 0, scopes=ds)
     real_attach = LP.attach_build_host
 
     def watched_attach(pre, *args, **kw):
@@ -2859,6 +3216,23 @@ def main() -> None:
         return run
     for k in real_win_plain:
         setattr(PW, k, counted_win_plain(k))
+    # no fused aggregating join may run through a plain twin on the card
+    agg_plain = []
+    real_agg_plain = {k: getattr(JM, k) for k in (
+        "agg_table_plain", "agg_lookup_plain", "key_bounds_plain",
+        "agg_post_plain")}
+
+    def counted_agg_plain(k):
+        def run(*args):
+            if cap.label is not None and any(
+                    isinstance(t, torch.Tensor) and t.is_cuda
+                    for a in args for t in (a if isinstance(a, (list, tuple))
+                                            else (a,))):
+                agg_plain.append((k, cap.label))
+            return real_agg_plain[k](*args)
+        return run
+    for k in real_agg_plain:
+        setattr(JM, k, counted_agg_plain(k))
     kernels = {"compact_rows": (P, "compact_rows_cuda"),
                "compact_range": (P, "compact_range_cuda"),
                "concat_rows": (P, "concat_rows_cuda"),
@@ -2882,7 +3256,11 @@ def main() -> None:
                "window_bounds": (PW, "window_bounds_cuda"),
                "rank_value": (PW, "rank_value_triton"),
                "frame_aggregate": (PW, "frame_aggregate_cuda"),
-               "bounded_minmax": (PW, "bounded_minmax_cuda")}
+               "bounded_minmax": (PW, "bounded_minmax_cuda"),
+               "agg_table": (JM, "agg_table_cuda"),
+               "agg_lookup": (JM, "agg_lookup_cuda"),
+               "key_bounds": (JM, "key_bounds_triton"),
+               "agg_post": (JM, "agg_post_triton")}
     # K16-K19: the memory-bounded paths' kernels (the sf10 runs may
     # launch them; the forced-threshold path below must)
     spill_kernels = {"spill_prep": (J, "spill_prep_cuda"),
@@ -2903,6 +3281,8 @@ def main() -> None:
     gpu = {s: LocalQueryRunner.tpch(s) for s in ("sf1", "sf10")}
     cpu = {s: LocalQueryRunner.tpch(s, device="cpu", device_gen=False)
            for s in ("sf1", "sf10")}
+    gpu_ds = tpcds_runners("sf1")
+    cpu_ds = tpcds_runners("sf1", "cpu", False)
     host_staged = []     # supported columns staged from NumPy on the card
     real_host_cached = tpch._host_cached
 
@@ -2942,10 +3322,57 @@ def main() -> None:
             say(f"[spill] {q} sf10 (default session): "
                 f"{spill_counters(gpu[schema])}")
         mxu_counts[(schema, q)] = mxu_of(gpu[schema])
+    # TPC-DS at sf1 and G1-G4 (G3 on TPC-H sf1): tables staged from NumPy
+    # on first use, so each first run includes the staging of the tables
+    # no earlier query touched
+    t_ds = time.perf_counter()
+    ds_results, ds_failed = {}, {}
+    for dsq, (catalog, session, sql, _) in TPCDS.items():
+        runner = gpu_ds[(catalog, session)]
+        cap.label = ("ds", dsq)
+        before = {k: getattr(mod, attr).launches
+                  for k, (mod, attr) in all_kernels.items()}
+        t0 = time.perf_counter()
+        try:
+            res = runner.execute(sql)
+            sync()
+        except torch.cuda.OutOfMemoryError as e:
+            ds_failed[dsq] = (str(e).split(".")[0],
+                              [dict(j) for j in runner.last_joins])
+            torch.cuda.empty_cache()
+            res = None
+        secs = time.perf_counter() - t0
+        per_query[("ds", dsq)] = {
+            k: getattr(mod, attr).launches - before[k]
+            for k, (mod, attr) in all_kernels.items()}
+        for i, j in enumerate(runner.last_joins):
+            routes.add(j["route"])
+            kinds.add(j["kind"])
+            say(join_line(dsq, "sf1", i, j))
+        if res is not None:
+            ds_results[dsq] = (res, secs, ds_counters(runner))
+    t_ds = time.perf_counter() - t_ds
     cap.label = None
     S.sort_rows_plain = real_plain_sort
     for k, fn in real_win_plain.items():
         setattr(PW, k, fn)
+    for k, fn in real_agg_plain.items():
+        setattr(JM, k, fn)
+    if agg_plain:
+        fail(f"fused joins on the card ran a plain twin: {agg_plain[:5]}")
+    fused = sum(j[2]["routes"].count("mxu-agg")
+                for j in ds_results.values())
+    say(f"[fused] fused aggregating joins on the card: {fused} "
+        f"(route mxu-agg), through a plain twin: {len(agg_plain)}")
+    for dsq, (msg, joins) in ds_failed.items():
+        if not dsq.startswith("ds_q72"):
+            fail(f"{dsq} sf1 failed on the card: {msg}")
+        big = max(joins, key=lambda j: j["output_rows"] or 0)
+        say(f"[ds-stopped] {dsq} sf1 could not run on the card: {msg}; "
+            f"at join {joins.index(big) + 1} of {len(joins)} ({big['kind']}"
+            f", route {big['route']}): build {big['build_rows']} live rows,"
+            f" max_run {big['max_run']}, probe page {big['probe_rows']} "
+            f"rows, output {big['output_rows']} rows — {card}")
     tpch._host_cached = real_host_cached
     if host_staged:
         fail(f"{len(host_staged)} column slices on the card that K14 "
@@ -2979,7 +3406,11 @@ def main() -> None:
     for (schema, q), (res, secs) in results.items():
         say(f"[query] {q} {schema} on cuda: {len(res.rows)} rows, first "
             f"run {secs:.2f} s (includes data generation and staging)")
-    cold_walls(gpu["sf10"], card)
+    for dsq, (res, secs, _) in ds_results.items():
+        say(f"[query] {dsq} sf1 on cuda: {len(res.rows)} rows, first run "
+            f"{secs:.2f} s (includes NumPy generation and staging of the "
+            f"tables no earlier TPC-DS query touched)")
+    cold_walls(gpu["sf1"], card)
     gen_times(dev, card)
     t0 = time.perf_counter()
     for schema, q, sql in runs:
@@ -2996,6 +3427,21 @@ def main() -> None:
             f"rows, first {got[0] if got else None}); mxu routes and "
             f"mxu_joins {mxu_counts[(schema, q)]} on both")
     t_cpu = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for dsq, (res, _, counters) in ds_results.items():
+        catalog, session, sql, _ = TPCDS[dsq]
+        runner = cpu_ds[(catalog, session)]
+        want = runner.execute(sql).rows
+        if not rows_equal(res.rows, want):
+            fail(f"{dsq} sf1: cuda rows differ from the CPU run:\n"
+                 f"{res.rows[:5]}\n{want[:5]}")
+        if ds_counters(runner) != counters:
+            fail(f"{dsq} sf1: routes and mxu counters {counters} on cuda, "
+                 f"{ds_counters(runner)} on the CPU")
+        say(f"[query] {dsq} sf1: cuda rows == cpu rows ({len(want)} rows, "
+            f"first {want[0] if want else None}); routes, mxu_joins and "
+            f"mxu_flops {counters} on both")
+    t_ds_cpu = time.perf_counter() - t0
     t0 = time.perf_counter()
     spill_launches, spill_modes, spill_routes = forced_runs(
         gpu["sf1"], cap, spill_kernels, card)
@@ -3015,8 +3461,9 @@ def main() -> None:
         f"{spill_launches}; by mode {spill_modes}; routes "
         f"{sorted(spill_routes)} — {card}")
     say(f"[time] phase 3 (queries): {time.perf_counter() - t_phase:.1f} s, "
-        f"of which the CPU runs {t_cpu:.1f} s and the forced-threshold "
-        f"runs {time.perf_counter() - t0:.1f} s")
+        f"of which the CPU runs {t_cpu:.1f} s, the forced-threshold "
+        f"runs {time.perf_counter() - t0:.1f} s, TPC-DS and G1-G4 "
+        f"{t_ds:.1f} s on the card and {t_ds_cpu:.1f} s on the CPU")
 
     # ---- phase 4: launch check and times
     t_phase = time.perf_counter()
@@ -3050,6 +3497,7 @@ def main() -> None:
     rows += kernel_rows_spill(cap, originals, launches, spill_launches,
                               spill_main, spill_modes, dev, card)
     rows += kernel_rows_window(cap, originals, launches, dev, card)
+    rows += kernel_rows_agg_join(cap, originals, launches, dev, card)
     for r in rows:
         dev_ms = "not measured" if r["device_ms"] is None \
             else f"{r['device_ms']:.4f} ms"
@@ -3066,30 +3514,16 @@ def main() -> None:
     lineitem = {s: tpch_gen.row_count("lineitem", sf)
                 for s, sf in (("sf1", 1.0), ("sf10", 10.0))}
     for schema, q, sql in runs:
-        gpu[schema].execute(sql)
-        sync()
-        walls = []
-        for _ in range(3):
-            t1 = time.perf_counter()
-            gpu[schema].execute(sql)
-            sync()
-            walls.append(time.perf_counter() - t1)
-        w = statistics.median(walls)
-        say(f"[wall] {q} {schema}: warm median of 3 = {w * 1e3:.1f} ms, "
-            f"{lineitem[schema] / w / 1e6:.1f} M lineitem rows/s — {card}")
-        busy, top = device_profile(lambda: gpu[schema].execute(sql), 3)
-        if busy is None:
-            say(f"[profile] {q} {schema}: device time not measured — "
-                f"{card}")
-        else:
-            say(f"[profile] {q} {schema}: device busy {busy:.2f} ms of "
-                f"{w * 1e3:.1f} ms warm wall (idle share "
-                f"{max(0.0, 1 - busy / (w * 1e3)):.2f}); top device time: "
-                + ", ".join(f"{k[:60]} {t:.3f} ms" for k, t in top)
-                + f" — {card}")
-        say(f"[profile] {q} {schema}: top host self time per query: "
-            + host_profile(lambda: gpu[schema].execute(sql), top=6)
-            + f" — {card}")
+        w = warm_profile(q, schema, lambda: gpu[schema].execute(sql), card)
+        say(f"[wall] {q} {schema}: {lineitem[schema] / w / 1e6:.1f} M "
+            f"lineitem rows/s — {card}")
+    t_ds_walls = time.perf_counter()
+    for dsq in ds_results:
+        catalog, session, sql, _ = TPCDS[dsq]
+        runner = gpu_ds[(catalog, session)]
+        warm_profile(dsq, "sf1", lambda: runner.execute(sql), card)
+    say(f"[time] TPC-DS and G1-G4 walls and profiles: "
+        f"{time.perf_counter() - t_ds_walls:.1f} s")
     say(f"[time] phase 4 walls and profiles: "
         f"{time.perf_counter() - t0:.1f} s; whole run "
         f"{time.perf_counter() - t_start:.1f} s")
@@ -3099,8 +3533,36 @@ def main() -> None:
                            "plain_ms", "bound_ms", "bound_by", "library_ms")}
         for r in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": card_name,
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def warm_profile(q, schema, run, card) -> float:
+    """Warm wall (median of 3 after one run), device busy and idle share
+    (profiler, 3 runs) and the top host self time of one query; returns
+    the wall in seconds."""
+    run()
+    sync()
+    walls = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        run()
+        sync()
+        walls.append(time.perf_counter() - t1)
+    w = statistics.median(walls)
+    say(f"[wall] {q} {schema}: warm median of 3 = {w * 1e3:.1f} ms — {card}")
+    busy, top = device_profile(run, 3)
+    if busy is None:
+        say(f"[profile] {q} {schema}: device time not measured — {card}")
+    else:
+        say(f"[profile] {q} {schema}: device busy {busy:.2f} ms of "
+            f"{w * 1e3:.1f} ms warm wall (idle share "
+            f"{max(0.0, 1 - busy / (w * 1e3)):.2f}); top device time: "
+            + ", ".join(f"{k[:60]} {t:.3f} ms" for k, t in top)
+            + f" — {card}")
+    say(f"[profile] {q} {schema}: top host self time per query: "
+        + host_profile(run, top=6) + f" — {card}")
+    return w
 
 
 def kernel_rows(cap: Capture, originals, launches, dev):
@@ -3245,6 +3707,135 @@ def kernel_rows(cap: Capture, originals, launches, dev):
         library_ms=cuda_ms(lambda: torch.sum(stacked4, dim=1)),
         shape=f"q6 sf1 partial: cap {cap4}, {n4} live, {len(states4)} "
               f"states"))
+    return out
+
+
+def kernel_rows_agg_join(cap: Capture, originals, launches, dev, card):
+    """K24-K27 at their largest call of the TPC-DS and G1-G4 runs, each
+    against its twin at those inputs, K24 also through its other mode.
+    Bounds count the live rows; each input read once, each output written
+    once (K24: the table; K25: every derived column and the mask)."""
+    from trino_tpu_torch.ops import join_mxu as JM
+    out = []
+
+    def row(name, source, replaces, n_launches, fn, plain, bound_bytes,
+            library, library_name, shape, err, route="cuda"):
+        return dict(
+            name=name, route=route, source=source, replaces=replaces,
+            launches=n_launches, max_abs_err=err, ms=cuda_ms(fn),
+            device_ms=device_profile(fn)[0], host_ms=host_ms(fn),
+            plain_ms=cuda_ms(plain),
+            bound_ms=bound_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+            library_ms=None if library is None else cuda_ms(library),
+            shape=f"{shape}; library = {library_name}")
+
+    def vec_bytes(vecs, n):
+        return col_bytes([(v, m) for _, v, m in vecs if v is not None], n)
+
+    # K24 at its largest call (rows x vectors)
+    key, vecs, nr, kmin, slots = cap.calls[("agg_table_cuda", "ds")][1]
+    n = int(nr)
+    got_t, got_i = originals["agg_table"](key, vecs, nr, kmin, slots)
+    want_t, want_i = JM.agg_table_plain(key, vecs, nr, kmin, slots)
+    err = 0.0
+    for i, (kind, _, _) in enumerate(vecs):
+        x, y = (JM.table_column(t, kind, i) for t in (got_t, want_t))
+        if kind == JM.VEC_SUM_F:
+            if not close_f64(x, y):
+                fail("K24's float sums differ from its twin at the main "
+                     "path's inputs")
+            err = max(err, max_abs_err(x, y))
+        elif not torch.equal(x, y):
+            fail("K24 differs from its twin at the main path's inputs")
+    if not torch.equal(got_i[:3], want_i[:3]):
+        fail("K24's info differs from its twin at the main path's inputs")
+    # the yardstick: one scatter_add_ of every (row, vector) contribution
+    # into the flattened table, its indices and values made beforehand
+    live = (torch.arange(key[0].numel(), device=dev) < n)
+    k64 = key[0].to(torch.int64) if not key[0].is_floating_point() else \
+        key[0].to(torch.float64).view(torch.int64)
+    slot = torch.where(live, (k64 - kmin).clamp(0, slots - 1),
+                       torch.zeros_like(k64))
+    nv = len(vecs)
+    idx = (slot[:, None] * nv + torch.arange(nv, device=dev)).reshape(-1)
+    src = torch.ones(idx.numel(), dtype=torch.int64, device=dev)
+    flat = torch.zeros(slots * nv, dtype=torch.int64, device=dev)
+    other = JM.AGG_TABLE_GLOBAL if slots * nv <= JM.AGG_SHARED_WORDS \
+        else None
+    other_ms = None if other is None else cuda_ms(
+        lambda: originals["agg_table"](key, vecs, nr, kmin, slots, other))
+    out.append(row(
+        "agg_table (K24, scatter_agg_table)",
+        "trino_tpu_torch/csrc/join_mxu.cu",
+        "trino_tpu/ops/join_mxu.py:149", launches["agg_table"],
+        lambda: originals["agg_table"](key, vecs, nr, kmin, slots),
+        lambda: JM.agg_table_plain(key, vecs, nr, kmin, slots),
+        # the key and vector columns read once, the table written once
+        col_bytes([key], n) + vec_bytes(vecs, n) + 8 * slots * nv,
+        lambda: flat.scatter_add_(0, idx, src),
+        "one scatter_add_ of every (row, vector) contribution",
+        f"build: cap {key[0].numel()}, {n} live rows, {nv} vectors, "
+        f"{slots} slots" + ("" if other_ms is None else
+                            f"; the global-atomics mode at this call "
+                            f"{other_ms:.4f} ms"), err))
+
+    # K25 at its largest call (rows x outputs)
+    pkey, pnr, table, kmin, outs = cap.calls[("agg_lookup_cuda", "ds")][1]
+    n = int(pnr)
+    got, glive = originals["agg_lookup"](pkey, pnr, table, kmin, outs)
+    want, wlive = JM.agg_lookup_plain(pkey, pnr, table, kmin, outs)
+    if not torch.equal(glive, wlive) or not all(
+            same_bits(x, y) for x, y in zip(got, want)):
+        fail("K25 differs from its twin at the main path's inputs")
+    k64 = pkey[0].to(torch.int64) if not pkey[0].is_floating_point() \
+        else pkey[0].to(torch.float64).view(torch.int64)
+    rows_idx = (k64 - kmin).clamp(0, table.shape[0] - 1)
+    out.append(row(
+        "agg_lookup (K25, agg_join_lookup)",
+        "trino_tpu_torch/csrc/join_mxu.cu", "trino_tpu/ops/join_mxu.py:218",
+        launches["agg_lookup"],
+        lambda: originals["agg_lookup"](pkey, pnr, table, kmin, outs),
+        lambda: JM.agg_lookup_plain(pkey, pnr, table, kmin, outs),
+        # the key and probe value columns read once, the table once, every
+        # output and the live mask written once
+        col_bytes([pkey], n) + col_bytes([(v, m) for _, _, v, m in outs
+                                          if v is not None], n)
+        + table.numel() * 8 + (8 * len(outs) + 1) * n,
+        lambda: table.index_select(0, rows_idx),
+        "index_select of each row's table row",
+        f"probe: cap {pkey[0].numel()}, {n} live rows, {len(outs)} outputs, "
+        f"table {tuple(table.shape)}", 0.0))
+
+    # K26 at its largest call
+    values, valid, nr = cap.calls[("key_bounds_triton", "ds")][1]
+    n = int(nr)
+    if not torch.equal(originals["key_bounds"](values, valid, nr),
+                       JM.key_bounds_plain(values, valid, nr)):
+        fail("K26 differs from its twin at the main path's inputs")
+    out.append(row(
+        "key_bounds (K26, key_bounds)", "trino_tpu_torch/ops/join_mxu.py",
+        "trino_tpu/ops/join_mxu.py:201", launches["key_bounds"],
+        lambda: originals["key_bounds"](values, valid, nr),
+        lambda: JM.key_bounds_plain(values, valid, nr),
+        col_bytes([(values, valid)], n) + 40,
+        lambda: torch.aminmax(values[:n]), "torch.aminmax of the live keys",
+        f"build key: cap {values.numel()}, {n} live rows, {values.dtype}",
+        0.0, route="triton"))
+
+    # K27 at its largest call
+    helpers, = cap.calls[("agg_post_triton", "ds")][1]
+    n = helpers[0].numel()
+    if not all(torch.equal(x, y) for x, y in zip(
+            originals["agg_post"](helpers), JM.agg_post_plain(helpers))):
+        fail("K27 differs from its twin at the main path's inputs")
+    out.append(row(
+        "agg_post (K27, agg_join_post)", "trino_tpu_torch/ops/join_mxu.py",
+        "trino_tpu/ops/join_mxu.py:287", launches["agg_post"],
+        lambda: originals["agg_post"](helpers),
+        lambda: JM.agg_post_plain(helpers), 9 * n * len(helpers), None,
+        "none (a mask per helper; no single PyTorch call)",
+        f"aggregated page: cap {n}, {len(helpers)} helpers", 0.0,
+        route="triton"))
     return out
 
 
@@ -3674,7 +4265,14 @@ def kernel_rows_mxu_gen(cap: Capture, originals, launches, k13, dev, card):
         if not n_launches:
             say(f"[kernel] {name}: no launch on the main path")
             continue
-        args = cap.calls[(f"{k}_cuda:mxu", "sf1")][1]
+        call = cap.calls.get((f"{k}_cuda:mxu", "sf1"))
+        if call is None:
+            # launched only where calls are not kept (the TPC-DS runs:
+            # q72's router variant sends its duplicate builds to mxu)
+            say(f"[kernel] {name}: {n_launches} launches on the main path, "
+                f"none in an sf1 TPC-H run, so not timed")
+            continue
+        args = call[1]
         pcols, bcols, pnr, prep = args[:4]
         rest = args[4:]
         pn = int(pnr)

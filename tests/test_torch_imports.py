@@ -53,7 +53,8 @@ def test_inventory_covers_the_slice():
                 "trino_tpu_torch/exec/spill.py",
                 "trino_tpu_torch/exec/memory.py",
                 "trino_tpu_torch/exec/adaptive.py",
-                "trino_tpu_torch/ops/window.py", "chip_smoke.py"):
+                "trino_tpu_torch/ops/window.py",
+                "trino_tpu_torch/connector/tpcds.py", "chip_smoke.py"):
         assert rel in files
     # every CUDA source native.py builds is in the package, and no source
     # of csrc/ is left out of the build
@@ -92,14 +93,15 @@ _BLOCKED_RUN = textwrap.dedent("""
     print([j["route"] for j in runner.last_joins])
     assert not any(m.split(".")[0] in ("jax", "trino_tpu")
                    for m in sys.modules), "reference module loaded"
-    print(rows)
+    print(sorted(rows, key=repr) if sys.argv[3] == "sorted" else rows)
 """)
 
 
-def _run_blocked(name: str, session=None) -> list:
+def _run_blocked(name: str, session=None, ordered: bool = True) -> list:
     """Run one TPC-H query (or SQL) through the port in a process where jax
     and trino_tpu cannot be imported, under `session` properties; its rows
-    must be the reference's. Returns the port's join routes."""
+    must be the reference's (as sorted lists unless `ordered`). Returns
+    the port's join routes."""
     import json
     from tpch_sql import QUERIES
     sql = QUERIES[name][0] if name in QUERIES else name
@@ -107,7 +109,8 @@ def _run_blocked(name: str, session=None) -> list:
     env = dict(os.environ)
     env["PYTHONPATH"] = str(_REPO)
     out = subprocess.run([sys.executable, "-c", _BLOCKED_RUN, sql,
-                          json.dumps(session)],
+                          json.dumps(session),
+                          "ordered" if ordered else "sorted"],
                          cwd=str(_REPO), env=env, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
@@ -117,7 +120,7 @@ def _run_blocked(name: str, session=None) -> list:
         ref.session.set(k, v)
     want = ref.execute(sql).rows
     *_, routes, rows = out.stdout.strip().splitlines()
-    assert rows == str(want)
+    assert rows == str(want if ordered else sorted(want, key=repr))
     return routes
 
 
@@ -178,3 +181,23 @@ def test_window_rollup_union_run_with_jax_and_reference_unimportable():
         "PRECEDING AND 1 FOLLOWING) FROM (SELECT name, grouping(name) AS g, "
         "count(*) AS s FROM (SELECT n_name AS name FROM nation UNION ALL "
         "SELECT r_name FROM region) u GROUP BY ROLLUP (name)) t")
+
+
+def test_tpcds_and_fused_join_run_with_jax_and_reference_unimportable():
+    """The TPC-DS connector (q42 over tpcds.tiny) and the fused
+    aggregating join (G1: K24-K27's twins) import nothing of JAX
+    either."""
+    _run_blocked(
+        "SELECT d_year, i_category_id, i_category, sum(ss_ext_sales_price) "
+        "FROM tpcds.tiny.date_dim, tpcds.tiny.store_sales, tpcds.tiny.item "
+        "WHERE d_date_sk = ss_sold_date_sk AND ss_item_sk = i_item_sk "
+        "AND i_manufact_id > 500 AND d_year = 2000 AND d_moy = 11 "
+        "GROUP BY d_year, i_category_id, i_category "
+        "ORDER BY 4 DESC, d_year, i_category_id, i_category LIMIT 100")
+    routes = _run_blocked(
+        "SELECT ss_sold_date_sk, count(*), sum(ss_quantity), "
+        "sum(s_number_employees), count(s_store_name) "
+        "FROM tpcds.tiny.store_sales, tpcds.tiny.store "
+        "WHERE ss_store_sk = s_store_sk GROUP BY ss_sold_date_sk",
+        ordered=False)
+    assert "mxu-agg" in routes

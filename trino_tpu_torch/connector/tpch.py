@@ -313,17 +313,13 @@ def drop_cached_columns(device=None, host_chunks: bool = False) -> None:
             _HOST_CHUNK_CACHE_USED = 0
 
 
-def _staged_column(table: str, sf: float, name: str, typ: T.Type,
-                   off: int, hi: int, page_capacity: int,
-                   device, device_gen: bool = True) -> Column:
-    """Generate + pad + stage one column slice to `device`, once per
-    (table, sf, column, slice, capacity) and device, LRU-evicted under a
-    byte budget: on the device itself when `device_gen` and tpch_dev
-    supports the column, else with NumPy through pinned memory. TPC-H data
-    is immutable generator output, so re-staging identical bytes on every
-    execution would only re-measure PCIe."""
+def device_cached(key: tuple, device, build) -> Column:
+    """The staged column under `key` on `device`, built by `build()` on a
+    miss and kept in the device's LRU under its byte budget (a column
+    larger than the whole budget is never cached). Generator output is
+    immutable, so re-staging identical bytes on every execution would only
+    re-measure PCIe."""
     dev = str(device)
-    key = (table, round(sf * 1000), name, off, hi, page_capacity)
     with _CACHE_LOCK:
         lru = _DEVICE_COL_CACHE.setdefault(dev, collections.OrderedDict())
         _DEVICE_COL_CACHE_USED.setdefault(dev, 0)
@@ -331,32 +327,7 @@ def _staged_column(table: str, sf: float, name: str, typ: T.Type,
         if col is not None:
             lru.move_to_end(key)
             return col
-    hkey = (table, round(sf * 1000), name, off, hi)
-    if device_gen and tpch_dev.supported(table, name):
-        # generated ON the device: no host hashing, no column transfer
-        dtype = torch.int32 if T.is_string(typ) else typ.dtype
-        values = tpch_dev.generate(table, sf, name, off, hi, page_capacity,
-                                   dtype, device)
-        col = Column(values, None, typ,
-                     table_dictionary(table, sf, name)
-                     if T.is_string(typ) else None)
-    elif T.is_string(typ):
-        d = table_dictionary(table, sf, name)
-        if G.string_kind(table, name) == "pooled":
-            codes = _host_cached(
-                hkey, lambda: G.codes_chunk(table, sf, name, off, hi))
-        else:
-            codes = _host_cached(
-                hkey, lambda: d.encode(
-                    G.object_chunk(table, sf, name, off, hi)))
-        col = Column.from_numpy(pad_to_capacity(codes, page_capacity, 0),
-                                typ, dictionary=d, device=device)
-    else:
-        arr = pad_to_capacity(
-            _host_cached(hkey, lambda: np.asarray(
-                G.numeric_chunk(table, sf, name, off, hi),
-                T.to_numpy_dtype(typ))), page_capacity, 0)
-        col = Column.from_numpy(arr, typ, device=device)
+    col = build()
     nbytes = col.nbytes
     with _CACHE_LOCK:
         if nbytes > _DEVICE_COL_CACHE_BYTES:
@@ -366,6 +337,49 @@ def _staged_column(table: str, sf: float, name: str, typ: T.Type,
             lru[key] = col
             _DEVICE_COL_CACHE_USED[dev] += nbytes
     return col
+
+
+def _staged_column(table: str, sf: float, name: str, typ: T.Type,
+                   off: int, hi: int, page_capacity: int,
+                   device, device_gen: bool = True) -> Column:
+    """Generate + pad + stage one column slice to `device`, once per
+    (table, sf, column, slice, capacity) and device (device_cached): on
+    the device itself when `device_gen` and tpch_dev supports the column,
+    else with NumPy through pinned memory."""
+    return device_cached(
+        (table, round(sf * 1000), name, off, hi, page_capacity), device,
+        lambda: _generate_column(table, sf, name, typ, off, hi,
+                                 page_capacity, device, device_gen))
+
+
+def _generate_column(table: str, sf: float, name: str, typ: T.Type,
+                     off: int, hi: int, page_capacity: int, device,
+                     device_gen: bool) -> Column:
+    hkey = (table, round(sf * 1000), name, off, hi)
+    if device_gen and tpch_dev.supported(table, name):
+        # generated ON the device: no host hashing, no column transfer
+        dtype = torch.int32 if T.is_string(typ) else typ.dtype
+        values = tpch_dev.generate(table, sf, name, off, hi, page_capacity,
+                                   dtype, device)
+        return Column(values, None, typ,
+                      table_dictionary(table, sf, name)
+                      if T.is_string(typ) else None)
+    if T.is_string(typ):
+        d = table_dictionary(table, sf, name)
+        if G.string_kind(table, name) == "pooled":
+            codes = _host_cached(
+                hkey, lambda: G.codes_chunk(table, sf, name, off, hi))
+        else:
+            codes = _host_cached(
+                hkey, lambda: d.encode(
+                    G.object_chunk(table, sf, name, off, hi)))
+        return Column.from_numpy(pad_to_capacity(codes, page_capacity, 0),
+                                 typ, dictionary=d, device=device)
+    arr = pad_to_capacity(
+        _host_cached(hkey, lambda: np.asarray(
+            G.numeric_chunk(table, sf, name, off, hi),
+            T.to_numpy_dtype(typ))), page_capacity, 0)
+    return Column.from_numpy(arr, typ, device=device)
 
 
 class TpchPageSource(ConnectorPageSource):

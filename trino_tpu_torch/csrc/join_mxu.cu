@@ -24,6 +24,7 @@
 // and the table (8 bytes a slot) written once; the build is at most a few
 // thousand rows on the main path (nation 25, region 5; the span is at most
 // mxu_join_max_slots), so a launch is latency, not bandwidth.
+// K24 and K25: the aggregating join (B11b), below.
 #include "common.cuh"
 
 namespace {
@@ -97,5 +98,338 @@ TT_EXPORT int mxu_table(const void* table, int64_t nkeys, int64_t cap,
         static_cast<const int64_t*>(slot_keys),
         static_cast<const int32_t*>(slot_rows), slots,
         static_cast<const int32_t*>(slot_start), tab, size);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------------ K24
+//
+// Replaces trino_tpu/ops/join_mxu.py scatter_agg_table (:149): per build
+// row in the key span, one scatter-add per vector into the (slots x C)
+// table — the pair count, the sum of a build column over its valid values,
+// the count of those values — then the distinct occupied slots and the
+// magnitude gate. The reference accumulates in float64 (its CPU) or
+// float32 (gated at 2^24); here counts and integer sums are int64 atomics
+// (exact, wrapping like int64) and float sums float64 atomics, so the
+// results are the reference CPU's and only the order of float additions
+// differs.
+//
+//   agg_table_kernel — one thread per build row, 64-bit atomicAdd into the
+//     global table (mode 1).
+//   agg_table_shared_kernel — the same rows added into a per-block copy of
+//     the table in shared memory, merged into the global table with one
+//     atomic per non-zero entry at the block's end (mode 2): few slots
+//     under many build rows (G3: 1.5M rows on 256 slots) serialise global
+//     atomics on the same few addresses, the block copy takes them on the
+//     SM instead.
+//   agg_finish_kernel — one block: distinct occupied slots, live rows and
+//     mag_ok (every integer sum inside +-2^53, and the integer values'
+//     absolute total, summed per block in float64, under 2^63, so no int64
+//     sum wrapped).
+//
+// Bound on this card: bytes — the build's key and vector columns read once,
+// the table written once; the atomics on a few hot slots bound it in
+// practice (G3), which the shared mode addresses.
+//
+// ------------------------------------------------------------------ K25
+//
+// Replaces trino_tpu/ops/join_mxu.py agg_join_lookup (:218) with its
+// blocked one-hot matmul blocked_lookup (:114): per probe row the key's
+// table row (zeros outside the span), its pair count cnt, and each derived
+// column — cnt, cnt where the probe value is valid, value * cnt (int64,
+// wrapping, or float64), or a table column — plus the live mask (row live,
+// key not NULL, cnt > 0) that K1 compacts by. A table of at most 6,144
+// words (48 KB) is staged in each block's shared memory, as K13 stages its
+// table; a larger one (G2 at sf1: 32,768 slots x 4 = 1 MiB) is read where
+// it lies, through L2. Bound on this card: bytes — the probe key and value
+// columns read once, every derived column and the mask written once.
+namespace {
+enum Vec { VEC_CNT = 0, VEC_SUM_I = 1, VEC_SUM_F = 2, VEC_VALIDCNT = 3 };
+enum Op {
+  OP_PAIRS = 0, OP_CNTP = 1, OP_SUMP_I = 2, OP_SUMP_F = 3, OP_TABLE_I = 4,
+  OP_TABLE_F = 5
+};
+constexpr int VEC_FIELDS = 5;   // kind, values ptr, valid ptr, esz, is_float
+constexpr int OUT_FIELDS = 7;   // op, table column, values, valid, esz,
+                                // is_float, out ptr
+constexpr int64_t SMEM_WORDS = 6144;   // 48 KB of 8-byte table words
+constexpr int64_t SUB_WORDS = 6080;    // K24's copy, beside 256 B of its own
+constexpr int SHARED_BLOCKS = 264;     // two blocks per SM in mode 2
+constexpr long long EXACT = 1LL << 53; // MAX_EXACT_INT_SUM
+enum Info { INFO_DISTINCT = 0, INFO_MAG_OK = 1, INFO_LIVE = 2, INFO_ABSUM = 3 };
+
+__device__ __forceinline__ int64_t clamp_rows(const int32_t* num_rows,
+                                              int64_t cap) {
+  const int64_t n = *num_rows;
+  return n < 0 ? 0 : (n > cap ? cap : n);
+}
+
+__device__ __forceinline__ double block_sum_double(double v, double* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  double total = 0;
+  if (threadIdx.x == 0)
+    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) total += red[w];
+  return total;  // valid in thread 0
+}
+
+// One build row's vectors added at `row` (global or shared table); returns
+// |x| summed over its integer-sum values.
+__device__ __forceinline__ double add_row(const int64_t* vecs, int64_t nvec,
+                                          int64_t i,
+                                          unsigned long long* row) {
+  double absum = 0;
+  for (int64_t q = 0; q < nvec; ++q) {
+    const int64_t* v = vecs + VEC_FIELDS * q;
+    const int kind = (int)v[0];
+    if (kind == VEC_CNT) {
+      atomicAdd(&row[q], 1ULL);
+      continue;
+    }
+    const uint8_t* valid = reinterpret_cast<const uint8_t*>(v[2]);
+    if (valid != nullptr && !valid[i]) continue;
+    const void* p = reinterpret_cast<const void*>(v[1]);
+    if (kind == VEC_VALIDCNT) {
+      atomicAdd(&row[q], 1ULL);
+    } else if (kind == VEC_SUM_I) {
+      const int64_t x = load_int(p, i, (int)v[3]);
+      atomicAdd(&row[q], (unsigned long long)x);
+      absum += fabs((double)x);
+    } else {
+      atomicAdd(reinterpret_cast<double*>(&row[q]),
+                load_float(p, i, (int)v[3]));
+    }
+  }
+  return absum;
+}
+
+__global__ void agg_zero_kernel(unsigned long long* __restrict__ table,
+                                int64_t words, int64_t* __restrict__ info) {
+  for (int64_t j = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+       j < words; j += (int64_t)gridDim.x * blockDim.x)
+    table[j] = 0;
+  if (blockIdx.x == 0 && threadIdx.x == 0) info[INFO_ABSUM] = 0;  // +0.0
+}
+
+__global__ void agg_table_kernel(const __grid_constant__ Table tbl,
+                                 int64_t nvec, int64_t cap,
+                                 const int32_t* __restrict__ num_rows,
+                                 const int64_t* __restrict__ kmin_p,
+                                 unsigned long long* __restrict__ table,
+                                 int64_t slots, int64_t* __restrict__ info) {
+  __shared__ double red[32];
+  const int64_t n = clamp_rows(num_rows, cap);
+  const uint64_t kmin = (uint64_t)*kmin_p;
+  double absum = 0;
+  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    bool null;
+    const uint64_t key = join_key(tbl.v, 1, i, &null);
+    const int64_t raw = (int64_t)(key - kmin);
+    if (null || raw < 0 || raw >= slots) continue;
+    absum += add_row(tbl.v + KEY_FIELDS, nvec, i, table + raw * nvec);
+  }
+  const double total = block_sum_double(absum, red);
+  if (threadIdx.x == 0 && total != 0)
+    atomicAdd(reinterpret_cast<double*>(&info[INFO_ABSUM]), total);
+}
+
+__global__ void agg_table_shared_kernel(const __grid_constant__ Table tbl,
+                                        int64_t nvec, int64_t cap,
+                                        const int32_t* __restrict__ num_rows,
+                                        const int64_t* __restrict__ kmin_p,
+                                        unsigned long long* __restrict__ table,
+                                        int64_t slots,
+                                        int64_t* __restrict__ info) {
+  extern __shared__ unsigned long long sub[];
+  __shared__ double red[32];
+  const int64_t words = slots * nvec;
+  for (int64_t j = threadIdx.x; j < words; j += blockDim.x) sub[j] = 0;
+  __syncthreads();
+  const int64_t n = clamp_rows(num_rows, cap);
+  const uint64_t kmin = (uint64_t)*kmin_p;
+  double absum = 0;
+  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    bool null;
+    const uint64_t key = join_key(tbl.v, 1, i, &null);
+    const int64_t raw = (int64_t)(key - kmin);
+    if (null || raw < 0 || raw >= slots) continue;
+    absum += add_row(tbl.v + KEY_FIELDS, nvec, i, sub + raw * nvec);
+  }
+  const double total = block_sum_double(absum, red);  // syncs the block
+  const int64_t* vecs = tbl.v + KEY_FIELDS;
+  for (int64_t j = threadIdx.x; j < words; j += blockDim.x) {
+    const unsigned long long v = sub[j];
+    if (v == 0) continue;
+    if (vecs[VEC_FIELDS * (j % nvec)] == VEC_SUM_F)
+      atomicAdd(reinterpret_cast<double*>(&table[j]), __longlong_as_double(v));
+    else
+      atomicAdd(&table[j], v);
+  }
+  if (threadIdx.x == 0 && total != 0)
+    atomicAdd(reinterpret_cast<double*>(&info[INFO_ABSUM]), total);
+}
+
+__global__ void agg_finish_kernel(const __grid_constant__ Table tbl,
+                                  int64_t nvec,
+                                  const long long* __restrict__ table,
+                                  int64_t slots, int64_t* __restrict__ info) {
+  __shared__ unsigned long long red[2][32];
+  const int64_t* vecs = tbl.v + KEY_FIELDS;
+  unsigned long long distinct = 0, live = 0;
+  int bad = 0;
+  for (int64_t s = threadIdx.x; s < slots; s += blockDim.x) {
+    const long long c = table[s * nvec];
+    distinct += c > 0;
+    live += (unsigned long long)c;
+    for (int64_t q = 1; q < nvec; ++q) {
+      if (vecs[VEC_FIELDS * q] != VEC_SUM_I) continue;
+      const long long x = table[s * nvec + q];
+      if (x <= -EXACT || x >= EXACT) bad = 1;
+    }
+  }
+  bad = __syncthreads_or(bad);
+  distinct = warp_sum(distinct);
+  live = warp_sum(live);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) {
+    red[0][warp] = distinct;
+    red[1][warp] = live;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned long long d = 0, l = 0;
+    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
+      d += red[0][w];
+      l += red[1][w];
+    }
+    const double absum = __longlong_as_double(info[INFO_ABSUM]);
+    info[INFO_DISTINCT] = (int64_t)d;
+    info[INFO_MAG_OK] = !bad && absum < 9223372036854775808.0;
+    info[INFO_LIVE] = (int64_t)l;
+  }
+}
+
+__global__ void agg_lookup_kernel(const __grid_constant__ Table tbl,
+                                  int64_t nout, int64_t cap,
+                                  const int32_t* __restrict__ num_rows,
+                                  const long long* __restrict__ table,
+                                  int64_t slots, int64_t ncols,
+                                  const int64_t* __restrict__ kmin_p,
+                                  bool* __restrict__ live_out) {
+  extern __shared__ long long stab[];
+  const long long* t = table;
+  const int64_t words = slots * ncols;
+  if (words <= SMEM_WORDS) {
+    for (int64_t j = threadIdx.x; j < words; j += blockDim.x)
+      stab[j] = table[j];
+    __syncthreads();
+    t = stab;
+  }
+  const int64_t n = clamp_rows(num_rows, cap);
+  const uint64_t kmin = (uint64_t)*kmin_p;
+  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < cap;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    // every row is looked up, as the reference's matmul looks up every row;
+    // liveness only decides what K1 keeps
+    bool null;
+    const uint64_t key = join_key(tbl.v, 1, i, &null);
+    const int64_t raw = (int64_t)(key - kmin);
+    const bool inb = raw >= 0 && raw < slots;
+    const long long* row = t + (inb ? raw : 0) * ncols;
+    const long long cnt = inb ? row[0] : 0;
+    live_out[i] = i < n && !null && cnt > 0;
+    for (int64_t q = 0; q < nout; ++q) {
+      const int64_t* o = tbl.v + KEY_FIELDS + OUT_FIELDS * q;
+      const void* p = reinterpret_cast<const void*>(o[2]);
+      long long* out = reinterpret_cast<long long*>(o[6]);
+      switch ((int)o[0]) {
+        case OP_PAIRS:
+          out[i] = cnt;
+          break;
+        case OP_CNTP: {
+          const uint8_t* valid = reinterpret_cast<const uint8_t*>(o[3]);
+          out[i] = (valid == nullptr || valid[i]) ? cnt : 0;
+          break;
+        }
+        case OP_SUMP_I:
+          out[i] = (long long)((unsigned long long)load_int(p, i, (int)o[4]) *
+                               (unsigned long long)cnt);
+          break;
+        case OP_SUMP_F:
+          reinterpret_cast<double*>(out)[i] =
+              load_float(p, i, (int)o[4]) * (double)cnt;
+          break;
+        default:  // OP_TABLE_I, OP_TABLE_F: the word, float64 bits as they are
+          out[i] = inb ? row[o[1]] : 0;
+          break;
+      }
+    }
+  }
+}
+}  // namespace
+
+// table: int64 HOST array: the key column's KEY_FIELDS words, then
+// VEC_FIELDS words per vector (kind, values ptr or 0, valid ptr or 0,
+// element size, is_float), the first VEC_CNT; num_rows: int32 scalar; kmin:
+// one int64 word on the device; out: int64[slots][nvec] (float sums as
+// float64 bits); info: int64[4] (distinct, mag_ok, live rows, the absolute
+// total's float64 bits); mode 1: global atomics, 0 (or 2): the per-block
+// shared copy when the table fits SUB_WORDS, else global atomics. Returns
+// cudaGetLastError(), or -1 when the table exceeds TABLE_MAX.
+TT_EXPORT int agg_table(const void* table, int64_t nvec, int64_t cap,
+                        const void* num_rows, const void* kmin, void* out,
+                        int64_t slots, void* info, int64_t mode,
+                        void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  thread_local static Table t;  // each launch copies it as a parameter
+  if (nvec < 1 || load_table(table, KEY_FIELDS + VEC_FIELDS * nvec, &t))
+    return -1;
+  auto* tab = static_cast<unsigned long long*>(out);
+  auto* inf = static_cast<int64_t*>(info);
+  const int64_t words = slots * nvec;
+  agg_zero_kernel<<<grid_for(words), THREADS, 0, s>>>(tab, words, inf);
+  const bool shared = words <= SUB_WORDS && mode != 1;
+  if (cap > 0) {
+    const auto* nr = static_cast<const int32_t*>(num_rows);
+    const auto* km = static_cast<const int64_t*>(kmin);
+    if (shared) {
+      unsigned blocks = grid_for(cap);
+      if (blocks > SHARED_BLOCKS) blocks = SHARED_BLOCKS;
+      agg_table_shared_kernel<<<blocks, THREADS, (size_t)(8 * words), s>>>(
+          t, nvec, cap, nr, km, tab, slots, inf);
+    } else {
+      agg_table_kernel<<<grid_for(cap), THREADS, 0, s>>>(t, nvec, cap, nr,
+                                                          km, tab, slots, inf);
+    }
+  }
+  agg_finish_kernel<<<1, 1024, 0, s>>>(
+      t, nvec, reinterpret_cast<const long long*>(tab), slots, inf);
+  return (int)cudaGetLastError();
+}
+
+// table: int64 HOST array: the probe key column's KEY_FIELDS words, then
+// OUT_FIELDS words per output column (op, table column, values ptr or 0,
+// valid ptr or 0, element size, is_float, out ptr: int64 or float64
+// [cap]); tab: K24's int64[slots][ncols]; kmin: one int64 word on the
+// device; live: bool[cap]. Returns cudaGetLastError(), or -1 when the
+// table exceeds TABLE_MAX.
+TT_EXPORT int agg_lookup(const void* table, int64_t nout, int64_t cap,
+                         const void* num_rows, const void* tab, int64_t slots,
+                         int64_t ncols, const void* kmin, void* live,
+                         void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  thread_local static Table t;  // each launch copies it as a parameter
+  if (load_table(table, KEY_FIELDS + OUT_FIELDS * nout, &t)) return -1;
+  const int64_t words = slots * ncols;
+  const size_t smem = words <= SMEM_WORDS ? (size_t)(8 * words) : 0;
+  if (cap > 0)
+    agg_lookup_kernel<<<grid_for(cap), THREADS, smem, s>>>(
+        t, nout, cap, static_cast<const int32_t*>(num_rows),
+        static_cast<const long long*>(tab), slots, ncols,
+        static_cast<const int64_t*>(kmin), static_cast<bool*>(live));
   return (int)cudaGetLastError();
 }

@@ -43,10 +43,18 @@ back to chunked builds). The aggregation compacts a partial buffer past
 `agg_spill_threshold_bytes`, spills groups that do not collapse to host
 hash partitions and walks the adaptive modes (full, shrunken, bypass:
 K19's per-row states); the sort spills range partitions of its leading
-key. The aggregating matrix-unit join `_mxu_agg_join` (B11b: no TPC-H
-query enters it) is not ported; the low-memory killer, the memory-pressure
-re-run, fault injection and cancellation are ROADMAP A.6 (`_fault_site`
-and `_checkpoint` are their hooks).
+key. The low-memory killer, the memory-pressure re-run, fault injection
+and cancellation are ROADMAP A.6 (`_fault_site` and `_checkpoint` are
+their hooks).
+
+The aggregating join (`_mxu_agg_join`, ops/join_mxu.py K24-K27): a SINGLE
+COUNT/SUM aggregation (or a DISTINCT projection) directly over a single-
+clause INNER join with probe-side group keys is fused under
+mxu_join_enabled, as the reference's default path does: the build scatters
+to per-key vectors, each probe row reads its key's vector, one SINGLE
+aggregation runs over the probe-sized derived rows (route `mxu-agg`); a
+sparse, over-span, magnitude-unsafe or over-threshold build takes the
+gather join and the normal aggregation.
 
 Every other node raises an ExecutionError naming the ROADMAP item that
 ports it.
@@ -87,20 +95,21 @@ from trino_tpu_torch.ops.join import (
     SPILL_UNIQUE, JoinType, attach_build, attach_build_host,
     build_dense_table, build_dense_table_rows, build_key_bounds, hash_join,
     prepare_build, prepare_build_spilled, prepare_runs, range_prefilter,
-    spilled_dense_probe, spilled_unique_probe, unique_inner_probe,
-    unmatched_build_page, unsigned)
-from trino_tpu_torch.ops.join_mxu import (MAX_EXACT_ROWS,
-                                          build_count_pos_table,
-                                          lookup_flops)
+    spilled_dense_probe, spilled_unique_probe, typed_bounds,
+    unique_inner_probe, unmatched_build_page, unsigned)
+from trino_tpu_torch.ops.join_mxu import (
+    B_HI, B_KMAX, B_KMIN, B_LO, INFO_LIVE, MAX_EXACT_ROWS, agg_join_lookup,
+    agg_join_post, build_count_pos_table, key_bounds, lookup_flops,
+    scatter_agg_table)
 from trino_tpu_torch.ops.window import AGGREGATE, RANKING, WindowSpec, \
     frame_kind, window
 from trino_tpu_torch.page import Column, Dictionary, Page, _to_device, \
     device_concat, gather_rows, row_count, union_dictionaries
 from trino_tpu_torch.planner.nodes import (
-    AggregationNode, FilterNode, GroupIdNode, JoinClause, JoinKind, JoinNode,
-    LimitNode, OffsetNode, OutputNode, PlanNode, ProjectNode, SemiJoinNode,
-    SortNode, Symbol, TableScanNode, TopNNode, UnionNode, ValuesNode,
-    WindowNode)
+    AggregationNode, AggStep, FilterNode, GroupIdNode, JoinClause, JoinKind,
+    JoinNode, LimitNode, OffsetNode, OutputNode, PlanNode, ProjectNode,
+    SemiJoinNode, SortNode, Symbol, TableScanNode, TopNNode, UnionNode,
+    ValuesNode, WindowNode)
 from trino_tpu_torch.planner.optimizer import combine, conjuncts
 
 # pages looked ahead per batched count fetch (the reference's window)
@@ -469,7 +478,13 @@ class LocalExecutionPlanner:
         return self._tight(page, rows)
 
     def _exec_AggregationNode(self, node: AggregationNode) -> PageStream:
-        src = self.execute(node.source)
+        fused = self._mxu_agg_join(node)
+        if fused is not None:
+            return fused
+        return self._agg_over_stream(node, self.execute(node.source))
+
+    def _agg_over_stream(self, node: AggregationNode,
+                         src: PageStream) -> PageStream:
         lay, typ = _layout(src.symbols)
         key_channels = [lay[s.name] for s in node.group_by]
         specs = []
@@ -791,6 +806,287 @@ class LocalExecutionPlanner:
                 cols.append(Column(values, torch.zeros(
                     8, dtype=torch.bool, device=dev), typ, None))
         return Page(tuple(cols), row_count(1, dev))
+
+    # ------------------------------------------- the aggregating join
+
+    # aggregate functions the fused join factors through per-key build
+    # vectors (arXiv 2206.04995's M = A·Bᵀ multiplicities)
+    _MXU_FUSABLE_AGGS = ("count", "sum")
+
+    def _mxu_agg_join(self, node: AggregationNode) -> Optional[PageStream]:
+        """The many-to-many AGGREGATING join (ops/join_mxu.py K24-K27):
+        when a SINGLE aggregation consumes an INNER single-clause equi-join
+        directly (optionally through a pure column-select projection),
+        every group key is probe-side, and every aggregate is a factorable
+        COUNT/SUM over one side's column, the join's match multiplicities
+        feed SUM/COUNT directly without materializing the cross product:
+        the build side scatters to per-key [pair count, sum of w, #valid w]
+        vectors, each probe row looks up its key's vector, and one standard
+        SINGLE aggregation over the derived (probe-sized) rows gives the
+        exact result. DISTINCT projections over a join (group-by, no
+        aggregates) take the same path. Returns None when the plan shape is
+        ineligible; what declines at run time (sparse or over-span keys,
+        an unsafe magnitude, an over-threshold build) takes the gather
+        join and the normal aggregation over its output."""
+        if node.step != AggStep.SINGLE:
+            return None
+        if not bool(self.session.get("mxu_join_enabled")):
+            return None
+        source = node.source
+        proj = None
+        if isinstance(source, ProjectNode) and all(
+                isinstance(e, SymbolRef) for _, e in source.assignments):
+            proj = source
+            source = source.source
+        if not isinstance(source, JoinNode):
+            return None
+        join = source
+        if join.kind != JoinKind.INNER or len(join.criteria) != 1 \
+                or join.filter is not None:
+            return None
+        pmap = {s.name: i for i, s in enumerate(join.left.outputs)}
+        bmap = {s.name: i for i, s in enumerate(join.right.outputs)}
+        rename = None if proj is None else \
+            {s.name: e.name for s, e in proj.assignments}
+
+        def resolve(name):
+            if rename is not None:
+                name = rename.get(name)
+                if name is None:
+                    return None
+            if name in pmap:
+                return ("p", pmap[name])
+            if name in bmap:
+                return ("b", bmap[name])
+            return None
+
+        group_chs = []
+        for s in node.group_by:
+            r = resolve(s.name)
+            if r is None or r[0] != "p":
+                return None     # group keys must be probe-side
+            group_chs.append(r[1])
+        ptypes = [s.type for s in join.left.outputs]
+        btypes = [s.type for s in join.right.outputs]
+
+        def num_kind(t):
+            try:
+                dt = np.dtype(T.to_numpy_dtype(t))
+            except Exception:
+                return None
+            if dt.kind in ("i", "u"):
+                return "i"
+            if dt.kind == "f" and dt.itemsize == 8:
+                return "f"
+            return None
+
+        vec_specs = [("cnt",)]
+
+        def vec(spec):
+            if spec not in vec_specs:
+                vec_specs.append(spec)
+            return vec_specs.index(spec)
+
+        derive: List[tuple] = []
+        helpers: List[int] = []
+        out_types: List = []
+        for out_sym, call in node.aggregations:
+            if call.distinct or call.filter is not None \
+                    or call.name not in self._MXU_FUSABLE_AGGS \
+                    or len(call.args) > 1:
+                return None
+            if not call.args:
+                if call.name != "count":
+                    return None
+                derive.append(("pairs",))
+                out_types.append(out_sym.type)
+                continue
+            arg = call.args[0]
+            if not isinstance(arg, SymbolRef):
+                return None
+            r = resolve(arg.name)
+            if r is None:
+                return None
+            side, ch = r
+            in_t = ptypes[ch] if side == "p" else btypes[ch]
+            if call.name == "count":
+                if side == "p":
+                    derive.append(("cntp", ch))
+                else:
+                    derive.append(("cntb", vec(("validcnt", ch))))
+            else:
+                kind = num_kind(in_t)
+                if kind is None or num_kind(out_sym.type) != kind:
+                    return None
+                if side == "p":
+                    derive.append(("sump", ch, kind))
+                else:
+                    v = vec(("sum", ch, kind))
+                    hvec = vec(("validcnt", ch))
+                    if hvec not in helpers:
+                        helpers.append(hvec)
+                    derive.append(("sumb", v, kind, helpers.index(hvec)))
+            out_types.append(out_sym.type)
+        clause = join.criteria[0]
+        if clause.left.name not in pmap or clause.right.name not in bmap:
+            return None
+        return PageStream(
+            self._mxu_agg_join_run(
+                node, join, proj, tuple(group_chs), tuple(derive),
+                tuple(helpers), tuple(vec_specs), tuple(out_types),
+                pmap[clause.left.name], bmap[clause.right.name]),
+            node.outputs)
+
+    def _mxu_agg_join_run(self, node, join, proj, group_chs, derive,
+                          helpers, vec_specs, out_types, pkey_ch,
+                          bkey_ch) -> Iterator[Page]:
+        """Drive the fused aggregating join (see _mxu_agg_join): K26's key
+        bounds, K24's table, per probe page K25 and K1, ONE standard
+        SINGLE aggregation over the derived rows, K27's SQL NULLs. Keeps
+        the gather path's contracts: a build that overflows its
+        reservation mid-collect streams into the partitioned join, a build
+        past join_spill_threshold_bytes takes the spilled join, and
+        sparse, over-span or magnitude-unsafe keys take the gather join;
+        each then feeds the normal aggregation."""
+        probe_stream = self.execute(join.left)
+        build_stream = self.execute(join.right)
+        build_iter = None
+        if bool(self.session.get("spill_enabled")) \
+                and int(self.session.get("spill_partition_count")) > 1:
+            build_page, build_iter = \
+                self._collect_build_resilient(build_stream)
+        else:
+            build_page = self._collect(build_stream)
+        handed_off = False
+
+        def gather_fallback(bp, bit=None):
+            # the one gather-fallback shape, shared by every run-time
+            # decline: _join_with_build owns the collected page or the
+            # streaming iterator, then the normal aggregation runs over its
+            # (re-projected) output
+            jstream = self._join_with_build(
+                join, probe_stream, build_stream.symbols, bp, bit)
+            if proj is not None:
+                jstream = self._select_stream(jstream, proj)
+            return self._agg_over_stream(node, jstream).iter_pages()
+
+        try:
+            if build_iter is not None:
+                # mid-collect memory pressure: the streaming partitioned
+                # join owns the pages; aggregate its output
+                handed_off = True
+                yield from gather_fallback(None, build_iter)
+                return
+            if build_page is None:
+                if not node.group_by:
+                    yield self._empty_global_agg(node)
+                return
+            if bool(self.session.get("spill_enabled")) and \
+                    page_bytes(build_page) > int(self.session.get(
+                        "join_spill_threshold_bytes")):
+                # over-threshold build: the gather path's memory discipline
+                # (the spilled or partitioned join) instead of pinning the
+                # whole side for the scatter
+                handed_off = True
+                yield from gather_fallback(build_page)
+                return
+            bounds = cached_kernel(("mxu-key-bounds", bkey_ch),
+                                   lambda: key_bounds(bkey_ch))(build_page)
+            kmin_d = bounds[B_KMIN]
+            kmin, kmax = (unsigned(x) for x in bounds[:B_KMAX + 1].tolist())
+            span = kmax - kmin + 1 if kmax >= kmin else 0
+            size = 1 << max((span - 1).bit_length(), 7) if span else 0
+            table = None
+            if 0 < span <= int(self.session.get("mxu_join_max_slots")) \
+                    and build_page.capacity < MAX_EXACT_ROWS:
+                table, info = cached_kernel(
+                    ("mxu-agg-table", bkey_ch, vec_specs, size),
+                    lambda: scatter_agg_table(size, vec_specs, bkey_ch))(
+                        build_page, kmin_d)
+                ndistinct, mag_ok, n_live = info[:INFO_LIVE + 1].tolist()
+                if not mag_ok or ndistinct < span * float(self.session.get(
+                        "mxu_join_density_threshold")):
+                    table = None
+            if table is None:
+                # sparse, over-span or magnitude-unsafe build keys: the
+                # gather join and the normal aggregation
+                handed_off = True
+                yield from gather_fallback(build_page)
+                return
+            self.stats["mxu_joins"] += 1
+            # the dynamic filter, as the gather join applies it: the build
+            # key's range prefilters the probe pages (K1's range mode)
+            prefilter = None
+            if self.session.get("enable_dynamic_filtering") and \
+                    not T.is_string(join.left.outputs[pkey_ch].type):
+                pf_op = cached_kernel(("dfrange", pkey_ch),
+                                      lambda: range_prefilter(pkey_ch))
+                prefilter = (pf_op, typed_bounds(
+                    build_page.column(bkey_ch).values.dtype,
+                    bounds[B_LO:B_HI + 1]))
+            aligned = self._align_join_dictionaries(
+                probe_stream, build_page, [pkey_ch], [bkey_ch])
+            lookup_op = cached_kernel(
+                ("mxu-agg-lookup", pkey_ch, group_chs, derive, helpers),
+                lambda: agg_join_lookup(pkey_ch, group_chs, derive,
+                                        helpers))
+            ncols = len(vec_specs)
+            log = {"kind": JoinType.INNER, "route": "mxu-agg",
+                   "slots": size, "vectors": ncols, "build_rows": n_live,
+                   "max_run": None, "probe_rows": 0, "output_rows": 0}
+            self.joins.append(log)
+            derived: List[Page] = []
+            probe_counts: List[torch.Tensor] = []
+            for page in self._coalesce_stream(
+                    aligned, prefilter=prefilter).iter_pages():
+                self._checkpoint()
+                self.stats["mxu_flops"] += lookup_flops(page.capacity, size,
+                                                        ncols)
+                probe_counts.append(page.num_rows)
+                derived.append(lookup_op(page, table, kmin_d))
+            merged, rows = self.merge_counted_rows(derived)
+            if probe_counts:
+                log["probe_rows"] = int(torch.stack(probe_counts).sum())
+            log["output_rows"] = rows
+            if merged is None:
+                if not node.group_by:
+                    yield self._empty_global_agg(node)
+                return
+            nk = len(group_chs)
+
+            def dtyp(d):
+                if d[0] in ("pairs", "cntp", "cntb"):
+                    return T.BIGINT
+                return T.BIGINT if d[2] == "i" else T.DOUBLE
+
+            spec_types = tuple(dtyp(d) for d in derive) \
+                + (T.BIGINT,) * len(helpers)
+            agg_specs = tuple(AggSpec("sum", nk + i, t)
+                              for i, t in enumerate(spec_types))
+            single_op = cached_kernel(
+                ("mxu-agg-single", nk, agg_specs),
+                lambda: hash_aggregate(list(range(nk)), list(agg_specs),
+                                       Step.SINGLE))
+            post_op = cached_kernel(
+                ("mxu-agg-post", nk, derive, len(helpers), out_types),
+                lambda: agg_join_post(nk, derive, len(helpers), out_types))
+            yield post_op(single_op(merged))
+        finally:
+            if not handed_off:
+                self._free_collected(build_page)
+
+    def _select_stream(self, stream: PageStream, proj) -> PageStream:
+        """A pure column-select/rename ProjectNode over a stream (the
+        unwrap _mxu_agg_join performed, applied again on its gather
+        fallback so the aggregation sees its declared layout)."""
+        lay = {s.name: i for i, s in enumerate(stream.symbols)}
+        order = tuple(lay[e.name] for _, e in proj.assignments)
+        return PageStream(
+            stream.pages, tuple(s for s, _ in proj.assignments),
+            stream.pending + ((("select", order),
+                               lambda: lambda p, g, o=order: Page(
+                                   tuple(p.columns[i] for i in o),
+                                   p.num_rows), ()),))
 
     def _exec_GroupIdNode(self, node: GroupIdNode) -> PageStream:
         """Each source page once per grouping set, in set order: keys

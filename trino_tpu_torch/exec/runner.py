@@ -24,7 +24,7 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 
 from trino_tpu_torch import types as T
-from trino_tpu_torch.connector import tpch
+from trino_tpu_torch.connector import tpcds, tpch
 from trino_tpu_torch.connector.spi import CatalogManager
 from trino_tpu_torch.exec.local_planner import (QUERY_COUNTERS,
                                                 LocalExecutionPlanner,
@@ -147,12 +147,17 @@ class LocalQueryRunner:
     @classmethod
     def tpch(cls, schema: str = "tiny", device=None,
              device_gen: Optional[bool] = None) -> "LocalQueryRunner":
-        """Runner over the TPC-H catalog (TpchQueryRunner); `device_gen`
-        False stages every table column from NumPy instead of generating
-        it on the device (default: TRINO_TPU_DEVICE_GEN, on)."""
+        """Runner over the TPC-H and TPC-DS catalogs (TpchQueryRunner;
+        `USE tpcds.<schema>` switches to TPC-DS); `device_gen` False
+        stages every TPC-H column from NumPy instead of generating it on
+        the device (default: TRINO_TPU_DEVICE_GEN, on). TPC-DS is always
+        staged from NumPy, as the reference has no device generator for
+        it."""
         runner = cls(Session(catalog="tpch", schema=schema), device=device)
         runner.catalogs.register(
             "tpch", tpch.create_connector(runner.device, device_gen))
+        runner.catalogs.register("tpcds",
+                                 tpcds.create_connector(runner.device))
         return runner
 
     # ------------------------------------------------------------- execute

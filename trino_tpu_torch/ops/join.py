@@ -410,17 +410,24 @@ def build_key_bounds(build_keys: Sequence[int]):
     build_keys = tuple(build_keys)
 
     def op(prepared: Prepared) -> Tuple[torch.Tensor, torch.Tensor]:
-        dtype = prepared.build.column(build_keys[0]).values.dtype
-        words = prepared.stats[LO:HI + 1]
-        if dtype.is_floating_point:
-            lo, hi = words.view(torch.float64).to(dtype)
-        elif dtype == torch.bool:
-            lo, hi = words.clamp(0, 1).to(dtype)
-        else:
-            info = torch.iinfo(dtype)
-            lo, hi = words.clamp(info.min, info.max).to(dtype)
-        return lo, hi
+        return typed_bounds(
+            prepared.build.column(build_keys[0]).values.dtype,
+            prepared.stats[LO:HI + 1])
     return op
+
+
+def typed_bounds(dtype, words: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5's (or K26's) LO/HI statistic words as 0-d tensors of the key
+    column's own dtype (floats travel as float64 bits), on the device."""
+    if dtype.is_floating_point:
+        lo, hi = words.view(torch.float64).to(dtype)
+    elif dtype == torch.bool:
+        lo, hi = words.clamp(0, 1).to(dtype)
+    else:
+        info = torch.iinfo(dtype)
+        lo, hi = words.clamp(info.min, info.max).to(dtype)
+    return lo, hi
 
 
 def range_prefilter(probe_key: int):

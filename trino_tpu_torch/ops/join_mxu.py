@@ -22,23 +22,51 @@ int32 table computes it exactly with one read per probe row, so:
   per probe row, no extra pass over the probe. `matmul_lookup` below is its
   plain twin, which the twins of K6 and K9 call.
 
-Not ported here (ROADMAP B11b): the aggregating join's
-`scatter_agg_table`, `key_bounds`, `agg_join_lookup` and `agg_join_post`.
+The aggregating join (the reference's `scatter_agg_table`, `key_bounds`,
+`agg_join_lookup` and `agg_join_post`, which exec/local_planner
+`_mxu_agg_join` drives): the build side scatters to per-key vectors
+[pair count, sum of a build column, count of its valid values], each probe
+row reads its key's vector and carries its pair multiplicity into one
+SINGLE aggregation, so the cross product is never materialized.
+
+* K24 `agg_table` (scatter_agg_table; csrc/join_mxu.cu): one thread per
+  build row adds its vectors into the (slots, C) table with 64-bit
+  atomics, then one block counts the distinct slots, the live rows and
+  the magnitude gate.
+* K25 `agg_lookup` (agg_join_lookup; csrc/join_mxu.cu): one thread per
+  probe row reads its key's table row and writes every derived column and
+  the live mask; K1 then compacts the page.
+* K26 `key_bounds` (Triton, `_key_bounds_partial`/`_key_bounds_final`):
+  the live key's unsigned 64-bit min/max and its min/max in its own type
+  (the dynamic filter's range), one pass.
+* K27 `agg_post` (Triton, `_agg_post_kernel`): the SQL NULL of a
+  build-side SUM, `helper > 0` over the aggregated page.
+
+Exactness: the reference accumulates the table in float64 on its CPU and
+float32 on an accelerator (gated at 2^24). The port keeps the reference
+CPU's results on both devices: counts and integer-kind sums accumulate in
+int64 (exact), float sums in float64, and an integer per-key sum at or past
+MAX_EXACT_INT_SUM = 2^53 clears `mag_ok`, which declines to the gather
+join, as the reference's CPU does. One table holds both: an int64 (slots,
+C) tensor whose float-sum columns carry float64 bits.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Callable, Optional, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
 from trino_tpu_torch import native
+from trino_tpu_torch import types as T
+from trino_tpu_torch.ops.aggregate import (KEY_NEG_INF, KEY_POS_INF,
+                                           from_ordered_key, ordered_key)
 from trino_tpu_torch.ops.join import (KMIN, NDISTINCT, Prepared, _key_cols,
                                       _check_key_cols, _key_table,
-                                      _page_key_cols)
-from trino_tpu_torch.page import host_table
+                                      _page_key_cols, _reduce)
+from trino_tpu_torch.page import Column, Page, host_table
 
 # the reference's key-range block width of its one-hot matmuls; the port
 # reads the table directly and needs no blocking
@@ -164,3 +192,657 @@ def lookup_flops(rows: int, slots: int, ncols: int) -> int:
     multiply-add of its (rows x slots) @ (slots x ncols) product), which
     the query's mxu_flops counter sums per probe page."""
     return 2 * int(rows) * int(slots) * int(ncols)
+
+
+# ------------------------------------------------------------------ B11b
+
+# an integer-kind per-key sum at or past this bound declines the fused
+# join (the reference's float64 bound on its CPU; the port's int64 sums
+# are exact further, but the route stays the reference's)
+MAX_EXACT_INT_SUM = float(1 << 53)
+
+_I64_MIN = -(1 << 63)
+_I64_MAX = (1 << 63) - 1
+
+# a table column's vector kind (csrc/join_mxu.cu enum Vec)
+VEC_CNT, VEC_SUM_I, VEC_SUM_F, VEC_VALIDCNT = range(4)
+
+# K24's info words: distinct occupied slots, mag_ok, live build rows, the
+# float64 bits of the integer values' absolute total (its order of
+# additions is the device's)
+INFO_DISTINCT, INFO_MAG_OK, INFO_LIVE, INFO_ABSUM = range(4)
+
+# K24's modes: the per-block shared copy where the table fits (0), global
+# atomics only (1); the copy fits up to this many table words
+# (csrc/join_mxu.cu SUB_WORDS)
+AGG_TABLE_AUTO, AGG_TABLE_GLOBAL = 0, 1
+AGG_SHARED_WORDS = 6080
+
+# K25's output column ops (csrc/join_mxu.cu enum Op)
+OP_PAIRS, OP_CNTP, OP_SUMP_I, OP_SUMP_F, OP_TABLE_I, OP_TABLE_F = range(6)
+
+
+def vec_kind(spec) -> int:
+    """A vec_specs entry ('cnt',) | ('sum', ch, 'i'|'f') | ('validcnt', ch)
+    as its vector kind."""
+    if spec[0] == "cnt":
+        return VEC_CNT
+    if spec[0] == "validcnt":
+        return VEC_VALIDCNT
+    return VEC_SUM_F if spec[2] == "f" else VEC_SUM_I
+
+
+def table_column(table: torch.Tensor, kind: int, i: int) -> torch.Tensor:
+    """Column i of an aggregate table as its values: float64 for a float
+    sum (its bits), int64 otherwise."""
+    col = table[:, i].contiguous()
+    return col.view(torch.float64) if kind == VEC_SUM_F else col
+
+
+# ------------------------------------------------------------------ K24
+
+
+def agg_table_plain(key, vecs, num_rows: torch.Tensor, kmin: torch.Tensor,
+                    slots: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of K24. `key` is the build key column (values, valid);
+    `vecs` one (kind, values, valid) per table column, the first VEC_CNT.
+    Returns (table int64 (slots, C), info int64[4]): per slot key - kmin
+    of a live non-NULL build row, the row count, the sum of an integer
+    column (int64, wrapping) or a float column (float64 bits) over its
+    valid values, and the count of valid values; info is (distinct
+    occupied slots, mag_ok, live rows, the absolute total's float64 bits),
+    mag_ok false when an integer sum reaches +-MAX_EXACT_INT_SUM or the
+    integer values' absolute total reaches 2^63 (where an int64 sum could
+    have wrapped)."""
+    cap = key[0].shape[0]
+    dev = num_rows.device
+    live = torch.arange(cap, device=dev, dtype=torch.int32) < num_rows
+    k, null = _key_cols([key])
+    raw = k - kmin
+    inb = live & ~null & (raw >= 0) & (raw < slots)
+    slot = torch.where(inb, raw, torch.full_like(raw, slots))
+    cols = []
+    mag_ok = torch.ones((), dtype=torch.bool, device=dev)
+    absum = torch.zeros((), dtype=torch.float64, device=dev)
+    for kind, values, valid in vecs:
+        ok = inb if valid is None or kind == VEC_CNT else inb & valid
+        if kind in (VEC_CNT, VEC_VALIDCNT):
+            contrib = ok.to(torch.int64)
+        elif kind == VEC_SUM_I:
+            v = values.to(torch.int64)
+            contrib = torch.where(ok, v, torch.zeros_like(v))
+            absum = absum + torch.where(ok, v.to(torch.float64).abs(),
+                                        torch.zeros((), dtype=torch.float64,
+                                                    device=dev)).sum()
+        else:
+            v = values.to(torch.float64)
+            contrib = torch.where(ok, v, torch.zeros_like(v))
+        acc = torch.zeros(slots + 1, dtype=contrib.dtype, device=dev)
+        acc.scatter_add_(0, slot, contrib)
+        acc = acc[:slots]
+        if kind == VEC_SUM_I:
+            bound = int(MAX_EXACT_INT_SUM)
+            mag_ok = mag_ok & ((acc > -bound) & (acc < bound)).all()
+        cols.append(acc.view(torch.int64) if kind == VEC_SUM_F else acc)
+    table = torch.stack(cols, 1)
+    mag_ok = mag_ok & (absum < 2.0 ** 63)
+    info = torch.stack([(table[:, 0] > 0).sum(), mag_ok.to(torch.int64),
+                        table[:, 0].sum(), absum.view(torch.int64)])
+    return table, info
+
+
+def _vec_table(vecs) -> list:
+    """K24's 5-word entries: kind, values ptr, valid ptr, element size,
+    is_float."""
+    out = []
+    for kind, values, valid in vecs:
+        out += [kind, 0 if values is None else values.data_ptr(),
+                0 if valid is None else valid.data_ptr(),
+                0 if values is None else values.element_size(),
+                0 if values is None else int(values.is_floating_point())]
+    return out
+
+
+def _check_vecs(vecs, cap: int, dev) -> None:
+    if not vecs or vecs[0][0] != VEC_CNT:
+        raise ValueError("the first vector must be the pair count")
+    for kind, values, valid in vecs:
+        if kind in (VEC_SUM_I, VEC_SUM_F, VEC_VALIDCNT) and values is None:
+            raise ValueError("a sum or valid count needs its column")
+        if values is not None:
+            _check_key_cols([(values, valid)], cap, dev)
+
+
+def agg_table_cuda(key, vecs, num_rows: torch.Tensor, kmin: torch.Tensor,
+                   slots: int, mode: int = AGG_TABLE_AUTO
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K24 launch: see csrc/join_mxu.cu agg_table (`mode` AGG_TABLE_GLOBAL
+    keeps the global atomics where the shared copy would fit)."""
+    cap = key[0].shape[0]
+    dev = num_rows.device
+    _check_key_cols([key], cap, dev)
+    _check_vecs(vecs, cap, dev)
+    if num_rows.dtype != torch.int32 or num_rows.dim() != 0:
+        raise ValueError("num_rows must be a 0-d int32 tensor")
+    if kmin.dtype != torch.int64 or kmin.numel() != 1 or kmin.device != dev:
+        raise ValueError("kmin must be one int64 word on the card")
+    table = torch.empty((slots, len(vecs)), dtype=torch.int64, device=dev)
+    info = torch.empty(4, dtype=torch.int64, device=dev)
+    lib = native.library("join_mxu")
+    rc = lib.agg_table(
+        host_table(_key_table([key]), _vec_table(vecs)),
+        ctypes.c_int64(len(vecs)), ctypes.c_int64(cap),
+        ctypes.c_void_p(num_rows.data_ptr()),
+        ctypes.c_void_p(kmin.data_ptr()), ctypes.c_void_p(table.data_ptr()),
+        ctypes.c_int64(slots), ctypes.c_void_p(info.data_ptr()),
+        ctypes.c_int64(mode), ctypes.c_void_p(native.stream_ptr(dev)))
+    native.check(rc, "agg_table")
+    agg_table_cuda.launches += 1
+    return table, info
+
+
+agg_table_cuda.launches = 0
+
+
+def agg_table(key, vecs, num_rows, kmin, slots):
+    """K24 wrapper: plain twin on the CPU, kernel on CUDA."""
+    run = agg_table_cuda if num_rows.is_cuda else agg_table_plain
+    return run(key, vecs, num_rows, kmin, slots)
+
+
+def scatter_agg_table(slots: int, vec_specs, key_channel: int):
+    """The build side's accumulation table for the aggregating join over
+    `slots` key slots from kmin, one column per `vec_specs` entry (the
+    first ('cnt',)). Returns op(build_page, kmin) -> (table, info): K24's
+    int64 (slots, C) table and its info words (INFO_DISTINCT feeds the
+    router's density check; INFO_MAG_OK false declines to the gather
+    join; INFO_LIVE is the build's live rows)."""
+    vec_specs = tuple(vec_specs)
+
+    def op(build: Page, kmin: torch.Tensor):
+        key = _page_key_cols(build, (key_channel,))[0]
+        vecs = []
+        for spec in vec_specs:
+            kind = vec_kind(spec)
+            if kind == VEC_CNT:
+                vecs.append((kind, None, None))
+            else:
+                c = build.column(spec[1])
+                vecs.append((kind, _word_values(c.values), c.valid))
+        return agg_table(key, vecs, build.num_rows, kmin, slots)
+    return op
+
+
+def _word_values(values: torch.Tensor) -> torch.Tensor:
+    """A column the kernels read as 1-8 byte words (bool as uint8)."""
+    values = values.contiguous()
+    return values.view(torch.uint8) if values.dtype == torch.bool else values
+
+
+# ------------------------------------------------------------------ K26
+
+# words of K26's output: the same statistics as K5's KMIN..LO_NAN
+B_KMIN, B_KMAX, B_LO, B_HI, B_LO_NAN = range(5)
+KEY_BOUNDS_BLOCK = 4096
+_KEY_BOUNDS_RBLOCK = 1024
+_F64_NAN_BITS = 0x7FF8000000000000
+_F64_ABS_MASK = 0x7FFFFFFFFFFFFFFF
+_F64_INF_BITS = 0x7FF0000000000000
+_K26 = {}
+tl = None   # triton.language, bound by _k26/_k27 at the first launch
+
+
+def _float_bits(values: torch.Tensor) -> torch.Tensor:
+    """A float key column as the float64 bits K26 reads (float32 widened
+    first, as the key encoding widens it)."""
+    return values.to(torch.float64).view(torch.int64)
+
+
+def key_bounds_plain(values: torch.Tensor, valid, num_rows: torch.Tensor
+                     ) -> torch.Tensor:
+    """Plain twin of K26: int64[5] = (kmin, kmax) of the live, non-NULL
+    keys in unsigned 64-bit order after the key encoding (kmin > kmax when
+    there are none), and (lo, hi, lo_nan) of the same rows in the column's
+    own order, as K5's LO/HI/LO_NAN statistics: the min/max of an integer
+    column, the float64 bits of a float column's min/max over its non-NaN
+    values (NaN bits and lo_nan 1 when it holds a NaN, +inf/-inf when
+    empty)."""
+    cap = values.shape[0]
+    dev = num_rows.device
+    live = torch.arange(cap, device=dev, dtype=torch.int32) < num_rows
+    key, null = _key_cols([(values, valid)])
+    ok = live & ~null
+    flipped = key ^ _I64_MIN
+    kmin = _reduce(flipped, ok, _I64_MAX, True) ^ _I64_MIN
+    kmax = _reduce(flipped, ok, _I64_MIN, False) ^ _I64_MIN
+    if values.is_floating_point():
+        f = values.to(torch.float64)
+        isnan = torch.isnan(f)
+        nan = (ok & isnan).any()
+        ordk = ordered_key(torch.where(isnan, torch.zeros_like(f), f))
+        lo = from_ordered_key(_reduce(ordk, ok & ~isnan, KEY_POS_INF,
+                                      True).reshape(1))
+        hi = from_ordered_key(_reduce(ordk, ok & ~isnan, KEY_NEG_INF,
+                                      False).reshape(1))
+        lo = torch.where(nan, float("nan"), lo).view(torch.int64)[0]
+        hi = torch.where(nan, float("nan"), hi).view(torch.int64)[0]
+        lo_nan = nan.to(torch.int64)
+    else:
+        w = values.to(torch.int64)
+        lo = _reduce(w, ok, _I64_MAX, True)
+        hi = _reduce(w, ok, _I64_MIN, False)
+        lo_nan = torch.zeros((), dtype=torch.int64, device=dev)
+    return torch.stack([kmin, kmax, lo, hi, lo_nan])
+
+
+# K26 pass 1: one program per BLOCK rows writes its rows' five partial
+# words (unsigned min/max as sign-flipped int64, own-order min/max, a NaN
+# flag) at j * nblocks + pid. Float columns arrive as float64 bits, so the
+# program does integer work only: -0.0 made +0.0 for the key, the order key
+# b >= 0 ? b : b ^ INT64_MAX for lo/hi, NaN excluded from lo/hi and
+# flagged. Built by _k26 with `tl` bound to triton.language.
+def _key_bounds_partial(v_ptr, a_ptr, num_rows_ptr, part_ptr, nblocks,
+                        HAS_VALID: tl.constexpr, IS_FLOAT: tl.constexpr,
+                        BLOCK: tl.constexpr):
+    pid = tl.program_id(0)
+    offs = pid.to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
+    ok = offs < tl.load(num_rows_ptr).to(tl.int64)
+    if HAS_VALID:
+        ok = ok & (tl.load(a_ptr + offs, mask=ok, other=0) != 0)
+    x = tl.load(v_ptr + offs, mask=ok, other=0).to(tl.int64)
+    sign = tl.full([BLOCK], 1, tl.int64) << 63
+    big = 9223372036854775807
+    if IS_FLOAT:
+        key = tl.where(x == sign, 0, x)             # -0.0 -> +0.0
+        isnan = (x & big) > 9218868437227405312     # |bits| > inf's
+        good = ok & (isnan == 0)
+        ordk = tl.where(x >= 0, x, x ^ big)
+        lo = tl.min(tl.where(good, ordk, 9218868437227405312), axis=0)
+        hi = tl.max(tl.where(good, ordk, -9218868437227405313), axis=0)
+        nan = tl.max((ok & isnan).to(tl.int64), axis=0)
+    else:
+        key = x
+        lo = tl.min(tl.where(ok, x, big), axis=0)
+        hi = tl.max(tl.where(ok, x, sign), axis=0)
+        nan = tl.max(tl.zeros([BLOCK], dtype=tl.int64), axis=0)
+    flipped = key ^ sign
+    tl.store(part_ptr + pid, tl.min(tl.where(ok, flipped, big), axis=0))
+    tl.store(part_ptr + nblocks + pid,
+             tl.max(tl.where(ok, flipped, sign), axis=0))
+    tl.store(part_ptr + 2 * nblocks + pid, lo)
+    tl.store(part_ptr + 3 * nblocks + pid, hi)
+    tl.store(part_ptr + 4 * nblocks + pid, nan)
+
+
+# K26 pass 2: one program folds the partials in block order and writes the
+# five words (the unsigned bounds un-flipped, a float's lo/hi back to its
+# bits, NaN bits where the column holds a NaN).
+def _key_bounds_final(part_ptr, out_ptr, nblocks, IS_FLOAT: tl.constexpr,
+                      RBLOCK: tl.constexpr):
+    sign = tl.full([RBLOCK], 1, tl.int64) << 63
+    big = 9223372036854775807
+    umin = tl.full([RBLOCK], big, tl.int64)
+    umax = sign
+    lo = tl.full([RBLOCK], big, tl.int64)
+    hi = sign
+    nan = tl.zeros([RBLOCK], dtype=tl.int64)
+    for start in range(0, nblocks, RBLOCK):
+        idx = start + tl.arange(0, RBLOCK)
+        m = idx < nblocks
+        umin = tl.minimum(umin, tl.load(part_ptr + idx, mask=m, other=big))
+        umax = tl.maximum(umax, tl.load(part_ptr + nblocks + idx, mask=m,
+                                        other=-9223372036854775807 - 1))
+        lo = tl.minimum(lo, tl.load(part_ptr + 2 * nblocks + idx, mask=m,
+                                    other=big))
+        hi = tl.maximum(hi, tl.load(part_ptr + 3 * nblocks + idx, mask=m,
+                                    other=-9223372036854775807 - 1))
+        nan = tl.maximum(nan, tl.load(part_ptr + 4 * nblocks + idx, mask=m,
+                                      other=0))
+    one = tl.max(sign, axis=0)
+    lo_w = tl.min(lo, axis=0)
+    hi_w = tl.max(hi, axis=0)
+    nan_w = tl.max(nan, axis=0)
+    if IS_FLOAT:
+        lo_w = tl.where(lo_w >= 0, lo_w, lo_w ^ big)
+        hi_w = tl.where(hi_w >= 0, hi_w, hi_w ^ big)
+        lo_w = tl.where(nan_w > 0, 9221120237041090560, lo_w)
+        hi_w = tl.where(nan_w > 0, 9221120237041090560, hi_w)
+    tl.store(out_ptr, tl.min(umin, axis=0) ^ one)
+    tl.store(out_ptr + 1, tl.max(umax, axis=0) ^ one)
+    tl.store(out_ptr + 2, lo_w)
+    tl.store(out_ptr + 3, hi_w)
+    tl.store(out_ptr + 4, nan_w)
+
+
+def _k26():
+    """Build (once per process) K26's two Triton programs.
+
+    Replaces trino_tpu/ops/join_mxu.py key_bounds (:201), a masked
+    jnp.min/max over the key in uint64, and the reference's
+    build_key_bounds (ops/join.py), the dynamic filter's min/max in the
+    key's own type, which the fused join runs over the same column. Bound
+    on this card: bytes, the key column and its validity read once; the
+    output is five words. Both passes reduce in a fixed order."""
+    if not _K26:
+        import triton
+        import triton.language as tl_mod
+        globals()["tl"] = tl_mod
+        _K26["partial"] = triton.jit(_key_bounds_partial,
+                                     do_not_specialize=["nblocks"])
+        _K26["final"] = triton.jit(_key_bounds_final,
+                                   do_not_specialize=["nblocks"])
+    return _K26["partial"], _K26["final"]
+
+
+def key_bounds_triton(values: torch.Tensor, valid, num_rows: torch.Tensor
+                      ) -> torch.Tensor:
+    """K26 launch (two Triton programs)."""
+    cap = values.shape[0]
+    dev = num_rows.device
+    _check_key_cols([(values, valid)], cap, dev)
+    if num_rows.dtype != torch.int32 or num_rows.dim() != 0:
+        raise ValueError("num_rows must be a 0-d int32 tensor")
+    is_float = values.is_floating_point()
+    words = _float_bits(values) if is_float else _word_values(values)
+    partial, final = _k26()
+    nblocks = max(1, -(-cap // KEY_BOUNDS_BLOCK))
+    part = torch.empty(5 * nblocks, dtype=torch.int64, device=dev)
+    out = torch.empty(5, dtype=torch.int64, device=dev)
+    dummy = torch.empty(1, dtype=torch.uint8, device=dev)   # never read
+    partial[(nblocks,)](words, dummy if valid is None else
+                        valid.view(torch.uint8), num_rows, part, nblocks,
+                        HAS_VALID=valid is not None, IS_FLOAT=is_float,
+                        BLOCK=KEY_BOUNDS_BLOCK, num_warps=8)
+    final[(1,)](part, out, nblocks, IS_FLOAT=is_float,
+                RBLOCK=_KEY_BOUNDS_RBLOCK, num_warps=4)
+    key_bounds_triton.launches += 1
+    return out
+
+
+key_bounds_triton.launches = 0
+
+
+def key_bounds_words(values, valid, num_rows) -> torch.Tensor:
+    """K26 wrapper: plain twin on the CPU, Triton kernel on CUDA."""
+    run = key_bounds_triton if num_rows.is_cuda else key_bounds_plain
+    return run(values, valid, num_rows)
+
+
+def key_bounds(channel: int):
+    """The fused join's span probe over one build key channel. Returns
+    op(page) -> int64[5] on the device (B_KMIN, B_KMAX in unsigned order
+    of the key encoding, kmin > kmax for an all-dead build; B_LO, B_HI,
+    B_LO_NAN the dynamic filter's bounds, ops/join.typed_bounds)."""
+
+    def op(page: Page) -> torch.Tensor:
+        c = page.column(channel)
+        return key_bounds_words(c.values.contiguous(), c.valid,
+                                page.num_rows)
+    return op
+
+
+# ------------------------------------------------------------------ K25
+
+
+def agg_lookup_plain(key, num_rows: torch.Tensor, table: torch.Tensor,
+                     kmin: torch.Tensor, outs
+                     ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """Plain twin of K25. `key` is the probe key column (values, valid);
+    `outs` one (op, table column, values, valid) per output column.
+    Returns (one int64/float64 [cap] tensor per output, live mask): per
+    probe row its key's table row (zeros outside [kmin, kmin + slots)),
+    cnt = its pair count, live = row < num_rows, key not NULL and cnt > 0,
+    and per op: OP_PAIRS cnt; OP_CNTP cnt where the probe value is valid,
+    else 0; OP_SUMP_I value * cnt in int64 (wrapping); OP_SUMP_F value *
+    cnt in float64; OP_TABLE_I / OP_TABLE_F the table column (float64
+    from its bits)."""
+    cap = key[0].shape[0]
+    dev = num_rows.device
+    k, null = _key_cols([key])
+    looked = blocked_lookup(table, kmin, k)
+    cnt = looked[:, 0]
+    live = (torch.arange(cap, device=dev, dtype=torch.int32) < num_rows) \
+        & ~null & (cnt > 0)
+    got = []
+    for op, col, values, valid in outs:
+        if op == OP_PAIRS:
+            got.append(cnt.clone())
+        elif op == OP_CNTP:
+            got.append(cnt.clone() if valid is None else
+                       torch.where(valid, cnt, torch.zeros_like(cnt)))
+        elif op == OP_SUMP_I:
+            got.append(values.to(torch.int64) * cnt)
+        elif op == OP_SUMP_F:
+            got.append(values.to(torch.float64) * cnt.to(torch.float64))
+        else:
+            got.append(table_column(looked, VEC_SUM_F if op == OP_TABLE_F
+                                    else VEC_SUM_I, col))
+    return got, live
+
+
+def agg_lookup_cuda(key, num_rows: torch.Tensor, table: torch.Tensor,
+                    kmin: torch.Tensor, outs
+                    ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """K25 launch: see csrc/join_mxu.cu agg_lookup."""
+    cap = key[0].shape[0]
+    dev = num_rows.device
+    _check_key_cols([key], cap, dev)
+    if num_rows.dtype != torch.int32 or num_rows.dim() != 0:
+        raise ValueError("num_rows must be a 0-d int32 tensor")
+    if table.dtype != torch.int64 or table.dim() != 2 \
+            or table.device != dev or not table.is_contiguous():
+        raise ValueError("the table must be a contiguous int64 (slots, C) "
+                         "tensor on the card")
+    if kmin.dtype != torch.int64 or kmin.numel() != 1 or kmin.device != dev:
+        raise ValueError("kmin must be one int64 word on the card")
+    got, words = [], []
+    for op, col, values, valid in outs:
+        if op in (OP_CNTP, OP_SUMP_I, OP_SUMP_F) and values is None:
+            raise ValueError("a probe-side output needs its column")
+        if op in (OP_TABLE_I, OP_TABLE_F) and not 0 <= col < table.shape[1]:
+            raise ValueError(f"table column {col} out of range")
+        if values is not None:
+            _check_key_cols([(values, valid)], cap, dev)
+        out = torch.empty(cap, dtype=torch.float64 if op in (
+            OP_SUMP_F, OP_TABLE_F) else torch.int64, device=dev)
+        got.append(out)
+        words += [op, col, 0 if values is None else values.data_ptr(),
+                  0 if valid is None else valid.data_ptr(),
+                  0 if values is None else values.element_size(),
+                  0 if values is None else int(values.is_floating_point()),
+                  out.data_ptr()]
+    live = torch.empty(cap, dtype=torch.bool, device=dev)
+    lib = native.library("join_mxu")
+    rc = lib.agg_lookup(
+        host_table(_key_table([key]), words), ctypes.c_int64(len(outs)),
+        ctypes.c_int64(cap), ctypes.c_void_p(num_rows.data_ptr()),
+        ctypes.c_void_p(table.data_ptr()), ctypes.c_int64(table.shape[0]),
+        ctypes.c_int64(table.shape[1]), ctypes.c_void_p(kmin.data_ptr()),
+        ctypes.c_void_p(live.data_ptr()),
+        ctypes.c_void_p(native.stream_ptr(dev)))
+    native.check(rc, "agg_lookup")
+    agg_lookup_cuda.launches += 1
+    return got, live
+
+
+agg_lookup_cuda.launches = 0
+
+
+def agg_lookup(key, num_rows, table, kmin, outs):
+    """K25 wrapper: plain twin on the CPU, kernel on CUDA."""
+    run = agg_lookup_cuda if num_rows.is_cuda else agg_lookup_plain
+    return run(key, num_rows, table, kmin, outs)
+
+
+def agg_join_lookup(key_channel: int, group_channels, derive, helpers):
+    """Per-probe-page derived rows of the fused aggregating join: the group
+    columns pass through, each aggregate becomes a per-row contribution
+    from the row's looked-up build vector, and rows without a match (or
+    dead, or with a NULL key) are compacted away (K25, then K1).
+
+    `derive` entries (one per aggregate, planner-encoded):
+      ('pairs',)                 count(*)   -> pair multiplicity
+      ('cntp', probe_ch)         count(p.v) -> multiplicity where v valid
+      ('sump', probe_ch, 'i'|'f') sum(p.v)  -> v * multiplicity (NULL
+                                  rides the probe column's validity)
+      ('cntb', vec_idx)          count(b.w) -> looked-up #valid-w
+      ('sumb', vec_idx, 'i'|'f', helper_pos) sum(b.w) -> looked-up sum of w
+    `helpers` lists the #valid-w table columns that ride along as extra
+    summed columns (agg_join_post turns them into SUM null masks).
+    Returns op(page, table, kmin) -> Page."""
+    group_channels = tuple(group_channels)
+    derive = tuple(derive)
+    helpers = tuple(helpers)
+
+    def op(page: Page, table: torch.Tensor, kmin: torch.Tensor) -> Page:
+        outs, meta = [], []
+        for d in derive:
+            if d[0] == "pairs":
+                outs.append((OP_PAIRS, 0, None, None))
+                meta.append((T.BIGINT, None))
+            elif d[0] == "cntp":
+                c = page.column(d[1])
+                outs.append((OP_CNTP, 0, _word_values(c.values), c.valid))
+                meta.append((T.BIGINT, None))
+            elif d[0] == "sump":
+                c = page.column(d[1])
+                f = d[2] == "f"
+                outs.append((OP_SUMP_F if f else OP_SUMP_I, 0,
+                             _word_values(c.values), c.valid))
+                meta.append((T.DOUBLE if f else T.BIGINT, c.valid))
+            elif d[0] == "cntb":
+                outs.append((OP_TABLE_I, d[1], None, None))
+                meta.append((T.BIGINT, None))
+            else:   # 'sumb'
+                f = d[2] == "f"
+                outs.append((OP_TABLE_F if f else OP_TABLE_I, d[1], None,
+                             None))
+                meta.append((T.DOUBLE if f else T.BIGINT, None))
+        for h in helpers:
+            outs.append((OP_TABLE_I, h, None, None))
+            meta.append((T.BIGINT, None))
+        key = _page_key_cols(page, (key_channel,))[0]
+        got, live = agg_lookup(key, page.num_rows, table, kmin, outs)
+        cols = [page.columns[ch] for ch in group_channels]
+        cols += [Column(v, valid, typ, None)
+                 for v, (typ, valid) in zip(got, meta)]
+        return Page(tuple(cols), page.num_rows).filter(live)
+    return op
+
+
+# ------------------------------------------------------------------ K27
+
+AGG_POST_BLOCK = 1024
+_AGG_POST_MAX = 8
+_K27 = {}
+
+
+def agg_post_plain(helpers: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Plain twin of K27: per summed #valid-w helper column, the validity
+    of its build-side SUM, helper > 0."""
+    return [h > 0 for h in helpers]
+
+
+# K27: one program per BLOCK rows writes, for each of up to 8 helper
+# columns, helper > 0 as the validity of the build-side SUM it guards.
+# Built by _k27 with `tl` bound to triton.language.
+def _agg_post_kernel(h0, h1, h2, h3, h4, h5, h6, h7,
+                     o0, o1, o2, o3, o4, o5, o6, o7, cap,
+                     K: tl.constexpr, BLOCK: tl.constexpr):
+    pid = tl.program_id(0)
+    offs = pid.to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
+    inb = offs < cap
+    for j in tl.static_range(K):
+        if j == 0:
+            hp, op = h0, o0
+        elif j == 1:
+            hp, op = h1, o1
+        elif j == 2:
+            hp, op = h2, o2
+        elif j == 3:
+            hp, op = h3, o3
+        elif j == 4:
+            hp, op = h4, o4
+        elif j == 5:
+            hp, op = h5, o5
+        elif j == 6:
+            hp, op = h6, o6
+        else:
+            hp, op = h7, o7
+        h = tl.load(hp + offs, mask=inb, other=0)
+        tl.store(op + offs, (h > 0).to(tl.uint8), mask=inb)
+
+
+def _k27():
+    """Build (once per process) K27's Triton program.
+
+    Replaces trino_tpu/ops/join_mxu.py agg_join_post (:287), whose masks
+    XLA fuses into one elementwise pass. Bound on this card: bytes, each
+    helper column read once and each mask written once; one program per
+    AGG_POST_BLOCK rows, up to 8 helpers a launch."""
+    if not _K27:
+        import triton
+        import triton.language as tl_mod
+        globals()["tl"] = tl_mod
+        _K27["k"] = triton.jit(_agg_post_kernel, do_not_specialize=["cap"])
+    return _K27["k"]
+
+
+def agg_post_triton(helpers: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """K27 launch: one Triton program over the page per 8 helpers."""
+    if not helpers:
+        return []
+    cap = helpers[0].shape[0]
+    dev = helpers[0].device
+    for h in helpers:
+        if h.dtype != torch.int64 or h.shape != (cap,) or h.device != dev \
+                or not h.is_contiguous():
+            raise ValueError("helpers must be contiguous int64 [cap] on the "
+                             "card")
+    kernel = _k27()
+    outs = [torch.empty(cap, dtype=torch.bool, device=dev)
+            for _ in helpers]
+    grid = (max(1, -(-cap // AGG_POST_BLOCK)),)
+    for g in range(0, len(helpers), _AGG_POST_MAX):
+        hs = list(helpers[g:g + _AGG_POST_MAX])
+        os_ = [o.view(torch.uint8) for o in outs[g:g + _AGG_POST_MAX]]
+        pad = _AGG_POST_MAX - len(hs)
+        kernel[grid](*hs, *([hs[0]] * pad), *os_, *([os_[0]] * pad), cap,
+                     K=len(hs), BLOCK=AGG_POST_BLOCK, num_warps=4)
+        agg_post_triton.launches += 1
+    return outs
+
+
+agg_post_triton.launches = 0
+
+
+def agg_post(helpers: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """K27 wrapper: plain twin on the CPU, Triton kernel on CUDA."""
+    if helpers and helpers[0].is_cuda:
+        return agg_post_triton(helpers)
+    return agg_post_plain(helpers)
+
+
+def agg_join_post(nk: int, derive, nhelpers: int, out_types):
+    """Final shaping after the SINGLE aggregation over the derived rows:
+    the plan's declared output types, SQL NULL for a build-side SUM whose
+    group saw no non-NULL build value (its summed #valid-w helper is 0:
+    K27), the helper columns dropped. Returns op(agg_page) -> Page."""
+    derive = tuple(derive)
+    out_types = tuple(out_types)
+
+    def op(page: Page) -> Page:
+        base = nk + len(derive)
+        masks = agg_post([page.columns[base + h].values.contiguous()
+                          for h in range(nhelpers)])
+        cols = list(page.columns[:nk])
+        for i, (d, typ) in enumerate(zip(derive, out_types)):
+            c = page.columns[nk + i]
+            if d[0] in ("pairs", "cntp", "cntb"):
+                cols.append(Column(c.values, None, typ, None))
+            elif d[0] == "sump":
+                cols.append(Column(c.values, c.valid, typ, None))
+            else:   # 'sumb'
+                cols.append(Column(c.values, masks[d[3]], typ, None))
+        return Page(tuple(cols), page.num_rows)
+    return op
