@@ -1580,11 +1580,11 @@ def check_agg_join(g, dev) -> float:
             if not same_bits(x, y):
                 fail(f"K25 output {i} differs from its twin ({label})")
         helpers = [kg[5], kg[8]]
-        km = JM.agg_post_triton(helpers)
-        wm = JM.agg_post_plain(helpers)
+        km = JM.agg_post_triton(helpers, pnr)
+        wm = JM.agg_post_plain(helpers, pnr)
         sync()
-        if not all(torch.equal(x, y) for x, y in zip(km, wm)):
-            fail(f"K27 differs from its twin ({label})")
+        if not all(torch.equal(x[:pn], y[:pn]) for x, y in zip(km, wm)):
+            fail(f"K27 differs from its twin on the live rows ({label})")
         if label.startswith(("256 keys", "32768 slots")):
             ms = {"K24 shared copy": cuda_ms(lambda: JM.agg_table_cuda(
                       key, vecs, bnr, kmin, slots, JM.AGG_TABLE_AUTO)),
@@ -1595,7 +1595,7 @@ def check_agg_join(g, dev) -> float:
                   "K25": cuda_ms(lambda: JM.agg_lookup_cuda(
                       pkey, pnr, wt, kmin, outs)),
                   "K27 (2 helpers)": cuda_ms(
-                      lambda: JM.agg_post_triton(helpers))}
+                      lambda: JM.agg_post_triton(helpers, pnr))}
             say(f"[kernels] aggregating join at {label} (build {bn}/"
                 f"{bcap}, {len(vecs)} vectors, probe {pn}/{pcap}, "
                 f"{len(outs)} outputs): "
@@ -2705,8 +2705,8 @@ class Capture:
         `.by_kind`, K6's and K9's `.by_route`) through its module global,
         so the counters now live on the pass-through. `tag_of` names a
         mode whose largest sf1 call is kept apart (K13: the mxu route);
-        `scopes` the run scopes whose largest call is kept (K24-K27: "ds",
-        the TPC-DS and G1-G4 runs)."""
+        `scopes` the run scopes whose largest call (and tagged call) is
+        kept ("ds": the TPC-DS and G1-G4 runs, for K24-K27 and K13)."""
         orig = getattr(module, name)
 
         def record(key, size, args):
@@ -3137,15 +3137,18 @@ def main() -> None:
              lambda arrays, idx: idx.numel() if arrays else -1)
     cap.wrap(J, "join_build_cuda", lambda cols, n: cols[0][0].numel())
     cap.wrap(J, "join_dense_cuda", lambda cols, n, st, size, *_: size)
+    # K13's modes keep their largest TPC-DS call too: K9's mxu mode may
+    # run there alone (q72's router variant)
+    k13_scopes = ("sf1", "forced", "ds")
     cap.wrap(J, "unique_probe_cuda", lambda pc, bc, *_: pc[0][0].numel(),
-             mxu_tag)
+             mxu_tag, k13_scopes)
     cap.wrap(A, "group_reduce_cuda", lambda keys, states, n, c: c)
     cap.wrap(J, "join_runs_cuda", lambda cols, *_: cols[0][0].numel())
     cap.wrap(J, "expand_count_cuda", lambda pc, *_: pc[0][0].numel(),
-             mxu_tag)
+             mxu_tag, k13_scopes)
     cap.wrap(J, "expand_write_cuda", lambda pc, bc, c, kind, oc, *_: oc)
     cap.wrap(J, "probe_verdict_cuda", lambda pc, *_: pc[0][0].numel(),
-             mxu_tag)
+             mxu_tag, k13_scopes)
     cap.wrap(JM, "mxu_table_cuda", lambda cols, *_: cols[0][0].numel())
     cap.wrap(TD, "gen_column_cuda", lambda recipe, start, n, c, *_: n)
     cap.wrap(TD, "order_index_cuda", lambda *a: a[4])
@@ -3181,7 +3184,7 @@ def main() -> None:
     cap.wrap(JM, "key_bounds_triton", lambda values, *_: values.numel(),
              scopes=ds)
     cap.wrap(JM, "agg_post_triton",
-             lambda hs: hs[0].numel() * len(hs) if hs else 0, scopes=ds)
+             lambda hs, nr: hs[0].numel() * len(hs) if hs else 0, scopes=ds)
     real_attach = LP.attach_build_host
 
     def watched_attach(pre, *args, **kw):
@@ -3713,8 +3716,9 @@ def kernel_rows(cap: Capture, originals, launches, dev):
 def kernel_rows_agg_join(cap: Capture, originals, launches, dev, card):
     """K24-K27 at their largest call of the TPC-DS and G1-G4 runs, each
     against its twin at those inputs, K24 also through its other mode.
-    Bounds count the live rows; each input read once, each output written
-    once (K24: the table; K25: every derived column and the mask)."""
+    Bounds count the live rows; each input read once (a column two
+    vectors or outputs share, once), each output written once (K24: the
+    table; K25: every derived column and the mask; K27: the masks)."""
     from trino_tpu_torch.ops import join_mxu as JM
     out = []
 
@@ -3728,9 +3732,6 @@ def kernel_rows_agg_join(cap: Capture, originals, launches, dev, card):
             bound_ms=bound_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
             library_ms=None if library is None else cuda_ms(library),
             shape=f"{shape}; library = {library_name}")
-
-    def vec_bytes(vecs, n):
-        return col_bytes([(v, m) for _, v, m in vecs if v is not None], n)
 
     # K24 at its largest call (rows x vectors)
     key, vecs, nr, kmin, slots = cap.calls[("agg_table_cuda", "ds")][1]
@@ -3751,11 +3752,9 @@ def kernel_rows_agg_join(cap: Capture, originals, launches, dev, card):
         fail("K24's info differs from its twin at the main path's inputs")
     # the yardstick: one scatter_add_ of every (row, vector) contribution
     # into the flattened table, its indices and values made beforehand
-    live = (torch.arange(key[0].numel(), device=dev) < n)
-    k64 = key[0].to(torch.int64) if not key[0].is_floating_point() else \
-        key[0].to(torch.float64).view(torch.int64)
-    slot = torch.where(live, (k64 - kmin).clamp(0, slots - 1),
-                       torch.zeros_like(k64))
+    k64 = key[0][:n].to(torch.int64) if not key[0].is_floating_point() \
+        else key[0][:n].to(torch.float64).view(torch.int64)
+    slot = (k64 - kmin).clamp(0, slots - 1)
     nv = len(vecs)
     idx = (slot[:, None] * nv + torch.arange(nv, device=dev)).reshape(-1)
     src = torch.ones(idx.numel(), dtype=torch.int64, device=dev)
@@ -3770,8 +3769,10 @@ def kernel_rows_agg_join(cap: Capture, originals, launches, dev, card):
         "trino_tpu/ops/join_mxu.py:149", launches["agg_table"],
         lambda: originals["agg_table"](key, vecs, nr, kmin, slots),
         lambda: JM.agg_table_plain(key, vecs, nr, kmin, slots),
-        # the key and vector columns read once, the table written once
-        col_bytes([key], n) + vec_bytes(vecs, n) + 8 * slots * nv,
+        # the key and vector columns read once (a valid count reads only
+        # the validity), the table written once
+        col_bytes([key] + [(None if kind == JM.VEC_VALIDCNT else v, m)
+                           for kind, v, m in vecs], n) + 8 * slots * nv,
         lambda: flat.scatter_add_(0, idx, src),
         "one scatter_add_ of every (row, vector) contribution",
         f"build: cap {key[0].numel()}, {n} live rows, {nv} vectors, "
@@ -3787,8 +3788,8 @@ def kernel_rows_agg_join(cap: Capture, originals, launches, dev, card):
     if not torch.equal(glive, wlive) or not all(
             same_bits(x, y) for x, y in zip(got, want)):
         fail("K25 differs from its twin at the main path's inputs")
-    k64 = pkey[0].to(torch.int64) if not pkey[0].is_floating_point() \
-        else pkey[0].to(torch.float64).view(torch.int64)
+    k64 = pkey[0][:n].to(torch.int64) if not pkey[0].is_floating_point() \
+        else pkey[0][:n].to(torch.float64).view(torch.int64)
     rows_idx = (k64 - kmin).clamp(0, table.shape[0] - 1)
     out.append(row(
         "agg_lookup (K25, agg_join_lookup)",
@@ -3796,13 +3797,14 @@ def kernel_rows_agg_join(cap: Capture, originals, launches, dev, card):
         launches["agg_lookup"],
         lambda: originals["agg_lookup"](pkey, pnr, table, kmin, outs),
         lambda: JM.agg_lookup_plain(pkey, pnr, table, kmin, outs),
-        # the key and probe value columns read once, the table once, every
+        # the key and probe value columns read once (a count of valid
+        # probe values reads only the validity), the table once, every
         # output and the live mask written once
-        col_bytes([pkey], n) + col_bytes([(v, m) for _, _, v, m in outs
-                                          if v is not None], n)
+        col_bytes([pkey] + [(None if op == JM.OP_CNTP else v, m)
+                            for op, _, v, m in outs], n)
         + table.numel() * 8 + (8 * len(outs) + 1) * n,
         lambda: table.index_select(0, rows_idx),
-        "index_select of each row's table row",
+        "index_select of each live row's table row",
         f"probe: cap {pkey[0].numel()}, {n} live rows, {len(outs)} outputs, "
         f"table {tuple(table.shape)}", 0.0))
 
@@ -3823,19 +3825,26 @@ def kernel_rows_agg_join(cap: Capture, originals, launches, dev, card):
         0.0, route="triton"))
 
     # K27 at its largest call
-    helpers, = cap.calls[("agg_post_triton", "ds")][1]
-    n = helpers[0].numel()
-    if not all(torch.equal(x, y) for x, y in zip(
-            originals["agg_post"](helpers), JM.agg_post_plain(helpers))):
+    helpers, nr = cap.calls[("agg_post_triton", "ds")][1]
+    n = int(nr)
+    if not all(torch.equal(x[:n], y[:n]) for x, y in zip(
+            originals["agg_post"](helpers, nr),
+            JM.agg_post_plain(helpers, nr))):
         fail("K27 differs from its twin at the main path's inputs")
+    live = [h[:n] for h in helpers]
     out.append(row(
         "agg_post (K27, agg_join_post)", "trino_tpu_torch/ops/join_mxu.py",
         "trino_tpu/ops/join_mxu.py:287", launches["agg_post"],
-        lambda: originals["agg_post"](helpers),
-        lambda: JM.agg_post_plain(helpers), 9 * n * len(helpers), None,
-        "none (a mask per helper; no single PyTorch call)",
-        f"aggregated page: cap {n}, {len(helpers)} helpers", 0.0,
-        route="triton"))
+        lambda: originals["agg_post"](helpers, nr),
+        lambda: JM.agg_post_plain(helpers, nr),
+        # the live helper rows read once, their masks written once
+        col_bytes([(h, None) for h in helpers], n) + n * len(helpers) + 4,
+        (lambda: live[0] > 0) if len(live) == 1 else
+        (lambda: torch.stack(live) > 0),
+        "Tensor.gt of the live helper rows" + (
+            "" if len(live) == 1 else " (stacked)"),
+        f"aggregated page: cap {helpers[0].numel()}, {n} live rows, "
+        f"{len(helpers)} helpers", 0.0, route="triton"))
     return out
 
 
@@ -3856,9 +3865,12 @@ def hash_table_ok(cols, num_rows, lookup) -> bool:
 
 
 def col_bytes(cols, n: int) -> int:
-    """Bytes of n rows of (values, valid) columns."""
-    return sum(n * (v.element_size() + (1 if m is not None else 0))
-               for v, m in cols)
+    """Bytes of n rows of (values, valid) columns, each array counted once
+    however many columns name it (two aggregates of one column read it
+    once); values may be None where only the validity is read."""
+    arrays = {a.data_ptr(): a.element_size()
+              for v, m in cols for a in (v, m) if a is not None}
+    return n * sum(arrays.values())
 
 
 def kernel_rows_q3(cap: Capture, originals, launches, dev):
@@ -4265,14 +4277,14 @@ def kernel_rows_mxu_gen(cap: Capture, originals, launches, k13, dev, card):
         if not n_launches:
             say(f"[kernel] {name}: no launch on the main path")
             continue
-        call = cap.calls.get((f"{k}_cuda:mxu", "sf1"))
-        if call is None:
-            # launched only where calls are not kept (the TPC-DS runs:
-            # q72's router variant sends its duplicate builds to mxu)
-            say(f"[kernel] {name}: {n_launches} launches on the main path, "
-                f"none in an sf1 TPC-H run, so not timed")
-            continue
-        args = call[1]
+        # the largest TPC-H sf1 call, else the largest TPC-DS one (q72's
+        # router variant sends its duplicate builds to mxu)
+        scope = next((sc for sc in ("sf1", "ds")
+                      if (f"{k}_cuda:mxu", sc) in cap.calls), None)
+        if scope is None:
+            fail(f"{name}: {n_launches} launches on the main path, none in "
+                 f"a TPC-H or TPC-DS sf1 run to hold against its twin")
+        args = cap.calls[(f"{k}_cuda:mxu", scope)][1]
         pcols, bcols, pnr, prep = args[:4]
         rest = args[4:]
         pn = int(pnr)
@@ -4302,7 +4314,8 @@ def kernel_rows_mxu_gen(cap: Capture, originals, launches, k13, dev, card):
             col_bytes(pcols, pn) + prep.mxu.numel() * 4 + pn * out_b,
             lookup_lib(prep, pcols, pn),
             "index_select of the table at the clamped offsets",
-            f"sf1 probe: cap {pcols[0][0].numel()}, {pn} live, table of "
+            f"{'TPC-H' if scope == 'sf1' else 'TPC-DS'} sf1 probe: cap "
+            f"{pcols[0][0].numel()}, {pn} live, table of "
             f"{prep.mxu.shape[0]} slots, build "
             f"{int(prep.stats[J.N_LIVE])} keyed rows"
             + (f", {rest[0]}" if rest else "")))

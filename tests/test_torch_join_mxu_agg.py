@@ -376,6 +376,7 @@ def triton_shim(monkeypatch):
     monkeypatch.setattr(PM, "KEY_BOUNDS_BLOCK", 64)
     monkeypatch.setattr(PM, "_KEY_BOUNDS_RBLOCK", 4)
     monkeypatch.setattr(PM, "AGG_POST_BLOCK", 64)
+    monkeypatch.setattr(PM, "AGG_POST_PROGRAMS", 2)
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -414,12 +415,16 @@ def test_k27_text_matches_its_twin(triton_shim, nhelpers):
     rng = np.random.default_rng(nhelpers)
     helpers = [torch.from_numpy(rng.integers(0, 3, 200))
                for _ in range(nhelpers)]
-    before = PM.agg_post_triton.launches
-    got = PM.agg_post_triton(helpers)
-    want = PM.agg_post_plain(helpers)
-    assert all(torch.equal(x, y) for x, y in zip(got, want))
-    assert PM.agg_post_triton.launches == before + (1 if nhelpers <= 8
-                                                    else 2)
+    # no live row, one strided pass past the last program, every row
+    for n in (0, 137, 200):
+        nr = PP.row_count(n, CPU)
+        before = PM.agg_post_triton.launches
+        got = PM.agg_post_triton(helpers, nr)
+        want = PM.agg_post_plain(helpers, nr)
+        assert all(torch.equal(x[:n], y[:n]) for x, y in zip(got, want))
+        assert not any(y[n:].any() for y in want)
+        assert PM.agg_post_triton.launches == before + (1 if nhelpers <= 8
+                                                        else 2)
 
 
 # ------------------------------------------------------------- queries

@@ -114,10 +114,10 @@ TT_EXPORT int mxu_table(const void* table, int64_t nkeys, int64_t cap,
 // differs.
 //
 //   agg_table_kernel — one thread per build row, 64-bit atomicAdd into the
-//     global table (mode 1).
+//     global table (mode 1, and mode 0 past SUB_WORDS).
 //   agg_table_shared_kernel — the same rows added into a per-block copy of
 //     the table in shared memory, merged into the global table with one
-//     atomic per non-zero entry at the block's end (mode 2): few slots
+//     atomic per non-zero entry at the block's end (mode 0): few slots
 //     under many build rows (G3: 1.5M rows on 256 slots) serialise global
 //     atomics on the same few addresses, the block copy takes them on the
 //     SM instead.
@@ -153,7 +153,7 @@ constexpr int OUT_FIELDS = 7;   // op, table column, values, valid, esz,
                                 // is_float, out ptr
 constexpr int64_t SMEM_WORDS = 6144;   // 48 KB of 8-byte table words
 constexpr int64_t SUB_WORDS = 6080;    // K24's copy, beside 256 B of its own
-constexpr int SHARED_BLOCKS = 264;     // two blocks per SM in mode 2
+constexpr int SHARED_BLOCKS = 264;     // two blocks per SM for the copy
 constexpr long long EXACT = 1LL << 53; // MAX_EXACT_INT_SUM
 enum Info { INFO_DISTINCT = 0, INFO_MAG_OK = 1, INFO_LIVE = 2, INFO_ABSUM = 3 };
 
@@ -377,8 +377,8 @@ __global__ void agg_lookup_kernel(const __grid_constant__ Table tbl,
 // element size, is_float), the first VEC_CNT; num_rows: int32 scalar; kmin:
 // one int64 word on the device; out: int64[slots][nvec] (float sums as
 // float64 bits); info: int64[4] (distinct, mag_ok, live rows, the absolute
-// total's float64 bits); mode 1: global atomics, 0 (or 2): the per-block
-// shared copy when the table fits SUB_WORDS, else global atomics. Returns
+// total's float64 bits); mode 1: global atomics, 0: the per-block shared
+// copy when the table fits SUB_WORDS, else global atomics. Returns
 // cudaGetLastError(), or -1 when the table exceeds TABLE_MAX.
 TT_EXPORT int agg_table(const void* table, int64_t nvec, int64_t cap,
                         const void* num_rows, const void* kmin, void* out,

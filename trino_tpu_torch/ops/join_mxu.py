@@ -40,7 +40,7 @@ SINGLE aggregation, so the cross product is never materialized.
   the live key's unsigned 64-bit min/max and its min/max in its own type
   (the dynamic filter's range), one pass.
 * K27 `agg_post` (Triton, `_agg_post_kernel`): the SQL NULL of a
-  build-side SUM, `helper > 0` over the aggregated page.
+  build-side SUM, `helper > 0` over the aggregated page's live rows.
 
 Exactness: the reference accumulates the table in float64 on its CPU and
 float32 on an accelerator (gated at 2^24). The port keeps the reference
@@ -212,9 +212,13 @@ VEC_CNT, VEC_SUM_I, VEC_SUM_F, VEC_VALIDCNT = range(4)
 # additions is the device's)
 INFO_DISTINCT, INFO_MAG_OK, INFO_LIVE, INFO_ABSUM = range(4)
 
-# K24's modes: the per-block shared copy where the table fits (0), global
-# atomics only (1); the copy fits up to this many table words
-# (csrc/join_mxu.cu SUB_WORDS)
+# K24's modes: AGG_TABLE_AUTO adds into a per-block shared copy where the
+# table fits AGG_SHARED_WORDS words (csrc/join_mxu.cu SUB_WORDS), else into
+# the global table; AGG_TABLE_GLOBAL takes the global atomics where the
+# copy would fit. The engine always runs AUTO. GLOBAL stays so that the
+# card check can hold the global path against the twin at shapes where
+# AUTO copies (few slots: the contention case) and time both paths at one
+# call, which is what AUTO's rule rests on, as K23's `nlevels` does.
 AGG_TABLE_AUTO, AGG_TABLE_GLOBAL = 0, 1
 AGG_SHARED_WORDS = 6080
 
@@ -733,44 +737,55 @@ def agg_join_lookup(key_channel: int, group_channels, derive, helpers):
 # ------------------------------------------------------------------ K27
 
 AGG_POST_BLOCK = 1024
+AGG_POST_PROGRAMS = 1024    # K27's grid at most; each strides the live rows
 _AGG_POST_MAX = 8
 _K27 = {}
 
 
-def agg_post_plain(helpers: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+def agg_post_plain(helpers: Sequence[torch.Tensor], num_rows: torch.Tensor
+                   ) -> List[torch.Tensor]:
     """Plain twin of K27: per summed #valid-w helper column, the validity
-    of its build-side SUM, helper > 0."""
-    return [h > 0 for h in helpers]
+    of its build-side SUM, helper > 0, on the page's num_rows live rows
+    (the padding past them is False here, undefined in the kernel's)."""
+    if not helpers:
+        return []
+    live = torch.arange(helpers[0].shape[0], device=num_rows.device,
+                        dtype=torch.int32) < num_rows
+    return [(h > 0) & live for h in helpers]
 
 
-# K27: one program per BLOCK rows writes, for each of up to 8 helper
-# columns, helper > 0 as the validity of the build-side SUM it guards.
-# Built by _k27 with `tl` bound to triton.language.
+# K27: AGG_POST_PROGRAMS programs at most stride the num_rows live rows in
+# blocks of BLOCK and write, for each of up to 8 helper columns, helper > 0
+# as the validity of the build-side SUM it guards; the padding is left
+# unwritten. Built by _k27 with `tl` bound to triton.language.
 def _agg_post_kernel(h0, h1, h2, h3, h4, h5, h6, h7,
-                     o0, o1, o2, o3, o4, o5, o6, o7, cap,
-                     K: tl.constexpr, BLOCK: tl.constexpr):
-    pid = tl.program_id(0)
-    offs = pid.to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
-    inb = offs < cap
-    for j in tl.static_range(K):
-        if j == 0:
-            hp, op = h0, o0
-        elif j == 1:
-            hp, op = h1, o1
-        elif j == 2:
-            hp, op = h2, o2
-        elif j == 3:
-            hp, op = h3, o3
-        elif j == 4:
-            hp, op = h4, o4
-        elif j == 5:
-            hp, op = h5, o5
-        elif j == 6:
-            hp, op = h6, o6
-        else:
-            hp, op = h7, o7
-        h = tl.load(hp + offs, mask=inb, other=0)
-        tl.store(op + offs, (h > 0).to(tl.uint8), mask=inb)
+                     o0, o1, o2, o3, o4, o5, o6, o7, num_rows_ptr,
+                     K: tl.constexpr, BLOCK: tl.constexpr,
+                     PROGRAMS: tl.constexpr):
+    n = tl.load(num_rows_ptr).to(tl.int64)
+    first = tl.program_id(0).to(tl.int64) * BLOCK
+    for start in range(first, n, PROGRAMS * BLOCK):
+        offs = start + tl.arange(0, BLOCK)
+        inb = offs < n
+        for j in tl.static_range(K):
+            if j == 0:
+                hp, op = h0, o0
+            elif j == 1:
+                hp, op = h1, o1
+            elif j == 2:
+                hp, op = h2, o2
+            elif j == 3:
+                hp, op = h3, o3
+            elif j == 4:
+                hp, op = h4, o4
+            elif j == 5:
+                hp, op = h5, o5
+            elif j == 6:
+                hp, op = h6, o6
+            else:
+                hp, op = h7, o7
+            h = tl.load(hp + offs, mask=inb, other=0)
+            tl.store(op + offs, (h > 0).to(tl.uint8), mask=inb)
 
 
 def _k27():
@@ -778,18 +793,19 @@ def _k27():
 
     Replaces trino_tpu/ops/join_mxu.py agg_join_post (:287), whose masks
     XLA fuses into one elementwise pass. Bound on this card: bytes, each
-    helper column read once and each mask written once; one program per
-    AGG_POST_BLOCK rows, up to 8 helpers a launch."""
+    helper column read once and each mask written once over the live
+    rows; up to 8 helpers a launch."""
     if not _K27:
         import triton
         import triton.language as tl_mod
         globals()["tl"] = tl_mod
-        _K27["k"] = triton.jit(_agg_post_kernel, do_not_specialize=["cap"])
+        _K27["k"] = triton.jit(_agg_post_kernel)
     return _K27["k"]
 
 
-def agg_post_triton(helpers: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """K27 launch: one Triton program over the page per 8 helpers."""
+def agg_post_triton(helpers: Sequence[torch.Tensor], num_rows: torch.Tensor
+                    ) -> List[torch.Tensor]:
+    """K27 launch: one Triton program over the live rows per 8 helpers."""
     if not helpers:
         return []
     cap = helpers[0].shape[0]
@@ -799,16 +815,21 @@ def agg_post_triton(helpers: Sequence[torch.Tensor]) -> List[torch.Tensor]:
                 or not h.is_contiguous():
             raise ValueError("helpers must be contiguous int64 [cap] on the "
                              "card")
+    if num_rows.dtype != torch.int32 or num_rows.dim() != 0 \
+            or num_rows.device != dev:
+        raise ValueError("num_rows must be a 0-d int32 tensor beside the "
+                         "helpers")
     kernel = _k27()
     outs = [torch.empty(cap, dtype=torch.bool, device=dev)
             for _ in helpers]
-    grid = (max(1, -(-cap // AGG_POST_BLOCK)),)
+    grid = (max(1, min(-(-cap // AGG_POST_BLOCK), AGG_POST_PROGRAMS)),)
     for g in range(0, len(helpers), _AGG_POST_MAX):
         hs = list(helpers[g:g + _AGG_POST_MAX])
         os_ = [o.view(torch.uint8) for o in outs[g:g + _AGG_POST_MAX]]
         pad = _AGG_POST_MAX - len(hs)
-        kernel[grid](*hs, *([hs[0]] * pad), *os_, *([os_[0]] * pad), cap,
-                     K=len(hs), BLOCK=AGG_POST_BLOCK, num_warps=4)
+        kernel[grid](*hs, *([hs[0]] * pad), *os_, *([os_[0]] * pad),
+                     num_rows, K=len(hs), BLOCK=AGG_POST_BLOCK,
+                     PROGRAMS=AGG_POST_PROGRAMS, num_warps=4)
         agg_post_triton.launches += 1
     return outs
 
@@ -816,11 +837,11 @@ def agg_post_triton(helpers: Sequence[torch.Tensor]) -> List[torch.Tensor]:
 agg_post_triton.launches = 0
 
 
-def agg_post(helpers: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+def agg_post(helpers: Sequence[torch.Tensor], num_rows: torch.Tensor
+             ) -> List[torch.Tensor]:
     """K27 wrapper: plain twin on the CPU, Triton kernel on CUDA."""
-    if helpers and helpers[0].is_cuda:
-        return agg_post_triton(helpers)
-    return agg_post_plain(helpers)
+    run = agg_post_triton if num_rows.is_cuda else agg_post_plain
+    return run(helpers, num_rows)
 
 
 def agg_join_post(nk: int, derive, nhelpers: int, out_types):
@@ -834,7 +855,7 @@ def agg_join_post(nk: int, derive, nhelpers: int, out_types):
     def op(page: Page) -> Page:
         base = nk + len(derive)
         masks = agg_post([page.columns[base + h].values.contiguous()
-                          for h in range(nhelpers)])
+                          for h in range(nhelpers)], page.num_rows)
         cols = list(page.columns[:nk])
         for i, (d, typ) in enumerate(zip(derive, out_types)):
             c = page.columns[nk + i]
