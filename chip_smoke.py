@@ -37,7 +37,13 @@ Phases, each printing its lines before the next starts:
      65,536 slots, 8 and 256 keys under 1.5M build rows, NULL and dead
      rows, negative and double keys, sums past 2^53, an all-NULL column,
      an empty build, a dead probe): integers, masks and mag_ok exact,
-     float64 sums to 1e-9 relative;
+     float64 sums to 1e-9 relative; K28-K31 (the special aggregates: K8's
+     group-id mode, the hash in checksum and HLL modes, the centered,
+     positional and HLL-fold reductions, the percentile pick) over
+     SPECIAL_CASES (empty pages, one row, one group, 3 to 2^20 groups;
+     NULLs, NaN, +-0.0, +-inf, ties at the extremum and at the picked
+     rank, a FILTER, negative narrow integers): exact but for the
+     centered doubles (1e-9 relative or of the column's largest value);
   3. the 22 TPC-H queries, a FULL join, a MARK query and the window,
      grouping-set and UNION queries W1-W6 and W8 at sf1, and q6, q3, q9,
      q13 and W7 at sf10 (the reference's default session, spill on) from SQL
@@ -65,13 +71,18 @@ Phases, each printing its lines before the next starts:
      port's, no fused join through a plain twin (`[fused]`); q72, whose
      inventory x catalog_sales join on item_sk alone needs more than the
      card's memory at sf1, reports the join that stopped it
-     (`[ds-stopped]`) and is not compared;
+     (`[ds-stopped]`) and is not compared; then the special-aggregate
+     path: SPECIAL_QUERIES (S1-S7, S1 also at sf10) with every count set
+     to 0 before it, each query's groups, rows and K28-K31 launches
+     (`[special]`), rows equal to the CPU port's, K28-K31 each launched
+     and no special aggregate through a plain twin;
   4. every kernel, every expanding-probe kind and the mxu, dense, search
      and cross routes launched during phase 3 (K16-K19 on the forced
      path; the host attach's ms per batch beside a pinned copy of the
      bytes it moves; K20-K23 at the window queries' largest sf1 calls;
      K24-K27 at their largest call of the TPC-DS runs, K24 also through
-     its global-atomics mode);
+     its global-atomics mode; K28-K31 at their largest call of the
+     special-aggregate path; the S queries' warm walls too);
      per kernel its launches,
      its time at the main path's shapes (CUDA events; K10 and K11 also
      their host time per call), its bound, its plain twin's time and a
@@ -574,6 +585,59 @@ FROM (SELECT l_orderkey % 256 AS k, l_suppkey % 16 AS g,
 WHERE p.k = b.k GROUP BY g""", False),
     "G4": ("tpcds", (), """SELECT DISTINCT ss_sold_date_sk
 FROM store_sales, store WHERE ss_store_sk = s_store_sk""", False),
+}
+
+
+# The special aggregates (ROADMAP B8) on TPC-H: name -> (schema, SQL).
+# S1 puts lineitem on 4 groups (K30's contention case, also at sf10), S2
+# and S4 on about 100,000 customers, S5 and S6 on 10,000 suppliers; S3
+# is global with DISTINCT, S7 checksum through K4 (PARTIAL/FINAL), K3
+# (dictionary keys) and K8.
+S1_SQL = """SELECT l_returnflag, l_linestatus,
+       stddev(l_extendedprice), stddev_pop(l_quantity),
+       var_samp(l_discount), variance(l_tax),
+       corr(l_extendedprice, l_quantity),
+       covar_pop(l_quantity, l_extendedprice),
+       covar_samp(l_quantity, l_extendedprice),
+       regr_slope(l_extendedprice, l_quantity),
+       regr_intercept(l_extendedprice, l_quantity)
+FROM lineitem GROUP BY 1, 2"""
+SPECIAL_QUERIES = {
+    "S1": ("sf1", S1_SQL),
+    "S1_sf10": ("sf10", S1_SQL),
+    "S2": ("sf1", """SELECT o_custkey, stddev_samp(o_totalprice),
+       var_pop(o_totalprice)
+FROM orders GROUP BY o_custkey"""),
+    "S3": ("sf1", """SELECT var_pop(DISTINCT l_quantity),
+       stddev(DISTINCT l_discount), var_samp(l_extendedprice),
+       corr(l_quantity, l_extendedprice)
+FROM lineitem"""),
+    "S4": ("sf1", """SELECT o_custkey, min_by(o_orderkey, o_totalprice),
+       max_by(o_orderdate, o_totalprice), arbitrary(o_orderpriority)
+FROM orders GROUP BY o_custkey"""),
+    "S4_global": ("sf1", """SELECT min_by(l_orderkey, l_extendedprice),
+       max_by(l_comment, l_extendedprice), arbitrary(l_shipmode)
+FROM lineitem"""),
+    "S5": ("sf1", """SELECT l_suppkey, approx_distinct(l_partkey),
+       approx_distinct(l_orderkey)
+FROM lineitem GROUP BY l_suppkey"""),
+    "S5_global": ("sf1", """SELECT approx_distinct(l_orderkey),
+       approx_distinct(l_comment), approx_distinct(l_extendedprice)
+FROM lineitem"""),
+    "S6": ("sf1", """SELECT o_orderpriority,
+       approx_percentile(o_totalprice, 0.5e0),
+       approx_percentile(o_totalprice, 0.99e0)
+FROM orders GROUP BY 1"""),
+    "S6_supp": ("sf1", """SELECT l_suppkey,
+       approx_percentile(l_extendedprice, 0.9e0)
+FROM lineitem GROUP BY l_suppkey"""),
+    "S7": ("sf1", """SELECT checksum(l_orderkey), checksum(l_extendedprice),
+       checksum(l_shipdate), checksum(l_comment), checksum(l_discount)
+FROM lineitem"""),
+    "S7_dict": ("sf1", """SELECT l_returnflag, checksum(l_partkey)
+FROM lineitem GROUP BY 1"""),
+    "S7_general": ("sf1", """SELECT o_custkey, checksum(o_orderkey)
+FROM orders GROUP BY o_custkey"""),
 }
 
 
@@ -2682,6 +2746,486 @@ def kernel_rows_sort_expr(cap: Capture, originals, launches, dev, card):
     return out
 
 
+# ------------------------------------------- K28-K31 (the special aggregates)
+
+SPECIAL_CASES = [  # label, cap, live rows, groups (0: a global aggregation)
+    ("an empty page", 0, 0, 0), ("an empty grouped page", 0, 0, 3),
+    ("one row", 1, 1, 1), ("one group", 5000, 4321, 1),
+    ("3 groups", 5000, 4321, 3), ("global", 100_000, 99_000, 0),
+    ("3,000 groups", 100_000, 99_000, 3000),
+    ("2^20 groups", 1 << 22, (1 << 22) - 7, 1 << 20)]
+SPECIAL_HASHED = ("dbl", "tie", "dec", "i8", "i16", "i32", "f32", "day",
+                  "bool", "code")
+# (x, y) pairs of the positional checks: codes, decimals, floats, dates
+# and doubles picked by ties, NaN/+inf, narrow negative integers, bools
+SPECIAL_XY = (("code", "tie"), ("dec", "big"), ("f32", "i8"),
+              ("day", "bool"), ("dbl", "dbl"), ("i16", "code"))
+
+
+def special_page(g, cap, dev):
+    """Seeded columns for K29-K31: doubles with NaN, -0.0, +0.0 and +-inf
+    (`tie` draws from 8 values, so ties at every extremum and rank), a
+    decimal, few distinct int64 values, negative int8/int16/int32, float32
+    with NaN and -0.0, a date, booleans and dictionary codes; a validity
+    mask per column, a FILTER and a p column (0.5, one live row 0.75, the
+    dead rows 1.0)."""
+    def r(lo, hi, dtype=torch.int64):
+        return torch.randint(lo, hi, (cap,), generator=g,
+                             dtype=torch.int64).to(dtype)
+    tie = torch.tensor([float("nan"), float("inf"), float("-inf"), -0.0,
+                        0.0, 3.5, 3.5, -2.0], dtype=torch.float64)
+    cols = {"dbl": torch.randn(cap, generator=g, dtype=torch.float64) * 1e3,
+            "tie": tie[r(0, 8)], "dec": r(-10**9, 10**9),
+            "big": r(-6, 6) * 2**36, "i8": r(-128, 128, torch.int8),
+            "i16": r(-2**15, 2**15, torch.int16),
+            "i32": r(-2**31, 2**31, torch.int32),
+            "f32": (torch.randn(cap, generator=g) * 50).to(torch.float32),
+            "day": r(8000, 8040, torch.int32), "bool": r(0, 2, torch.bool),
+            "code": r(0, 40, torch.int32)}
+    if cap >= 32:
+        cols["dbl"][::13] = float("nan")
+        cols["dbl"][1::11] = -0.0
+        cols["dbl"][3::19] = float("inf")
+        cols["dbl"][4::23] = float("-inf")
+        cols["f32"][::7] = float("nan")
+        cols["f32"][1::9] = -0.0
+    valid = {k: (torch.rand(cap, generator=g) < 0.9).to(dev) for k in cols}
+    filt = (torch.rand(cap, generator=g) < 0.8).to(dev)
+    return {k: v.to(dev) for k, v in cols.items()}, valid, filt
+
+
+def special_keys(g, cap, n, ngroups, dev):
+    """One int64 group key with about `ngroups` values (NULLs but for one
+    group), and the rows' groups from K28 and its twin."""
+    from trino_tpu_torch.ops import aggregate as A
+    key = torch.randint(0, max(ngroups, 1), (cap,), generator=g,
+                        dtype=torch.int64) * 1_000_003 - 2**40
+    valid = None if ngroups == 1 else \
+        (torch.rand(cap, generator=g) >= 0.05).to(dev)
+    keys = [A.GroupKey(key.to(dev), valid)]
+    nr = torch.tensor(n, dtype=torch.int32, device=dev)
+    got = A.group_ids_cuda(keys, [], nr, cap)
+    sync()
+    want = A.group_ids_plain(keys, [], nr, cap)
+    kv, km, _, ng, gid = got
+    G = int(ng)
+    if G != int(want[3]):
+        fail(f"K28: {G} groups, twin {int(want[3])} (cap={cap})")
+    live = torch.arange(cap, device=dev) < n
+    if bool((gid[~live] != G).any()) or bool(
+            ((gid[live] < 0) | (gid[live] >= G)).any()):
+        fail(f"K28: a row's group lies outside [0, {G}) (cap={cap})")
+    # every live row's canonical key is its output row's
+    rows = gid[live].to(torch.int64)
+    for k, v, m in zip(keys, kv, km):
+        rn, rv = A._canonical(A.GroupKey(k.values[live], None if k.valid is
+                                         None else k.valid[live]))
+        on, ov = A._canonical(A.GroupKey(v[:G], None if m is None
+                                         else m[:G]))
+        if not (torch.equal(rn, on[rows]) and torch.equal(rv, ov[rows])):
+            fail(f"K28: a row's group keys differ from its output row's "
+                 f"(cap={cap})")
+    return gid, ng, nr
+
+
+def _same_picks(label, got, want, G) -> None:
+    (gv, gm), (wv, wm) = got, want
+    gv, gm, wv, wm = gv[:G], gm[:G], wv[:G], wm[:G]
+    zero = torch.zeros((), dtype=gv.dtype, device=gv.device)
+    if not torch.equal(gm, wm) or not same_bits(
+            torch.where(gm, gv, zero), torch.where(wm, wv, zero)):
+        fail(f"{label} differs from its twin")
+
+
+def check_special(g, dev) -> float:
+    """K28-K31 against their twins on SPECIAL_CASES: K28's row -> group
+    map (every live row's key is its output row's; dead rows get
+    num_groups); K29's hash in both modes over every column dtype, bit for
+    bit; K30's HLL fold over the twin's (pair, max rho) page, the
+    estimates exactly; K30's centered mode in every kind (validity exactly,
+    doubles to 1e-9 relative or 1e-9 of the column's largest magnitude, a
+    value near zero having no meaningful relative bound); K30's positional
+    mode and K31 exactly. Returns the largest float error."""
+    from trino_tpu_torch.ops import aggregate as A
+    worst = 0.0
+    for label, cap, n, ngroups in SPECIAL_CASES:
+        cols, valid, filt = special_page(g, cap, dev)
+        if ngroups:
+            gid, ng, nr = special_keys(g, cap, n, ngroups, dev)
+            nseg, G = cap, int(ng)
+        else:
+            gid, ng = None, None
+            nr = torch.tensor(n, dtype=torch.int32, device=dev)
+            nseg, G = 1, 1
+        if nseg == 0:
+            continue
+        live = torch.arange(cap, device=dev) < n
+        for c in SPECIAL_HASHED:
+            mask = (live & valid[c] & filt).contiguous()
+            if not torch.equal(A.checksum_contrib_cuda(cols[c], mask),
+                               A.checksum_contrib_plain(cols[c], mask)):
+                fail(f"K29 checksum mode differs from its twin ({c}, "
+                     f"{label})")
+            masks = [valid[c], filt]
+            got = A.hll_pairs_cuda(cols[c], masks, nr, gid)
+            want = A.hll_pairs_plain(cols[c], masks, nr, gid)
+            if not all(torch.equal(x, y) for x, y in zip(got, want)):
+                fail(f"K29 HLL mode differs from its twin ({c}, {label})")
+            kv, _, regs, npairs = A.group_reduce_plain(
+                [A.GroupKey(want[0], None)],
+                [A.StateInput(want[1], None, None, A.MAX, False)], nr, cap)
+            est = A.hll_fold_cuda(kv[0], regs[0], npairs, ng, nseg)
+            if not torch.equal(est[:G], A.hll_fold_plain(
+                    kv[0], regs[0], npairs, ng, nseg)[:G]):
+                fail(f"K30 HLL mode differs from its twin ({c}, {label})")
+        for kind in range(9):
+            for a, div, b in (("dbl", None, "i32"), ("dec", 100.0, "dbl"),
+                              ("f32", None, None), ("i8", None, "day")):
+                masks = [valid[a], filt] + ([] if b is None else [valid[b]])
+                bb = None if b is None else cols[b]
+                got = A.centered_cuda(kind, cols[a], div, bb, None, masks,
+                                      nr, gid, ng, nseg)
+                want = A.centered_plain(kind, cols[a], div, bb, None, masks,
+                                        nr, gid, ng, nseg)
+                gv, gm, wv, wm = got[0][:G], got[1][:G], want[0][:G], \
+                    want[1][:G]
+                if not torch.equal(gm, wm):
+                    fail(f"K30 centered kind {kind} validity differs from "
+                         f"its twin ({a}, {b}, {label})")
+                gv, wv = gv[wm], wv[wm]
+                scale = float(wv[torch.isfinite(wv)].abs().max()) \
+                    if bool(torch.isfinite(wv).any()) else 0.0
+                ok = (gv == wv) | (torch.isnan(gv) & torch.isnan(wv)) | (
+                    (gv - wv).abs() <= 1e-9 * torch.maximum(
+                        torch.maximum(gv.abs(), wv.abs()),
+                        torch.full_like(gv, scale)))
+                if not bool(ok.all()):
+                    fail(f"K30 centered kind {kind} differs from its twin "
+                         f"({a}, {b}, {label})")
+                worst = max(worst, max_abs_err(gv[torch.isfinite(wv)],
+                                               wv[torch.isfinite(wv)]))
+        for kind in (A.ARBITRARY, A.MIN_BY, A.MAX_BY):
+            for x, y in SPECIAL_XY:
+                yy = None if kind == A.ARBITRARY else cols[y]
+                masks = [filt, valid[x] if kind == A.ARBITRARY else valid[y]]
+                _same_picks(
+                    f"K30 positional kind {kind} ({x} by {y}, {label})",
+                    A.positional_cuda(kind, cols[x], valid[x], yy, masks,
+                                      nr, gid, ng, nseg),
+                    A.positional_plain(kind, cols[x], valid[x], yy, masks,
+                                       nr, gid, ng, nseg), G)
+        for x in ("tie", "dec", "day", "f32", "code", "bool"):
+            for pv in (0.5, 0.99, 0.0, 1.0):
+                p = torch.full((cap,), pv, dtype=torch.float64, device=dev)
+                if cap > 3:
+                    p[1] = 0.75
+                p[n:] = 1.0
+                masks = [valid[x], filt]
+                _same_picks(
+                    f"K31 ({x}, p {pv}, {label})",
+                    A.percentile_cuda(cols[x], p, masks, nr, gid, ng, nseg),
+                    A.percentile_plain(cols[x], p, masks, nr, gid, ng, nseg),
+                    G)
+        sync()
+    return worst
+
+
+# regr_intercept = mean(a) - slope * mean(b) cancels two terms of about
+# mean(a) (S1: about 38,000 against intercepts of -17 to 63), so a 1e-12
+# relative difference in the group sums, which float64 atomics in another
+# order than the CPU's give, moves it by more than 1e-9 of itself. Such a
+# column is held to 1e-9 of its group's mean(a), read from the CPU port:
+# query -> (SQL giving each group's keys and scale, key columns, {output
+# column: scale column}).
+_S1_SCALE = ("SELECT l_returnflag, l_linestatus, avg(l_extendedprice) "
+             "FROM lineitem GROUP BY 1, 2", 2, {10: 2})
+SPECIAL_SCALES = {"S1": _S1_SCALE, "S1_sf10": _S1_SCALE}
+
+
+def rows_equal_scaled(got, want, scale_rows, nkeys, cols) -> bool:
+    """rows_equal, but for the columns `cols` maps: rows matched on their
+    first nkeys columns, and each such column held to 1e-9 of its group's
+    scale (scale_rows: the keys, then the scales)."""
+    scales = {tuple(r[:nkeys]): r for r in scale_rows}
+    if len(got) != len(want) or len(scales) != len(want):
+        return False
+    rest_g, rest_w = [], []
+    for rg, rw in zip(sorted(got, key=lambda r: str(r[:nkeys])),
+                      sorted(want, key=lambda r: str(r[:nkeys]))):
+        key = tuple(rw[:nkeys])
+        if tuple(rg[:nkeys]) != key or key not in scales:
+            return False
+        for c, sc in cols.items():
+            x, y = rg[c], rw[c]
+            if (x is None) != (y is None):
+                return False
+            if x is not None and abs(x - y) > 1e-9 * max(
+                    abs(x), abs(y), abs(float(scales[key][sc]))):
+                return False
+        rest_g.append(tuple(v for j, v in enumerate(rg) if j not in cols))
+        rest_w.append(tuple(v for j, v in enumerate(rw) if j not in cols))
+    return rows_equal(rest_g, rest_w)
+
+
+def table_rows(sql: str, schema: str) -> int:
+    from trino_tpu_torch.connector import tpch_gen
+    table = "lineitem" if "FROM lineitem" in sql else "orders"
+    return tpch_gen.row_count(table, {"sf1": 1.0, "sf10": 10.0}[schema])
+
+
+def special_runs(gpu, cpu, cap, kernels, special_kernels, card):
+    """The special-aggregate path: SPECIAL_QUERIES on the card (every
+    kernel's count set to 0 just before, read just after), no special
+    aggregate through a plain twin, rows equal to the CPU port's. Prints
+    a [special] line per query; returns the path's launches."""
+    from trino_tpu_torch.ops import aggregate as A
+    twins = ("group_ids_plain", "checksum_contrib_plain", "hll_pairs_plain",
+             "centered_plain", "positional_plain", "hll_fold_plain",
+             "percentile_plain")
+    real = {k: getattr(A, k) for k in twins}
+    on_card = []
+
+    def watched(k):
+        def run(*args):
+            if cap.label is not None and any(
+                    isinstance(a, torch.Tensor) and a.is_cuda
+                    for a in args):
+                on_card.append((k, cap.label))
+            return real[k](*args)
+        return run
+    for k in twins:
+        setattr(A, k, watched(k))
+    every = {**kernels, **special_kernels}
+    reset_counts(every)
+    results = {}
+    for name, (schema, sql) in SPECIAL_QUERIES.items():
+        cap.label = ("special", name)
+        before = {k: getattr(mod, attr).launches
+                  for k, (mod, attr) in every.items()}
+        t0 = time.perf_counter()
+        res = gpu[schema].execute(sql)
+        sync()
+        secs = time.perf_counter() - t0
+        counts = {k: getattr(mod, attr).launches - before[k]
+                  for k, (mod, attr) in every.items()}
+        results[name] = res
+        say(f"[special] {name} {schema}: {len(res.rows)} groups over "
+            f"{table_rows(sql, schema):,} rows in {secs:.2f} s (first run); "
+            + ", ".join(f"{k} {counts[k]}" for k in special_kernels)
+            + "".join(f", {k} {n}" for k, n in counts.items()
+                      if n and k not in special_kernels))
+    cap.label = None
+    launches = {k: getattr(mod, attr).launches
+                for k, (mod, attr) in special_kernels.items()}
+    for k, fn in real.items():
+        setattr(A, k, fn)
+    if on_card:
+        fail(f"special aggregates on the card ran a plain twin: "
+             f"{on_card[:5]}")
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        fail(f"the special-aggregate path never launched {missing}")
+    for name, (schema, sql) in SPECIAL_QUERIES.items():
+        want = cpu[schema].execute(sql).rows
+        got = results[name].rows
+        if name in SPECIAL_SCALES:
+            scale_sql, nkeys, cols = SPECIAL_SCALES[name]
+            same = rows_equal_scaled(got, want, cpu[schema].execute(
+                scale_sql).rows, nkeys, cols)
+        else:
+            same = rows_equal(got, want)
+        if not same:
+            fail(f"{name} {schema}: cuda rows differ from the CPU run:\n"
+                 f"{got[:3]}\n{want[:3]}")
+        say(f"[special] {name} {schema}: cuda rows == cpu rows "
+            f"({len(got)} rows, first {got[0] if got else None})")
+    say(f"[launches] special-aggregate path ({len(SPECIAL_QUERIES)} "
+        f"queries): {launches}; special aggregates through a plain twin "
+        f"on the card: {len(on_card)} — {card}")
+    return launches
+
+
+def kernel_rows_special(cap: Capture, originals, launches, dev, card):
+    """K28-K31 at their largest call of the special-aggregate path, each
+    against its twin at those inputs. Bounds count the live rows; each
+    input read once (however many passes read it), each output written
+    once (grouped outputs: the groups that exist)."""
+    from trino_tpu_torch.ops import aggregate as A
+    out = []
+
+    def row(name, source, replaces, n_launches, fn, plain, bound_bytes,
+            library, library_name, shape, err):
+        return dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=n_launches, max_abs_err=err, ms=cuda_ms(fn),
+            device_ms=device_profile(fn)[0], host_ms=host_ms(fn),
+            plain_ms=cuda_ms(plain),
+            bound_ms=bound_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+            library_ms=None if library is None else cuda_ms(library),
+            shape=f"{shape}; library = {library_name}")
+
+    def masks_bytes(masks, n):
+        return col_bytes([(None, m) for m in masks if m is not None], n)
+
+    def groups_of(gid, ng, n):
+        g = torch.zeros(n, dtype=torch.int64, device=dev) if gid is None \
+            else gid[:n].to(torch.int64)
+        return g, 1 if ng is None else int(ng)
+
+    # K28 at its largest call
+    keys, states, nr, c = cap.calls[("group_ids_cuda", "special")][1]
+    n = int(nr)
+    got = originals["group_ids"](keys, states, nr, c)
+    want = A.group_ids_plain(keys, states, nr, c)
+    G = int(got[3])
+    if G != int(want[3]) or bool((got[4][n:] != G).any()):
+        fail("K28 differs from its twin at the main path's inputs")
+    canon = [p.to(torch.int64)[:n] for k in keys for p in A._canonical(k)]
+    stacked = torch.stack(canon, 1)
+    out.append(row(
+        "group_ids (K28, K8's group-id mode)",
+        "trino_tpu_torch/csrc/group_agg.cu",
+        "trino_tpu/ops/aggregate.py:578", launches["group_ids"],
+        lambda: originals["group_ids"](keys, states, nr, c),
+        lambda: A.group_ids_plain(keys, states, nr, c),
+        # the live keys and states read once, each row's group written
+        # once, the groups' keys and states once
+        col_bytes([(k.values, k.valid) for k in keys]
+                  + [(s.values, s.valid) for s in states], n) + 4 * c
+        + col_bytes([(k.values, k.valid) for k in keys]
+                    + [(s.values, None) for s in states], G),
+        lambda: torch.unique(stacked, dim=0, return_inverse=True),
+        "torch.unique(dim=0, return_inverse=True) of the canonical keys",
+        f"cap {c}, {n} live rows, {len(keys)} keys, {len(states)} states, "
+        f"{G} groups", 0.0))
+
+    # K29 in both modes at their largest calls
+    values, mask = cap.calls[("checksum_contrib_cuda", "special")][1]
+    if not torch.equal(originals["checksum_contrib"](values, mask),
+                       A.checksum_contrib_plain(values, mask)):
+        fail("K29 checksum mode differs from its twin at the main path's "
+             "inputs")
+    c = values.numel()
+    out.append(row(
+        "special_hash checksum mode (K29)",
+        "trino_tpu_torch/csrc/special_agg.cu",
+        "trino_tpu/ops/aggregate.py:181", launches["checksum_contrib"],
+        lambda: originals["checksum_contrib"](values, mask),
+        lambda: A.checksum_contrib_plain(values, mask),
+        # the column and its mask read, the contribution written, over
+        # the page's capacity (the state column is [cap]; the mask holds
+        # the live rows)
+        c * (values.element_size() + 1 + 8), None,
+        "none: no PyTorch call computes splitmix64",
+        f"cap {c}, {values.dtype}", 0.0))
+    values, masks, nr, gid = cap.calls[("hll_pairs_cuda", "special")][1]
+    n = int(nr)
+    got = originals["hll_pairs"](values, masks, nr, gid)
+    want = A.hll_pairs_plain(values, masks, nr, gid)
+    if not all(torch.equal(x, y) for x, y in zip(got, want)):
+        fail("K29 HLL mode differs from its twin at the main path's inputs")
+    c = values.numel()
+    out.append(row(
+        "special_hash HLL mode (K29)", "trino_tpu_torch/csrc/special_agg.cu",
+        "trino_tpu/ops/aggregate.py:204", launches["hll_pairs"],
+        lambda: originals["hll_pairs"](values, masks, nr, gid),
+        lambda: A.hll_pairs_plain(values, masks, nr, gid),
+        col_bytes([(values, None), (gid, None)], n) + masks_bytes(masks, n)
+        + 16 * c, None, "none: no PyTorch call computes splitmix64",
+        f"cap {c}, {n} live rows, {values.dtype}, "
+        f"{'grouped' if gid is not None else 'global'}", 0.0))
+
+    # K30's three modes
+    args = cap.calls[("centered_cuda", "special")][1]
+    kind, a, a_div, b, b_div, masks, nr, gid, ng, nseg = args
+    n = int(nr)
+    got = originals["centered"](*args)
+    want = A.centered_plain(*args)
+    gg, G = groups_of(gid, ng, n)
+    if not torch.equal(got[1][:G], want[1][:G]) or not close_f64(
+            got[0][:G][want[1][:G]], want[0][:G][want[1][:G]]):
+        fail("K30 centered mode differs from its twin at the main path's "
+             "inputs")
+    err = max_abs_err(got[0][:G][want[1][:G]], want[0][:G][want[1][:G]])
+    acc = torch.zeros(max(G, 1), dtype=torch.float64, device=dev)
+    av = a[:n].to(torch.float64)
+    out.append(row(
+        "special_centered (K30 centered mode)",
+        "trino_tpu_torch/csrc/special_agg.cu",
+        "trino_tpu/ops/aggregate.py:1143", launches["centered"],
+        lambda: originals["centered"](*args),
+        lambda: A.centered_plain(*args),
+        col_bytes([(a, None), (b, None), (gid, None)], n)
+        + masks_bytes(masks, n) + 9 * G,
+        lambda: acc.index_add_(0, gg, av),
+        "one index_add_ of the first argument by group",
+        f"cap {a.numel()}, {n} live rows, kind {kind}, "
+        f"{'two arguments' if b is not None else 'one argument'}, {G} "
+        f"groups", err))
+    args = cap.calls[("positional_cuda", "special")][1]
+    kind, x, x_valid, y, masks, nr, gid, ng, nseg = args
+    n = int(nr)
+    _same_picks("K30 positional mode at the main path's inputs",
+                originals["positional"](*args), A.positional_plain(*args),
+                groups_of(gid, ng, n)[1])
+    gg, G = groups_of(gid, ng, n)
+    ykey = A._y_key((x if y is None else y)[:n])
+    ident = torch.full((max(G, 1),), 2**63 - 1, dtype=torch.int64,
+                       device=dev)
+    out.append(row(
+        "special_positional (K30 positional mode)",
+        "trino_tpu_torch/csrc/special_agg.cu",
+        "trino_tpu/ops/aggregate.py:1054", launches["positional"],
+        lambda: originals["positional"](*args),
+        lambda: A.positional_plain(*args),
+        col_bytes([(y, None), (gid, None)], n) + masks_bytes(masks, n)
+        + G * (2 * x.element_size() + 2),
+        lambda: ident.scatter_reduce(0, gg, ykey, "amin"),
+        "scatter_reduce(amin) of y's order keys by group",
+        f"cap {x.numel()}, {n} live rows, kind {kind}, x {x.dtype}, "
+        f"{G} groups", 0.0))
+    args = cap.calls[("hll_fold_cuda", "special")][1]
+    pairs, regs, npairs, ng, nseg = args
+    n = int(npairs)
+    G = 1 if ng is None else int(ng)
+    if not torch.equal(originals["hll_fold"](*args)[:G],
+                       A.hll_fold_plain(*args)[:G]):
+        fail("K30 HLL mode differs from its twin at the main path's inputs")
+    pg = (pairs[:n] >> A.HLL_P).clamp(0, max(G - 1, 0))
+    inv = torch.exp2(-regs[:n].to(torch.float64))
+    acc = torch.zeros(max(G, 1), dtype=torch.float64, device=dev)
+    out.append(row(
+        "special_hll (K30 HLL mode)", "trino_tpu_torch/csrc/special_agg.cu",
+        "trino_tpu/ops/aggregate.py:231", launches["hll_fold"],
+        lambda: originals["hll_fold"](*args),
+        lambda: A.hll_fold_plain(*args),
+        16 * n + 8 * G, lambda: acc.index_add_(0, pg, inv),
+        "one index_add_ of 2^-reg by group",
+        f"pair page cap {pairs.numel()}, {n} (group, bucket) pairs, "
+        f"{G} groups", 0.0))
+
+    # K31 at its largest call
+    args = cap.calls[("percentile_cuda", "special")][1]
+    x, p, masks, nr, gid, ng, nseg = args
+    n = int(nr)
+    G = 1 if ng is None else int(ng)
+    _same_picks("K31 at the main path's inputs", originals["percentile"](
+        *args), A.percentile_plain(*args), G)
+    picks = torch.randint(0, max(n, 1), (G,), device=dev)
+    out.append(row(
+        "special_percentile (K31, with K10's radix passes)",
+        "trino_tpu_torch/csrc/special_agg.cu",
+        "trino_tpu/ops/aggregate.py:288", launches["percentile"],
+        lambda: originals["percentile"](*args),
+        lambda: A.percentile_plain(*args),
+        col_bytes([(x, None), (p, None), (gid, None)], n)
+        + masks_bytes(masks, n) + G * (x.element_size() + 1),
+        lambda: x.index_select(0, picks),
+        "index_select of one picked position per group (the pick alone)",
+        f"cap {x.numel()}, {n} live rows, {x.dtype}, {G} groups", 0.0))
+    return out
+
+
 # ------------------------------------------------------------- phase 3/4
 
 
@@ -2834,7 +3378,8 @@ def rows_same_multiset(a, b, nkeys: int) -> bool:
 # how its rows compare: "order", "multiset" or the key count to sort by)
 SELF_JOIN_SQL = ("SELECT count(*), sum(l2.l_extendedprice) FROM lineitem l1 "
                  "JOIN lineitem l2 ON l1.l_orderkey = l2.l_orderkey")
-GROUPS_SQL = ("SELECT l_orderkey, l_linenumber, sum(l_extendedprice) AS s "
+GROUPS_SQL = ("SELECT l_orderkey, l_linenumber, sum(l_extendedprice) AS s, "
+              "checksum(l_partkey) AS c "
               "FROM lineitem GROUP BY l_orderkey, l_linenumber")
 SORT_SPILL_SQL = ("SELECT l_orderkey, l_partkey, l_shipdate, l_comment "
                   "FROM lineitem ORDER BY l_shipdate DESC, l_orderkey, "
@@ -3110,6 +3655,19 @@ def main() -> None:
         f"(integers, codes and masks exact, doubles <= 1e-9 rel, NaN and "
         f"-0.0 kept; compiles included): {errs} in "
         f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    errs = {"group_ids + special_hash + special_centered + "
+            "special_positional + special_hll + special_percentile":
+            check_special(g, dev)}
+    say(f"[kernels] K28 (K8's group-id mode), K29 (both modes), K30 "
+        f"(centered, positional and HLL modes) and K31 match their plain "
+        f"twins on the card (K28's row -> group map, K29's hashes, K30's "
+        f"estimates and picks and K31's picks exactly; K30's centered "
+        f"doubles <= 1e-9 rel or 1e-9 of the column's largest magnitude; "
+        f"{len(SPECIAL_CASES)} cases: an empty page, one row, one group, "
+        f"3 and 3,000 groups, a global page, 2^20 groups over 4,194,304 "
+        f"rows; NULLs, NaN, +-0.0, +-inf, ties, a FILTER, negative narrow "
+        f"integers): {errs} in {time.perf_counter() - t0:.1f} s")
     say(f"[time] phase 2 (kernels vs twins): "
         f"{time.perf_counter() - t_phase:.1f} s")
 
@@ -3143,6 +3701,16 @@ def main() -> None:
     cap.wrap(J, "unique_probe_cuda", lambda pc, bc, *_: pc[0][0].numel(),
              mxu_tag, k13_scopes)
     cap.wrap(A, "group_reduce_cuda", lambda keys, states, n, c: c)
+    # K28-K31: their largest call of the special-aggregate path
+    sp = ("special",)
+    cap.wrap(A, "group_ids_cuda", lambda keys, states, n, c: c, scopes=sp)
+    cap.wrap(A, "checksum_contrib_cuda", lambda v, m: v.numel(), scopes=sp)
+    cap.wrap(A, "hll_pairs_cuda", lambda v, *_: v.numel(), scopes=sp)
+    cap.wrap(A, "centered_cuda", lambda kind, a, ad, b, *_: a.numel()
+             * (1 if b is None else 2), scopes=sp)
+    cap.wrap(A, "positional_cuda", lambda kind, x, *_: x.numel(), scopes=sp)
+    cap.wrap(A, "hll_fold_cuda", lambda pairs, *_: pairs.numel(), scopes=sp)
+    cap.wrap(A, "percentile_cuda", lambda x, *_: x.numel(), scopes=sp)
     cap.wrap(J, "join_runs_cuda", lambda cols, *_: cols[0][0].numel())
     cap.wrap(J, "expand_count_cuda", lambda pc, *_: pc[0][0].numel(),
              mxu_tag, k13_scopes)
@@ -3272,6 +3840,14 @@ def main() -> None:
                      "spill_rank": (SP, "rank_rows_cuda"),
                      "bypass_partial": (A, "passthrough_triton")}
     all_kernels = {**kernels, **spill_kernels}
+    # K28-K31: the special-aggregate path's kernels (SPECIAL_QUERIES)
+    special_kernels = {"group_ids": (A, "group_ids_cuda"),
+                       "checksum_contrib": (A, "checksum_contrib_cuda"),
+                       "hll_pairs": (A, "hll_pairs_cuda"),
+                       "centered": (A, "centered_cuda"),
+                       "positional": (A, "positional_cuda"),
+                       "hll_fold": (A, "hll_fold_cuda"),
+                       "percentile": (A, "percentile_cuda")}
     runs = [("sf1", q, TPCH[q][0]) for q in TPCH]
     runs += [("sf1", "full", FULL_SQL), ("sf1", "mark", MARK_SQL)]
     win_runs = [(schema, w, sql)
@@ -3406,6 +3982,12 @@ def main() -> None:
                if hasattr(getattr(mod, attr), "by_kind")}
     k13 = {k: dict(getattr(J, f"{k}_cuda").by_route)
            for k in ("unique_probe", "expand_count", "probe_verdict")}
+    # the special-aggregate path, its counts set to 0 (the main path's
+    # are read above)
+    t_special = time.perf_counter()
+    special_launches = special_runs(gpu, cpu, cap, all_kernels,
+                                    special_kernels, card)
+    t_special = time.perf_counter() - t_special
     for (schema, q), (res, secs) in results.items():
         say(f"[query] {q} {schema} on cuda: {len(res.rows)} rows, first "
             f"run {secs:.2f} s (includes data generation and staging)")
@@ -3466,7 +4048,8 @@ def main() -> None:
     say(f"[time] phase 3 (queries): {time.perf_counter() - t_phase:.1f} s, "
         f"of which the CPU runs {t_cpu:.1f} s, the forced-threshold "
         f"runs {time.perf_counter() - t0:.1f} s, TPC-DS and G1-G4 "
-        f"{t_ds:.1f} s on the card and {t_ds_cpu:.1f} s on the CPU")
+        f"{t_ds:.1f} s on the card and {t_ds_cpu:.1f} s on the CPU, the "
+        f"special aggregates {t_special:.1f} s (card and CPU)")
 
     # ---- phase 4: launch check and times
     t_phase = time.perf_counter()
@@ -3501,6 +4084,9 @@ def main() -> None:
                               spill_main, spill_modes, dev, card)
     rows += kernel_rows_window(cap, originals, launches, dev, card)
     rows += kernel_rows_agg_join(cap, originals, launches, dev, card)
+    originals.update({k: cap.orig[attr]
+                      for k, (_, attr) in special_kernels.items()})
+    rows += kernel_rows_special(cap, originals, special_launches, dev, card)
     for r in rows:
         dev_ms = "not measured" if r["device_ms"] is None \
             else f"{r['device_ms']:.4f} ms"
@@ -3527,6 +4113,11 @@ def main() -> None:
         warm_profile(dsq, "sf1", lambda: runner.execute(sql), card)
     say(f"[time] TPC-DS and G1-G4 walls and profiles: "
         f"{time.perf_counter() - t_ds_walls:.1f} s")
+    t_sp_walls = time.perf_counter()
+    for name, (schema, sql) in SPECIAL_QUERIES.items():
+        warm_profile(name, schema, lambda: gpu[schema].execute(sql), card)
+    say(f"[time] special-aggregate walls and profiles: "
+        f"{time.perf_counter() - t_sp_walls:.1f} s")
     say(f"[time] phase 4 walls and profiles: "
         f"{time.perf_counter() - t0:.1f} s; whole run "
         f"{time.perf_counter() - t_start:.1f} s")

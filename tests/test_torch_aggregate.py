@@ -213,8 +213,8 @@ def test_hash_aggregate_matches_reference(keys, layout, chain):
 
 
 def test_unsupported_paths_name_the_roadmap():
-    with pytest.raises(NotImplementedError, match="B8"):
-        PA.hash_aggregate([], [PA.AggSpec("approx_distinct", 2, PT.BIGINT)])
+    with pytest.raises(NotImplementedError, match="B13"):
+        PA.hash_aggregate([], [PA.AggSpec("array_agg", 2, PT.BIGINT)])
     # DISTINCT runs in a SINGLE step only, and refuses PARTIAL/FINAL
     # exactly where the reference does
     sp = [PA.AggSpec("sum", 2, PT.BIGINT, distinct=True)]

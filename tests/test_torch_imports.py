@@ -1,7 +1,7 @@
 """The port stands alone: trino_tpu_torch (and chip_smoke.py) import
-neither jax nor trino_tpu, run q6, q3 and q13 with both made
-unimportable, and refuse to start on a missing CUDA device unless the
-caller asks for the CPU."""
+neither jax nor trino_tpu, run q6, q3, q13 and the later slices' paths
+with both made unimportable, and refuse to start on a missing CUDA
+device unless the caller asks for the CPU."""
 
 import ast
 import os
@@ -63,7 +63,7 @@ def test_inventory_covers_the_slice():
     assert cu == set(native.SOURCES)
     assert {"gather", "join_build", "join_probe", "join_expand",
             "join_mxu", "group_agg", "tpch_gen", "join_spill",
-            "spill_part", "window"} <= cu
+            "spill_part", "window", "special_agg"} <= cu
 
 
 @pytest.mark.parametrize("rel", _sources())
@@ -201,3 +201,13 @@ def test_tpcds_and_fused_join_run_with_jax_and_reference_unimportable():
         "WHERE ss_store_sk = s_store_sk GROUP BY ss_sold_date_sk",
         ordered=False)
     assert "mxu-agg" in routes
+
+
+def test_special_aggregates_run_with_jax_and_reference_unimportable():
+    """The special aggregates (S4's grouped form: K28's group ids, K30's
+    positional mode) and checksum (K29) import nothing of JAX either."""
+    _run_blocked(
+        "SELECT o_custkey, min_by(o_orderkey, o_totalprice), "
+        "max_by(o_orderdate, o_totalprice), arbitrary(o_orderpriority), "
+        "checksum(o_comment) FROM orders GROUP BY o_custkey",
+        ordered=False)

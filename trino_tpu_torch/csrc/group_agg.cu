@@ -35,6 +35,17 @@
 // group's first sorted row: in a group holding both -0.0 and +0.0 the
 // reference emits -0.0 and this kernel either; the two compare equal.
 //
+// Group-id mode (K28) replaces the reference's `seg`/`perm_sorted`
+// (trino_tpu/ops/aggregate.py hash_aggregate, the group of each sorted
+// row): with a `gid` array, accumulate_kernel records each live row's
+// slot there, group_scatter_kernel turns each occupied slot's entry of
+// slot_rows into its output position once the slot's keys are copied, and
+// gid_kernel maps every row's slot to that position (dead rows get
+// num_groups). One launch of K8 then gives the keys, the states and the
+// row -> output-row map that the special aggregates (csrc/special_agg.cu)
+// reduce over, so their per-group results line up with K8's rows. Bound:
+// 4 bytes a row written twice and read once, beside K8's own traffic.
+//
 // Distinct mode (group_distinct) replaces trino_tpu/ops/aggregate.py
 // _distinct_first_mask, the MarkDistinct of a DISTINCT aggregate: one more
 // lexicographic sort on (group keys, argument) and a boundary scan mark the
@@ -124,7 +135,8 @@ __global__ void accumulate_kernel(const __grid_constant__ Table tbl,
                                   int64_t slots,
                                   int32_t* __restrict__ slot_rows,
                                   unsigned long long* __restrict__ acc,
-                                  int32_t* __restrict__ nan) {
+                                  int32_t* __restrict__ nan,
+                                  int32_t* __restrict__ gid) {
   const int64_t* keys = tbl.v;
   const int64_t* st = tbl.v + KEY_FIELDS * nkeys;
   int64_t n = *num_rows;
@@ -142,6 +154,7 @@ __global__ void accumulate_kernel(const __grid_constant__ Table tbl,
       if (same_key(keys, nkeys, i, r)) break;
       s = (s + 1) & mask;
     }
+    if (gid != nullptr) gid[i] = (int32_t)s;
     agg_fold_row(st, k, i, acc + s * k, nan + s * k);
   }
 }
@@ -165,7 +178,8 @@ __global__ void group_scatter_kernel(const __grid_constant__ Table tbl,
                                      const unsigned long long* __restrict__ acc,
                                      const int32_t* __restrict__ nan,
                                      const int64_t* __restrict__ offsets,
-                                     unsigned long long* __restrict__ out) {
+                                     unsigned long long* __restrict__ out,
+                                     int32_t* slot_pos) {
   const int64_t* keys = tbl.v;
   const int64_t* st = tbl.v + KEY_FIELDS * nkeys;
   tile_scatter(occ, occ.slots, offsets, [&](int64_t s, int64_t pos) {
@@ -182,7 +196,24 @@ __global__ void group_scatter_kernel(const __grid_constant__ Table tbl,
       out[j * out_cap + pos] = agg_result(
           (int)st[j * STATE_FIELDS + 3], (int)st[j * STATE_FIELDS + 4],
           acc[s * k + j], nan[s * k + j]);
+    // group-id mode: the slot's entry of slot_rows (read above, by this
+    // thread alone) becomes its output position
+    if (slot_pos != nullptr) slot_pos[s] = (int32_t)pos;
   });
+}
+
+// Group-id mode: each row's slot (written by accumulate_kernel) -> its
+// group's output position; rows past num_rows get num_groups.
+__global__ void gid_kernel(int64_t cap, const int32_t* __restrict__ num_rows,
+                           const int32_t* __restrict__ slot_pos,
+                           const int32_t* __restrict__ num_groups,
+                           int32_t* __restrict__ gid) {
+  int64_t n = *num_rows;
+  n = n < 0 ? 0 : (n > cap ? cap : n);
+  const int32_t g = *num_groups;
+  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < cap;
+       i += (int64_t)gridDim.x * blockDim.x)
+    gid[i] = i < n ? slot_pos[gid[i]] : g;
 }
 
 // Distinct mode: mark[i] = 1 for the eligible row that claims its
@@ -228,13 +259,14 @@ unsigned grid_for(int64_t n) {
 // 8-byte words [slots, k], nan: int32[slots, k] (scratch, `slots` a power
 // of two >= 2 x cap); scratch: int64[ceil(slots / 4096)]; out: 8-byte words
 // [k, out_cap]; key outputs hold out_cap elements; num_groups: int32
-// scalar. All but the table on the device. Returns cudaGetLastError(), or
-// -1 when the table exceeds TABLE_MAX.
+// scalar; gid: int32 [cap] (group-id mode) or null. All but the table on
+// the device. Returns cudaGetLastError(), or -1 when the table exceeds
+// TABLE_MAX.
 TT_EXPORT int group_aggregate(const void* table, int64_t nkeys, int64_t k,
                               int64_t cap, const void* num_rows,
                               int64_t slots, void* slot_rows, void* acc,
                               void* nan, void* scratch, void* out,
-                              int64_t out_cap, void* num_groups,
+                              int64_t out_cap, void* num_groups, void* gid,
                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   thread_local static Table t;  // each launch copies it as a parameter
@@ -247,15 +279,20 @@ TT_EXPORT int group_aggregate(const void* table, int64_t nkeys, int64_t k,
   const unsigned init_grid = grid_for(k > 1 ? slots * k : slots);
   init_kernel<<<init_grid, THREADS, 0, s>>>(
       t, nkeys, k, slots, rows, a, fl);
+  auto* g = static_cast<int32_t*>(gid);
   accumulate_kernel<<<grid_for(cap), THREADS, 0, s>>>(
       t, nkeys, k, cap, static_cast<const int32_t*>(num_rows), slots, rows, a,
-      fl);
+      fl, g);
   const Occupied occ{rows, slots};
   const int64_t nblocks = tile_offsets(occ, slots, offs,
                                        static_cast<int32_t*>(num_groups), s);
   group_scatter_kernel<<<(unsigned)nblocks, TILE_THREADS, 0, s>>>(
       t, nkeys, k, out_cap, occ, a, fl, offs,
-      static_cast<unsigned long long*>(out));
+      static_cast<unsigned long long*>(out), g != nullptr ? rows : nullptr);
+  if (g != nullptr && cap > 0)
+    gid_kernel<<<grid_for(cap), THREADS, 0, s>>>(
+        cap, static_cast<const int32_t*>(num_rows), rows,
+        static_cast<const int32_t*>(num_groups), g);
   return (int)cudaGetLastError();
 }
 

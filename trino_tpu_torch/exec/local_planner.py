@@ -89,7 +89,8 @@ from trino_tpu_torch.expr.ir import (Call, InputRef, Literal, RowExpression,
 from trino_tpu_torch.metadata import Metadata, Session
 from trino_tpu_torch.ops import (AggSpec, SortKey, Step, hash_aggregate,
                                  order_by, top_n_masked)
-from trino_tpu_torch.ops.aggregate import passthrough_partial
+from trino_tpu_torch.ops.aggregate import (SINGLE_STEP_AGGREGATES,
+                                             passthrough_partial)
 from trino_tpu_torch.ops.join import (
     KMAX, KMIN, MAX_RUN, N_LIVE, N_ROWS, NDISTINCT, SPILL_DENSE_MAX_SPAN,
     SPILL_UNIQUE, JoinType, attach_build, attach_build_host,
@@ -506,10 +507,13 @@ class LocalExecutionPlanner:
                                  call.distinct, in2_ch, in2_type))
         key_channels_t = tuple(key_channels)
         specs_t = tuple(specs)
-        if any(spec.distinct for spec in specs):
-            # distinctness belongs to a whole group, not a page: collect
-            # and run one SINGLE-step aggregation (the reference's
-            # MarkDistinct + aggregation in one kernel call)
+        if any(spec.distinct or spec.name in SINGLE_STEP_AGGREGATES
+               for spec in specs):
+            # distinctness, and the special aggregates' state (centered
+            # moments, a row pick, registers, a rank), belong to a whole
+            # group, not a page: collect and run one SINGLE-step
+            # aggregation (the reference's MarkDistinct + aggregation in
+            # one kernel call)
             single_op = cached_kernel(
                 ("agg-single", key_channels_t, specs_t),
                 lambda: hash_aggregate(key_channels, specs, Step.SINGLE))

@@ -15,7 +15,13 @@ here, each beside its plain PyTorch twin:
 * K4 `global_reduce` (`_global_aggregate`): no GROUP BY, a masked
   multi-column reduction to one row, a Triton kernel in this module;
 * K19 `passthrough` (passthrough_partial): the adaptive bypass's
-  PARTIAL-layout state row per input row, a Triton kernel in this module.
+  PARTIAL-layout state row per input row, a Triton kernel in this module;
+* K28 `group_ids`, K8's group-id mode: one K8 launch that also maps every
+  row to its group's output row, for the special aggregates;
+* K29 `checksum_contrib` / `hll_pairs`, K30 `centered` / `positional` /
+  `hll_fold` and K31 `percentile` (`csrc/special_agg.cu`): checksum's
+  hashed contribution, the centered moments, min_by/max_by/arbitrary,
+  approx_distinct and approx_percentile.
 
 Every state reaches a kernel as a `StateInput`: a value tensor (int64 or
 float64), an optional validity and an optional FILTER mask, and a kind
@@ -25,9 +31,11 @@ mask is false, contribute the reducer's identity — the reference's
 feeds both the kernels and their twins.
 
 DISTINCT runs in a SINGLE step only (its mask narrows the aggregate's
-input), as in the reference. The special aggregates (approx_distinct,
-approx_percentile, checksum, the centered moments, the positional and
-collecting aggregates) raise NotImplementedError naming ROADMAP B8.
+input), as in the reference, and so do the special aggregates of
+SINGLE_STEP_AGGREGATES. checksum is an ordinary two-state aggregate whose
+contribution K29 hashes. The collecting aggregates (array_agg, histogram,
+map_agg) raise NotImplementedError naming ROADMAP B13: their output needs
+the list layouts.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ import torch
 
 from trino_tpu_torch import native
 from trino_tpu_torch import types as T
+from trino_tpu_torch.ops.sort import radix_sort_words, sort_permutation
 from trino_tpu_torch.page import Column, Page, host_table
 
 
@@ -187,7 +196,10 @@ SINGLE_STEP_AGGREGATES = (POSITIONAL_AGGREGATES | CENTERED_AGGREGATES
 # aggregates this package executes; the rest resolve (the planner needs
 # their output types) but raise at execution
 SUPPORTED = frozenset({"count", "count_if", "sum", "avg", "min", "max",
-                       "bool_and", "bool_or", "geometric_mean"})
+                       "bool_and", "bool_or", "geometric_mean", "checksum"}) \
+    | CENTERED_AGGREGATES | POSITIONAL_AGGREGATES | SKETCH_AGGREGATES
+# the single-step aggregates this package executes by their own kernels
+SPECIAL_AGGREGATES = SINGLE_STEP_AGGREGATES - COLLECT_AGGREGATES
 
 
 def get_aggregate(name: str, in_type: Optional[T.Type]) -> AggregateFunction:
@@ -227,13 +239,14 @@ def get_aggregate(name: str, in_type: Optional[T.Type]) -> AggregateFunction:
     if n == "approx_percentile":
         return AggregateFunction(n, lambda t: (), None, lambda t: tx)
     if n == "checksum":
-        # the reference's checksum state is a 64-bit hash sum (ROADMAP
-        # B8); output type only until that kernel is ported
+        # a wrapping int64 sum of per-value hashes (K29), NULL over zero
+        # non-null rows (ChecksumAggregationFunction)
         return AggregateFunction(
             "checksum",
-            lambda t: (StateColumn(T.BIGINT, "sum", "contrib"),
+            lambda t: (StateColumn(T.BIGINT, "sum", "contrib",
+                                   checksum_contrib),
                        StateColumn(T.BIGINT, "sum", "count")),
-            None, lambda t: T.BIGINT)
+            _sum_final, lambda t: T.BIGINT)
     if n == "sum":
         out = in_type if isinstance(in_type, (T.DecimalType, T.DoubleType,
                                               T.RealType)) else T.BIGINT
@@ -593,6 +606,30 @@ def _canonical(k: GroupKey) -> Tuple[torch.Tensor, torch.Tensor]:
     return null, torch.where(null, torch.zeros_like(w), w)
 
 
+def _lex_groups(cols: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, int]:
+    """(each row's group, groups) of the rows of int64 `cols`: groups
+    numbered in ascending lexicographic order of the rows, as
+    torch.unique(dim=0, return_inverse=True) numbers them (a stable sort
+    per column, least significant first, and a boundary scan: faster than
+    torch.unique's row sort at millions of rows)."""
+    n = cols[0].shape[0]
+    dev = cols[0].device
+    if n == 0:
+        return torch.zeros(0, dtype=torch.int64, device=dev), 0
+    perm = torch.arange(n, device=dev)
+    for c in reversed(cols):
+        perm = perm[torch.sort(c[perm], stable=True).indices]
+    start = torch.zeros(n, dtype=torch.bool, device=dev)
+    start[0] = True
+    for c in cols:
+        s = c[perm]
+        start[1:] |= s[1:] != s[:-1]
+    gid = torch.cumsum(start.to(torch.int64), 0) - 1
+    inverse = torch.empty(n, dtype=torch.int64, device=dev)
+    inverse[perm] = gid
+    return inverse, int(gid[-1]) + 1
+
+
 def group_reduce_plain(keys: Sequence[GroupKey], states: Sequence[StateInput],
                        num_rows: torch.Tensor, cap: int):
     """Plain twin of K8: (key values [cap] per key, key validity [cap] or
@@ -600,18 +637,21 @@ def group_reduce_plain(keys: Sequence[GroupKey], states: Sequence[StateInput],
     distinct canonical keys of the live rows, in sorted canonical order;
     each group's keys come from its first row; rows past num_groups are
     zero."""
+    return group_ids_plain(keys, states, num_rows, cap)[:4]
+
+
+def group_ids_plain(keys: Sequence[GroupKey], states: Sequence[StateInput],
+                    num_rows: torch.Tensor, cap: int):
+    """Plain twin of K28 (K8's group-id mode): group_reduce_plain's
+    outputs and each row's group (int32 [cap]: its output row, in the
+    twin's sorted order; num_groups for rows past num_rows) — the inverse
+    of torch.unique over the canonical keys."""
     dev = num_rows.device
     live = torch.arange(cap, device=dev, dtype=torch.int32) < num_rows
     parts = []
     for k in keys:
         parts += list(_canonical(k))
-    canon = torch.stack([p.to(torch.int64) for p in parts], 1)[live]
-    if canon.shape[0]:
-        uniq, inverse = torch.unique(canon, dim=0, return_inverse=True)
-    else:
-        uniq = canon
-        inverse = torch.zeros(0, dtype=torch.int64, device=dev)
-    g = uniq.shape[0]
+    inverse, g = _lex_groups([p.to(torch.int64)[live] for p in parts])
     seg = torch.full((cap,), g, dtype=torch.int64, device=dev)
     seg[live] = inverse
     rows = torch.arange(cap, dtype=torch.int64, device=dev)
@@ -643,7 +683,7 @@ def group_reduce_plain(keys: Sequence[GroupKey], states: Sequence[StateInput],
             has_nan[seg[_nan_any(s, live)]] = True
         results.append(pad(_decode_minmax(s, red, has_nan)))
     return key_values, key_valid, results, \
-        torch.tensor(g, dtype=torch.int32, device=dev)
+        torch.tensor(g, dtype=torch.int32, device=dev), seg.to(torch.int32)
 
 
 def hash_slots(rows: int) -> int:
@@ -666,9 +706,10 @@ def _check_group_keys(keys: Sequence[GroupKey], cap: int, dev) -> None:
                              "on the device")
 
 
-def group_reduce_cuda(keys: Sequence[GroupKey], states: Sequence[StateInput],
-                      num_rows: torch.Tensor, cap: int):
-    """K8 launch: see csrc/group_agg.cu."""
+def _group_launch(keys: Sequence[GroupKey], states: Sequence[StateInput],
+                  num_rows: torch.Tensor, cap: int, want_gid: bool):
+    """One K8 launch (csrc/group_agg.cu group_aggregate); with `want_gid`
+    its group-id mode (K28) also fills each row's output row."""
     dev = num_rows.device
     if num_rows.dtype != torch.int32 or num_rows.dim() != 0:
         raise ValueError("num_rows must be a 0-d int32 tensor")
@@ -694,6 +735,8 @@ def group_reduce_cuda(keys: Sequence[GroupKey], states: Sequence[StateInput],
     out = torch.empty(max(k, 1) * max(cap, 1), dtype=torch.int64,
                       device=dev)
     num_groups = torch.empty((), dtype=torch.int32, device=dev)
+    gid = torch.empty(cap, dtype=torch.int32, device=dev) if want_gid \
+        else None
     lib = native.library("group_agg")
     rc = lib.group_aggregate(
         table, ctypes.c_int64(len(keys)), ctypes.c_int64(k),
@@ -702,17 +745,42 @@ def group_reduce_cuda(keys: Sequence[GroupKey], states: Sequence[StateInput],
         ctypes.c_void_p(acc.data_ptr()), ctypes.c_void_p(nan.data_ptr()),
         ctypes.c_void_p(scratch.data_ptr()), ctypes.c_void_p(out.data_ptr()),
         ctypes.c_int64(cap), ctypes.c_void_p(num_groups.data_ptr()),
-        ctypes.c_void_p(native.stream_ptr(dev)))
+        ctypes.c_void_p(_ptr(gid)), ctypes.c_void_p(native.stream_ptr(dev)))
     native.check(rc, "group_aggregate")
-    group_reduce_cuda.launches += 1
     results = []
     for j, s in enumerate(states):
         words = out[j * cap:(j + 1) * cap]
         results.append(words.view(torch.float64) if s.is_float else words)
-    return key_values, key_valid, results, num_groups
+    return key_values, key_valid, results, num_groups, gid
+
+
+def group_reduce_cuda(keys: Sequence[GroupKey], states: Sequence[StateInput],
+                      num_rows: torch.Tensor, cap: int):
+    """K8 launch: see csrc/group_agg.cu."""
+    out = _group_launch(keys, states, num_rows, cap, False)[:4]
+    group_reduce_cuda.launches += 1
+    return out
 
 
 group_reduce_cuda.launches = 0
+
+
+def group_ids_cuda(keys: Sequence[GroupKey], states: Sequence[StateInput],
+                   num_rows: torch.Tensor, cap: int):
+    """K28 launch: K8 in its group-id mode (csrc/group_agg.cu gid_kernel)."""
+    out = _group_launch(keys, states, num_rows, cap, True)
+    group_ids_cuda.launches += 1
+    return out
+
+
+group_ids_cuda.launches = 0
+
+
+def group_ids(keys, states, num_rows, cap):
+    """K28 wrapper: plain twin on the CPU, kernel on CUDA. Returns K8's
+    outputs and each row's group (int32 [cap])."""
+    run = group_ids_cuda if num_rows.is_cuda else group_ids_plain
+    return run(keys, states, num_rows, cap)
 
 
 def group_reduce(keys, states, num_rows, cap):
@@ -731,13 +799,11 @@ def distinct_mask_plain(keys: Sequence[GroupKey],
     parts = []
     for k in keys:
         parts += list(_canonical(k))
-    canon = torch.stack([p.to(torch.int64) for p in parts], 1)[eligible]
     mark = torch.zeros(cap, dtype=torch.bool, device=dev)
-    if not canon.shape[0]:
+    inverse, g = _lex_groups([p.to(torch.int64)[eligible] for p in parts])
+    if not g:
         return mark
-    _, inverse = torch.unique(canon, dim=0, return_inverse=True)
     rows = torch.nonzero(eligible).flatten()
-    g = int(inverse.max()) + 1
     first = torch.full((g,), cap, dtype=torch.int64, device=dev) \
         .scatter_reduce(0, inverse, rows, "amin")
     mark[first] = True
@@ -1274,9 +1340,6 @@ def passthrough_partial(key_channels: Sequence[int],
     count."""
     key_channels = tuple(key_channels)
     for a in aggs:
-        reason = _unsupported(a)
-        if reason is not None:
-            raise NotImplementedError(reason)
         if a.distinct or a.name in SINGLE_STEP_AGGREGATES:
             # as in PARTIAL: these need a whole group in one call
             raise NotImplementedError(f"{a.name}() in bypass partial")
@@ -1303,13 +1366,675 @@ def passthrough_partial(key_channels: Sequence[int],
     return op
 
 
+# ------------------------------------------------------------ K29-K31
+
+HLL_P = 11                 # 2^11 registers, as the reference
+HLL_M = 1 << HLL_P
+_HLL_ALPHA = 0.7213 / (1.0 + 1.079 / float(HLL_M))
+_GOLDEN = 0x9E3779B97F4A7C15 - (1 << 64)
+_MIX1 = 0xBF58476D1CE4E5B9 - (1 << 64)
+_MIX2 = 0x94D049BB133111EB - (1 << 64)
+_MAX_MASKS = 6
+
+
+def _srl(x: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of int64 words (the uint64 `>>`)."""
+    return (x >> s) & ((1 << (64 - s)) - 1)
+
+
+def _hash_input(values: torch.Tensor) -> torch.Tensor:
+    """The word the reference's _hash64 mixes, as int64: a float widened
+    to float64 with -0.0 made +0.0 (a NaN keeps its bits; a float32 NaN
+    widens as the CPU converts it: payload kept, quiet bit set); integers,
+    dates, decimals and dictionary codes sign-extended; booleans 0/1."""
+    if not values.is_floating_point():
+        return values.to(torch.int64)
+    if values.dtype == torch.float32:
+        u = values.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+        nan_bits = torch.where((u >> 31) != 0, _I64_MIN, 0) \
+            | 0x7FF8000000000000 | ((u & 0x7FFFFF) << 29)
+        wide = torch.where(torch.isnan(values), nan_bits,
+                           values.to(torch.float64).view(torch.int64))
+    else:
+        wide = values.view(torch.int64)
+    return torch.where(values == 0, 0, wide)
+
+
+def hash64_plain(values: torch.Tensor) -> torch.Tensor:
+    """splitmix64 of each value (trino_tpu/ops/aggregate.py _hash64), as
+    int64 words (int64 arithmetic wraps as uint64 does)."""
+    x = _hash_input(values) + _GOLDEN
+    x = (x ^ _srl(x, 30)) * _MIX1
+    x = (x ^ _srl(x, 27)) * _MIX2
+    return x ^ _srl(x, 31)
+
+
+def _masks_of(masks) -> List[torch.Tensor]:
+    return [m for m in masks if m is not None]
+
+
+def _eligible(masks, num_rows: Optional[torch.Tensor], cap: int,
+              dev) -> torch.Tensor:
+    """Rows below num_rows (every row when None) passing every mask."""
+    elig = torch.ones(cap, dtype=torch.bool, device=dev) if num_rows is None \
+        else torch.arange(cap, dtype=torch.int32, device=dev) < num_rows
+    for m in _masks_of(masks):
+        elig = elig & m
+    return elig
+
+
+def _check_special(cols, masks, cap: int, dev) -> List[int]:
+    """A special kernel's inputs: [cap] contiguous columns and bool masks
+    on the device; returns the mask pointers."""
+    for c in cols:
+        if c is not None and (c.device != dev or c.shape != (cap,)
+                              or not c.is_contiguous()
+                              or c.element_size() not in (1, 2, 4, 8)):
+            raise ValueError("special aggregate columns must be contiguous "
+                             "[cap] tensors on the device")
+    ms = _masks_of(masks)
+    if len(ms) > _MAX_MASKS:
+        raise ValueError(f"at most {_MAX_MASKS} masks")
+    for m in ms:
+        if m.device != dev or m.dtype != torch.bool or m.shape != (cap,) \
+                or not m.is_contiguous():
+            raise ValueError("masks must be contiguous bool [cap] on the "
+                             "device")
+    return [m.data_ptr() for m in ms]
+
+
+def _hash_launch(mode: int, values, masks, num_rows, gid, out0, out1):
+    cap = values.shape[0]
+    dev = values.device
+    ptrs = _check_special([values, gid], masks, cap, dev)
+    if num_rows is not None and (num_rows.dtype != torch.int32
+                                 or num_rows.device != dev):
+        raise ValueError("num_rows must be an int32 scalar on the device")
+    rc = native.library("special_agg").special_hash(
+        ctypes.c_int64(mode), ctypes.c_void_p(values.data_ptr()),
+        ctypes.c_int64(values.element_size()),
+        ctypes.c_int64(int(values.is_floating_point())), ctypes.c_int64(cap),
+        ctypes.c_void_p(_ptr(num_rows)), host_table(ptrs),
+        ctypes.c_int64(len(ptrs)), ctypes.c_void_p(_ptr(gid)),
+        ctypes.c_void_p(out0.data_ptr()), ctypes.c_void_p(_ptr(out1)),
+        ctypes.c_void_p(native.stream_ptr(dev)))
+    native.check(rc, "special_hash")
+
+
+def checksum_contrib_plain(values: torch.Tensor,
+                           mask: torch.Tensor) -> torch.Tensor:
+    """Plain twin of K29's checksum mode (_checksum_state's contribution):
+    the value's hash where `mask`, else 0."""
+    return torch.where(mask, hash64_plain(values), 0)
+
+
+def checksum_contrib_cuda(values: torch.Tensor,
+                          mask: torch.Tensor) -> torch.Tensor:
+    """K29 launch, checksum mode: see csrc/special_agg.cu."""
+    out = torch.empty(values.shape[0], dtype=torch.int64,
+                      device=values.device)
+    _hash_launch(0, values.contiguous(), [mask.contiguous()], None, None,
+                 out, None)
+    checksum_contrib_cuda.launches += 1
+    return out
+
+
+checksum_contrib_cuda.launches = 0
+
+
+def checksum_contrib(values, mask):
+    """K29 checksum wrapper: plain twin on the CPU, kernel on CUDA."""
+    run = checksum_contrib_cuda if values.is_cuda else checksum_contrib_plain
+    return run(values, mask)
+
+
+def hll_pairs_plain(values: torch.Tensor, masks, num_rows: torch.Tensor,
+                    gid: Optional[torch.Tensor]):
+    """Plain twin of K29's HLL mode (_hll_register_inputs): per row the
+    pair group * 2^11 + bucket (bucket = h >> 53) and rho = 53 -
+    floor(log2(h & (2^53 - 1))), 54 for a zero remainder; -1 and 0 for a
+    row that does not take part."""
+    cap = values.shape[0]
+    dev = values.device
+    elig = _eligible(masks, num_rows, cap, dev)
+    h = hash64_plain(values)
+    w = h & ((1 << 53) - 1)
+    _, e = torch.frexp(w.to(torch.float64))     # exact: w < 2^53
+    rho = torch.where(w > 0, 54 - e.to(torch.int64), 54)
+    g = 0 if gid is None else gid.to(torch.int64)
+    pair = torch.where(elig, g * HLL_M + _srl(h, 64 - HLL_P), -1)
+    return pair, torch.where(elig, rho, 0)
+
+
+def hll_pairs_cuda(values: torch.Tensor, masks, num_rows: torch.Tensor,
+                   gid: Optional[torch.Tensor]):
+    """K29 launch, HLL mode: see csrc/special_agg.cu."""
+    cap = values.shape[0]
+    pair = torch.empty(cap, dtype=torch.int64, device=values.device)
+    rho = torch.empty(cap, dtype=torch.int64, device=values.device)
+    _hash_launch(1, values.contiguous(), masks, num_rows, gid, pair, rho)
+    hll_pairs_cuda.launches += 1
+    return pair, rho
+
+
+hll_pairs_cuda.launches = 0
+
+
+def hll_pairs(values, masks, num_rows, gid):
+    """K29 HLL wrapper: plain twin on the CPU, kernel on CUDA."""
+    run = hll_pairs_cuda if values.is_cuda else hll_pairs_plain
+    return run(values, masks, num_rows, gid)
+
+
+def _hll_estimate(sum_present: torch.Tensor,
+                  cnt_present: torch.Tensor) -> torch.Tensor:
+    """trino_tpu/ops/aggregate.py _hll_estimate: the raw estimator with
+    small-range linear counting, rounded half to even."""
+    m = float(HLL_M)
+    sum_full = sum_present + (m - cnt_present)
+    est = _HLL_ALPHA * m * m / torch.clamp(sum_full, min=1e-12)
+    zeros = m - cnt_present
+    lc = m * torch.log(m / torch.clamp(zeros, min=1.0))
+    use_lc = (est <= 2.5 * m) & (zeros > 0)
+    return torch.round(torch.where(use_lc, lc, est)).to(torch.int64)
+
+
+def hll_fold_plain(pairs: torch.Tensor, regs: torch.Tensor,
+                   num_pairs: torch.Tensor, num_groups: Optional[torch.Tensor],
+                   nseg: int) -> torch.Tensor:
+    """Plain twin of K30's HLL mode: over K8's page of (pair, max rho)
+    rows, each group's Σ2^-reg (exact: 2^(54 - reg) units of 2^-54 summed
+    as two 32-bit halves, joined in one rounding) and present buckets,
+    then the estimate (int64 [nseg])."""
+    cap = pairs.shape[0]
+    dev = pairs.device
+    ok = (torch.arange(cap, dtype=torch.int32, device=dev) < num_pairs) \
+        & (pairs >= 0) & (regs > 0)
+    g = torch.where(ok, pairs >> HLL_P, nseg).clamp(max=nseg)
+    t = torch.where(ok, torch.ones_like(regs) << (54 - regs).clamp(0, 53),
+                    0)
+    hi = torch.zeros(nseg + 1, dtype=torch.int64, device=dev) \
+        .index_add_(0, g, t >> 32)
+    lo = torch.zeros(nseg + 1, dtype=torch.int64, device=dev) \
+        .index_add_(0, g, t & 0xFFFFFFFF)
+    cnt = torch.zeros(nseg + 1, dtype=torch.int64, device=dev) \
+        .index_add_(0, g, ok.to(torch.int64))
+    units = hi.to(torch.float64) * 4294967296.0 + lo.to(torch.float64)
+    return _hll_estimate(units * 2.0 ** -54, cnt.to(torch.float64))[:nseg]
+
+
+def hll_fold_cuda(pairs: torch.Tensor, regs: torch.Tensor,
+                  num_pairs: torch.Tensor, num_groups: Optional[torch.Tensor],
+                  nseg: int) -> torch.Tensor:
+    """K30 launch, HLL mode: see csrc/special_agg.cu (the first num_groups
+    estimates written)."""
+    cap = pairs.shape[0]
+    dev = pairs.device
+    _check_special([pairs, regs], [], cap, dev)
+    if pairs.dtype != torch.int64 or regs.dtype != torch.int64:
+        raise ValueError("pairs and registers must be int64")
+    if nseg == 0:       # a grouped page of capacity 0
+        return torch.zeros(0, dtype=torch.int64, device=dev)
+    scratch = torch.empty(3 * nseg, dtype=torch.int64, device=dev)
+    out = torch.empty(nseg, dtype=torch.int64, device=dev)
+    rc = native.library("special_agg").special_hll(
+        ctypes.c_void_p(pairs.data_ptr()), ctypes.c_void_p(regs.data_ptr()),
+        ctypes.c_void_p(num_pairs.data_ptr()), ctypes.c_int64(cap),
+        ctypes.c_void_p(_ptr(num_groups)), ctypes.c_int64(nseg),
+        ctypes.c_double(_HLL_ALPHA * HLL_M * HLL_M),
+        ctypes.c_void_p(scratch.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+        ctypes.c_void_p(native.stream_ptr(dev)))
+    native.check(rc, "special_hll")
+    hll_fold_cuda.launches += 1
+    return out
+
+
+hll_fold_cuda.launches = 0
+
+
+def hll_fold(pairs, regs, num_pairs, num_groups, nseg):
+    """K30 HLL wrapper: plain twin on the CPU, kernel on CUDA."""
+    run = hll_fold_cuda if pairs.is_cuda else hll_fold_plain
+    return run(pairs, regs, num_pairs, num_groups, nseg)
+
+
+# finalize codes of csrc/special_agg.cu CenteredKind
+CENTERED_KIND = {"var_pop": 0, "stddev_pop": 1, "variance": 2,
+                 "var_samp": 2, "stddev": 3, "stddev_samp": 3,
+                 "covar_pop": 4, "covar_samp": 5, "corr": 6,
+                 "regr_slope": 7, "regr_intercept": 8}
+
+
+def _arg_double(v: torch.Tensor, div: Optional[float]) -> torch.Tensor:
+    out = v.to(torch.float64)
+    return out if div is None else out / div
+
+
+def _centered_finalize(kind: int, cnt, sa, sb, caa, cbb, cab):
+    """trino_tpu/ops/aggregate.py _centered_finalize by kind code; `a` is
+    the dependent variable, `b` the independent one."""
+    nf = torch.clamp(cnt.to(torch.float64), min=1.0)
+    if kind in (0, 1):
+        value, valid = caa / nf, cnt > 0
+    elif kind in (2, 3):
+        value, valid = caa / torch.clamp(nf - 1.0, min=1.0), cnt > 1
+    elif kind == 4:
+        value, valid = cab / nf, cnt > 0
+    elif kind == 5:
+        value, valid = cab / torch.clamp(nf - 1.0, min=1.0), cnt > 1
+    elif kind == 6:
+        denom = torch.sqrt(caa * cbb)
+        value = cab / torch.where(denom > 0, denom, 1.0)
+        valid = (cnt > 1) & (denom > 0)
+    elif kind == 7:
+        value = cab / torch.where(cbb > 0, cbb, 1.0)
+        valid = (cnt > 0) & (cbb > 0)
+    else:
+        slope = cab / torch.where(cbb > 0, cbb, 1.0)
+        value = sa / nf - slope * sb / nf
+        valid = (cnt > 0) & (cbb > 0)
+    if kind in (1, 3):
+        value = torch.sqrt(torch.clamp(value, min=0.0))
+    return value, valid
+
+
+def centered_plain(kind: int, a: torch.Tensor, a_div: Optional[float],
+                   b: Optional[torch.Tensor], b_div: Optional[float], masks,
+                   num_rows, gid: Optional[torch.Tensor],
+                   num_groups: Optional[torch.Tensor], nseg: int):
+    """Plain twin of K30's centered mode (_centered_grouped/_global):
+    per group the count, the means, then the centered sums of squares and
+    products; (float64 [nseg], valid [nseg])."""
+    cap = a.shape[0]
+    dev = a.device
+    elig = _eligible(masks, num_rows, cap, dev)
+    g = torch.zeros(cap, dtype=torch.int64, device=dev) if gid is None \
+        else gid.to(torch.int64)
+    seg = torch.where(elig, g, nseg)
+
+    def segsum(x):
+        return torch.zeros(nseg + 1, dtype=x.dtype, device=dev) \
+            .index_add_(0, seg, x)
+    zero = torch.zeros((), dtype=torch.float64, device=dev)
+    cnt = segsum(elig.to(torch.int64))
+    nf = torch.clamp(cnt.to(torch.float64), min=1.0)
+    av = _arg_double(a, a_div)
+    sa = segsum(torch.where(elig, av, zero))
+    da = torch.where(elig, av - (sa / nf)[seg], zero)
+    caa = segsum(da * da)
+    sb = cbb = cab = torch.zeros(nseg + 1, dtype=torch.float64, device=dev)
+    if b is not None:
+        bv = _arg_double(b, b_div)
+        sb = segsum(torch.where(elig, bv, zero))
+        db = torch.where(elig, bv - (sb / nf)[seg], zero)
+        cbb = segsum(db * db)
+        cab = segsum(da * db)
+    value, valid = _centered_finalize(kind, cnt, sa, sb, caa, cbb, cab)
+    return value[:nseg], valid[:nseg]
+
+
+def centered_cuda(kind: int, a: torch.Tensor, a_div: Optional[float],
+                  b: Optional[torch.Tensor], b_div: Optional[float], masks,
+                  num_rows, gid: Optional[torch.Tensor],
+                  num_groups: Optional[torch.Tensor], nseg: int):
+    """K30 launch, centered mode: see csrc/special_agg.cu."""
+    cap = a.shape[0]
+    dev = a.device
+    ptrs = _check_special([a, b, gid], masks, cap, dev)
+    if nseg == 0:
+        return torch.zeros(0, dtype=torch.float64, device=dev), \
+            torch.zeros(0, dtype=torch.bool, device=dev)
+    bb = a if b is None else b
+    moments = torch.empty(6 * nseg, dtype=torch.float64, device=dev)
+    out = torch.empty(nseg, dtype=torch.float64, device=dev)
+    valid = torch.empty(nseg, dtype=torch.bool, device=dev)
+    rc = native.library("special_agg").special_centered(
+        ctypes.c_int64(kind), ctypes.c_void_p(a.data_ptr()),
+        ctypes.c_int64(a.element_size()),
+        ctypes.c_int64(int(a.is_floating_point())),
+        ctypes.c_double(a_div or 0.0), ctypes.c_void_p(bb.data_ptr()),
+        ctypes.c_int64(bb.element_size()),
+        ctypes.c_int64(int(bb.is_floating_point())),
+        ctypes.c_double(b_div or 0.0), ctypes.c_int64(int(b is not None)),
+        ctypes.c_int64(cap), ctypes.c_void_p(_ptr(num_rows)),
+        host_table(ptrs), ctypes.c_int64(len(ptrs)),
+        ctypes.c_void_p(_ptr(gid)), ctypes.c_void_p(_ptr(num_groups)),
+        ctypes.c_int64(nseg), ctypes.c_void_p(moments.data_ptr()),
+        ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(valid.data_ptr()),
+        ctypes.c_void_p(native.stream_ptr(dev)))
+    native.check(rc, "special_centered")
+    centered_cuda.launches += 1
+    return out, valid
+
+
+centered_cuda.launches = 0
+
+
+def centered(kind, a, a_div, b, b_div, masks, num_rows, gid, num_groups,
+             nseg):
+    """K30 centered wrapper: plain twin on the CPU, kernel on CUDA."""
+    run = centered_cuda if a.is_cuda else centered_plain
+    return run(kind, a, a_div, b, b_div, masks, num_rows, gid, num_groups,
+               nseg)
+
+
+ARBITRARY, MIN_BY, MAX_BY = 0, 1, 2
+POSITIONAL_KIND = {"arbitrary": ARBITRARY, "min_by": MIN_BY,
+                   "max_by": MAX_BY}
+
+
+def _y_key(y: torch.Tensor) -> torch.Tensor:
+    """y as an int64 order key: a float with -0.0 made +0.0 and NaN +inf
+    (_nan_as_largest; -0.0 == +0.0 under the reference's `==`), an integer
+    as itself."""
+    if not y.is_floating_point():
+        return y.to(torch.int64)
+    x = y.to(torch.float64)
+    x = torch.where(torch.isnan(x), float("inf"), x)
+    return ordered_key(torch.where(x == 0, 0.0, x))
+
+
+def positional_plain(kind: int, x: torch.Tensor,
+                     x_valid: Optional[torch.Tensor],
+                     y: Optional[torch.Tensor], masks, num_rows,
+                     gid: Optional[torch.Tensor],
+                     num_groups: Optional[torch.Tensor], nseg: int):
+    """Plain twin of K30's positional mode (_positional_grouped/_global):
+    per group the lowest eligible row at the y-extremum (arbitrary: the
+    lowest eligible row), then x there; (x values [nseg], valid [nseg])."""
+    cap = x.shape[0]
+    dev = x.device
+    elig = _eligible(masks, num_rows, cap, dev)
+    g = torch.zeros(cap, dtype=torch.int64, device=dev) if gid is None \
+        else gid.to(torch.int64)
+    seg = torch.where(elig, g, nseg)
+    if kind != ARBITRARY:
+        key = _y_key(y)
+        ident = _I64_MAX if kind == MIN_BY else _I64_MIN
+        ext = torch.full((nseg + 1,), ident, dtype=torch.int64, device=dev) \
+            .scatter_reduce(0, seg, key,
+                            "amin" if kind == MIN_BY else "amax")
+        seg = torch.where(elig & (key == ext[seg]), seg, nseg)
+    rows = torch.arange(cap, dtype=torch.int64, device=dev)
+    first = torch.full((nseg + 1,), cap, dtype=torch.int64, device=dev) \
+        .scatter_reduce(0, seg, rows, "amin")[:nseg]
+    has = first < cap
+    idx = first.clamp(max=max(cap - 1, 0))
+    if cap == 0:
+        return torch.zeros(nseg, dtype=x.dtype, device=dev), has
+    out = torch.where(has, x[idx], torch.zeros((), dtype=x.dtype,
+                                                device=dev))
+    valid = has if x_valid is None else has & x_valid[idx]
+    return out, valid
+
+
+def positional_cuda(kind: int, x: torch.Tensor,
+                    x_valid: Optional[torch.Tensor],
+                    y: Optional[torch.Tensor], masks, num_rows,
+                    gid: Optional[torch.Tensor],
+                    num_groups: Optional[torch.Tensor], nseg: int):
+    """K30 launch, positional mode: see csrc/special_agg.cu."""
+    cap = x.shape[0]
+    dev = x.device
+    ptrs = _check_special([x, y, gid], masks, cap, dev)
+    _check_special([], [x_valid], cap, dev)
+    if nseg == 0:
+        return torch.zeros(0, dtype=x.dtype, device=dev), \
+            torch.zeros(0, dtype=torch.bool, device=dev)
+    yy = x if y is None else y
+    scratch = torch.empty(2 * nseg, dtype=torch.int64, device=dev)
+    out = torch.empty(nseg, dtype=x.dtype, device=dev)
+    valid = torch.empty(nseg, dtype=torch.bool, device=dev)
+    rc = native.library("special_agg").special_positional(
+        ctypes.c_int64(kind), ctypes.c_void_p(x.data_ptr()),
+        ctypes.c_int64(x.element_size()), ctypes.c_void_p(_ptr(x_valid)),
+        ctypes.c_void_p(yy.data_ptr()), ctypes.c_int64(yy.element_size()),
+        ctypes.c_int64(int(yy.is_floating_point())), ctypes.c_int64(cap),
+        ctypes.c_void_p(_ptr(num_rows)), host_table(ptrs),
+        ctypes.c_int64(len(ptrs)),
+        ctypes.c_void_p(_ptr(gid)), ctypes.c_void_p(_ptr(num_groups)),
+        ctypes.c_int64(nseg), ctypes.c_void_p(scratch.data_ptr()),
+        ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(valid.data_ptr()),
+        ctypes.c_void_p(native.stream_ptr(dev)))
+    native.check(rc, "special_positional")
+    positional_cuda.launches += 1
+    return out, valid
+
+
+positional_cuda.launches = 0
+
+
+def positional(kind, x, x_valid, y, masks, num_rows, gid, num_groups, nseg):
+    """K30 positional wrapper: plain twin on the CPU, kernel on CUDA."""
+    run = positional_cuda if x.is_cuda else positional_plain
+    return run(kind, x, x_valid, y, masks, num_rows, gid, num_groups, nseg)
+
+
+def percentile_words_plain(x: torch.Tensor, masks, num_rows,
+                           gid: Optional[torch.Tensor]) -> torch.Tensor:
+    """The sort words of K31's first launch, int64 [2, cap] in K10's
+    stored form (ops/sort.py radix_sort_words): word 0 the group and a
+    not-eligible flag, word 1 the value's order key (NaN as +inf, -0.0 as
+    +0.0; 0 for a row that does not take part). Rows past num_rows are
+    0."""
+    cap = x.shape[0]
+    dev = x.device
+    elig = _eligible(masks, num_rows, cap, dev)
+    live = _eligible([], num_rows, cap, dev)
+    g = torch.zeros(cap, dtype=torch.int64, device=dev) if gid is None \
+        else gid.to(torch.int64)
+    w0 = ((g << 32) | ((~elig).to(torch.int64) << 31)) ^ _I64_MIN
+    w1 = torch.where(elig, _y_key(x), 0)
+    return torch.stack([torch.where(live, w0, 0), torch.where(live, w1, 0)])
+
+
+def percentile_pick_plain(perm: torch.Tensor, x: torch.Tensor,
+                          p: torch.Tensor, masks, num_rows,
+                          gid: Optional[torch.Tensor], nseg: int):
+    """K31's pick over the sorted permutation: per group its start, its
+    eligible count and p_g (the max of p over its live rows), then the
+    original value at start + clip(ceil(p_g * cnt), 1, max(cnt, 1)) - 1;
+    (values [nseg], valid = cnt > 0)."""
+    cap = x.shape[0]
+    dev = x.device
+    n = int(torch.clamp(num_rows.to(torch.int64), 0, cap)) \
+        if num_rows is not None else cap
+    elig = _eligible(masks, num_rows, cap, dev)
+    r = perm[:n].to(torch.int64)
+    g = torch.zeros(n, dtype=torch.int64, device=dev) if gid is None \
+        else gid.to(torch.int64)[r]
+    pos = torch.arange(n, dtype=torch.int64, device=dev)
+    start = torch.full((nseg,), n, dtype=torch.int64, device=dev) \
+        .scatter_reduce(0, g, pos, "amin")
+    cnt = torch.zeros(nseg, dtype=torch.int64, device=dev) \
+        .index_add_(0, g, elig[r].to(torch.int64))
+    pg = torch.full((nseg,), float("-inf"), dtype=torch.float64,
+                    device=dev).scatter_reduce(
+        0, g, p.to(torch.float64)[r], "amax")
+    k = torch.clamp(torch.ceil(pg * cnt.to(torch.float64)).to(torch.int32),
+                    min=1).to(torch.int64)
+    k = torch.minimum(k, torch.clamp(cnt, min=1))
+    idx = torch.clamp(start + k - 1, 0, max(cap - 1, 0))
+    valid = cnt > 0
+    if cap == 0:
+        return torch.zeros(nseg, dtype=x.dtype, device=dev), valid
+    out = torch.where(valid, x[perm.to(torch.int64)[idx]],
+                      torch.zeros((), dtype=x.dtype, device=dev))
+    return out, valid
+
+
+def _percentile_passes(grouped: bool) -> List[Tuple[int, int]]:
+    """K10's digit passes over the words, least significant first: word
+    1's eight bytes, then word 0's flag byte and (grouped) its group."""
+    return [(1, 8 * b) for b in range(8)] + \
+        [(0, 8 * b) for b in ((3, 4, 5, 6, 7) if grouped else (3,))]
+
+
+def percentile_plain(x: torch.Tensor, p: torch.Tensor, masks, num_rows,
+                     gid: Optional[torch.Tensor],
+                     num_groups: Optional[torch.Tensor], nseg: int):
+    """Plain twin of K31 (_percentile_grouped/_global): the words, a
+    stable sort of the live prefix (ops/sort.py sort_permutation), the
+    pick."""
+    cap = x.shape[0]
+    n = int(torch.clamp(num_rows.to(torch.int64), 0, cap)) \
+        if num_rows is not None else cap
+    words = percentile_words_plain(x, masks, num_rows, gid)
+    head = sort_permutation([w[:n] for w in words]) if n else \
+        torch.zeros(0, dtype=torch.int64, device=x.device)
+    perm = torch.cat([head, torch.arange(n, cap, device=x.device)]) \
+        .to(torch.int32)
+    return percentile_pick_plain(perm, x, p, masks, num_rows, gid, nseg)
+
+
+def percentile_cuda(x: torch.Tensor, p: torch.Tensor, masks, num_rows,
+                    gid: Optional[torch.Tensor],
+                    num_groups: Optional[torch.Tensor], nseg: int):
+    """K31 launch: the words launch, K10's radix passes over the live
+    prefix (ops/sort.py radix_sort_words), the pick launch; see
+    csrc/special_agg.cu."""
+    cap = x.shape[0]
+    dev = x.device
+    ptrs = _check_special([x, p, gid], masks, cap, dev)
+    if num_rows is None or num_rows.dtype != torch.int32:
+        raise ValueError("num_rows must be an int32 scalar on the device")
+    if cap == 0:
+        return torch.zeros(nseg, dtype=x.dtype, device=dev), \
+            torch.zeros(nseg, dtype=torch.bool, device=dev)
+    out = torch.empty(nseg, dtype=x.dtype, device=dev)
+    valid = torch.empty(nseg, dtype=torch.bool, device=dev)
+    lib = native.library("special_agg")
+    words = torch.empty((2, cap), dtype=torch.int64, device=dev)
+    stream = ctypes.c_void_p(native.stream_ptr(dev))
+    rc = lib.special_percentile_words(
+        ctypes.c_void_p(x.data_ptr()), ctypes.c_int64(x.element_size()),
+        ctypes.c_int64(int(x.is_floating_point())), ctypes.c_int64(cap),
+        ctypes.c_void_p(num_rows.data_ptr()), host_table(ptrs),
+        ctypes.c_int64(len(ptrs)), ctypes.c_void_p(_ptr(gid)),
+        ctypes.c_void_p(words.data_ptr()), stream)
+    native.check(rc, "special_percentile_words")
+    perm = radix_sort_words(words, num_rows,
+                            _percentile_passes(gid is not None))
+    scratch = torch.empty(3 * nseg, dtype=torch.int64, device=dev)
+    rc = lib.special_percentile_pick(
+        ctypes.c_void_p(perm.data_ptr()), ctypes.c_int64(cap),
+        ctypes.c_void_p(num_rows.data_ptr()), host_table(ptrs),
+        ctypes.c_int64(len(ptrs)), ctypes.c_void_p(_ptr(gid)),
+        ctypes.c_void_p(_ptr(num_groups)),
+        ctypes.c_void_p(p.data_ptr()), ctypes.c_int64(p.element_size()),
+        ctypes.c_int64(int(p.is_floating_point())),
+        ctypes.c_void_p(x.data_ptr()), ctypes.c_int64(x.element_size()),
+        ctypes.c_int64(nseg), ctypes.c_void_p(scratch.data_ptr()),
+        ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(valid.data_ptr()),
+        stream)
+    native.check(rc, "special_percentile_pick")
+    percentile_cuda.launches += 1
+    return out, valid
+
+
+percentile_cuda.launches = 0
+
+
+def percentile(x, p, masks, num_rows, gid, num_groups, nseg):
+    """K31 wrapper: plain twin on the CPU, kernel on CUDA."""
+    run = percentile_cuda if x.is_cuda else percentile_plain
+    return run(x, p, masks, num_rows, gid, num_groups, nseg)
+
+
+def _spec_masks(page: Page, spec: AggSpec, *cols) -> List[torch.Tensor]:
+    """The masks of a special aggregate's rows: the listed columns'
+    validity and the FILTER (its values and validity)."""
+    out = [page.column(ch).valid for ch in cols]
+    if spec.mask_channel is not None:
+        fcol = page.column(spec.mask_channel)
+        out += [fcol.values, fcol.valid]
+    return [m.contiguous() for m in out if m is not None]
+
+
+def _decimal_div(t: Optional[T.Type]) -> Optional[float]:
+    if isinstance(t, T.DecimalType) and t.scale:
+        return 10.0 ** t.scale
+    return None
+
+
+def _special_column(page: Page, spec: AggSpec, gid, num_groups, nseg: int,
+                    dmask: Optional[torch.Tensor]) -> Column:
+    """One special aggregate's output column over the page's rows, by
+    group (`gid` from K28, or None: one global group)."""
+    xcol = page.column(spec.input)
+    x = xcol.values.contiguous()
+    nr = page.num_rows
+    if spec.name in CENTERED_AGGREGATES:
+        b = None
+        cols = (spec.input,)
+        if spec.input2 is not None:
+            b = page.column(spec.input2).values.contiguous()
+            cols = (spec.input, spec.input2)
+        masks = _spec_masks(page, spec, *cols)
+        if dmask is not None:
+            masks.append(dmask)
+        value, valid = centered(
+            CENTERED_KIND[spec.name], x, _decimal_div(spec.input_type), b,
+            _decimal_div(spec.input2_type), masks, nr, gid, num_groups, nseg)
+        return Column(value, valid, T.DOUBLE, None)
+    if spec.name in POSITIONAL_AGGREGATES:
+        kind = POSITIONAL_KIND[spec.name]
+        y = None
+        if kind == ARBITRARY:
+            masks = _spec_masks(page, spec, spec.input)
+        else:
+            y = page.column(spec.input2).values.contiguous()
+            masks = _spec_masks(page, spec, spec.input2)
+        values, valid = positional(kind, x, xcol.valid, y, masks, nr, gid,
+                                   num_groups, nseg)
+        return Column(values, valid, xcol.type, xcol.dictionary)
+    masks = _spec_masks(page, spec, spec.input)
+    if spec.name == "approx_percentile":
+        p = page.column(spec.input2).values.contiguous()
+        values, valid = percentile(x, p, masks, nr, gid, num_groups, nseg)
+        return Column(values, valid, xcol.type, xcol.dictionary)
+    # approx_distinct: K29's (group, bucket) pairs, K8 grouped on the pair
+    # with MAX(rho), K30's fold
+    pair, rho = hll_pairs(x, masks, nr, gid)
+    kv, _, regs, num_pairs = group_reduce(
+        [GroupKey(pair, None)], [StateInput(rho, None, None, MAX, False)],
+        nr, page.capacity)
+    return Column(hll_fold(kv[0], regs[0], num_pairs, num_groups, nseg),
+                  None, T.BIGINT, None)
+
+
 # ------------------------------------------------------- hash_aggregate
 
 
 def _unsupported(spec: AggSpec) -> Optional[str]:
     if spec.name not in SUPPORTED:
-        return f"{spec.name}() is a special aggregate (ROADMAP B8)"
+        return f"{spec.name}() needs the list layouts (ROADMAP B13)"
     return None
+
+
+def _refuse(aggs: Sequence[AggSpec], step: str) -> None:
+    """What the reference's hash_aggregate refuses, with its text
+    (trino_tpu/ops/aggregate.py :535-557); then what this package cannot
+    run yet."""
+    for a in aggs:
+        if a.distinct and (a.name in POSITIONAL_AGGREGATES
+                           or (a.name in CENTERED_AGGREGATES
+                               and a.input2 is not None)):
+            # DISTINCT over a row pair has no single-column first mask
+            raise NotImplementedError(f"{a.name}(DISTINCT ...)")
+    if step != Step.SINGLE:
+        for a in aggs:
+            if a.distinct:
+                # distinctness is decidable only once a group's rows are
+                # together: the optimizer keeps DISTINCT single-step
+                raise NotImplementedError(
+                    f"{a.name}(DISTINCT ...) in {step} step")
+            if a.name in SINGLE_STEP_AGGREGATES:
+                raise NotImplementedError(f"{a.name}() in {step} step")
+    for a in aggs:
+        reason = _unsupported(a)
+        if reason is not None:
+            raise NotImplementedError(reason)
 
 
 def hash_aggregate(
@@ -1324,15 +2049,7 @@ def hash_aggregate(
     emit the raw state columns that FINAL consumes through
     partial_state_channels (agg -> its state channels)."""
     key_channels = tuple(key_channels)
-    for a in aggs:
-        reason = _unsupported(a)
-        if reason is not None:
-            raise NotImplementedError(reason)
-        if a.distinct and step != Step.SINGLE:
-            # distinctness is decidable only once a group's rows are
-            # together: the optimizer keeps DISTINCT single-step
-            raise NotImplementedError(
-                f"{a.name}(DISTINCT ...) in {step} step")
+    _refuse(aggs, step)
     resolved = [get_aggregate(a.name,
                               a.input_type if a.input2 is None
                               else (a.input_type, a.input2_type))
@@ -1342,7 +2059,7 @@ def hash_aggregate(
         if not key_channels:
             return _global_aggregate(page, aggs, resolved, step,
                                      partial_state_channels)
-        sizes = _direct_key_sizes(page, key_channels)
+        sizes = _direct_key_sizes(page, key_channels, aggs)
         if sizes is None:
             return _group_aggregate(page, key_channels, aggs, resolved, step,
                                     partial_state_channels)
@@ -1355,9 +2072,13 @@ def hash_aggregate(
 _DIRECT_MAX_GROUPS = 4096
 
 
-def _direct_key_sizes(page: Page, key_channels):
+def _direct_key_sizes(page: Page, key_channels, aggs):
     """Per-key code-space sizes when every group key is dictionary-encoded
-    and the combined key space is at most 4096 slots, else None."""
+    and the combined key space is at most 4096 slots, else None. A special
+    aggregate takes the general path (K8 with K28's group ids), as the
+    reference's refuses the direct path for it."""
+    if any(a.name in SPECIAL_AGGREGATES for a in aggs):
+        return None
     sizes = []
     total = 1
     for ch in key_channels:
@@ -1387,11 +2108,20 @@ def _distinct_first_mask(page: Page, key_channels: Sequence[int],
     return distinct_mask(keys, eligible.contiguous())
 
 
+def _dmask(page: Page, key_channels, spec: AggSpec, dmasks: dict):
+    """A DISTINCT aggregate's first-row mask; aggregates over one argument
+    and FILTER share it."""
+    key = (spec.input, spec.mask_channel)
+    if key not in dmasks:
+        dmasks[key] = _distinct_first_mask(page, key_channels, spec)
+    return dmasks[key]
+
+
 def _step_inputs(page, aggs, resolved, step, partial_state_channels,
-                 key_channels=()):
+                 key_channels=(), dmasks=None):
     """(per-agg states, per-agg dictionary, flat StateInput list)."""
     per_agg, dicts, flat = [], [], []
-    dmasks: dict = {}   # DISTINCT aggregates over one argument share a mask
+    dmasks = {} if dmasks is None else dmasks
     for ai, (spec, fn) in enumerate(zip(aggs, resolved)):
         states = fn.state(spec.input_type)
         if step in (Step.FINAL, Step.INTERMEDIATE):
@@ -1403,11 +2133,7 @@ def _step_inputs(page, aggs, resolved, step, partial_state_channels,
                          else page.column(spec.input).dictionary)
             dmask = None
             if spec.distinct:
-                key = (spec.input, spec.mask_channel)
-                if key not in dmasks:
-                    dmasks[key] = _distinct_first_mask(page, key_channels,
-                                                       spec)
-                dmask = dmasks[key]
+                dmask = _dmask(page, key_channels, spec, dmasks)
             flat.extend(_partial_inputs(page, spec, states, dmask))
         per_agg.append(states)
     return per_agg, dicts, flat
@@ -1429,11 +2155,16 @@ def _narrow(arr: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def _emit(aggs, resolved, step, per_agg, dicts, arrays, n_out,
-          valid_where) -> List[Column]:
-    """Aggregate output columns from the reduced state arrays."""
+          valid_where, special=None) -> List[Column]:
+    """Aggregate output columns from the reduced state arrays; `special`
+    holds the special aggregates' columns by aggregate index."""
     out: List[Column] = []
     it = iter(arrays)
-    for spec, fn, states, d in zip(aggs, resolved, per_agg, dicts):
+    for ai, (spec, fn, states, d) in enumerate(zip(aggs, resolved, per_agg,
+                                                   dicts)):
+        if special and ai in special:
+            out.append(special[ai])
+            continue
         arrs = [next(it) for _ in states]
         if step in (Step.PARTIAL, Step.INTERMEDIATE):
             for sc, arr in zip(states, arrs):
@@ -1490,26 +2221,52 @@ def _group_aggregate(page: Page, key_channels, aggs, resolved, step,
     sorted path does; groups come out in the kernel's slot order."""
     keys = [GroupKey(page.column(ch).values.contiguous(),
                      page.column(ch).valid) for ch in key_channels]
+    dmasks: dict = {}
     per_agg, dicts, flat = _step_inputs(page, aggs, resolved, step,
-                                        partial_state_channels, key_channels)
-    key_values, key_valid, arrays, num_groups = group_reduce(
-        keys, flat, page.num_rows, page.capacity)
+                                        partial_state_channels, key_channels,
+                                        dmasks)
+    special = {}
+    if any(a.name in SPECIAL_AGGREGATES for a in aggs):
+        # K28: the same K8 launch also maps each row to its output row
+        key_values, key_valid, arrays, num_groups, gid = group_ids(
+            keys, flat, page.num_rows, page.capacity)
+        special = _special_columns(page, key_channels, aggs, gid,
+                                   num_groups, page.capacity, dmasks)
+    else:
+        key_values, key_valid, arrays, num_groups = group_reduce(
+            keys, flat, page.num_rows, page.capacity)
     out_cols: List[Column] = []
     for ch, values, valid in zip(key_channels, key_values, key_valid):
         col = page.column(ch)
         out_cols.append(Column(values, valid, col.type, col.dictionary))
     out_cols.extend(_emit(aggs, resolved, step, per_agg, dicts, arrays,
-                          page.capacity, lambda v: v))
+                          page.capacity, lambda v: v, special))
     return Page(tuple(out_cols), num_groups)
+
+
+def _special_columns(page, key_channels, aggs, gid, num_groups, nseg,
+                     dmasks) -> dict:
+    """Each special aggregate's column by aggregate index (DISTINCT over a
+    centered aggregate narrows it with K8's distinct mode)."""
+    out = {}
+    for ai, spec in enumerate(aggs):
+        if spec.name in SPECIAL_AGGREGATES:
+            dmask = _dmask(page, key_channels, spec, dmasks) \
+                if spec.distinct else None
+            out[ai] = _special_column(page, spec, gid, num_groups, nseg,
+                                      dmask)
+    return out
 
 
 def _global_aggregate(page, aggs, resolved, step, partial_state_channels):
     """No GROUP BY: one output row (reference: AggregationOperator.java)
     reduced by K4. INTERMEDIATE merges partial states like FINAL and
     re-emits the PARTIAL layout."""
+    dmasks: dict = {}
     per_agg, dicts, flat = _step_inputs(page, aggs, resolved, step,
-                                        partial_state_channels)
+                                        partial_state_channels, (), dmasks)
     arrays = global_reduce(flat, page.num_rows, page.capacity)
+    special = _special_columns(page, (), aggs, None, None, 1, dmasks)
     out_cols = _emit(aggs, resolved, step, per_agg, dicts, arrays, 1,
-                     lambda v: v.reshape(1))
+                     lambda v: v.reshape(1), special)
     return Page(tuple(out_cols), 1)
