@@ -44,6 +44,9 @@ Phases, each printing its lines before the next starts:
      NULLs, NaN, +-0.0, +-inf, ties at the extremum and at the picked
      rank, a FILTER, negative narrow integers): exact but for the
      centered doubles (1e-9 relative or of the column's largest value);
+     K32-K34 (the list layouts: K1, K7 and K2 moving planes of L 1, 8
+     and 128, K2 padding a narrower page; K33's size, array and map
+     modes over LIST_CASES; K34's count and expand) bit for bit;
   3. the 22 TPC-H queries, a FULL join, a MARK query and the window,
      grouping-set and UNION queries W1-W6 and W8 at sf1, and q6, q3, q9,
      q13 and W7 at sf10 (the reference's default session, spill on) from SQL
@@ -75,14 +78,22 @@ Phases, each printing its lines before the next starts:
      path: SPECIAL_QUERIES (S1-S7, S1 also at sf10) with every count set
      to 0 before it, each query's groups, rows and K28-K31 launches
      (`[special]`), rows equal to the CPU port's, K28-K31 each launched
-     and no special aggregate through a plain twin;
+     and no special aggregate through a plain twin; then the list path:
+     LIST_QUERIES (L1-L6 at sf1, L2 also at sf10) with every count set
+     to 0 before it, each query's groups, L, list rows, plane bytes,
+     UNNEST slots and K32-K34 launches (`[list]`), rows equal to the CPU
+     port's (L2 at sf10 to its lineitem identity, LIST_IDENTITY), each
+     list kernel launched, no list operation through a plain twin and no
+     step through the torch-op compiler;
   4. every kernel, every expanding-probe kind and the mxu, dense, search
      and cross routes launched during phase 3 (K16-K19 on the forced
      path; the host attach's ms per batch beside a pinned copy of the
      bytes it moves; K20-K23 at the window queries' largest sf1 calls;
      K24-K27 at their largest call of the TPC-DS runs, K24 also through
      its global-atomics mode; K28-K31 at their largest call of the
-     special-aggregate path; the S queries' warm walls too);
+     special-aggregate path; the S queries' warm walls too; K32-K34 and
+     K11's list steps at their largest call of the list path, and the L
+     queries' warm walls);
      per kernel its launches,
      its time at the main path's shapes (CUDA events; K10 and K11 also
      their host time per call), its bound, its plain twin's time and a
@@ -639,6 +650,41 @@ FROM lineitem GROUP BY 1"""),
     "S7_general": ("sf1", """SELECT o_custkey, checksum(o_orderkey)
 FROM orders GROUP BY o_custkey"""),
 }
+
+
+# The list path (ARRAY and MAP): array_agg, UNNEST, histogram, map_agg and
+# the list calls, read by tests/test_torch_list_queries.py too: name ->
+# (schema, SQL). L2_sf10 is held on the card to the identity of its
+# lineitem (LIST_IDENTITY), not run on the CPU.
+L2_SQL = """SELECT count(*), sum(e), sum(o) FROM (SELECT l_orderkey,
+       array_agg(l_partkey) ks FROM lineitem GROUP BY l_orderkey)
+CROSS JOIN UNNEST(ks) WITH ORDINALITY AS u(e, o)"""
+LIST_QUERIES = {
+    "L1": ("sf1", """SELECT l_orderkey, array_agg(l_partkey) FROM lineitem
+GROUP BY l_orderkey ORDER BY l_orderkey LIMIT 1000"""),
+    "L2": ("sf1", L2_SQL),
+    "L2_sf10": ("sf10", L2_SQL),
+    "L3": ("sf1", """SELECT l_suppkey, histogram(l_shipmode) FROM lineitem
+GROUP BY l_suppkey ORDER BY l_suppkey LIMIT 100"""),
+    "L4": ("sf1", """SELECT count(*), sum(cardinality(m)),
+       sum(element_at(m, p)), count(element_at(m, k))
+FROM (SELECT ps_suppkey k, min(ps_partkey) p,
+             map_agg(ps_partkey, ps_supplycost) m
+      FROM partsupp GROUP BY ps_suppkey)"""),
+    "L5": ("sf1", """SELECT l_returnflag,
+       sum(cardinality(ARRAY[l_partkey, l_suppkey])),
+       sum(element_at(ARRAY[l_quantity, l_extendedprice], 2)),
+       sum(CASE WHEN contains(ARRAY[l_partkey, l_suppkey], 7) THEN 1
+           ELSE 0 END)
+FROM lineitem GROUP BY l_returnflag"""),
+    "L6": ("sf1", """SELECT e, count(*) FROM orders
+CROSS JOIN UNNEST(ARRAY[o_custkey % 7, o_shippriority]) AS u(e)
+GROUP BY e ORDER BY e"""),
+}
+# L2's rows from lineitem alone: each order's array holds its l_partkey
+# values and its ordinals run 1..n, as its l_linenumber values do
+LIST_IDENTITY = {"L2_sf10": """SELECT count(*), sum(l_partkey),
+       sum(l_linenumber) FROM lineitem"""}
 
 
 def tpcds_runners(schema: str, device=None, device_gen=None) -> dict:
@@ -3226,6 +3272,399 @@ def kernel_rows_special(cap: Capture, originals, launches, dev, card):
     return out
 
 
+# ------------------------------------------- K32-K34 (ARRAY and MAP)
+
+LIST_PLANE_LS = (1, 8, 128)     # K32's plane widths checked in phase 2
+LIST_CASES = [  # cap, live rows, groups, L (K33); 0 groups: an empty page
+    (10, 10, 3, 8), (5000, 4286, 37, 256), (64, 0, 0, 1),
+    (1 << 20, 1 << 20, 100_000, 64), (4_194_304, 4_000_000, 1_500_000, 8)]
+
+
+def list_arrays(g, cap, L, dev):
+    """A page's arrays with list planes: an int64 column, a bool validity,
+    an int32 plane [cap, L] (dictionary codes), its lengths, a float64
+    MAP value plane."""
+    return [torch.randint(-99, 99, (cap,), generator=g).to(dev),
+            (torch.rand(cap, generator=g) < 0.8).to(dev),
+            torch.randint(0, 1000, (cap, L), generator=g,
+                          dtype=torch.int32).to(dev),
+            torch.randint(0, L + 1, (cap,), generator=g,
+                          dtype=torch.int32).to(dev),
+            torch.randn((cap, L), generator=g,
+                        dtype=torch.float64).to(dev)]
+
+
+def check_list(g, dev) -> float:
+    """K32 (K1, K7 and K2 moving planes of L 1, 8 and 128; K2 padding a
+    narrower page), K33's three modes (NULL inputs, NaN, +-0.0, +-inf,
+    duplicate keys, a FILTER, an empty page, 1.5M groups over 4M rows)
+    and K34 (count and expand) against their twins, bit for bit."""
+    from trino_tpu_torch import page as P
+    from trino_tpu_torch.ops import aggregate as A
+    from trino_tpu_torch.ops import lists as LS
+
+    def same_all(label, got, want, n=None):
+        for x, y in zip(got, want):
+            if (x is None) != (y is None) or (x is not None and not same_bits(
+                    x if n is None else x[:n], y if n is None else y[:n])):
+                fail(f"{label} differs from its twin")
+    for L in LIST_PLANE_LS:
+        for cap, n in ((4097, 3001), (300_000, 299_999)):
+            arrays = list_arrays(g, cap, L, dev)
+            nr = torch.tensor(n, dtype=torch.int32, device=dev)
+            mask = (torch.rand(cap, generator=g) < 0.5).to(dev)
+            got, c = P.compact_rows_cuda(arrays, mask, nr)
+            want, wc = P.compact_rows_plain(arrays, mask, nr)
+            if int(c) != int(wc):
+                fail(f"K32 in K1: count {int(c)}, twin {int(wc)} (L={L})")
+            same_all(f"K32 in K1 (L={L}, cap={cap})", got, want, int(wc))
+            idx = torch.randint(-3, cap + 3, (n,), generator=g).to(dev)
+            same_all(f"K32 in K7 (L={L}, cap={cap})",
+                     P.gather_rows_cuda(arrays, idx),
+                     P.gather_rows_plain(arrays, idx))
+            L2 = max(1, L // 2)
+            narrow = list_arrays(g, 1000, L2, dev)
+            narrow[1] = None          # a page without validity
+            counts = [nr, torch.tensor(777, dtype=torch.int32, device=dev)]
+            got, t = P.concat_rows_cuda([arrays, narrow], counts, cap + 1000)
+            want, wt = P.concat_rows_plain([arrays, narrow], counts,
+                                           cap + 1000)
+            if int(t) != int(wt):
+                fail(f"K32 in K2: total {int(t)}, twin {int(wt)} (L={L})")
+            same_all(f"K32 in K2 (L={L}/{L2})", got, want, int(wt))
+    for cap, n, ng, L in LIST_CASES:
+        keys = torch.randint(0, max(ng, 1), (cap,), generator=g).to(dev)
+        nr = torch.tensor(n, dtype=torch.int32, device=dev)
+        *_, G, gid = A.group_ids([A.GroupKey(keys, None)], [], nr, cap)
+        same_all(f"K33 size mode (cap={cap})",
+                 [LS.collect_sizes_cuda(gid, nr, G)],
+                 [LS.collect_sizes_plain(gid, nr, G)])
+        rows = max(1024, 1 << max(int(G) - 1, 0).bit_length())
+        for dt in (torch.int64, torch.float64, torch.int32, torch.float32):
+            x = torch.randint(-3, 4, (cap,), generator=g).to(dt)
+            if dt.is_floating_point and cap:
+                x[::5] = float("nan")
+                x[1::7] = -0.0
+                x[3::11] = float("inf")
+                x[4::13] = float("-inf")
+            x = x.to(dev)
+            masks = [(torch.rand(cap, generator=g) < 0.8).to(dev),
+                     (torch.rand(cap, generator=g) < 0.9).to(dev)]
+            same_all(f"K33 array mode (cap={cap}, {dt})",
+                     LS.collect_array_cuda(x, masks, nr, gid, G, L, rows),
+                     LS.collect_array_plain(x, masks, nr, gid, G, L, rows))
+            x2 = torch.randint(0, 1000, (cap,), generator=g).to(dev)
+            for v2 in (None, x2):
+                same_all(f"K33 map mode (cap={cap}, {dt}, "
+                         f"{'histogram' if v2 is None else 'map_agg'})",
+                         LS.collect_map_cuda(x, v2, masks, nr, gid, G, L,
+                                             rows),
+                         LS.collect_map_plain(x, v2, masks, nr, gid, G, L,
+                                              rows))
+    for cap, L in ((4096, 8), (1_500_000, 8), (100_000, 3), (10, 1)):
+        arrays = list_arrays(g, cap, L, dev)
+        _, v, plane, lens, aux = arrays
+        nr = torch.tensor(cap - 3, dtype=torch.int32, device=dev)
+        t = LS.unnest_count_cuda(lens, v, nr)
+        wt = LS.unnest_count_plain(lens, v, nr)
+        if int(t) != int(wt):
+            fail(f"K34 count {int(t)}, twin {int(wt)} (cap={cap})")
+        total = int(wt)
+        out_cap = max(1024, 1 << max(total - 1, 0).bit_length())
+        got = LS.unnest_expand_cuda(lens, v, nr, plane, aux, out_cap, True)
+        want = LS.unnest_expand_plain(lens, v, nr, plane, aux, out_cap,
+                                      True)
+        same_all(f"K34 expand (cap={cap}, L={L})", got[:4], want[:4], total)
+        if int(got[4]) != total:
+            fail(f"K34 expand total {int(got[4])}, twin {total}")
+    return 0.0   # compared bit for bit
+
+
+def list_runs(gpu, cpu, cap, kernels, list_kernels, card):
+    """The list path: LIST_QUERIES on the card (every kernel's count set
+    to 0 just before, read just after), no list operation through a
+    plain twin and no list call through the torch-op compiler, rows equal
+    to the CPU port's (L2_sf10 to its lineitem identity). Prints a [list]
+    line per query; returns the path's launches (K32 as the plane-mode
+    launches of K1, K2 and K7)."""
+    from trino_tpu_torch import page as P
+    from trino_tpu_torch.expr import compiler as EC
+    from trino_tpu_torch.ops import lists as LS
+    twins = {LS: ("collect_sizes_plain", "collect_array_plain",
+                  "collect_map_plain", "unnest_count_plain",
+                  "unnest_expand_plain"),
+             P: ("compact_rows_plain", "gather_rows_plain",
+                 "concat_rows_plain")}
+    real = {(mod, k): getattr(mod, k) for mod, ks in twins.items()
+            for k in ks}
+    on_card = []
+
+    def cuda_in(args):
+        for a in args:
+            for t in (a if isinstance(a, (list, tuple)) else (a,)):
+                if isinstance(t, (list, tuple)):
+                    if cuda_in(t):
+                        return True
+                elif isinstance(t, torch.Tensor) and t.is_cuda:
+                    return True
+        return False
+
+    def watched(mod, k):
+        def run(*args):
+            if cap.label is not None and cuda_in(args):
+                on_card.append((k, cap.label))
+            return real[(mod, k)](*args)
+        return run
+    for (mod, k) in real:
+        setattr(mod, k, watched(mod, k))
+    planes = [(P, "compact_rows_cuda"), (P, "compact_range_cuda"),
+              (P, "gather_rows_cuda"), (P, "concat_rows_cuda")]
+    every = {**kernels, **list_kernels}
+    reset_counts(every)
+    for mod, attr in planes:
+        getattr(mod, attr).plane_launches = 0
+    EC.cuda_evaluations = 0
+    results = {}
+    for name, (schema, sql) in LIST_QUERIES.items():
+        cap.label = ("list", name)
+        before = {k: getattr(mod, attr).launches
+                  for k, (mod, attr) in every.items()}
+        k32_before = sum(getattr(m, a).plane_launches for m, a in planes)
+        t0 = time.perf_counter()
+        runner = gpu[schema]
+        res = runner.execute(sql)
+        sync()
+        secs = time.perf_counter() - t0
+        counts = {k: getattr(mod, attr).launches - before[k]
+                  for k, (mod, attr) in every.items()}
+        k32 = sum(getattr(m, a).plane_launches for m, a in planes) \
+            - k32_before
+        results[name] = res
+        steps = runner.last_lists
+        coll = [e for e in steps if e["step"] == "collect"]
+        unn = [e for e in steps if e["step"] == "unnest"]
+        say(f"[list] {name} {schema}: {len(res.rows)} rows in {secs:.2f} s "
+            f"(first run); "
+            + "; ".join(f"collect {e['groups']:,} groups, L {e['L']}, "
+                        f"{e['rows']:,} list rows" for e in coll)
+            + (f"; UNNEST {len(unn)} pages, "
+               f"{sum(e['slots'] for e in unn):,} slots from "
+               f"{sum(e['rows'] for e in unn):,} page rows" if unn else "")
+            + f"; plane bytes {sum(e.get('plane_bytes', 0) for e in coll):,}"
+            f"; K32 {k32}, "
+            + ", ".join(f"{k} {counts[k]}" for k in list_kernels)
+            + "".join(f", {k} {n}" for k, n in counts.items()
+                      if n and k not in list_kernels))
+    cap.label = None
+    launches = {k: getattr(mod, attr).launches
+                for k, (mod, attr) in list_kernels.items()}
+    launches["list_planes"] = sum(getattr(m, a).plane_launches
+                                  for m, a in planes)
+    for (mod, k), fn in real.items():
+        setattr(mod, k, fn)
+    if on_card:
+        fail(f"list operations on the card ran a plain twin: {on_card[:5]}")
+    if EC.cuda_evaluations:
+        fail(f"{EC.cuda_evaluations} steps of the list path on the card ran "
+             f"through the torch-op compiler, not K11")
+    say(f"[k11] every filter and project step of the list path on the "
+        f"card ran K11 ({launches['expr_step']} launches; the torch-op "
+        f"compiler evaluated 0 steps, list calls included)")
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        fail(f"the list path never launched {missing}")
+    for name, (schema, sql) in LIST_QUERIES.items():
+        got = results[name].rows
+        if name in LIST_IDENTITY:
+            want = cpu[schema].execute(LIST_IDENTITY[name]).rows
+            what = "the CPU port's lineitem identity"
+        else:
+            want = cpu[schema].execute(sql).rows
+            what = "cpu rows"
+        if not rows_equal(got, want):
+            fail(f"{name} {schema}: cuda rows differ from {what}:\n"
+                 f"{got[:3]}\n{want[:3]}")
+        say(f"[list] {name} {schema}: cuda rows == {what} ({len(got)} "
+            f"rows, first {got[0] if got else None})")
+    say(f"[launches] list path ({len(LIST_QUERIES)} queries): {launches}; "
+        f"list operations through a plain twin on the card: "
+        f"{len(on_card)}; steps through the torch-op compiler: "
+        f"{EC.cuda_evaluations} — {card}")
+    return launches
+
+
+def kernel_rows_list(cap: Capture, originals, launches, dev, card):
+    """K32-K34 and K11's list steps at their largest call of the list
+    path, each against its twin at those inputs. Bounds count live rows,
+    each distinct array read once and each output written once."""
+    from trino_tpu_torch import page as P
+    from trino_tpu_torch.expr import kernel_gen as KG
+    from trino_tpu_torch.ops import lists as LS
+    out = []
+
+    def row(name, source, replaces, n_launches, fn, plain, bound_bytes,
+            library, library_name, shape):
+        return dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=n_launches, max_abs_err=0.0, ms=cuda_ms(fn),
+            device_ms=device_profile(fn)[0], host_ms=host_ms(fn),
+            plain_ms=cuda_ms(plain),
+            bound_ms=bound_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+            library_ms=None if library is None else cuda_ms(library),
+            shape=f"{shape}; library = {library_name}")
+
+    def equal(label, got, want, n=None):
+        for x, y in zip(got, want):
+            if (x is None) != (y is None) or (x is not None and not same_bits(
+                    x if n is None else x[:n], y if n is None else y[:n])):
+                fail(f"{label} differs from its twin at the list path's "
+                     f"inputs")
+
+    # K32: K7's plane mode at its largest list-path call
+    arrays, idx = cap.calls[("gather_rows_cuda:plane", "list")][1]
+    equal("K32 (K7 plane mode)", originals["gather_rows"](arrays, idx),
+          P.gather_rows_plain(arrays, idx))
+    n = idx.numel()
+    plane = max(arrays, key=lambda a: a.dim())
+    out.append(row(
+        "gather_rows plane mode (K32, in K7)",
+        "trino_tpu_torch/csrc/gather.cu", "trino_tpu/page.py:324",
+        launches["list_planes"],
+        lambda: originals["gather_rows"](arrays, idx),
+        lambda: P.gather_rows_plain(arrays, idx),
+        # the index read, each array's gathered rows read and written
+        8 * n + 2 * n * sum(P.row_bytes(a) for a in arrays),
+        lambda: plane.index_select(0, idx.clamp(0, plane.shape[0] - 1)),
+        "index_select of the plane's rows",
+        f"{n} rows gathered from cap {plane.shape[0]}, {len(arrays)} "
+        f"arrays, plane {tuple(plane.shape)} {plane.dtype}"))
+
+    # K33's three modes
+    gid, nr, ng = cap.calls[("collect_sizes_cuda", "list")][1]
+    equal("K33 size mode", [originals["collect_sizes"](gid, nr, ng)],
+          [LS.collect_sizes_plain(gid, nr, ng)])
+    n, G = int(nr), int(ng)
+    live = gid[:n].to(torch.int64)
+    out.append(row(
+        "collect_sizes (K33 size mode)", "trino_tpu_torch/csrc/list.cu",
+        "trino_tpu/ops/aggregate.py:957", launches["collect_sizes"],
+        lambda: originals["collect_sizes"](gid, nr, ng),
+        lambda: LS.collect_sizes_plain(gid, nr, ng),
+        4 * n + 4 * G + 16, lambda: torch.bincount(live, minlength=G),
+        "torch.bincount of the group ids",
+        f"cap {gid.numel()}, {n} live rows, {G} groups"))
+    args = cap.calls[("collect_array_cuda", "list")][1]
+    x, masks, nr, gid, ng, L, rows_ = args
+    equal("K33 array mode", originals["collect_array"](*args),
+          LS.collect_array_plain(*args))
+    n, G = int(nr), int(ng)
+    xs = x[:n]
+    gsrt = gid[:n].to(torch.int64)
+    flat = torch.zeros(rows_ * L, dtype=x.dtype, device=dev)
+    slot = (gsrt * L).clamp(max=rows_ * L - 1)
+    out.append(row(
+        "collect_array (K33 array mode, with K10's radix passes)",
+        "trino_tpu_torch/csrc/list.cu", "trino_tpu/ops/aggregate.py:976",
+        launches["collect_array"],
+        lambda: originals["collect_array"](*args),
+        lambda: LS.collect_array_plain(*args),
+        # the argument, masks and group ids read, the lists written
+        n * (x.element_size() + len(masks) + 4) + G * (L * x.element_size()
+                                                       + 4),
+        lambda: flat.index_put_((slot[torch.sort(gsrt, stable=True)
+                                      .indices],), xs),
+        "torch.sort(stable=True) of the group ids plus one index_put_",
+        f"cap {x.numel()}, {n} live rows, {x.dtype}, {G} groups, L {L}, "
+        f"{rows_} list rows"))
+    args = cap.calls[("collect_map_cuda", "list")][1]
+    x, x2, masks, nr, gid, ng, L, rows_ = args
+    equal("K33 map mode", originals["collect_map"](*args),
+          LS.collect_map_plain(*args))
+    n, G = int(nr), int(ng)
+    key = (gid[:n].to(torch.int64) << 32) + x[:n].to(torch.int64)
+    vsz = 8 if x2 is None else x2.element_size()
+    kflat = torch.zeros(rows_ * L, dtype=x.dtype, device=dev)
+    kslot = (gid[:n].to(torch.int64) * L).clamp(max=rows_ * L - 1)
+    out.append(row(
+        "collect_map (K33 map mode, with K10's radix passes)",
+        "trino_tpu_torch/csrc/list.cu", "trino_tpu/ops/aggregate.py:1020",
+        launches["collect_map"],
+        lambda: originals["collect_map"](*args),
+        lambda: LS.collect_map_plain(*args),
+        n * (x.element_size() + (0 if x2 is None else vsz) + len(masks) + 4)
+        + G * (L * (x.element_size() + vsz) + 4),
+        lambda: kflat.index_put_((kslot[torch.sort(key, stable=True)
+                                        .indices],), x[:n]),
+        "torch.sort(stable=True) of (group, key) plus one index_put_",
+        f"cap {x.numel()}, {n} live rows, key {x.dtype}, "
+        f"{'histogram' if x2 is None else 'map_agg'}, {G} groups, L {L}, "
+        f"{rows_} list rows"))
+
+    # K34: the count and the expansion at their largest calls
+    lens, valid, nr = cap.calls[("unnest_count_cuda", "list")][1]
+    equal("K34 count", [originals["unnest_count"](lens, valid, nr)],
+          [LS.unnest_count_plain(lens, valid, nr)])
+    n = int(nr)
+    out.append(row(
+        "unnest_count (K34 count)", "trino_tpu_torch/csrc/list.cu",
+        "trino_tpu/exec/local_planner.py:3164", launches["unnest_count"],
+        lambda: originals["unnest_count"](lens, valid, nr),
+        lambda: LS.unnest_count_plain(lens, valid, nr),
+        n * (4 + (0 if valid is None else 1)) + 4,
+        lambda: lens[:n].sum(), "one sum of the lengths",
+        f"cap {lens.numel()}, {n} live rows"))
+    args = cap.calls[("unnest_expand_cuda", "list")][1]
+    lens, valid, nr, plane, aux, out_cap, with_ord = args
+    got = originals["unnest_expand"](*args)
+    want = LS.unnest_expand_plain(*args)
+    total = int(want[4])
+    equal("K34 expand", got[:4], want[:4], total)
+    n = int(nr)
+    esz = plane.element_size() + (0 if aux is None else aux.element_size())
+    ids = torch.arange(lens.numel(), device=dev)
+    lens64 = lens.to(torch.int64)
+    out.append(row(
+        "unnest_expand (K34 expand)", "trino_tpu_torch/csrc/list.cu",
+        "trino_tpu/exec/local_planner.py:3174", launches["unnest_expand"],
+        lambda: originals["unnest_expand"](*args),
+        lambda: LS.unnest_expand_plain(*args),
+        # lengths read, the live elements read, each slot's row, ordinal
+        # and element written
+        n * (4 + (0 if valid is None else 1)) + total * esz
+        + total * (4 + (8 if with_ord else 0) + esz),
+        lambda: plane.index_select(0, torch.repeat_interleave(ids, lens64)),
+        "repeat_interleave of the row ids plus one index_select",
+        f"cap {lens.numel()}, {n} live rows, plane "
+        f"{tuple(plane.shape)} {plane.dtype}, {total:,} slots"))
+
+    # K11's list steps: the largest step of the list path whose tree
+    # holds a list call
+    step, page, params = cap.calls[("expr_step_cuda:list", "list")][1]
+    got = originals["expr_step"](step, page, params)
+    n = int(page.num_rows)
+    prog = step.compiled(page, params).prog
+    ins = P.Page(tuple(page.columns[i] for i in prog.inputs), page.num_rows)
+    in_bytes = sum(P.row_bytes(a) for c in ins.columns
+                   for a in P._movable(c)) * n
+    outs = got if isinstance(got, tuple) else (got,)
+    out_bytes = 0
+    for c in outs:
+        if isinstance(c, P.Column):
+            out_bytes += sum(P.row_bytes(a) for a in P._movable(c)) * n
+        else:
+            out_bytes += n
+    out.append(row(
+        "expr_step list operations (K11, Triton)",
+        "trino_tpu_torch/expr/kernel_gen.py",
+        "trino_tpu/expr/compiler.py:617", launches["expr_step"],
+        lambda: originals["expr_step"](step, page, params),
+        lambda: step.plain(page, params), in_bytes + out_bytes, None,
+        "none: no single PyTorch call",
+        f"{step.mode} step of {len(step.exprs)} expressions, cap "
+        f"{page.capacity}, {n} live rows"))
+    return out
+
+
 # ------------------------------------------------------------- phase 3/4
 
 
@@ -3273,6 +3712,8 @@ class Capture:
         for counter in ("by_kind", "by_route", "by_mode"):
             if hasattr(orig, counter):
                 setattr(wrapped, counter, {})
+        if hasattr(orig, "plane_launches"):
+            wrapped.plane_launches = 0
         self.orig[name] = orig
         setattr(module, name, wrapped)
 
@@ -3668,6 +4109,17 @@ def main() -> None:
         f"3 and 3,000 groups, a global page, 2^20 groups over 4,194,304 "
         f"rows; NULLs, NaN, +-0.0, +-inf, ties, a FILTER, negative narrow "
         f"integers): {errs} in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    errs = {"gather/compact/concat plane modes + collect_sizes + "
+            "collect_array + collect_map + unnest_count + unnest_expand":
+            check_list(g, dev)}
+    say(f"[kernels] K32 (K1, K7 and K2 moving planes of L "
+        f"{', '.join(map(str, LIST_PLANE_LS))}; K2 padding a narrower "
+        f"page), K33 (size, array and map modes) and K34 (count, expand) "
+        f"match their plain twins on the card bit for bit ({len(LIST_CASES)}"
+        f" K33 cases: an empty page, 3 to 1,500,000 groups, 4,194,304 rows; "
+        f"NULL inputs, NaN, +-0.0, +-inf, duplicate keys, int32/int64/"
+        f"float32/float64 keys): {errs} in {time.perf_counter() - t0:.1f} s")
     say(f"[time] phase 2 (kernels vs twins): "
         f"{time.perf_counter() - t_phase:.1f} s")
 
@@ -3681,6 +4133,8 @@ def main() -> None:
     from trino_tpu_torch.ops import join as J
     from trino_tpu_torch.ops import join_mxu as JM
     from trino_tpu_torch.ops import sort as S
+    from trino_tpu_torch.ops import lists as LS
+    from trino_tpu_torch.expr import ir as EI
     cap = Capture()
 
     def mxu_tag(pc, bc, nr, prep, *_):
@@ -3691,8 +4145,12 @@ def main() -> None:
              lambda keys, states, n, nseg: keys[0].codes.numel())
     cap.wrap(A, "global_reduce_triton", lambda states, n, c: c)
     cap.wrap(P, "compact_range_cuda", lambda arrays, key, *_: key.numel())
+    def plane_tag(arrays, *_):
+        return "plane" if any(a is not None and a.dim() == 2
+                              for a in arrays) else None
     cap.wrap(P, "gather_rows_cuda",
-             lambda arrays, idx: idx.numel() if arrays else -1)
+             lambda arrays, idx: idx.numel() if arrays else -1, plane_tag,
+             ("sf1", "forced", "list"))
     cap.wrap(J, "join_build_cuda", lambda cols, n: cols[0][0].numel())
     cap.wrap(J, "join_dense_cuda", lambda cols, n, st, size, *_: size)
     # K13's modes keep their largest TPC-DS call too: K9's mxu mode may
@@ -3722,8 +4180,27 @@ def main() -> None:
     cap.wrap(TD, "order_index_cuda", lambda *a: a[4])
     cap.wrap(A, "distinct_mask_cuda", lambda keys, el: el.numel())
     cap.wrap(S, "sort_rows_cuda", lambda page, keys: page.capacity)
+    def list_step(step, page, params=()):
+        def has(e):
+            return (isinstance(e, EI.Call) and e.name in EC.LIST_CALLS) \
+                or any(has(c) for c in e.children())
+        return "list" if any(has(e) for e in step.exprs) else None
     cap.wrap(KG, "expr_step_cuda",
-             lambda step, page, params=(): page.capacity)
+             lambda step, page, params=(): page.capacity, list_step,
+             ("sf1", "forced", "list"))
+    # K33/K34: their largest call of the list path
+    lp = ("list",)
+    cap.wrap(LS, "collect_sizes_cuda", lambda gid, *_: gid.numel(),
+             scopes=lp)
+    cap.wrap(LS, "collect_array_cuda",
+             lambda x, masks, nr, gid, ng, L, rows: x.numel() * L, scopes=lp)
+    cap.wrap(LS, "collect_map_cuda",
+             lambda x, x2, masks, nr, gid, ng, L, rows: x.numel() * L,
+             scopes=lp)
+    cap.wrap(LS, "unnest_count_cuda", lambda lens, *_: lens.numel(),
+             scopes=lp)
+    cap.wrap(LS, "unnest_expand_cuda", lambda lens, v, nr, plane, *_:
+             plane.numel(), scopes=lp)
     from trino_tpu_torch.exec import local_planner as LP
     from trino_tpu_torch.exec import spill as SP
     cap.wrap(J, "spill_prep_cuda", lambda cols, n: cols[0][0].numel())
@@ -3848,6 +4325,16 @@ def main() -> None:
                        "positional": (A, "positional_cuda"),
                        "hll_fold": (A, "hll_fold_cuda"),
                        "percentile": (A, "percentile_cuda")}
+    # K33/K34 and K11's list steps: the list path's kernels (LIST_QUERIES;
+    # K32 is counted as the plane-mode launches of K1, K2 and K7)
+    list_kernels = {"group_ids": (A, "group_ids_cuda"),
+                    "collect_sizes": (LS, "collect_sizes_cuda"),
+                    "collect_array": (LS, "collect_array_cuda"),
+                    "collect_map": (LS, "collect_map_cuda"),
+                    "unnest_count": (LS, "unnest_count_cuda"),
+                    "unnest_expand": (LS, "unnest_expand_cuda"),
+                    "expr_step": (KG, "expr_step_cuda"),
+                    "gather_rows": (P, "gather_rows_cuda")}
     runs = [("sf1", q, TPCH[q][0]) for q in TPCH]
     runs += [("sf1", "full", FULL_SQL), ("sf1", "mark", MARK_SQL)]
     win_runs = [(schema, w, sql)
@@ -3988,6 +4475,11 @@ def main() -> None:
     special_launches = special_runs(gpu, cpu, cap, all_kernels,
                                     special_kernels, card)
     t_special = time.perf_counter() - t_special
+    # the list path, its counts set to 0 in turn
+    t_list = time.perf_counter()
+    list_launches = list_runs(gpu, cpu, cap, all_kernels, list_kernels,
+                              card)
+    t_list = time.perf_counter() - t_list
     for (schema, q), (res, secs) in results.items():
         say(f"[query] {q} {schema} on cuda: {len(res.rows)} rows, first "
             f"run {secs:.2f} s (includes data generation and staging)")
@@ -4049,7 +4541,8 @@ def main() -> None:
         f"of which the CPU runs {t_cpu:.1f} s, the forced-threshold "
         f"runs {time.perf_counter() - t0:.1f} s, TPC-DS and G1-G4 "
         f"{t_ds:.1f} s on the card and {t_ds_cpu:.1f} s on the CPU, the "
-        f"special aggregates {t_special:.1f} s (card and CPU)")
+        f"special aggregates {t_special:.1f} s (card and CPU), the list "
+        f"path {t_list:.1f} s (card and CPU)")
 
     # ---- phase 4: launch check and times
     t_phase = time.perf_counter()
@@ -4087,6 +4580,9 @@ def main() -> None:
     originals.update({k: cap.orig[attr]
                       for k, (_, attr) in special_kernels.items()})
     rows += kernel_rows_special(cap, originals, special_launches, dev, card)
+    originals.update({k: cap.orig[attr]
+                      for k, (_, attr) in list_kernels.items()})
+    rows += kernel_rows_list(cap, originals, list_launches, dev, card)
     for r in rows:
         dev_ms = "not measured" if r["device_ms"] is None \
             else f"{r['device_ms']:.4f} ms"
@@ -4118,6 +4614,11 @@ def main() -> None:
         warm_profile(name, schema, lambda: gpu[schema].execute(sql), card)
     say(f"[time] special-aggregate walls and profiles: "
         f"{time.perf_counter() - t_sp_walls:.1f} s")
+    t_list_walls = time.perf_counter()
+    for name, (schema, sql) in LIST_QUERIES.items():
+        warm_profile(name, schema, lambda: gpu[schema].execute(sql), card)
+    say(f"[time] list-path walls and profiles: "
+        f"{time.perf_counter() - t_list_walls:.1f} s")
     say(f"[time] phase 4 walls and profiles: "
         f"{time.perf_counter() - t0:.1f} s; whole run "
         f"{time.perf_counter() - t_start:.1f} s")

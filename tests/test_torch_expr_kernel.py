@@ -60,8 +60,11 @@ def corpus_page():
 # --------------------------------------------- a torch stand-in for Triton
 
 class _Ptr:
+    """A pointer into a tensor's flat storage (a list plane [cap, L] is
+    addressed row-major, as on the card)."""
+
     def __init__(self, t, off=None):
-        self.t, self.off = t, off
+        self.t, self.off = t.view(-1) if t.dim() > 1 else t, off
 
     def __add__(self, off):
         return _Ptr(self.t, off)
@@ -146,6 +149,10 @@ class _TL(types.SimpleNamespace):
     def static_range(*n):
         return range(*n)
 
+    @staticmethod
+    def full(shape, value, dtype):
+        return torch.full(tuple(shape), value, dtype=dtype)
+
 
 def _div_trunc(a, b):
     return torch.div(a, b, rounding_mode="trunc")
@@ -228,10 +235,7 @@ class ShimKernel:
 
 def run_text(comp, page, ops, tables, outs, cap):
     """One launch of the step's kernel text under the stand-in."""
-    prog = comp.prog
-    args = [ops, page.num_rows, cap]
-    args += [page.columns[i].values for i in prog.inputs]
-    args += [page.columns[i].valid for i in prog.valid_inputs]
+    args = [ops, page.num_rows, cap] + K.launch_inputs(comp.prog, page)
     args += list(tables) + list(outs)
     ShimKernel(comp)[(-(-cap // K.BLOCK),)](*args, BLOCK=K.BLOCK)
 
@@ -246,21 +250,15 @@ def kernel_outputs(step, page, params):
     evaluated = K.evaluate(prog, page, b)
     ops = torch.tensor(b.slots + comp.const_bits + [0], dtype=torch.int64)
     cap = page.capacity
+    made = iter(K.output_tensors(prog, cap, page.device))
     outs, results = [], []
     for o in prog.outputs:
         if o.kind != "kernel":
             results.append(None)
             continue
-        if prog.mode == "filter":
-            v = torch.zeros(cap, dtype=torch.bool)
-            outs.append(v)
-            results.append((v, None))
-            continue
-        v = torch.zeros(cap, dtype=o.pair.value.dtype)
-        m = None if o.pair.valid is None else torch.zeros(cap,
-                                                          dtype=torch.bool)
-        outs += [v] + ([] if m is None else [m])
-        results.append((v, m))
+        got = tuple(None if t is None else t.zero_() for t in next(made))
+        outs += [t for t in got if t is not None]
+        results.append(got[:2])
     run_text(comp, page, ops, [t for t in b.tables], outs, cap)
     return prog, b, evaluated, results
 

@@ -63,7 +63,7 @@ def test_inventory_covers_the_slice():
     assert cu == set(native.SOURCES)
     assert {"gather", "join_build", "join_probe", "join_expand",
             "join_mxu", "group_agg", "tpch_gen", "join_spill",
-            "spill_part", "window", "special_agg"} <= cu
+            "spill_part", "window", "special_agg", "list"} <= cu
 
 
 @pytest.mark.parametrize("rel", _sources())
@@ -211,3 +211,13 @@ def test_special_aggregates_run_with_jax_and_reference_unimportable():
         "max_by(o_orderdate, o_totalprice), arbitrary(o_orderpriority), "
         "checksum(o_comment) FROM orders GROUP BY o_custkey",
         ordered=False)
+
+
+def test_list_query_runs_with_jax_and_reference_unimportable():
+    """The list layouts (K33's size pre-pass and array mode, K34's count
+    and expansion, the K32 moves through their twins) import nothing of
+    JAX either: L2 at tiny, array_agg's round trip through UNNEST."""
+    _run_blocked(
+        "SELECT count(*), sum(e), sum(o) FROM (SELECT l_orderkey, "
+        "array_agg(l_partkey) ks FROM lineitem GROUP BY l_orderkey) "
+        "CROSS JOIN UNNEST(ks) WITH ORDINALITY AS u(e, o)")

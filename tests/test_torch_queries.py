@@ -184,14 +184,23 @@ def test_q3_takes_the_reference_routes(runners):
 
 
 def test_unported_node_names_its_roadmap_item(runners):
-    _, port = runners
-    from trino_tpu_torch.exec.local_planner import ExecutionError
-    # UNNEST is still to be ported (with the list layouts)
-    with pytest.raises(ExecutionError, match="UnnestNode.*ROADMAP A8/B13"):
-        port.execute("SELECT x FROM UNNEST(ARRAY[1,2]) t(x)")
-    # and so are the collecting aggregates, whose output is a list
-    with pytest.raises(NotImplementedError, match="ROADMAP B13"):
-        port.execute("SELECT array_agg(n_name) FROM nation")
+    ref, port = runners
+    from trino_tpu_torch.exec import local_planner as LP
+    from trino_tpu_torch.planner.nodes import DistinctLimitNode
+    # a node still to be ported raises naming its ROADMAP item
+    assert "UnnestNode" not in LP._LATER
+    planner = LP.LocalExecutionPlanner.__new__(LP.LocalExecutionPlanner)
+    with pytest.raises(LP.ExecutionError,
+                       match="DistinctLimitNode.*ROADMAP A3/B3"):
+        planner.execute(DistinctLimitNode(None, 1))
+    # UNNEST runs now, and a global collecting aggregate raises the
+    # reference's own refusal
+    sql = "SELECT x FROM UNNEST(ARRAY[1,2]) t(x)"
+    assert port.execute(sql).rows == ref.execute(sql).rows == [(1,), (2,)]
+    for runner in runners:
+        with pytest.raises(NotImplementedError,
+                           match=r"global array_agg/histogram/map_agg"):
+            runner.execute("SELECT array_agg(n_name) FROM nation")
 
 
 def test_repeat_query_reuses_built_pipelines(runners):

@@ -341,8 +341,12 @@ def test_refusals_carry_the_reference_text(aggs, step, message):
 
 
 def test_collecting_aggregates_wait_for_b13():
+    """B13 is ported: a global collecting aggregate raises the reference's
+    refusal when it runs, and the bypass partial still refuses it."""
     sp = [PA.AggSpec("array_agg", 3, PT.BIGINT)]
-    with pytest.raises(NotImplementedError, match="ROADMAP B13"):
-        PA.hash_aggregate([], sp)
+    page = build_page(PP, PT, seeded(3, 16, 12))
+    with pytest.raises(NotImplementedError,
+                       match=r"global array_agg/histogram/map_agg"):
+        PA.hash_aggregate([], sp)(page)
     with pytest.raises(NotImplementedError, match="bypass partial"):
         PA.passthrough_partial([], sp)

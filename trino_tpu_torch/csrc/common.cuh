@@ -25,18 +25,65 @@ inline int load_table(const void* host, int64_t len, Table* t) {
   return 0;
 }
 
-// Copy one element of `esz` bytes (1, 2, 4 or 8).
+// Copy one row of `rb` bytes: an element of 1, 2, 4 or 8 bytes, or (K32)
+// one row of a [cap, L] list plane, moved in the widest word that divides
+// the row (16 bytes for 8-byte elements at even L). Rows start at
+// multiples of rb inside 256-byte-aligned allocations, so every word is
+// aligned.
 __device__ __forceinline__ void copy_elem(const void* src, int64_t si,
-                                          void* dst, int64_t di, int esz) {
-  switch (esz) {
+                                          void* dst, int64_t di, int64_t rb) {
+  switch (rb) {
     case 8: static_cast<uint64_t*>(dst)[di] =
-        static_cast<const uint64_t*>(src)[si]; break;
+        static_cast<const uint64_t*>(src)[si]; return;
     case 4: static_cast<uint32_t*>(dst)[di] =
-        static_cast<const uint32_t*>(src)[si]; break;
+        static_cast<const uint32_t*>(src)[si]; return;
     case 2: static_cast<uint16_t*>(dst)[di] =
-        static_cast<const uint16_t*>(src)[si]; break;
-    default: static_cast<uint8_t*>(dst)[di] =
-        static_cast<const uint8_t*>(src)[si]; break;
+        static_cast<const uint16_t*>(src)[si]; return;
+    case 1: static_cast<uint8_t*>(dst)[di] =
+        static_cast<const uint8_t*>(src)[si]; return;
+    default: break;
+  }
+  const char* s = static_cast<const char*>(src) + si * rb;
+  char* d = static_cast<char*>(dst) + di * rb;
+  if ((rb & 15) == 0) {
+    for (int64_t w = 0; w < rb / 16; ++w)
+      reinterpret_cast<uint4*>(d)[w] = reinterpret_cast<const uint4*>(s)[w];
+  } else if ((rb & 7) == 0) {
+    for (int64_t w = 0; w < rb / 8; ++w)
+      reinterpret_cast<uint64_t*>(d)[w] =
+          reinterpret_cast<const uint64_t*>(s)[w];
+  } else if ((rb & 3) == 0) {
+    for (int64_t w = 0; w < rb / 4; ++w)
+      reinterpret_cast<uint32_t*>(d)[w] =
+          reinterpret_cast<const uint32_t*>(s)[w];
+  } else {
+    for (int64_t w = 0; w < rb; ++w) d[w] = s[w];
+  }
+}
+
+// K2's padded row copy: a source row of `srb` bytes into a destination row
+// of `drb` >= srb bytes (a narrower page's plane), zeros past the source.
+// Row widths of one column share their element size, so both are
+// multiples of it.
+__device__ __forceinline__ void copy_row_padded(const void* src, int64_t si,
+                                                int64_t srb, void* dst,
+                                                int64_t di, int64_t drb) {
+  if (srb == drb) {
+    copy_elem(src, si, dst, di, drb);
+    return;
+  }
+  const char* s = static_cast<const char*>(src) + si * srb;
+  char* d = static_cast<char*>(dst) + di * drb;
+  if (((srb | drb) & 7) == 0) {
+    for (int64_t w = 0; w < drb / 8; ++w)
+      reinterpret_cast<uint64_t*>(d)[w] =
+          8 * w < srb ? reinterpret_cast<const uint64_t*>(s)[w] : 0;
+  } else if (((srb | drb) & 3) == 0) {
+    for (int64_t w = 0; w < drb / 4; ++w)
+      reinterpret_cast<uint32_t*>(d)[w] =
+          4 * w < srb ? reinterpret_cast<const uint32_t*>(s)[w] : 0;
+  } else {
+    for (int64_t w = 0; w < drb; ++w) d[w] = w < srb ? s[w] : 0;
   }
 }
 

@@ -19,8 +19,9 @@
 //                               with a block scan and copies every column
 //                               of every selected row to offset + rank, so
 //                               order is stable. Columns travel through one
-//                               pointer table (element sizes 1, 2, 4 or 8
-//                               bytes) in one launch.
+//                               pointer table (row sizes in bytes: 1, 2, 4
+//                               or 8 for a column, element size x L for a
+//                               list plane, K32) in one launch.
 //
 // Range mode replaces trino_tpu/ops/join.py range_prefilter, the join's
 // dynamic filter: a row is kept when its key lies in [lo, hi] of the build
@@ -64,7 +65,7 @@ struct Keep {
 
 // Copies every column of each kept row of this block's tile to its
 // output row; columns travel through one pointer table (src ptrs, dst
-// ptrs, element sizes).
+// ptrs, row sizes in bytes).
 __global__ void compact_scatter_kernel(const Keep keep,
                                        const int64_t* __restrict__ offsets,
                                        int64_t ncols,
@@ -73,11 +74,11 @@ __global__ void compact_scatter_kernel(const Keep keep,
   if ((int64_t)blockIdx.x * TILE >= n) return;  // uniform across the block
   const int64_t* src = tbl.v;
   const int64_t* dst = tbl.v + ncols;
-  const int64_t* esz = tbl.v + 2 * ncols;
+  const int64_t* rb = tbl.v + 2 * ncols;
   tile_scatter(keep, n, offsets, [&](int64_t i, int64_t pos) {
     for (int64_t c = 0; c < ncols; ++c)
       copy_elem(reinterpret_cast<const void*>(src[c]), i,
-                reinterpret_cast<void*>(dst[c]), pos, (int)esz[c]);
+                reinterpret_cast<void*>(dst[c]), pos, rb[c]);
   });
 }
 
@@ -99,7 +100,7 @@ int launch(Keep keep, const void* num_rows, int64_t cap, int64_t ncols,
 }  // namespace
 
 // mask: uint8[cap]; num_rows: int32 scalar (device); table: int64 HOST
-// array [src ptrs (ncols), dst ptrs (ncols), element sizes (ncols)];
+// array [src ptrs (ncols), dst ptrs (ncols), row sizes in bytes (ncols)];
 // scratch: int64[ceil(cap / 4096)]; count_out: int32 scalar (device).
 // Returns cudaGetLastError(), or -1 when the table exceeds TABLE_MAX.
 TT_EXPORT int compact_rows(const void* mask, const void* num_rows,

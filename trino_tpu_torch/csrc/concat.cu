@@ -16,7 +16,9 @@
 // Only live rows move, so padding costs nothing; a page whose validity is
 // absent while another page's is present has a null source and writes
 // "valid" bytes. Empty pages and capacities that are not a multiple of the
-// tile are handled by the per-block bounds.
+// tile are handled by the per-block bounds. K32: a list plane [cap, L]
+// moves as rows of element size x L bytes; a page whose plane is narrower
+// than the output's (a smaller L) writes zeros past its row.
 #include "common.cuh"
 
 namespace {
@@ -41,7 +43,7 @@ __global__ void offsets_kernel(const __grid_constant__ Table tbl,
 }
 
 __global__ void copy_kernel(const __grid_constant__ Table tbl,
-                            int64_t npages, int64_t ncols,
+                            int64_t npages, int64_t ncols, int with_srb,
                             const int64_t* __restrict__ offsets) {
   const int64_t* table = tbl.v;
   const int64_t p = blockIdx.y;
@@ -49,7 +51,8 @@ __global__ void copy_kernel(const __grid_constant__ Table tbl,
   const int64_t* caps = table + npages;
   const int64_t* srcs = table + 2 * npages;
   const int64_t* dsts = srcs + npages * ncols;
-  const int64_t* esz = dsts + ncols;
+  const int64_t* drb = dsts + ncols;
+  const int64_t* srb = drb + ncols;
   int64_t cnt = *reinterpret_cast<const int32_t*>(counts[p]);
   cnt = cnt < 0 ? 0 : (cnt > caps[p] ? caps[p] : cnt);
   const int64_t r0 = (int64_t)blockIdx.x * TILE;
@@ -59,12 +62,12 @@ __global__ void copy_kernel(const __grid_constant__ Table tbl,
   for (int64_t c = 0; c < ncols; ++c) {
     const void* src = reinterpret_cast<const void*>(srcs[p * ncols + c]);
     void* dst = reinterpret_cast<void*>(dsts[c]);
-    const int e = (int)esz[c];
+    const int64_t d = drb[c], sr = with_srb ? srb[p * ncols + c] : d;
     for (int64_t r = r0 + threadIdx.x; r < r1; r += THREADS) {
       if (src == nullptr)
         static_cast<uint8_t*>(dst)[off + r] = 1;
       else
-        copy_elem(src, r, dst, off + r, e);
+        copy_row_padded(src, r, sr, dst, off + r, d);
     }
   }
 }
@@ -72,20 +75,26 @@ __global__ void copy_kernel(const __grid_constant__ Table tbl,
 
 // table: int64 HOST array [count ptrs (npages), capacities (npages),
 // src ptrs (npages * ncols, 0 = all-valid bytes), dst ptrs (ncols),
-// element sizes (ncols)]; offsets: int64[npages] scratch; total: int32.
+// dst row sizes in bytes (ncols), then, when with_srb, src row sizes in
+// bytes (npages * ncols, at most the dst's; without them each page's rows
+// are the dst's)]; offsets: int64[npages] scratch; total: int32.
 // Returns cudaGetLastError(), or -1 when the table exceeds TABLE_MAX.
 TT_EXPORT int concat_rows(int64_t npages, int64_t ncols, int64_t max_cap,
-                          const void* table, void* offsets, void* total,
-                          void* stream) {
+                          int64_t with_srb, const void* table, void* offsets,
+                          void* total, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   thread_local static Table t;  // each launch copies it as a parameter
-  if (load_table(table, 2 * npages + npages * ncols + 2 * ncols, &t))
+  if (load_table(table,
+                 2 * npages + (1 + (with_srb != 0)) * npages * ncols +
+                     2 * ncols,
+                 &t))
     return -1;
   offsets_kernel<<<1, 32, 0, s>>>(t, npages, static_cast<int64_t*>(offsets),
                                   static_cast<int32_t*>(total));
   const int64_t tiles = max_cap > 0 ? (max_cap + TILE - 1) / TILE : 0;
   if (tiles > 0 && ncols > 0)
     copy_kernel<<<dim3((unsigned)tiles, (unsigned)npages), THREADS, 0, s>>>(
-        t, npages, ncols, static_cast<const int64_t*>(offsets));
+        t, npages, ncols, (int)(with_srb != 0),
+        static_cast<const int64_t*>(offsets));
   return (int)cudaGetLastError();
 }

@@ -82,14 +82,18 @@ from trino_tpu_torch.exec.spill import (SPILL_LEDGER, HostPartitionStore,
                                         leading_rank, partition_by_hash,
                                         partition_by_range,
                                         partition_key_hashes, rank_bounds,
-                                        resolve_spill_limit, split_partition)
+                                        refuse_lists, resolve_spill_limit,
+                                        split_partition)
 from trino_tpu_torch.expr.kernel_gen import filter_step, project_step
 from trino_tpu_torch.expr.ir import (Call, InputRef, Literal, RowExpression,
                                      SpecialForm, SpecialKind, SymbolRef)
 from trino_tpu_torch.metadata import Metadata, Session
 from trino_tpu_torch.ops import (AggSpec, SortKey, Step, hash_aggregate,
                                  order_by, top_n_masked)
-from trino_tpu_torch.ops.aggregate import (SINGLE_STEP_AGGREGATES,
+from trino_tpu_torch.ops import lists
+from trino_tpu_torch.ops.aggregate import (COLLECT_AGGREGATES,
+                                             SINGLE_STEP_AGGREGATES,
+                                             GroupKey, group_ids,
                                              passthrough_partial)
 from trino_tpu_torch.ops.join import (
     KMAX, KMIN, MAX_RUN, N_LIVE, N_ROWS, NDISTINCT, SPILL_DENSE_MAX_SPAN,
@@ -118,7 +122,6 @@ _WINDOW_PAGES = 8
 
 # plan nodes of the reference this slice does not run yet -> ROADMAP item
 _LATER = {
-    "UnnestNode": "A8/B13 (unnest)",
     "ExchangeNode": "A9 (multi-GPU exchange)",
     "TableWriterNode": "A10 (writes)",
     "DistinctLimitNode": "A3/B3 (sort-based aggregation)",
@@ -256,6 +259,9 @@ class LocalExecutionPlanner:
         self.joins: List[dict] = []
         # one entry per WindowNode run (runner.last_windows)
         self.windows = WindowLog()
+        # one entry per list step (runner.last_lists): a collecting
+        # aggregation's groups, L and output rows, an UNNEST page's slots
+        self.lists: List[dict] = []
         # the query's counters (runner.last_query_stats), under the
         # reference's names: joins routed onto the mxu lookup and their
         # probe pages' cost-model flops; bytes flushed to host spill
@@ -510,13 +516,13 @@ class LocalExecutionPlanner:
         if any(spec.distinct or spec.name in SINGLE_STEP_AGGREGATES
                for spec in specs):
             # distinctness, and the special aggregates' state (centered
-            # moments, a row pick, registers, a rank), belong to a whole
-            # group, not a page: collect and run one SINGLE-step
+            # moments, a row pick, registers, a rank, a list), belong to a
+            # whole group, not a page: collect and run one SINGLE-step
             # aggregation (the reference's MarkDistinct + aggregation in
-            # one kernel call)
-            single_op = cached_kernel(
-                ("agg-single", key_channels_t, specs_t),
-                lambda: hash_aggregate(key_channels, specs, Step.SINGLE))
+            # one kernel call); a collecting aggregate first sizes its
+            # lists (K33's size pre-pass)
+            needs_len = bool(key_channels) and any(
+                spec.name in COLLECT_AGGREGATES for spec in specs)
 
             def gen_distinct():
                 page = self._collect(src)
@@ -524,8 +530,19 @@ class LocalExecutionPlanner:
                     if not key_channels:
                         yield self._empty_global_agg(node)
                     return
+                L = rows = None
+                if needs_len:
+                    L, rows = self._list_sizes(page, key_channels)
+                single_op = cached_kernel(
+                    ("agg-single", key_channels_t, specs_t, L, rows),
+                    lambda: hash_aggregate(key_channels, specs, Step.SINGLE,
+                                           list_len=L, list_rows=rows))
                 try:
-                    yield single_op(page)
+                    out = single_op(page)
+                    if needs_len:
+                        self.lists[-1]["plane_bytes"] = sum(
+                            c.nbytes for c in out.columns if c.is_list)
+                    yield out
                 finally:
                     self._free_collected(page)
             return PageStream(gen_distinct(), node.outputs)
@@ -1597,6 +1614,62 @@ class LocalExecutionPlanner:
 
     # ---------------------------------------------------- scalar subqueries
 
+    def _list_sizes(self, page: Page, key_channels) -> Tuple[int, int]:
+        """The collecting aggregates' pre-pass (the reference's
+        group_max_size): K28's groups, then K33's size mode, one fetch of
+        (largest live group, groups). Returns (L, rows): L as the
+        reference sets it, the smallest power of two at least the largest
+        group (at least 1); rows the next power of two above the group
+        count, where the reference gives the lists the page's capacity."""
+        keys = [GroupKey(page.column(ch).values.contiguous(),
+                         page.column(ch).valid) for ch in key_channels]
+        *_, num_groups, gid = group_ids(keys, [], page.num_rows,
+                                        page.capacity)
+        largest, groups = lists.collect_sizes(gid, page.num_rows,
+                                              num_groups).tolist()
+        L = 1 << (max(int(largest), 1) - 1).bit_length()
+        rows = _next_pow2(int(groups))
+        self.lists.append({"step": "collect", "groups": int(groups), "L": L,
+                           "rows": rows})
+        return L, rows
+
+    def _exec_UnnestNode(self, node) -> PageStream:
+        """UNNEST (operator/unnest/UnnestOperator.java; reference:
+        _exec_UnnestNode): per page K34 counts the live non-NULL elements
+        (one fetch sizes the output at the next power of two), then
+        expands them: each output slot's source row, ordinal and element
+        (a MAP's key and value); the source columns are replicated at the
+        source rows through K7."""
+        src = self.execute(node.source)
+        lay, _ = _layout(src.symbols)
+        arr_ch = lay[node.arrays[0].name]
+        el_types = node.elements[0]
+        with_ord = node.ordinality is not None
+
+        def gen():
+            for page in src.iter_pages():
+                c = page.column(arr_ch)
+                total = int(lists.unnest_count(c.lengths, c.valid,
+                                               page.num_rows))
+                self.lists.append({"step": "unnest", "slots": total,
+                                   "rows": int(page.capacity)})
+                if total == 0:
+                    continue
+                out_cap = _next_pow2(total)
+                srow, ordinal, elem, aval, count = lists.unnest_expand(
+                    c.lengths, c.valid, page.num_rows, c.values, c.aux,
+                    out_cap, with_ord)
+                cols = list(page.gather(srow, count).columns)
+                cols.append(Column(elem, None, el_types[0].type,
+                                   c.dictionary))
+                if c.aux is not None:
+                    cols.append(Column(aval, None, el_types[1].type,
+                                       c.aux_dictionary))
+                if with_ord:
+                    cols.append(Column(ordinal, None, T.BIGINT, None))
+                yield Page(tuple(cols), count)
+        return PageStream(gen(), node.outputs)
+
     def _exec_AssignUniqueIdNode(self, node) -> PageStream:
         """AssignUniqueIdOperator: tag rows with a unique BIGINT id, the
         page's capacity offset plus the row's position. Padding rows take
@@ -1915,6 +1988,7 @@ class LocalExecutionPlanner:
         CUDA page) in bounded chunks, each reserved against the query
         ledger while it transfers. Returns (values, valid, type,
         dictionary) as attach_build_host reads them."""
+        refuse_lists(Page((c,), 0))
         n = max(n_rows, 1)
         width = c.values.element_size() + (1 if c.valid is not None else 0)
         chunk = max(1 << 16, self._SPILL_STAGE_CHUNK_BYTES // max(width, 1))

@@ -65,6 +65,11 @@ class MaterializedResult:
 def _to_python(value, typ: T.Type):
     if value is None:
         return None
+    if isinstance(typ, T.ArrayType):
+        return [_to_python(v, typ.element) for v in value]
+    if isinstance(typ, T.MapType):
+        return {_to_python(k, typ.key): _to_python(v, typ.value)
+                for k, v in value.items()}
     if isinstance(typ, T.DecimalType):
         return decimal.Decimal(int(value)).scaleb(-typ.scale)
     if isinstance(typ, T.DateType):
@@ -135,6 +140,10 @@ class LocalQueryRunner:
         # agg_mode_upgrades (the adaptive partial aggregation's moves)
         self.last_query_stats: dict = dict.fromkeys(QUERY_COUNTERS, 0)
         self._last_windows = WindowLog()
+        # one dict per list step of the last query: a collecting
+        # aggregation's groups, L (the plane width) and output rows, or an
+        # UNNEST page's output slots and input rows
+        self.last_lists: list = []
 
     @property
     def last_windows(self) -> list:
@@ -208,6 +217,7 @@ class LocalQueryRunner:
         self.last_joins = executor.joins
         self.last_query_stats = executor.stats
         self._last_windows = executor.windows
+        self.last_lists = executor.lists
         types = [s.type for s in plan.symbols]
         rows: List[Tuple[Any, ...]] = []
         try:

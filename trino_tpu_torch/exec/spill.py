@@ -272,7 +272,18 @@ def _key_cols(page: Page, channels: Sequence[int]):
             for ch in channels]
 
 
+def refuse_lists(page: Page) -> None:
+    """A host spill store keeps (values, validity) per column, as the
+    reference's does, which would drop a list column's lengths and MAP
+    values (the reference's spill then fails): raise instead."""
+    if any(c.is_list for c in page.columns):
+        raise NotImplementedError(
+            "a list column (ARRAY/MAP) cannot go to a host spill store: "
+            "ROADMAP B item 6 (B13)")
+
+
 def _partition_sort(page: Page, key_cols, spec, npart: int):
+    refuse_lists(page)
     arrays = [a.contiguous() for c in page.columns for a in _movable(c)]
     moved, counts = partition_rows(arrays, key_cols, page.num_rows, spec,
                                    npart)
@@ -467,6 +478,7 @@ class HostPartitionStore:
     def spill_partitioned(self, page: Page, counts) -> None:
         """Fetch a partition-sorted page's live rows (one copy per column,
         one wait) and slice them at the partition offsets."""
+        refuse_lists(page)
         counts = [int(c) for c in counts]
         total = sum(counts)
         if total == 0:

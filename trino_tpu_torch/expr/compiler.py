@@ -183,6 +183,17 @@ def _to_page_device(t: Optional[torch.Tensor], device):
     return t.to(device)
 
 
+def on_device(col: Column, device) -> Column:
+    """A host-evaluated invariant's tensors (a list's planes too) moved to
+    the page's device."""
+    return Column(*[_to_page_device(a, device) for a in (col.values,
+                                                         col.valid)],
+                  col.type, col.dictionary,
+                  *[_to_page_device(a, device) for a in (col.lengths,
+                                                         col.aux)],
+                  col.aux_dictionary)
+
+
 def invariant_value(expr: RowExpression, params=()) -> Column:
     """A page-invariant subtree evaluated once on the host: 0-d values
     (and validity, and a dictionary for strings) on the CPU. Scalar math
@@ -196,10 +207,7 @@ def _eval(expr: RowExpression, page: Page, params=()) -> Column:
         hit = params.memo.get(key)
         if hit is None:
             col = invariant_value(expr, params)
-            hit = params.memo[key] = Column(
-                _to_page_device(col.values, page.device),
-                _to_page_device(col.valid, page.device), col.type,
-                col.dictionary)
+            hit = params.memo[key] = on_device(col, page.device)
         return hit
     return _eval_node(expr, page, params)
 
@@ -252,8 +260,7 @@ def _eval_call(expr: Call, page: Page, params=()) -> Column:
     if name == "try_cast":
         return _try_cast(expr, page, params)
     if name in LIST_CALLS:
-        raise NotImplementedError(
-            f"{name}: ARRAY/MAP list layouts are not ported yet")
+        return _array_call(expr, page, params)
     if name in FORMAT_CALLS:
         return _format_datetime(expr, page, params)
     if name == "$in_padded":
@@ -957,8 +964,131 @@ def _kleene_or(args, out_type) -> Column:
     return Column(value, valid, out_type, None)
 
 
+def array_ctor_dictionary(dicts, device):
+    """array_ctor's dictionary: the arguments' one pool, or their union
+    with a remap table per distinct pool (by identity, as the reference
+    keys them)."""
+    uniq = {id(d): d for d in dicts}
+    if len(uniq) == 1:
+        return dicts[0], None
+    from trino_tpu_torch.page import union_dictionaries
+    dictionary, tables = union_dictionaries(list(uniq.values()), device)
+    return dictionary, dict(zip(uniq, tables))
+
+
+def membership_needle(arr: Column, x: Column, arg: RowExpression, rows: int):
+    """contains / map_element_at: the searched value in the list's
+    element space (a string literal folds to its code in the list's
+    pool). Raises the reference's refusal across distinct pools."""
+    if arr.dictionary is None or x.dictionary == arr.dictionary:
+        return x.values
+    if isinstance(arg, Literal):
+        code = arr.dictionary.code_of(arg.value)
+        return torch.full((rows,), code, dtype=arr.values.dtype,
+                          device=arr.values.device)
+    raise NotImplementedError(
+        "array membership across distinct dictionaries")
+
+
+def _array_call(expr: Call, page: Page, params=()) -> Column:
+    """ARRAY/MAP scalars over the list layout (values [cap, L] +
+    lengths; reference: trino_tpu/expr/compiler.py _array_call). Element
+    NULLs are not represented: ARRAY[x, NULL] is NULL as a whole. A
+    page-invariant call (every argument 0-d, on the host page) runs over
+    one row and returns 0-d values (an [L] plane with 0-d lengths for
+    array_ctor)."""
+    name = expr.name
+    args = [_eval(a, page, params) for a in expr.args]
+    rowless = all((a.lengths if a.is_list else a.values).dim() == 0
+                  for a in args)
+    cap = 1 if rowless else page.capacity
+    one = (lambda a: None if a is None else a.unsqueeze(0)) if rowless \
+        else (lambda a: a)
+    cols = []
+    for a in args:
+        a = a if rowless else _broadcast(a, cap)
+        cols.append(Column(one(a.values), one(a.valid), a.type,
+                           a.dictionary, one(a.lengths), one(a.aux),
+                           a.aux_dictionary))
+    out = _list_op(expr, cols, cap)
+    if not rowless:
+        return out
+    first = lambda a: None if a is None else a[0]
+    return Column(first(out.values), first(out.valid), out.type,
+                  out.dictionary, first(out.lengths), first(out.aux),
+                  out.aux_dictionary)
+
+
+def _list_op(expr: Call, args, cap: int) -> Column:
+    name = expr.name
+    if name == "array_ctor":
+        dicts = [a.dictionary for a in args if a.dictionary is not None]
+        dictionary = None
+        if dicts:
+            dictionary, remap = array_ctor_dictionary(
+                dicts, args[0].values.device)
+            if remap is not None:
+                args = [Column(_take(remap[id(a.dictionary)],
+                                     a.values.clamp(min=0)),
+                               a.valid, a.type, dictionary)
+                        if a.dictionary is not None else a for a in args]
+        elem_dt = expr.type.element.dtype
+        values = torch.stack([a.values.to(elem_dt) for a in args], dim=1)
+        lengths = torch.full((cap,), len(args), dtype=torch.int32,
+                             device=values.device)
+        valid = None
+        for a in args:
+            valid = _vand(valid, a.valid)
+        return Column(values, valid, expr.type, dictionary, lengths)
+    arr = args[0]
+    if not arr.is_list:
+        raise NotImplementedError(f"{name} over a non-list column")
+    L = arr.values.shape[1]
+    if name == "cardinality":
+        return Column(arr.lengths.to(torch.int64), arr.valid, expr.type,
+                      None)
+    if name == "element_at":
+        i = args[1]
+        iv = i.values.to(torch.int32)
+        idx = torch.where(iv < 0, arr.lengths + iv, iv - 1)
+        inb = (iv != 0) & (idx >= 0) & (idx < arr.lengths)
+        vals = torch.gather(arr.values, 1, idx.clamp(0, max(L - 1, 0))
+                            .long()[:, None])[:, 0] if L else \
+            torch.zeros(cap, dtype=arr.values.dtype,
+                        device=arr.values.device)
+        valid = _vand(_vand(arr.valid, i.valid), inb)
+        return Column(vals, valid, expr.type, arr.dictionary)
+    x = args[1]
+    xv = membership_needle(arr, x, expr.args[1], cap)
+    in_len = torch.arange(L, dtype=torch.int32, device=arr.values.device)[
+        None, :] < arr.lengths[:, None]
+    match = (arr.values == xv[:, None]) & in_len
+    found = match.any(dim=1)
+    if name == "contains":
+        return Column(found, _vand(arr.valid, x.valid), expr.type, None)
+    if L == 0:
+        vals = torch.zeros(cap, dtype=arr.aux.dtype, device=found.device)
+    else:    # map_element_at: the first matching key wins
+        first = match.to(torch.uint8).argmax(dim=1)
+        vals = torch.gather(arr.aux, 1, first[:, None])[:, 0]
+    valid = _vand(_vand(arr.valid, x.valid), found)
+    return Column(vals, valid, expr.type, arr.aux_dictionary)
+
+
 def _broadcast(col: Column, capacity: int) -> Column:
+    """A page-invariant value spread over the page's rows: 0-d values (a
+    list invariant's [L] planes with 0-d lengths) expand to the page."""
     values, valid = col.values, col.valid
+    if col.is_list:
+        if col.lengths.dim() > 0:
+            return col if valid is None or valid.dim() > 0 else \
+                col.with_valid(valid.expand(capacity))
+        rows = lambda a: None if a is None else \
+            a.expand((capacity,) + tuple(a.shape))
+        return Column(rows(values),
+                      None if valid is None else valid.expand(capacity),
+                      col.type, col.dictionary, col.lengths.expand(capacity),
+                      rows(col.aux), col.aux_dictionary)
     if values.dim() == 0:
         values = values.expand(capacity)
     if valid is not None and valid.dim() == 0:
@@ -991,9 +1121,10 @@ def compile_expression(expr: RowExpression) -> Callable[..., Column]:
         _count(page)
         ops = _operands_for(state, params, invariant)
         col = _broadcast(_eval(expr, page, ops), page.capacity)
-        values = col.values.contiguous()
-        valid = None if col.valid is None else col.valid.contiguous()
-        return Column(values, valid, col.type, col.dictionary)
+        contig = lambda a: None if a is None else a.contiguous()
+        return Column(contig(col.values), contig(col.valid), col.type,
+                      col.dictionary, contig(col.lengths), contig(col.aux),
+                      col.aux_dictionary)
 
     return fn
 

@@ -22,6 +22,13 @@ compiled PageProcessor. Here:
    Every value a literal, a dictionary or a page-invariant subtree gives
    travels in one int64 operand buffer, as do the table bounds, so a new
    literal never compiles a new kernel; `num_rows` is read on the device.
+   A list column (ARRAY, MAP) is a 2-D operand: its plane pointer, its
+   lengths and (MAP) its value plane, with the static L (the row stride)
+   in the text. `cardinality` reads the length, `element_at` one element
+   at the row's index, `contains` and `map_element_at` loop over L under
+   the row's length for the first match; `array_ctor`'s elements stay
+   values of the kernel, read by those calls in place or written as a
+   plane output [rows, n].
 3. **Launch.** A filter step is one launch writing a bool mask (value AND
    valid, false on dead rows), which K1 then compacts. A project step is
    one launch writing every projection's values and validity; a bare
@@ -104,6 +111,22 @@ class Pair:
 
 
 @dataclasses.dataclass
+class ListPair:
+    """A lowered list: an input list column (`index`, its static L, its
+    lengths and whether it has a MAP value plane) or array_ctor's element
+    values (`elems`, length n), with the list's validity and dictionary
+    (a MAP's value dictionary in `aux_dict`)."""
+    valid: Optional[Val]
+    dict: Optional[int] = None
+    index: int = -1
+    L: int = 0
+    lengths: Optional[Val] = None
+    aux: bool = False
+    aux_dict: Optional[int] = None
+    elems: Tuple[Val, ...] = ()
+
+
+@dataclasses.dataclass
 class Output:
     """One projection (or the filter's predicate): `kind` is "kernel",
     "alias" (a bare input column) or "invariant" (broadcast)."""
@@ -130,6 +153,8 @@ class Program:
     outputs: List[Output]
     inputs: Tuple[int, ...]            # referenced column indices
     valid_inputs: Tuple[int, ...]      # those with validity
+    list_inputs: Tuple[int, ...]       # list columns (lengths operand)
+    aux_inputs: Tuple[int, ...]        # MAP columns (value plane operand)
     slot_dtypes: List[torch.dtype]
     table_dtypes: List[torch.dtype]
     ndicts: int
@@ -282,7 +307,9 @@ class _Lower:
         hit = self.memo.get(id(expr))
         if hit is not None:
             return hit[1]
-        if id(expr) in self.invariant:
+        if _is_list(expr.type):
+            p = self._list(expr)
+        elif id(expr) in self.invariant:
             p = self._invariant(expr)
         elif isinstance(expr, InputRef):
             p = self._input(expr.index)
@@ -313,6 +340,158 @@ class _Lower:
             self.page_binder(bind)
         p = self.inputs[i] = Pair(value, valid, d)
         return p
+
+    # ---- lists
+    def _dict_of(self, i: int, aux: bool) -> int:
+        d = self.new_dict()
+
+        def bind(b, page, d=d, i=i):
+            col = page.columns[i]
+            b.dicts[d] = col.aux_dictionary if aux else col.dictionary
+        self.page_binder(bind)
+        return d
+
+    def _list(self, expr) -> ListPair:
+        """A list-typed subtree: an input list column or array_ctor."""
+        if isinstance(expr, InputRef):
+            return self._list_input(expr.index)
+        if isinstance(expr, Call) and expr.name == "array_ctor":
+            return self._array_ctor(expr)
+        raise NotImplementedError(f"K11 cannot lower the list {expr!r}")
+
+    def _list_input(self, i: int) -> ListPair:
+        got = self.inputs.get(i)
+        if got is not None:
+            return got
+        col = self.page.columns[i]
+        valid = None
+        if col.valid is not None:
+            valid = self.emit("col_valid", (), torch.bool, (i,))
+        lengths = self.emit("list_len", (), torch.int32, (i,))
+        p = self.inputs[i] = ListPair(
+            valid, None if col.dictionary is None else self._dict_of(i, False),
+            i, col.values.shape[1], lengths, col.aux is not None,
+            None if col.aux_dictionary is None else self._dict_of(i, True))
+        return p
+
+    def _array_ctor(self, e: Call) -> ListPair:
+        """compiler._list_op array_ctor: the arguments as the list's
+        elements (strings remapped onto the union of their pools), NULL
+        when any argument is."""
+        args = [self.pair(a) for a in e.args]
+        elem_dt = e.type.element.dtype
+        dicts = [a.dict for a in args if a.dict is not None]
+        out_d = None
+        if dicts:
+            out_d = self.new_dict()
+            tabs = {}
+            for a in args:
+                if a.dict is not None and a.dict not in tabs:
+                    tabs[a.dict] = self.table(torch.int32)
+
+            def bind(b, page, tabs=tabs, out_d=out_d):
+                pools = [b.dicts[d] for d in tabs]
+                union, remap = C.array_ctor_dictionary(pools, page.device)
+                for d, (t, k) in tabs.items():
+                    pool = b.dicts[d]
+                    _set_table(b, t, k, _identity_table(pool, page.device)
+                               if remap is None else remap[id(pool)])
+                b.dicts[out_d] = union
+            self.page_binder(bind)
+            args = [Pair(self.take(*tabs[a.dict], a.value, torch.int32),
+                         a.valid, out_d) if a.dict is not None else a
+                    for a in args]
+        valid = None
+        for a in args:
+            valid = self.vand(valid, a.valid)
+        return ListPair(valid, out_d,
+                        elems=tuple(self.cast(a.value, elem_dt)
+                                    for a in args))
+
+    def _length(self, arr: ListPair) -> Val:
+        return arr.lengths if arr.index >= 0 else \
+            self.const(len(arr.elems), torch.int32)
+
+    def _list_call(self, e: Call) -> Pair:
+        """compiler._list_op's calls over a lowered list."""
+        name = e.name
+        arr = self.pair(e.args[0])
+        if not isinstance(arr, ListPair):
+            raise NotImplementedError(f"{name} over a non-list column")
+        if name == "cardinality":
+            return Pair(self.cast(self._length(arr), torch.int64), arr.valid)
+        if name == "element_at":
+            i = self.pair(e.args[1])
+            iv = self.cast(i.value, torch.int32)
+            length = self._length(arr)
+            zero = self.const(0, torch.int32)
+            idx = self.emit("where", (
+                self.emit("cmp", (iv, zero), torch.bool, ("lt",)),
+                self.emit("iadd", (length, iv), torch.int32),
+                self.emit("isub", (iv, self.const(1, torch.int32)),
+                          torch.int32)), torch.int32)
+            inb = self.vand(self.vand(
+                self.emit("cmp", (iv, zero), torch.bool, ("ne",)),
+                self.emit("cmp", (idx, zero), torch.bool, ("ge",))),
+                self.emit("cmp", (idx, length), torch.bool, ("lt",)))
+            if arr.index >= 0:
+                dtype = self.page.columns[arr.index].values.dtype
+                value = self.emit("list_elem", (idx,), dtype,
+                                  (arr.index, arr.L, "c"))
+            else:
+                value = arr.elems[0]
+                for j, el in enumerate(arr.elems[1:], 1):
+                    at = self.emit("cmp", (idx, self.const(j, torch.int32)),
+                                   torch.bool, ("eq",))
+                    value = self.emit("where", (at, el, value), el.dtype)
+            valid = self.vand(self.vand(arr.valid, i.valid), inb)
+            return Pair(value, valid, arr.dict)
+        needle, nvalid = self._needle(e, arr)
+        if arr.index < 0:
+            found = None
+            for el in arr.elems:
+                a, b = self.promote(el, needle)
+                eq = self.emit("cmp", (a, b), torch.bool, ("eq",))
+                found = eq if found is None else self.vor(found, eq)
+            return Pair(found, self.vand(arr.valid, nvalid))
+        plane = self.page.columns[arr.index].values.dtype
+        dt = torch.promote_types(plane, needle.dtype)
+        first = self.emit("list_first", (self.cast(needle, dt), arr.lengths),
+                          torch.int32, (arr.index, arr.L))
+        found = self.emit("cmp", (first, self.const(arr.L, torch.int32)),
+                          torch.bool, ("lt",))
+        if name == "contains":
+            return Pair(found, self.vand(arr.valid, nvalid))
+        value = self.emit("list_elem", (first,),
+                          self.page.columns[arr.index].aux.dtype,
+                          (arr.index, arr.L, "a"))
+        return Pair(value, self.vand(self.vand(arr.valid, nvalid), found),
+                    arr.aux_dict)
+
+    def _needle(self, e: Call, arr: ListPair) -> Tuple[Val, Optional[Val]]:
+        """contains / map_element_at's searched value in the list's element
+        space (compiler.membership_needle): a string literal folds to its
+        code in the list's pool; another string must share the pool."""
+        arg = e.args[1]
+        if arr.dict is not None and isinstance(arg, Literal):
+            k, code = self.slot(torch.int32)
+
+            def bind(b, page, k=k, d=arr.dict):
+                b.slots[k] = b.dicts[d].code_of(arg.value)
+            self.page_binder(bind)
+            return code, None
+        x = self.pair(arg)
+        if arr.dict is not None:
+            if x.dict is None:
+                raise NotImplementedError(
+                    "array membership across distinct dictionaries")
+
+            def check(b, page, dx=x.dict, da=arr.dict):
+                if b.dicts[dx] != b.dicts[da]:
+                    raise NotImplementedError(
+                        "array membership across distinct dictionaries")
+            self.page_binder(check)
+        return x.value, x.valid
 
     def _invariant(self, expr) -> Pair:
         col = self.inv_eval(expr)
@@ -362,8 +541,7 @@ class _Lower:
         if name == "try_cast":
             return self._try_cast(e)
         if name in C.LIST_CALLS:
-            raise NotImplementedError(
-                f"{name}: ARRAY/MAP list layouts are not ported yet")
+            return self._list_call(e)
         if name in C.FORMAT_CALLS:
             return self._format_datetime(e)
         if name == "$in_padded":
@@ -692,6 +870,10 @@ def _identity_table(d: Dictionary, device) -> torch.Tensor:
     return t
 
 
+def _is_list(t) -> bool:
+    return isinstance(t, (T.ArrayType, T.MapType))
+
+
 def lower(exprs: Sequence[RowExpression], mode: str, page: Page,
           inv_eval) -> Program:
     """The Program of one step ("filter": one predicate; "project": one
@@ -707,10 +889,16 @@ def lower(exprs: Sequence[RowExpression], mode: str, page: Page,
         elif id(e) in invariant:
             outputs.append(Output("invariant", expr=e))
         else:
-            outputs.append(Output("kernel", pair=lw.pair(e)))
+            p = lw.pair(e)
+            if isinstance(p, ListPair) and p.index >= 0:
+                raise NotImplementedError(
+                    f"K11 cannot write the list column {p.index}")
+            outputs.append(Output("kernel", pair=p))
     refs = tuple(sorted(lw.inputs))
+    lists = tuple(i for i in refs if isinstance(lw.inputs[i], ListPair))
     return Program(lw.instrs, outputs, refs,
                    tuple(i for i in refs if lw.inputs[i].valid is not None),
+                   lists, tuple(i for i in lists if lw.inputs[i].aux),
                    lw.slot_dtypes, lw.table_dtypes, lw.ndicts,
                    lw.param_binders, lw.page_binders, lw.invariants, mode)
 
@@ -761,6 +949,25 @@ def evaluate(prog: Program, page: Page, b: Binding) -> List[Optional[Pair]]:
             r = table[a[0].long().clamp(0, int(a[1]))]
         elif op == "false":
             r = torch.zeros(page.capacity, dtype=torch.bool, device=dev)
+        elif op == "iadd":
+            r = a[0] + a[1]
+        elif op == "isub":
+            r = a[0] - a[1]
+        elif op == "list_len":
+            r = page.columns[ins.attrs[0]].lengths
+        elif op == "list_elem":
+            i, L, which = ins.attrs
+            col = page.columns[i]
+            plane = col.values if which == "c" else col.aux
+            idx = a[0].expand(page.capacity).long().clamp(0, L - 1)
+            r = plane.gather(1, idx[:, None])[:, 0]
+        elif op == "list_first":
+            i, L = ins.attrs
+            plane = page.columns[i].values.to(a[0].dtype)
+            inl = torch.arange(L, device=dev)[None, :] < a[1][:, None]
+            match = (plane == a[0].expand(page.capacity)[:, None]) & inl
+            r = torch.where(match.any(1), match.to(torch.uint8).argmax(1),
+                            L).to(torch.int32)
         else:
             raise AssertionError(op)
         if r.dtype != ins.out.dtype:
@@ -771,8 +978,12 @@ def evaluate(prog: Program, page: Page, b: Binding) -> List[Optional[Pair]]:
         if o.kind != "kernel":
             out.append(None)
             continue
-        v = env[o.pair.value.name]
         m = None if o.pair.valid is None else env[o.pair.valid.name]
+        if isinstance(o.pair, ListPair):    # array_ctor: the [cap, n] plane
+            v = torch.stack([env[e.name].expand(page.capacity)
+                             for e in o.pair.elems], 1)
+        else:
+            v = env[o.pair.value.name]
         out.append(Pair(v, m, o.pair.dict))
     return out
 
@@ -970,19 +1181,48 @@ def kernel_source(prog: Program) -> Tuple[str, List[float]]:
             code = f"{a[0].code} {_CMP[ins.attrs[0]]} {a[1].code}"
         elif ins.op == "take":
             t = ins.attrs[0]
+            # a uniform code (a folded literal) reads one entry, unmasked
             code = (f"tl.load(tb{t} + tl.minimum(tl.maximum("
-                    f"{a[0].code}.to(tl.int64), 0), {a[1].code}), "
-                    f"mask=live, other=0)")
+                    f"{a[0].code}.to(tl.int64), 0), {a[1].code})"
+                    + (")" if a[0].uniform else ", mask=live, other=0)"))
             if o.dtype == torch.bool:
                 code += " != 0"
         elif ins.op == "false":
             code = "offs < 0"
+        elif ins.op in ("iadd", "isub"):
+            code = f"{a[0].code} {'+' if ins.op == 'iadd' else '-'} " \
+                f"{a[1].code}"
+        elif ins.op == "list_len":
+            code = f"tl.load(n{ins.attrs[0]} + offs, mask=live, other=0)"
+        elif ins.op == "list_elem":
+            i, L, which = ins.attrs
+            code = (f"tl.load({which}{i} + (offs * {L} + tl.minimum("
+                    f"tl.maximum({a[0].code}.to(tl.int64), 0), {L - 1})), "
+                    f"mask=live, other=0)")
+            if o.dtype == torch.bool:
+                code += " != 0"
+        elif ins.op == "list_first":
+            # the first j < the row's length whose element equals the
+            # needle, else L: a loop over the row's plane
+            i, L = ins.attrs
+            j, el = f"j_{o.name}", f"e_{o.name}"
+            elem = el if a[0].dtype != torch.bool else f"({el} != 0)"
+            body += [f"    {o.name} = tl.full([BLOCK], {L}, tl.int32)",
+                     f"    for {j} in range(0, {L}):",
+                     f"        {el} = tl.load(c{i} + (offs * {L} + {j}), "
+                     f"mask=live & ({j} < {a[1].code}), other=0)",
+                     f"        {o.name} = tl.where(({o.name} == {L}) & "
+                     f"({j} < {a[1].code}) & ({elem}.to({_TL[a[0].dtype]})"
+                     f" == {a[0].code}), {j}, {o.name})"]
+            continue
         else:
             raise AssertionError(ins.op)
         body.append(f"    {o.name} = {code}")
     params = ["ops", "nrows", "cap"]
     params += [f"c{i}" for i in prog.inputs]
     params += [f"m{i}" for i in prog.valid_inputs]
+    params += [f"n{i}" for i in prog.list_inputs]
+    params += [f"a{i}" for i in prog.aux_inputs]
     params += [f"tb{t}" for t in range(len(prog.table_dtypes))]
     stores = []
     kernel_outs = [o for o in prog.outputs if o.kind == "kernel"]
@@ -1002,12 +1242,22 @@ def kernel_source(prog: Program) -> Tuple[str, List[float]]:
             params.append("o0")
             continue
         params.append(f"o{j}")
-        stores.append(f"    tl.store(o{j} + offs, {block(p.value)}, "
-                      f"mask=inb)")
+        if isinstance(p, ListPair):         # array_ctor: a [rows, n] plane
+            n = len(p.elems)
+            stores += [f"    tl.store(o{j} + (offs * {n} + {k}), "
+                       f"{block(el)}, mask=inb)"
+                       for k, el in enumerate(p.elems)]
+        else:
+            stores.append(f"    tl.store(o{j} + offs, {block(p.value)}, "
+                          f"mask=inb)")
         if p.valid is not None:
             params.append(f"ov{j}")
             stores.append(f"    tl.store(ov{j} + offs, {block(p.valid)}, "
                           f"mask=inb)")
+        if isinstance(p, ListPair):
+            params.append(f"ol{j}")
+            stores.append(f"    tl.store(ol{j} + offs, tl.full([BLOCK], "
+                          f"{len(p.elems)}, tl.int32), mask=inb)")
     head = [f"@triton.jit(do_not_specialize=['cap'])",
             f"def k11({', '.join(params)}, BLOCK: tl.constexpr):",
             "    offs = tl.program_id(0).to(tl.int64) * BLOCK + "
@@ -1119,7 +1369,10 @@ class ExprStep:
         """The cached Program of this step for the page's input layout."""
         sig = tuple((page.columns[i].values.dtype,
                      page.columns[i].valid is not None,
-                     page.columns[i].dictionary is not None)
+                     page.columns[i].dictionary is not None,
+                     tuple(page.columns[i].values.shape[1:]),
+                     None if page.columns[i].aux is None
+                     else page.columns[i].aux.dtype)
                     for i in self._refs)
         hit = self._by_sig.get(sig)
         if hit is not None:
@@ -1179,24 +1432,13 @@ def expr_step_cuda(step: ExprStep, page: Page, params=()):
     cap = page.capacity
     dev = page.device
     outs = [o for o in prog.outputs if o.kind == "kernel"]
-    results: List[Tuple[torch.Tensor, Optional[torch.Tensor]]] = []
+    results: List[tuple] = []
     if outs:
         ops, tables, dicts = step.binding(comp, page, params)
-        args = [ops, page.num_rows, cap]
-        args += [page.columns[i].values for i in prog.inputs]
-        args += [page.columns[i].valid for i in prog.valid_inputs]
-        args += tables
-        for o in outs:
-            if prog.mode == "filter":
-                v = torch.empty(cap, dtype=torch.bool, device=dev)
-                args.append(v)
-                results.append((v, None))
-                continue
-            v = torch.empty(cap, dtype=o.pair.value.dtype, device=dev)
-            m = None if o.pair.valid is None else torch.empty(
-                cap, dtype=torch.bool, device=dev)
-            args += [v] + ([] if m is None else [m])
-            results.append((v, m))
+        args = [ops, page.num_rows, cap] + launch_inputs(prog, page) \
+            + list(tables)
+        results = output_tensors(prog, cap, dev)
+        args += [t for r in results for t in r if t is not None]
         grid = (max(1, -(-cap // BLOCK)),)
         comp.kernel()[grid](*args, BLOCK=BLOCK, num_warps=NUM_WARPS)
         expr_step_cuda.launches += 1
@@ -1207,7 +1449,7 @@ def expr_step_cuda(step: ExprStep, page: Page, params=()):
         o = prog.outputs[0]
         if o.kind == "kernel":
             return results[0][0]
-        col = C._broadcast(_on_device(inv(o.expr), dev), cap)
+        col = C._broadcast(C.on_device(inv(o.expr), dev), cap)
         mask = col.values if col.valid is None else col.values & col.valid
         return mask.contiguous()
     cols, it = [], iter(results)
@@ -1215,25 +1457,58 @@ def expr_step_cuda(step: ExprStep, page: Page, params=()):
         if o.kind == "alias":
             cols.append(page.columns[o.index])
         elif o.kind == "invariant":
-            c = C._broadcast(_on_device(inv(o.expr), dev), cap)
-            cols.append(Column(c.values.contiguous(),
-                               None if c.valid is None
-                               else c.valid.contiguous(),
-                               c.type, c.dictionary))
+            c = C._broadcast(C.on_device(inv(o.expr), dev), cap)
+            cols.append(Column(*[None if t is None else t.contiguous()
+                                 for t in (c.values, c.valid)],
+                               c.type, c.dictionary,
+                               *[None if t is None else t.contiguous()
+                                 for t in (c.lengths, c.aux)],
+                               c.aux_dictionary))
         else:
-            v, m = next(it)
+            v, m, lengths = next(it)
             d = None if o.pair.dict is None else dicts[o.pair.dict]
-            cols.append(Column(v, m, e.type, d))
+            cols.append(Column(v, m, e.type, d, lengths))
     return tuple(cols)
 
 
 expr_step_cuda.launches = 0
 
 
-def _on_device(col: Column, device) -> Column:
-    return Column(C._to_page_device(col.values, device),
-                  C._to_page_device(col.valid, device), col.type,
-                  col.dictionary)
+def launch_inputs(prog: Program, page: Page) -> List[torch.Tensor]:
+    """The page's tensors a step's kernel reads, in its parameter order
+    (values or planes, validity, list lengths, MAP value planes)."""
+    cols = page.columns
+    return [cols[i].values for i in prog.inputs] \
+        + [cols[i].valid for i in prog.valid_inputs] \
+        + [cols[i].lengths for i in prog.list_inputs] \
+        + [cols[i].aux for i in prog.aux_inputs]
+
+
+def output_tensors(prog: Program, cap: int, dev) -> List[tuple]:
+    """The kernel's outputs per kernel output, in parameter order: (mask,
+    None, None) for a filter; (values or an array_ctor's [cap, n] plane,
+    its validity or None, the plane's lengths or None) for a
+    projection."""
+    out = []
+    for o in prog.outputs:
+        if o.kind != "kernel":
+            continue
+        if prog.mode == "filter":
+            out.append((torch.empty(cap, dtype=torch.bool, device=dev),
+                        None, None))
+            continue
+        p = o.pair
+        m = None if p.valid is None else torch.empty(cap, dtype=torch.bool,
+                                                     device=dev)
+        if isinstance(p, ListPair):
+            v = torch.empty((cap, len(p.elems)), dtype=p.elems[0].dtype,
+                            device=dev)
+            out.append((v, m, torch.empty(cap, dtype=torch.int32,
+                                          device=dev)))
+        else:
+            out.append((torch.empty(cap, dtype=p.value.dtype, device=dev),
+                        m, None))
+    return out
 
 
 def filter_step(expr: RowExpression) -> ExprStep:

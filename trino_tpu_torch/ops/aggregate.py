@@ -21,7 +21,9 @@ here, each beside its plain PyTorch twin:
 * K29 `checksum_contrib` / `hll_pairs`, K30 `centered` / `positional` /
   `hll_fold` and K31 `percentile` (`csrc/special_agg.cu`): checksum's
   hashed contribution, the centered moments, min_by/max_by/arbitrary,
-  approx_distinct and approx_percentile.
+  approx_distinct and approx_percentile;
+* K33 (`ops/lists.py`, `csrc/list.cu`): the collecting aggregates'
+  packs, array_agg's list and histogram's or map_agg's map per group.
 
 Every state reaches a kernel as a `StateInput`: a value tensor (int64 or
 float64), an optional validity and an optional FILTER mask, and a kind
@@ -34,8 +36,11 @@ DISTINCT runs in a SINGLE step only (its mask narrows the aggregate's
 input), as in the reference, and so do the special aggregates of
 SINGLE_STEP_AGGREGATES. checksum is an ordinary two-state aggregate whose
 contribution K29 hashes. The collecting aggregates (array_agg, histogram,
-map_agg) raise NotImplementedError naming ROADMAP B13: their output needs
-the list layouts.
+map_agg) need a GROUP BY, as in the reference, and the executor's
+list_len (the largest group's row count rounded up to a power of two);
+their output has `list_rows` rows where the executor passes them (the
+next power of two above the group count) and the page's capacity
+otherwise, as the reference's does.
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ import torch
 
 from trino_tpu_torch import native
 from trino_tpu_torch import types as T
+from trino_tpu_torch.ops import lists
 from trino_tpu_torch.ops.sort import radix_sort_words, sort_permutation
 from trino_tpu_torch.page import Column, Page, host_table
 
@@ -197,7 +203,8 @@ SINGLE_STEP_AGGREGATES = (POSITIONAL_AGGREGATES | CENTERED_AGGREGATES
 # their output types) but raise at execution
 SUPPORTED = frozenset({"count", "count_if", "sum", "avg", "min", "max",
                        "bool_and", "bool_or", "geometric_mean", "checksum"}) \
-    | CENTERED_AGGREGATES | POSITIONAL_AGGREGATES | SKETCH_AGGREGATES
+    | CENTERED_AGGREGATES | POSITIONAL_AGGREGATES | SKETCH_AGGREGATES \
+    | COLLECT_AGGREGATES
 # the single-step aggregates this package executes by their own kernels
 SPECIAL_AGGREGATES = SINGLE_STEP_AGGREGATES - COLLECT_AGGREGATES
 
@@ -2008,8 +2015,38 @@ def _special_column(page: Page, spec: AggSpec, gid, num_groups, nseg: int,
 
 def _unsupported(spec: AggSpec) -> Optional[str]:
     if spec.name not in SUPPORTED:
-        return f"{spec.name}() needs the list layouts (ROADMAP B13)"
+        return f"{spec.name}() is not an aggregate this package runs"
     return None
+
+
+def _collect_column(page: Page, spec: AggSpec, fn, gid, num_groups,
+                    list_len: Optional[int], rows: int) -> Column:
+    """One collecting aggregate's list column by group (K33; reference:
+    _collect_grouped): NULL inputs, a NULL second argument and FILTER
+    skip a row; DISTINCT does not narrow it (the reference's _accumulate
+    never applies the mask to a collect aggregate)."""
+    if list_len is None:
+        raise ValueError("collect aggregates need list_len")
+    L = int(list_len)
+    out_type = fn.output_type(None)
+    xcol = page.column(spec.input)
+    x = xcol.values.contiguous()
+    nr = page.num_rows
+    if spec.name == "array_agg":
+        masks = _spec_masks(page, spec, spec.input)
+        plane, lengths = lists.collect_array(x, masks, nr, gid, num_groups,
+                                             L, rows)
+        return Column(plane, None, out_type, xcol.dictionary, lengths)
+    x2 = aux_dict = None
+    cols = (spec.input,)
+    if spec.name == "map_agg":
+        col2 = page.column(spec.input2)
+        x2, aux_dict, cols = col2.values.contiguous(), col2.dictionary, \
+            (spec.input, spec.input2)
+    keys, vals, lengths = lists.collect_map(
+        x, x2, _spec_masks(page, spec, *cols), nr, gid, num_groups, L, rows)
+    return Column(keys, None, out_type, xcol.dictionary, lengths, vals,
+                  aux_dict)
 
 
 def _refuse(aggs: Sequence[AggSpec], step: str) -> None:
@@ -2043,26 +2080,39 @@ def hash_aggregate(
     step: str = Step.SINGLE,
     partial_state_channels: Optional[Sequence[Sequence[int]]] = None,
     list_len: Optional[int] = None,
+    list_rows: Optional[int] = None,
 ) -> Callable[[Page], Page]:
     """Build a group-by aggregation operator. Output layout: [key
     columns..., per-agg output columns...]; PARTIAL and INTERMEDIATE
     emit the raw state columns that FINAL consumes through
-    partial_state_channels (agg -> its state channels)."""
+    partial_state_channels (agg -> its state channels). A collecting
+    aggregate's lists hold up to `list_len` elements; `list_rows` (at
+    least the group count) cuts the output page to that many rows."""
     key_channels = tuple(key_channels)
     _refuse(aggs, step)
     resolved = [get_aggregate(a.name,
                               a.input_type if a.input2 is None
                               else (a.input_type, a.input2_type))
                 for a in aggs]
+    has_collect = any(a.name in COLLECT_AGGREGATES for a in aggs)
 
     def op(page: Page) -> Page:
+        if any(page.column(ch).is_list for ch in key_channels):
+            # the reference's sort refuses a [cap, L] key operand too
+            raise NotImplementedError(
+                "GROUP BY over a list column (ARRAY/MAP): ROADMAP B item 6 "
+                "(B13)")
         if not key_channels:
+            if has_collect:
+                raise NotImplementedError(
+                    "global array_agg/histogram/map_agg (no GROUP BY)")
             return _global_aggregate(page, aggs, resolved, step,
                                      partial_state_channels)
         sizes = _direct_key_sizes(page, key_channels, aggs)
         if sizes is None:
             return _group_aggregate(page, key_channels, aggs, resolved, step,
-                                    partial_state_channels)
+                                    partial_state_channels,
+                                    (list_len, list_rows))
         return _direct_aggregate(page, key_channels, aggs, resolved, step,
                                  partial_state_channels, sizes)
 
@@ -2076,8 +2126,9 @@ def _direct_key_sizes(page: Page, key_channels, aggs):
     """Per-key code-space sizes when every group key is dictionary-encoded
     and the combined key space is at most 4096 slots, else None. A special
     aggregate takes the general path (K8 with K28's group ids), as the
-    reference's refuses the direct path for it."""
-    if any(a.name in SPECIAL_AGGREGATES for a in aggs):
+    reference's refuses the direct path for it (and for a collecting
+    aggregate)."""
+    if any(a.name in SINGLE_STEP_AGGREGATES for a in aggs):
         return None
     sizes = []
     total = 1
@@ -2215,10 +2266,12 @@ def _direct_aggregate(page: Page, key_channels, aggs, resolved, step,
 
 
 def _group_aggregate(page: Page, key_channels, aggs, resolved, step,
-                     partial_state_channels) -> Page:
+                     partial_state_channels, lists_at=(None, None)) -> Page:
     """GROUP BY on keys the direct path does not take (K8). The output
     keeps the input's capacity (#groups <= #rows), as the reference's
-    sorted path does; groups come out in the kernel's slot order."""
+    sorted path does, or list_rows rows with a collecting aggregate
+    (`lists_at` = (list_len, list_rows)); groups come out in the kernel's
+    slot order."""
     keys = [GroupKey(page.column(ch).values.contiguous(),
                      page.column(ch).valid) for ch in key_channels]
     dmasks: dict = {}
@@ -2226,12 +2279,20 @@ def _group_aggregate(page: Page, key_channels, aggs, resolved, step,
                                         partial_state_channels, key_channels,
                                         dmasks)
     special = {}
-    if any(a.name in SPECIAL_AGGREGATES for a in aggs):
+    rows = page.capacity
+    if any(a.name in SINGLE_STEP_AGGREGATES for a in aggs):
         # K28: the same K8 launch also maps each row to its output row
         key_values, key_valid, arrays, num_groups, gid = group_ids(
             keys, flat, page.num_rows, page.capacity)
         special = _special_columns(page, key_channels, aggs, gid,
                                    num_groups, page.capacity, dmasks)
+        list_len, list_rows = lists_at
+        if list_rows is not None:
+            rows = max(1, min(int(list_rows), page.capacity))
+        for ai, (spec, fn) in enumerate(zip(aggs, resolved)):
+            if spec.name in COLLECT_AGGREGATES:
+                special[ai] = _collect_column(page, spec, fn, gid,
+                                              num_groups, list_len, rows)
     else:
         key_values, key_valid, arrays, num_groups = group_reduce(
             keys, flat, page.num_rows, page.capacity)
@@ -2241,7 +2302,7 @@ def _group_aggregate(page: Page, key_channels, aggs, resolved, step,
         out_cols.append(Column(values, valid, col.type, col.dictionary))
     out_cols.extend(_emit(aggs, resolved, step, per_agg, dicts, arrays,
                           page.capacity, lambda v: v, special))
-    return Page(tuple(out_cols), num_groups)
+    return Page(tuple(out_cols), num_groups).shrink_to(rows)
 
 
 def _special_columns(page, key_channels, aggs, gid, num_groups, nseg,

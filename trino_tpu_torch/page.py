@@ -23,6 +23,13 @@ The public constructors (`Column.from_numpy`, `Page.from_numpy`,
 `page_from_host`, `union_dictionaries`) place their tensors on `cuda`
 unless the caller names a device, as the runner does.
 
+A list column (ARRAY, MAP) carries element planes: `values` is
+[capacity, L], row-major, `lengths` the live element count per row, and a
+MAP's values ride in `aux` beside its keys (the reference's layout). K32,
+the plane mode of K1, K7 and K2, moves a plane as one array of rows of
+element size x L bytes in the same launch as the page's other arrays.
+Element NULLs are not represented: `ARRAY[x, NULL]` is NULL as a whole.
+
 A wrapper takes its plain twin only for tensors on the CPU; on a CUDA
 tensor it launches its kernel or raises.
 """
@@ -143,12 +150,18 @@ def resolve_device(device=None) -> torch.device:
 
 @dataclasses.dataclass
 class Column:
-    """One columnar vector: values [capacity] (+ bool validity)."""
+    """One columnar vector: values [capacity] (+ bool validity); for a
+    list column values [capacity, L] element planes, lengths int32
+    [capacity], and a MAP's value plane `aux` (its dictionary
+    `aux_dictionary`)."""
 
     values: torch.Tensor
     valid: Optional[torch.Tensor]
     type: T.Type
     dictionary: Optional[Dictionary] = None
+    lengths: Optional[torch.Tensor] = None
+    aux: Optional[torch.Tensor] = None
+    aux_dictionary: Optional[Dictionary] = None
 
     @property
     def capacity(self) -> int:
@@ -170,14 +183,15 @@ class Column:
         return _rebuild((self,), gather_rows(_movable(self), indices))[0]
 
     def with_valid(self, valid: Optional[torch.Tensor]) -> "Column":
-        return Column(self.values, valid, self.type, self.dictionary)
+        return dataclasses.replace(self, valid=valid)
+
+    @property
+    def is_list(self) -> bool:
+        return self.lengths is not None
 
     @property
     def nbytes(self) -> int:
-        n = self.values.numel() * self.values.element_size()
-        if self.valid is not None:
-            n += self.valid.numel()
-        return n
+        return sum(a.numel() * a.element_size() for a in _movable(self))
 
     @classmethod
     def from_numpy(cls, data: np.ndarray, typ: T.Type,
@@ -287,11 +301,8 @@ class Page:
         prefix; the caller knows num_rows <= capacity)."""
         if capacity >= self.capacity:
             return self
-        cols = tuple(
-            Column(c.values[:capacity],
-                   None if c.valid is None else c.valid[:capacity],
-                   c.type, c.dictionary)
-            for c in self.columns)
+        cols = tuple(_rebuild((c,), [a[:capacity] for a in _movable(c)])[0]
+                     for c in self.columns)
         return Page(cols, self.num_rows)
 
     def pad_to(self, capacity: int) -> "Page":
@@ -302,15 +313,13 @@ class Page:
             return self
         cols = []
         for c in self.columns:
-            values = torch.zeros(capacity, dtype=c.values.dtype,
-                                 device=c.device)
-            values[:self.capacity] = c.values
-            valid = None
-            if c.valid is not None:
-                valid = torch.zeros(capacity, dtype=torch.bool,
-                                    device=c.device)
-                valid[:self.capacity] = c.valid
-            cols.append(Column(values, valid, c.type, c.dictionary))
+            grown = []
+            for a in _movable(c):
+                g = torch.zeros((capacity,) + tuple(a.shape[1:]),
+                                dtype=a.dtype, device=a.device)
+                g[:self.capacity] = a
+                grown.append(g)
+            cols.append(_rebuild((c,), grown)[0])
         return Page(tuple(cols), self.num_rows)
 
     @classmethod
@@ -334,7 +343,9 @@ class Page:
         for c in self.columns:
             vals = c.values[:n].cpu().numpy()
             valid = None if c.valid is None else c.valid[:n].cpu().numpy()
-            if c.dictionary is not None:
+            if c.is_list:
+                decoded = _decode_lists(c, vals, n)
+            elif c.dictionary is not None:
                 if valid is not None:
                     # a NULL row's code may lie past the pool (the NULL
                     # group slot of an aggregation): decode valid codes only
@@ -354,21 +365,56 @@ class Page:
         return [tuple(col[i] for col in cols) for i in range(n)]
 
 
+def _decode_lists(c: Column, vals: np.ndarray, n: int) -> np.ndarray:
+    """A list column's first n rows as Python lists (ARRAY) or dicts
+    (MAP) of decoded elements (the reference's Page.to_host)."""
+    lengths = c.lengths[:n].cpu().numpy()
+    aux = None if c.aux is None else c.aux[:n].cpu().numpy()
+    rows = np.empty(n, dtype=object)
+    for i in range(n):
+        ln = int(lengths[i])
+        elems = vals[i, :ln]
+        if c.dictionary is not None:
+            elems = c.dictionary.decode(elems)
+        if aux is None:
+            rows[i] = list(elems.tolist())
+            continue
+        avals = aux[i, :ln]
+        if c.aux_dictionary is not None:
+            avals = c.aux_dictionary.decode(avals)
+        rows[i] = dict(zip(elems.tolist(), avals.tolist()))
+    return rows
+
+
 def page_from_host(arrays: Sequence[np.ndarray],
                    valids: Sequence[Optional[np.ndarray]],
                    pools: Sequence[Optional[Sequence[str]]],
                    typs: Sequence[T.Type], num_rows: int,
-                   device=None) -> Page:
+                   device=None, lists: Optional[Sequence] = None) -> Page:
     """Build a Page from another engine's page carried across as host
-    arrays: raw values (dictionary codes for strings), validity (or None),
-    and each string column's sorted pool. The same bytes fed to two
-    engines give the same page."""
+    arrays: raw values (dictionary codes for strings; a list column's
+    [rows, L] element plane), validity (or None), and each string
+    column's sorted pool. `lists[i]`, for a list column, is (lengths,
+    aux plane or None, aux pool or None); None elsewhere. The same bytes
+    fed to two engines give the same page."""
     device = resolve_device(device)
+    lists = lists or [None] * len(arrays)
     cols = []
-    for a, v, pool, t in zip(arrays, valids, pools, typs):
+    for a, v, pool, t, lst in zip(arrays, valids, pools, typs, lists):
         d = None if pool is None else Dictionary(np.asarray(pool,
                                                             dtype=object))
-        cols.append(Column.from_numpy(a, t, v, d, device=device))
+        if lst is None:
+            cols.append(Column.from_numpy(a, t, v, d, device=device))
+            continue
+        lengths, aux, aux_pool = lst
+        cols.append(Column(
+            _to_device(np.asarray(a), device),
+            None if v is None else _to_device(np.asarray(v, np.bool_),
+                                              device),
+            t, d, _to_device(np.asarray(lengths, np.int32), device),
+            None if aux is None else _to_device(np.asarray(aux), device),
+            None if aux_pool is None else Dictionary(
+                np.asarray(aux_pool, dtype=object))))
     return Page(tuple(cols), row_count(num_rows, device))
 
 
@@ -387,8 +433,10 @@ def union_dictionaries(dicts: Sequence[Dictionary], device=None
 
 
 def _movable(c: Column):
-    """The 1-D tensors a page move carries for one column."""
-    return [c.values] if c.valid is None else [c.values, c.valid]
+    """The arrays a page move carries for one column: values, then the
+    validity, lengths and MAP value plane it has (planes are [cap, L])."""
+    return [a for a in (c.values, c.valid, c.lengths, c.aux)
+            if a is not None]
 
 
 def _rebuild(page_cols: Sequence[Column], moved: List[torch.Tensor]
@@ -398,8 +446,23 @@ def _rebuild(page_cols: Sequence[Column], moved: List[torch.Tensor]
     for c in page_cols:
         values = next(it)
         valid = next(it) if c.valid is not None else None
-        out.append(Column(values, valid, c.type, c.dictionary))
+        lengths = next(it) if c.lengths is not None else None
+        aux = next(it) if c.aux is not None else None
+        out.append(Column(values, valid, c.type, c.dictionary, lengths, aux,
+                          c.aux_dictionary))
     return tuple(out)
+
+
+def row_bytes(a: torch.Tensor) -> int:
+    """Bytes of one row of an array: its element size, times L for a
+    [cap, L] plane (K32: a plane moves as rows of this many bytes)."""
+    return a.element_size() * (a.shape[1] if a.dim() == 2 else 1)
+
+
+def _movable_shape(a: torch.Tensor, cap: int) -> bool:
+    """A [cap] array or a contiguous [cap, L] plane a page move takes."""
+    return a.dim() in (1, 2) and a.shape[0] == cap and a.is_contiguous() \
+        and (a.dim() == 2 or a.element_size() in (1, 2, 4, 8))
 
 
 def compact_rows_plain(arrays: Sequence[torch.Tensor], mask: torch.Tensor,
@@ -423,7 +486,7 @@ def _compact_launch(entry: str, keep_args: list, arrays, num_rows, cap: int,
     count = torch.empty((), dtype=torch.int32, device=dev)
     table = host_table([a.data_ptr() for a in arrays],
                        [o.data_ptr() for o in outs],
-                       [a.element_size() for a in arrays])
+                       [row_bytes(a) for a in arrays])
     nblocks = max(1, -(-cap // COMPACT_TILE))
     scratch = torch.empty(nblocks, dtype=torch.int64, device=dev)
     rc = getattr(native.library("compact"), entry)(
@@ -444,10 +507,16 @@ def compact_rows_cuda(arrays: Sequence[torch.Tensor], mask: torch.Tensor,
     out = _compact_launch("compact_rows", [ctypes.c_void_p(mask.data_ptr())],
                           arrays, num_rows, cap, mask.device)
     compact_rows_cuda.launches += 1
+    compact_rows_cuda.plane_launches += _has_plane(arrays)
     return out
 
 
 compact_rows_cuda.launches = 0
+compact_rows_cuda.plane_launches = 0    # K32: launches that moved a plane
+
+
+def _has_plane(arrays) -> int:
+    return int(any(a is not None and a.dim() == 2 for a in arrays))
 COMPACT_TILE = 4096   # rows per block; matches csrc/compact.cu
 
 
@@ -463,9 +532,7 @@ def _check_arrays(arrays, num_rows, cap, dev) -> None:
         raise ValueError("num_rows must be an int32 tensor on the mask's "
                          "device")
     for a in arrays:
-        if a.device != dev or a.dim() != 1 or a.shape[0] != cap \
-                or not a.is_contiguous() \
-                or a.element_size() not in (1, 2, 4, 8):
+        if a.device != dev or not _movable_shape(a, cap):
             raise ValueError(
                 f"column {a.dtype}{tuple(a.shape)} on {a.device} does not "
                 "match the mask")
@@ -532,10 +599,12 @@ def compact_range_cuda(arrays: Sequence[torch.Tensor], key: torch.Tensor,
          ctypes.c_void_p(lo.data_ptr()), ctypes.c_void_p(hi.data_ptr())],
         arrays, num_rows, cap, dev)
     compact_range_cuda.launches += 1
+    compact_range_cuda.plane_launches += _has_plane(arrays)
     return out
 
 
 compact_range_cuda.launches = 0
+compact_range_cuda.plane_launches = 0
 
 
 def compact_range(page: Page, channel: int, lo: torch.Tensor,
@@ -554,34 +623,40 @@ def compact_range(page: Page, channel: int, lo: torch.Tensor,
 # ------------------------------------------------------------------ K2
 
 
+def _widest(arrays, c: int) -> torch.Tensor:
+    """Column c's array of the page with the widest plane (any page's for
+    a [cap] array): the output's dtype and row shape."""
+    present = [a[c] for a in arrays if a[c] is not None]
+    return max(present, key=lambda a: a.shape[1] if a.dim() == 2 else 0)
+
+
 def concat_rows_plain(arrays: Sequence[Sequence[torch.Tensor]],
                       counts: Sequence[torch.Tensor], out_cap: int
                       ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """Plain twin of K2: page p's first counts[p] rows of every array
     land at the running offset; the rest of the output is padding.
     `arrays[p][c]` is None where page p has no validity for column c
-    (written as all-valid)."""
+    (written as all-valid). A plane narrower than the widest page's is
+    padded with zeros past its row."""
     ncols = len(arrays[0])
     dev = counts[0].device
-    ref = [next(a[c] for a in arrays if a[c] is not None)
-           for c in range(ncols)]
-    outs = [torch.zeros(out_cap, dtype=r.dtype, device=dev) for r in ref]
+    ref = [_widest(arrays, c) for c in range(ncols)]
+    outs = [torch.zeros((out_cap,) + tuple(r.shape[1:]), dtype=r.dtype,
+                        device=dev) for r in ref]
     cnt = torch.stack([c.to(torch.int64) for c in counts])
-    offs = torch.cumsum(cnt, 0) - cnt
-    pos = torch.arange(out_cap, device=dev)
+    offs = (torch.cumsum(cnt, 0) - cnt).tolist()
     for p, page_arrays in enumerate(arrays):
         cap = next((a.shape[0] for a in page_arrays if a is not None), 0)
-        if cap == 0:
-            continue
-        # rows of page p: output positions [offs[p], offs[p] + counts[p])
-        inside = (pos >= offs[p]) & (pos < offs[p] + cnt[p])
-        src = (pos - offs[p]).clamp(0, None)
+        n = max(0, min(int(cnt[p]), cap))
+        o = offs[p]
         for c, a in enumerate(page_arrays):
             if a is None:
-                vals = torch.ones(out_cap, dtype=torch.bool, device=dev)
+                outs[c][o:o + n] = True
+            elif a.dim() == 2:
+                outs[c][o:o + n, :a.shape[1]] = a[:n]
+                outs[c][o:o + n, a.shape[1]:] = 0
             else:
-                vals = a[src.clamp(max=a.shape[0] - 1)]
-            outs[c] = torch.where(inside, vals, outs[c])
+                outs[c][o:o + n] = a[:n]
     return outs, cnt.sum().to(torch.int32)
 
 
@@ -591,8 +666,7 @@ def concat_rows_cuda(arrays: Sequence[Sequence[Optional[torch.Tensor]]],
     """K2 launch: see csrc/concat.cu."""
     npages, ncols = len(arrays), len(arrays[0])
     dev = counts[0].device
-    ref = [next(a[c] for a in arrays if a[c] is not None)
-           for c in range(ncols)]
+    ref = [_widest(arrays, c) for c in range(ncols)]
     caps = []
     for p, page_arrays in enumerate(arrays):
         cap = next((a.shape[0] for a in page_arrays if a is not None), 0)
@@ -604,36 +678,47 @@ def concat_rows_cuda(arrays: Sequence[Sequence[Optional[torch.Tensor]]],
                 if ref[c].dtype != torch.bool:
                     raise ValueError("only validity columns may be absent")
                 continue
-            if a.device != dev or a.dim() != 1 or a.shape[0] != cap \
-                    or a.dtype != ref[c].dtype or not a.is_contiguous():
+            if a.device != dev or not _movable_shape(a, cap) \
+                    or a.dtype != ref[c].dtype or a.dim() != ref[c].dim():
                 raise ValueError(f"page {p} column {c} does not match")
     if sum(caps) != out_cap:
         raise ValueError("out_cap must be the sum of the page capacities")
-    outs = [torch.empty(out_cap, dtype=r.dtype, device=dev) for r in ref]
+    outs = [torch.empty((out_cap,) + tuple(r.shape[1:]), dtype=r.dtype,
+                        device=dev) for r in ref]
     total = torch.empty((), dtype=torch.int32, device=dev)
+    # K32: each page's own row width, where some page's plane is narrower
+    # than the output's (else the table stays as long as without planes)
+    srb = [row_bytes(o) if a is None else row_bytes(a)
+           for pa in arrays for a, o in zip(pa, outs)]
+    padded = srb != [row_bytes(o) for _ in arrays for o in outs]
     table = host_table(
         [c.data_ptr() for c in counts], caps,
         [0 if a is None else a.data_ptr() for pa in arrays for a in pa],
-        [o.data_ptr() for o in outs], [o.element_size() for o in outs])
+        [o.data_ptr() for o in outs], [row_bytes(o) for o in outs],
+        srb if padded else [])
     offsets = torch.empty(npages, dtype=torch.int64, device=dev)
     lib = native.library("concat")
     rc = lib.concat_rows(
         ctypes.c_int64(npages), ctypes.c_int64(ncols),
-        ctypes.c_int64(max(caps)), table,
+        ctypes.c_int64(max(caps)), ctypes.c_int64(int(padded)), table,
         ctypes.c_void_p(offsets.data_ptr()), ctypes.c_void_p(total.data_ptr()),
         ctypes.c_void_p(native.stream_ptr(dev)))
     native.check(rc, "concat_rows")
     concat_rows_cuda.launches += 1
+    concat_rows_cuda.plane_launches += _has_plane(
+        [a for pa in arrays for a in pa])
     return outs, total
 
 
 concat_rows_cuda.launches = 0
+concat_rows_cuda.plane_launches = 0
 
 
 def device_concat(pages: Sequence[Page]) -> Page:
     """Concatenate pages on the device into one page of capacity
     sum(capacities), with no host round trip for the counts (K2).
-    All pages must share column types and dictionaries."""
+    All pages must share column types and dictionaries; list planes pad
+    to the widest page's L."""
     if not pages:
         raise ValueError("no pages")
     if len(pages) == 1:
@@ -641,7 +726,9 @@ def device_concat(pages: Sequence[Page]) -> Page:
     ncols = pages[0].num_columns
     for ci in range(ncols):
         ref = pages[0].column(ci)
-        if any(p.column(ci).dictionary != ref.dictionary for p in pages):
+        if any(p.column(ci).dictionary != ref.dictionary
+               or p.column(ci).aux_dictionary != ref.aux_dictionary
+               for p in pages):
             raise ValueError(
                 f"column {ci}: pages use different dictionaries; re-encode "
                 "to a shared dictionary before concatenating")
@@ -654,6 +741,7 @@ def device_concat(pages: Sequence[Page]) -> Page:
             pa.append(c.values)
             if needs_valid[ci]:
                 pa.append(c.valid)
+            pa += [a for a in (c.lengths, c.aux) if a is not None]
         arrays.append(pa)
     out_cap = sum(p.capacity for p in pages)
     counts = [p.num_rows for p in pages]
@@ -665,7 +753,10 @@ def device_concat(pages: Sequence[Page]) -> Page:
     for ci, ref in enumerate(pages[0].columns):
         values = next(it)
         valid = next(it) if needs_valid[ci] else None
-        cols.append(Column(values, valid, ref.type, ref.dictionary))
+        lengths = next(it) if ref.lengths is not None else None
+        aux = next(it) if ref.aux is not None else None
+        cols.append(Column(values, valid, ref.type, ref.dictionary, lengths,
+                           aux, ref.aux_dictionary))
     return Page(tuple(cols), total)
 
 
@@ -694,27 +785,28 @@ def gather_rows_cuda(arrays: Sequence[torch.Tensor], indices: torch.Tensor
     n = idx.shape[0]
     cap = arrays[0].shape[0]
     for a in arrays:
-        if a.device != dev or a.dim() != 1 or a.shape[0] != cap \
-                or not a.is_contiguous() \
-                or a.element_size() not in (1, 2, 4, 8):
+        if a.device != dev or not _movable_shape(a, cap):
             raise ValueError(f"array {a.dtype}{tuple(a.shape)} on {a.device} "
                              "does not match the gather")
     if cap == 0 and n > 0:
         raise IndexError("gather from an empty page")
-    outs = [torch.empty(n, dtype=a.dtype, device=dev) for a in arrays]
+    outs = [torch.empty((n,) + tuple(a.shape[1:]), dtype=a.dtype, device=dev)
+            for a in arrays]
     table = host_table([a.data_ptr() for a in arrays],
                        [o.data_ptr() for o in outs],
-                       [a.element_size() for a in arrays])
+                       [row_bytes(a) for a in arrays])
     lib = native.library("gather")
     rc = lib.gather_rows(ctypes.c_void_p(idx.data_ptr()), ctypes.c_int64(n),
                          ctypes.c_int64(cap), ctypes.c_int64(len(arrays)),
                          table, ctypes.c_void_p(native.stream_ptr(dev)))
     native.check(rc, "gather_rows")
     gather_rows_cuda.launches += 1
+    gather_rows_cuda.plane_launches += _has_plane(arrays)
     return outs
 
 
 gather_rows_cuda.launches = 0
+gather_rows_cuda.plane_launches = 0
 
 
 def gather_rows(arrays: Sequence[torch.Tensor], indices: torch.Tensor
