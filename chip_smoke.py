@@ -3445,7 +3445,7 @@ def list_runs(gpu, cpu, cap, kernels, list_kernels, card):
         unn = [e for e in steps if e["step"] == "unnest"]
         say(f"[list] {name} {schema}: {len(res.rows)} rows in {secs:.2f} s "
             f"(first run); "
-            + "; ".join(f"collect {e['groups']:,} groups, L {e['L']}, "
+            + "; ".join(f"collect {int(e['groups']):,} groups, L {e['L']}, "
                         f"{e['rows']:,} list rows" for e in coll)
             + (f"; UNNEST {len(unn)} pages, "
                f"{sum(e['slots'] for e in unn):,} slots from "
@@ -3520,7 +3520,8 @@ def kernel_rows_list(cap: Capture, originals, launches, dev, card):
                 fail(f"{label} differs from its twin at the list path's "
                      f"inputs")
 
-    # K32: K7's plane mode at its largest list-path call
+    # K32: K7's plane mode at its largest list-path call (UNNEST's
+    # replication, whose indices are its live slots alone)
     arrays, idx = cap.calls[("gather_rows_cuda:plane", "list")][1]
     equal("K32 (K7 plane mode)", originals["gather_rows"](arrays, idx),
           P.gather_rows_plain(arrays, idx))
@@ -3575,7 +3576,8 @@ def kernel_rows_list(cap: Capture, originals, launches, dev, card):
                                       .indices],), xs),
         "torch.sort(stable=True) of the group ids plus one index_put_",
         f"cap {x.numel()}, {n} live rows, {x.dtype}, {G} groups, L {L}, "
-        f"{rows_} list rows"))
+        f"{rows_} list rows, {len(LS._words_passes(rows_, False))} K10 "
+        f"passes"))
     args = cap.calls[("collect_map_cuda", "list")][1]
     x, x2, masks, nr, gid, ng, L, rows_ = args
     equal("K33 map mode", originals["collect_map"](*args),
@@ -3598,7 +3600,8 @@ def kernel_rows_list(cap: Capture, originals, launches, dev, card):
         "torch.sort(stable=True) of (group, key) plus one index_put_",
         f"cap {x.numel()}, {n} live rows, key {x.dtype}, "
         f"{'histogram' if x2 is None else 'map_agg'}, {G} groups, L {L}, "
-        f"{rows_} list rows"))
+        f"{rows_} list rows, {len(LS._words_passes(rows_, True))} K10 "
+        f"passes"))
 
     # K34: the count and the expansion at their largest calls
     lens, valid, nr = cap.calls[("unnest_count_cuda", "list")][1]

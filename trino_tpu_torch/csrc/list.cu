@@ -9,8 +9,8 @@
 // mask holds (the argument's validity, a second argument's, FILTER); the
 // reference skips NULL inputs the same way. Three modes:
 // * size: each group's live row count by atomics, and its maximum and
-//   the group count in one two-number output (the executor's pre-pass
-//   that sizes L, one fetch);
+//   the group count in one two-number output (one fetch sizes the
+//   aggregation's L and list rows);
 // * array (array_agg): the reference ranks each eligible row among its
 //   group's eligible rows in row order through its sort. Here the words
 //   launch packs (group, not eligible) into K10's order-preserving word,
@@ -124,9 +124,7 @@ __global__ void sizes_kernel(const int32_t* gid, int64_t cap,
 // ------------------------------------------------- array and map modes
 
 // words[0][i] = ((group << 32) | (not eligible << 31)) ^ SIGN; in map mode
-// words[1][i] = the key's order key (0 for a row that takes no part): an
-// integer key of at most 4 bytes (with_key 2) as its value with bit 31
-// flipped, in the low 4 bytes, so K10 sorts it in 4 digit passes, not 8.
+// words[1][i] = the key's order key (0 for a row that takes no part).
 __global__ void words_kernel(int with_key, const void* x, int esz,
                              int is_float, int64_t cap,
                              const int32_t* num_rows, const Masks mk,
@@ -138,11 +136,7 @@ __global__ void words_kernel(int with_key, const void* x, int esz,
     const uint64_t w0 = ((uint64_t)(uint32_t)gid[i] << 32) |
                         ((uint64_t)(elig ? 0 : 1) << 31);
     words[i] = (long long)(w0 ^ SIGN);
-    if (with_key == 2)
-      words[cap + i] =
-          elig ? (long long)((uint32_t)load_int(x, i, esz) ^ 0x80000000u)
-               : 0;
-    else if (with_key)
+    if (with_key)
       words[cap + i] = elig ? elem_key(x, i, esz, is_float) : 0;
   }
 }
@@ -345,8 +339,7 @@ TT_EXPORT int collect_sizes(const void* gid, int64_t cap,
 }
 
 // K33 words launch (array mode: with_key 0, words int64 [cap]; map mode:
-// with_key 1, or 2 for an integer key of at most 4 bytes, words int64
-// [2, cap]). x: [cap] column of esz bytes;
+// with_key 1, words int64 [2, cap]). x: [cap] column of esz bytes;
 // masks: host array of nmasks uint8 [cap] pointers.
 TT_EXPORT int collect_words(int64_t with_key, const void* x, int64_t esz,
                             int64_t is_float, int64_t cap,

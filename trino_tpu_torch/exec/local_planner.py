@@ -93,7 +93,6 @@ from trino_tpu_torch.ops import (AggSpec, SortKey, Step, hash_aggregate,
 from trino_tpu_torch.ops import lists
 from trino_tpu_torch.ops.aggregate import (COLLECT_AGGREGATES,
                                              SINGLE_STEP_AGGREGATES,
-                                             GroupKey, group_ids,
                                              passthrough_partial)
 from trino_tpu_torch.ops.join import (
     KMAX, KMIN, MAX_RUN, N_LIVE, N_ROWS, NDISTINCT, SPILL_DENSE_MAX_SPAN,
@@ -519,10 +518,10 @@ class LocalExecutionPlanner:
             # moments, a row pick, registers, a rank, a list), belong to a
             # whole group, not a page: collect and run one SINGLE-step
             # aggregation (the reference's MarkDistinct + aggregation in
-            # one kernel call); a collecting aggregate first sizes its
-            # lists (K33's size pre-pass)
-            needs_len = bool(key_channels) and any(
-                spec.name in COLLECT_AGGREGATES for spec in specs)
+            # one kernel call; a collecting aggregate sizes its lists
+            # there, with K33's size mode)
+            has_lists = any(spec.name in COLLECT_AGGREGATES
+                            for spec in specs)
 
             def gen_distinct():
                 page = self._collect(src)
@@ -530,18 +529,21 @@ class LocalExecutionPlanner:
                     if not key_channels:
                         yield self._empty_global_agg(node)
                     return
-                L = rows = None
-                if needs_len:
-                    L, rows = self._list_sizes(page, key_channels)
                 single_op = cached_kernel(
-                    ("agg-single", key_channels_t, specs_t, L, rows),
-                    lambda: hash_aggregate(key_channels, specs, Step.SINGLE,
-                                           list_len=L, list_rows=rows))
+                    ("agg-single", key_channels_t, specs_t),
+                    lambda: hash_aggregate(key_channels, specs,
+                                           Step.SINGLE))
                 try:
                     out = single_op(page)
-                    if needs_len:
-                        self.lists[-1]["plane_bytes"] = sum(
-                            c.nbytes for c in out.columns if c.is_list)
+                    if has_lists:
+                        # groups stays a device count: reading it here
+                        # would wait for the lists
+                        planes = [c for c in out.columns if c.is_list]
+                        self.lists.append({
+                            "step": "collect", "groups": out.num_rows,
+                            "L": planes[0].values.shape[1],
+                            "rows": out.capacity,
+                            "plane_bytes": sum(c.nbytes for c in planes)})
                     yield out
                 finally:
                     self._free_collected(page)
@@ -1614,32 +1616,14 @@ class LocalExecutionPlanner:
 
     # ---------------------------------------------------- scalar subqueries
 
-    def _list_sizes(self, page: Page, key_channels) -> Tuple[int, int]:
-        """The collecting aggregates' pre-pass (the reference's
-        group_max_size): K28's groups, then K33's size mode, one fetch of
-        (largest live group, groups). Returns (L, rows): L as the
-        reference sets it, the smallest power of two at least the largest
-        group (at least 1); rows the next power of two above the group
-        count, where the reference gives the lists the page's capacity."""
-        keys = [GroupKey(page.column(ch).values.contiguous(),
-                         page.column(ch).valid) for ch in key_channels]
-        *_, num_groups, gid = group_ids(keys, [], page.num_rows,
-                                        page.capacity)
-        largest, groups = lists.collect_sizes(gid, page.num_rows,
-                                              num_groups).tolist()
-        L = 1 << (max(int(largest), 1) - 1).bit_length()
-        rows = _next_pow2(int(groups))
-        self.lists.append({"step": "collect", "groups": int(groups), "L": L,
-                           "rows": rows})
-        return L, rows
-
     def _exec_UnnestNode(self, node) -> PageStream:
         """UNNEST (operator/unnest/UnnestOperator.java; reference:
         _exec_UnnestNode): per page K34 counts the live non-NULL elements
-        (one fetch sizes the output at the next power of two), then
-        expands them: each output slot's source row, ordinal and element
-        (a MAP's key and value); the source columns are replicated at the
-        source rows through K7."""
+        (one fetch sizes the output at exactly that many rows, where the
+        reference pads it to the next power of two), then expands them:
+        each output slot's source row, ordinal and element (a MAP's key
+        and value); the source columns are replicated at the source rows
+        through K7."""
         src = self.execute(node.source)
         lay, _ = _layout(src.symbols)
         arr_ch = lay[node.arrays[0].name]
@@ -1655,10 +1639,9 @@ class LocalExecutionPlanner:
                                    "rows": int(page.capacity)})
                 if total == 0:
                     continue
-                out_cap = _next_pow2(total)
                 srow, ordinal, elem, aval, count = lists.unnest_expand(
                     c.lengths, c.valid, page.num_rows, c.values, c.aux,
-                    out_cap, with_ord)
+                    total, with_ord)
                 cols = list(page.gather(srow, count).columns)
                 cols.append(Column(elem, None, el_types[0].type,
                                    c.dictionary))

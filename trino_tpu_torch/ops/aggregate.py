@@ -36,11 +36,13 @@ DISTINCT runs in a SINGLE step only (its mask narrows the aggregate's
 input), as in the reference, and so do the special aggregates of
 SINGLE_STEP_AGGREGATES. checksum is an ordinary two-state aggregate whose
 contribution K29 hashes. The collecting aggregates (array_agg, histogram,
-map_agg) need a GROUP BY, as in the reference, and the executor's
-list_len (the largest group's row count rounded up to a power of two);
-their output has `list_rows` rows where the executor passes them (the
-next power of two above the group count) and the page's capacity
-otherwise, as the reference's does.
+map_agg) need a GROUP BY, as in the reference. The operator sizes their
+lists itself from K33's size mode (one fetch of the largest group and the
+group count): list_len, the largest group's row count rounded up to a
+power of two, as the reference's executor sets it (an explicit list_len
+overrides it, as the reference's API takes it), and an output of the
+next power of two above the group count in rows, where the reference's
+has the page's capacity.
 """
 
 from __future__ import annotations
@@ -2019,15 +2021,27 @@ def _unsupported(spec: AggSpec) -> Optional[str]:
     return None
 
 
-def _collect_column(page: Page, spec: AggSpec, fn, gid, num_groups,
-                    list_len: Optional[int], rows: int) -> Column:
+def _list_sizes(page: Page, gid, num_groups,
+                list_len: Optional[int]) -> Tuple[int, int]:
+    """The collecting aggregates' (L, rows) from K33's size mode, one
+    fetch (reference: group_max_size and its executor's pre-pass): L the
+    smallest power of two at least the largest group (at least 1) unless
+    list_len is given; rows the next power of two above the group count
+    (at least 1024, at most the page's capacity)."""
+    largest, groups = lists.collect_sizes(gid, page.num_rows,
+                                          num_groups).tolist()
+    L = int(list_len) if list_len is not None else \
+        1 << (max(largest, 1) - 1).bit_length()
+    rows = max(1024, 1 << (max(groups, 1) - 1).bit_length())
+    return L, max(1, min(rows, page.capacity))
+
+
+def _collect_column(page: Page, spec: AggSpec, fn, gid, num_groups, L: int,
+                    rows: int) -> Column:
     """One collecting aggregate's list column by group (K33; reference:
     _collect_grouped): NULL inputs, a NULL second argument and FILTER
     skip a row; DISTINCT does not narrow it (the reference's _accumulate
     never applies the mask to a collect aggregate)."""
-    if list_len is None:
-        raise ValueError("collect aggregates need list_len")
-    L = int(list_len)
     out_type = fn.output_type(None)
     xcol = page.column(spec.input)
     x = xcol.values.contiguous()
@@ -2080,14 +2094,13 @@ def hash_aggregate(
     step: str = Step.SINGLE,
     partial_state_channels: Optional[Sequence[Sequence[int]]] = None,
     list_len: Optional[int] = None,
-    list_rows: Optional[int] = None,
 ) -> Callable[[Page], Page]:
     """Build a group-by aggregation operator. Output layout: [key
     columns..., per-agg output columns...]; PARTIAL and INTERMEDIATE
     emit the raw state columns that FINAL consumes through
     partial_state_channels (agg -> its state channels). A collecting
-    aggregate's lists hold up to `list_len` elements; `list_rows` (at
-    least the group count) cuts the output page to that many rows."""
+    aggregate's lists hold up to `list_len` elements, by default the
+    largest group's row count rounded up to a power of two."""
     key_channels = tuple(key_channels)
     _refuse(aggs, step)
     resolved = [get_aggregate(a.name,
@@ -2111,8 +2124,7 @@ def hash_aggregate(
         sizes = _direct_key_sizes(page, key_channels, aggs)
         if sizes is None:
             return _group_aggregate(page, key_channels, aggs, resolved, step,
-                                    partial_state_channels,
-                                    (list_len, list_rows))
+                                    partial_state_channels, list_len)
         return _direct_aggregate(page, key_channels, aggs, resolved, step,
                                  partial_state_channels, sizes)
 
@@ -2266,12 +2278,11 @@ def _direct_aggregate(page: Page, key_channels, aggs, resolved, step,
 
 
 def _group_aggregate(page: Page, key_channels, aggs, resolved, step,
-                     partial_state_channels, lists_at=(None, None)) -> Page:
+                     partial_state_channels, list_len=None) -> Page:
     """GROUP BY on keys the direct path does not take (K8). The output
     keeps the input's capacity (#groups <= #rows), as the reference's
-    sorted path does, or list_rows rows with a collecting aggregate
-    (`lists_at` = (list_len, list_rows)); groups come out in the kernel's
-    slot order."""
+    sorted path does, or the collecting aggregates' rows (_list_sizes);
+    groups come out in the kernel's slot order."""
     keys = [GroupKey(page.column(ch).values.contiguous(),
                      page.column(ch).valid) for ch in key_channels]
     dmasks: dict = {}
@@ -2286,13 +2297,12 @@ def _group_aggregate(page: Page, key_channels, aggs, resolved, step,
             keys, flat, page.num_rows, page.capacity)
         special = _special_columns(page, key_channels, aggs, gid,
                                    num_groups, page.capacity, dmasks)
-        list_len, list_rows = lists_at
-        if list_rows is not None:
-            rows = max(1, min(int(list_rows), page.capacity))
+        if any(a.name in COLLECT_AGGREGATES for a in aggs):
+            L, rows = _list_sizes(page, gid, num_groups, list_len)
         for ai, (spec, fn) in enumerate(zip(aggs, resolved)):
             if spec.name in COLLECT_AGGREGATES:
                 special[ai] = _collect_column(page, spec, fn, gid,
-                                              num_groups, list_len, rows)
+                                              num_groups, L, rows)
     else:
         key_values, key_valid, arrays, num_groups = group_reduce(
             keys, flat, page.num_rows, page.capacity)

@@ -18,8 +18,8 @@ a row takes part when it is below `num_rows` and every mask holds.
   column, and each slot's source row, ordinal and element.
 
 `rows` is the output's row count (at least the group count): the
-executor passes the next power of two above the group count, where the
-reference sizes a collect output at the page's capacity.
+aggregation passes the next power of two above the group count, where
+the reference sizes a collect output at the page's capacity.
 
 A wrapper takes its plain twin only for tensors on the CPU; on a CUDA
 tensor it launches its kernel or raises.
@@ -188,28 +188,22 @@ def collect_array_plain(x: torch.Tensor, masks, num_rows: torch.Tensor,
     return plane, lengths
 
 
-def _key_mode(x: torch.Tensor) -> int:
-    """K33's words mode for a map key: 2 for an integer of at most 4
-    bytes (its key fills word 1's low 4 bytes), else 1."""
-    return 2 if not x.is_floating_point() and x.element_size() <= 4 else 1
-
-
-def _words_passes(cap: int, with_key: int) -> List[Tuple[int, int]]:
-    """K10's digit passes, least significant first: word 1's bytes (map
-    mode: 4 for a narrow integer key, else 8), word 0's flag byte and the
-    bytes a group id below cap uses."""
-    group_bytes = max(1, -(-max(cap, 1).bit_length() // 8))
-    key_bytes = {0: 0, 1: 8, 2: 4}[with_key]
-    return [(1, 8 * b) for b in range(key_bytes)] + \
+def _words_passes(rows: int, with_key: bool) -> List[Tuple[int, int]]:
+    """K10's digit passes, least significant first: word 1's 8 bytes (map
+    mode), word 0's flag byte and the bytes a group id below rows uses
+    (rows is at least the group count)."""
+    group_bytes = max(1, -(-(max(rows, 1) - 1).bit_length() // 8))
+    return [(1, 8 * b) for b in range(8 if with_key else 0)] + \
         [(0, 24)] + [(0, 32 + 8 * b) for b in range(group_bytes)]
 
 
-def _collect_words(with_key: int, x, ptrs, num_rows, gid, cap, dev):
+def _collect_words(with_key: bool, x, ptrs, num_rows, gid, rows, dev):
     """K33's words launch and K10's radix passes: the permutation."""
+    cap = x.shape[0]
     words = torch.empty((2 if with_key else 1, cap), dtype=torch.int64,
                         device=dev)
     rc = native.library("list").collect_words(
-        ctypes.c_int64(with_key), ctypes.c_void_p(x.data_ptr()),
+        ctypes.c_int64(int(with_key)), ctypes.c_void_p(x.data_ptr()),
         ctypes.c_int64(x.element_size()),
         ctypes.c_int64(int(x.is_floating_point())), ctypes.c_int64(cap),
         ctypes.c_void_p(num_rows.data_ptr()), host_table(ptrs),
@@ -218,7 +212,7 @@ def _collect_words(with_key: int, x, ptrs, num_rows, gid, cap, dev):
         ctypes.c_void_p(native.stream_ptr(dev)))
     native.check(rc, "collect_words")
     return words, radix_sort_words(words, num_rows,
-                                   _words_passes(cap, with_key))
+                                   _words_passes(rows, with_key))
 
 
 def collect_array_cuda(x: torch.Tensor, masks, num_rows: torch.Tensor,
@@ -232,7 +226,7 @@ def collect_array_cuda(x: torch.Tensor, masks, num_rows: torch.Tensor,
     _check_scalars(dev, num_rows, num_groups)
     plane = torch.empty((rows, L), dtype=x.dtype, device=dev)
     lengths = torch.empty(rows, dtype=torch.int32, device=dev)
-    _, perm = _collect_words(0, x, ptrs, num_rows, gid, cap, dev)
+    _, perm = _collect_words(False, x, ptrs, num_rows, gid, rows, dev)
     scratch = torch.empty(2 * rows, dtype=torch.int64, device=dev)
     rc = native.library("list").collect_array(
         ctypes.c_void_p(perm.data_ptr()), ctypes.c_int64(cap),
@@ -312,8 +306,7 @@ def collect_map_cuda(x: torch.Tensor, x2: Optional[torch.Tensor], masks,
     vals = torch.empty((rows, L), dtype=torch.int64 if x2 is None
                        else x2.dtype, device=dev)
     lengths = torch.empty(rows, dtype=torch.int32, device=dev)
-    words, perm = _collect_words(_key_mode(x), x, ptrs, num_rows, gid, cap,
-                                 dev)
+    words, perm = _collect_words(True, x, ptrs, num_rows, gid, rows, dev)
     tiles = max(1, -(-cap // COMPACT_TILE))
     scratch = torch.empty(3 * rows + 2 * cap + tiles, dtype=torch.int64,
                           device=dev)
