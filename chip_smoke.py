@@ -46,7 +46,14 @@ Phases, each printing its lines before the next starts:
      centered doubles (1e-9 relative or of the column's largest value);
      K32-K34 (the list layouts: K1, K7 and K2 moving planes of L 1, 8
      and 128, K2 padding a narrower page; K33's size, array and map
-     modes over LIST_CASES; K34's count and expand) bit for bit;
+     modes over LIST_CASES; K34's count and expand) bit for bit; K35
+     (the exchange pack's count and scatter in hash, spread and replicate
+     modes) and K36 (heavy keys, local and merge modes) over
+     EXCHANGE_CASES (n = 1, 2, 4, 8; NULL, dead, -1, NaN, -0.0, bool,
+     code and composite keys; empty shards, one destination past its
+     bucket, heavy sets of 0, 1 and 8 keys, ties, a 4,194,304-row page)
+     and whole exchanges of 8 shards on the card against the CPU, bit for
+     bit;
   3. the 22 TPC-H queries, a FULL join, a MARK query and the window,
      grouping-set and UNION queries W1-W6 and W8 at sf1, and q6, q3, q9,
      q13 and W7 at sf10 (the reference's default session, spill on) from SQL
@@ -84,7 +91,14 @@ Phases, each printing its lines before the next starts:
      UNNEST slots and K32-K34 launches (`[list]`), rows equal to the CPU
      port's (L2 at sf10 to its lineitem identity, LIST_IDENTITY), each
      list kernel launched, no list operation through a plain twin and no
-     step through the torch-op compiler;
+     step through the torch-op compiler; then the distributed path:
+     DIST_QUERIES (D1 the 22 queries at sf1, D2 PARTITIONED joins, D3 the
+     skewed pair with skew on and off, D4 q3 and q9 at sf10, D5 the
+     dispatch loop) through DistributedQueryRunner over 8 shards of the
+     card with every count set to 0 before it, an `[exchange]` line per
+     query (fused and staged exchanges, rows, bytes, buckets, heavy keys,
+     per-shard peaks), rows equal to the card's local runner, K35, K36,
+     K2 and K10 launched, no plain twin and no torch-op step on the card;
   4. every kernel, every expanding-probe kind and the mxu, dense, search
      and cross routes launched during phase 3 (K16-K19 on the forced
      path; the host attach's ms per batch beside a pinned copy of the
@@ -93,7 +107,9 @@ Phases, each printing its lines before the next starts:
      its global-atomics mode; K28-K31 at their largest call of the
      special-aggregate path; the S queries' warm walls too; K32-K34 and
      K11's list steps at their largest call of the list path, and the L
-     queries' warm walls);
+     queries' warm walls; K35, K36 and K2 as the exchange receive at
+     their largest call of the distributed path, and each D query's warm
+     wall and idle share);
      per kernel its launches,
      its time at the main path's shapes (CUDA events; K10 and K11 also
      their host time per call), its bound, its plain twin's time and a
@@ -3380,6 +3396,167 @@ def check_list(g, dev) -> float:
     return 0.0   # compared bit for bit
 
 
+EXCHANGE_NS = (1, 2, 4, 8)    # destinations of phase 2's K35 cases
+EXCHANGE_CASES = [  # label, cap, live rows per shard, key kind, heavy keys
+    ("bigint", 3000, None, "i64", 0), ("double", 3000, None, "f64", 1),
+    ("bool", 1000, None, "bool", 0), ("code", 5000, None, "code", 8),
+    ("composite", 4096, None, "comp", 1), ("empty", 4096, 0, "i64", 0),
+    ("one-destination", 8192, 8192, "one", 0),
+    ("big", 4_194_304, 4_194_304, "i64", 8)]
+
+
+def exchange_page(g, cap, n_live, kind, dev):
+    """A seeded page for K35: key columns of `kind` (NULL, -1, NaN, -0.0
+    among them), a double and an int32 payload with NULLs."""
+    from trino_tpu_torch import page as P
+    from trino_tpu_torch import types as T
+    n_live = int(torch.randint(0, cap + 1, (), generator=g)) \
+        if n_live is None else n_live
+    keys = torch.randint(-3, 40, (cap,), generator=g, dtype=torch.int64)
+    keys[torch.rand(cap, generator=g) < 0.05] = -1
+    valid = torch.rand(cap, generator=g) >= 0.05
+    cols = []
+    if kind == "f64":
+        k = keys.to(torch.float64) / 2
+        k[torch.rand(cap, generator=g) < 0.1] = -0.0
+        k[torch.rand(cap, generator=g) < 0.05] = float("nan")
+        cols.append(P.Column(k, valid, T.DOUBLE))
+    elif kind == "bool":
+        cols.append(P.Column(keys > 10, valid, T.BOOLEAN))
+    elif kind == "code":
+        cols.append(P.Column(keys.clamp(0, 30).to(torch.int32), valid,
+                             T.INTEGER))
+    elif kind == "comp":
+        cols.append(P.Column(keys, valid, T.BIGINT))
+        cols.append(P.Column((keys % 5).to(torch.int32), None, T.INTEGER))
+    elif kind == "one":
+        cols.append(P.Column(torch.full((cap,), 42, dtype=torch.int64),
+                             None, T.BIGINT))
+    else:
+        cols.append(P.Column(keys, valid, T.BIGINT))
+    pay = torch.randn(cap, generator=g, dtype=torch.float64)
+    cols.append(P.Column(pay, torch.rand(cap, generator=g) < 0.9, T.DOUBLE))
+    cols.append(P.Column(torch.randint(0, 1 << 30, (cap,), generator=g,
+                                       dtype=torch.int32), None, T.INTEGER))
+    page = P.Page(tuple(cols), P.row_count(n_live, "cpu"))
+    nkeys = 2 if kind == "comp" else 1
+    return page, list(range(nkeys))
+
+
+def _on(page, dev):
+    from trino_tpu_torch.parallel.mesh import to_device
+    return to_device(page, torch.device(dev))
+
+
+def check_exchange(g, dev) -> float:
+    """K35 (count and scatter in hash, spread and replicate modes) and K36
+    (local and merge modes) against their twins, bit for bit: dest and
+    counts on every row, the scatter's occupied slots of every array, the
+    heavy candidates and set; then whole exchanges (K35 + the K2
+    receive) on the card against the CPU, shard by shard."""
+    from trino_tpu_torch.parallel import exchange as X
+    checked = 0
+    for label, cap, n_live, kind, nheavy in EXCHANGE_CASES:
+        for n in (EXCHANGE_NS if cap <= 8192 else (8,)):
+            page, keys = exchange_page(g, cap, n_live, kind, "cpu")
+            cols = X.key_columns(page, keys)
+            kw, null = _key_words(cols)
+            heavy = torch.full((8,), -1, dtype=torch.int64)
+            if nheavy:
+                live = kw[:int(page.num_rows)][~null[:int(page.num_rows)]]
+                vals, cnt = torch.unique(live, return_counts=True) \
+                    if live.numel() else (live, live)
+                top = vals[torch.argsort(-cnt, stable=True)[:nheavy]]
+                heavy[:top.numel()] = top
+            gpage = _on(page, dev)
+            gcols = X.key_columns(gpage, keys)
+            for mode in (X.MODE_HASH, X.MODE_SPREAD, X.MODE_REPLICATE):
+                hv = None if mode == X.MODE_HASH else heavy
+                state, counts = X.exchange_count_cuda(
+                    gcols, gpage.num_rows, n, mode,
+                    None if hv is None else hv.to(dev))
+                dest, want = X.exchange_count_plain(cols, page.num_rows, n,
+                                                    mode, hv)
+                if not (same_bits(state[0].cpu(), dest)
+                        and same_bits(counts.cpu(), want)):
+                    fail(f"K35 count {label} n={n} mode {mode} differs")
+                cl = want.tolist()
+                bucket = max(1, max(cl) // 2) if label == "one-destination" \
+                    else max([1] + cl)
+                arrays = X._moved_arrays(page)
+                garrays = X._moved_arrays(gpage)
+                got = X.exchange_scatter_cuda(state, garrays, n, bucket)
+                ref = X.exchange_scatter_plain(dest, arrays, n, bucket)
+                for a, b in zip(got, ref):
+                    a = a.cpu()
+                    for d in range(n):
+                        m = min(cl[d], bucket)
+                        lo = d * bucket
+                        if not same_bits(a[lo:lo + m], b[lo:lo + m]):
+                            fail(f"K35 scatter {label} n={n} mode {mode} "
+                                 f"destination {d} differs")
+                checked += 1
+        # K36 over this page's masked key words
+        live = page.row_mask() & ~null
+        masked = torch.where(live, kw, torch.full_like(kw, -1))
+        s = X._sorted_words(masked)
+        for k in (1, 3, 8):
+            c1, k1 = X.heavy_local_cuda(s.to(dev), k)
+            c2, k2 = X.heavy_local_plain(s, k)
+            if not (same_bits(c1.cpu(), c2) and same_bits(k1.cpu(), k2)):
+                fail(f"K36 local {label} k={k} differs: {c1} {k1} / {c2} "
+                     f"{k2}")
+            keys_m = torch.cat([k2, k2.flip(0), k2[:1]])
+            counts_m = torch.cat([c2, c2, c2[:1]])
+            for thr in (1, int(c2.max()) if c2.numel() else 1, 1 << 40):
+                h1 = X.heavy_merge_cuda(keys_m.to(dev), counts_m.to(dev), k,
+                                        thr)
+                h2 = X.heavy_merge_plain(keys_m, counts_m, k, thr)
+                if not same_bits(h1.cpu(), h2):
+                    fail(f"K36 merge {label} k={k} threshold {thr} differs")
+    # whole exchanges: 8 shards on the card against the same on the CPU
+    from trino_tpu_torch.parallel import QueryMesh
+    for kind in ("i64", "f64", "code", "comp"):
+        pages = [exchange_page(g, 2048, None, kind, "cpu") for _ in range(8)]
+        keys = pages[0][1]
+        cpu_pages = QueryMesh(["cpu"] * 8).shard_pages([p for p, _ in pages])
+        gpu_pages = QueryMesh([dev] * 8).shard_pages([p for p, _ in pages])
+        hc = X.detect_heavy_keys(cpu_pages, keys, 8, 64)
+        hg = X.detect_heavy_keys(gpu_pages, keys, 8, 64)
+        if not same_bits(hg[0].cpu(), hc[0]):
+            fail(f"detect_heavy_keys {kind}: {hg[0]} on the card, {hc[0]}")
+        for name, run in (
+                ("hash", lambda ps, h: X.all_to_all_by_key(ps, keys, 1024)),
+                ("spread", lambda ps, h: X.all_to_all_by_key(
+                    ps, keys, 1024, heavy=h)),
+                ("replicate", lambda ps, h: X.all_to_all_replicate(
+                    ps, keys, 1024, h)),
+                ("broadcast", lambda ps, h: (X.broadcast_page(ps), 0))):
+            want, ovf_c = run(cpu_pages, hc)
+            got, ovf_g = run(gpu_pages, hg)
+            if ovf_c != ovf_g:
+                fail(f"{name} {kind}: overflow {ovf_g} on the card, {ovf_c}")
+            for s, (a, b) in enumerate(zip(got, want)):
+                n_rows = int(b.num_rows)
+                if int(a.num_rows) != n_rows or a.capacity != b.capacity:
+                    fail(f"{name} {kind} shard {s}: rows or capacity differ")
+                for ca, cb in zip(a.columns, b.columns):
+                    for x, y in ((ca.values, cb.values),
+                                 (ca.valid, cb.valid)):
+                        if (x is None) != (y is None) or (
+                                x is not None and not same_bits(
+                                    x[:n_rows].cpu(), y[:n_rows])):
+                            fail(f"{name} {kind} shard {s}: rows differ")
+            checked += 1
+    check_exchange.cases = checked
+    return 0.0
+
+
+def _key_words(cols):
+    from trino_tpu_torch.ops.join import _key_cols
+    return _key_cols(cols)
+
+
 def list_runs(gpu, cpu, cap, kernels, list_kernels, card):
     """The list path: LIST_QUERIES on the card (every kernel's count set
     to 0 just before, read just after), no list operation through a
@@ -3491,6 +3668,339 @@ def list_runs(gpu, cpu, cap, kernels, list_kernels, card):
         f"{len(on_card)}; steps through the torch-op compiler: "
         f"{EC.cuda_evaluations} — {card}")
     return launches
+
+
+# The distributed path: DistributedQueryRunner over 8 shards of the one
+# card (["cuda:0"] * 8). name -> (schema, session, SQL, the card's local
+# run it must equal: a phase-3 result key, or None to run the SQL on the
+# card's LocalQueryRunner).
+DIST_SHARDS = 8
+DIST_PARTITIONED = (("join_distribution_type", "PARTITIONED"),)
+# l_linenumber (INTEGER, 7 values) against nation's BIGINT key: written
+# as `l_linenumber = n_nationkey` the comparison casts the probe key and
+# plans a cross join; the cast on nation's side, below its exchange, keeps
+# the partitioned pair on exactly the clause keys
+DIST_SKEW_SQL = ("SELECT n_name, count(*), sum(l_extendedprice) FROM "
+                 "lineitem, (SELECT n_name, CAST(n_nationkey AS INTEGER) "
+                 "AS nk FROM nation) n WHERE l_linenumber = nk "
+                 "GROUP BY n_name")
+DIST_CUSTOMER_SQL = ("SELECT c_mktsegment, count(*), sum(o_totalprice) "
+                     "FROM customer, orders WHERE c_custkey = o_custkey "
+                     "GROUP BY c_mktsegment")
+DIST_QUERIES = {f"D1_{q}": ("sf1", (), TPCH[q][0], ("sf1", q))
+                for q in TPCH}
+DIST_QUERIES.update({
+    "D2_customer_orders": ("sf1", DIST_PARTITIONED, DIST_CUSTOMER_SQL, None),
+    "D2_q3": ("sf1", DIST_PARTITIONED, TPCH["q3"][0], ("sf1", "q3")),
+    "D3_skew_on": ("sf1", DIST_PARTITIONED, DIST_SKEW_SQL, None),
+    "D3_skew_off": ("sf1", DIST_PARTITIONED
+                    + (("skewed_exchange_enabled", False),), DIST_SKEW_SQL,
+                    None),
+    "D4_q3": ("sf10", DIST_PARTITIONED, TPCH["q3"][0], ("sf10", "q3")),
+    "D4_q9": ("sf10", DIST_PARTITIONED, TPCH["q9"][0], ("sf10", "q9")),
+    "D5_q3_staged": ("sf1", (("mesh_execution", False),), TPCH["q3"][0],
+                     ("sf1", "q3")),
+})
+
+
+def dist_runners(schemas, dev="cuda:0"):
+    from trino_tpu_torch.exec.distributed import DistributedQueryRunner
+    return {s: DistributedQueryRunner.tpch(s, devices=[dev] * DIST_SHARDS)
+            for s in schemas}
+
+
+def _with_session(runner, session, fn):
+    for k, v in session:
+        runner.session.set(k, v)
+    try:
+        return fn()
+    finally:
+        for k, _ in session:
+            runner.session.properties.pop(k, None)
+
+
+def dist_runs(dist, gpu, results, cap, kernels, dist_kernels, card):
+    """The distributed path: DIST_QUERIES over 8 shards of the card, every
+    kernel's count set to 0 just before, read just after; no plain twin
+    and no torch-op compiler step on the card; rows equal to the card's
+    LocalQueryRunner (phase 3's runs, or the same SQL now). Prints an
+    [exchange] line per query; returns (launches, first-run seconds)."""
+    from trino_tpu_torch import page as P
+    from trino_tpu_torch.exec.memory import NODE_POOL
+    from trino_tpu_torch.expr import compiler as EC
+    from trino_tpu_torch.ops import aggregate as A
+    from trino_tpu_torch.ops import join as J
+    from trino_tpu_torch.ops import sort as S
+    from trino_tpu_torch.parallel import exchange as X
+    # every plain twin of the modules the path runs must stay off the card
+    real = {}
+    for mod in (P, X, S, J, A):
+        for k in dir(mod):
+            if k.endswith("_plain") and callable(getattr(mod, k)):
+                real[(mod, k)] = getattr(mod, k)
+    on_card = []
+
+    def cuda_in(args):
+        for a in args:
+            if isinstance(a, (list, tuple)):
+                if cuda_in(a):
+                    return True
+            elif isinstance(a, torch.Tensor) and a.is_cuda:
+                return True
+            elif isinstance(a, P.Page) and a.device.type == "cuda":
+                return True
+        return False
+
+    def watched(mod, k):
+        def run(*args, **kw):
+            if cap.label is not None and cuda_in(args):
+                on_card.append((k, cap.label))
+            return real[(mod, k)](*args, **kw)
+        return run
+    for (mod, k) in real:
+        setattr(mod, k, watched(mod, k))
+    every = {**kernels, **dist_kernels}
+    reset_counts(every)
+    EC.cuda_evaluations = 0
+    got, secs = {}, {}
+    try:
+        for name, (schema, session, sql, _) in DIST_QUERIES.items():
+            cap.label = ("dist", name)
+            runner = dist[schema]
+            before = {k: getattr(mod, attr).launches
+                      for k, (mod, attr) in every.items()}
+            NODE_POOL.device_peak.clear()
+            t0 = time.perf_counter()
+            res = _with_session(runner, session,
+                                lambda: runner.execute(sql))
+            sync()
+            secs[name] = time.perf_counter() - t0
+            got[name] = res
+            counts = {k: getattr(mod, attr).launches - before[k]
+                      for k, (mod, attr) in every.items()}
+            st = runner.last_query_stats
+            ex = runner.last_exchanges
+            heavy = [e["heavy"] for e in ex if "heavy" in e][:1]
+            say(f"[exchange] {name} {schema}: {len(res.rows)} rows in "
+                f"{secs[name]:.2f} s (first run); fused "
+                f"{st['exchanges_fused']}, staged {st['exchanges_staged']}, "
+                f"rows {st['exchange_rows']:,}, bytes "
+                f"{st['exchange_bytes']:,}; buckets "
+                f"{[e.get('bucket') for e in ex if e.get('bucket')]}; heavy "
+                f"keys {heavy[0] if heavy else 'none'}; per-shard peak bytes "
+                f"{[NODE_POOL.device_peak.get(i, 0) for i in range(DIST_SHARDS)]}"
+                f"; mxu_joins {st['mxu_joins']}; "
+                + ", ".join(f"{k} {counts[k]}" for k in dist_kernels)
+                + f"; plain twins on the card so far {len(on_card)} — {card}")
+    finally:
+        cap.label = None
+        for (mod, k), fn in real.items():
+            setattr(mod, k, fn)
+    launches = {k: getattr(mod, attr).launches
+                for k, (mod, attr) in dist_kernels.items()}
+    if on_card:
+        fail(f"the distributed path ran a plain twin on the card: "
+             f"{on_card[:5]}")
+    if EC.cuda_evaluations:
+        fail(f"{EC.cuda_evaluations} steps of the distributed path ran "
+             f"through the torch-op compiler, not K11")
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        fail(f"the distributed path never launched {missing}")
+    on = [e for e in DIST_QUERIES if e == "D3_skew_on"]
+    for name, (schema, session, sql, key) in DIST_QUERIES.items():
+        if key is not None:
+            want = results[key][0].rows
+            what = f"the card's local run of {key[1]}"
+        else:
+            want = _with_session(gpu[schema], session,
+                                 lambda: gpu[schema].execute(sql)).rows
+            what = "the card's local run"
+        if not rows_equal(got[name].rows, want):
+            fail(f"{name} {schema}: distributed rows differ from {what}:\n"
+                 f"{got[name].rows[:3]}\n{want[:3]}")
+        say(f"[exchange] {name} {schema}: rows == {what} "
+            f"({len(want)} rows, first {want[0] if want else None})")
+    if on and got["D3_skew_on"].rows and not rows_equal(
+            got["D3_skew_on"].rows, got["D3_skew_off"].rows):
+        fail("D3: skew on and off give different rows")
+    say(f"[launches] distributed path ({len(DIST_QUERIES)} queries over "
+        f"{DIST_SHARDS} shards): {launches}; plain twins on the card "
+        f"{len(on_card)}; steps through the torch-op compiler "
+        f"{EC.cuda_evaluations} — {card}")
+    return launches, secs
+
+
+def kernel_rows_dist(cap: Capture, originals, launches, dev, card):
+    """K35 (count and scatter), K36 (local and merge) and K2 as the
+    exchange receive at their largest call of the distributed path, each
+    against its twin at those inputs. Bounds: bytes (K35 reads the key
+    columns and every moved array once and writes every moved row once;
+    K36 reads the sorted words once; K2 reads and writes the live rows)."""
+    from trino_tpu_torch import page as P
+    from trino_tpu_torch.parallel import exchange as X
+    out = []
+
+    def row(name, source, replaces, n_launches, fn, plain, err,
+            bound_bytes, library, library_name, shape):
+        return dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=n_launches, max_abs_err=err, ms=cuda_ms(fn),
+            device_ms=device_profile(fn)[0], host_ms=host_ms(fn),
+            plain_ms=cuda_ms(plain),
+            bound_ms=bound_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+            library_ms=None if library is None else cuda_ms(library),
+            shape=f"{shape}; library = {library_name}")
+
+    # K35's count pass at its largest call
+    cols, nr, n, mode, hv = cap.calls[("exchange_count_cuda", "dist")][1]
+    (dest, hist), counts = originals["exchange_count"](cols, nr, n, mode, hv)
+    pdest, pcounts = X.exchange_count_plain(cols, nr, n, mode, hv)
+    if not (same_bits(dest, pdest) and same_bits(counts, pcounts)):
+        fail("K35 count pass differs from its twin at the path's inputs")
+    cap_rows = dest.numel()
+    live = int(nr)
+    key_bytes = sum(c.element_size() + (0 if v is None else 1)
+                    for c, v in cols)
+
+    def yard_count():
+        d = pdest
+        order = torch.argsort(d, stable=True)
+        return order, torch.bincount(d.clamp(min=0).to(torch.int64),
+                                     minlength=n + 1)
+    out.append(row(
+        "exchange_count (K35 count pass, _partition_of + counts)",
+        "trino_tpu_torch/csrc/exchange.cu",
+        "trino_tpu/parallel/exchange.py:52", launches["exchange_count"],
+        lambda: originals["exchange_count"](cols, nr, n, mode, hv),
+        lambda: X.exchange_count_plain(cols, nr, n, mode, hv), 0.0,
+        live * key_bytes + 4 * cap_rows, yard_count,
+        "torch.argsort(dest, stable=True) + bincount",
+        f"cap {cap_rows}, {live} live rows, {n} destinations, mode {mode}, "
+        f"{len(cols)} key column(s)"))
+    # K35's scatter at its largest call
+    state, arrays, n2, bucket = cap.calls[("exchange_scatter_cuda",
+                                           "dist")][1]
+    got = originals["exchange_scatter"](state, arrays, n2, bucket)
+    want = X.exchange_scatter_plain(state[0], arrays, n2, bucket)
+    cnts = [int(((state[0] == d) | (state[0] == -1)).sum())
+            for d in range(n2)]
+    for a, b in zip(got, want):
+        for d in range(n2):
+            m = min(cnts[d], bucket)
+            if not same_bits(a[d * bucket:d * bucket + m],
+                             b[d * bucket:d * bucket + m]):
+                fail("K35 scatter differs from its twin at the path's "
+                     "inputs")
+    moved = sum(cnts)
+    row_b = sum(P.row_bytes(lk) for _, lk in arrays)
+    src_arrays = [a for a, _ in arrays if a is not None]
+
+    def yard_scatter():
+        order = torch.argsort(state[0], stable=True)
+        return [a.index_select(0, order) for a in src_arrays]
+    out.append(row(
+        "exchange_scatter (K35 bucket pack, all_to_all_by_key's scatter)",
+        "trino_tpu_torch/csrc/exchange.cu",
+        "trino_tpu/parallel/exchange.py:141", launches["exchange_scatter"],
+        lambda: originals["exchange_scatter"](state, arrays, n2, bucket),
+        lambda: X.exchange_scatter_plain(state[0], arrays, n2, bucket), 0.0,
+        4 * state[0].numel() + 2 * moved * row_b, yard_scatter,
+        "torch.argsort(dest, stable=True) + index_select per array",
+        f"cap {state[0].numel()}, {moved} rows moved, {n2} x {bucket} "
+        f"slots, {len(arrays)} arrays"))
+    # K36's local mode
+    words, k = cap.calls[("heavy_local_cuda", "dist")][1]
+    c1, k1 = originals["heavy_local"](words, k)
+    c2, k2 = X.heavy_local_plain(words, k)
+    if not (same_bits(c1, c2) and same_bits(k1, k2)):
+        fail("K36 local mode differs from its twin at the path's inputs")
+
+    def yard_local():
+        _, cnt = torch.unique_consecutive(words, return_counts=True)
+        return torch.topk(cnt, min(k, cnt.numel()))
+    out.append(row(
+        "heavy_local (K36 local mode, detect_heavy_keys's run lengths and "
+        "top_k)", "trino_tpu_torch/csrc/exchange.cu",
+        "trino_tpu/parallel/exchange.py:70", launches["heavy_local"],
+        lambda: originals["heavy_local"](words, k),
+        lambda: X.heavy_local_plain(words, k), 0.0, 8 * words.numel(),
+        yard_local, "torch.unique_consecutive(return_counts) + topk",
+        f"{words.numel()} sorted words, k {k}"))
+    keys, cnts_m, k3, thr = cap.calls[("heavy_merge_cuda", "dist")][1]
+    h1 = originals["heavy_merge"](keys, cnts_m, k3, thr)
+    h2 = X.heavy_merge_plain(keys, cnts_m, k3, thr)
+    if not same_bits(h1, h2):
+        fail("K36 merge mode differs from its twin at the path's inputs")
+
+    def yard_merge():
+        u, inv = torch.unique(keys, return_inverse=True)
+        glob = torch.zeros(u.numel(), dtype=torch.int64, device=dev)
+        glob.index_add_(0, inv, cnts_m.to(torch.int64))
+        return torch.topk(glob, min(k3, glob.numel()))
+    out.append(row(
+        "heavy_merge (K36 merge mode, detect_heavy_keys's global sums and "
+        "top_k)", "trino_tpu_torch/csrc/exchange.cu",
+        "trino_tpu/parallel/exchange.py:95", launches["heavy_merge"],
+        lambda: originals["heavy_merge"](keys, cnts_m, k3, thr),
+        lambda: X.heavy_merge_plain(keys, cnts_m, k3, thr), 0.0,
+        16 * keys.numel() + 8 * k3, yard_merge,
+        "torch.unique(return_inverse) + index_add_ + topk",
+        f"{keys.numel()} candidates, k {k3}, threshold {thr}"))
+    # K2 as the receive: its largest call of the distributed path
+    arrays2, counts2, out_cap = cap.calls[("concat_rows_cuda:receive",
+                                           "dist")][1]
+    a = originals["concat_rows"](arrays2, counts2, out_cap)
+    b = P.concat_rows_plain(arrays2, counts2, out_cap)
+    total = int(sum(int(c) for c in counts2))
+    for x, y in zip(a[0], b[0]):
+        if not same_bits(x[:total], y[:total]):
+            fail("K2 (the receive) differs from its twin at the path's "
+                 "inputs")
+    rb = sum(P.row_bytes(o) for o in a[0])
+    firsts = [[t[:int(c)] for t in pa if t is not None]
+              for pa, c in zip(arrays2, counts2)]
+    out.append(row(
+        "concat_rows (K2 as the exchange receive, _exchange_compact / "
+        "broadcast_page)", "trino_tpu_torch/csrc/concat.cu",
+        "trino_tpu/parallel/exchange.py:113", launches["exchange_receive"],
+        lambda: originals["concat_rows"](arrays2, counts2, out_cap),
+        lambda: P.concat_rows_plain(arrays2, counts2, out_cap), 0.0,
+        2 * total * rb,
+        lambda: [torch.cat([f[i] for f in firsts]) for i in
+                 range(len(firsts[0]))] if firsts and firsts[0] else None,
+        "torch.cat of the sources' live slices per array",
+        f"{len(arrays2)} source slices, {total} rows into cap {out_cap}, "
+        f"{len(a[0])} arrays"))
+    for r in out:
+        say(f"[kernel] {r['name']}: {r['ms']:.4f} ms per call, bound "
+            f"{r['bound_ms']:.6f} ms, plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']} ms, {r['shape']} — {card}")
+    return out
+
+
+def dist_walls(dist, card) -> None:
+    """Each D query's warm wall (one warm run after the first) and device
+    busy time and idle share (profiler, one run)."""
+    for name, (schema, session, sql, _) in DIST_QUERIES.items():
+        runner = dist[schema]
+
+        def run():
+            return _with_session(runner, session,
+                                 lambda: runner.execute(sql))
+        t0 = time.perf_counter()
+        run()
+        sync()
+        w = time.perf_counter() - t0
+        busy, top = device_profile(run, 1)
+        idle = "not measured" if busy is None else \
+            f"{max(0.0, 1 - busy / (w * 1e3)):.2f}"
+        say(f"[wall] {name} {schema}: warm {w * 1e3:.1f} ms over "
+            f"{DIST_SHARDS} shards; device busy "
+            f"{'not measured' if busy is None else f'{busy:.2f} ms'}, idle "
+            f"share {idle}; top device time: "
+            + ", ".join(f"{k[:50]} {t:.3f} ms" for k, t in top[:4])
+            + f" — {card}")
 
 
 def kernel_rows_list(cap: Capture, originals, launches, dev, card):
@@ -4123,6 +4633,17 @@ def main() -> None:
         f" K33 cases: an empty page, 3 to 1,500,000 groups, 4,194,304 rows; "
         f"NULL inputs, NaN, +-0.0, +-inf, duplicate keys, int32/int64/"
         f"float32/float64 keys): {errs} in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    errs = {"exchange_count + exchange_scatter + heavy_local + heavy_merge":
+            check_exchange(g, dev)}
+    say(f"[kernels] K35 (count and scatter in hash, spread and replicate "
+        f"modes) and K36 (local and merge modes) match their plain twins on "
+        f"the card bit for bit ({check_exchange.cases} cases: n = "
+        f"{', '.join(map(str, EXCHANGE_NS))}; NULL, dead, -1, NaN, -0.0, "
+        f"bool, code and composite keys; an empty shard, one destination "
+        f"past its bucket, heavy sets of 0, 1 and 8 keys, ties, one "
+        f"4,194,304-row page; whole exchanges of 8 shards on the card "
+        f"against 8 on the CPU): {errs} in {time.perf_counter() - t0:.1f} s")
     say(f"[time] phase 2 (kernels vs twins): "
         f"{time.perf_counter() - t_phase:.1f} s")
 
@@ -4143,7 +4664,21 @@ def main() -> None:
     def mxu_tag(pc, bc, nr, prep, *_):
         return "mxu" if prep.mxu is not None else None
     cap.wrap(P, "compact_rows_cuda", lambda arrays, mask, n: mask.numel())
-    cap.wrap(P, "concat_rows_cuda", lambda arrays, counts, c: c)
+    def receive_tag(*_):
+        # K2 called by the exchange receive or a broadcast
+        f = sys._getframe(2)
+        for _ in range(4):
+            if f is None:
+                break
+            if f.f_code.co_name in ("exchange_apply", "broadcast_page"):
+                receive_launches[0] += cap.label is not None \
+                    and cap.label[0] == "dist"
+                return "receive"
+            f = f.f_back
+        return None
+    receive_launches = [0]
+    cap.wrap(P, "concat_rows_cuda", lambda arrays, counts, c: c,
+             receive_tag, ("sf1", "forced", "dist"))
     cap.wrap(A, "direct_reduce_cuda",
              lambda keys, states, n, nseg: keys[0].codes.numel())
     cap.wrap(A, "global_reduce_triton", lambda states, n, c: c)
@@ -4483,6 +5018,32 @@ def main() -> None:
     list_launches = list_runs(gpu, cpu, cap, all_kernels, list_kernels,
                               card)
     t_list = time.perf_counter() - t_list
+    # the distributed path over 8 shards of the card, its counts set to 0
+    t_dist = time.perf_counter()
+    from trino_tpu_torch.parallel import exchange as X
+    dscope = ("dist",)
+    cap.wrap(X, "exchange_count_cuda",
+             lambda cols, nr, n, mode, hv: cols[0][0].numel(), scopes=dscope)
+    cap.wrap(X, "exchange_scatter_cuda",
+             lambda state, arrays, n, b: state[0].numel() * len(arrays),
+             scopes=dscope)
+    cap.wrap(X, "heavy_local_cuda", lambda w, k: w.numel(), scopes=dscope)
+    cap.wrap(X, "heavy_merge_cuda", lambda keys, *_: keys.numel(),
+             scopes=dscope)
+    dist_kernels = {"exchange_count": (X, "exchange_count_cuda"),
+                    "exchange_scatter": (X, "exchange_scatter_cuda"),
+                    "heavy_local": (X, "heavy_local_cuda"),
+                    "heavy_merge": (X, "heavy_merge_cuda"),
+                    "concat_rows": (P, "concat_rows_cuda"),
+                    "sort_u64": (S, "sort_u64_cuda"),
+                    "sort_rows": (S, "sort_rows_cuda"),
+                    "expr_step": (KG, "expr_step_cuda")}
+    dist = dist_runners(("sf1", "sf10"))
+    receive_launches[0] = 0
+    dist_launches, dist_secs = dist_runs(dist, gpu, results, cap,
+                                         all_kernels, dist_kernels, card)
+    dist_launches["exchange_receive"] = receive_launches[0]
+    t_dist = time.perf_counter() - t_dist
     for (schema, q), (res, secs) in results.items():
         say(f"[query] {q} {schema} on cuda: {len(res.rows)} rows, first "
             f"run {secs:.2f} s (includes data generation and staging)")
@@ -4545,7 +5106,8 @@ def main() -> None:
         f"runs {time.perf_counter() - t0:.1f} s, TPC-DS and G1-G4 "
         f"{t_ds:.1f} s on the card and {t_ds_cpu:.1f} s on the CPU, the "
         f"special aggregates {t_special:.1f} s (card and CPU), the list "
-        f"path {t_list:.1f} s (card and CPU)")
+        f"path {t_list:.1f} s (card and CPU), the distributed path "
+        f"{t_dist:.1f} s (card)")
 
     # ---- phase 4: launch check and times
     t_phase = time.perf_counter()
@@ -4586,6 +5148,10 @@ def main() -> None:
     originals.update({k: cap.orig[attr]
                       for k, (_, attr) in list_kernels.items()})
     rows += kernel_rows_list(cap, originals, list_launches, dev, card)
+    originals.update({k: cap.orig[attr]
+                      for k, (_, attr) in dist_kernels.items()
+                      if attr in cap.orig})
+    rows += kernel_rows_dist(cap, originals, dist_launches, dev, card)
     for r in rows:
         dev_ms = "not measured" if r["device_ms"] is None \
             else f"{r['device_ms']:.4f} ms"
@@ -4622,6 +5188,10 @@ def main() -> None:
         warm_profile(name, schema, lambda: gpu[schema].execute(sql), card)
     say(f"[time] list-path walls and profiles: "
         f"{time.perf_counter() - t_list_walls:.1f} s")
+    t_dist_walls = time.perf_counter()
+    dist_walls(dist, card)
+    say(f"[time] distributed-path walls and profiles: "
+        f"{time.perf_counter() - t_dist_walls:.1f} s")
     say(f"[time] phase 4 walls and profiles: "
         f"{time.perf_counter() - t0:.1f} s; whole run "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -54,7 +54,11 @@ def test_inventory_covers_the_slice():
                 "trino_tpu_torch/exec/memory.py",
                 "trino_tpu_torch/exec/adaptive.py",
                 "trino_tpu_torch/ops/window.py",
-                "trino_tpu_torch/connector/tpcds.py", "chip_smoke.py"):
+                "trino_tpu_torch/connector/tpcds.py",
+                "trino_tpu_torch/parallel/mesh.py",
+                "trino_tpu_torch/parallel/exchange.py",
+                "trino_tpu_torch/exec/distributed.py",
+                "trino_tpu_torch/exec/mesh_exec.py", "chip_smoke.py"):
         assert rel in files
     # every CUDA source native.py builds is in the package, and no source
     # of csrc/ is left out of the build
@@ -63,7 +67,7 @@ def test_inventory_covers_the_slice():
     assert cu == set(native.SOURCES)
     assert {"gather", "join_build", "join_probe", "join_expand",
             "join_mxu", "group_agg", "tpch_gen", "join_spill",
-            "spill_part", "window", "special_agg", "list"} <= cu
+            "spill_part", "window", "special_agg", "list", "exchange"} <= cu
 
 
 @pytest.mark.parametrize("rel", _sources())
@@ -221,3 +225,45 @@ def test_list_query_runs_with_jax_and_reference_unimportable():
         "SELECT count(*), sum(e), sum(o) FROM (SELECT l_orderkey, "
         "array_agg(l_partkey) ks FROM lineitem GROUP BY l_orderkey) "
         "CROSS JOIN UNNEST(ks) WITH ORDINALITY AS u(e, o)")
+
+
+_BLOCKED_DIST = textwrap.dedent("""
+    import importlib.abc, sys
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in ("jax", "jaxlib", "trino_tpu"):
+                raise ImportError(f"{name} is blocked")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    import torch
+    torch.set_num_threads(1)
+    from trino_tpu_torch.exec.distributed import DistributedQueryRunner
+    runner = DistributedQueryRunner.tpch("tiny", devices=["cpu"] * 8)
+    rows = runner.execute(sys.argv[1]).rows
+    st = runner.last_query_stats
+    print(st["exchanges_fused"], st["exchanges_staged"], st["mesh_devices"])
+    assert not any(m.split(".")[0] in ("jax", "trino_tpu")
+                   for m in sys.modules), "reference module loaded"
+    print(rows)
+""")
+
+
+def test_distributed_q3_runs_with_jax_and_reference_unimportable():
+    """The multi-shard engine (QueryMesh, K35/K36's twins, the K2 receive,
+    the co-scheduled chains) imports nothing of JAX either: q3 over 8 CPU
+    shards, the reference's rows."""
+    from tpch_sql import QUERIES
+    sql = QUERIES["q3"][0]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(_REPO)
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_DIST, sql],
+                         cwd=str(_REPO), env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    *_, counters, rows = out.stdout.strip().splitlines()
+    fused, staged, devices = map(int, counters.split())
+    assert fused > 0 and staged == 0 and devices == 8
+    from trino_tpu.exec import LocalQueryRunner as RefRunner
+    assert rows == str(RefRunner.tpch("tiny").execute(sql).rows)

@@ -171,7 +171,8 @@ def _next_pow2(n: int) -> int:
 QUERY_COUNTERS = ("mxu_joins", "mxu_flops", "spilled_bytes",
                   "agg_recursions", "join_recursions", "heavy_key_splits",
                   "spill_fallbacks", "agg_mode_downgrades",
-                  "agg_mode_upgrades")
+                  "agg_mode_upgrades", "exchanges_fused", "exchanges_staged",
+                  "exchange_rows", "exchange_bytes", "mesh_devices")
 
 
 @dataclasses.dataclass

@@ -12,16 +12,21 @@ join build collection turns either into a strategy switch: the build
 streams into the partitioned join instead (exec/local_planner.py
 `_collect_build_resilient`).
 
-The pool models one card's device memory. Left for ROADMAP A.6: the
-low-memory killer (picking and marking a victim query), `degrade_to_spill`
-and the `retry_policy` re-run; here a pool overflow fails the requester,
-as the reference's pool does with its killer disabled.
+The pool models one card's device memory. Reservations of the
+distributed runner's shards carry `device=` (the shard) and keep a
+reserved total and a peak per shard, as the reference's per-chip
+accounting does; `autosize_node_pool` gives each shard a budget from its
+card's memory, checked when `enforce_per_device` is set (off by default).
+Left for ROADMAP A.6: the low-memory killer (picking and marking a victim
+query), `degrade_to_spill` and the `retry_policy` re-run; here a pool
+overflow fails the requester, as the reference's pool does with its
+killer disabled.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 from trino_tpu_torch.errors import (CLUSTER_OUT_OF_MEMORY,
                                     EXCEEDED_LOCAL_MEMORY_LIMIT, TrinoError)
@@ -76,6 +81,13 @@ class NodeMemoryPool:
         self.leaks = 0
         self.leaked_bytes = 0
         self._contexts: Dict[str, "QueryMemoryContext"] = {}
+        # per-shard accounting (device= reservations of mesh shards): the
+        # bytes each holds, its peak, and its budget when sized
+        self.device_reserved: Dict[int, int] = {}
+        self.device_peak: Dict[int, int] = {}
+        self.device_limit: Dict[int, int] = {}
+        self.enforce_per_device = False
+        self.budget_source = "default"
 
     def set_limit(self, limit_bytes: Optional[int]) -> None:
         with self._cond:
@@ -93,24 +105,39 @@ class NodeMemoryPool:
             self._cond.notify_all()
 
     def acquire(self, ctx: "QueryMemoryContext", nbytes: int,
-                tag: str) -> None:
-        """Grant `nbytes` to `ctx` or raise ClusterOutOfMemoryError."""
+                tag: str, device: Optional[int] = None) -> None:
+        """Grant `nbytes` to `ctx` (on shard `device`, when given) or raise
+        ClusterOutOfMemoryError."""
         with self._cond:
             if ctx.kill_reason is not None:
                 raise ClusterOutOfMemoryError(ctx.kill_reason)
-            if self.limit is not None and self.reserved + nbytes > self.limit:
+            limit, current = self.limit, self.reserved
+            if self.enforce_per_device and device is not None \
+                    and device in self.device_limit:
+                # a shard's budget bounds what that shard holds
+                limit = self.device_limit[device]
+                current = self.device_reserved.get(device, 0)
+            if limit is not None and current + nbytes > limit:
                 raise ClusterOutOfMemoryError(
                     f"node memory pool exhausted: [{tag}] requested "
-                    f"{fmt_bytes(nbytes)} with {fmt_bytes(self.reserved)}/"
-                    f"{fmt_bytes(self.limit)} reserved")
+                    f"{fmt_bytes(nbytes)} with {fmt_bytes(current)}/"
+                    f"{fmt_bytes(limit)} reserved")
             self.reserved += nbytes
             self.peak = max(self.peak, self.reserved)
+            if device is not None:
+                d = self.device_reserved.get(device, 0) + nbytes
+                self.device_reserved[device] = d
+                self.device_peak[device] = max(
+                    self.device_peak.get(device, 0), d)
 
-    def release(self, nbytes: int) -> None:
+    def release(self, nbytes: int, device: Optional[int] = None) -> None:
         if nbytes <= 0:
             return
         with self._cond:
             self.reserved = max(0, self.reserved - nbytes)
+            if device is not None:
+                self.device_reserved[device] = max(
+                    0, self.device_reserved.get(device, 0) - nbytes)
             self._cond.notify_all()
 
     def record_leak(self, nbytes: int) -> None:
@@ -137,6 +164,8 @@ class QueryMemoryContext:
         self.reserved = 0
         self.peak = 0
         self.by_tag: Dict[str, int] = {}
+        # bytes held per shard (device= reservations)
+        self.device_reserved: Dict[int, int] = {}
         if not query_id:
             QueryMemoryContext._anon += 1
             query_id = f"ctx_{QueryMemoryContext._anon}"
@@ -146,7 +175,8 @@ class QueryMemoryContext:
         if pool is not None:
             pool.register(self)
 
-    def reserve(self, nbytes: int, tag: str = "operator") -> None:
+    def reserve(self, nbytes: int, tag: str = "operator",
+                device: Optional[int] = None) -> None:
         nbytes = int(nbytes)
         if nbytes <= 0:
             return
@@ -159,19 +189,26 @@ class QueryMemoryContext:
                 f"{fmt_bytes(nbytes)}, reserved "
                 f"{fmt_bytes(self.reserved)}]")
         if self.pool is not None:
-            self.pool.acquire(self, nbytes, tag)
+            self.pool.acquire(self, nbytes, tag, device)
         self.reserved += nbytes
         self.by_tag[tag] = self.by_tag.get(tag, 0) + nbytes
         self.peak = max(self.peak, self.reserved)
+        if device is not None:
+            self.device_reserved[device] = \
+                self.device_reserved.get(device, 0) + nbytes
 
-    def free(self, nbytes: int, tag: str = "operator") -> None:
+    def free(self, nbytes: int, tag: str = "operator",
+             device: Optional[int] = None) -> None:
         nbytes = int(nbytes)
         released = min(max(nbytes, 0), self.reserved)
         self.reserved -= released
         if tag in self.by_tag:
             self.by_tag[tag] = max(0, self.by_tag[tag] - nbytes)
+        if device is not None:
+            self.device_reserved[device] = max(
+                0, self.device_reserved.get(device, 0) - released)
         if self.pool is not None:
-            self.pool.release(released)
+            self.pool.release(released, device)
 
     def poll(self) -> None:
         """Cooperative checkpoint: raise if the query was marked."""
@@ -194,6 +231,12 @@ class QueryMemoryContext:
             return
         self.reserved = int(mark)
         if self.pool is not None:
+            if int(mark) == 0:
+                # everything goes: each shard's bytes leave its account
+                for dev, held in self.device_reserved.items():
+                    self.pool.release(held, dev)
+                    delta -= held
+                self.device_reserved.clear()
             self.pool.release(delta)
 
     def close(self) -> int:
@@ -204,3 +247,47 @@ class QueryMemoryContext:
         if self.pool is not None:
             self.pool.unregister(self)
         return leaked
+
+
+def measured_device_memory_bytes(device) -> Optional[int]:
+    """A CUDA card's total memory, or None for a device that does not
+    report it (the CPU)."""
+    import torch
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None
+    return int(torch.cuda.get_device_properties(dev).total_memory)
+
+
+def autosize_node_pool(devices, scan_cache_budget: Optional[int] = None,
+                       pool: Optional[NodeMemoryPool] = None
+                       ) -> Tuple[Dict[int, int], str]:
+    """Each shard's budget from its device's measured memory (the
+    reference's autosize_node_pool, per chip): the card's memory minus
+    the connector's staged-column cache, floored at a quarter of the card,
+    divided among the shards placed on that card — shards of one card
+    share its memory, so n virtual shards on one H100 each get a 1/n
+    share, and their reservations together cannot oversubscribe it.
+    Devices that report no capacity (the CPU) keep no budget ("default").
+    Returns (shard -> budget, source) and turns `enforce_per_device` on
+    when any budget was measured."""
+    pool = pool if pool is not None else NODE_POOL
+    if scan_cache_budget is None:
+        from trino_tpu_torch.connector import tpch
+        scan_cache_budget = int(tpch._DEVICE_COL_CACHE_BYTES)
+    per_device: Dict[str, List[int]] = {}
+    for shard, dev in enumerate(devices):
+        per_device.setdefault(str(dev), []).append(shard)
+    budgets: Dict[int, int] = {}
+    for dev, shards in per_device.items():
+        measured = measured_device_memory_bytes(dev)
+        if measured is None:
+            continue
+        card = max(measured - int(scan_cache_budget), measured // 4)
+        for shard in shards:
+            budgets[shard] = card // len(shards)
+    with pool._cond:
+        pool.device_limit = dict(budgets)
+        pool.enforce_per_device = bool(budgets)
+        pool.budget_source = "measured" if budgets else "default"
+    return budgets, pool.budget_source

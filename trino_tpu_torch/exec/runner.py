@@ -11,7 +11,11 @@ Every query gets a memory context under `query_max_memory`, attached to
 the process node pool (exec/memory.py). Left out (ROADMAP A6/A10): the
 plan, result, scan and table caches, materialized views, retries and the
 memory-pressure re-run, the low-memory killer, fault injection,
-deadlines, the query tracker, DDL/DML and prepared statements.
+deadlines, the query tracker, DDL/DML and prepared statements. The hooks
+the distributed runner calls (`_check_services`, `_retry_task`,
+`_check_deadline`) are their pass-through forms under the reference's
+default session, and a session that turns one of those services on
+raises naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -205,6 +209,40 @@ class LocalQueryRunner:
         raise SemanticError(
             f"unsupported statement: {type(stmt).__name__} "
             "(DDL, DML and prepared statements are ROADMAP A10)")
+
+    # ------------------------------------------- service hooks (A6/A10)
+
+    # session properties whose services wait for a ROADMAP item (retries
+    # raise in _retry_task, where they would run)
+    _SERVICES = (("table_cache_enabled", "A6 (the device table cache)"),
+                 ("collect_operator_stats", "A10 (operator statistics, obs/)"))
+
+    def _check_services(self) -> None:
+        """Raise when the session turns on a service the port has not
+        ported: the device table cache (the reference's
+        `_active_table_cache` then returns None and scans take the
+        connector's splits) and operator statistics."""
+        for name, item in self._SERVICES:
+            if bool(self.session.get(name)):
+                raise SemanticError(f"session property {name} = true is "
+                                    f"ROADMAP {item}")
+
+    def _retry_task(self, label: str, fn):
+        """One retry scope (a fragment attempt, an exchange apply): under
+        retry_policy NONE the reference runs `fn` once, and so does this;
+        TASK and QUERY are ROADMAP A6/A10."""
+        policy = str(self.session.get("retry_policy")).upper()
+        if policy != "NONE":
+            raise SemanticError(
+                f"retry_policy {policy} ({label}) is ROADMAP A6/A10 "
+                "(task and query retries)")
+        return fn()
+
+    @staticmethod
+    def _check_deadline(memory) -> None:
+        """Cancellation point: with no deadline set (deadlines are ROADMAP
+        A6) it polls the query's memory ledger."""
+        memory.poll()
 
     def _plan(self, query: t.Statement) -> OutputNode:
         plan = LogicalPlanner(self.metadata, self.session).plan(query)

@@ -30,7 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCES = ("compact", "concat", "direct_agg", "gather", "join_build",
            "join_probe", "join_expand", "join_mxu", "group_agg", "sort",
            "tpch_gen", "join_spill", "spill_part", "window", "special_agg",
-           "list")
+           "list", "exchange")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}

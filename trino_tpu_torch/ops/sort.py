@@ -281,7 +281,11 @@ def sort_u64_cuda(words: torch.Tensor) -> torch.Tensor:
     n = torch.full((), cap, dtype=torch.int32, device=words.device)
     perm = radix_sort_words((words ^ _I64_MIN).reshape(1, cap), n,
                             [(0, 8 * b) for b in range(8)])
+    sort_u64_cuda.launches += 1
     return words[perm.to(torch.int64)]
+
+
+sort_u64_cuda.launches = 0
 
 
 def encode_sort_keys_cuda(page: Page, keys: Sequence[SortKey]
