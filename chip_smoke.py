@@ -2186,17 +2186,77 @@ SORT_KEYSETS = [  # (channel, ascending, nulls_first) per key
 ]
 
 
+def same_page(page):
+    """The page with every row equal to its row 0: every digit pass of
+    every key set is trivial (only the dead byte could differ, and rows
+    past num_rows take no part)."""
+    import dataclasses
+    from trino_tpu_torch.page import Page
+
+    def first(t):
+        return None if t is None else t[:1].repeat(t.shape[0])
+    return Page([dataclasses.replace(c, values=first(c.values),
+                                     valid=first(c.valid))
+                 for c in page.columns], page.num_rows)
+
+
+def sort_u64_words(kind: str, n: int, seed: int, dev):
+    """Seeded int64 words holding u64 values: "random" over the whole
+    range, "duplicates" from 37 values (0, -1, INT64_MIN among them)."""
+    g = torch.Generator().manual_seed(seed)
+    if kind == "random":
+        return torch.randint(-(1 << 63), (1 << 63) - 1, (n,), generator=g,
+                             dtype=torch.int64).to(dev)
+    pool = torch.cat([torch.tensor([0, -1, -(1 << 63), (1 << 63) - 1, 255,
+                                    256, 1 << 32]),
+                      torch.randint(-(1 << 40), 1 << 40, (30,), generator=g)])
+    return pool[torch.randint(0, pool.numel(), (n,), generator=g)].to(dev)
+
+
+def sort_sizes():
+    """(cap, n, equal rows) of check_sort: the earlier sizes, both sides
+    of the one-block threshold by capacity and by live rows, a capacity
+    that is not a multiple of the tile, no live row on a large capacity,
+    pages of equal rows on both paths, 16,777,216 rows."""
+    from trino_tpu_torch.ops import sort as S
+    small, tile = S.SMALL_ROWS, S.SORT_TILE
+    return [(1, 1, False), (100, 0, False), (300, 257, False),
+            (4096, 4093, False), (65_536, 65_536, False),
+            (65_537, 65_537, False), (131_072, 100_003, False),
+            (4_194_304, 4_194_304, False), (small, small, False),
+            (small + 1, small + 1, False), (65_536, small, False),
+            (65_536, small + 1, False), (3 * tile + 5, 3 * tile + 3, False),
+            (1 << 20, 0, False), (5000, 5000, True), (5000, 4000, True),
+            (200_000, 200_000, True), (200_000, 150_001, True),
+            (16_777_216, 16_777_216, False)]
+
+
+U64_SIZES = [1, 8192, 8193, 1_000_003, 8_388_608]
+# phase 4 times K10 at these sf1 queries' largest sorts (captured on the
+# main path: q16's ORDER BY, W2's window sort) and at the distributed
+# path's largest u64 sort (a D4 sf10 shard of K36's words)
+K10_TIMED = {"q16": "sort_rows (K10, order_by/top_n_masked)",
+             "W2": "sort_rows (K10, the window sort)"}
+
+
 def check_sort(dev) -> float:
     """K10 against its twin: the packed words bit for bit and the
-    permutation of the live prefix exactly, on both sides of the one-block
-    threshold and at a 4,194,304-row page."""
+    permutation of the live prefix exactly at every sort_sizes() page and
+    key set; K10's u64 sort against torch.sort of the flipped words at
+    U64_SIZES, random and duplicate-heavy."""
+    import ctypes
+    from trino_tpu_torch import native
     from trino_tpu_torch.ops import sort as S
-    sizes = [(1, 1), (100, 0), (300, 257), (4096, 4093),
-             (S.ONE_BLOCK_ROWS, S.ONE_BLOCK_ROWS),
-             (S.ONE_BLOCK_ROWS + 1, S.ONE_BLOCK_ROWS + 1),
-             (131_072, 100_003), (4_194_304, 4_194_304)]
-    for (cap, n), seed in zip(sizes, range(len(sizes))):
+    lib = native.library("sort")
+    for fn, want in (("sort_small_rows", S.SMALL_ROWS),
+                     ("sort_tile_rows", S.SORT_TILE)):
+        getattr(lib, fn).restype = ctypes.c_int64
+        if getattr(lib, fn)() != want:
+            fail(f"csrc/sort.cu {fn}() is not ops/sort.py's {want}")
+    for seed, (cap, n, same) in enumerate(sort_sizes()):
         page = sort_page(cap, n, 500 + seed, dev)
+        if same:
+            page = same_page(page)
         for ks in SORT_KEYSETS:
             keys = [S.SortKey(c, a, nf) for c, a, nf in ks]
             got_w = S.encode_sort_keys_cuda(page, keys)
@@ -2209,10 +2269,20 @@ def check_sort(dev) -> float:
             want = S.sort_rows_plain(page, keys)
             if not torch.equal(got[:n].to(torch.int64), want[:n]):
                 fail(f"K10 permutation differs at cap={cap} n={n} "
-                     f"keys={ks}")
+                     f"keys={ks} same={same}")
             if not torch.equal(got[n:].to(torch.int64),
                                torch.arange(n, cap, device=dev)):
                 fail(f"K10 moved a dead row at cap={cap} n={n}")
+        del page
+    lo = -(1 << 63)
+    for seed, (kind, n) in enumerate((k, n) for n in U64_SIZES
+                                     for k in ("random", "duplicates")):
+        words = sort_u64_words(kind, n, 900 + seed, dev)
+        got = S.sort_u64_cuda(words)
+        sync()
+        want = torch.sort(words ^ lo, stable=True).values ^ lo
+        if not torch.equal(got, want):
+            fail(f"K10's u64 sort differs from torch.sort ({kind}, n={n})")
     return 0.0   # compared exactly
 
 
@@ -2733,40 +2803,66 @@ def check_window(g, dev) -> float:
     return err
 
 
+def k10_row(name, n_launches, page, keys, sort_fn, what, card) -> dict:
+    """K10 (sort_rows) at one captured page: against its twin, timed
+    beside its bound and torch.sort(stable=True) of one packed word; the
+    shape says how many digit passes ran and how many were trivial, and
+    the profiler's top kernels are printed."""
+    from trino_tpu_torch.ops import sort as S
+    n = int(page.num_rows)
+    got = sort_fn(page, keys)
+    want = S.sort_rows_plain(page, keys)
+    if not torch.equal(got[:n].to(torch.int64), want[:n]):
+        fail(f"K10 differs from its twin at {what}")
+    words = S.encode_sort_keys(page, keys)
+    passes = S.sort_passes(S.sort_layout(page, keys))
+    ran = sum(S.informative_passes_plain(words, page.num_rows, passes))
+    word = words[-1][:n].contiguous()
+    key_b = sum(page.column(k.channel).values.element_size()
+                + (page.column(k.channel).valid is not None) for k in keys)
+    fn = lambda: sort_fn(page, keys)   # noqa: E731
+    dev_ms, top = device_profile(fn)
+    say(f"[kernel] {name} at {what}: top device time per call: "
+        + ", ".join(f"{k[:48]} {t:.4f} ms" for k, t in top) + f" — {card}")
+    return dict(
+        name=name, route="cuda", source="trino_tpu_torch/csrc/sort.cu",
+        replaces="trino_tpu/ops/sort.py:71", launches=n_launches,
+        max_abs_err=0.0, ms=cuda_ms(fn), device_ms=dev_ms,
+        host_ms=host_ms(fn),
+        plain_ms=cuda_ms(lambda: S.sort_rows_plain(page, keys)),
+        # the key columns of the live rows read once, the int32
+        # permutation written once
+        bound_ms=n * (key_b + 4) / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=cuda_ms(lambda: torch.sort(word, stable=True)),
+        shape=f"{what}: cap {page.capacity}, {n} live rows, {len(keys)} "
+              f"keys, {len(words)} words, {len(passes)} digit passes of "
+              f"which {ran} ran and {len(passes) - ran} were trivial, "
+              f"{'one block' if n <= S.SMALL_ROWS else 'one launch per pass'}"
+              f"; library = torch.sort(stable=True) of one packed word")
+
+
 def kernel_rows_sort_expr(cap: Capture, originals, launches, dev, card):
     """K10 and K11 at the main path's largest calls, against their twins."""
     from trino_tpu_torch.expr import kernel_gen as KG
     from trino_tpu_torch.ops import sort as S
     out = []
 
-    # K10 at the largest ORDER BY / TopN sort of the sf1 queries
-    page, keys = cap.calls[("sort_rows_cuda", "sf1")][1]
-    n = int(page.num_rows)
-    got = originals["sort_rows"](page, keys)
-    want = S.sort_rows_plain(page, keys)
-    if not torch.equal(got[:n].to(torch.int64), want[:n]):
-        fail("K10 differs from its twin at the main path's inputs")
-    words = S.encode_sort_keys(page, keys)
-    word = words[-1][:n].contiguous()
-    key_b = sum(page.column(k.channel).values.element_size()
-                + (page.column(k.channel).valid is not None) for k in keys)
-    fn10 = lambda: originals["sort_rows"](page, keys)   # noqa: E731
-    out.append(dict(
-        name="sort_rows (K10, order_by/top_n_masked)", route="cuda",
-        source="trino_tpu_torch/csrc/sort.cu",
-        replaces="trino_tpu/ops/sort.py:71", launches=launches["sort_rows"],
-        max_abs_err=0.0, ms=cuda_ms(fn10), device_ms=device_profile(fn10)[0],
-        host_ms=host_ms(fn10),
-        plain_ms=cuda_ms(lambda: S.sort_rows_plain(page, keys)),
-        # the key columns of the live rows read once, the int32
-        # permutation written once
-        bound_ms=n * (key_b + 4) / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        library_ms=cuda_ms(lambda: torch.sort(word, stable=True)),
-        shape=f"sf1 sort: cap {page.capacity}, {n} live rows, {len(keys)} "
-              f"keys, {len(words)} words, "
-              f"{len(S.sort_passes(S.sort_layout(page, keys)))} digit "
-              f"passes, {'one block' if page.capacity <= S.ONE_BLOCK_ROWS else 'multi-block'}; "
-              f"library = torch.sort(stable=True) of one packed word"))
+    # K10 at q16's ORDER BY (the main path's small sorts) and at W2's
+    # window sort (8,388,608 rows of capacity, the largest sf1 sort)
+    for tag, name in K10_TIMED.items():
+        page, keys = cap.calls[(f"sort_rows_cuda:{tag}", "sf1")][1]
+        out.append(k10_row(name, launches["sort_rows"], page, keys,
+                           originals["sort_rows"], f"{tag}'s sort", card))
+    # both sides of the one-block threshold, on the same key set
+    small = []
+    for n in (S.SMALL_ROWS, S.SMALL_ROWS + 1):
+        page = sort_page(n, n, 77, dev)
+        keys = [S.SortKey(c, a, nf) for c, a, nf in SORT_KEYSETS[4]]
+        small.append(cuda_ms(lambda: originals["sort_rows"](page, keys)))
+    say(f"[kernel] sort_rows (K10) at the one-block threshold: "
+        f"{S.SMALL_ROWS} rows (one block) {small[0]:.4f} ms, "
+        f"{S.SMALL_ROWS + 1} rows (one launch per pass) {small[1]:.4f} ms "
+        f"per call (CUDA events, 4 keys) — {card}")
 
     # K11 at q6 sf1's largest step (its scan page's predicate)
     step, page, params = cap.calls[("expr_step_cuda", ("sf1", "q6"))][1]
@@ -3927,6 +4023,32 @@ def kernel_rows_dist(cap: Capture, originals, launches, dev, card):
         lambda: X.heavy_local_plain(words, k), 0.0, 8 * words.numel(),
         yard_local, "torch.unique_consecutive(return_counts) + topk",
         f"{words.numel()} sorted words, k {k}"))
+    # K10's u64 sort at its largest call (detect_heavy_keys's masked key
+    # words of a D4 sf10 shard): the words read once, the sorted words
+    # written once
+    from trino_tpu_torch.ops import sort as S
+    (words,) = cap.calls[("sort_u64_cuda", "dist")][1]
+    lo = -(1 << 63)
+    if not same_bits(originals["sort_u64"](words),
+                     torch.sort(words ^ lo, stable=True).values ^ lo):
+        fail("K10's u64 sort differs from torch.sort at the path's inputs")
+    flipped = words ^ lo
+    passes = [(0, 8 * b) for b in range(8)]
+    ran = sum(S.informative_passes_plain([flipped], words.numel(), passes))
+    fn = lambda: originals["sort_u64"](words)   # noqa: E731
+    say(f"[kernel] sort_u64 (K10) at the distributed path's largest call: "
+        f"top device time per call: " + ", ".join(
+            f"{k_[:48]} {t:.4f} ms" for k_, t in device_profile(fn)[1])
+        + f" — {card}")
+    out.append(row(
+        "sort_u64 (K10's u64 sort: detect_heavy_keys, rank_bounds)",
+        "trino_tpu_torch/csrc/sort.cu", "trino_tpu/parallel/exchange.py:87",
+        launches["sort_u64"], fn,
+        lambda: torch.sort(words ^ lo, stable=True).values ^ lo, 0.0,
+        16 * words.numel(), lambda: torch.sort(flipped, stable=True),
+        "torch.sort(stable=True) of the flipped words",
+        f"{words.numel()} u64 words, 8 digit passes of which {ran} ran and "
+        f"{8 - ran} were trivial"))
     keys, cnts_m, k3, thr = cap.calls[("heavy_merge_cuda", "dist")][1]
     h1 = originals["heavy_merge"](keys, cnts_m, k3, thr)
     h2 = X.heavy_merge_plain(keys, cnts_m, k3, thr)
@@ -4577,8 +4699,13 @@ def main() -> None:
     t0 = time.perf_counter()
     errs = {"sort_encode + sort_radix": check_sort(dev)}
     say(f"[kernels] K10 matches its plain twin on the card (words bit for "
-        f"bit, permutations exactly, one-block and multi-block paths, "
-        f"4,194,304 rows): {errs} in {time.perf_counter() - t0:.1f} s")
+        f"bit, permutations exactly; {len(sort_sizes())} pages x "
+        f"{len(SORT_KEYSETS)} key sets: both sides of the one-block "
+        f"threshold by capacity and by live rows, a capacity off the "
+        f"tile, no live row, equal rows, 4,194,304 and 16,777,216 rows; "
+        f"the u64 sort at {U64_SIZES} words, random and duplicate-heavy, "
+        f"equal to torch.sort): {errs} in "
+        f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     errs = {"spill_prep + join_dense (payload) + spill_probe":
                 check_spill_join(g, dev),
@@ -4717,7 +4844,10 @@ def main() -> None:
     cap.wrap(TD, "gen_column_cuda", lambda recipe, start, n, c, *_: n)
     cap.wrap(TD, "order_index_cuda", lambda *a: a[4])
     cap.wrap(A, "distinct_mask_cuda", lambda keys, el: el.numel())
-    cap.wrap(S, "sort_rows_cuda", lambda page, keys: page.capacity)
+    cap.wrap(S, "sort_rows_cuda", lambda page, keys: page.capacity,
+             lambda page, keys: cap.label[1]
+             if cap.label[0] == "sf1" and cap.label[1] in K10_TIMED
+             else None)
     def list_step(step, page, params=()):
         def has(e):
             return (isinstance(e, EI.Call) and e.name in EC.LIST_CALLS) \
@@ -5028,6 +5158,7 @@ def main() -> None:
              lambda state, arrays, n, b: state[0].numel() * len(arrays),
              scopes=dscope)
     cap.wrap(X, "heavy_local_cuda", lambda w, k: w.numel(), scopes=dscope)
+    cap.wrap(S, "sort_u64_cuda", lambda w: w.numel(), scopes=dscope)
     cap.wrap(X, "heavy_merge_cuda", lambda keys, *_: keys.numel(),
              scopes=dscope)
     dist_kernels = {"exchange_count": (X, "exchange_count_cuda"),

@@ -94,7 +94,7 @@ int64_t tile_offsets(const Keep& keep, int64_t cap, int64_t* scratch,
 // ------------------------------------------------------------ binned tiles
 //
 // The same count -> scan -> stable scatter with NBINS bins in place of one
-// keep flag: K10's radix passes (csrc/sort.cu). `Bin` is a by-value functor
+// keep flag: K18's partition moves (csrc/spill_part.cu). `Bin` is a by-value functor
 // with `int operator()(int64_t i) const` in [0, NBINS). Counts are laid out
 // bin-major (counts[b * ntiles + tile]), so tile_scan_kernel over the whole
 // array gives each (bin, tile) its first output row, and a stable scatter

@@ -5,9 +5,11 @@ stable `lax.sort` whose leading keys are the dead-row flag and per-key
 null and NaN flags. Here the same operands are packed, most significant
 first, into order-preserving 64-bit words (`encode_sort_keys`), and the
 words are sorted stably: by K10 (`csrc/sort.cu`, an LSD radix sort that
-carries an int32 permutation) for CUDA pages, by a chain of stable
-`torch.sort`s (least significant word first) for CPU pages. Both give the
-reference's permutation; `Page.gather` (K7) applies it.
+moves (key, index) pairs and skips the digit passes every live row
+shares) for CUDA pages, by a chain of stable `torch.sort`s (least
+significant word first) for CPU pages. Both give the reference's
+permutation; `Page.gather` (K7) applies it. `radix_replay_plain` and the
+functions before it model K10's pass plan step by step for the tests.
 
 Ordering semantics (Trino): ASC defaults to NULLS LAST, DESC to NULLS
 FIRST; NaN sorts largest; -0.0 and +0.0 tie; ties keep input order. DESC
@@ -19,6 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
@@ -106,28 +109,37 @@ class SortField:
     shift: int     # position of its least significant bit in the word
 
 
-def sort_layout(page: Page, keys: Sequence[SortKey]) -> List[SortField]:
+def sort_layout(page: Page, keys: Sequence[SortKey]
+                ) -> Tuple[SortField, ...]:
     """The fields of `_sort_operands` in order (the dead flag; per key a
     null flag when the column has validity, a NaN flag when it is a
     float, the value), packed most significant first into 64-bit words. A
     field never straddles two words: one that does not fit in what is
     left of a word starts the next, so the words compare in the fields'
     lexicographic order however wide the key tuple is."""
+    return _layout(tuple((page.column(k.channel).valid is not None,
+                          page.column(k.channel).values.dtype)
+                         for k in keys))
+
+
+@functools.lru_cache(maxsize=None)
+def _layout(spec: Tuple[Tuple[bool, torch.dtype], ...]
+            ) -> Tuple[SortField, ...]:
+    """sort_layout of keys given as (has validity, dtype) pairs."""
     raw = [(DEAD, -1, 1)]
-    for j, k in enumerate(keys):
-        col = page.column(k.channel)
-        if col.valid is not None:
+    for j, (has_valid, dtype) in enumerate(spec):
+        if has_valid:
             raw.append((NULL, j, 1))
-        if col.values.is_floating_point():
+        if dtype.is_floating_point:
             raw.append((NAN, j, 1))
-        raw.append((VALUE, j, _value_bits(col.values.dtype)))
+        raw.append((VALUE, j, _value_bits(dtype)))
     out, word, used = [], 0, 0
     for kind, key, width in raw:
         if used + width > 64:
             word, used = word + 1, 0
         out.append(SortField(kind, key, width, word, 64 - used - width))
         used += width
-    return out
+    return tuple(out)
 
 
 def _field_bits(op: torch.Tensor) -> torch.Tensor:
@@ -177,10 +189,13 @@ def sort_rows_plain(page: Page, keys: Sequence[SortKey]) -> torch.Tensor:
     return sort_permutation(encode_sort_keys(page, keys))
 
 
-# One block sorts a live prefix up to this many rows with every digit
-# pass inside one launch; larger pages take the multi-block passes.
-ONE_BLOCK_ROWS = 1 << 16
-SORT_TILE = 4096          # rows per block of a multi-block pass (tile.cuh)
+# K10's radix launch (csrc/sort.cu): one block sorts a live prefix of up
+# to SMALL_ROWS rows in shared memory; larger ones take one launch per
+# informative digit pass over tiles of SORT_TILE rows; a word's passes
+# follow one gather of that word, GROUP_PASSES passes at most.
+SMALL_ROWS = 8192
+SORT_TILE = 4096
+GROUP_PASSES = 8
 _MAX_KEYS = 64
 
 
@@ -199,21 +214,36 @@ def _key_table(page: Page, keys, layout) -> Tuple[list, list]:
                  | int(v.dtype == torch.bool) << 3)
         cols += [v.data_ptr(), 0 if c.valid is None else
                  c.valid.data_ptr(), v.element_size(), flags]
-    fields = [x for f in layout
-              for x in (f.kind, f.key, f.word, f.shift, f.width)]
-    return cols, fields
+    return cols, _fields(layout)
+
+
+@functools.lru_cache(maxsize=None)
+def _fields(layout: Tuple[SortField, ...]) -> Tuple[int, ...]:
+    return tuple(x for f in layout
+                 for x in (f.kind, f.key, f.word, f.shift, f.width))
 
 
 def sort_passes(layout: Sequence[SortField]) -> List[Tuple[int, int]]:
     """The 8-bit digit passes of an LSD radix sort of the packed words,
     least significant first: only bytes that hold a field's bits (the
     unused low bits of a word are 0 in every row)."""
+    return list(_passes(tuple(layout)))
+
+
+@functools.lru_cache(maxsize=None)
+def _passes(layout: Tuple[SortField, ...]) -> Tuple[Tuple[int, int], ...]:
     used = {}
     for f in layout:
-        for b in range(f.shift, f.shift + f.width):
-            used.setdefault(f.word, set()).add(b // 8)
-    return [(w, 8 * byte) for w in sorted(used, reverse=True)
-            for byte in sorted(used[w])]
+        used.setdefault(f.word, set()).update(
+            range(f.shift // 8, (f.shift + f.width - 1) // 8 + 1))
+    return tuple((w, 8 * byte) for w in sorted(used, reverse=True)
+                 for byte in sorted(used[w]))
+
+
+@functools.lru_cache(maxsize=None)
+def _passes_table(passes: Tuple[Tuple[int, int], ...]):
+    """The passes as sort_radix reads them: words, then shifts."""
+    return host_table([w for w, _ in passes], [s for _, s in passes])
 
 
 def _encode(page: Page, keys, layout, words: torch.Tensor) -> None:
@@ -240,7 +270,7 @@ def sort_rows_cuda(page: Page, keys: Sequence[SortKey]) -> torch.Tensor:
     words = torch.empty((layout[-1].word + 1, cap), dtype=torch.int64,
                         device=dev)
     _encode(page, keys, layout, words)
-    perm = radix_sort_words(words, page.num_rows, sort_passes(layout))
+    perm = radix_sort_words(words, page.num_rows, _passes(layout))
     sort_rows_cuda.launches += 1
     return perm
 
@@ -255,37 +285,141 @@ def radix_sort_words(words: torch.Tensor, num_rows: torch.Tensor,
     first: the int32 permutation that sorts the live prefix stably (rows
     past num_rows keep their places). The sort of K16 (ops/join.py) and
     of rank_bounds (exec/spill.py) reuse it."""
+    return _radix(words, num_rows, passes, False)[0]
+
+
+def _radix(words: torch.Tensor, num_rows: torch.Tensor,
+           passes: Sequence[Tuple[int, int]], want_keys: bool):
+    """radix_sort_words, and with `want_keys` also the sorted unsigned
+    words (int64) of the last pass's word over the live rows."""
     dev = words.device
     cap = words.shape[1]
     perm = torch.empty(cap, dtype=torch.int32, device=dev)
-    tmp = torch.empty(cap, dtype=torch.int32, device=dev)
-    one_block = cap <= ONE_BLOCK_ROWS
-    ntiles = max(1, -(-cap // SORT_TILE))
-    hist = torch.empty(1 if one_block else 256 * ntiles + 1,
-                       dtype=torch.int64, device=dev)
+    keys_out = torch.empty(cap, dtype=torch.int64, device=dev) \
+        if want_keys else None
+    scratch = [None] * 4
+    if cap > SMALL_ROWS:
+        # one allocation: two key buffers, the second index buffer, the
+        # plan, two status buffers (256 words per tile)
+        sizes = (2 * cap, -(-cap // 2), 257 * len(passes) + 4,
+                 2 * 256 * -(-cap // SORT_TILE))
+        buf = torch.empty(sum(sizes), dtype=torch.int64, device=dev)
+        scratch = list(torch.split(buf, sizes))
     rc = native.library("sort").sort_radix(
         ctypes.c_void_p(num_rows.data_ptr()), ctypes.c_int64(cap),
         ctypes.c_void_p(words.data_ptr()), ctypes.c_int64(len(passes)),
-        host_table([w for w, _ in passes], [s for _, s in passes]),
-        ctypes.c_void_p(perm.data_ptr()), ctypes.c_void_p(tmp.data_ptr()),
-        ctypes.c_void_p(hist.data_ptr()), ctypes.c_int64(int(one_block)),
+        _passes_table(tuple(passes)), ctypes.c_void_p(perm.data_ptr()),
+        *(ctypes.c_void_p(None if t is None else t.data_ptr())
+          for t in [keys_out] + scratch),
         ctypes.c_void_p(native.stream_ptr(dev)))
     native.check(rc, "sort_radix")
-    return perm
+    return perm, keys_out
 
 
 def sort_u64_cuda(words: torch.Tensor) -> torch.Tensor:
     """int64 words holding u64 values, sorted in unsigned order by K10's
-    radix passes (all eight bytes; every row sorted)."""
+    radix passes (all eight bytes; every row sorted). The result is the
+    last pass's keys: no gather through the permutation."""
     cap = words.shape[0]
     n = torch.full((), cap, dtype=torch.int32, device=words.device)
-    perm = radix_sort_words((words ^ _I64_MIN).reshape(1, cap), n,
-                            [(0, 8 * b) for b in range(8)])
+    _, keys = _radix((words ^ _I64_MIN).reshape(1, cap), n,
+                     [(0, 8 * b) for b in range(8)], True)
     sort_u64_cuda.launches += 1
-    return words[perm.to(torch.int64)]
+    return keys
 
 
 sort_u64_cuda.launches = 0
+
+
+# ------------------------------------- plain models of K10's pass plan
+
+def pass_groups(passes: Sequence[Tuple[int, int]]) -> List[Tuple[int, int]]:
+    """The passes K10 runs after one gather: [start, end) runs of passes
+    over one word, at most GROUP_PASSES long (csrc/sort.cu Passes)."""
+    out = []
+    for q, (w, _) in enumerate(passes):
+        if not out or passes[q - 1][0] != w or q - out[-1][0] == GROUP_PASSES:
+            out.append([q, q])
+        out[-1][1] = q + 1
+    return [tuple(g) for g in out]
+
+
+def _live(num_rows, cap: int) -> int:
+    return min(max(int(num_rows), 0), cap)
+
+
+def digit_histograms_plain(words: Sequence[torch.Tensor], num_rows,
+                           passes: Sequence[Tuple[int, int]]
+                           ) -> torch.Tensor:
+    """Plain twin of K10's histogram launch: int64 [npasses, 256], the
+    live rows' count of each digit of each pass (the counts do not depend
+    on the rows' order, so one launch counts every pass)."""
+    cap = words[0].shape[0]
+    n = _live(num_rows, cap)
+    out = torch.zeros((len(passes), 256), dtype=torch.int64,
+                      device=words[0].device)
+    for q, (w, shift) in enumerate(passes):
+        digit = ((words[w][:n] ^ _I64_MIN) >> shift) & 0xFF
+        out[q] = torch.bincount(digit, minlength=256)
+    return out
+
+
+def informative_passes_plain(words: Sequence[torch.Tensor], num_rows,
+                             passes: Sequence[Tuple[int, int]]
+                             ) -> List[bool]:
+    """Plain twin of K10's plan: a pass is informative unless one digit
+    holds every live row (a stable pass over one digit moves nothing; with
+    0 or 1 live rows no pass is informative)."""
+    n = _live(num_rows, words[0].shape[0])
+    return [bool(h.max() != n) for h in
+            digit_histograms_plain(words, num_rows, passes)]
+
+
+def scatter_positions_plain(digits: torch.Tensor, tile: int
+                            ) -> torch.Tensor:
+    """Plain model of one pass's scatter: row i of digit d goes to d's
+    base (the rows of smaller digits), plus the rows of d in the tiles
+    before i's (the look-back's prefix), plus i's rank among the rows of
+    d in its own tile (rows in order)."""
+    d = digits.to(torch.int64).cpu()
+    counts = torch.bincount(d, minlength=256)
+    before = torch.cumsum(counts, 0) - counts     # the digits' bases
+    pos = torch.empty_like(d)
+    for lo in range(0, d.shape[0], tile):
+        dt = d[lo:lo + tile]
+        # the earlier rows of the tile with the same digit
+        order = torch.argsort(dt, stable=True)
+        rank = torch.empty_like(dt)
+        rank[order] = torch.arange(dt.shape[0]) - torch.searchsorted(
+            dt[order], dt[order])
+        pos[lo:lo + tile] = before[dt] + rank
+        before += torch.bincount(dt, minlength=256)   # the next tiles'
+    return pos
+
+
+def radix_replay_plain(words: Sequence[torch.Tensor], num_rows,
+                       passes: Sequence[Tuple[int, int]],
+                       tile: int = SORT_TILE) -> torch.Tensor:
+    """K10's radix launch replayed step by step on the CPU: the plan's
+    informative passes only, one gather of each word whose group has one,
+    each pass's (key, index) pairs moved to scatter_positions_plain; the
+    identity past num_rows. Equal to the permutation of sort_permutation
+    over the live prefix."""
+    cap = words[0].shape[0]
+    n = _live(num_rows, cap)
+    keep = informative_passes_plain(words, num_rows, passes)
+    idx = torch.arange(n)
+    for q0, q1 in pass_groups(passes):
+        if not any(keep[q0:q1]):
+            continue
+        keys = (words[passes[q0][0]][:n].cpu() ^ _I64_MIN)[idx]
+        for q in range(q0, q1):
+            if keep[q]:
+                pos = scatter_positions_plain(
+                    (keys >> passes[q][1]) & 0xFF, tile)
+                keys = torch.empty_like(keys).index_put_((pos,), keys)
+                idx = torch.empty_like(idx).index_put_((pos,), idx)
+    return torch.cat([idx, torch.arange(n, cap)]).to(torch.int32)
 
 
 def encode_sort_keys_cuda(page: Page, keys: Sequence[SortKey]
