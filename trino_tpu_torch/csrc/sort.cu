@@ -79,8 +79,9 @@ constexpr size_t SMALL_SMEM =
     GROUP_PASSES * RADIX * sizeof(int) + RADIX * sizeof(int);
 
 // A tile is 256 threads of 16 keys: on an H100 tiles of 4,096 rows sort
-// 8,388,608 rows faster than tiles of 2,048 or 3,072 (16 keys a thread
-// reach the 128 registers that two blocks per SM allow).
+// 8,388,608 rows faster than tiles of 2,048 or 3,072 (`python3 -m
+// trino_tpu_torch.k10_tiles` times them; 16 keys a thread reach the 128
+// registers that two blocks per SM allow).
 constexpr int PASS_THREADS = 256;     // one thread per digit
 constexpr int PASS_IPT = 16;
 constexpr int TILE_ROWS = PASS_THREADS * PASS_IPT;   // ops/sort.py SORT_TILE
