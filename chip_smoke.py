@@ -886,28 +886,64 @@ def check_compact(g, dev) -> float:
     return 0.0   # compared bit for bit
 
 
+# K2's phase-2 layouts: (cap, live rows, plane width or None) per page.
+# Every second page lacks its validity (written as all-valid bytes).
+CONCAT_CASES = {
+    "mixed": [(10, 3, None), (0, 0, None), (4097, 4097, None),
+              (5, 0, None)],
+    "tile_edges": [(2048, 2000, None), (2049, 1, None), (1, 1, None)],
+    "two_small": [(12, 4, None), (12, 4, None)],
+    "large": [(4_194_304, 4_000_000, None), (1_805_652, 1_805_652, None)],
+    "none_live": [(100, 0, None), (2_097_152, 0, None), (3, 0, None)],
+    "single_row": [(1, 1, None)],
+    "64_pages": [(1000 + 37 * i, (911 * i) % 1000, None)
+                 for i in range(64)],
+    "narrower_planes": [(5000, 4999, 8), (3000, 2100, 1), (2, 1, 4)],
+    "receive": [(2_097_152, 20_193 + (i < 5), None) for i in range(8)],
+}
+
+
+def concat_layout(g, layout, dev, receive=False):
+    """Seeded pages of one CONCAT_CASES layout: int64, float64 (NaN,
+    -0.0), int32 and a validity (absent on odd pages), plus an int64
+    plane where the layout gives its width. The receive's pages carry
+    six value columns and six validities (12 arrays), all present."""
+    arrays, counts = [], []
+    for i, (cap, n, L) in enumerate(layout):
+        ints, f, i32, valid, i16 = rng_page_arrays(g, cap, dev)
+        if receive:
+            pa = [ints, valid, f, valid, i32, valid, i16, valid,
+                  ints.flip(0), valid, f.flip(0), valid]
+        else:
+            pa = [ints, f, i32, valid if i % 2 == 0 else None]
+        if L is not None:
+            pa.append(torch.randint(-2**40, 2**40, (cap, L), generator=g,
+                                    dtype=torch.int64).to(dev))
+        arrays.append(pa)
+        counts.append(torch.tensor(n, dtype=torch.int32, device=dev))
+    return arrays, counts, sum(c for c, _, _ in layout)
+
+
 def check_concat(g, dev) -> float:
+    """K2 against its twin on every CONCAT_CASES layout, bit for bit
+    (rows, all-valid bytes, a narrower plane's zero padding, the total),
+    one launch per call."""
     from trino_tpu_torch import page as P
-    layouts = [[(10, 3), (0, 0), (4097, 4097), (5, 0)],
-               [(2048, 2000), (2049, 1), (1, 1)],
-               [(12, 4), (12, 4)],
-               [(4_194_304, 4_000_000), (1_805_652, 1_805_652)]]
-    for layout in layouts:
-        arrays, counts = [], []
-        for i, (cap, n) in enumerate(layout):
-            ints, f, i32, valid, _ = rng_page_arrays(g, cap, dev)
-            arrays.append([ints, f, i32, valid if i % 2 == 0 else None])
-            counts.append(torch.tensor(n, dtype=torch.int32, device=dev))
-        out_cap = sum(c for c, _ in layout)
+    for name, layout in CONCAT_CASES.items():
+        arrays, counts, out_cap = concat_layout(g, layout, dev,
+                                                name == "receive")
+        before = P.concat_rows_cuda.launches
         got, tot = P.concat_rows_cuda(arrays, counts, out_cap)
         sync()
+        if P.concat_rows_cuda.launches != before + 1:
+            fail(f"K2 {name}: not one launch")
         want, wtot = P.concat_rows_plain(arrays, counts, out_cap)
         k = int(wtot)
         if int(tot) != k:
-            fail(f"K2 total {int(tot)} != {k}")
+            fail(f"K2 {name}: total {int(tot)} != {k}")
         for a, b in zip(got, want):
-            if not same_bits(a[:k], b[:k]):
-                fail(f"K2 rows differ for layout {layout}")
+            if a.shape != b.shape or not same_bits(a[:k], b[:k]):
+                fail(f"K2 rows differ for layout {name}")
     return 0.0   # compared bit for bit
 
 
@@ -983,18 +1019,48 @@ def check_direct(g, dev) -> float:
     return worst
 
 
+# K4's phase-2 calls: (cap, live rows, states). Caps off the grid's
+# stride (global_grid(cap) x 256 rows), no live row and every row live;
+# 1, 8, 9 and 17 states in one launch.
+GLOBAL_CASES = [(0, 0, 7), (1, 1, 7), (4097, 10, 7), (100_003, 100_003, 1),
+                (100_003, 0, 8), (1_000_003, 999_999, 9),
+                (4_194_304, 4_194_304, 17), (5_000_011, 4_999_000, 7)]
+
+
+def global_states(g, cap, dev, k):
+    """k states cycling through agg_states' seven kinds (sums, a count,
+    integer and float min/max), their floats with NaN, +-0.0 and +-inf."""
+    base = agg_states(g, cap, dev)
+    if cap >= 300:
+        for s in base:
+            if s.is_float:
+                s.values[3::211] = float("inf")
+                s.values[4::223] = float("-inf")
+                s.values[5::97] = float("nan")
+    return [base[j % len(base)] for j in range(k)]
+
+
 def check_global(g, dev) -> float:
+    """K4 against its twin on GLOBAL_CASES (one launch per call), and two
+    calls on one page whose float sums must be equal bit for bit."""
     from trino_tpu_torch.ops import aggregate as A
     worst = 0.0
-    for cap, n in [(0, 0), (1, 1), (4097, 10), (100_003, 100_003),
-                   (4_194_304, 4_194_304)]:
-        states = agg_states(g, cap, dev)
+    for cap, n, k in GLOBAL_CASES:
+        states = global_states(g, cap, dev, k)
         num_rows = torch.tensor(n, dtype=torch.int32, device=dev)
-        got = A.global_reduce_triton(states, num_rows, cap)
+        before = A.global_reduce_cuda.launches
+        got = A.global_reduce_cuda(states, num_rows, cap)
         sync()
+        if A.global_reduce_cuda.launches != before + 1:
+            fail(f"K4 cap={cap}: not one launch for {k} states")
         want = A.global_reduce_plain(states, num_rows, cap)
-        worst = max(worst, compare_states(f"K4 cap={cap}", states, got,
-                                          want))
+        worst = max(worst, compare_states(f"K4 cap={cap} k={k}", states,
+                                          got, want))
+        again = A.global_reduce_cuda(states, num_rows, cap)
+        for s, a, b in zip(states, got, again):
+            if not same_bits(a, b):
+                fail(f"K4 cap={cap}: two calls differ (kind {s.kind}, "
+                     f"float={s.is_float})")
     return worst
 
 
@@ -4649,16 +4715,16 @@ def main() -> None:
     g = torch.Generator().manual_seed(20261017)
     from trino_tpu_torch.ops import aggregate as A
     t0 = time.perf_counter()
-    A._global_kernels()
-    check_global(g, dev)   # first call compiles the Triton programs
-    say(f"[card] Triton K4 first call (compile + run): "
-        f"{time.perf_counter() - t0:.2f} s")
     errs = {"compact_rows": check_compact(g, dev),
             "concat_rows": check_concat(g, dev),
             "direct_aggregate": check_direct(g, dev),
             "global_aggregate": check_global(g, dev)}
     say(f"[kernels] K1-K4 match their plain twins on the card "
-        f"(integers exact, float64 sums <= 1e-9 rel): {errs}")
+        f"(integers exact, float64 sums <= 1e-9 rel; K2 in one launch over "
+        f"{len(CONCAT_CASES)} layouts: {', '.join(CONCAT_CASES)}; K4 in one "
+        f"launch for 1 to 17 states, NaN, +-0.0, +-inf, no row and every "
+        f"row live, caps off the grid's stride, float sums equal bit for "
+        f"bit over two calls): {errs} in {time.perf_counter() - t0:.1f} s")
     errs = {"compact_rows range mode": check_range(g, dev),
             "gather_rows": check_gather(g, dev),
             "join_build + join_dense + unique_probe": check_join(g, dev),
@@ -4808,7 +4874,7 @@ def main() -> None:
              receive_tag, ("sf1", "forced", "dist"))
     cap.wrap(A, "direct_reduce_cuda",
              lambda keys, states, n, nseg: keys[0].codes.numel())
-    cap.wrap(A, "global_reduce_triton", lambda states, n, c: c)
+    cap.wrap(A, "global_reduce_cuda", lambda states, n, c: c)
     cap.wrap(P, "compact_range_cuda", lambda arrays, key, *_: key.numel())
     def plane_tag(arrays, *_):
         return "plane" if any(a is not None and a.dim() == 2
@@ -4953,7 +5019,7 @@ def main() -> None:
                "compact_range": (P, "compact_range_cuda"),
                "concat_rows": (P, "concat_rows_cuda"),
                "direct_aggregate": (A, "direct_reduce_cuda"),
-               "global_aggregate": (A, "global_reduce_triton"),
+               "global_aggregate": (A, "global_reduce_cuda"),
                "join_build": (J, "join_build_cuda"),
                "join_dense": (J, "join_dense_cuda"),
                "join_runs": (J, "join_runs_cuda"),
@@ -5283,13 +5349,20 @@ def main() -> None:
                       for k, (_, attr) in dist_kernels.items()
                       if attr in cap.orig})
     rows += kernel_rows_dist(cap, originals, dist_launches, dev, card)
+    from trino_tpu_torch import launch_trace
+    for label, (us, ms) in launch_trace.launch_floor().items():
+        say(f"[kernel] launch floor, {label}: host {us:.2f} us per launch "
+            f"(1000 launches of an empty kernel), {ms:.4f} ms per launch "
+            f"(CUDA events) — {card}")
     for r in rows:
         dev_ms = "not measured" if r["device_ms"] is None \
             else f"{r['device_ms']:.4f} ms"
         lib = "none" if r["library_ms"] is None \
             else f"{r['library_ms']:.4f} ms"
+        host = "" if r.get("host_ms") is None \
+            else f", host enqueue {r['host_ms']:.4f} ms"
         say(f"[kernel] {r['name']}: {r['ms']:.4f} ms per call (CUDA "
-            f"events), device-busy {dev_ms} (profiler), bound "
+            f"events{host}), device-busy {dev_ms} (profiler), bound "
             f"{r['bound_ms']:.6f} ms ({r['bound_by']}), plain "
             f"{r['plain_ms']:.4f} ms, library {lib}, "
             f"{r['shape']} — {card}")
@@ -5424,6 +5497,8 @@ def kernel_rows(cap: Capture, originals, launches, dev):
                                                     out_cap)),
         device_ms=device_profile(lambda: originals["concat_rows"](
             arrays2, counts, out_cap))[0],
+        host_ms=host_ms(lambda: originals["concat_rows"](arrays2, counts,
+                                                         out_cap)),
         plain_ms=cuda_ms(lambda: P.concat_rows_plain(arrays2, counts,
                                                      out_cap)),
         bound_ms=(2 * moved) / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
@@ -5475,7 +5550,7 @@ def kernel_rows(cap: Capture, originals, launches, dev):
               f"{nseg} slots, {len(states)} states"))
 
     # K4 at q6 sf1's partial aggregation of the first filtered page
-    states4, num_rows4, cap4 = cap.calls[("global_reduce_triton",
+    states4, num_rows4, cap4 = cap.calls[("global_reduce_cuda",
                                           ("sf1", "q6"))][1]
     n4 = int(num_rows4)
     ins4 = []
@@ -5491,14 +5566,16 @@ def kernel_rows(cap: Capture, originals, launches, dev):
                                             device=dev)
                             for s in states4])
     out.append(dict(
-        name="global_aggregate (K4, _global_aggregate)", route="triton",
-        source="trino_tpu_torch/ops/aggregate.py",
+        name="global_aggregate (K4, _global_aggregate)", route="cuda",
+        source="trino_tpu_torch/csrc/global_agg.cu",
         replaces="trino_tpu/ops/aggregate.py:1229",
         launches=launches["global_aggregate"], max_abs_err=err,
         ms=cuda_ms(lambda: originals["global_aggregate"](states4, num_rows4,
                                                          cap4)),
         device_ms=device_profile(lambda: originals["global_aggregate"](
             states4, num_rows4, cap4))[0],
+        host_ms=host_ms(lambda: originals["global_aggregate"](
+            states4, num_rows4, cap4)),
         plain_ms=cuda_ms(lambda: A.global_reduce_plain(states4, num_rows4,
                                                        cap4)),
         bound_ms=(nbytes(ins4) + 8 * len(states4)) / HBM_BYTES_PER_S * 1e3,

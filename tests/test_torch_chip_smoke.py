@@ -141,3 +141,59 @@ def test_chip_smoke_u64_words_replay_on_the_cpu(chip_smoke, kind):
                                     [(0, 8 * b) for b in range(8)])
         want = torch.sort(words ^ lo, stable=True).values ^ lo
         assert torch.equal(words[perm.to(torch.int64)], want)
+
+
+def test_chip_smoke_concat_cases_cover_the_one_launch_design(chip_smoke):
+    """Phase 2's K2 layouts: no live row, one page of one row, 64 pages,
+    pages without validity, narrower planes and the receive's shape (8
+    slices of 2,097,152 rows, 12 arrays, 161,549 live rows)."""
+    cases = chip_smoke.CONCAT_CASES
+    assert all(n == 0 for _, n, _ in cases["none_live"])
+    assert cases["single_row"] == [(1, 1, None)]
+    assert len(cases["64_pages"]) == 64
+    widths = [L for _, _, L in cases["narrower_planes"]]
+    assert None not in widths and len(set(widths)) == len(widths)
+    receive = cases["receive"]
+    assert [c for c, _, _ in receive] == [2_097_152] * 8
+    assert sum(n for _, n, _ in receive) == 161_549
+    for name, layout in cases.items():
+        assert all(0 <= n <= c for c, n, _ in layout), name
+    g = torch.Generator().manual_seed(0)
+    arrays, counts, out_cap = chip_smoke.concat_layout(
+        g, [(5, 3, None), (7, 7, 2)], "cpu")
+    assert out_cap == 12 and arrays[1][3] is None
+    assert arrays[0][3].dtype == torch.bool and arrays[1][4].shape == (7, 2)
+    arrays, _, _ = chip_smoke.concat_layout(g, [(4, 4, None)] * 2, "cpu",
+                                            receive=True)
+    assert all(len(pa) == 12 and None not in pa for pa in arrays)
+
+
+def test_chip_smoke_global_cases_cover_the_one_launch_design(chip_smoke):
+    """Phase 2's K4 calls: 1, 8, 9 and 17 states in one launch, no live
+    row and every row live, capacities off the grid's stride; the floats
+    carry NaN, +-0.0 and +-inf."""
+    from trino_tpu_torch.ops import aggregate as A
+    cases = chip_smoke.GLOBAL_CASES
+    assert {1, 8, 9, 17} <= {k for _, _, k in cases}
+    assert any(n == 0 < c for c, n, _ in cases)
+    assert any(n == c > 0 for c, n, _ in cases)
+    assert any(c % (A.global_grid(c) * A.GLOBAL_THREADS) for c, _, _ in cases
+               if c)
+    g = torch.Generator().manual_seed(0)
+    states = chip_smoke.global_states(g, 5000, "cpu", 17)
+    assert len(states) == 17
+    assert {(s.kind, s.is_float) for s in states} == {
+        (A.SUM, False), (A.SUM, True), (A.COUNT, False), (A.MIN, False),
+        (A.MAX, False), (A.MIN, True), (A.MAX, True)}
+    f = torch.cat([s.values for s in states if s.is_float])
+    assert torch.isnan(f).any() and torch.isinf(f).any()
+    assert (f == float("-inf")).any() and (f == 0).any()
+    assert (torch.signbit(f) & (f == 0)).any()
+
+
+def test_launch_trace_queries_are_chip_smokes(chip_smoke):
+    """The host trace captures K2 and K4 from the same q1 and q6 texts
+    that chip_smoke.py runs."""
+    from trino_tpu_torch import launch_trace
+    assert launch_trace.Q1 == chip_smoke.TPCH["q1"][0]
+    assert launch_trace.Q6 == chip_smoke.TPCH["q6"][0]

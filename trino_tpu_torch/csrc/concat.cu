@@ -3,98 +3,140 @@
 // Replaces trino_tpu/page.py device_concat, which writes each page's
 // full-capacity columns with lax.dynamic_update_slice at a traced running
 // offset, page after page (the next page overwrites the previous page's
-// padding tail).
+// padding tail), and the receive of trino_tpu/parallel/exchange.py
+// (_exchange_compact, broadcast_page, gather_page), which is the same
+// concatenation of the sources' slices.
 //
 // Bound on this card: bytes — each live row of each column is read once
-// and written once. The design never reads the counts on the host:
-//   1. offsets_kernel — one thread forms the N running offsets and the
-//                       total (written to the output num_rows) from the
-//                       device-side counts;
-//   2. copy_kernel    — grid (row tiles, pages): each block copies its
-//                       tile of one page's live prefix, column by column
-//                       (coalesced reads and writes), to offset + row.
-// Only live rows move, so padding costs nothing; a page whose validity is
-// absent while another page's is present has a null source and writes
-// "valid" bytes. Empty pages and capacities that are not a multiple of the
-// tile are handled by the per-block bounds. K32: a list plane [cap, L]
-// moves as rows of element size x L bytes; a page whose plane is narrower
-// than the output's (a smaller L) writes zeros past its row.
+// and written once. At the main path's calls the data is small (q1's
+// partial buffer moves 8 rows) and the call is bound by the host's
+// enqueue, so the design is one launch with a parameter block sized to
+// the call:
+//   * one kernel: every block reads the device-side counts of all pages
+//     (clamped to each page's capacity) and forms the pages' row offsets
+//     and first (page, tile) items with two block scans; block 0 writes
+//     the total to num_rows. The counts are never read on the host.
+//   * a persistent grid of at most a small multiple of the SMs (the host
+//     caps it by the most items the capacities allow): blocks walk the
+//     (page, tile) items of the live rows by grid stride, so padding
+//     launches no block (an exchange receive of 8 slices of 2,097,152
+//     rows with 161,549 live rows has about 80 items, where a grid over
+//     the capacities had 8,192 blocks). Within an item the threads take
+//     its (column, row) pairs column by column: coalesced rows, and a
+//     short item (q1's 4-row pages) copies every column at once.
+//   * the pointer table travels by value in a parameter block of 256 or
+//     TABLE_MAX words, the smaller one when the call fits it.
+// A page whose validity is absent while another page's is present has a
+// null source and writes "valid" bytes. K32: a list plane [cap, L] moves
+// as rows of element size x L bytes; a page whose plane is narrower than
+// the output's (a smaller L) writes zeros past its row.
 #include "common.cuh"
 
 namespace {
 constexpr int THREADS = 256;
-constexpr int TILE = 2048;
+constexpr int TILE = 2048;  // rows of one (page, tile) item
 
-__global__ void offsets_kernel(const __grid_constant__ Table tbl,
-                               int64_t npages, int64_t* __restrict__ offsets,
-                               int32_t* __restrict__ total) {
-  if (threadIdx.x != 0) return;
-  const int64_t* table = tbl.v;
-  const int64_t* counts = table;
-  const int64_t* caps = table + npages;
-  int64_t run = 0;
-  for (int64_t p = 0; p < npages; ++p) {
-    offsets[p] = run;
-    int64_t c = *reinterpret_cast<const int32_t*>(counts[p]);
-    c = c < 0 ? 0 : (c > caps[p] ? caps[p] : c);
-    run += c;
-  }
-  *total = (int32_t)run;
-}
+template <int W>
+struct Words {
+  int64_t v[W];
+};
 
-__global__ void copy_kernel(const __grid_constant__ Table tbl,
-                            int64_t npages, int64_t ncols, int with_srb,
-                            const int64_t* __restrict__ offsets) {
-  const int64_t* table = tbl.v;
-  const int64_t p = blockIdx.y;
-  const int64_t* counts = table;
-  const int64_t* caps = table + npages;
-  const int64_t* srcs = table + 2 * npages;
-  const int64_t* dsts = srcs + npages * ncols;
+// Table layout (int64 words): count ptrs (npages), capacities (npages),
+// src ptrs (npages * ncols, 0 = all-valid bytes), dst ptrs (ncols), dst
+// row sizes in bytes (ncols), then, when with_srb, src row sizes in bytes
+// (npages * ncols, at most the dst's). npages <= W / 2.
+template <int W>
+__global__ void __launch_bounds__(THREADS)
+    concat_kernel(const __grid_constant__ Words<W> tbl, int npages,
+                  int ncols, int with_srb, int32_t* __restrict__ total) {
+  constexpr int MAXP = W / 2;
+  __shared__ int64_t row_off[MAXP + 1];   // first output row of page p
+  __shared__ int64_t item_off[MAXP + 1];  // first (page, tile) item of p
+  __shared__ int64_t warp_sums[32];
+  const int64_t* t = tbl.v;
+  const int64_t* counts = t;
+  const int64_t* caps = t + npages;
+  const int64_t* srcs = t + 2 * npages;
+  const int64_t* dsts = srcs + (int64_t)npages * ncols;
   const int64_t* drb = dsts + ncols;
   const int64_t* srb = drb + ncols;
-  int64_t cnt = *reinterpret_cast<const int32_t*>(counts[p]);
-  cnt = cnt < 0 ? 0 : (cnt > caps[p] ? caps[p] : cnt);
-  const int64_t r0 = (int64_t)blockIdx.x * TILE;
-  if (r0 >= cnt) return;
-  const int64_t r1 = r0 + TILE < cnt ? r0 + TILE : cnt;
-  const int64_t off = offsets[p];
-  for (int64_t c = 0; c < ncols; ++c) {
-    const void* src = reinterpret_cast<const void*>(srcs[p * ncols + c]);
-    void* dst = reinterpret_cast<void*>(dsts[c]);
-    const int64_t d = drb[c], sr = with_srb ? srb[p * ncols + c] : d;
-    for (int64_t r = r0 + threadIdx.x; r < r1; r += THREADS) {
+
+  int64_t rows = 0, items = 0;
+  for (int base = 0; base < npages; base += THREADS) {
+    const int p = base + threadIdx.x;
+    int64_t c = 0;
+    if (p < npages) {
+      c = *reinterpret_cast<const int32_t*>(counts[p]);
+      c = c < 0 ? 0 : (c > caps[p] ? caps[p] : c);
+    }
+    int64_t sum_rows, sum_items;
+    const int64_t r = block_exclusive_scan<int64_t>(c, warp_sums, &sum_rows);
+    const int64_t it = block_exclusive_scan<int64_t>((c + TILE - 1) / TILE,
+                                                     warp_sums, &sum_items);
+    if (p < npages) {
+      row_off[p] = rows + r;
+      item_off[p] = items + it;
+    }
+    rows += sum_rows;
+    items += sum_items;
+  }
+  if (threadIdx.x == 0) {
+    row_off[npages] = rows;
+    item_off[npages] = items;
+    if (blockIdx.x == 0) *total = (int32_t)rows;
+  }
+  __syncthreads();
+
+  int p = 0;
+  for (int64_t item = blockIdx.x; item < items; item += gridDim.x) {
+    while (item_off[p + 1] <= item) ++p;
+    const int64_t r0 = (item - item_off[p]) * TILE;
+    const int64_t live = row_off[p + 1] - row_off[p];
+    const int n = (int)((r0 + TILE < live ? r0 + TILE : live) - r0);
+    const int64_t off = row_off[p] + r0;
+    // the item's (column, row) pairs, column by column: consecutive
+    // threads copy consecutive rows of one column, and a short item
+    // copies all its columns at once
+    for (int f = threadIdx.x; f < n * ncols; f += THREADS) {
+      const int c = f / n;
+      const int r = f - c * n;
+      const int64_t k = (int64_t)p * ncols + c;
+      const void* src = reinterpret_cast<const void*>(srcs[k]);
+      void* dst = reinterpret_cast<void*>(dsts[c]);
+      const int64_t d = drb[c];
       if (src == nullptr)
         static_cast<uint8_t*>(dst)[off + r] = 1;
       else
-        copy_row_padded(src, r, sr, dst, off + r, d);
+        copy_row_padded(src, r0 + r, with_srb ? srb[k] : d, dst, off + r, d);
     }
   }
 }
+
+template <int W>
+int launch(const void* table, int64_t len, int npages, int ncols,
+           int with_srb, void* total, int grid, cudaStream_t s) {
+  thread_local static Words<W> t;  // each launch copies it as a parameter
+  const int64_t* src = static_cast<const int64_t*>(table);
+  for (int64_t i = 0; i < len; ++i) t.v[i] = src[i];
+  concat_kernel<W><<<grid, THREADS, 0, s>>>(t, npages, ncols, with_srb,
+                                            static_cast<int32_t*>(total));
+  return (int)cudaGetLastError();
+}
 }  // namespace
 
-// table: int64 HOST array [count ptrs (npages), capacities (npages),
-// src ptrs (npages * ncols, 0 = all-valid bytes), dst ptrs (ncols),
-// dst row sizes in bytes (ncols), then, when with_srb, src row sizes in
-// bytes (npages * ncols, at most the dst's; without them each page's rows
-// are the dst's)]; offsets: int64[npages] scratch; total: int32.
-// Returns cudaGetLastError(), or -1 when the table exceeds TABLE_MAX.
-TT_EXPORT int concat_rows(int64_t npages, int64_t ncols, int64_t max_cap,
-                          int64_t with_srb, const void* table, void* offsets,
-                          void* total, void* stream) {
+// table: the int64 host array above, of `len` words; total: int32; grid:
+// the number of blocks (at least 1). Returns cudaGetLastError(), or -1
+// when the table exceeds TABLE_MAX words or npages exceeds TABLE_MAX / 2.
+TT_EXPORT int concat_rows(int64_t npages, int64_t ncols, int64_t with_srb,
+                          const void* table, int64_t len, void* total,
+                          int64_t grid, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  thread_local static Table t;  // each launch copies it as a parameter
-  if (load_table(table,
-                 2 * npages + (1 + (with_srb != 0)) * npages * ncols +
-                     2 * ncols,
-                 &t))
-    return -1;
-  offsets_kernel<<<1, 32, 0, s>>>(t, npages, static_cast<int64_t*>(offsets),
-                                  static_cast<int32_t*>(total));
-  const int64_t tiles = max_cap > 0 ? (max_cap + TILE - 1) / TILE : 0;
-  if (tiles > 0 && ncols > 0)
-    copy_kernel<<<dim3((unsigned)tiles, (unsigned)npages), THREADS, 0, s>>>(
-        t, npages, ncols, (int)(with_srb != 0),
-        static_cast<const int64_t*>(offsets));
-  return (int)cudaGetLastError();
+  if (grid < 1) grid = 1;
+  if (len <= 256 && npages <= 128)
+    return launch<256>(table, len, (int)npages, (int)ncols,
+                       (int)(with_srb != 0), total, (int)grid, s);
+  if (len <= TABLE_MAX && npages <= TABLE_MAX / 2)
+    return launch<TABLE_MAX>(table, len, (int)npages, (int)ncols,
+                             (int)(with_srb != 0), total, (int)grid, s);
+  return -1;
 }

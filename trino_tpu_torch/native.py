@@ -19,7 +19,7 @@ import hashlib
 import os
 import subprocess
 import threading
-from typing import Dict, Iterable
+from typing import Any, Dict, Iterable, Sequence, Tuple
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
@@ -30,10 +30,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCES = ("compact", "concat", "direct_agg", "gather", "join_build",
            "join_probe", "join_expand", "join_mxu", "group_agg", "sort",
            "tpch_gen", "join_spill", "spill_part", "window", "special_agg",
-           "list", "exchange")
+           "list", "exchange", "global_agg", "floor")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FNS: Dict[Tuple[str, str], Any] = {}
+_SMS: Dict[int, int] = {}
 
 
 def _nvcc() -> str:
@@ -120,6 +122,39 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc}")
 
 
+def function(name: str, entry: str, argtypes: Sequence) -> Any:
+    """The exported `entry` of `csrc/<name>.cu` with its argument types
+    set, so a call passes Python ints straight through (pointers as
+    c_void_p, sizes as c_int64) without making ctypes objects."""
+    fn = _FNS.get((name, entry))
+    if fn is None:
+        fn = getattr(library(name), entry)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _FNS[(name, entry)] = fn
+    return fn
+
+
 def stream_ptr(device) -> int:
     import torch
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def raw_stream(index: int) -> int:
+    """The current stream of CUDA device `index` as a pointer, read
+    without making a torch.cuda.Stream object."""
+    import torch
+    get = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if get is None:
+        return torch.cuda.current_stream(index).cuda_stream
+    return get(index)
+
+
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device `index` (cached)."""
+    n = _SMS.get(index)
+    if n is None:
+        import torch
+        n = _SMS[index] = \
+            torch.cuda.get_device_properties(index).multi_processor_count
+    return n

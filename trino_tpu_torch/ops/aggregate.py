@@ -13,7 +13,7 @@ here, each beside its plain PyTorch twin:
   eligible row per distinct (group keys, argument) pair for a DISTINCT
   aggregate;
 * K4 `global_reduce` (`_global_aggregate`): no GROUP BY, a masked
-  multi-column reduction to one row, a Triton kernel in this module;
+  multi-column reduction to one row, `csrc/global_agg.cu`;
 * K19 `passthrough` (passthrough_partial): the adaptive bypass's
   PARTIAL-layout state row per input row, a Triton kernel in this module;
 * K28 `group_ids`, K8's group-id mode: one K8 launch that also maps every
@@ -47,10 +47,12 @@ has the page's capacity.
 
 from __future__ import annotations
 
+import array
 import ctypes
 import dataclasses
 from typing import Callable, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from trino_tpu_torch import native
@@ -858,10 +860,14 @@ def distinct_mask(keys, eligible):
 
 # ------------------------------------------------------------------ K4
 
-_TRITON_MAX_STATES = 8
-_GLOBAL_BLOCK = 4096
-_REDUCE_BLOCK = 1024
-_GLOBAL_KERNELS: dict = {}
+GLOBAL_ROWS = 4096          # rows of capacity per block of K4's grid
+GLOBAL_GRID_MAX = 512       # blocks of K4's grid at most
+GLOBAL_THREADS = 256        # threads of a K4 block (csrc/global_agg.cu)
+STATE_FIELDS = 5            # words of a state descriptor (csrc/common.cuh)
+_GLOBAL_SCRATCH: dict = {}  # device index -> (partials, ticket)
+_GLOBAL_ARGS = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p)
 
 
 def global_reduce_plain(states: Sequence[StateInput], num_rows: torch.Tensor,
@@ -886,239 +892,185 @@ def global_reduce_plain(states: Sequence[StateInput], num_rows: torch.Tensor,
     return out
 
 
-def _global_kernels():
-    """Build (once per process) the two Triton programs of K4.
-
-    Replaces trino_tpu/ops/aggregate.py _global_aggregate, whose per-state
-    jnp.sum/min/max over the page XLA fuses into reductions. Bound on this
-    card: bytes — each state column (and its validity and FILTER mask) is
-    read once; the output is one word per state. Pass 1 has one program
-    per 4096-row block reduce EVERY state column of the block (one launch
-    for up to 8 states) into per-block partials; pass 2 is one program
-    that folds the partials of each state in block order. Both passes
-    reduce in a fixed tree order, so float64 sums repeat bit for bit from
-    run to run. min/max reduce order-preserving int64 keys of the floats
-    (-0.0 < +0.0) with NaN carried as a separate flag, as jnp.min/max
-    propagate NaN."""
-    if _GLOBAL_KERNELS:
-        return _GLOBAL_KERNELS["partial"], _GLOBAL_KERNELS["final"]
-    import triton
-    import triton.language as tl
-    # the kernels below resolve `tl` through this module's globals
-    globals()["tl"] = tl
-
-    @triton.jit
-    def partial_kernel(num_rows_ptr,
-                       v0, v1, v2, v3, v4, v5, v6, v7,
-                       a0, a1, a2, a3, a4, a5, a6, a7,
-                       m0, m1, m2, m3, m4, m5, m6, m7,
-                       part_i, part_f, part_n, nblocks,
-                       K: tl.constexpr, KINDS: tl.constexpr,
-                       FLOATS: tl.constexpr, VALIDS: tl.constexpr,
-                       MASKS: tl.constexpr, BLOCK: tl.constexpr):
-        pid = tl.program_id(0)
-        n = tl.load(num_rows_ptr).to(tl.int64)
-        offs = pid.to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
-        live = offs < n
-        for j in tl.static_range(K):
-            if j == 0:
-                vp = v0
-                ap = a0
-                mp = m0
-            elif j == 1:
-                vp = v1
-                ap = a1
-                mp = m1
-            elif j == 2:
-                vp = v2
-                ap = a2
-                mp = m2
-            elif j == 3:
-                vp = v3
-                ap = a3
-                mp = m3
-            elif j == 4:
-                vp = v4
-                ap = a4
-                mp = m4
-            elif j == 5:
-                vp = v5
-                ap = a5
-                mp = m5
-            elif j == 6:
-                vp = v6
-                ap = a6
-                mp = m6
-            else:
-                vp = v7
-                ap = a7
-                mp = m7
-            elig = live
-            if (VALIDS >> j) & 1:
-                elig = elig & (tl.load(ap + offs, mask=live, other=0) != 0)
-            if (MASKS >> j) & 1:
-                elig = elig & (tl.load(mp + offs, mask=live, other=0) != 0)
-            slot = j * nblocks + pid
-            if ((KINDS >> (2 * j)) & 3) == 1:
-                tl.store(part_i + slot, tl.sum(elig.to(tl.int64), axis=0))
-            elif ((KINDS >> (2 * j)) & 3) == 0:
-                x = tl.load(vp + offs, mask=elig, other=0)
-                if ((FLOATS >> j) & 1) == 1:
-                    tl.store(part_f + slot, tl.sum(x, axis=0))
-                else:
-                    tl.store(part_i + slot, tl.sum(x, axis=0))
-            else:
-                x = tl.load(vp + offs, mask=elig, other=0)
-                if ((FLOATS >> j) & 1) == 1:
-                    isnan = x != x
-                    tl.store(part_n + slot,
-                             tl.max((elig & isnan).to(tl.int32), axis=0))
-                    b = x.to(tl.int64, bitcast=True)
-                    key = tl.where(b >= 0, b, b ^ 9223372036854775807)
-                    elig = elig & (x == x)
-                    if ((KINDS >> (2 * j)) & 3) == 2:
-                        key = tl.where(elig, key, 9218868437227405312)
-                    else:
-                        key = tl.where(elig, key, -9218868437227405313)
-                else:
-                    if ((KINDS >> (2 * j)) & 3) == 2:
-                        key = tl.where(elig, x, 9223372036854775807)
-                    else:
-                        key = tl.where(elig, x, -9223372036854775807 - 1)
-                if ((KINDS >> (2 * j)) & 3) == 2:
-                    tl.store(part_i + slot, tl.min(key, axis=0))
-                else:
-                    tl.store(part_i + slot, tl.max(key, axis=0))
-
-    @triton.jit
-    def final_kernel(part_i, part_f, part_n, out_i, out_f, nblocks,
-                     K: tl.constexpr, KINDS: tl.constexpr,
-                     FLOATS: tl.constexpr, RBLOCK: tl.constexpr):
-        for j in tl.static_range(K):
-            acc_i = tl.zeros([RBLOCK], dtype=tl.int64)
-            acc_f = tl.zeros([RBLOCK], dtype=tl.float64)
-            acc_n = tl.zeros([RBLOCK], dtype=tl.int32)
-            if ((KINDS >> (2 * j)) & 3) == 2:
-                acc_i = acc_i + 9223372036854775807
-            if ((KINDS >> (2 * j)) & 3) == 3:
-                acc_i = acc_i + (-9223372036854775807 - 1)
-            for start in range(0, nblocks, RBLOCK):
-                idx = start + tl.arange(0, RBLOCK)
-                ok = idx < nblocks
-                slot = j * nblocks + idx
-                if ((KINDS >> (2 * j)) & 3) == 0:
-                    if ((FLOATS >> j) & 1) == 1:
-                        acc_f = acc_f + tl.load(part_f + slot, mask=ok,
-                                                other=0)
-                    else:
-                        acc_i = acc_i + tl.load(part_i + slot, mask=ok,
-                                                other=0)
-                elif ((KINDS >> (2 * j)) & 3) == 1:
-                    acc_i = acc_i + tl.load(part_i + slot, mask=ok, other=0)
-                elif ((KINDS >> (2 * j)) & 3) == 2:
-                    acc_i = tl.minimum(acc_i, tl.load(
-                        part_i + slot, mask=ok, other=9223372036854775807))
-                    acc_n = tl.maximum(acc_n, tl.load(part_n + slot,
-                                                      mask=ok, other=0))
-                else:
-                    acc_i = tl.maximum(acc_i, tl.load(
-                        part_i + slot, mask=ok,
-                        other=-9223372036854775807 - 1))
-                    acc_n = tl.maximum(acc_n, tl.load(part_n + slot,
-                                                      mask=ok, other=0))
-            if ((KINDS >> (2 * j)) & 3) <= 1:
-                if ((FLOATS >> j) & 1) == 1:
-                    tl.store(out_f + j, tl.sum(acc_f, axis=0))
-                else:
-                    tl.store(out_i + j, tl.sum(acc_i, axis=0))
-            else:
-                if ((KINDS >> (2 * j)) & 3) == 2:
-                    key = tl.min(acc_i, axis=0)
-                else:
-                    key = tl.max(acc_i, axis=0)
-                if ((FLOATS >> j) & 1) == 1:
-                    bits = tl.where(key >= 0, key, key ^ 9223372036854775807)
-                    nan_bits = tl.where(tl.max(acc_n, axis=0) > 0,
-                                        9221120237041090560, bits)
-                    tl.store(out_f + j, nan_bits.to(tl.float64,
-                                                    bitcast=True))
-                else:
-                    tl.store(out_i + j, key)
-
-    _GLOBAL_KERNELS["partial"] = partial_kernel
-    _GLOBAL_KERNELS["final"] = final_kernel
-    return partial_kernel, final_kernel
+def global_grid(cap: int) -> int:
+    """Blocks of K4's grid: one per GLOBAL_ROWS rows of capacity, at most
+    GLOBAL_GRID_MAX. It depends on the capacity alone, so the order in
+    which a page's rows are folded never depends on num_rows."""
+    return max(1, min(GLOBAL_GRID_MAX, -(-cap // GLOBAL_ROWS)))
 
 
-def global_reduce_triton(states: Sequence[StateInput],
-                         num_rows: torch.Tensor, cap: int
-                         ) -> List[torch.Tensor]:
-    """K4 launch (two Triton programs per group of up to 8 states)."""
-    dev = num_rows.device
-    if num_rows.dtype != torch.int32 or num_rows.dim() != 0:
-        raise ValueError("num_rows must be a 0-d int32 tensor")
+def global_descriptors(states: Sequence[StateInput]) -> List[int]:
+    """K4's parameter words: per state its values, validity and mask
+    pointers (0 = none), kind and float flag (csrc/common.cuh
+    STATE_FIELDS)."""
+    words: List[int] = []
+    for s in states:
+        words += (0 if s.values is None else s.values.data_ptr(),
+                  0 if s.valid is None else s.valid.data_ptr(),
+                  0 if s.mask is None else s.mask.data_ptr(),
+                  s.kind, int(s.is_float))
+    return words
+
+
+def global_fold_plain(values: Optional[np.ndarray],
+                      valid: Optional[np.ndarray], mask: Optional[np.ndarray],
+                      kind: int, is_float: bool, num_rows: int, cap: int
+                      ) -> int:
+    """NumPy model of K4's fold of one state (csrc/global_agg.cu) in the
+    kernel's order with its grid: thread t of block b folds rows b * 256 +
+    t + k * 256 * grid (k = 0, 1, ...) below num_rows, each block folds
+    its 256 values in the warp-shuffle tree, and the last block folds the
+    partials, thread t taking blocks t, t + 256, ..., then the same tree.
+    Returns the state's output word (int64; a float state's float64
+    bits)."""
+    grid = global_grid(cap)
+    n = max(0, min(int(num_rows), cap))
+    width = grid * GLOBAL_THREADS
+    span = -(-n // width) * width
+    elig = np.zeros(span, dtype=bool)
+    elig[:n] = True
+    for m in (valid, mask):
+        if m is not None:
+            elig[:n] &= m[:n].astype(bool)
+    fsum = kind == SUM and is_float
+    vals = np.zeros(span, dtype=np.float64 if is_float else np.int64)
+    if values is not None:
+        vals[:n] = values[:n]
+    nan = np.zeros(span, dtype=bool)
+    ident = _I64_MAX if kind == MIN else _I64_MIN if kind == MAX else 0
+    if is_float and kind in (MIN, MAX):
+        ident = KEY_POS_INF if kind == MIN else KEY_NEG_INF
+    if kind == COUNT:
+        contrib = elig.astype(np.int64)
+    elif fsum:
+        ident = 0.0
+        contrib = np.where(elig, vals, 0.0)
+    elif is_float:
+        nan = elig & np.isnan(vals)
+        bits = vals.view(np.int64)
+        keys = np.where(bits >= 0, bits, bits ^ _I64_MAX)
+        contrib = np.where(elig & ~nan, keys, ident)
+    else:
+        contrib = np.where(elig, vals, ident)
+    acc = np.full(width, ident, dtype=contrib.dtype)
+    for k in range(0, span, width):
+        acc = _fold_np(acc, contrib[k:k + width], kind)
+    part = _tree_np(acc.reshape(grid, GLOBAL_THREADS), kind, ident)
+    lanes = np.full(-(-grid // GLOBAL_THREADS) * GLOBAL_THREADS, ident,
+                    dtype=part.dtype)
+    lanes[:grid] = part
+    acc = np.full(GLOBAL_THREADS, ident, dtype=part.dtype)
+    for k in range(0, len(lanes), GLOBAL_THREADS):
+        acc = _fold_np(acc, lanes[k:k + GLOBAL_THREADS], kind)
+    word = _tree_np(acc.reshape(1, GLOBAL_THREADS), kind, ident)[0]
+    if fsum:
+        return int(np.float64(word).view(np.int64))
+    if is_float and kind in (MIN, MAX):
+        if nan.any():
+            return 0x7FF8000000000000
+        return int(word if word >= 0 else word ^ _I64_MAX)
+    return int(word)
+
+
+def _fold_np(a: np.ndarray, b: np.ndarray, kind: int) -> np.ndarray:
+    if kind == MIN:
+        return np.minimum(a, b)
+    if kind == MAX:
+        return np.maximum(a, b)
+    with np.errstate(over="ignore", invalid="ignore"):
+        return a + b
+
+
+def _tree_np(vals: np.ndarray, kind: int, ident) -> np.ndarray:
+    """Each row's fold in block_fold's order: per warp of 32 lanes,
+    shuffles down by 16, 8, 4, 2, 1 (lane l folds lane l + o); then warp
+    0 over the warp values, the lanes past them holding the identity."""
+    def warp(v):
+        for o in (16, 8, 4, 2, 1):
+            v = np.concatenate([_fold_np(v[:, :32 - o], v[:, o:], kind),
+                                v[:, 32 - o:]], axis=1)
+        return v[:, 0]
+    rows, threads = vals.shape
+    per_warp = warp(vals.reshape(rows * threads // 32, 32))
+    lanes = np.full((rows, 32), ident, dtype=vals.dtype)
+    lanes[:, :threads // 32] = per_warp.reshape(rows, threads // 32)
+    return warp(lanes)
+
+
+def _global_scratch(index: int, words: int):
+    """(partials, ticket) of the device: K4's per-block scratch, grown on
+    demand, and its ticket, zero between calls (the last block resets
+    it). Calls share them, so they must be ordered on one stream, as
+    every launch of the port is (the device's current stream)."""
+    part, ticket = _GLOBAL_SCRATCH.get(index, (None, None))
+    if part is None or part.numel() < words:
+        dev = torch.device("cuda", index)
+        part = torch.empty(max(words, 2 * 8 * GLOBAL_GRID_MAX),
+                           dtype=torch.int64, device=dev)
+        if ticket is None:
+            ticket = torch.zeros(1, dtype=torch.int32, device=dev)
+        _GLOBAL_SCRATCH[index] = (part, ticket)
+    return part, ticket
+
+
+def global_reduce_cuda(states: Sequence[StateInput], num_rows: torch.Tensor,
+                       cap: int) -> List[torch.Tensor]:
+    """K4 launch: see csrc/global_agg.cu. One launch for every state; the
+    results are [1]-shaped views of one int64 word per state (float states
+    viewed as float64)."""
+    index = num_rows.get_device()
+    if num_rows.dtype is not torch.int32 or num_rows.dim() != 0 \
+            or index < 0:
+        raise ValueError("num_rows must be a 0-d int32 CUDA tensor")
     for s in states:
         for b in (s.valid, s.mask):
-            if b is not None and (b.device != dev or b.dtype != torch.bool
+            if b is not None and (b.dtype is not torch.bool
                                   or b.shape != (cap,)
+                                  or b.get_device() != index
                                   or not b.is_contiguous()):
                 raise ValueError("masks must be contiguous bool [cap]")
-        if s.values is not None and (
-                s.values.device != dev or s.values.shape != (cap,)
-                or s.values.dtype != (torch.float64 if s.is_float
-                                      else torch.int64)
-                or not s.values.is_contiguous()):
+        v = s.values
+        if v is None:
+            if s.kind != COUNT:
+                raise ValueError("only a count state may have no values")
+        elif v.dtype is not (torch.float64 if s.is_float else torch.int64) \
+                or v.shape != (cap,) or v.get_device() != index \
+                or not v.is_contiguous():
             raise ValueError("state values must be contiguous int64/"
                              "float64 [cap]")
-    partial_kernel, final_kernel = _global_kernels()
-    nblocks = max(1, -(-cap // _GLOBAL_BLOCK))
-    dummy_i = torch.empty(1, dtype=torch.int64, device=dev)  # never read
-    dummy_b = torch.empty(1, dtype=torch.bool, device=dev)
-    results: List[torch.Tensor] = []
-    for g in range(0, len(states), _TRITON_MAX_STATES):
-        group = list(states[g:g + _TRITON_MAX_STATES])
-        k = len(group)
-        pad = _TRITON_MAX_STATES - k
-        vals = [s.values if s.values is not None else dummy_i
-                for s in group] + [dummy_i] * pad
-        valids = [s.valid if s.valid is not None else dummy_b
-                  for s in group] + [dummy_b] * pad
-        masks = [s.mask if s.mask is not None else dummy_b
-                 for s in group] + [dummy_b] * pad
-        kinds = sum(s.kind << (2 * j) for j, s in enumerate(group))
-        floats = sum(int(s.is_float) << j for j, s in enumerate(group))
-        has_v = sum(int(s.valid is not None) << j
-                    for j, s in enumerate(group))
-        has_m = sum(int(s.mask is not None) << j for j, s in enumerate(group))
-        part_i = torch.empty(k * nblocks, dtype=torch.int64, device=dev)
-        part_f = torch.empty(k * nblocks, dtype=torch.float64, device=dev)
-        part_n = torch.zeros(k * nblocks, dtype=torch.int32, device=dev)
-        partial_kernel[(nblocks,)](
-            num_rows, *vals, *valids, *masks, part_i, part_f, part_n,
-            nblocks, K=k, KINDS=kinds, FLOATS=floats, VALIDS=has_v,
-            MASKS=has_m, BLOCK=_GLOBAL_BLOCK, num_warps=8)
-        out_i = torch.zeros(k, dtype=torch.int64, device=dev)
-        out_f = torch.zeros(k, dtype=torch.float64, device=dev)
-        final_kernel[(1,)](part_i, part_f, part_n, out_i, out_f, nblocks,
-                           K=k, KINDS=kinds, FLOATS=floats,
-                           RBLOCK=_REDUCE_BLOCK, num_warps=4)
-        global_reduce_triton.launches += 1
-        for j, s in enumerate(group):
-            results.append((out_f if s.is_float else out_i)[j:j + 1])
-    return results
+    k = len(states)
+    if not k:
+        return []
+    grid = global_grid(cap)
+    part, ticket = _global_scratch(index, 2 * k * grid)
+    out = torch.empty(k, dtype=torch.int64, device=num_rows.device)
+    table = array.array("q", global_descriptors(states))
+    rc = native.function("global_agg", "global_reduce", _GLOBAL_ARGS)(
+        table.buffer_info()[0], k, num_rows.data_ptr(), cap,
+        part.data_ptr(), ticket.data_ptr(), out.data_ptr(), grid,
+        native.raw_stream(index))
+    native.check(rc, "global_reduce")
+    global_reduce_cuda.launches += 1
+    ints = out.view(k, 1).unbind(0)
+    if not any(s.is_float for s in states):
+        return list(ints)
+    floats = out.view(torch.float64).view(k, 1).unbind(0)
+    return [f if s.is_float else i
+            for s, i, f in zip(states, ints, floats)]
 
 
-global_reduce_triton.launches = 0
+global_reduce_cuda.launches = 0
 
 
 def global_reduce(states, num_rows, cap):
-    """K4 wrapper: plain twin on the CPU, Triton kernel on CUDA."""
-    run = global_reduce_triton if num_rows.is_cuda else global_reduce_plain
+    """K4 wrapper: plain twin on the CPU, kernel on CUDA."""
+    run = global_reduce_cuda if num_rows.is_cuda else global_reduce_plain
     return run(states, num_rows, cap)
 
 
 # ------------------------------------------------------------------ K19
 
+_TRITON_MAX_STATES = 8      # K19's states per Triton launch
 _BYPASS_BLOCK = 1024
 _BYPASS_KERNEL: dict = {}
 

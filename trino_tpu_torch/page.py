@@ -36,9 +36,11 @@ tensor it launches its kernel or raises.
 
 from __future__ import annotations
 
+import array
 import ctypes
 import dataclasses
 import itertools
+import operator
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -660,53 +662,152 @@ def concat_rows_plain(arrays: Sequence[Sequence[torch.Tensor]],
     return outs, cnt.sum().to(torch.int32)
 
 
+CONCAT_TILE = 2048           # rows of one (page, tile) item (csrc/concat.cu)
+CONCAT_BLOCKS_PER_SM = 4     # K2's persistent grid, per SM at most
+_CONCAT_ARGS = (ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                ctypes.c_int64, ctypes.c_void_p)
+
+
+def concat_grid(caps: Sequence[int], sms: int) -> int:
+    """Blocks of K2's persistent grid: CONCAT_BLOCKS_PER_SM per SM, capped
+    by the most (page, tile) items the pages' capacities allow; at least
+    one (block 0 writes the total)."""
+    items = sum(-(-cap // CONCAT_TILE) for cap in caps)
+    return max(1, min(CONCAT_BLOCKS_PER_SM * sms, items))
+
+
+def concat_table(count_ptrs, caps, src_ptrs, dst_ptrs, dst_rb,
+                 src_rb=()) -> List[int]:
+    """K2's parameter words (csrc/concat.cu): count pointers and
+    capacities (one per page), source pointers (page by page, 0 for an
+    absent validity), destination pointers and row bytes (one per
+    column), then, when some page's plane is narrower than the output's,
+    every source's row bytes."""
+    return [*count_ptrs, *caps, *src_ptrs, *dst_ptrs, *dst_rb, *src_rb]
+
+
+def concat_param_words(npages: int, words: int) -> int:
+    """The parameter block K2's launch copies its table into: 256 words
+    when the call fits, else native.TABLE_MAX; 0 when the call does not
+    fit one launch (csrc/concat.cu concat_rows)."""
+    if words <= 256 and npages <= 128:
+        return 256
+    if words <= native.TABLE_MAX and npages <= native.TABLE_MAX // 2:
+        return native.TABLE_MAX
+    return 0
+
+
+def concat_items_plain(counts: Sequence[int], caps: Sequence[int],
+                       grid: int) -> Tuple[List[Tuple[int, ...]], int]:
+    """Plain model of K2's walk (csrc/concat.cu): (every (page, tile) item
+    as (block, page, first row, end row, output offset), in the order each
+    block takes them, and the total). Counts clamp to [0, cap]; a page's
+    items are the CONCAT_TILE-row tiles of its live prefix, and block b
+    takes items b, b + grid, b + 2 * grid, ..."""
+    live = [max(0, min(int(c), cap)) for c, cap in zip(counts, caps)]
+    offs = list(itertools.accumulate(live, initial=0))
+    items = [(p, r0, min(r0 + CONCAT_TILE, n), offs[p])
+             for p, n in enumerate(live) for r0 in range(0, n, CONCAT_TILE)]
+    return [(b,) + items[i] for b in range(grid)
+            for i in range(b, len(items), grid)], offs[-1]
+
+
+_dtype = operator.attrgetter("dtype")
+_shape = operator.attrgetter("shape")
+
+
+def _concat_layout(arrays, present, flat) -> Optional[tuple]:
+    """(reference array per column, its row bytes, each page's capacity,
+    whether a column is a plane) when every present array is a [cap] or
+    [cap, L] array of its column's dtype and rank, else None. A column's
+    reference (the output's dtype and row shape) is page 0's array, or
+    for a plane or an absent validity the widest page's. Pages with
+    neither, the common case, are checked in bulk passes over all
+    arrays (C-level maps and list compares)."""
+    npages, ncols = len(arrays), len(arrays[0])
+    shapes = list(map(_shape, present))
+    if len(present) == len(flat) and all(len(s) == 1
+                                         for s in shapes[:ncols]):
+        dtypes = list(map(_dtype, present))
+        caps = [s[0] for s in shapes[::ncols]] if ncols else [0] * npages
+        want = []
+        for cap in caps:
+            want += [(cap,)] * ncols
+        drb = [d.itemsize for d in dtypes[:ncols]]
+        if shapes != want or dtypes != dtypes[:ncols] * npages \
+                or not {1, 2, 4, 8}.issuperset(drb):
+            return None
+        return present[:ncols], drb, caps, False
+    ref = [_widest(arrays, c) for c in range(ncols)]
+    caps = []
+    for pa in arrays:
+        page = [(a, r) for a, r in zip(pa, ref) if a is not None]
+        cap = page[0][0].shape[0] if page else 0
+        caps.append(cap)
+        if any(a is None and r.dtype is not torch.bool
+               for a, r in zip(pa, ref)) \
+                or any(a.dtype is not r.dtype or a.dim() != r.dim()
+                       or a.shape[0] != cap or a.shape[1:] > r.shape[1:]
+                       or a.dim() > 2 or (a.dim() == 1 and a.element_size()
+                                          not in (1, 2, 4, 8))
+                       for a, r in page):
+            return None
+    return ref, [row_bytes(r) for r in ref], caps, \
+        any(r.dim() == 2 for r in ref)
+
+
 def concat_rows_cuda(arrays: Sequence[Sequence[Optional[torch.Tensor]]],
                      counts: Sequence[torch.Tensor], out_cap: int
                      ) -> Tuple[List[torch.Tensor], torch.Tensor]:
-    """K2 launch: see csrc/concat.cu."""
-    npages, ncols = len(arrays), len(arrays[0])
-    dev = counts[0].device
-    ref = [_widest(arrays, c) for c in range(ncols)]
-    caps = []
-    for p, page_arrays in enumerate(arrays):
-        cap = next((a.shape[0] for a in page_arrays if a is not None), 0)
-        caps.append(cap)
-        if counts[p].dtype != torch.int32 or counts[p].device != dev:
-            raise ValueError("counts must be int32 tensors on one device")
-        for c, a in enumerate(page_arrays):
-            if a is None:
-                if ref[c].dtype != torch.bool:
-                    raise ValueError("only validity columns may be absent")
-                continue
-            if a.device != dev or not _movable_shape(a, cap) \
-                    or a.dtype != ref[c].dtype or a.dim() != ref[c].dim():
-                raise ValueError(f"page {p} column {c} does not match")
+    """K2 launch: see csrc/concat.cu. One launch whatever the number of
+    pages. Every array must be a contiguous [cap] or [cap, L] array of
+    its column's dtype on the counts' device (1-D arrays of 1, 2, 4 or 8
+    bytes); the checks run as bulk passes over all arrays at once."""
+    npages = len(arrays)
+    index = counts[0].get_device()
+    if index < 0 or set(map(_dtype, counts)) != {torch.int32} \
+            or set(map(torch.Tensor.get_device, counts)) != {index}:
+        raise ValueError("counts must be int32 tensors on one CUDA device")
+    ncols = len(arrays[0])
+    if any(len(pa) != ncols for pa in arrays):
+        raise ValueError("every page must carry the same arrays")
+    flat = [a for pa in arrays for a in pa]
+    present = [a for a in flat if a is not None]
+    layout = _concat_layout(arrays, present, flat)
+    if layout is None or not all(map(torch.Tensor.is_contiguous, present)) \
+            or (present and set(map(torch.Tensor.get_device, present))
+                != {index}):
+        raise ValueError("page arrays do not match their columns (only "
+                         "validity columns may be absent)")
+    ref, drb, caps, planes = layout
     if sum(caps) != out_cap:
         raise ValueError("out_cap must be the sum of the page capacities")
-    outs = [torch.empty((out_cap,) + tuple(r.shape[1:]), dtype=r.dtype,
-                        device=dev) for r in ref]
-    total = torch.empty((), dtype=torch.int32, device=dev)
+    outs = [r.new_empty((out_cap,) + r.shape[1:]) if planes
+            else r.new_empty(out_cap) for r in ref]
+    total = counts[0].new_empty(())
     # K32: each page's own row width, where some page's plane is narrower
     # than the output's (else the table stays as long as without planes)
-    srb = [row_bytes(o) if a is None else row_bytes(a)
-           for pa in arrays for a, o in zip(pa, outs)]
-    padded = srb != [row_bytes(o) for _ in arrays for o in outs]
-    table = host_table(
-        [c.data_ptr() for c in counts], caps,
-        [0 if a is None else a.data_ptr() for pa in arrays for a in pa],
-        [o.data_ptr() for o in outs], [row_bytes(o) for o in outs],
-        srb if padded else [])
-    offsets = torch.empty(npages, dtype=torch.int64, device=dev)
-    lib = native.library("concat")
-    rc = lib.concat_rows(
-        ctypes.c_int64(npages), ctypes.c_int64(ncols),
-        ctypes.c_int64(max(caps)), ctypes.c_int64(int(padded)), table,
-        ctypes.c_void_p(offsets.data_ptr()), ctypes.c_void_p(total.data_ptr()),
-        ctypes.c_void_p(native.stream_ptr(dev)))
+    srb = []
+    if planes:
+        srb = [d if a is None else row_bytes(a)
+               for pa in arrays for a, d in zip(pa, drb)]
+        if srb == drb * npages:
+            srb = []
+    table = array.array("q", concat_table(
+        map(torch.Tensor.data_ptr, counts), caps,
+        [0 if a is None else a.data_ptr() for a in flat]
+        if len(present) < len(flat) else map(torch.Tensor.data_ptr, flat),
+        map(torch.Tensor.data_ptr, outs), drb, srb))
+    if not concat_param_words(npages, len(table)):
+        native.check(-1, "concat_rows")
+    rc = native.function("concat", "concat_rows", _CONCAT_ARGS)(
+        npages, ncols, int(bool(srb)), table.buffer_info()[0], len(table),
+        total.data_ptr(), concat_grid(caps, native.sm_count(index)),
+        native.raw_stream(index))
     native.check(rc, "concat_rows")
     concat_rows_cuda.launches += 1
-    concat_rows_cuda.plane_launches += _has_plane(
-        [a for pa in arrays for a in pa])
+    concat_rows_cuda.plane_launches += int(planes)
     return outs, total
 
 
