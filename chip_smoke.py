@@ -774,26 +774,36 @@ def host_ms(fn, iters: int = 50) -> float:
 
 def device_profile(fn, iters: int = 10):
     """(device-busy ms per call, top kernels) of `fn` from torch.profiler:
-    the sum of the device time of every kernel and copy it ran. None when
-    the profiler records no device time."""
+    the sum of the device time of every kernel and copy it ran. A window
+    in which the profiler records no device time (it has happened on the
+    card for short windows) is tried once more, five times as long; None
+    when that records none either."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     sync()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        sync()
-    # device-side events only (kernels, copies): an operator's entry
-    # repeats the device time of the kernels it launched
-    rows = [(getattr(e, "self_device_time_total", 0.0), e.key)
-            for e in prof.key_averages()
-            if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    total_us = sum(t for t, _ in rows)
-    if total_us <= 0:
-        return None, []
-    top = sorted(rows, reverse=True)[:6]
-    return total_us / iters / 1e3, [(k, t / iters / 1e3) for t, k in top]
+    for n in (iters, 5 * iters):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            sync()
+        # device-side events only (kernels, copies): an operator's entry
+        # repeats the device time of the kernels it launched
+        rows = [(getattr(e, "self_device_time_total", 0.0), e.key)
+                for e in prof.key_averages()
+                if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        total_us = sum(t for t, _ in rows)
+        if total_us > 0:
+            top = sorted(rows, reverse=True)[:6]
+            return total_us / n / 1e3, [(k, t / n / 1e3) for t, k in top]
+    return None, []
+
+
+def say_split(name: str, what: str, fn, card) -> None:
+    """Print the profiler's top device time per call of `fn`."""
+    _, top = device_profile(fn)
+    say(f"[kernel] {name} at {what}: top device time per call: "
+        + ", ".join(f"{k[:48]} {t:.4f} ms" for k, t in top) + f" — {card}")
 
 
 def host_profile(fn, iters: int = 3, top: int = 12) -> str:
@@ -2446,6 +2456,10 @@ def spill_key_cols(g, kind, cap, n, dup, dev):
         v = torch.randperm(cap, generator=g).to(torch.int32)
     elif kind == "bool":
         v = torch.arange(cap) % 2 == 0
+    elif kind == "orders":       # sf1's spilled build: (o_orderkey, mod 1000)
+        i = torch.arange(cap, dtype=torch.int64)
+        v = (i // 8) * 32 + i % 8 + 1
+        return [(v.to(dev), None), ((v % 1000).to(dev), None)]
     else:                        # composite (int32, int64)
         v = torch.randperm(cap, generator=g).to(torch.int32) % max(cap, 1)
     if dup and cap > 8:
@@ -2475,6 +2489,9 @@ SPILL_JOIN_CASES = [  # kind, cap, live rows, duplicate, probe cap, live
     ("dense", 1024, 0, False, 512, 512),                 # empty build
     ("wide", 1024, 1024, False, 512, 0),                 # dead probe
     ("dense", 131_072, 131_000, False, 4_194_304, 4_194_304),
+    ("wide", 65_536, 0, False, 4096, 4096),              # multi-block, empty
+    ("wide", 65_536, 65_536, True, 4096, 4096),          # live to cap
+    ("orders", 2_097_152, 1_500_000, False, 1_000_000, 1_000_000),  # sf1
 ]
 
 
@@ -2487,8 +2504,19 @@ def check_spill_join(g, dev) -> float:
         label = f"{kind} build {bn}/{bcap} probe {pn}/{pcap} dup={dup}"
         bcols = spill_key_cols(g, kind, bcap, bn, dup, dev)
         bnr = torch.tensor(bn, dtype=torch.int32, device=dev)
+        before = J.spill_prep_cuda.launches
         keys, perm, stats = J.spill_prep_cuda(bcols, bnr)
         sync()
+        if J.spill_prep_cuda.launches != before + 1:
+            fail(f"K16 counted {J.spill_prep_cuda.launches - before} "
+                 f"launches for one call ({label})")
+        if kind == "orders":
+            from trino_tpu_torch.launch_trace import device_split
+            _, n_k, top = device_split(lambda: J.spill_prep_cuda(bcols,
+                                                                 bnr))
+            say(f"[kernel] spill_prep (K16) at {label}: {n_k:g} kernels "
+                f"and copies per call: "
+                + ", ".join(f"{k} x{c:g}" for k, _, c in top))
         wkeys, wperm, wstats = J.spill_prep_plain(bcols, bnr)
         if not torch.equal(stats, wstats):
             fail(f"K16 statistics differ ({label}):\n{stats.tolist()}\n"
@@ -2977,7 +3005,8 @@ SPECIAL_CASES = [  # label, cap, live rows, groups (0: a global aggregation)
     ("one row", 1, 1, 1), ("one group", 5000, 4321, 1),
     ("3 groups", 5000, 4321, 3), ("global", 100_000, 99_000, 0),
     ("3,000 groups", 100_000, 99_000, 3000),
-    ("2^20 groups", 1 << 22, (1 << 22) - 7, 1 << 20)]
+    ("2^20 groups", 1 << 22, (1 << 22) - 7, 1 << 20),
+    ("1,000 groups on 2,048 rows", 2048, 2000, 1000)]
 SPECIAL_HASHED = ("dbl", "tie", "dec", "i8", "i16", "i32", "f32", "day",
                   "bool", "code")
 # (x, y) pairs of the positional checks: codes, decimals, floats, dates
@@ -3061,6 +3090,16 @@ def _same_picks(label, got, want, G) -> None:
         fail(f"{label} differs from its twin")
 
 
+def hll_kernels() -> int:
+    """The kernels K30's HLL mode has launched in this process, counted by
+    csrc/special_agg.cu as it enqueues them."""
+    import ctypes
+    from trino_tpu_torch import native
+    fn = native.library("special_agg").special_hll_kernels
+    fn.restype = ctypes.c_int64
+    return fn()
+
+
 def check_special(g, dev) -> float:
     """K28-K31 against their twins on SPECIAL_CASES: K28's row -> group
     map (every live row's key is its output row's; dead rows get
@@ -3098,10 +3137,24 @@ def check_special(g, dev) -> float:
             kv, _, regs, npairs = A.group_reduce_plain(
                 [A.GroupKey(want[0], None)],
                 [A.StateInput(want[1], None, None, A.MAX, False)], nr, cap)
-            est = A.hll_fold_cuda(kv[0], regs[0], npairs, ng, nseg)
-            if not torch.equal(est[:G], A.hll_fold_plain(
-                    kv[0], regs[0], npairs, ng, nseg)[:G]):
+            fold = (kv[0], regs[0], npairs, ng, nseg)
+            before, kernels = A.hll_fold_cuda.launches, hll_kernels()
+            est = A.hll_fold_cuda(*fold)[:G].clone()
+            again = A.hll_fold_cuda(*fold)[:G]
+            calls = A.hll_fold_cuda.launches - before
+            per_call = (hll_kernels() - kernels) / 2
+            want_k = 1 + (nseg > A.HLL_LAST_BLOCK_GROUPS)
+            if calls != 2 or per_call != want_k:
+                fail(f"K30 HLL mode counted {calls} calls and {per_call:g} "
+                     f"kernels per call, not 2 and {want_k} ({c}, {label})")
+            if not torch.equal(est, A.hll_fold_plain(*fold)[:G]):
                 fail(f"K30 HLL mode differs from its twin ({c}, {label})")
+            if not torch.equal(again, est):
+                fail(f"K30 HLL mode's second call differs from its first: "
+                     f"its scratch was not zero ({c}, {label})")
+        say(f"[kernel] special_hll (K30 HLL mode) at {label} (nseg {nseg}, "
+            f"{G} groups, threshold {A.HLL_LAST_BLOCK_GROUPS}): "
+            f"{per_call:g} kernel launch(es) per call")
         for kind in range(9):
             for a, div, b in (("dbl", None, "i32"), ("dec", 100.0, "dbl"),
                               ("f32", None, None), ("i8", None, "day")):
@@ -3412,9 +3465,14 @@ def kernel_rows_special(cap: Capture, originals, launches, dev, card):
     pairs, regs, npairs, ng, nseg = args
     n = int(npairs)
     G = 1 if ng is None else int(ng)
-    if not torch.equal(originals["hll_fold"](*args)[:G],
-                       A.hll_fold_plain(*args)[:G]):
-        fail("K30 HLL mode differs from its twin at the main path's inputs")
+    first = originals["hll_fold"](*args)[:G].clone()
+    if not torch.equal(first, A.hll_fold_plain(*args)[:G]) \
+            or not torch.equal(originals["hll_fold"](*args)[:G], first):
+        fail("K30 HLL mode differs from its twin at the main path's inputs "
+             "(or its second call from its first)")
+    say_split("special_hll (K30 HLL mode)", f"its largest fold ({n} "
+              f"pairs, {G} groups, nseg {nseg})",
+              lambda: originals["hll_fold"](*args), card)
     pg = (pairs[:n] >> A.HLL_P).clamp(0, max(G - 1, 0))
     inv = torch.exp2(-regs[:n].to(torch.float64))
     acc = torch.zeros(max(G, 1), dtype=torch.float64, device=dev)
@@ -6290,14 +6348,16 @@ def kernel_rows_spill(cap: Capture, originals, launches, spill_launches,
     key, null = J._key_cols(cols)
     dead = (torch.arange(bcap, device=dev) >= n) | null
     masked = torch.where(dead, torch.full_like(key, -1), key) ^ i64_min
+    say_split("spill_prep (K16)", f"its largest sf1 build ({n} of {bcap} "
+              f"rows)", lambda: originals["spill_prep"](cols, nr), card)
     out.append(row(
         "spill_prep (K16, prepare_build_spilled)",
         "trino_tpu_torch/csrc/join_spill.cu", "trino_tpu/ops/join.py:485",
         total("spill_prep"), lambda: originals["spill_prep"](cols, nr),
         lambda: J.spill_prep_plain(cols, nr),
-        # the key columns read once, the sorted keys and permutation
-        # written once
-        col_bytes(cols, bcap) + bcap * 12,
+        # the key columns of the live rows read once, the sorted keys
+        # and permutation written once
+        col_bytes(cols, n) + bcap * 12,
         lambda: torch.sort(masked, stable=True),
         "torch.sort(stable=True) of the masked keys",
         f"sf1 spilled build: cap {bcap}, {n} live rows, "

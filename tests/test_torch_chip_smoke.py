@@ -191,6 +191,64 @@ def test_chip_smoke_global_cases_cover_the_one_launch_design(chip_smoke):
     assert (torch.signbit(f) & (f == 0)).any()
 
 
+def test_chip_smoke_spill_cases_cover_the_live_prefix_plan(chip_smoke):
+    """Phase 2's K16 builds: sf1's spilled orders build (2,097,152 slots,
+    1,500,000 live, two key columns without validity), no live row and
+    every row live above K10's one-block threshold, NULL keys with a live
+    -1, composite, float, code and bool keys, an empty build."""
+    from trino_tpu_torch.ops import sort as S
+    cases = chip_smoke.SPILL_JOIN_CASES
+    assert ("orders", 2_097_152, 1_500_000) in {c[:3] for c in cases}
+    assert any(n == 0 and c > S.SMALL_ROWS for _, c, n, *_ in cases)
+    assert any(n == c > S.SMALL_ROWS for _, c, n, *_ in cases)
+    assert any(n == 0 for _, c, n, *_ in cases if c <= S.SMALL_ROWS)
+    assert {"minus1", "composite", "float", "codes", "bool", "wide",
+            "dense", "orders"} == {k for k, *_ in cases}
+    g = torch.Generator().manual_seed(0)
+    cols = chip_smoke.spill_key_cols(g, "orders", 64, 48, False, "cpu")
+    assert len(cols) == 2 and all(v is None for _, v in cols)
+
+
+SPILL_REPLAYED = 14
+
+
+@pytest.mark.parametrize("index", range(SPILL_REPLAYED))
+def test_chip_smoke_spill_builds_replay_on_the_cpu(chip_smoke, index):
+    """Each phase-2 K16 build up to 65,536 slots (the orders build at
+    20,000 slots), on the CPU: K16's plan (the prep words, K10's passes
+    over the live prefix, the finish) gives spill_prep_plain's sorted
+    keys, permutation and statistics bit for bit."""
+    from trino_tpu_torch.ops import join as J
+    cases = [(k, c, n, d) if c <= 65_536 else (k, 20_000, 15_000, d)
+             for k, c, n, d, *_ in chip_smoke.SPILL_JOIN_CASES
+             if c <= 65_536 or k == "orders"]
+    assert len(cases) == SPILL_REPLAYED
+    kind, cap, n, dup = cases[index]
+    g = torch.Generator().manual_seed(700 + index)
+    cols = chip_smoke.spill_key_cols(g, kind, cap, n, dup, "cpu")
+    nr = torch.tensor(n, dtype=torch.int32)
+    for got, want in zip(J.spill_plan_plain(cols, nr),
+                         J.spill_prep_plain(cols, nr)):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+def test_chip_smoke_special_cases_cover_the_hll_threshold(chip_smoke):
+    """Phase 2's HLL folds: one group, a grouped page of at most
+    HLL_LAST_BLOCK_GROUPS slots (one launch, the last block estimates),
+    few groups on a larger page (two launches, the second finds nothing
+    to do) and more groups than the last block takes (the second
+    launch estimates); a global fold takes one launch."""
+    from trino_tpu_torch.ops import aggregate as A
+    t = A.HLL_LAST_BLOCK_GROUPS
+    grouped = [(c, k) for _, c, _, k in chip_smoke.SPECIAL_CASES if k and c]
+    assert any(k == 1 for _, k in grouped)
+    assert any(c <= t for c, _ in grouped)
+    assert any(k <= t < c for c, k in grouped)
+    assert any(k > t for _, k in grouped)
+    assert {1 + (c > t) for c, _ in grouped} == {1, 2}
+    assert any(k == 0 and c for _, c, _, k in chip_smoke.SPECIAL_CASES)
+
+
 def test_launch_trace_queries_are_chip_smokes(chip_smoke):
     """The host trace captures K2 and K4 from the same q1 and q6 texts
     that chip_smoke.py runs."""

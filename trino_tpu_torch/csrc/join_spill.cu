@@ -8,18 +8,42 @@
 // dense key span, a table of build rows (4 bytes a slot, K5's dense mode
 // with the permutation as payload: csrc/join_build.cu join_dense).
 //
-// K16 (prep mode), three launches of work around K10's radix passes:
-//   1. spill_prep — one thread per build row: its 64-bit join key
-//      (common.cuh join_key: the reference's _key_u64), dead (past
-//      num_rows) and NULL-keyed rows masked to u64::MAX, written as two
-//      order-preserving words (key, dead) for csrc/sort.cu's sort_radix;
-//      the statistics by atomics: live non-NULL rows, live rows, any NULL
-//      key, and the unsigned min/max of the live keys.
-//   2. sort_radix (K10, launched by ops/join.py) — a stable LSD sort by
-//      (key, dead), so a live key of -1 sorts before the masked rows.
-//   3. spill_prep_finish — the sorted keys, gathered through the
-//      permutation, and is_unique: no live position holds its
-//      predecessor's key.
+// K16 (prep mode), two launches of work around K10's radix passes:
+//   1. spill_prep — one thread per live row (below num_rows): its 64-bit
+//      join key (common.cuh join_key: the reference's _key_u64), a
+//      NULL-keyed row masked to u64::MAX, written as two order-preserving
+//      words (key, dead) for csrc/sort.cu's sort_radix. Rows past
+//      num_rows are not written: K10 reads only the live prefix. Each
+//      block adds its count of keyed rows to N_LIVE with one atomic and
+//      marks HAS_NULL with one store; block 0 writes N_ROWS and UNIQUE's
+//      starting 1. No thread makes an atomic of its own.
+//   2. sort_radix (K10, launched by ops/join.py) over the live prefix — a
+//      stable LSD sort by (key, dead), so a live key of -1 sorts before
+//      the NULL-keyed rows. The dead word's pass is trivial (skipped on
+//      the device) unless some live row has a NULL key; K10's last
+//      informative pass writes the sorted keys (the key word's top bytes
+//      are trivial for keys below 2^56; when every key pass is, K10's
+//      finish gathers them through the permutation), and rows past
+//      num_rows keep their places, which is where the stable order over
+//      the whole capacity puts them.
+//   3. spill_prep_finish — coalesced over the sorted keys: u64::MAX from
+//      num_rows on, UNIQUE 0 when a position in [1, N_LIVE) holds its
+//      predecessor's key (one store per block that finds one), and KMIN
+//      and KMAX from the sorted ends (the live keys come first).
+// K17 (probe modes), one thread per probe row: in dense mode one table
+// read (the build row or INT32_MAX); in search mode a lower bound over the
+// sorted key array (the reference's anchored search computes the same
+// position: its anchor subsample only bounds the TPU's sort workspace).
+// found needs a live, non-NULL probe key (and, searching, a position
+// below the live count); the match count is one atomic per block.
+//
+// Bound on this card: bytes. K16 reads the key columns of the live rows
+// once and writes the sorted keys and permutation once (12 bytes a row);
+// its radix passes re-read 12 bytes a row and write them per informative
+// digit pass (the key's eight bytes where they differ; the dead word's
+// byte only with NULL keys). K17 reads the probe key columns once, writes
+// found and brow (9 bytes a row); its lookups are random reads of the
+// table or of log2(n) key words, L2-resident below 50 MB.
 // K17 (probe modes), one thread per probe row: in dense mode one table
 // read (the build row or INT32_MAX); in search mode a lower bound over the
 // sorted key array (the reference's anchored search computes the same
@@ -41,7 +65,7 @@ constexpr int THREADS = 256;
 // statistic slots (ops/join.py: N_LIVE, N_ROWS, HAS_NULL, then
 // SPILL_UNIQUE in K5's MAX_RUN slot, KMIN, KMAX)
 enum { N_LIVE = 0, N_ROWS = 1, HAS_NULL = 2, UNIQUE = 3, KMIN = 4,
-       KMAX = 5 };
+       KMAX = 5, N_STATS = 10 };
 enum { MODE_DENSE = 0, MODE_SEARCH = 1 };
 
 __device__ __forceinline__ int64_t live_rows(const int32_t* n_ptr,
@@ -50,66 +74,55 @@ __device__ __forceinline__ int64_t live_rows(const int32_t* n_ptr,
   return n < 0 ? 0 : (n > cap ? cap : n);
 }
 
-__global__ void prep_init_kernel(const int32_t* __restrict__ n_ptr,
-                                 int64_t cap,
-                                 unsigned long long* __restrict__ stats) {
-  stats[N_LIVE] = 0;
-  stats[N_ROWS] = (unsigned long long)live_rows(n_ptr, cap);
-  stats[HAS_NULL] = 0;
-  stats[UNIQUE] = 1;
-  stats[KMIN] = ~0ULL;
-  stats[KMAX] = 0;
-}
-
 __global__ void prep_kernel(const __grid_constant__ Table tbl, int64_t nkeys,
                             int64_t cap, const int32_t* __restrict__ n_ptr,
                             int64_t* __restrict__ words,
                             unsigned long long* __restrict__ stats) {
   __shared__ int warp_sums[32];
   const int64_t n = live_rows(n_ptr, cap);
-  int live_count = 0;
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    stats[N_ROWS] = (unsigned long long)n;
+    stats[UNIQUE] = 1;
+  }
+  int keyed = 0;
   bool any_null = false;
-  uint64_t lo = ~0ULL, hi = 0;
-  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < cap;
+  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
        i += (int64_t)gridDim.x * blockDim.x) {
     bool null = false;
     uint64_t key = join_key(tbl.v, nkeys, i, &null);
-    const bool live = i < n;
-    const bool dead = !live || null;
-    if (live && null) any_null = true;
-    if (dead) {
+    if (null) {
       key = ~0ULL;
+      any_null = true;
     } else {
-      ++live_count;
-      lo = key < lo ? key : lo;
-      hi = key > hi ? key : hi;
+      ++keyed;
     }
     words[i] = (int64_t)(key ^ SIGN);
-    words[cap + i] = (int64_t)((dead ? SIGN : 0ULL) ^ SIGN);
+    words[cap + i] = (int64_t)((null ? SIGN : 0ULL) ^ SIGN);
   }
   int total;
-  block_exclusive_scan(live_count, warp_sums, &total);
+  block_exclusive_scan(keyed, warp_sums, &total);
   if (threadIdx.x == 0 && total)
     atomicAdd(&stats[N_LIVE], (unsigned long long)total);
-  if (any_null) stats[HAS_NULL] = 1;
-  if (lo != ~0ULL) atomicMin(&stats[KMIN], (unsigned long long)lo);
-  if (hi != 0) atomicMax(&stats[KMAX], (unsigned long long)hi);
+  if (__syncthreads_or(any_null) && threadIdx.x == 0) stats[HAS_NULL] = 1;
 }
 
-__global__ void finish_kernel(int64_t cap, const int64_t* __restrict__ words,
-                              const int32_t* __restrict__ perm,
-                              int64_t* __restrict__ keys,
-                              unsigned long long* __restrict__ stats) {
+__global__ void spill_finish_kernel(int64_t cap,
+                                    const int32_t* __restrict__ n_ptr,
+                                    int64_t* __restrict__ keys,
+                                    unsigned long long* __restrict__ stats) {
+  const int64_t n = live_rows(n_ptr, cap);
+  const int64_t n_live = (int64_t)stats[N_LIVE];
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    stats[KMIN] = n_live > 0 ? (unsigned long long)keys[0] : ~0ULL;
+    stats[KMAX] = n_live > 0 ? (unsigned long long)keys[n_live - 1] : 0ULL;
+  }
+  bool dup = false;
   for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < cap;
        i += (int64_t)gridDim.x * blockDim.x) {
-    const int32_t r = perm[i];
-    const uint64_t key = (uint64_t)words[r] ^ SIGN;
-    keys[i] = (int64_t)key;
-    // a live position (the live rows sort first) equal to its predecessor
-    const bool dead = ((uint64_t)words[cap + r] ^ SIGN) != 0;
-    if (i > 0 && !dead && ((uint64_t)words[perm[i - 1]] ^ SIGN) == key)
-      stats[UNIQUE] = 0;
+    if (i >= n) keys[i] = -1;
+    else if (i > 0 && i < n_live && keys[i] == keys[i - 1]) dup = true;
   }
+  if (__syncthreads_or(dup) && threadIdx.x == 0) stats[UNIQUE] = 0;
 }
 
 // The first position of the sorted array `keys` (n words, unsigned order)
@@ -177,37 +190,34 @@ int grid_for(int64_t rows) {
 
 // table: int64 HOST array, 4 words per key column (values ptr, valid ptr
 // or 0, element size, is_float); words: int64[2 * cap] out (the key word
-// then the dead word of every row, each stored with its sign bit flipped,
-// as csrc/sort.cu reads them); stats: int64[10] out (N_LIVE, N_ROWS,
-// HAS_NULL, UNIQUE (is_unique, set by spill_prep_finish), KMIN, KMAX).
-// Returns cudaGetLastError(), or -1 on a bad table.
+// then the dead word of every live row, each stored with its sign bit
+// flipped, as csrc/sort.cu reads them); stats: int64[10] out (N_LIVE,
+// N_ROWS, HAS_NULL, UNIQUE (finished by spill_prep_finish), KMIN and KMAX
+// (written by spill_prep_finish)), zeroed here. Returns
+// cudaGetLastError(), or -1 on a bad table.
 TT_EXPORT int spill_prep(const void* table, int64_t nkeys, int64_t cap,
                          const void* num_rows, void* words, void* stats,
                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   thread_local static Table t;
   if (nkeys < 1 || load_table(table, 4 * nkeys, &t)) return -1;
-  const auto* n_ptr = static_cast<const int32_t*>(num_rows);
-  auto* st = static_cast<unsigned long long*>(stats);
-  prep_init_kernel<<<1, 1, 0, s>>>(n_ptr, cap, st);
-  if (cap > 0)
-    prep_kernel<<<grid_for(cap), THREADS, 0, s>>>(
-        t, nkeys, cap, n_ptr, static_cast<int64_t*>(words), st);
+  cudaMemsetAsync(stats, 0, N_STATS * sizeof(int64_t), s);
+  prep_kernel<<<grid_for(cap), THREADS, 0, s>>>(
+      t, nkeys, cap, static_cast<const int32_t*>(num_rows),
+      static_cast<int64_t*>(words), static_cast<unsigned long long*>(stats));
   return (int)cudaGetLastError();
 }
 
-// words and stats as spill_prep wrote them; perm: int32[cap], the stable
-// order of (key, dead) from sort_radix; keys: int64[cap] out, the sorted
-// key words (unsigned order). Returns cudaGetLastError().
-TT_EXPORT int spill_prep_finish(int64_t cap, const void* words,
-                                const void* perm, void* keys, void* stats,
-                                void* stream) {
+// num_rows and stats as spill_prep had them; keys: int64[cap], the
+// sorted unsigned key words sort_radix wrote over the live prefix, in
+// place: u64::MAX from num_rows on; stats' UNIQUE, KMIN and KMAX. Returns
+// cudaGetLastError().
+TT_EXPORT int spill_prep_finish(int64_t cap, const void* num_rows, void* keys,
+                                void* stats, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cap > 0)
-    finish_kernel<<<grid_for(cap), THREADS, 0, s>>>(
-        cap, static_cast<const int64_t*>(words),
-        static_cast<const int32_t*>(perm), static_cast<int64_t*>(keys),
-        static_cast<unsigned long long*>(stats));
+  spill_finish_kernel<<<grid_for(cap), THREADS, 0, s>>>(
+      cap, static_cast<const int32_t*>(num_rows), static_cast<int64_t*>(keys),
+      static_cast<unsigned long long*>(stats));
   return (int)cudaGetLastError();
 }
 

@@ -39,10 +39,20 @@
 //   K8's output grouped on the pair (one row per (group, bucket) with the
 //   MAX of rho), each group's Σ2^-reg and its count of present buckets.
 //   The sum is exact: 2^(54 - reg) in units of 2^-54 summed as two
-//   integer halves (bits 32-63 and 0-31 of each term, both below 2^43 per
-//   group), joined in one rounding; the reference's float sum is exact
-//   whenever its own order cannot round it (every register below 43).
-//   The estimate then repeats the reference's float64 steps.
+//   integer halves (bits 32-63 and 0-31 of each term), joined in one
+//   rounding; the reference's float sum is exact whenever its own order
+//   cannot round it (every register below 43). A group has at most 2^11
+//   pairs, so its low halves sum below 2^43 and the count of present
+//   buckets rides in bits 44-63 of the same word: two atomics a pair (K8's
+//   page comes in hash-slot order, so a group's pairs are scattered and
+//   their atomics rarely meet). One launch over a grid fixed by the
+//   capacity; its last block (a ticket taken after a barrier and
+//   __threadfence, the sums read with __ldcg) runs the estimate of up to
+//   `last_max` groups and resets the ticket; more groups take a second
+//   launch. The estimate returns each group's two words to zero as it
+//   reads them, so the per-device scratch (ops/aggregate.py _hll_scratch)
+//   is zero between calls and no launch fills it. The estimate then
+//   repeats the reference's float64 steps.
 // Groups are few in the contention case (TPC-H's 4 flag groups): when
 // num_groups <= SMEM_GROUPS each block reduces into a shared copy and
 // merges it once, as K24 does (csrc/join_mxu.cu).
@@ -399,50 +409,84 @@ __global__ void positional_finalize_kernel(const void* x, int x_esz,
 
 // ------------------------------------------------------------ HLL fold
 
-// Over K8's pair page: hi/lo the two 32-bit halves of Σ 2^(54 - reg),
-// cnt the present buckets, per group.
-__global__ void hll_fold_kernel(const int64_t* pairs, const int64_t* regs,
-                                const int32_t* num_pairs, int64_t cap,
-                                int64_t nseg, unsigned long long* hi,
-                                unsigned long long* lo,
-                                unsigned long long* cnt) {
+constexpr int HLL_THREADS = 1024;                 // ops/aggregate.py
+constexpr unsigned long long HLL_COUNT_ONE = 1ULL << 44;
+
+// _hll_estimate of group g from its two scratch words, which it returns
+// to zero: raw estimator + small-range linear counting, rounded half to
+// even. alpha_mm = alpha * m * m as the host computes it.
+__device__ __forceinline__ void hll_estimate(int64_t g, double alpha_mm,
+                                             unsigned long long* hi,
+                                             unsigned long long* lo,
+                                             int64_t* out) {
+  const unsigned long long h = __ldcg(hi + g), l = __ldcg(lo + g);
+  hi[g] = 0;
+  lo[g] = 0;
+  const double m = (double)(1 << HLL_P);
+  const double units = __dadd_rn(__dmul_rn((double)h, 4294967296.0),
+                                 (double)(l & (HLL_COUNT_ONE - 1)));
+  const double sum_present = __dmul_rn(units, 0x1p-54);
+  const double cnt_present = (double)(l >> 44);
+  const double sum_full = __dadd_rn(sum_present, __dsub_rn(m, cnt_present));
+  const double est = __ddiv_rn(alpha_mm, fmax(sum_full, 1e-12));
+  const double zeros = __dsub_rn(m, cnt_present);
+  const double lc = __dmul_rn(m, log(__ddiv_rn(m, fmax(zeros, 1.0))));
+  const bool use_lc = est <= 2.5 * m && zeros > 0.0;
+  out[g] = (int64_t)rint(use_lc ? lc : est);
+}
+
+// Over K8's pair page: hi the high halves of Σ 2^(54 - reg) per group, lo
+// the low halves plus the present buckets << 44; then, in the last block
+// to finish, the estimates when the groups are at most last_max.
+__global__ void __launch_bounds__(HLL_THREADS) hll_fold_kernel(
+    const int64_t* __restrict__ pairs, const int64_t* __restrict__ regs,
+    const int32_t* __restrict__ num_pairs, int64_t cap,
+    const int32_t* __restrict__ num_groups, int64_t nseg, int64_t last_max,
+    double alpha_mm, unsigned long long* __restrict__ hi,
+    unsigned long long* __restrict__ lo, unsigned* __restrict__ ticket,
+    int64_t* __restrict__ out) {
+  __shared__ bool last;
   const int64_t n = live_rows(num_pairs, cap);
+  const int64_t G = groups_here(num_groups, nseg);
   for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
        i += (int64_t)gridDim.x * blockDim.x) {
     const int64_t pair = pairs[i], reg = regs[i];
-    if (pair < 0 || reg <= 0) continue;
-    const int64_t g = pair >> HLL_P;
-    if (g >= nseg) continue;
-    const unsigned long long t = 1ULL << (54 - reg);
-    atomicAdd(&hi[g], t >> 32);
-    atomicAdd(&lo[g], t & 0xffffffffULL);
-    atomicAdd(&cnt[g], 1ULL);
+    if (pair < 0 || reg <= 0 || (pair >> HLL_P) >= G) continue;
+    const int64_t g = pair >> HLL_P, sh = 54 - reg;
+    const unsigned long long t = 1ULL << (sh < 0 ? 0 : (sh > 53 ? 53 : sh));
+    if (t >> 32) atomicAdd(&hi[g], t >> 32);
+    atomicAdd(&lo[g], (t & 0xffffffffULL) + HLL_COUNT_ONE);
   }
+  // the block's sums are visible before the ticket counts it: the
+  // barrier orders them before thread 0's fence (the pattern of
+  // cooperative groups' grid sync), so no thread waits on a fence of its own
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  if (G <= last_max)
+    for (int64_t g = threadIdx.x; g < G; g += blockDim.x)
+      hll_estimate(g, alpha_mm, hi, lo, out);
+  if (threadIdx.x == 0) *ticket = 0;
 }
 
-// _hll_estimate: raw estimator + small-range linear counting, rounded
-// half to even. alpha_mm = alpha * m * m as the host computes it.
-__global__ void hll_finalize_kernel(const int32_t* num_groups, int64_t nseg,
+// The estimates when the groups are more than the fold's last block takes
+// (else it returns at once).
+__global__ void hll_finalize_kernel(const int32_t* __restrict__ num_groups,
+                                    int64_t nseg, int64_t last_max,
                                     double alpha_mm,
-                                    const unsigned long long* hi,
-                                    const unsigned long long* lo,
-                                    const unsigned long long* cnt,
-                                    int64_t* out) {
-  const double m = (double)(1 << HLL_P);
+                                    unsigned long long* __restrict__ hi,
+                                    unsigned long long* __restrict__ lo,
+                                    int64_t* __restrict__ out) {
   const int64_t G = groups_here(num_groups, nseg);
+  if (G <= last_max) return;
   for (int64_t g = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; g < G;
-       g += (int64_t)gridDim.x * blockDim.x) {
-    const double units = __dadd_rn(__dmul_rn((double)hi[g], 4294967296.0),
-                                   (double)lo[g]);
-    const double sum_present = __dmul_rn(units, 0x1p-54);
-    const double cnt_present = (double)cnt[g];
-    const double sum_full = __dadd_rn(sum_present, __dsub_rn(m, cnt_present));
-    const double est = __ddiv_rn(alpha_mm, fmax(sum_full, 1e-12));
-    const double zeros = __dsub_rn(m, cnt_present);
-    const double lc = __dmul_rn(m, log(__ddiv_rn(m, fmax(zeros, 1.0))));
-    const bool use_lc = est <= 2.5 * m && zeros > 0.0;
-    out[g] = (int64_t)rint(use_lc ? lc : est);
-  }
+       g += (int64_t)gridDim.x * blockDim.x)
+    hll_estimate(g, alpha_mm, hi, lo, out);
 }
 
 // ---------------------------------------------------------- percentile
@@ -649,32 +693,44 @@ TT_EXPORT int special_positional(int64_t kind, const void* x, int64_t x_esz,
   return (int)cudaGetLastError();
 }
 
+static int64_t hll_kernels = 0;   // launched by special_hll, for the count
+
 // K30 HLL mode. pairs/regs: K8's output over the (group, bucket) pairs
 // (int64 [cap] each, num_pairs live); num_groups: int32 scalar or null
-// (nseg groups); scratch: 3 x nseg u64 (hi, lo, cnt); out: int64 [nseg]
-// estimates (the first num_groups written).
+// (nseg groups); hi, lo: u64 [at least nseg] each, zero, and left zero;
+// ticket: uint32, 0, and left 0; out: int64 [nseg] estimates (the first
+// num_groups written); grid: the fold's blocks; last_max: the most groups
+// the fold's last block finalizes (above, and only when nseg exceeds it,
+// a second launch does). Returns cudaGetLastError(), -1 on a bad
+// argument.
 TT_EXPORT int special_hll(const void* pairs, const void* regs,
                           const void* num_pairs, int64_t cap,
                           const void* num_groups, int64_t nseg,
-                          double alpha_mm, void* scratch, void* out,
+                          double alpha_mm, void* hi, void* lo, void* ticket,
+                          void* out, int64_t grid, int64_t last_max,
                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (nseg < 1) return -1;
-  auto* hi = static_cast<unsigned long long*>(scratch);
+  if (nseg < 1 || grid < 1 || grid > INT32_MAX) return -1;
   const auto* ng = static_cast<const int32_t*>(num_groups);
-  for (int q = 0; q < 3; ++q)
-    fill_kernel<<<grid_for(nseg), THREADS, 0, s>>>(
-        reinterpret_cast<long long*>(hi + q * nseg), ng, nseg, 0);
-  if (cap > 0)
-    hll_fold_kernel<<<grid_for(cap), THREADS, 0, s>>>(
-        static_cast<const int64_t*>(pairs), static_cast<const int64_t*>(regs),
-        static_cast<const int32_t*>(num_pairs), cap, nseg, hi, hi + nseg,
-        hi + 2 * nseg);
-  hll_finalize_kernel<<<grid_for(nseg), THREADS, 0, s>>>(
-      ng, nseg, alpha_mm, hi, hi + nseg, hi + 2 * nseg,
-      static_cast<int64_t*>(out));
+  auto* h = static_cast<unsigned long long*>(hi);
+  auto* l = static_cast<unsigned long long*>(lo);
+  auto* o = static_cast<int64_t*>(out);
+  hll_fold_kernel<<<(unsigned)grid, HLL_THREADS, 0, s>>>(
+      static_cast<const int64_t*>(pairs), static_cast<const int64_t*>(regs),
+      static_cast<const int32_t*>(num_pairs), cap, ng, nseg, last_max,
+      alpha_mm, h, l, static_cast<unsigned*>(ticket), o);
+  ++hll_kernels;
+  if (nseg > last_max) {
+    hll_finalize_kernel<<<grid_for(nseg), THREADS, 0, s>>>(
+        ng, nseg, last_max, alpha_mm, h, l, o);
+    ++hll_kernels;
+  }
   return (int)cudaGetLastError();
 }
+
+// The kernels special_hll has launched in this process (chip_smoke.py
+// counts them per call).
+TT_EXPORT int64_t special_hll_kernels() { return hll_kernels; }
 
 // K31 words launch: words int64 [2, cap] in K10's stored form (live rows).
 TT_EXPORT int special_percentile_words(const void* x, int64_t esz,

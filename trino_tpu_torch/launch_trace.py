@@ -1,18 +1,30 @@
-"""Where the host time of a K2 or K4 call goes, and the launch floor.
+"""Where the host and device time of a K2, K4, K16 or K30 HLL call goes,
+and the launch floor.
 
-For three calls of the main path it traces 1,000 calls with cProfile and
-splits each call's host time over what the wrapper calls directly (the
-checks and glue in the wrapper itself, each allocation, the pointer-table
-build, the stream lookup, the ctypes call with its launches, a Triton
+For five calls it traces 1,000 calls with cProfile and splits each
+call's host time over what the wrapper calls directly (the checks and
+glue in the wrapper itself, each allocation, the pointer-table build,
+the stream lookup, the ctypes call with its launches, a Triton
 launcher), beside the call's host enqueue time without the profiler and
-its CUDA-event time on an idle stream:
+its CUDA-event time on an idle stream; for the K16 and HLL calls also
+the profiler's device time per call of each kernel and the kernels a call
+launches:
 
 * K2 (`page.concat_rows_cuda`) at q1 sf1's partial buffer, captured from
   a run of q1 on the card;
 * K2 at an exchange receive of 8 slices of 2,097,152 rows and 12 arrays
   (six value columns and their validity), 161,549 live rows;
 * K4 (`ops/aggregate.py`'s CUDA wrapper) at q6 sf1's partial, captured
-  from a run of q6.
+  from a run of q6;
+* K16 (`ops/join.py` `spill_prep_cuda`) at the shape of sf1's spilled
+  orders build: capacity 2,097,152, 1,500,000 live rows, two int64 key
+  columns (TPC-H's sparse order keys and the key mod 1000), no NULL;
+* K30's HLL fold (`ops/aggregate.py` `hll_fold_cuda`) at the shape of
+  S5's fold: 784,367 (group, bucket) pairs of 10,000 groups in a random
+  order (K8 emits groups in hash-slot order) on a pair page of 8,388,608
+  rows, nseg the page's capacity; then a ladder
+  of group counts with the fold's last-block finalize and with the
+  second finalize launch, which is how HLL_LAST_BLOCK_GROUPS was chosen.
 
 The launch floor is an empty kernel (`csrc/floor.cu`) launched through
 the package's ctypes binding with a parameter block of three words, of
@@ -21,12 +33,14 @@ the package's ctypes binding with a parameter block of three words, of
 1,000 launches, and CUDA-event milliseconds per launch. Needs the card:
 
     python3 -m trino_tpu_torch.launch_trace [--calls 1000]
+        [--only floor,main,spill,hll,ladder]
 """
 
 from __future__ import annotations
 
 import argparse
 import cProfile
+import contextlib
 import ctypes
 import os
 import pstats
@@ -59,6 +73,16 @@ RECEIVE_CAP = 2_097_152
 RECEIVE_LIVE = 161_549
 RECEIVE_DTYPES = (torch.int64, torch.int64, torch.float64, torch.int32,
                   torch.int64, torch.float64)
+SPILL_CAP = 2_097_152        # sf1's spilled orders build
+SPILL_LIVE = 1_500_000
+HLL_CAP = 8_388_608          # S5's pair page
+HLL_PAIRS = 784_367
+HLL_GROUPS = 10_000
+HLL_LADDER = (1, 512, 1024, 2048, 3072, 4096, 8192, 65536)
+# launches queued by one measured run of calls stay below the device's
+# queue, so a host time per call is not a wait for a full queue
+QUEUE_LAUNCHES = 900
+PARTS = ("floor", "main", "spill", "hll", "ladder")
 
 
 def event_ms(fn, iters: int = 20) -> float:
@@ -129,7 +153,13 @@ def trace_ctypes() -> None:
     def function(name, entry, argtypes):
         fn = fns.get((name, entry))
         if fn is None:
-            real_fn = real_function(name, entry, argtypes)
+            # the real binding, so that its argument types are set on the
+            # ctypes function and not on a traced frame
+            native.library = real
+            try:
+                real_fn = real_function(name, entry, argtypes)
+            finally:
+                native.library = library
 
             def ctypes_call(*args):
                 return real_fn(*args)
@@ -163,6 +193,34 @@ def host_split(fn, wrapper, calls: int):
             parts.append((label, callers[key][3] / calls * 1e6))
     parts[1:] = sorted(parts[1:], key=lambda p: -p[1])
     return total / calls * 1e6, parts
+
+
+def device_split(fn, iters: int = 10):
+    """(device-busy ms per call, kernels launched per call, [(kernel,
+    ms per call, launches per call)] most time first) of `fn` from
+    torch.profiler: every kernel, memset and copy it ran."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(getattr(e, "self_device_time_total", 0.0), e.count,
+             _short(e.key)) for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    busy = sum(t for t, _, _ in rows) / iters / 1e3
+    launches = sum(c for _, c, _ in rows) / iters
+    return busy, launches, [(k, t / iters / 1e3, c / iters)
+                            for t, c, k in sorted(rows, reverse=True)]
+
+
+def _short(name: str) -> str:
+    """A kernel's profiler name without its namespace and arguments."""
+    name = name.replace("(anonymous namespace)::", "")
+    return name.split("(")[0] if "(" in name and not name.startswith(
+        "Memset") else name
 
 
 def launch_floor(calls: int = 1000) -> dict:
@@ -231,6 +289,50 @@ def receive_call(dev):
     return arrays, counts, RECEIVE_SLICES * RECEIVE_CAP
 
 
+def spill_call(dev):
+    """K16's arguments at sf1's spilled orders build: (o_orderkey, its
+    value mod 1000) over SPILL_LIVE live rows of SPILL_CAP, no NULL."""
+    i = torch.arange(SPILL_CAP, dtype=torch.int64, device=dev)
+    key = (i // 8) * 32 + i % 8 + 1          # TPC-H's sparse order keys
+    cols = [(key, None), (key % 1000, None)]
+    return cols, torch.tensor(SPILL_LIVE, dtype=torch.int32, device=dev)
+
+
+def hll_call(dev, groups: int, pairs: int, cap: int, nseg: int,
+             seed: int = 5):
+    """K30 HLL's arguments as K8 leaves them: `pairs` distinct (group <<
+    11 | bucket) pairs of `groups` groups in a random order (K8's
+    hash-slot order) on a page of `cap` rows, each with its largest rho
+    (1 + the larger of two geometric draws), num_groups on the device and
+    nseg."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    space = groups << 11
+    drawn = np.unique(rng.integers(0, space, int(pairs * 1.05) + 64))
+    pair = rng.permutation(drawn)[:min(pairs, len(drawn))]
+    rho = 1 + np.maximum(rng.geometric(0.5, len(pair)),
+                         rng.geometric(0.5, len(pair)))
+    p = torch.full((cap,), -1, dtype=torch.int64)
+    r = torch.zeros(cap, dtype=torch.int64)
+    p[:len(pair)] = torch.from_numpy(pair)
+    r[:len(pair)] = torch.from_numpy(np.minimum(rho, 54))
+    n = torch.tensor(len(pair), dtype=torch.int32, device=dev)
+    ng = torch.tensor(groups, dtype=torch.int32, device=dev)
+    return p.to(dev), r.to(dev), n, ng, nseg
+
+
+@contextlib.contextmanager
+def last_block_groups(value: int):
+    """K30 HLL's last-block threshold set to `value` for the block."""
+    from trino_tpu_torch.ops import aggregate as A
+    old = A.HLL_LAST_BLOCK_GROUPS
+    A.HLL_LAST_BLOCK_GROUPS = value
+    try:
+        yield
+    finally:
+        A.HLL_LAST_BLOCK_GROUPS = old
+
+
 def k4_wrapper():
     from trino_tpu_torch.ops import aggregate as A
     return getattr(A, "global_reduce_cuda", None) \
@@ -273,51 +375,103 @@ def main_path_calls():
     return seen["k2"], seen["k4"]
 
 
-def report(calls: int):
-    """Yield the launch-floor lines, then one host-split line per call."""
+def report(calls: int, parts=PARTS):
+    """Yield the launch-floor lines, then one host-split line per call
+    (and for K16 and the HLL fold a device-split line), then the HLL
+    ladder."""
     from trino_tpu_torch import page as P
+    from trino_tpu_torch.ops import aggregate as A
+    from trino_tpu_torch.ops import join as J
     dev = torch.device("cuda")
     native.build_all()
     card = torch.cuda.get_device_name(0)
-    for label, (us, ms) in launch_floor(calls).items():
-        yield (f"[kernel] launch floor, {label}: host {us:.2f} us per "
-               f"launch ({calls} launches), {ms:.4f} ms per launch (CUDA "
-               f"events) — {card}")
-    q1_args, q6_args = main_path_calls()
-    k4 = k4_wrapper()
+    if "floor" in parts:
+        for label, (us, ms) in launch_floor(calls).items():
+            yield (f"[kernel] launch floor, {label}: host {us:.2f} us per "
+                   f"launch ({calls} launches), {ms:.4f} ms per launch "
+                   f"(CUDA events) — {card}")
+    shapes = []
+    if "main" in parts:
+        q1_args, q6_args = main_path_calls()
+        k4 = k4_wrapper()
+        caps = [next(a.shape[0] for a in pa if a is not None)
+                for pa in q1_args[0]]
+        shapes += [
+            ("K2 at q1 sf1's partial buffer", P.concat_rows_cuda, q1_args,
+             f"{len(q1_args[0])} pages, {len(q1_args[0][0])} arrays, caps "
+             f"{caps}, live {[int(c) for c in q1_args[1]]}", False),
+            ("K2 at the receive", P.concat_rows_cuda, receive_call(dev),
+             f"{RECEIVE_SLICES} slices of {RECEIVE_CAP} rows, "
+             f"{2 * len(RECEIVE_DTYPES)} arrays, {RECEIVE_LIVE} live", False),
+            ("K4 at q6 sf1's partial", k4, q6_args,
+             f"{len(q6_args[0])} states, cap {q6_args[2]}, "
+             f"{int(q6_args[1])} live", False)]
+    if "spill" in parts:
+        shapes.append((
+            "K16 at sf1's spilled build", J.spill_prep_cuda, spill_call(dev),
+            f"cap {SPILL_CAP}, {SPILL_LIVE} live rows, 2 int64 key columns, "
+            f"no NULL", True))
+    if "hll" in parts:
+        shapes.append((
+            "K30 HLL fold at S5's shape", A.hll_fold_cuda,
+            hll_call(dev, HLL_GROUPS, HLL_PAIRS, HLL_CAP, HLL_CAP),
+            f"{HLL_PAIRS} pairs of {HLL_GROUPS} groups on a page of "
+            f"{HLL_CAP}, nseg {HLL_CAP}", True))
     trace_ctypes()
-    caps = [next(a.shape[0] for a in pa if a is not None)
-            for pa in q1_args[0]]
-    shapes = [
-        ("K2 at q1 sf1's partial buffer", P.concat_rows_cuda, q1_args,
-         f"{len(q1_args[0])} pages, {len(q1_args[0][0])} arrays, caps "
-         f"{caps}, live {[int(c) for c in q1_args[1]]}"),
-        ("K2 at the receive", P.concat_rows_cuda, receive_call(dev),
-         f"{RECEIVE_SLICES} slices of {RECEIVE_CAP} rows, "
-         f"{2 * len(RECEIVE_DTYPES)} arrays, {RECEIVE_LIVE} live"),
-        ("K4 at q6 sf1's partial", k4, q6_args,
-         f"{len(q6_args[0])} states, cap {q6_args[2]}, "
-         f"{int(q6_args[1])} live"),
-    ]
-    for name, wrapper, args, shape in shapes:
+    for name, wrapper, args, shape, split in shapes:
         def call(w=wrapper, a=args):
             return w(*a)
-        total, parts = host_split(call, wrapper, calls)
+        total, parts_ = host_split(call, wrapper, calls)
+        queued = calls
+        if split:
+            busy, n, top = device_split(call)
+            queued = max(1, min(calls, int(QUEUE_LAUNCHES // n)))
         yield (f"[host] {name} ({shape}): host enqueue "
-               f"{enqueue_us(call, calls):.1f} us per call, "
+               f"{enqueue_us(call, queued):.1f} us per call ({queued} "
+               f"calls), "
                f"{event_ms(call):.4f} ms per call (CUDA events); under "
                f"cProfile {total:.1f} us per call: "
-               + "; ".join(f"{label} {us:.1f}" for label, us in parts[:12])
+               + "; ".join(f"{label} {us:.1f}" for label, us in parts_[:12])
                + f" — {card}")
+        if split:
+            yield (f"[device] {name}: device-busy {busy:.4f} ms per call, "
+                   f"{n:g} kernels and copies per call: "
+                   + "; ".join(f"{k} {ms:.4f} ms x{c:g}" for k, ms, c in top)
+                   + f" — {card}")
+    if "ladder" in parts and hasattr(A, "HLL_LAST_BLOCK_GROUPS"):
+        for groups in HLL_LADDER:
+            pairs = 78 * groups
+            cap = max(1024, 1 << (pairs - 1).bit_length())
+            args = hll_call(dev, groups, pairs, cap, groups)
+            times = []
+            for label, limit in (("last block", groups), ("second launch",
+                                                          0)):
+                with last_block_groups(limit):
+                    got = A.hll_fold_cuda(*args)
+                    if not torch.equal(got, A.hll_fold_plain(*args)):
+                        raise SystemExit(f"HLL fold at {groups} groups "
+                                         f"({label}) differs from its twin")
+                    fold = (lambda: A.hll_fold_cuda(*args))
+                    busy, n, _ = device_split(fold)
+                    times.append(f"{label} {event_ms(fold):.4f} ms events, "
+                                 f"{busy:.4f} ms busy in {n:g} kernels")
+            yield (f"[ladder] K30 HLL fold, {groups} groups, {pairs} pairs "
+                   f"(nseg {groups}, cap {cap}): " + "; ".join(times)
+                   + f"; threshold now {A.HLL_LAST_BLOCK_GROUPS} — {card}")
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--calls", type=int, default=1000)
+    ap.add_argument("--only", default=",".join(PARTS),
+                    help="comma-separated parts: " + ", ".join(PARTS))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("launch_trace needs a CUDA device")
-    for line in report(args.calls):
+    parts = tuple(args.only.split(","))
+    if not set(parts) <= set(PARTS):
+        raise SystemExit(f"--only takes {', '.join(PARTS)}")
+    for line in report(args.calls, parts):
         print(line, flush=True)
 
 

@@ -1524,27 +1524,107 @@ def hll_fold_plain(pairs: torch.Tensor, regs: torch.Tensor,
     return _hll_estimate(units * 2.0 ** -54, cnt.to(torch.float64))[:nseg]
 
 
+HLL_THREADS = 1024          # threads of a fold block (csrc/special_agg.cu)
+HLL_GRID_MAX = 264          # blocks of the fold's grid at most
+# the most groups the fold's last block finalizes; more take a second
+# launch. On an H100 the last block's device time is the lower up to
+# 1,024 groups and the higher from 4,096 (`python3 -m
+# trino_tpu_torch.launch_trace --only ladder` times both sides)
+HLL_LAST_BLOCK_GROUPS = 2048
+_HLL_SCRATCH: dict = {}     # device index -> (hi and lo words, ticket)
+_HLL_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+             ctypes.c_double, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+             ctypes.c_int64, ctypes.c_void_p)
+
+
+def hll_grid(cap: int) -> int:
+    """Blocks of the HLL fold's grid: fixed by the pair page's capacity."""
+    return max(1, min(HLL_GRID_MAX, -(-cap // HLL_THREADS)))
+
+
+def hll_fold_packed_plain(pairs: torch.Tensor, regs: torch.Tensor,
+                          num_pairs, num_groups, nseg: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain model of the fold's two scratch words per group: hi, the sum
+    of each term's high half, and lo, the sum of its low half plus one
+    present bucket << 44 (int64 [nseg] each; groups at or past
+    num_groups take no row, as in the kernel)."""
+    cap = pairs.shape[0]
+    dev = pairs.device
+    G = nseg if num_groups is None else min(max(int(num_groups), 0), nseg)
+    ok = (torch.arange(cap, dtype=torch.int32, device=dev) < num_pairs) \
+        & (pairs >= 0) & (regs > 0) & ((pairs >> HLL_P) < G)
+    g = torch.where(ok, pairs >> HLL_P, nseg)
+    t = torch.where(ok, torch.ones_like(regs) << (54 - regs).clamp(0, 53),
+                    0)
+    hi = torch.zeros(nseg + 1, dtype=torch.int64, device=dev) \
+        .index_add_(0, g, t >> 32)
+    lo = torch.zeros(nseg + 1, dtype=torch.int64, device=dev) \
+        .index_add_(0, g, torch.where(ok, (t & 0xFFFFFFFF) + (1 << 44), 0))
+    return hi[:nseg], lo[:nseg]
+
+
+def hll_estimate_packed_plain(hi: torch.Tensor, lo: torch.Tensor
+                              ) -> torch.Tensor:
+    """The estimate from the fold's two words, as hll_estimate in
+    csrc/special_agg.cu: units = hi * 2^32 + lo's low 44 bits in one
+    rounding, the count of present buckets from lo's bits 44-63."""
+    units = hi.to(torch.float64) * 4294967296.0 \
+        + (lo & ((1 << 44) - 1)).to(torch.float64)
+    return _hll_estimate(units * 2.0 ** -54, (lo >> 44).to(torch.float64))
+
+
+def _hll_scratch(index: int, nseg: int):
+    """(hi and lo words, ticket) of the device: zeroed once when they are
+    allocated and grown to the largest nseg seen (16 bytes a group slot).
+    They are zero between calls: the estimate returns each group's words
+    to zero as it reads them, and the last block resets the ticket. Calls
+    share them, which is safe because every launch of the port is ordered
+    on the device's current stream by one host thread, the mesh over
+    ["cuda:0"] * 8 included."""
+    words, ticket = _HLL_SCRATCH.get(index, (None, None))
+    if words is None or words.numel() < 2 * nseg:
+        dev = torch.device("cuda", index)
+        words = torch.zeros(2 * nseg, dtype=torch.int64, device=dev)
+        if ticket is None:
+            ticket = torch.zeros(1, dtype=torch.int32, device=dev)
+        _HLL_SCRATCH[index] = (words, ticket)
+    return words, ticket
+
+
 def hll_fold_cuda(pairs: torch.Tensor, regs: torch.Tensor,
                   num_pairs: torch.Tensor, num_groups: Optional[torch.Tensor],
                   nseg: int) -> torch.Tensor:
     """K30 launch, HLL mode: see csrc/special_agg.cu (the first num_groups
-    estimates written)."""
+    estimates written). One launch while nseg is at most
+    HLL_LAST_BLOCK_GROUPS; above it a second launch finalizes when the
+    groups on the device exceed it too."""
     cap = pairs.shape[0]
     dev = pairs.device
+    index = pairs.get_device()
+    if index < 0:
+        raise ValueError("the HLL fold's pair page must be on a CUDA device")
     _check_special([pairs, regs], [], cap, dev)
     if pairs.dtype != torch.int64 or regs.dtype != torch.int64:
         raise ValueError("pairs and registers must be int64")
+    for t in (num_pairs, num_groups):
+        if t is not None and (t.dtype != torch.int32 or t.dim() != 0
+                              or t.device != dev):
+            raise ValueError("num_pairs and num_groups must be 0-d int32 "
+                             "tensors on the pair page's device")
     if nseg == 0:       # a grouped page of capacity 0
         return torch.zeros(0, dtype=torch.int64, device=dev)
-    scratch = torch.empty(3 * nseg, dtype=torch.int64, device=dev)
+    words, ticket = _hll_scratch(index, nseg)
+    half = words.numel() // 2
     out = torch.empty(nseg, dtype=torch.int64, device=dev)
-    rc = native.library("special_agg").special_hll(
-        ctypes.c_void_p(pairs.data_ptr()), ctypes.c_void_p(regs.data_ptr()),
-        ctypes.c_void_p(num_pairs.data_ptr()), ctypes.c_int64(cap),
-        ctypes.c_void_p(_ptr(num_groups)), ctypes.c_int64(nseg),
-        ctypes.c_double(_HLL_ALPHA * HLL_M * HLL_M),
-        ctypes.c_void_p(scratch.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        ctypes.c_void_p(native.stream_ptr(dev)))
+    rc = native.function("special_agg", "special_hll", _HLL_ARGS)(
+        pairs.data_ptr(), regs.data_ptr(), num_pairs.data_ptr(), cap,
+        _ptr(num_groups), nseg, _HLL_ALPHA * HLL_M * HLL_M,
+        words.data_ptr(), words.data_ptr() + 8 * half, ticket.data_ptr(),
+        out.data_ptr(), hll_grid(cap), HLL_LAST_BLOCK_GROUPS,
+        native.raw_stream(index))
     native.check(rc, "special_hll")
     hll_fold_cuda.launches += 1
     return out

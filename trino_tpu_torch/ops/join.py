@@ -1174,34 +1174,109 @@ def spill_prep_plain(cols, num_rows: torch.Tensor):
     return keys, perm.to(torch.int32), stats
 
 
+def spill_words_plain(cols, num_rows):
+    """Plain model of K16's prep launch: the two sort words of the live
+    rows in K10's stored form (the key, u64::MAX where it is NULL; the
+    dead word, its top bit set where the key is NULL), rows past num_rows
+    0 here (the kernel leaves them unwritten), and the statistics it
+    writes: N_LIVE, N_ROWS, HAS_NULL and UNIQUE's starting 1."""
+    cap = cols[0][0].shape[0]
+    n = min(max(int(num_rows), 0), cap)
+    key, null = _key_cols(cols)
+    key, null = key[:n], null[:n]
+    words = torch.zeros((2, cap), dtype=torch.int64, device=key.device)
+    words[0, :n] = torch.where(null, -1, key) ^ _I64_MIN
+    words[1, :n] = torch.where(null, _I64_MIN, 0) ^ _I64_MIN
+    stats = torch.zeros(N_STATS, dtype=torch.int64, device=key.device)
+    stats[N_LIVE] = int((~null).sum())
+    stats[N_ROWS] = n
+    stats[HAS_NULL] = int(null.any())
+    stats[SPILL_UNIQUE] = 1
+    return words, stats
+
+
+def spill_finish_plain(keys: torch.Tensor, num_rows, stats: torch.Tensor
+                       ) -> None:
+    """Plain model of K16's finish launch, in place over K10's sorted keys
+    (int64 [cap], the live prefix written): u64::MAX from num_rows on;
+    UNIQUE 0 when a position in [1, N_LIVE) holds its predecessor's key;
+    KMIN and KMAX from the sorted ends (the live keys sort first), the
+    identities u64::MAX and 0 when no row is keyed."""
+    n = min(max(int(num_rows), 0), keys.shape[0])
+    m = int(stats[N_LIVE])
+    keys[n:] = -1
+    if bool((keys[1:m] == keys[:max(m - 1, 0)]).any()):
+        stats[SPILL_UNIQUE] = 0
+    stats[KMIN] = int(keys[0]) if m else -1
+    stats[KMAX] = int(keys[m - 1]) if m else 0
+
+
+def spill_plan_plain(cols, num_rows):
+    """K16's launches replayed on the CPU: spill_words_plain, K10's
+    passes over the live prefix (ops/sort.py radix_replay_plain), the
+    last pass's sorted keys, spill_finish_plain. Equal to
+    spill_prep_plain bit for bit."""
+    from trino_tpu_torch.ops.sort import radix_replay_plain
+    words, stats = spill_words_plain(cols, num_rows)
+    cap = words.shape[1]
+    n = min(max(int(num_rows), 0), cap)
+    perm = radix_replay_plain(words, num_rows, SPILL_PASSES)
+    keys = torch.zeros(cap, dtype=torch.int64)
+    keys[:n] = (words[0, :n].cpu() ^ _I64_MIN)[perm[:n].to(torch.int64)]
+    spill_finish_plain(keys, num_rows, stats)
+    return keys, perm, stats
+
+
+# K10's digit passes over K16's two words, least significant first: the
+# dead word's top byte, then the key word's eight bytes
+SPILL_PASSES = ((1, 56),) + tuple((0, 8 * b) for b in range(8))
+_PREP_ARGS = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+              ctypes.c_void_p)
+_FINISH_ARGS = (ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p)
+
+
+def spill_prep_layout(cap: int) -> Tuple[int, ...]:
+    """int64 words of K16's one scratch allocation: the two sort words of
+    every row, then K10's scratch parts (ops/sort.py
+    radix_scratch_sizes)."""
+    from trino_tpu_torch.ops.sort import radix_scratch_sizes
+    return (2 * cap,) + radix_scratch_sizes(cap, len(SPILL_PASSES))
+
+
 def spill_prep_cuda(cols, num_rows: torch.Tensor):
-    """K16 launch: see csrc/join_spill.cu spill_prep; the sort between its
-    two launches is K10's radix passes (ops/sort.py radix_sort_words)."""
-    from trino_tpu_torch.ops.sort import radix_sort_words
+    """K16 launch: see csrc/join_spill.cu spill_prep; K10's radix passes
+    (ops/sort.py radix_into) sort the live prefix between its two
+    launches and write the sorted keys. The scratch is one allocation;
+    the outputs a spilled build holds are two more, so that the scratch
+    is freed when the call returns: the keys and the permutation share
+    one (a dense build drops both), the statistics have their own (a
+    dense build keeps them)."""
+    from trino_tpu_torch.ops.sort import radix_into
+    index = num_rows.get_device()
+    if num_rows.dtype is not torch.int32 or num_rows.dim() != 0 \
+            or index < 0:
+        raise ValueError("num_rows must be a 0-d int32 CUDA tensor")
     cap = cols[0][0].shape[0]
     dev = num_rows.device
     _check_key_cols(cols, cap, dev)
-    if num_rows.dtype != torch.int32 or num_rows.dim() != 0:
-        raise ValueError("num_rows must be a 0-d int32 tensor")
-    words = torch.empty((2, cap), dtype=torch.int64, device=dev)
-    stats = torch.zeros(N_STATS, dtype=torch.int64, device=dev)
-    lib = native.library("join_spill")
-    rc = lib.spill_prep(
-        host_table(_key_table(cols)), ctypes.c_int64(len(cols)),
-        ctypes.c_int64(cap), ctypes.c_void_p(num_rows.data_ptr()),
-        ctypes.c_void_p(words.data_ptr()), ctypes.c_void_p(stats.data_ptr()),
-        ctypes.c_void_p(native.stream_ptr(dev)))
+    sizes = spill_prep_layout(cap)
+    parts = torch.split(torch.empty(sum(sizes), dtype=torch.int64,
+                                    device=dev), sizes)
+    words = parts[0].view(2, cap)
+    held = torch.empty(cap + -(-cap // 2), dtype=torch.int64, device=dev)
+    keys = held[:cap]
+    perm = held[cap:].view(torch.int32)[:cap]
+    stats = torch.empty(N_STATS, dtype=torch.int64, device=dev)
+    stream = native.raw_stream(index)
+    rc = native.function("join_spill", "spill_prep", _PREP_ARGS)(
+        host_table(_key_table(cols)), len(cols), cap, num_rows.data_ptr(),
+        words.data_ptr(), stats.data_ptr(), stream)
     native.check(rc, "spill_prep")
-    every = torch.full((), cap, dtype=torch.int32, device=dev)
-    # least significant first: the dead word's top byte, then the key's
-    perm = radix_sort_words(words, every,
-                            [(1, 56)] + [(0, 8 * b) for b in range(8)])
-    keys = torch.empty(cap, dtype=torch.int64, device=dev)
-    rc = lib.spill_prep_finish(
-        ctypes.c_int64(cap), ctypes.c_void_p(words.data_ptr()),
-        ctypes.c_void_p(perm.data_ptr()), ctypes.c_void_p(keys.data_ptr()),
-        ctypes.c_void_p(stats.data_ptr()),
-        ctypes.c_void_p(native.stream_ptr(dev)))
+    radix_into(words, num_rows, SPILL_PASSES, perm, keys, parts[1:])
+    rc = native.function("join_spill", "spill_prep_finish", _FINISH_ARGS)(
+        cap, num_rows.data_ptr(), keys.data_ptr(), stats.data_ptr(), stream)
     native.check(rc, "spill_prep_finish")
     spill_prep_cuda.launches += 1
     return keys, perm, stats

@@ -288,6 +288,22 @@ def radix_sort_words(words: torch.Tensor, num_rows: torch.Tensor,
     return _radix(words, num_rows, passes, False)[0]
 
 
+_RADIX_ARGS = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+               ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+               ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+               ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p)
+
+
+def radix_scratch_sizes(cap: int, npasses: int) -> Tuple[int, ...]:
+    """int64 words of K10's scratch parts above SMALL_ROWS rows of
+    capacity: two key buffers, the second index buffer, the plan, two
+    status buffers (256 words per tile); none at or below it."""
+    if cap <= SMALL_ROWS:
+        return ()
+    return (2 * cap, -(-cap // 2), 257 * npasses + 4,
+            2 * 256 * -(-cap // SORT_TILE))
+
+
 def _radix(words: torch.Tensor, num_rows: torch.Tensor,
            passes: Sequence[Tuple[int, int]], want_keys: bool):
     """radix_sort_words, and with `want_keys` also the sorted unsigned
@@ -297,23 +313,28 @@ def _radix(words: torch.Tensor, num_rows: torch.Tensor,
     perm = torch.empty(cap, dtype=torch.int32, device=dev)
     keys_out = torch.empty(cap, dtype=torch.int64, device=dev) \
         if want_keys else None
-    scratch = [None] * 4
-    if cap > SMALL_ROWS:
-        # one allocation: two key buffers, the second index buffer, the
-        # plan, two status buffers (256 words per tile)
-        sizes = (2 * cap, -(-cap // 2), 257 * len(passes) + 4,
-                 2 * 256 * -(-cap // SORT_TILE))
-        buf = torch.empty(sum(sizes), dtype=torch.int64, device=dev)
-        scratch = list(torch.split(buf, sizes))
-    rc = native.library("sort").sort_radix(
-        ctypes.c_void_p(num_rows.data_ptr()), ctypes.c_int64(cap),
-        ctypes.c_void_p(words.data_ptr()), ctypes.c_int64(len(passes)),
-        _passes_table(tuple(passes)), ctypes.c_void_p(perm.data_ptr()),
-        *(ctypes.c_void_p(None if t is None else t.data_ptr())
-          for t in [keys_out] + scratch),
-        ctypes.c_void_p(native.stream_ptr(dev)))
-    native.check(rc, "sort_radix")
+    sizes = radix_scratch_sizes(cap, len(passes))
+    scratch = torch.split(torch.empty(sum(sizes), dtype=torch.int64,
+                                      device=dev), sizes) if sizes else ()
+    radix_into(words, num_rows, passes, perm, keys_out, scratch)
     return perm, keys_out
+
+
+def radix_into(words: torch.Tensor, num_rows: torch.Tensor,
+               passes: Sequence[Tuple[int, int]], perm: torch.Tensor,
+               keys_out: Optional[torch.Tensor], scratch) -> None:
+    """K10's radix launch into buffers the caller allocated: perm int32
+    [cap], keys_out int64 [cap] or None, and `scratch`, the parts of
+    radix_scratch_sizes (none at or below SMALL_ROWS rows of capacity).
+    K16 (ops/join.py) carves them from its one allocation."""
+    cap = words.shape[1]
+    ptrs = [t.data_ptr() for t in scratch] if scratch else [None] * 4
+    rc = native.function("sort", "sort_radix", _RADIX_ARGS)(
+        num_rows.data_ptr(), cap, words.data_ptr(), len(passes),
+        _passes_table(tuple(passes)), perm.data_ptr(),
+        None if keys_out is None else keys_out.data_ptr(), *ptrs,
+        native.raw_stream(words.get_device()))
+    native.check(rc, "sort_radix")
 
 
 def sort_u64_cuda(words: torch.Tensor) -> torch.Tensor:
