@@ -53,7 +53,11 @@ Phases, each printing its lines before the next starts:
      code and composite keys; empty shards, one destination past its
      bucket, heavy sets of 0, 1 and 8 keys, ties, a 4,194,304-row page)
      and whole exchanges of 8 shards on the card against the CPU, bit for
-     bit;
+     bit; K36's local mode over HEAVY_CASES (cap 0, cap < k, all
+     sentinel, every live word distinct, fewer keys than k, a run of
+     1,000,000, runs from tile boundaries, a D4 sf10 q9 shard's shape) at
+     k 1, 8 and 64, two calls in a row, and K27 for 0, 1, 2, 9 and 40
+     helpers, one launch a call each;
   3. the 22 TPC-H queries, a FULL join, a MARK query and the window,
      grouping-set and UNION queries W1-W6 and W8 at sf1, and q6, q3, q9,
      q13 and W7 at sf10 (the reference's default session, spill on) from SQL
@@ -1782,7 +1786,7 @@ def check_agg_join(g, dev) -> float:
             if not same_bits(x, y):
                 fail(f"K25 output {i} differs from its twin ({label})")
         helpers = [kg[5], kg[8]]
-        km = JM.agg_post_triton(helpers, pnr)
+        km = JM.agg_post_cuda(helpers, pnr)
         wm = JM.agg_post_plain(helpers, pnr)
         sync()
         if not all(torch.equal(x[:pn], y[:pn]) for x, y in zip(km, wm)):
@@ -1797,7 +1801,7 @@ def check_agg_join(g, dev) -> float:
                   "K25": cuda_ms(lambda: JM.agg_lookup_cuda(
                       pkey, pnr, wt, kmin, outs)),
                   "K27 (2 helpers)": cuda_ms(
-                      lambda: JM.agg_post_triton(helpers, pnr))}
+                      lambda: JM.agg_post_cuda(helpers, pnr))}
             say(f"[kernels] aggregating join at {label} (build {bn}/"
                 f"{bcap}, {len(vecs)} vectors, probe {pn}/{pcap}, "
                 f"{len(outs)} outputs): "
@@ -3663,6 +3667,120 @@ def exchange_page(g, cap, n_live, kind, dev):
     return page, list(range(nkeys))
 
 
+# K36's local mode in phase 2 (label, capacity, layout): every case at k
+# 1, 8 and 64, two calls in a row (the second finds the ticket the first
+# reset), one launch a call, bit for bit against heavy_local_plain
+HEAVY_KS = (1, 8, 64)
+HEAVY_D4 = (8_388_608, 3_805_999, 1_000_000)  # cap, live words, keys
+HEAVY_CASES = [
+    ("cap 0", 0, "empty"),
+    ("cap < k", 5, "short"),
+    ("all sentinel", 100_000, "sentinel"),
+    ("every live word distinct", 12_000, "distinct"),
+    ("fewer distinct keys than k", 50_000, "few"),
+    ("one key over 245 tiles (a run of 1,000,000)", 2_097_152, "long"),
+    ("runs starting at tile boundaries", 40_000, "boundary"),
+    ("a D4 sf10 q9 shard's shape", HEAVY_D4[0], "d4")]
+
+
+def heavy_runs(g, lengths, cap: int) -> torch.Tensor:
+    """Distinct ascending words below 2^62, run i repeating its word
+    lengths[i] times, then the sentinel (-1) up to cap."""
+    n = len(lengths)
+    keys = torch.unique(torch.randint(0, 1 << 62, (2 * n + 8,),
+                                      generator=g))[:n]
+    words = torch.repeat_interleave(keys, torch.tensor(lengths,
+                                                       dtype=torch.int64))
+    out = torch.full((cap,), -1, dtype=torch.int64)
+    out[:words.numel()] = words
+    return out
+
+
+def heavy_case_words(g, cap: int, layout: str) -> torch.Tensor:
+    """One HEAVY_CASES input on the CPU: sorted u64 words as int64, the
+    sentinel last, as K10 leaves a shard's masked key words."""
+    from trino_tpu_torch import launch_trace as LT
+
+    def short_runs(n):
+        return torch.randint(1, 8, (n,), generator=g).tolist()
+    if layout == "empty":
+        return torch.zeros(0, dtype=torch.int64)
+    if layout == "short":
+        return heavy_runs(g, [2, 1], cap)
+    if layout == "sentinel":
+        return torch.full((cap,), -1, dtype=torch.int64)
+    if layout == "distinct":          # no zero-count position below L
+        return heavy_runs(g, [1] * 10_000, cap)
+    if layout == "few":
+        return heavy_runs(g, [20_000, 5, 17_000], cap)
+    if layout == "long":
+        return heavy_runs(g, short_runs(50_000) + [1_000_000]
+                          + short_runs(100_000), cap)
+    if layout == "boundary":          # runs from 4,096 and 8,192
+        return heavy_runs(g, [64, 64, 4096 - 128, 4096, 4097, 5]
+                          + [3] * 5000, cap)
+    cap, live, keys = HEAVY_D4
+    return LT.heavy_words(cap, live, keys, seed=int(torch.randint(
+        0, 1 << 30, (), generator=g)))
+
+
+def check_heavy(g, dev) -> int:
+    """K36's local mode over HEAVY_CASES at k 1, 8 and 64 against
+    heavy_local_plain bit for bit, two calls in a row, one launch a call.
+    Returns the calls checked."""
+    from trino_tpu_torch.parallel import exchange as X
+    checked = 0
+    for label, cap, layout in HEAVY_CASES:
+        words = heavy_case_words(g, cap, layout).to(dev)
+        for k in HEAVY_KS:
+            want = X.heavy_local_plain(words, k)
+            before = X.heavy_local_cuda.launches
+            got = [X.heavy_local_cuda(words, k) for _ in range(2)]
+            sync()
+            ran = X.heavy_local_cuda.launches - before
+            if ran != 2:
+                fail(f"K36 local mode launched {ran} times in two calls "
+                     f"({label}, k {k})")
+            for c, kk in got:
+                if not (same_bits(c, want[0]) and same_bits(kk, want[1])):
+                    fail(f"K36 local mode differs from its twin ({label}, "
+                         f"k {k}): {c.tolist()} {kk.tolist()} / "
+                         f"{want[0].tolist()} {want[1].tolist()}")
+            checked += 2
+    return checked
+
+
+# K27 in phase 2: helpers per call, each at num_rows 0, part and all
+POST_HELPERS = (0, 1, 2, 9, 40)
+POST_CAP = 100_003
+
+
+def check_post(g, dev) -> int:
+    """K27 against agg_post_plain on the live rows for 0, 1, 2, 9 and 40
+    helpers at num_rows 0, a third and all of POST_CAP: one launch a call
+    with a helper, none without. Returns the calls checked."""
+    from trino_tpu_torch.ops import join_mxu as JM
+    checked = 0
+    for m in POST_HELPERS:
+        helpers = [torch.randint(-1, 3, (POST_CAP,), generator=g).to(dev)
+                   for _ in range(m)]
+        for n in (0, POST_CAP // 3, POST_CAP):
+            nr = torch.tensor(n, dtype=torch.int32, device=dev)
+            before = JM.agg_post_cuda.launches
+            got = JM.agg_post_cuda(helpers, nr)
+            want = JM.agg_post_plain(helpers, nr)
+            sync()
+            if JM.agg_post_cuda.launches != before + (1 if m else 0):
+                fail(f"K27 launched {JM.agg_post_cuda.launches - before} "
+                     f"times for {m} helpers")
+            if len(got) != m or not all(torch.equal(x[:n], y[:n])
+                                        for x, y in zip(got, want)):
+                fail(f"K27 differs from its twin ({m} helpers, {n} live "
+                     f"rows)")
+            checked += 1
+    return checked
+
+
 def _on(page, dev):
     from trino_tpu_torch.parallel.mesh import to_device
     return to_device(page, torch.device(dev))
@@ -4129,24 +4247,31 @@ def kernel_rows_dist(cap: Capture, originals, launches, dev, card):
         "torch.argsort(dest, stable=True) + index_select per array",
         f"cap {state[0].numel()}, {moved} rows moved, {n2} x {bucket} "
         f"slots, {len(arrays)} arrays"))
-    # K36's local mode
+    # K36's local mode: the bound reads the live words once (the sentinel
+    # tail is not read), beside the bound over every word
     words, k = cap.calls[("heavy_local_cuda", "dist")][1]
     c1, k1 = originals["heavy_local"](words, k)
     c2, k2 = X.heavy_local_plain(words, k)
     if not (same_bits(c1, c2) and same_bits(k1, k2)):
         fail("K36 local mode differs from its twin at the path's inputs")
+    n_live = int((words != -1).sum())
 
     def yard_local():
         _, cnt = torch.unique_consecutive(words, return_counts=True)
         return torch.topk(cnt, min(k, cnt.numel()))
+    fn = lambda: originals["heavy_local"](words, k)   # noqa: E731
+    shape = (f"{words.numel()} sorted words, {n_live} live, k {k}; bound "
+             f"over every word "
+             f"{8 * words.numel() / HBM_BYTES_PER_S * 1e3:.6f} ms")
     out.append(row(
         "heavy_local (K36 local mode, detect_heavy_keys's run lengths and "
         "top_k)", "trino_tpu_torch/csrc/exchange.cu",
-        "trino_tpu/parallel/exchange.py:70", launches["heavy_local"],
-        lambda: originals["heavy_local"](words, k),
-        lambda: X.heavy_local_plain(words, k), 0.0, 8 * words.numel(),
-        yard_local, "torch.unique_consecutive(return_counts) + topk",
-        f"{words.numel()} sorted words, k {k}"))
+        "trino_tpu/parallel/exchange.py:70", launches["heavy_local"], fn,
+        lambda: X.heavy_local_plain(words, k), 0.0,
+        8 * n_live + 16 * k, yard_local,
+        "torch.unique_consecutive(return_counts) + topk", shape))
+    # after the row's own profile: a first short window can come back empty
+    say_split("heavy_local (K36 local mode)", shape, fn, card)
     # K10's u64 sort at its largest call (detect_heavy_keys's masked key
     # words of a D4 sf10 shard): the words read once, the sorted words
     # written once
@@ -4808,8 +4933,8 @@ def main() -> None:
     t0 = time.perf_counter()
     errs = {"agg_table + agg_lookup + key_bounds + agg_post":
             check_agg_join(g, dev)}
-    say(f"[kernels] K24 (both modes), K25, K26 and K27 (Triton, first call "
-        f"compiles) match their plain twins on the card (K26's words, K24's "
+    say(f"[kernels] K24 (both modes), K25, K26 (Triton, first call "
+        f"compiles) and K27 match their plain twins on the card (K26's words, K24's "
         f"counts, integer sums, distinct slots, live rows and mag_ok, K25's "
         f"outputs and live mask, K27's masks exactly; float64 sums <= 1e-9 "
         f"rel; {len(AGG_CASES)} cases: 128 to 65,536 slots, 8 and 256 keys "
@@ -4895,6 +5020,20 @@ def main() -> None:
         f"past its bucket, heavy sets of 0, 1 and 8 keys, ties, one "
         f"4,194,304-row page; whole exchanges of 8 shards on the card "
         f"against 8 on the CPU): {errs} in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    n_heavy = check_heavy(g, dev)
+    say(f"[kernels] K36's local mode matches heavy_local_plain bit for bit "
+        f"in one launch a call ({n_heavy} calls: "
+        f"{'; '.join(label for label, _, _ in HEAVY_CASES)}; k "
+        f"{', '.join(map(str, HEAVY_KS))}; two calls in a row equal) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    n_post = check_post(g, dev)
+    say(f"[kernels] K27 matches agg_post_plain on the live rows in one "
+        f"launch a call ({n_post} calls: {', '.join(map(str, POST_HELPERS))}"
+        f" helpers at num_rows 0, {POST_CAP // 3} and {POST_CAP} of "
+        f"{POST_CAP}; no launch without a helper) in "
+        f"{time.perf_counter() - t0:.1f} s")
     say(f"[time] phase 2 (kernels vs twins): "
         f"{time.perf_counter() - t_phase:.1f} s")
 
@@ -5020,7 +5159,7 @@ def main() -> None:
              key[0].numel() * len(outs), scopes=ds)
     cap.wrap(JM, "key_bounds_triton", lambda values, *_: values.numel(),
              scopes=ds)
-    cap.wrap(JM, "agg_post_triton",
+    cap.wrap(JM, "agg_post_cuda",
              lambda hs, nr: hs[0].numel() * len(hs) if hs else 0, scopes=ds)
     real_attach = LP.attach_build_host
 
@@ -5100,7 +5239,7 @@ def main() -> None:
                "agg_table": (JM, "agg_table_cuda"),
                "agg_lookup": (JM, "agg_lookup_cuda"),
                "key_bounds": (JM, "key_bounds_triton"),
-               "agg_post": (JM, "agg_post_triton")}
+               "agg_post": (JM, "agg_post_cuda")}
     # K16-K19: the memory-bounded paths' kernels (the sf10 runs may
     # launch them; the forced-threshold path below must)
     spill_kernels = {"spill_prep": (J, "spill_prep_cuda"),
@@ -5756,26 +5895,27 @@ def kernel_rows_agg_join(cap: Capture, originals, launches, dev, card):
         0.0, route="triton"))
 
     # K27 at its largest call
-    helpers, nr = cap.calls[("agg_post_triton", "ds")][1]
+    helpers, nr = cap.calls[("agg_post_cuda", "ds")][1]
     n = int(nr)
     if not all(torch.equal(x[:n], y[:n]) for x, y in zip(
             originals["agg_post"](helpers, nr),
             JM.agg_post_plain(helpers, nr))):
         fail("K27 differs from its twin at the main path's inputs")
     live = [h[:n] for h in helpers]
+    fn = lambda: originals["agg_post"](helpers, nr)   # noqa: E731
+    shape = (f"aggregated page: cap {helpers[0].numel()}, {n} live rows, "
+             f"{len(helpers)} helpers")
     out.append(row(
-        "agg_post (K27, agg_join_post)", "trino_tpu_torch/ops/join_mxu.py",
-        "trino_tpu/ops/join_mxu.py:287", launches["agg_post"],
-        lambda: originals["agg_post"](helpers, nr),
+        "agg_post (K27, agg_join_post)", "trino_tpu_torch/csrc/join_mxu.cu",
+        "trino_tpu/ops/join_mxu.py:287", launches["agg_post"], fn,
         lambda: JM.agg_post_plain(helpers, nr),
         # the live helper rows read once, their masks written once
         col_bytes([(h, None) for h in helpers], n) + n * len(helpers) + 4,
         (lambda: live[0] > 0) if len(live) == 1 else
         (lambda: torch.stack(live) > 0),
         "Tensor.gt of the live helper rows" + (
-            "" if len(live) == 1 else " (stacked)"),
-        f"aggregated page: cap {helpers[0].numel()}, {n} live rows, "
-        f"{len(helpers)} helpers", 0.0, route="triton"))
+            "" if len(live) == 1 else " (stacked)"), shape, 0.0))
+    say_split("agg_post (K27)", shape, fn, card)
     return out
 
 

@@ -255,3 +255,62 @@ def test_launch_trace_queries_are_chip_smokes(chip_smoke):
     from trino_tpu_torch import launch_trace
     assert launch_trace.Q1 == chip_smoke.TPCH["q1"][0]
     assert launch_trace.Q6 == chip_smoke.TPCH["q6"][0]
+
+
+def test_chip_smoke_heavy_cases_cover_the_one_launch_design(chip_smoke):
+    """Phase 2's K36 local-mode cases: cap 0, cap < k, all sentinel, every
+    live word distinct, fewer keys than k, a run of 1,000,000 over many
+    tiles, runs from tile boundaries and the D4 sf10 q9 shard's shape
+    (8,388,608 words, 3,805,999 live), each at k 1, 8 and 64, two calls
+    in a row; K27 for 0, 1, 2, 9 and 40 helpers."""
+    from trino_tpu_torch.parallel import exchange as X
+    assert chip_smoke.HEAVY_KS == (1, 8, 64)
+    assert chip_smoke.HEAVY_D4 == (8_388_608, 3_805_999, 1_000_000)
+    layouts = {lay: cap for _, cap, lay in chip_smoke.HEAVY_CASES}
+    assert set(layouts) == {"empty", "short", "sentinel", "distinct", "few",
+                            "long", "boundary", "d4"}
+    assert layouts["empty"] == 0 and 0 < layouts["short"] < 8
+    g = torch.Generator().manual_seed(0)
+    words = {lay: chip_smoke.heavy_case_words(g, cap, lay)
+             for lay, cap in layouts.items() if lay != "d4"}
+    for lay, w in words.items():
+        assert w.shape == (layouts[lay],) and w.dtype == torch.int64
+        u = w ^ (-(1 << 63))
+        assert bool((u[1:] >= u[:-1]).all()), lay   # unsigned ascending
+    assert not (words["sentinel"] != -1).any()
+    d = words["distinct"][words["distinct"] != -1]
+    assert d.unique().numel() == d.numel() < layouts["distinct"]
+    assert words["few"][words["few"] != -1].unique().numel() < 8
+    _, runs = torch.unique_consecutive(words["long"], return_counts=True)
+    assert int(runs.max()) == 1_000_000 >= 244 * X.HEAVY_TILE
+    b = words["boundary"]
+    # a run of 4,096 from the tile boundary 4,096, one of 4,097 from 8,192
+    assert b[4095] != b[4096] == b[8191] != b[8192] == b[12_288] \
+        != b[12_289]
+    assert set(chip_smoke.POST_HELPERS) == {0, 1, 2, 9, 40}
+
+
+@pytest.mark.parametrize("layout", ["short", "sentinel", "distinct", "few",
+                                    "boundary"])
+def test_chip_smoke_heavy_cases_replay_on_the_cpu(chip_smoke, layout):
+    """Each phase-2 K36 case up to 50,000 words, on the CPU: the model of
+    the one-launch plan gives heavy_local_plain's counts and keys bit for
+    bit at k 1, 8 and 64."""
+    from trino_tpu_torch.parallel import exchange as X
+    cap = {lay: c for _, c, lay in chip_smoke.HEAVY_CASES}[layout]
+    g = torch.Generator().manual_seed(31)
+    words = chip_smoke.heavy_case_words(g, cap, layout)
+    for k in chip_smoke.HEAVY_KS:
+        counts, keys, _ = X.heavy_local_model(words, k)
+        want = X.heavy_local_plain(words, k)
+        assert torch.equal(counts, want[0]) and torch.equal(keys, want[1])
+
+
+def test_launch_trace_heavy_words_have_the_shards_shape():
+    """launch_trace's K36 input (and phase 2's D4 case): `live` words of
+    at most `keys` distinct values in unsigned order, the sentinel after."""
+    from trino_tpu_torch import launch_trace
+    w = launch_trace.heavy_words(10_000, 3_806, 1_000)
+    assert int((w != -1).sum()) == 3_806 and not (w[3_806:] != -1).any()
+    u = w[:3_806] ^ (-(1 << 63))
+    assert bool((u[1:] >= u[:-1]).all()) and u.unique().numel() <= 1_000

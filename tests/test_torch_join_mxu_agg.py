@@ -8,8 +8,9 @@
   keys below kmin and past the span, integer sums past 2^53, an all-NULL
   build column, the empty build and an all-dead probe. Integers, masks and
   mag_ok compare exactly, doubles to 1e-12 relative.
-* K26's and K27's Triton text, run per program under a torch stand-in for
-  triton.language, against their twins.
+* K26's Triton text, run per program under a torch stand-in for
+  triton.language, against its twin (K27 is CUDA now: its wrapper runs
+  through a kernel model in test_torch_heavy_post_models.py).
 * Queries at tiny under the default, forced and off sessions: G1-G4
   (chip_smoke.TPCDS), G5 and G6 (the all-NULL build sum and the 2^53
   guard, as inline subqueries: the port has no memory tables), the
@@ -269,7 +270,7 @@ def test_agg_join_post_matches_reference(name):
     assert not got.columns[sumz].valid_mask()[:n].any()   # all NULL w
 
 
-# ------------- K26's and K27's Triton text under a torch stand-in (CPU)
+# ------------- K26's Triton text under a torch stand-in (CPU)
 
 class _Ptr:
     def __init__(self, t, off=None):
@@ -287,13 +288,12 @@ def _t(v, like=None):
 
 
 class _TL:
-    """The parts of triton.language K26 and K27 use, as torch ops on one
+    """The parts of triton.language K26 uses, as torch ops on one
     program's block of rows."""
 
-    int64, uint8 = torch.int64, torch.uint8
+    int64 = torch.int64
     constexpr = int
     pid = 0
-    static_range = range
 
     def program_id(self, axis):
         return torch.tensor(self.pid, dtype=torch.int32)
@@ -372,11 +372,8 @@ def triton_shim(monkeypatch):
     monkeypatch.setattr(PM, "tl", tl, raising=False)
     monkeypatch.setattr(PM, "_k26", lambda: (
         _Shim(tl, PM._key_bounds_partial), _Shim(tl, PM._key_bounds_final)))
-    monkeypatch.setattr(PM, "_k27", lambda: _Shim(tl, PM._agg_post_kernel))
     monkeypatch.setattr(PM, "KEY_BOUNDS_BLOCK", 64)
     monkeypatch.setattr(PM, "_KEY_BOUNDS_RBLOCK", 4)
-    monkeypatch.setattr(PM, "AGG_POST_BLOCK", 64)
-    monkeypatch.setattr(PM, "AGG_POST_PROGRAMS", 2)
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -408,23 +405,6 @@ def test_k26_text_other_key_types(triton_shim, dtype):
     got = PM.key_bounds_triton(values, valid, nr)
     want = PM.key_bounds_plain(values, valid, nr)
     assert torch.equal(got, want), (got.tolist(), want.tolist())
-
-
-@pytest.mark.parametrize("nhelpers", [1, 2, 9])
-def test_k27_text_matches_its_twin(triton_shim, nhelpers):
-    rng = np.random.default_rng(nhelpers)
-    helpers = [torch.from_numpy(rng.integers(0, 3, 200))
-               for _ in range(nhelpers)]
-    # no live row, one strided pass past the last program, every row
-    for n in (0, 137, 200):
-        nr = PP.row_count(n, CPU)
-        before = PM.agg_post_triton.launches
-        got = PM.agg_post_triton(helpers, nr)
-        want = PM.agg_post_plain(helpers, nr)
-        assert all(torch.equal(x[:n], y[:n]) for x, y in zip(got, want))
-        assert not any(y[n:].any() for y in want)
-        assert PM.agg_post_triton.launches == before + (1 if nhelpers <= 8
-                                                        else 2)
 
 
 # ------------------------------------------------------------- queries

@@ -29,14 +29,17 @@
 // K36 replaces detect_heavy_keys (:70-:110) after its sort (K10 sorts the
 // masked key words): heavy_local keeps the k largest run lengths of one
 // shard's sorted words by (count descending, position ascending), the
-// order lax.top_k gives; heavy_merge sums the n x k candidates' counts
+// order lax.top_k gives, in one launch over the live prefix (below);
+// heavy_merge sums the n x k candidates' counts
 // over equal keys, keeps each key's first occurrence, drops those under
 // min_global_count and keeps the k best by (score descending, index
 // ascending), the sentinel 2^64 - 1 past them.
 //
 // Bound on this card: bytes. K35 reads the key columns once for the
 // destinations and every column once, and writes every moved row once;
-// K36 reads the sorted words once (a run's length is a binary search).
+// K36's local mode reads the live prefix of the sorted words once (and
+// a few words past each tile), the sentinel tail not at all: a run's
+// length is the distance to the next run start.
 #include "tile.cuh"
 
 namespace {
@@ -194,57 +197,231 @@ __device__ void block_top(const uint64_t* top, int k, uint64_t* out) {
   }
 }
 
-// sorted: u64 words ascending (as unsigned); per block its k best scores
-// of cand_count = the run length at a run start of a non-sentinel word,
-// else 0 (a zero still ranks, by position, as in lax.top_k).
-__global__ void heavy_local_kernel(const uint64_t* __restrict__ sorted,
-                                   int64_t cap, int k,
-                                   uint64_t* __restrict__ partial) {
-  uint64_t top[MAX_HEAVY];
-  for (int j = 0; j < k; ++j) top[j] = 0;
-  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < cap;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    const uint64_t s = sorted[i];
-    uint64_t count = 0;
-    if (s != SENT && (i == 0 || sorted[i - 1] != s)) {
-      int64_t lo = i, hi = cap;  // first word past s
-      while (lo < hi) {
-        const int64_t mid = (lo + hi) >> 1;
-        if (sorted[mid] <= s) lo = mid + 1;
-        else hi = mid;
-      }
-      count = (uint64_t)(lo - i);
-    }
-    keep_top(top, k, score_of(count, (uint64_t)i) + 1);
-  }
-  block_top(top, k, partial + (int64_t)blockIdx.x * k);
+// Local mode, one launch (HL_* below). The grid (ops: heavy_grid) depends
+// on the capacity alone: min(HL_GRID_MAX, tiles of the capacity) blocks.
+// Every block finds the live prefix [0, L) itself (L = the first sentinel
+// word, warp 0's 32-way search: about five rounds of 32 reads that stay in
+// L2) and walks the tiles b, b + grid, ... that start below L, each of
+// HL_TILE words, thread t holding the HL_W words from t * HL_W:
+//   * a word starts a run where it differs from its predecessor (the
+//     thread's first word compares with the word before it);
+//   * a run ends at the next run start: within a thread by a backward
+//     pass over its words, past them at the first start of a later
+//     thread (a block scan, suffix min, over the threads' first starts),
+//     and past the tile at the end of the run holding the tile's last
+//     word — warp 0's search, once a tile, from the 32 words after it;
+//   * every position of the tile is a candidate scored (count << 32 |
+//     2^32 - 1 - pos) + 1, count the run length at a run start and 0
+//     elsewhere, as lax.top_k ranks zeros by position; a run belongs to
+//     the tile it starts in, so a key spanning many tiles counts once;
+//   * the block keeps its k best so far one per thread (thread r the r-th,
+//     in a register): a tile whose best candidate beats none of them is
+//     skipped, else k rounds of a block max over the held entries and the
+//     tile's candidates pick the new k. No array is indexed by k.
+// Each block writes its k entries to the scratch, takes a ticket after a
+// barrier and thread 0's fence, and the last block merges the grid's
+// descending lists with the sentinel tail (positions L, L + 1, ... with
+// count 0: the lowest-positioned zero-count entries when fewer than k
+// runs rank): thread j holds list j's head, k rounds of a block max, the
+// owner advancing its head (partials read with __ldcg). It writes counts
+// and keys (the word at the winning position) and resets the ticket. The
+// scratch and ticket are shared by the device's calls, which the executor
+// issues from one host thread on one stream (the mesh's shards over one
+// card call it one after another), so calls never overlap.
+constexpr int HL_THREADS = 512;
+constexpr int HL_W = 8;
+constexpr int64_t HL_TILE = (int64_t)HL_THREADS * HL_W;  // 4,096 words
+constexpr int HL_WARPS = HL_THREADS / 32;
+constexpr int HL_GRID_MAX = 256;  // < HL_THREADS: one list head a thread
+constexpr uint32_t NO_START = 0xFFFFFFFFu;
+
+__device__ __forceinline__ uint64_t max64(uint64_t a, uint64_t b) {
+  return a > b ? a : b;
 }
 
-// One block: the k best of the partial lists; counts and keys out.
-__global__ void heavy_local_final_kernel(const uint64_t* __restrict__ partial,
-                                         int64_t m, int k,
-                                         const uint64_t* __restrict__ sorted,
-                                         int64_t cap,
-                                         int64_t* __restrict__ counts,
-                                         uint64_t* __restrict__ keys) {
-  __shared__ uint64_t out[MAX_HEAVY];
-  uint64_t top[MAX_HEAVY];
-  for (int j = 0; j < k; ++j) top[j] = 0;
-  for (int64_t i = threadIdx.x; i < m; i += blockDim.x)
-    keep_top(top, k, partial[i]);
-  block_top(top, k, out);
-  for (int j = threadIdx.x; j < k; j += blockDim.x) {
-    const uint64_t v = out[j];
-    if (v == 0) {  // fewer than k rows: a sentinel with no count
-      counts[j] = 0;
-      keys[j] = SENT;
+// The block's max of v, in every thread. red: 2 x HL_WARPS shared words;
+// calls alternate halves (`par`), so one barrier a call is enough.
+__device__ __forceinline__ uint64_t block_max(uint64_t v,
+                                              uint64_t (*red)[HL_WARPS],
+                                              int& par) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = max64(v, __shfl_xor_sync(0xffffffffu, v, o));
+  if ((threadIdx.x & 31) == 0) red[par][threadIdx.x >> 5] = v;
+  __syncthreads();
+  uint64_t m = red[par][0];
+#pragma unroll
+  for (int w = 1; w < HL_WARPS; ++w) m = max64(m, red[par][w]);
+  par ^= 1;
+  return m;
+}
+
+// The first position p in [lo, hi) with s[p] > v, or hi (s ascending).
+// Called by a whole warp; each round probes 32 positions at once and
+// narrows the range 32-fold.
+__device__ int64_t warp_first_above(const uint64_t* __restrict__ s,
+                                    int64_t lo, int64_t hi, uint64_t v) {
+  const int lane = threadIdx.x & 31;
+  while (lo < hi) {
+    const int64_t n = hi - lo;
+    const int64_t step = (n + 31) / 32;
+    const int64_t q = lo + lane * step;
+    const unsigned m = __ballot_sync(0xffffffffu, q < hi && s[q] > v);
+    if (m == 0) {
+      lo += (n - 1) / step * step + 1;  // past the last probe
       continue;
     }
-    const uint64_t sc = v - 1;
-    const int64_t pos = (int64_t)(0xFFFFFFFFULL - (sc & 0xFFFFFFFFULL));
-    counts[j] = (int64_t)(sc >> 32);
-    keys[j] = pos < cap ? sorted[pos] : SENT;
+    const int f = __ffs(m) - 1;
+    if (f == 0) return lo;
+    hi = lo + f * step;
+    lo += (int64_t)(f - 1) * step + 1;
   }
+  return hi;
+}
+
+// The end of the run of v that reaches position `from` - 1: the 32 words
+// from `from` first (most runs are short), then a search up to L.
+__device__ __forceinline__ int64_t warp_run_end(const uint64_t* __restrict__ s,
+                                                int64_t from, int64_t L,
+                                                uint64_t v) {
+  const int lane = threadIdx.x & 31;
+  const int64_t q = from + lane;
+  const unsigned m = __ballot_sync(0xffffffffu, q < L && s[q] > v);
+  if (m) return from + __ffs(m) - 1;
+  return from + 32 >= L ? L : warp_first_above(s, from + 32, L, v);
+}
+
+// The first run start of the threads after this one (tile offsets;
+// NO_START when there is none): a suffix min over the block.
+__device__ __forceinline__ uint32_t next_start_after(uint32_t first,
+                                                     uint32_t* wmin) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint32_t v = first;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const uint32_t w = __shfl_down_sync(0xffffffffu, v, o);
+    if (lane + o < 32) v = w < v ? w : v;
+  }
+  uint32_t ex = __shfl_down_sync(0xffffffffu, v, 1);
+  if (lane == 31) ex = NO_START;
+  if (lane == 0) wmin[warp] = v;
+  __syncthreads();
+  for (int w = warp + 1; w < HL_WARPS; ++w) ex = wmin[w] < ex ? wmin[w] : ex;
+  return ex;
+}
+
+// sorted: u64[cap] ascending, the sentinel last; partial: u64[grid * k];
+// ticket: 0 between calls; out: int64[2k], counts then keys.
+__global__ void __launch_bounds__(HL_THREADS, 2) heavy_local_kernel(
+    const uint64_t* __restrict__ s, int64_t cap, int k,
+    unsigned long long* __restrict__ partial, unsigned* __restrict__ ticket,
+    int64_t* __restrict__ out) {
+  __shared__ uint64_t red[2][HL_WARPS];
+  __shared__ uint32_t wmin[HL_WARPS];
+  __shared__ int64_t lim[2];  // L; the end of the run past the tile
+  __shared__ bool last;
+  const int tid = (int)threadIdx.x;
+  int par = 0;
+  if (tid < 32) lim[0] = warp_first_above(s, 0, cap, SENT - 1);
+  __syncthreads();
+  const int64_t L = lim[0];
+  uint64_t mine = 0;  // the block's (threadIdx.x)-th best so far
+  uint64_t kth = 0;   // its k-th best, 0 while it holds fewer than k
+  for (int64_t t0 = blockIdx.x * HL_TILE; t0 < L;
+       t0 += (int64_t)gridDim.x * HL_TILE) {
+    const int64_t t1 = t0 + HL_TILE < L ? t0 + HL_TILE : L;
+    const int64_t p0 = t0 + (int64_t)tid * HL_W;
+    uint64_t w[HL_W];
+#pragma unroll
+    for (int j = 0; j < HL_W; ++j) w[j] = p0 + j < t1 ? s[p0 + j] : 0;
+    const uint64_t before = p0 > 0 && p0 < t1 ? s[p0 - 1] : 0;
+    unsigned flags = 0;
+#pragma unroll
+    for (int j = 0; j < HL_W; ++j) {
+      const uint64_t prev = j ? w[j - 1] : before;
+      if (p0 + j < t1 && (p0 + j == 0 || w[j] != prev)) flags |= 1u << j;
+    }
+    // warp 0: the end of the run holding the tile's last word, read
+    // after next_start_after's barrier
+    if (tid < 32)
+      lim[1] = t1 == L ? L : warp_run_end(s, t1, L, s[t1 - 1]);
+    const uint32_t first =
+        flags ? (uint32_t)(p0 - t0) + (uint32_t)(__ffs(flags) - 1)
+              : NO_START;
+    const uint32_t after = next_start_after(first, wmin);
+    int64_t end = after != NO_START ? t0 + after : lim[1];
+    uint64_t sc[HL_W];
+    uint64_t cur = 0;
+#pragma unroll
+    for (int j = HL_W - 1; j >= 0; --j) {
+      const int64_t pos = p0 + j;
+      uint64_t count = 0;
+      if ((flags >> j) & 1u) {
+        count = (uint64_t)(end - pos);
+        end = pos;
+      }
+      sc[j] = pos < t1 ? score_of(count, (uint64_t)pos) + 1 : 0;
+      cur = max64(cur, sc[j]);
+    }
+    if (!__syncthreads_or(cur > kth)) continue;  // the tile beats no held
+    cur = max64(cur, mine);
+    uint64_t next = 0, m = 0;
+    int r = 0;
+    for (; r < k; ++r) {
+      m = block_max(cur, red, par);
+      if (m == 0) break;
+      if (tid == r) next = m;
+      if (cur == m) {  // this thread held it: drop it, find its next best
+        mine = mine == m ? 0 : mine;
+        cur = mine;
+#pragma unroll
+        for (int j = 0; j < HL_W; ++j) {
+          sc[j] = sc[j] == m ? 0 : sc[j];
+          cur = max64(cur, sc[j]);
+        }
+      }
+    }
+    mine = next;
+    kth = r == k ? m : 0;
+  }
+  if (tid < k) partial[(int64_t)blockIdx.x * k + tid] = mine;
+  // the block's entries are visible before the ticket counts it: the
+  // barrier orders them before thread 0's fence
+  __syncthreads();
+  if (tid == 0) {
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const int G = (int)gridDim.x;
+  // list i's entry i of this thread's list: block tid's partials, or for
+  // thread G the sentinel tail (count 0 at positions L, L + 1, ...)
+  auto entry = [&](int i) -> uint64_t {
+    if (i >= k) return 0;
+    if (tid < G) return __ldcg(partial + (int64_t)tid * k + i);
+    return tid == G && L + i < cap ? score_of(0, (uint64_t)(L + i)) + 1 : 0;
+  };
+  int h = 0;
+  uint64_t v = entry(0), nx = entry(1);  // the head, and the next in flight
+  uint64_t got = 0;
+  for (int r = 0; r < k; ++r) {
+    const uint64_t m = block_max(v, red, par);
+    if (m == 0) break;
+    if (tid == r) got = m;
+    if (v == m) {
+      v = nx;
+      nx = entry(++h + 1);
+    }
+  }
+  if (tid < k) {  // got == 0: fewer than k positions, a sentinel, count 0
+    const uint64_t word = got - 1;
+    const int64_t pos = (int64_t)(0xFFFFFFFFULL - (word & 0xFFFFFFFFULL));
+    out[tid] = got ? (int64_t)(word >> 32) : 0;
+    out[k + tid] = got ? (int64_t)s[pos] : -1;
+  }
+  if (tid == 0) *ticket = 0;
 }
 
 // One block over m = n * k candidates (shard-major).
@@ -336,22 +513,22 @@ TT_EXPORT int exchange_scatter(const void* dest, int64_t cap, int64_t n,
   return (int)cudaGetLastError();
 }
 
-// sorted: u64[cap] ascending (NULL and dead rows the sentinel); partial:
-// u64[64 * k] scratch; counts: int64[k] out, keys: u64[k] out. k in
-// [1, 64], cap < 2^32.
+// sorted: u64[cap] ascending (NULL and dead rows the sentinel, last);
+// scratch: u64[HL_GRID_MAX * 64] partials, then the ticket (uint32, 0,
+// left 0); out: int64[2k], counts then keys; grid in [1, HL_GRID_MAX]
+// (ops: heavy_grid(cap)). k in [1, 64], cap < 2^32. One launch.
 TT_EXPORT int heavy_local(const void* sorted, int64_t cap, int64_t k,
-                          void* partial, void* counts, void* keys,
+                          void* scratch, void* out, int64_t grid,
                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k < 1 || k > MAX_HEAVY || cap < 0 || cap >= (1LL << 32)) return -1;
-  const int64_t blocks = grid_for(cap, 256) < 64 ? grid_for(cap, 256) : 64;
-  heavy_local_kernel<<<(unsigned)blocks, 256, 0, s>>>(
-      static_cast<const uint64_t*>(sorted), cap, (int)k,
-      static_cast<uint64_t*>(partial));
-  heavy_local_final_kernel<<<1, 256, 0, s>>>(
-      static_cast<const uint64_t*>(partial), blocks * k, (int)k,
-      static_cast<const uint64_t*>(sorted), cap,
-      static_cast<int64_t*>(counts), static_cast<uint64_t*>(keys));
+  if (k < 1 || k > MAX_HEAVY || cap < 0 || cap >= (1LL << 32) || grid < 1 ||
+      grid > HL_GRID_MAX)
+    return -1;
+  auto* part = static_cast<unsigned long long*>(scratch);
+  heavy_local_kernel<<<(unsigned)grid, HL_THREADS, 0, s>>>(
+      static_cast<const uint64_t*>(sorted), cap, (int)k, part,
+      reinterpret_cast<unsigned*>(part + (int64_t)HL_GRID_MAX * MAX_HEAVY),
+      static_cast<int64_t*>(out));
   return (int)cudaGetLastError();
 }
 

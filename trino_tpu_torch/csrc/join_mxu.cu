@@ -24,7 +24,7 @@
 // and the table (8 bytes a slot) written once; the build is at most a few
 // thousand rows on the main path (nation 25, region 5; the span is at most
 // mxu_join_max_slots), so a launch is latency, not bandwidth.
-// K24 and K25: the aggregating join (B11b), below.
+// K24, K25 and K27: the aggregating join (B11b), below.
 #include "common.cuh"
 
 namespace {
@@ -432,4 +432,69 @@ TT_EXPORT int agg_lookup(const void* table, int64_t nout, int64_t cap,
         static_cast<const long long*>(tab), slots, ncols,
         static_cast<const int64_t*>(kmin), static_cast<bool*>(live));
   return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------------ K27
+//
+// Replaces trino_tpu/ops/join_mxu.py agg_join_post (:287), whose masks XLA
+// fuses into one elementwise pass: per summed #valid-w helper column of
+// the aggregated page, helper > 0 on its live rows, the validity of the
+// build-side SUM it guards (the padding past num_rows is left unwritten).
+// Bound on this card: bytes, each helper read once and each mask written
+// once over the live rows — at the main path's call (G3: 16 live rows)
+// a few hundred bytes, so the call is its host enqueue and one launch.
+// So: one launch for any number of helpers, the (helper, mask) pointer
+// pairs in a by-value parameter block sized to the call (8, 64 or 1,024
+// helpers), a grid fixed by the capacity (ops: agg_post_grid) whose
+// blocks stride the live rows read from num_rows on the device.
+namespace {
+constexpr int POST_THREADS = 256;
+
+template <int H>
+struct PostPairs {
+  int64_t v[2 * H];  // helper ptr (int64 [cap]), mask ptr (bool [cap])
+};
+
+template <int H>
+__global__ void __launch_bounds__(POST_THREADS)
+    agg_post_kernel(const __grid_constant__ PostPairs<H> p, int nhelpers,
+                    const int32_t* __restrict__ num_rows, int64_t cap) {
+  int64_t n = *num_rows;
+  n = n < 0 ? 0 : (n > cap ? cap : n);
+  for (int64_t i = blockIdx.x * (int64_t)POST_THREADS + threadIdx.x; i < n;
+       i += (int64_t)gridDim.x * POST_THREADS)
+    for (int j = 0; j < nhelpers; ++j)
+      reinterpret_cast<bool*>(p.v[2 * j + 1])[i] =
+          reinterpret_cast<const int64_t*>(p.v[2 * j])[i] > 0;
+}
+
+template <int H>
+int post_launch(const void* table, int64_t nhelpers, const void* num_rows,
+                int64_t cap, int64_t grid, cudaStream_t s) {
+  thread_local static PostPairs<H> p;  // each launch copies it
+  const int64_t* src = static_cast<const int64_t*>(table);
+  for (int64_t i = 0; i < 2 * nhelpers; ++i) p.v[i] = src[i];
+  agg_post_kernel<H><<<(unsigned)grid, POST_THREADS, 0, s>>>(
+      p, (int)nhelpers, static_cast<const int32_t*>(num_rows), cap);
+  return (int)cudaGetLastError();
+}
+}  // namespace
+
+// table: int64 HOST array, 2 words per helper (helper ptr: int64 [cap];
+// mask ptr: bool [cap]); num_rows: int32 on the device; grid >= 1 blocks.
+// Returns cudaGetLastError(), or -1 for no helper or more than
+// TABLE_MAX / 2.
+TT_EXPORT int agg_post(const void* table, int64_t nhelpers,
+                       const void* num_rows, int64_t cap, int64_t grid,
+                       void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (nhelpers < 1 || grid < 1) return -1;
+  if (nhelpers <= 8)
+    return post_launch<8>(table, nhelpers, num_rows, cap, grid, s);
+  if (nhelpers <= 64)
+    return post_launch<64>(table, nhelpers, num_rows, cap, grid, s);
+  if (nhelpers <= TABLE_MAX / 2)
+    return post_launch<TABLE_MAX / 2>(table, nhelpers, num_rows, cap, grid,
+                                      s);
+  return -1;
 }

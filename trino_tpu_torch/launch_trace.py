@@ -1,14 +1,14 @@
-"""Where the host and device time of a K2, K4, K16 or K30 HLL call goes,
-and the launch floor.
+"""Where the host and device time of a K2, K4, K16, K30 HLL, K36 or K27
+call goes, and the launch floor.
 
-For five calls it traces 1,000 calls with cProfile and splits each
+For eight calls it traces 1,000 calls with cProfile and splits each
 call's host time over what the wrapper calls directly (the checks and
 glue in the wrapper itself, each allocation, the pointer-table build,
 the stream lookup, the ctypes call with its launches, a Triton
 launcher), beside the call's host enqueue time without the profiler and
-its CUDA-event time on an idle stream; for the K16 and HLL calls also
-the profiler's device time per call of each kernel and the kernels a call
-launches:
+its CUDA-event time on an idle stream; for the K16, HLL, K36 and K27
+calls also the profiler's device time per call of each kernel and the
+kernels a call launches:
 
 * K2 (`page.concat_rows_cuda`) at q1 sf1's partial buffer, captured from
   a run of q1 on the card;
@@ -24,7 +24,14 @@ launches:
   order (K8 emits groups in hash-slot order) on a pair page of 8,388,608
   rows, nseg the page's capacity; then a ladder
   of group counts with the fold's last-block finalize and with the
-  second finalize launch, which is how HLL_LAST_BLOCK_GROUPS was chosen.
+  second finalize launch, which is how HLL_LAST_BLOCK_GROUPS was chosen;
+* K36's local mode (`parallel/exchange.py` `heavy_local_cuda`) at the
+  shape of a D4 sf10 q9 shard's sorted key words: 3,805,999 live words of
+  about a million distinct keys (runs of 3.8 on average) on 8,388,608,
+  the sentinel after them, at k 8 (the session's default) and k 64;
+* K27 (`ops/join_mxu.py`'s CUDA wrapper, or the Triton one of a tree
+  that has it) at G3's aggregated page: 16 live rows of 8,388,608, one
+  helper, and at nine helpers.
 
 The launch floor is an empty kernel (`csrc/floor.cu`) launched through
 the package's ctypes binding with a parameter block of three words, of
@@ -33,7 +40,7 @@ the package's ctypes binding with a parameter block of three words, of
 1,000 launches, and CUDA-event milliseconds per launch. Needs the card:
 
     python3 -m trino_tpu_torch.launch_trace [--calls 1000]
-        [--only floor,main,spill,hll,ladder]
+        [--only floor,main,spill,hll,ladder,heavy,post]
 """
 
 from __future__ import annotations
@@ -82,7 +89,12 @@ HLL_LADDER = (1, 512, 1024, 2048, 3072, 4096, 8192, 65536)
 # launches queued by one measured run of calls stay below the device's
 # queue, so a host time per call is not a wait for a full queue
 QUEUE_LAUNCHES = 900
-PARTS = ("floor", "main", "spill", "hll", "ladder")
+HEAVY_CAP = 8_388_608        # a D4 sf10 q9 shard's masked key words
+HEAVY_LIVE = 3_805_999
+HEAVY_KEYS = 1_000_000
+POST_CAP = 8_388_608         # G3's aggregated page
+POST_LIVE = 16
+PARTS = ("floor", "main", "spill", "hll", "ladder", "heavy", "post")
 
 
 def event_ms(fn, iters: int = 20) -> float:
@@ -321,6 +333,38 @@ def hll_call(dev, groups: int, pairs: int, cap: int, nseg: int,
     return p.to(dev), r.to(dev), n, ng, nseg
 
 
+def heavy_words(cap: int, live: int, distinct: int, seed: int = 9,
+                dev="cpu") -> torch.Tensor:
+    """K36's input: `live` words drawn from `distinct` keys (spread over
+    the 64-bit range by a multiplicative hash, none the sentinel) in
+    unsigned ascending order, then the sentinel 2^64 - 1 (-1) up to
+    `cap`, as K10 leaves a shard's masked key words."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, max(distinct, 1), live).astype(np.uint64)
+    w = keys * np.uint64(0x9E3779B97F4A7C15)
+    w[w == np.uint64(0xFFFFFFFFFFFFFFFF)] = 0
+    out = torch.full((cap,), -1, dtype=torch.int64)
+    out[:live] = torch.from_numpy(np.sort(w).view(np.int64))
+    return out.to(dev)
+
+
+def post_call(dev, helpers: int, cap: int = POST_CAP,
+              live: int = POST_LIVE, seed: int = 3):
+    """K27's arguments at G3's aggregated page: `helpers` summed #valid-w
+    columns (int64, zeros among them) of `cap` rows, `live` live."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    hs = [torch.randint(0, 3, (cap,), generator=g, device=dev,
+                        dtype=torch.int64) for _ in range(helpers)]
+    return hs, torch.tensor(live, dtype=torch.int32, device=dev)
+
+
+def k27_wrapper():
+    from trino_tpu_torch.ops import join_mxu as JM
+    return getattr(JM, "agg_post_cuda", None) \
+        or getattr(JM, "agg_post_triton")
+
+
 @contextlib.contextmanager
 def last_block_groups(value: int):
     """K30 HLL's last-block threshold set to `value` for the block."""
@@ -417,6 +461,26 @@ def report(calls: int, parts=PARTS):
             hll_call(dev, HLL_GROUPS, HLL_PAIRS, HLL_CAP, HLL_CAP),
             f"{HLL_PAIRS} pairs of {HLL_GROUPS} groups on a page of "
             f"{HLL_CAP}, nseg {HLL_CAP}", True))
+    if "heavy" in parts:
+        from trino_tpu_torch.parallel import exchange as X
+        words = heavy_words(HEAVY_CAP, HEAVY_LIVE, HEAVY_KEYS, dev=dev)
+        for k in (8, 64):
+            got = X.heavy_local_cuda(words, k)
+            want = X.heavy_local_plain(words, k)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise SystemExit(f"K36 local mode at k {k} differs from "
+                                 "its twin")
+            shapes.append((
+                f"K36 local mode at a D4 q9 shard, k {k}",
+                X.heavy_local_cuda, (words, k),
+                f"{HEAVY_LIVE} live sorted words of {HEAVY_KEYS} keys on "
+                f"{HEAVY_CAP}", True))
+    if "post" in parts:
+        for n in (1, 9):
+            shapes.append((
+                f"K27 at G3's aggregated page, {n} helper(s)", k27_wrapper(),
+                post_call(dev, n), f"cap {POST_CAP}, {POST_LIVE} live rows",
+                True))
     trace_ctypes()
     for name, wrapper, args, shape, split in shapes:
         def call(w=wrapper, a=args):

@@ -39,8 +39,9 @@ SINGLE aggregation, so the cross product is never materialized.
 * K26 `key_bounds` (Triton, `_key_bounds_partial`/`_key_bounds_final`):
   the live key's unsigned 64-bit min/max and its min/max in its own type
   (the dynamic filter's range), one pass.
-* K27 `agg_post` (Triton, `_agg_post_kernel`): the SQL NULL of a
-  build-side SUM, `helper > 0` over the aggregated page's live rows.
+* K27 `agg_post` (agg_join_post; csrc/join_mxu.cu): the SQL NULL of a
+  build-side SUM, `helper > 0` over the aggregated page's live rows, one
+  launch for every helper.
 
 Exactness: the reference accumulates the table in float64 on its CPU and
 float32 on an accelerator (gated at 2^24). The port keeps the reference
@@ -53,6 +54,7 @@ C) tensor whose float-sum columns carry float64 bits.
 
 from __future__ import annotations
 
+import array
 import ctypes
 import dataclasses
 from typing import Callable, List, Optional, Sequence, Tuple
@@ -393,7 +395,7 @@ _F64_NAN_BITS = 0x7FF8000000000000
 _F64_ABS_MASK = 0x7FFFFFFFFFFFFFFF
 _F64_INF_BITS = 0x7FF0000000000000
 _K26 = {}
-tl = None   # triton.language, bound by _k26/_k27 at the first launch
+tl = None   # triton.language, bound by _k26 at the first launch
 
 
 def _float_bits(values: torch.Tensor) -> torch.Tensor:
@@ -736,10 +738,11 @@ def agg_join_lookup(key_channel: int, group_channels, derive, helpers):
 
 # ------------------------------------------------------------------ K27
 
-AGG_POST_BLOCK = 1024
-AGG_POST_PROGRAMS = 1024    # K27's grid at most; each strides the live rows
-_AGG_POST_MAX = 8
-_K27 = {}
+AGG_POST_THREADS = 256     # csrc/join_mxu.cu POST_THREADS
+AGG_POST_GRID_MAX = 264    # blocks of K27's grid at most; they stride
+AGG_POST_MAX = 1024        # helpers of one launch (common.cuh TABLE_MAX / 2)
+_AGG_POST_ARGS = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                  ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p)
 
 
 def agg_post_plain(helpers: Sequence[torch.Tensor], num_rows: torch.Tensor
@@ -754,93 +757,60 @@ def agg_post_plain(helpers: Sequence[torch.Tensor], num_rows: torch.Tensor
     return [(h > 0) & live for h in helpers]
 
 
-# K27: AGG_POST_PROGRAMS programs at most stride the num_rows live rows in
-# blocks of BLOCK and write, for each of up to 8 helper columns, helper > 0
-# as the validity of the build-side SUM it guards; the padding is left
-# unwritten. Built by _k27 with `tl` bound to triton.language.
-def _agg_post_kernel(h0, h1, h2, h3, h4, h5, h6, h7,
-                     o0, o1, o2, o3, o4, o5, o6, o7, num_rows_ptr,
-                     K: tl.constexpr, BLOCK: tl.constexpr,
-                     PROGRAMS: tl.constexpr):
-    n = tl.load(num_rows_ptr).to(tl.int64)
-    first = tl.program_id(0).to(tl.int64) * BLOCK
-    for start in range(first, n, PROGRAMS * BLOCK):
-        offs = start + tl.arange(0, BLOCK)
-        inb = offs < n
-        for j in tl.static_range(K):
-            if j == 0:
-                hp, op = h0, o0
-            elif j == 1:
-                hp, op = h1, o1
-            elif j == 2:
-                hp, op = h2, o2
-            elif j == 3:
-                hp, op = h3, o3
-            elif j == 4:
-                hp, op = h4, o4
-            elif j == 5:
-                hp, op = h5, o5
-            elif j == 6:
-                hp, op = h6, o6
-            else:
-                hp, op = h7, o7
-            h = tl.load(hp + offs, mask=inb, other=0)
-            tl.store(op + offs, (h > 0).to(tl.uint8), mask=inb)
+def agg_post_grid(cap: int) -> int:
+    """Blocks of K27's grid: one per AGG_POST_THREADS rows of capacity,
+    at most AGG_POST_GRID_MAX; the blocks stride the live rows."""
+    return max(1, min(AGG_POST_GRID_MAX, -(-cap // AGG_POST_THREADS)))
 
 
-def _k27():
-    """Build (once per process) K27's Triton program.
-
-    Replaces trino_tpu/ops/join_mxu.py agg_join_post (:287), whose masks
-    XLA fuses into one elementwise pass. Bound on this card: bytes, each
-    helper column read once and each mask written once over the live
-    rows; up to 8 helpers a launch."""
-    if not _K27:
-        import triton
-        import triton.language as tl_mod
-        globals()["tl"] = tl_mod
-        _K27["k"] = triton.jit(_agg_post_kernel)
-    return _K27["k"]
+def agg_post_table(helpers: Sequence[torch.Tensor], base: int, cap: int
+                   ) -> List[int]:
+    """K27's parameter words: per helper its pointer and its mask row's,
+    the rows of `cap` bytes from `base` (csrc/join_mxu.cu PostPairs)."""
+    words: List[int] = []
+    for j, h in enumerate(helpers):
+        words += (h.data_ptr(), base + j * cap)
+    return words
 
 
-def agg_post_triton(helpers: Sequence[torch.Tensor], num_rows: torch.Tensor
-                    ) -> List[torch.Tensor]:
-    """K27 launch: one Triton program over the live rows per 8 helpers."""
+def agg_post_cuda(helpers: Sequence[torch.Tensor], num_rows: torch.Tensor
+                  ) -> List[torch.Tensor]:
+    """K27 launch: see csrc/join_mxu.cu. One launch for every helper; the
+    masks are the rows of one bool [helpers, cap] allocation."""
     if not helpers:
         return []
     cap = helpers[0].shape[0]
     dev = helpers[0].device
+    index = helpers[0].get_device()
     for h in helpers:
-        if h.dtype != torch.int64 or h.shape != (cap,) or h.device != dev \
-                or not h.is_contiguous():
+        if index < 0 or h.dtype is not torch.int64 or h.shape != (cap,) \
+                or h.device != dev or not h.is_contiguous():
             raise ValueError("helpers must be contiguous int64 [cap] on the "
                              "card")
-    if num_rows.dtype != torch.int32 or num_rows.dim() != 0 \
+    if num_rows.dtype is not torch.int32 or num_rows.dim() != 0 \
             or num_rows.device != dev:
         raise ValueError("num_rows must be a 0-d int32 tensor beside the "
                          "helpers")
-    kernel = _k27()
-    outs = [torch.empty(cap, dtype=torch.bool, device=dev)
-            for _ in helpers]
-    grid = (max(1, min(-(-cap // AGG_POST_BLOCK), AGG_POST_PROGRAMS)),)
-    for g in range(0, len(helpers), _AGG_POST_MAX):
-        hs = list(helpers[g:g + _AGG_POST_MAX])
-        os_ = [o.view(torch.uint8) for o in outs[g:g + _AGG_POST_MAX]]
-        pad = _AGG_POST_MAX - len(hs)
-        kernel[grid](*hs, *([hs[0]] * pad), *os_, *([os_[0]] * pad),
-                     num_rows, K=len(hs), BLOCK=AGG_POST_BLOCK,
-                     PROGRAMS=AGG_POST_PROGRAMS, num_warps=4)
-        agg_post_triton.launches += 1
-    return outs
+    if len(helpers) > AGG_POST_MAX:
+        raise ValueError(f"{len(helpers)} helpers: one launch's table "
+                         f"holds {AGG_POST_MAX}")
+    masks = torch.empty((len(helpers), cap), dtype=torch.bool, device=dev)
+    table = array.array("q", agg_post_table(helpers, masks.data_ptr(), cap))
+    rc = native.function("join_mxu", "agg_post", _AGG_POST_ARGS)(
+        table.buffer_info()[0], len(helpers), num_rows.data_ptr(), cap,
+        agg_post_grid(cap), native.raw_stream(index))
+    native.check(rc, "agg_post")
+    agg_post_cuda.launches += 1
+    return list(masks.unbind(0))
 
 
-agg_post_triton.launches = 0
+agg_post_cuda.launches = 0
 
 
 def agg_post(helpers: Sequence[torch.Tensor], num_rows: torch.Tensor
              ) -> List[torch.Tensor]:
-    """K27 wrapper: plain twin on the CPU, Triton kernel on CUDA."""
-    run = agg_post_triton if num_rows.is_cuda else agg_post_plain
+    """K27 wrapper: plain twin on the CPU, kernel on CUDA."""
+    run = agg_post_cuda if num_rows.is_cuda else agg_post_plain
     return run(helpers, num_rows)
 
 

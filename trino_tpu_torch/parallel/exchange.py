@@ -55,6 +55,12 @@ MODE_HASH, MODE_SPREAD, MODE_REPLICATE = 0, 1, 2
 MAX_HEAVY = 64         # csrc/exchange.cu MAX_HEAVY
 MAX_DESTINATIONS = 64  # csrc/exchange.cu MAX_N
 TILE = 4096            # csrc/tile.cuh TILE
+HEAVY_TILE = 4096      # csrc/exchange.cu HL_TILE: words of a K36 tile
+HEAVY_GRID_MAX = 256   # csrc/exchange.cu HL_GRID_MAX
+_HEAVY_SCRATCH: dict = {}  # device index -> K36's partials and ticket
+_HEAVY_ARGS = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+               ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+               ctypes.c_void_p)
 
 Bucket = Union[int, Callable[[int], int]]
 
@@ -260,6 +266,85 @@ def heavy_local_plain(sorted_words: torch.Tensor, k: int
     return counts, keys
 
 
+def heavy_local_model(sorted_words: torch.Tensor, k: int,
+                      tile: int = HEAVY_TILE, grid_max: int = HEAVY_GRID_MAX,
+                      per_thread: int = 8):
+    """NumPy model of K36's local-mode launch (csrc/exchange.cu
+    heavy_local_kernel) over `tile`-word tiles of `per_thread` words a
+    thread. Returns (counts, keys, stats): stats counts the tiles walked,
+    the tiles the threshold skipped, the searches past a tile's end and
+    the furthest position a tile read (the live prefix's end L, the
+    sentinel tail never), besides L and the grid."""
+    import numpy as np
+    s = sorted_words.cpu().numpy().view(np.uint64)
+    cap = s.shape[0]
+    grid = max(1, min(grid_max, -(-cap // tile)))
+    live = int(np.searchsorted(s, np.uint64(2**64 - 1)))  # first sentinel
+    stats = dict(live=live, grid=grid, tiles=0, skipped=0, searches=0,
+                 furthest=-1)
+    no_start = 1 << 32
+
+    def score(count, pos):
+        return ((count << 32) | (0xFFFFFFFF - pos)) + 1
+    partials = []
+    for b in range(grid):
+        held, kth = [], 0         # the block's best so far, descending
+        for t0 in range(b * tile, live, grid * tile):
+            t1 = min(t0 + tile, live)
+            stats["tiles"] += 1
+            w = s[t0:t1]
+            prev = np.concatenate([s[t0 - 1:t0] if t0 else w[:1] + 1,
+                                   w[:-1]])
+            start = w != prev
+            # the end of the run holding the tile's last word
+            e_tile = live
+            if t1 < live:
+                stats["searches"] += 1
+                e_tile = t1 + int(np.searchsorted(s[t1:live], w[-1],
+                                                  side="right"))
+            stats["furthest"] = max(stats["furthest"], e_tile - 1, t1 - 1)
+            # each thread's first start; the first start of a later thread
+            offs = np.arange(t1 - t0)
+            first = np.full(-(-tile // per_thread) + 1, no_start)
+            np.minimum.at(first, offs[start] // per_thread, offs[start])
+            after = np.minimum.accumulate(first[::-1])[::-1][1:]
+            scores = [0] * (t1 - t0)
+            for t in range(-(-(t1 - t0) // per_thread)):
+                end = t0 + int(after[t]) if after[t] != no_start else e_tile
+                for o in range(min((t + 1) * per_thread, t1 - t0) - 1,
+                               t * per_thread - 1, -1):
+                    count = 0
+                    if start[o]:       # the run ends at the next start
+                        count, end = end - (t0 + o), t0 + o
+                    scores[o] = score(count, t0 + o)
+            if max(scores) <= kth:      # the tile beats none of the k held
+                stats["skipped"] += 1
+                continue
+            held = sorted(held + scores, reverse=True)[:k]
+            kth = held[-1] if len(held) == k else 0
+        partials.append(held + [0] * (k - len(held)))
+    # the last block: k rounds over the lists' heads, the sentinel tail
+    # (positions live, live + 1, ... with count 0) as one more list
+    tail = [score(0, p) for p in range(live, min(live + k, cap))]
+    lists = partials + [tail + [0] * (k - len(tail))]
+    heads = [0] * len(lists)
+    counts, keys = [], []
+    for _ in range(k):
+        j = max(range(len(lists)), key=lambda i: lists[i][heads[i]]
+                if heads[i] < k else 0)
+        m = lists[j][heads[j]] if heads[j] < k else 0
+        if m == 0:
+            break
+        heads[j] += 1
+        counts.append((m - 1) >> 32)
+        keys.append(int(s[0xFFFFFFFF - ((m - 1) & 0xFFFFFFFF)]))
+    counts += [0] * (k - len(counts))
+    keys += [2**64 - 1] * (k - len(keys))
+    keys = np.array(keys, dtype=np.uint64).view(np.int64)
+    return (torch.tensor(counts, dtype=torch.int64),
+            torch.from_numpy(keys.copy()), stats)
+
+
 def heavy_merge_plain(keys: torch.Tensor, counts: torch.Tensor, k: int,
                       min_global_count: int) -> torch.Tensor:
     """Plain twin of K36's merge mode over the shard-major candidates:
@@ -278,25 +363,51 @@ def heavy_merge_plain(keys: torch.Tensor, counts: torch.Tensor, k: int,
                        torch.full_like(keys[sel], SENTINEL))
 
 
+def heavy_grid(cap: int) -> int:
+    """Blocks of K36's local-mode grid: one per HEAVY_TILE words of
+    capacity, at most HEAVY_GRID_MAX (csrc/exchange.cu HL_GRID_MAX). It
+    depends on the capacity alone; the blocks find the live prefix
+    themselves."""
+    return max(1, min(HEAVY_GRID_MAX, -(-cap // HEAVY_TILE)))
+
+
+def _heavy_scratch(index: int) -> torch.Tensor:
+    """K36's local-mode scratch on CUDA device `index`: the grid's k-word
+    partials (HEAVY_GRID_MAX x MAX_HEAVY words), then the ticket word,
+    zero between calls (the last block resets it). Calls share it, so
+    they must be ordered on one stream: the executor issues every launch
+    from one host thread on the device's current stream, the mesh's
+    shards over one card one after another."""
+    scratch = _HEAVY_SCRATCH.get(index)
+    if scratch is None:
+        scratch = _HEAVY_SCRATCH[index] = torch.zeros(
+            HEAVY_GRID_MAX * MAX_HEAVY + 1, dtype=torch.int64,
+            device=torch.device("cuda", index))
+    return scratch
+
+
 def heavy_local_cuda(sorted_words: torch.Tensor, k: int):
-    """K36's local mode: see csrc/exchange.cu."""
-    cap = sorted_words.shape[0]
-    dev = sorted_words.device
+    """K36's local mode: see csrc/exchange.cu. One launch; counts and keys
+    are the two halves of one int64[2k] allocation."""
+    index = sorted_words.get_device()
+    if index < 0:
+        raise ValueError("K36's sorted words must be on a CUDA device")
     if not 1 <= k <= MAX_HEAVY:
         raise ValueError(f"k = {k}: 1 to {MAX_HEAVY}")
-    if sorted_words.dtype != torch.int64 or not sorted_words.is_contiguous():
+    if sorted_words.dtype is not torch.int64 or sorted_words.dim() != 1 \
+            or not sorted_words.is_contiguous():
         raise ValueError("sorted words must be contiguous int64")
-    partial = torch.empty(64 * k, dtype=torch.int64, device=dev)
-    counts = torch.empty(k, dtype=torch.int64, device=dev)
-    keys = torch.empty(k, dtype=torch.int64, device=dev)
-    rc = native.library("exchange").heavy_local(
-        ctypes.c_void_p(sorted_words.data_ptr()), ctypes.c_int64(cap),
-        ctypes.c_int64(k), ctypes.c_void_p(partial.data_ptr()),
-        ctypes.c_void_p(counts.data_ptr()), ctypes.c_void_p(keys.data_ptr()),
-        ctypes.c_void_p(native.stream_ptr(dev)))
+    cap = sorted_words.shape[0]
+    if cap >= 1 << 32:
+        raise ValueError(f"{cap} words: K36 scores positions in 32 bits")
+    scratch = _heavy_scratch(index)
+    out = torch.empty(2 * k, dtype=torch.int64, device=sorted_words.device)
+    rc = native.function("exchange", "heavy_local", _HEAVY_ARGS)(
+        sorted_words.data_ptr(), cap, k, scratch.data_ptr(), out.data_ptr(),
+        heavy_grid(cap), native.raw_stream(index))
     native.check(rc, "heavy_local")
     heavy_local_cuda.launches += 1
-    return counts, keys
+    return out.view(2, k).unbind(0)
 
 
 heavy_local_cuda.launches = 0
