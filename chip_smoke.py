@@ -1163,19 +1163,115 @@ def probe_cols(g, build_cols, cap, dev, hit=0.6):
     return out
 
 
+JOIN_CASES = [  # key kind, build cap, live rows, duplicates, probe cap, live
+    ("dense", 5000, 4900, False, 6000, 5990),
+    ("dense", 20_000, 20_000, True, 100, 100),
+    ("negative", 30_000, 29_000, False, 70_000, 65_000),
+    ("composite", 4096, 4096, False, 9000, 9000),
+    ("composite", 3000, 3000, True, 10, 10),
+    ("dense", 1000, 0, False, 500, 500),           # empty build
+    ("negative", 1000, 1000, False, 500, 0),       # dead probe
+    ("dense", 147_456, 147_000, False, 4_194_304, 4_194_304),
+    # a 2^22-slot dense table, a probe capacity off the kernel's 4-row step
+    ("dense", 1_048_576, 1_040_000, False, 1_048_577, 1_000_001)]
+
+
+def launcher_enqueues(kind: str) -> int:
+    """The stream operations (kernels and memsets) K5's dense mode
+    (`kind` "dense": csrc/join_build.cu join_dense) or K6 ("probe":
+    csrc/join_probe.cu join_probe) has enqueued in this process, counted
+    by the C launcher as it enqueues them."""
+    import ctypes
+    from trino_tpu_torch import native
+    lib, entry = {"dense": ("join_build", "join_dense_enqueues"),
+                  "probe": ("join_probe", "join_probe_enqueues")}[kind]
+    fn = getattr(native.library(lib), entry)
+    fn.restype = ctypes.c_int64
+    return fn()
+
+
+def enqueue_window(kernels: int, memsets: int, n: int) -> str:
+    """What a profiler window of `n` calls that recorded `kernels` kernels
+    and `memsets` memsets says: "clean" (exactly one kernel a call, no
+    memset), "extra" (at least one more kernel or memset a call than
+    that) or "lossy" (anything else: the profiler dropped or misplaced
+    device events)."""
+    if kernels == n and not memsets:
+        return "clean"
+    if kernels >= 2 * n or memsets >= n:
+        return "extra"
+    return "lossy"
+
+
+def enqueues(fn, windows=(10, 50, 50)):
+    """(kernels, memsets) one call of `fn` puts on the card's stream, from
+    torch.profiler windows of `windows` calls each. The profiler drops
+    device events now and then (whole windows late in a run), so a window
+    counts only as enqueue_window classifies it: a clean one is returned
+    at once, two with extra enqueues as the first of them; (None, None)
+    when neither happened."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    sync()
+    extra = []
+    for n in windows:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            sync()
+        kernels = memsets = 0
+        for e in prof.key_averages():
+            if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+                continue
+            if e.key.startswith("Memset"):
+                memsets += e.count
+            elif not e.key.startswith("Memcpy"):
+                kernels += e.count
+        verdict = enqueue_window(kernels, memsets, n)
+        if verdict == "clean":
+            return 1.0, 0.0
+        if verdict == "extra":
+            extra.append((kernels / n, memsets / n))
+            if len(extra) == 2:
+                return extra[0]
+    return None, None
+
+
+def one_enqueue(label: str, fn, kind: str) -> None:
+    """Fail unless one call of `fn` makes one enqueue: the C launcher of
+    `kind` (see launcher_enqueues) counts one stream operation a call, and
+    torch.profiler sees one kernel and no memset a call wherever it
+    records the calls' device events whole."""
+    before = launcher_enqueues(kind)
+    calls = 5
+    for _ in range(calls):
+        fn()
+    sync()
+    counted = launcher_enqueues(kind) - before
+    if counted != calls:
+        fail(f"{label}: the launcher enqueued {counted} operations in "
+             f"{calls} calls, not one a call")
+    kernels, memsets = enqueues(fn)
+    if kernels is None:
+        say(f"[enqueue] {label}: one enqueue a call (launcher count); the "
+            f"profiler's kernel count not measured (no window recorded "
+            f"the calls' device events whole)")
+        return
+    if kernels != 1 or memsets:
+        fail(f"{label}: {kernels:g} kernels and {memsets:g} memsets a call "
+             f"in two profiler windows, not one kernel")
+    say(f"[enqueue] {label}: one enqueue a call (launcher count); one "
+        f"kernel, no memset a call (profiler)")
+
+
 def check_join(g, dev) -> float:
     """K5 (statistics, hash table, dense table) and K6 (both routes)
-    against their twins."""
+    against their twins; two probes in flight before one count fetch;
+    one enqueue a call of K5's dense mode and of K6."""
     from trino_tpu_torch.ops import join as J
-    cases = [("dense", 5000, 4900, False, 6000, 5990),
-             ("dense", 20_000, 20_000, True, 100, 100),
-             ("negative", 30_000, 29_000, False, 70_000, 65_000),
-             ("composite", 4096, 4096, False, 9000, 9000),
-             ("composite", 3000, 3000, True, 10, 10),
-             ("dense", 1000, 0, False, 500, 500),           # empty build
-             ("negative", 1000, 1000, False, 500, 0),       # dead probe
-             ("dense", 147_456, 147_000, False, 4_194_304, 4_194_304)]
-    for kind, bcap, bn, dup, pcap, pn in cases:
+    flight = []
+    for kind, bcap, bn, dup, pcap, pn in JOIN_CASES:
         label = f"{kind} build {bn}/{bcap} probe {pn}/{pcap} dup={dup}"
         bcols = join_case(g, dev, kind, bcap, bn, dup)
         bnr = torch.tensor(bn, dtype=torch.int32, device=dev)
@@ -1215,6 +1311,23 @@ def check_join(g, dev) -> float:
                      f"{int(c)} vs {int(wc)}")
             if not dup and not torch.equal(b, wb):
                 fail(f"K6 {route} build rows differ ({label})")
+            flight.append((pcols, bcols, pnr, prep, int(wc)))
+            if bcap == JOIN_CASES[-1][1]:
+                if route == "dense":
+                    one_enqueue(f"join_dense at {size} slots", lambda:
+                                J.join_dense_cuda(bcols, bnr, stats, size),
+                                "dense")
+                one_enqueue(f"unique_probe {route} at {label}", lambda:
+                            J.unique_probe_cuda(pcols, bcols, pnr, prep),
+                            "probe")
+    # every probe launched before one fetch of all their counts, as the
+    # executor's probe batches do: each count lands in its own word
+    counts = [J.unique_probe_cuda(pc, bc, nr, pr)[2]
+              for pc, bc, nr, pr, _ in flight]
+    got = torch.stack(counts).tolist()
+    if got != [w for *_, w in flight]:
+        fail(f"K6 counts of {len(flight)} probes in flight differ from "
+             f"their twins': {got} vs {[w for *_, w in flight]}")
     return 0.0   # compared exactly
 
 
@@ -1531,6 +1644,7 @@ MXU_CASES = [  # build cap, live rows, key span, duplicates, probe cap, live
     (100, 100, 128, False, 6000, 6000),
     (5000, 4900, 4000, True, 70_000, 65_000),
     (3000, 2990, 4096, False, 4_194_304, 4_194_304),
+    (4000, 3990, 4096, False, 262_144, 150_000),  # the main path's probe
     (1000, 0, 100, False, 500, 500),             # empty build
     (3000, 3000, 4096, True, 1000, 0)]           # dead probe
 
@@ -1600,6 +1714,10 @@ def check_mxu(g, dev) -> float:
             if int(c) != int(wc) or not torch.equal(f, wf) \
                     or not torch.equal(b, wb):
                 fail(f"K13 in K6 differs from its twin ({label})")
+            if size == 4096 and pcap == 262_144:
+                one_enqueue(f"K13 in K6 at {label}", lambda:
+                            J.unique_probe_cuda(pcols, bcols, pnr, kp),
+                            "probe")
         # runs mode and K9
         runs, _ = J.join_runs_cuda(bcols, bnr, stats, lookup, 0)
         wruns, _ = J.join_runs_plain(bcols, bnr, wstats, wlookup, 0)
@@ -5084,8 +5202,9 @@ def main() -> None:
     # K13's modes keep their largest TPC-DS call too: K9's mxu mode may
     # run there alone (q72's router variant)
     k13_scopes = ("sf1", "forced", "ds")
+    # K6's largest call of each route is kept apart (phase 4 times them)
     cap.wrap(J, "unique_probe_cuda", lambda pc, bc, *_: pc[0][0].numel(),
-             mxu_tag, k13_scopes)
+             lambda pc, bc, nr, prep: J.route_of(prep), k13_scopes)
     cap.wrap(A, "group_reduce_cuda", lambda keys, states, n, c: c)
     # K28-K31: their largest call of the special-aggregate path
     sp = ("special",)
@@ -5958,7 +6077,8 @@ def kernel_rows_q3(cap: Capture, originals, launches, dev):
         return dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches[key], max_abs_err=err, ms=cuda_ms(fn),
-            device_ms=device_profile(fn)[0], plain_ms=cuda_ms(plain),
+            device_ms=device_profile(fn)[0], host_ms=host_ms(fn),
+            plain_ms=cuda_ms(plain),
             bound_ms=bound_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
             library_ms=cuda_ms(library),
             shape=f"{shape}; library = {library_name}")
@@ -6026,6 +6146,8 @@ def kernel_rows_q3(cap: Capture, originals, launches, dev):
     drows = torch.nonzero(ok).flatten().to(torch.int32)
     lib_table = torch.full((size,), 2**31 - 1, dtype=torch.int32,
                            device=dev)
+    one_enqueue("join_dense at q3's build", lambda: originals["join_dense"](
+        dcols, dnr, dstats, size), "dense")
     out.append(row(
         "join_dense (K5 dense mode, build_dense_table)",
         "trino_tpu_torch/csrc/join_build.cu", "trino_tpu/ops/join.py:172",
@@ -6052,6 +6174,8 @@ def kernel_rows_q3(cap: Capture, originals, launches, dev):
     sorted_b = torch.sort(bcols[0][0][:bn]).values
     pk = pcols[0][0][:pn]
     pcap = pcols[0][0].numel()
+    one_enqueue(f"unique_probe ({route}) at q3's probe", lambda: originals[
+        "unique_probe"](pcols, bcols, pnr, prep), "probe")
     out.append(row(
         "unique_probe (K6, unique_inner_probe)",
         "trino_tpu_torch/csrc/join_probe.cu", "trino_tpu/ops/join.py:669",
@@ -6376,6 +6500,9 @@ def kernel_rows_mxu_gen(cap: Capture, originals, launches, k13, dev, card):
             fail(f"{name} differs from its twin at the main path's inputs")
         out_b = {"unique_probe": 9, "expand_count": 12,
                  "probe_verdict": 2 if rest and rest[0] == "mark" else 1}[k]
+        if k == "unique_probe":
+            one_enqueue(f"{name} at the main path's call", lambda: originals[
+                k](pcols, bcols, pnr, prep), "probe")
         out.append(row(
             f"{k} mxu mode ({name})", source, replaces, n_launches,
             lambda: originals[k](pcols, bcols, pnr, prep, *rest),
@@ -6390,6 +6517,38 @@ def kernel_rows_mxu_gen(cap: Capture, originals, launches, k13, dev, card):
             f"{prep.mxu.shape[0]} slots, build "
             f"{int(prep.stats[J.N_LIVE])} keyed rows"
             + (f", {rest[0]}" if rest else "")))
+
+    # K6's dense route at its largest sf1 call
+    if not k13["unique_probe"].get("dense"):
+        fail("K6's dense route never launched on the main path")
+    pcols, bcols, pnr, prep = cap.calls[("unique_probe_cuda:dense",
+                                         "sf1")][1]
+    pn = int(pnr)
+    wprep = twin_prepared(prep, bcols)
+    got = originals["unique_probe"](pcols, bcols, pnr, prep)
+    want = J.unique_probe_plain(pcols, bcols, pnr, wprep)
+    if not all(torch.equal(x, y) for x, y in zip(got, want)):
+        fail("K6's dense route differs from its twin at the main path's "
+             "inputs")
+    one_enqueue("unique_probe (dense) at the main path's call",
+                lambda: originals["unique_probe"](pcols, bcols, pnr, prep),
+                "probe")
+    dsize = prep.dense.numel()
+    doff = (J._key_cols(pcols)[0][:pn] - prep.stats[J.KMIN]).clamp(
+        0, dsize - 1)
+    out.append(row(
+        "unique_probe dense route (K6, unique_inner_probe dense)",
+        "trino_tpu_torch/csrc/join_probe.cu", "trino_tpu/ops/join.py:190",
+        k13["unique_probe"]["dense"],
+        lambda: originals["unique_probe"](pcols, bcols, pnr, prep),
+        lambda: J.unique_probe_plain(pcols, bcols, pnr, wprep),
+        # the live probe keys and the table read once, found + brow (9
+        # bytes) written once a live row
+        col_bytes(pcols, pn) + dsize * 4 + pn * 9,
+        lambda: prep.dense.index_select(0, doff),
+        "index_select of the dense table at the clamped offsets",
+        f"TPC-H sf1 probe: cap {pcols[0][0].numel()}, {pn} live, table of "
+        f"{dsize} slots, build {int(prep.stats[J.N_LIVE])} keyed rows"))
 
     # K15 and K14 at sf1 lineitem's first scan page (the largest call of
     # both); K14 for l_receiptdate, the deepest recipe: the order date,

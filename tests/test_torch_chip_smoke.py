@@ -314,3 +314,16 @@ def test_launch_trace_heavy_words_have_the_shards_shape():
     assert int((w != -1).sum()) == 3_806 and not (w[3_806:] != -1).any()
     u = w[:3_806] ^ (-(1 << 63))
     assert bool((u[1:] >= u[:-1]).all()) and u.unique().numel() <= 1_000
+
+
+@pytest.mark.parametrize("kernels,memsets,n,verdict", [
+    (10, 0, 10, "clean"), (50, 0, 50, "clean"),
+    (0, 0, 10, "lossy"), (9, 0, 10, "lossy"), (11, 0, 10, "lossy"),
+    (10, 3, 10, "lossy"),
+    (20, 0, 10, "extra"), (10, 10, 10, "extra"), (0, 10, 10, "extra")])
+def test_chip_smoke_enqueue_windows(chip_smoke, kernels, memsets, n,
+                                    verdict):
+    """A profiler window that dropped device events neither passes nor
+    fails the one-enqueue check; only a clean window passes it, and only
+    a whole extra kernel or memset a call counts against it."""
+    assert chip_smoke.enqueue_window(kernels, memsets, n) == verdict

@@ -25,6 +25,28 @@ inline int load_table(const void* host, int64_t len, Table* t) {
   return 0;
 }
 
+// A by-value parameter block of N words, for launchers that size it to
+// the call (8, 64 or TABLE_MAX words: an empty kernel with 2,048 words
+// costs the host about twice what one with a few words does).
+template <int N>
+struct ParamBlock {
+  int64_t v[N];
+};
+
+// The smallest block of 8, 64 or TABLE_MAX words that holds `len` words,
+// 0 past TABLE_MAX.
+inline int param_block_words(int64_t len) {
+  if (len <= 8) return 8;
+  if (len <= 64) return 64;
+  return len <= TABLE_MAX ? TABLE_MAX : 0;
+}
+
+template <int N>
+inline void load_block(const void* host, int64_t len, ParamBlock<N>* b) {
+  const int64_t* src = static_cast<const int64_t*>(host);
+  for (int64_t i = 0; i < len; ++i) b->v[i] = src[i];
+}
+
 // Copy one row of `rb` bytes: an element of 1, 2, 4 or 8 bytes, or (K32)
 // one row of a [cap, L] list plane, moved in the widest word that divides
 // the row (16 bytes for 8-byte elements at even L). Rows start at

@@ -1,7 +1,8 @@
 // The launch floor: empty kernels that measure what one launch through the
 // package's ctypes binding costs the host, with a parameter block of a few
 // words and with a by-value pointer table of 256 words or of common.cuh's
-// TABLE_MAX words (16 KB). They replace no TPU kernel and do no work;
+// TABLE_MAX words (16 KB), and one launched cooperatively (K5's dense mode
+// launches so). They replace no TPU kernel and do no work;
 // `python3 -m trino_tpu_torch.launch_trace` and chip_smoke.py's phase 4
 // time them beside K2 and K4 as the yardstick of a launch-bound call.
 #include "common.cuh"
@@ -29,6 +30,17 @@ int launch_table(const int64_t* src, cudaStream_t s) {
 TT_EXPORT int launch_floor_small(void* stream) {
   empty_small<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(0, 0, nullptr);
   return (int)cudaGetLastError();
+}
+
+// the small kernel as one cooperative launch of one block
+TT_EXPORT int launch_floor_coop(void* stream) {
+  int64_t a = 0, b = 0;
+  void* c = nullptr;
+  void* args[] = {&a, &b, &c};
+  const cudaError_t rc = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(empty_small), dim3(1), dim3(32), args, 0,
+      static_cast<cudaStream_t>(stream));
+  return rc == cudaSuccess ? (int)cudaGetLastError() : (int)rc;
 }
 
 // words: 256 or TABLE_MAX int64 of `host` become the launch's parameters

@@ -30,7 +30,11 @@
 //     kmin + s, INT32_MAX where no key is present (the reference stores
 //     the first sorted position; for the unique build both name the same
 //     row). With a payload it stores the payload instead: the spilled
-//     join's build row of each sorted key (K16's permutation).
+//     join's build row of each sorted key (K16's permutation). At the main
+//     path's call (q3 sf1: 30,136 rows into 262,144 slots) the device work
+//     is a few microseconds behind the host's enqueue, so the mode is ONE
+//     cooperative launch: the fill, a grid barrier, the atomicMin scatter,
+//     the key columns in a parameter block of 8, 64 or TABLE_MAX words.
 //
 // Bound on this card: bytes — the live rows' key columns read once and a
 // lookup written once: for the hash table, the live keys and rows it must
@@ -54,6 +58,8 @@
 // start and count), as the reference's table holds a first sorted position
 // that run_len completes. Bound: the slot counts read once and 4 bytes of
 // row per live build row read and written once (plus the dense table).
+#include <cooperative_groups.h>
+
 #include "tile.cuh"
 
 namespace {
@@ -221,16 +227,30 @@ __global__ void dense_init_kernel(int32_t* __restrict__ table, int64_t size) {
     table[s] = 0x7fffffff;
 }
 
-__global__ void dense_kernel(const __grid_constant__ Table tbl, int64_t nkeys,
-                             int64_t cap, const int32_t* __restrict__ num_rows,
-                             const unsigned long long* __restrict__ stats,
-                             const int32_t* __restrict__ payload,
-                             int32_t* __restrict__ table, int64_t size) {
+// K5's dense mode in one cooperative launch: the blocks (all resident on
+// the card) fill the table with INT32_MAX, 16 bytes a store where the
+// table is 16-byte aligned, wait at one grid barrier, then scatter the
+// live non-NULL rows with atomicMin. tbl: KEY_FIELDS words per key column.
+template <int W>
+__global__ void __launch_bounds__(THREADS)
+    dense_kernel(const __grid_constant__ ParamBlock<W> tbl, int nkeys,
+                 int64_t cap, const int32_t* __restrict__ num_rows,
+                 const unsigned long long* __restrict__ stats,
+                 const int32_t* __restrict__ payload,
+                 int32_t* __restrict__ table, int64_t size, int vec) {
+  const int64_t t = blockIdx.x * (int64_t)THREADS + threadIdx.x;
+  const int64_t stride = (int64_t)gridDim.x * THREADS;
+  const int64_t quads = vec ? size / 4 : 0;
+  const int4 absent = make_int4(0x7fffffff, 0x7fffffff, 0x7fffffff,
+                                0x7fffffff);
+  for (int64_t q = t; q < quads; q += stride)
+    reinterpret_cast<int4*>(table)[q] = absent;
+  for (int64_t s = 4 * quads + t; s < size; s += stride) table[s] = 0x7fffffff;
   int64_t n = *num_rows;
   n = n < 0 ? 0 : (n > cap ? cap : n);
   const uint64_t kmin = stats[KMIN];
-  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
-       i += (int64_t)gridDim.x * blockDim.x) {
+  cooperative_groups::this_grid().sync();
+  for (int64_t i = t; i < n; i += stride) {
     bool null;
     const uint64_t key = join_key(tbl.v, nkeys, i, &null);
     if (null) continue;
@@ -358,28 +378,84 @@ TT_EXPORT int join_build(const void* table, int64_t nkeys, int64_t cap,
   return (int)cudaGetLastError();
 }
 
+namespace {
+// Rows (or slots, 4 to a store) a thread takes in K5's dense mode before
+// the grid grows by a block; the grid is capped by the blocks the card
+// holds at once (a cooperative launch needs every block resident).
+constexpr int64_t DENSE_ITEMS = 4;
+constexpr int MAX_DEVICES = 64;
+int64_t dense_enqueues = 0;  // stream operations join_dense enqueued
+
+template <int W>
+int dense_launch(const void* host, int64_t nkeys, int64_t cap,
+                 const void* num_rows, const void* stats, const void* payload,
+                 void* dense, int64_t size, cudaStream_t s) {
+  thread_local static ParamBlock<W> t;  // each launch copies it
+  load_block(host, KEY_FIELDS * nkeys, &t);
+  // co-resident blocks of this kernel on each device, asked once
+  static int resident[MAX_DEVICES];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= MAX_DEVICES) return -1;
+  if (resident[dev] == 0) {
+    int per_sm = 0, sms = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dense_kernel<W>,
+                                                  THREADS, 0);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    resident[dev] = per_sm * sms > 0 ? per_sm * sms : 1;
+  }
+  const int64_t work = size / 4 > cap ? size / 4 : cap;
+  const int64_t per_block = THREADS * DENSE_ITEMS;
+  int64_t blocks = (work + per_block - 1) / per_block;
+  blocks = blocks < 1 ? 1 : (blocks > resident[dev] ? resident[dev] : blocks);
+  int nk = (int)nkeys;
+  const int32_t* nr = static_cast<const int32_t*>(num_rows);
+  const auto* st = static_cast<const unsigned long long*>(stats);
+  const int32_t* pay = static_cast<const int32_t*>(payload);
+  int32_t* table = static_cast<int32_t*>(dense);
+  int vec = (reinterpret_cast<uintptr_t>(dense) & 15) == 0;
+  void* args[] = {&t, &nk, &cap, &nr, &st, &pay, &table, &size, &vec};
+  const cudaError_t rc = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(dense_kernel<W>), dim3((unsigned)blocks),
+      dim3(THREADS), args, 0, s);
+  ++dense_enqueues;
+  return rc == cudaSuccess ? (int)cudaGetLastError() : (int)rc;
+}
+}  // namespace
+
 // The direct-address table of the dense route: dense: int32[size], key
 // kmin + s -> its build row, INT32_MAX when absent; stats as join_build
 // wrote it (kmin is read on the device). With a payload (int32[cap] or
 // null) a slot holds the smallest payload of its key's rows instead of
 // the row: the spilled join's table over the sorted keys with their
-// permutation (trino_tpu/ops/join.py build_dense_table_rows).
+// permutation (trino_tpu/ops/join.py build_dense_table_rows). One
+// cooperative launch (dense_kernel); the table is KEY_FIELDS words per key
+// column in a block of 8, 64 or TABLE_MAX words. Returns the launch's
+// error, or -1 when the table exceeds TABLE_MAX.
 TT_EXPORT int join_dense(const void* table, int64_t nkeys, int64_t cap,
                          const void* num_rows, const void* stats,
                          const void* payload, void* dense, int64_t size,
                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  thread_local static Table t;
-  if (nkeys < 1 || load_table(table, KEY_FIELDS * nkeys, &t)) return -1;
-  dense_init_kernel<<<grid_for(size), THREADS, 0, s>>>(
-      static_cast<int32_t*>(dense), size);
-  dense_kernel<<<grid_for(cap), THREADS, 0, s>>>(
-      t, nkeys, cap, static_cast<const int32_t*>(num_rows),
-      static_cast<const unsigned long long*>(stats),
-      static_cast<const int32_t*>(payload), static_cast<int32_t*>(dense),
-      size);
-  return (int)cudaGetLastError();
+  if (nkeys < 1) return -1;
+  switch (param_block_words(KEY_FIELDS * nkeys)) {
+    case 8:
+      return dense_launch<8>(table, nkeys, cap, num_rows, stats, payload,
+                             dense, size, s);
+    case 64:
+      return dense_launch<64>(table, nkeys, cap, num_rows, stats, payload,
+                              dense, size, s);
+    case TABLE_MAX:
+      return dense_launch<TABLE_MAX>(table, nkeys, cap, num_rows, stats,
+                                     payload, dense, size, s);
+    default:
+      return -1;
+  }
 }
+
+// The stream operations (kernels and memsets) join_dense has enqueued in
+// this process (chip_smoke.py counts them per call).
+TT_EXPORT int64_t join_dense_enqueues() { return dense_enqueues; }
 
 // Runs mode (after join_build on the same columns): runs: int32[cap], the
 // live non-NULL build rows grouped by key, each key's rows in ascending

@@ -1,5 +1,5 @@
-"""Where the host and device time of a K2, K4, K16, K30 HLL, K36 or K27
-call goes, and the launch floor.
+"""Where the host and device time of a K2, K4, K16, K30 HLL, K36, K27, K5
+dense-mode or K6 call goes, and the launch floor.
 
 For eight calls it traces 1,000 calls with cProfile and splits each
 call's host time over what the wrapper calls directly (the checks and
@@ -31,16 +31,30 @@ kernels a call launches:
   the sentinel after them, at k 8 (the session's default) and k 64;
 * K27 (`ops/join_mxu.py`'s CUDA wrapper, or the Triton one of a tree
   that has it) at G3's aggregated page: 16 live rows of 8,388,608, one
-  helper, and at nine helpers.
+  helper, and at nine helpers;
+* K5's dense mode (`ops/join.py` `join_dense_cuda`) at q3 sf1's dense
+  build: 30,136 live customer keys of 150,000 on a 32,768-row page into
+  262,144 slots, and the same build into 1,048,576 slots;
+* K6 (`ops/join.py` `unique_probe_cuda`) on the mxu route at the main
+  path's K13 call: 150,000 live rows of 262,144 against a 128-slot
+  (count, first) table of 25 keyed build rows, and against a 4,096-slot
+  table; on the dense route at q3 sf1's first probe: 777,211 live
+  customer keys of 1,048,576 against the dense build above (262,144
+  slots); and on the search route at q3 sf1's second probe: 3,049,501
+  live order keys of 5,242,880, each order's lines together as lineitem
+  has them, against K5's hash table of 157,563 build rows (262,144
+  capacity), about 1% matching.
 
 The launch floor is an empty kernel (`csrc/floor.cu`) launched through
 the package's ctypes binding with a parameter block of three words, of
-256 words and of 2,048 words (common.cuh's 16 KB `Table`), and an empty
-`@triton.jit` kernel of 30 arguments: host microseconds per launch over
-1,000 launches, and CUDA-event milliseconds per launch. Needs the card:
+256 words and of 2,048 words (common.cuh's 16 KB `Table`), the
+three-word one also as a cooperative launch (a tree without it skips
+it), and an empty `@triton.jit` kernel of 30 arguments: host
+microseconds per launch over 1,000 launches, and CUDA-event milliseconds
+per launch. Needs the card:
 
     python3 -m trino_tpu_torch.launch_trace [--calls 1000]
-        [--only floor,main,spill,hll,ladder,heavy,post]
+        [--only floor,main,spill,hll,ladder,heavy,post,dense,probe]
 """
 
 from __future__ import annotations
@@ -94,10 +108,26 @@ HEAVY_LIVE = 3_805_999
 HEAVY_KEYS = 1_000_000
 POST_CAP = 8_388_608         # G3's aggregated page
 POST_LIVE = 16
-PARTS = ("floor", "main", "spill", "hll", "ladder", "heavy", "post")
+DENSE_CAP = 32_768           # q3 sf1's dense build (customer)
+DENSE_LIVE = 30_136
+DENSE_KEYS = 150_000
+DENSE_SIZES = (262_144, 1_048_576)
+MXU_CAP = 262_144            # the main path's K13 call in K6
+MXU_LIVE = 150_000
+MXU_BUILD = 25
+MXU_SPAN = 25                # a 128-slot table
+MXU_BIG = (3_000, 4_096)     # keyed build rows, span: a 4,096-slot table
+DENSE_PROBE_CAP = 1_048_576  # q3 sf1's orders probe buffer
+DENSE_PROBE_LIVE = 777_211
+SEARCH_CAP = 5_242_880       # q3 sf1's lineitem probe buffer
+SEARCH_LIVE = 3_049_501
+SEARCH_BUILD_CAP = 262_144   # q3 sf1's orders build
+SEARCH_BUILD = 157_563
+PARTS = ("floor", "main", "spill", "hll", "ladder", "heavy", "post",
+         "dense", "probe")
 
 
-def event_ms(fn, iters: int = 20) -> float:
+def event_ms(fn, iters: int = 100) -> float:
     """Median CUDA-event milliseconds of one `fn()` on an idle stream."""
     for _ in range(3):
         fn()
@@ -210,22 +240,27 @@ def host_split(fn, wrapper, calls: int):
 def device_split(fn, iters: int = 10):
     """(device-busy ms per call, kernels launched per call, [(kernel,
     ms per call, launches per call)] most time first) of `fn` from
-    torch.profiler: every kernel, memset and copy it ran."""
+    torch.profiler: every kernel, memset and copy it ran. A window in
+    which the profiler records no device event is tried once more, five
+    times as long; (None, 0, []) when that records none either."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    rows = [(getattr(e, "self_device_time_total", 0.0), e.count,
-             _short(e.key)) for e in prof.key_averages()
-            if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    busy = sum(t for t, _, _ in rows) / iters / 1e3
-    launches = sum(c for _, c, _ in rows) / iters
-    return busy, launches, [(k, t / iters / 1e3, c / iters)
-                            for t, c, k in sorted(rows, reverse=True)]
+    for n in (iters, 5 * iters):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        rows = [(getattr(e, "self_device_time_total", 0.0), e.count,
+                 _short(e.key)) for e in prof.key_averages()
+                if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        if rows:
+            busy = sum(t for t, _, _ in rows) / n / 1e3
+            launches = sum(c for _, c, _ in rows) / n
+            return busy, launches, [(k, t / n / 1e3, c / n)
+                                    for t, c, k in sorted(rows, reverse=True)]
+    return None, 0, []
 
 
 def _short(name: str) -> str:
@@ -252,11 +287,17 @@ def launch_floor(calls: int = 1000) -> dict:
             native.check(lib.launch_floor_table(words[n], ctypes.c_int64(n),
                                                 stream), "launch_floor_table")
         return run
+    kinds = [("ctypes, 3 words", small),
+             ("ctypes, 256 words", table(256)),
+             ("ctypes, 2,048 words (16 KB Table)", table(2048))]
+    if hasattr(lib, "launch_floor_coop"):
+
+        def coop():
+            native.check(lib.launch_floor_coop(stream), "launch_floor_coop")
+        kinds.append(("ctypes, 3 words, cooperative", coop))
+    kinds.append(("triton, 30 arguments", _triton_empty(dev)))
     out = {}
-    for label, fn in (("ctypes, 3 words", small),
-                      ("ctypes, 256 words", table(256)),
-                      ("ctypes, 2,048 words (16 KB Table)", table(2048)),
-                      ("triton, 30 arguments", _triton_empty(dev))):
+    for label, fn in kinds:
         out[label] = (enqueue_us(fn, calls), event_ms(fn))
     return out
 
@@ -357,6 +398,88 @@ def post_call(dev, helpers: int, cap: int = POST_CAP,
     hs = [torch.randint(0, 3, (cap,), generator=g, device=dev,
                         dtype=torch.int64) for _ in range(helpers)]
     return hs, torch.tensor(live, dtype=torch.int32, device=dev)
+
+
+def dense_build_cols(cap: int, live: int, dev, keys: int = DENSE_KEYS,
+                     seed: int = 7):
+    """K5's dense-mode input at q3 sf1's build: `live` distinct int64 keys
+    of 1 .. `keys` (customer keys that passed the filter) in a random
+    order on a page of `cap` rows, no NULL."""
+    g = torch.Generator().manual_seed(seed)
+    v = torch.zeros(cap, dtype=torch.int64)
+    v[:live] = torch.randperm(keys, generator=g)[:live] + 1
+    return [(v.to(dev), None)], torch.tensor(live, dtype=torch.int32,
+                                            device=dev)
+
+
+def probe_cols(build: int, span: int, cap: int, live: int, dev,
+               seed: int = 11):
+    """An mxu-route probe: `build` distinct keys of 0 .. span - 1 on a
+    page of 2 x build rows (bcols, bnr), and `live` probe keys of 0 ..
+    span + span // 8 on a page of `cap` rows (pcols, pnr), no NULL."""
+    g = torch.Generator().manual_seed(seed)
+    b = torch.zeros(2 * build, dtype=torch.int64)
+    b[:build] = torch.randperm(span, generator=g)[:build]
+    p = torch.randint(0, span + span // 8, (cap,), generator=g)
+    return ([(b.to(dev), None)],
+            torch.tensor(build, dtype=torch.int32, device=dev),
+            [(p.to(dev), None)],
+            torch.tensor(live, dtype=torch.int32, device=dev))
+
+
+def dense_probe_cols(dev, seed: int = 13):
+    """q3 sf1's dense-route probe: the dense build of dense_build_cols
+    (bcols, bnr), and DENSE_PROBE_LIVE customer keys of 1 .. DENSE_KEYS
+    on DENSE_PROBE_CAP rows (pcols, pnr), about a fifth matching."""
+    bcols, bnr = dense_build_cols(DENSE_CAP, DENSE_LIVE, dev)
+    g = torch.Generator().manual_seed(seed)
+    p = torch.randint(1, DENSE_KEYS + 1, (DENSE_PROBE_CAP,), generator=g)
+    return (bcols, bnr, [(p.to(dev), None)],
+            torch.tensor(DENSE_PROBE_LIVE, dtype=torch.int32, device=dev))
+
+
+def search_cols(dev, seed: int = 12):
+    """q3 sf1's search-route probe: SEARCH_BUILD order keys (TPC-H's
+    sparse keys, i // 8 * 32 + i % 8 + 1) of 1,500,000 orders on a
+    SEARCH_BUILD_CAP page, and SEARCH_LIVE probe keys laid out as
+    lineitem lays them out, each order's 1 to 7 lines together in order
+    of key, the orders drawn from ten times as many (about 1% match), on
+    SEARCH_CAP rows."""
+    g = torch.Generator().manual_seed(seed)
+
+    def okey(i):
+        return i // 8 * 32 + i % 8 + 1
+    b = torch.zeros(SEARCH_BUILD_CAP, dtype=torch.int64)
+    b[:SEARCH_BUILD] = okey(torch.randperm(1_500_000, generator=g)[
+        :SEARCH_BUILD])
+    orders = torch.sort(torch.randint(0, 15_000_000, (SEARCH_CAP // 4,),
+                                      generator=g)).values
+    lines = torch.randint(1, 8, (orders.numel(),), generator=g)
+    p = torch.zeros(SEARCH_CAP, dtype=torch.int64)
+    keys = okey(torch.repeat_interleave(orders, lines))[:SEARCH_CAP]
+    p[:keys.numel()] = keys
+    return ([(b.to(dev), None)],
+            torch.tensor(SEARCH_BUILD, dtype=torch.int32, device=dev),
+            [(p.to(dev), None)],
+            torch.tensor(SEARCH_LIVE, dtype=torch.int32, device=dev))
+
+
+def probe_prepared(bcols, bnr, route: str):
+    """K5 (with its dense mode on the dense route, K12 on the mxu route)
+    on the card: the Prepared K6 reads."""
+    from trino_tpu_torch.ops import join as J
+    from trino_tpu_torch.ops import join_mxu as JM
+    stats, lookup = J.join_build_cuda(bcols, bnr)
+    prep = J.Prepared(None, (), stats, lookup)
+    kmin, kmax = (J.unsigned(int(stats[J.KMIN])),
+                  J.unsigned(int(stats[J.KMAX])))
+    if route == "mxu":
+        size = 1 << max((kmax - kmin).bit_length(), 7)
+        prep.mxu = JM.mxu_table_cuda(bcols, bnr, stats, lookup, None, size)
+    elif route == "dense":
+        size = 1 << max((kmax - kmin).bit_length(), 10)
+        prep.dense = J.join_dense_cuda(bcols, bnr, stats, size)
+    return prep
 
 
 def k27_wrapper():
@@ -481,6 +604,54 @@ def report(calls: int, parts=PARTS):
                 f"K27 at G3's aggregated page, {n} helper(s)", k27_wrapper(),
                 post_call(dev, n), f"cap {POST_CAP}, {POST_LIVE} live rows",
                 True))
+    if "dense" in parts:
+        cols, nr = dense_build_cols(DENSE_CAP, DENSE_LIVE, dev)
+        stats, _ = J.join_build_cuda(cols, nr)
+        for size in DENSE_SIZES:
+            if not torch.equal(J.join_dense_cuda(cols, nr, stats, size),
+                               J.join_dense_plain(cols, nr, stats, size)):
+                raise SystemExit(f"K5's dense mode at {size} slots differs "
+                                 "from its twin")
+            shapes.append((
+                f"K5 dense mode at q3's build, {size} slots",
+                J.join_dense_cuda, (cols, nr, stats, size),
+                f"{DENSE_LIVE} live keys of {DENSE_KEYS} on {DENSE_CAP} "
+                f"rows", True))
+    if "probe" in parts:
+        calls_ = [("K13 in K6, 128 slots", "mxu",
+                   probe_cols(MXU_BUILD, MXU_SPAN, MXU_CAP, MXU_LIVE, dev),
+                   f"{MXU_LIVE} live of {MXU_CAP}, {MXU_BUILD} keyed build "
+                   f"rows"),
+                  ("K13 in K6, 4,096 slots", "mxu",
+                   probe_cols(*MXU_BIG, MXU_CAP, MXU_LIVE, dev),
+                   f"{MXU_LIVE} live of {MXU_CAP}, {MXU_BIG[0]} keyed "
+                   f"build rows"),
+                  ("K6 dense route at q3's first probe", "dense",
+                   dense_probe_cols(dev),
+                   f"{DENSE_PROBE_LIVE} live of {DENSE_PROBE_CAP}, "
+                   f"{DENSE_LIVE} build rows"),
+                  ("K6 search route at q3's probe", "search",
+                   search_cols(dev),
+                   f"{SEARCH_LIVE} live of {SEARCH_CAP}, {SEARCH_BUILD} "
+                   f"build rows on {SEARCH_BUILD_CAP}")]
+        for name, route, (bcols, bnr, pcols, pnr), shape in calls_:
+            prep = probe_prepared(bcols, bnr, route)
+            twin = J.Prepared(None, (), *J.join_build_plain(bcols, bnr))
+            if prep.mxu is not None:
+                from trino_tpu_torch.ops import join_mxu as JM
+                twin.mxu = JM.mxu_table_plain(bcols, bnr, twin.stats,
+                                              twin.lookup, None,
+                                              prep.mxu.shape[0])
+            if prep.dense is not None:
+                twin.dense = J.join_dense_plain(bcols, bnr, twin.stats,
+                                                prep.dense.numel())
+            got = J.unique_probe_cuda(pcols, bcols, pnr, prep)
+            want = J.unique_probe_plain(pcols, bcols, pnr, twin)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise SystemExit(f"{name} differs from its twin")
+            shapes.append((name, J.unique_probe_cuda,
+                           (pcols, bcols, pnr, prep),
+                           f"{shape}, {int(got[2])} matched", True))
     trace_ctypes()
     for name, wrapper, args, shape, split in shapes:
         def call(w=wrapper, a=args):
@@ -489,7 +660,7 @@ def report(calls: int, parts=PARTS):
         queued = calls
         if split:
             busy, n, top = device_split(call)
-            queued = max(1, min(calls, int(QUEUE_LAUNCHES // n)))
+            queued = max(1, min(calls, int(QUEUE_LAUNCHES // max(n, 1))))
         yield (f"[host] {name} ({shape}): host enqueue "
                f"{enqueue_us(call, queued):.1f} us per call ({queued} "
                f"calls), "
@@ -497,7 +668,10 @@ def report(calls: int, parts=PARTS):
                f"cProfile {total:.1f} us per call: "
                + "; ".join(f"{label} {us:.1f}" for label, us in parts_[:12])
                + f" — {card}")
-        if split:
+        if split and busy is None:
+            yield (f"[device] {name}: not measured (the profiler recorded "
+                   f"no device event) — {card}")
+        elif split:
             yield (f"[device] {name}: device-busy {busy:.4f} ms per call, "
                    f"{n:g} kernels and copies per call: "
                    + "; ".join(f"{k} {ms:.4f} ms x{c:g}" for k, ms, c in top)
@@ -517,8 +691,10 @@ def report(calls: int, parts=PARTS):
                                          f"({label}) differs from its twin")
                     fold = (lambda: A.hll_fold_cuda(*args))
                     busy, n, _ = device_split(fold)
+                    dev = "not measured" if busy is None \
+                        else f"{busy:.4f} ms"
                     times.append(f"{label} {event_ms(fold):.4f} ms events, "
-                                 f"{busy:.4f} ms busy in {n:g} kernels")
+                                 f"{dev} busy in {n:g} kernels")
             yield (f"[ladder] K30 HLL fold, {groups} groups, {pairs} pairs "
                    f"(nseg {groups}, cap {cap}): " + "; ".join(times)
                    + f"; threshold now {A.HLL_LAST_BLOCK_GROUPS} — {card}")

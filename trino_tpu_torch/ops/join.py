@@ -49,6 +49,7 @@ same order (probe-row order, then each key's build rows in row order).
 
 from __future__ import annotations
 
+import array
 import ctypes
 import dataclasses
 from typing import Callable, List, Optional, Sequence, Tuple
@@ -292,30 +293,109 @@ def join_dense_plain(cols, num_rows: torch.Tensor, stats: torch.Tensor,
     return table[:size]
 
 
+def _key_words(cols, cap: int, index: int, what: str) -> List[int]:
+    """The 4-word key-column entries of a K5/K6 parameter block, each column
+    checked on the way (contiguous [cap] on CUDA device `index`, an element
+    of 1, 2, 4 or 8 bytes, a contiguous bool validity or None)."""
+    out = []
+    for values, valid in cols:
+        esz = values.element_size()
+        if values.get_device() != index or values.dim() != 1 \
+                or values.shape[0] != cap or not values.is_contiguous() \
+                or esz not in (1, 2, 4, 8) \
+                or (values.is_floating_point() and esz < 4):
+            raise ValueError(f"{what} key column {values.dtype}"
+                             f"{tuple(values.shape)} on {values.device} "
+                             "does not match")
+        if valid is None:
+            vp = 0
+        elif valid.dtype is not torch.bool or valid.shape != values.shape \
+                or valid.get_device() != index or not valid.is_contiguous():
+            raise ValueError("key validity must be a contiguous bool [cap]")
+        else:
+            vp = valid.data_ptr()
+        out += [values.data_ptr(), vp, esz, int(values.is_floating_point())]
+    return out
+
+
+DENSE_THREADS = 256     # csrc/join_build.cu THREADS
+_DENSE_ARGS = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+               ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+               ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p)
+
+
+def dense_launch_model(cols, num_rows: torch.Tensor, stats: torch.Tensor,
+                       size: int, payload: Optional[torch.Tensor] = None,
+                       grid: int = 1, order: Optional[Sequence[int]] = None):
+    """K5's dense mode as its one cooperative launch runs it
+    (csrc/join_build.cu dense_kernel) over `grid` blocks of DENSE_THREADS:
+    grid thread t stores INT32_MAX in the 4-slot words t, t + threads, ...
+    (the slots past the last whole word one at a time), every block waits
+    at the grid barrier, then thread t scatters the live non-NULL rows t,
+    t + threads, ... with atomicMin, the blocks reaching the scatter in
+    `order` (a permutation of the blocks). Returns (table int32[size] from
+    memory that held garbage, stores int64[size]: the fill's stores of
+    each slot before the barrier)."""
+    cap = cols[0][0].shape[0]
+    threads = grid * DENSE_THREADS
+    table = torch.full((size,), -0x5A5A5A5B, dtype=torch.int32)
+    stores = torch.zeros(size, dtype=torch.int64)
+    t = torch.arange(threads, dtype=torch.int64)
+    quads = size // 4
+    for first in range(0, max(quads, 1), threads):
+        q = t + first
+        q = q[q < quads]
+        s = (4 * q[:, None] + torch.arange(4)).flatten()
+        table[s] = _I32_MAX
+        stores.index_add_(0, s, torch.ones_like(s))
+    for first in range(4 * quads, size, threads):
+        s = t + first
+        s = s[s < size]
+        table[s] = _I32_MAX
+        stores.index_add_(0, s, torch.ones_like(s))
+    # the grid barrier: every store above lands before any scatter below
+    n = max(0, min(int(num_rows), cap))
+    key, null = _key_cols(cols)
+    raw = key[:n] - stats[KMIN]
+    ok = ~null[:n] & (raw >= 0) & (raw < size)
+    rows = torch.arange(n, dtype=torch.int64)
+    values = rows.to(torch.int32) if payload is None else payload[:n].to(
+        torch.int32)
+    block = (rows % threads) // DENSE_THREADS
+    for b in (range(grid) if order is None else order):
+        sel = ok & (block == b)
+        table.scatter_reduce_(0, raw[sel], values[sel], "amin")
+    return table, stores
+
+
 def join_dense_cuda(cols, num_rows: torch.Tensor, stats: torch.Tensor,
                     size: int, payload: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
-    """K5 dense-mode launch: see csrc/join_build.cu join_dense."""
+    """K5 dense-mode launch: see csrc/join_build.cu join_dense. One
+    cooperative launch (the fill, a grid barrier, the scatter), the key
+    columns in a parameter block sized to them."""
     cap = cols[0][0].shape[0]
-    dev = num_rows.device
-    _check_key_cols(cols, cap, dev)
-    if stats.dtype != torch.int64 or stats.shape != (N_STATS,) \
-            or stats.device != dev:
+    index = num_rows.get_device()
+    if index < 0 or num_rows.dtype is not torch.int32 or num_rows.dim():
+        raise ValueError("num_rows must be a 0-d int32 CUDA tensor")
+    words = _key_words(cols, cap, index, "build")
+    if len(words) > native.TABLE_MAX:
+        raise ValueError(f"{len(cols)} key columns: one launch's table "
+                         f"holds {native.TABLE_MAX // 4}")
+    if stats.dtype is not torch.int64 or stats.shape != (N_STATS,) \
+            or stats.get_device() != index:
         raise ValueError("stats must be K5's int64[10] on the device")
-    if payload is not None and (payload.dtype != torch.int32
+    if payload is not None and (payload.dtype is not torch.int32
                                 or payload.shape != (cap,)
-                                or payload.device != dev
+                                or payload.get_device() != index
                                 or not payload.is_contiguous()):
         raise ValueError("payload must be a contiguous int32 [cap]")
-    table = torch.empty(size, dtype=torch.int32, device=dev)
-    lib = native.library("join_build")
-    rc = lib.join_dense(
-        host_table(_key_table(cols)), ctypes.c_int64(len(cols)),
-        ctypes.c_int64(cap), ctypes.c_void_p(num_rows.data_ptr()),
-        ctypes.c_void_p(stats.data_ptr()),
-        ctypes.c_void_p(0 if payload is None else payload.data_ptr()),
-        ctypes.c_void_p(table.data_ptr()),
-        ctypes.c_int64(size), ctypes.c_void_p(native.stream_ptr(dev)))
+    table = torch.empty(size, dtype=torch.int32, device=num_rows.device)
+    host = array.array("q", words)
+    rc = native.function("join_build", "join_dense", _DENSE_ARGS)(
+        host.buffer_info()[0], len(cols), cap, num_rows.data_ptr(),
+        stats.data_ptr(), 0 if payload is None else payload.data_ptr(),
+        table.data_ptr(), size, native.raw_stream(index))
     native.check(rc, "join_dense")
     join_dense_cuda.launches += 1
     return table
@@ -482,18 +562,156 @@ def unique_probe_plain(pcols, bcols, num_rows: torch.Tensor,
     return found, brow, found.sum(dtype=torch.int64)
 
 
+PROBE_THREADS = 256          # csrc/join_probe.cu THREADS
+PROBE_LOOKUP_ROWS = 2        # rows a thread takes a tile: dense and mxu
+PROBE_SEARCH_ROWS = 1        # and on the search route
+PROBE_BLOCKS_PER_SM = 8      # 2,048 threads: a full SM
+PROBE_STAGED_BLOCKS_PER_SM = 2   # blocks that each stage a table > 4 KB
+PROBE_GRID_MAX = 2048        # blocks at most
+PROBE_TICKET_SHIFT = 40      # the per-device word: tickets << 40 | matches
+MXU_SMEM_SLOTS = 6144        # csrc/common.cuh: larger tables stay in L2
+_PROBE_SCRATCH: dict = {}
+_PROBE_ARGS = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+               ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+               ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+               ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+               ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+               ctypes.c_int64, ctypes.c_void_p)
+
+
+def probe_rows(route: int) -> int:
+    """Rows a thread of K6 takes from each tile on `route`."""
+    return PROBE_SEARCH_ROWS if route == ROUTE_CODE["search"] \
+        else PROBE_LOOKUP_ROWS
+
+
+def probe_grid(cap: int, route: int, size: int, sms: int) -> int:
+    """Blocks of K6's launch: one per tile of PROBE_THREADS x
+    probe_rows(route) rows of capacity, at most PROBE_BLOCKS_PER_SM per
+    SM, or PROBE_STAGED_BLOCKS_PER_SM where each block stages an mxu table
+    of more than 4 KB in shared memory, and at most PROBE_GRID_MAX."""
+    need = -(-cap // (PROBE_THREADS * probe_rows(route)))
+    staged = route == ROUTE_CODE["mxu"] and 4096 < 8 * size \
+        and size <= MXU_SMEM_SLOTS
+    per_sm = PROBE_STAGED_BLOCKS_PER_SM if staged else PROBE_BLOCKS_PER_SM
+    return max(1, min(need, per_sm * sms, PROBE_GRID_MAX))
+
+
+def _probe_scratch(index: int) -> torch.Tensor:
+    """K6's per-device word (the blocks' tickets << PROBE_TICKET_SHIFT |
+    their matches), zero between calls (the last block zeroes it). Calls
+    share it, so they must be ordered on one stream, as every launch of
+    the port is (the device's current stream), from one host thread; each
+    call's count goes to its own output word."""
+    s = _PROBE_SCRATCH.get(index)
+    if s is None:
+        s = _PROBE_SCRATCH[index] = torch.zeros(
+            1, dtype=torch.int64, device=torch.device("cuda", index))
+    return s
+
+
+def probe_outputs(cap: int, device):
+    """K6's outputs as views of ONE allocation: (found bool[cap], brow
+    int64[cap], count int64 0-d); brow first (16-byte aligned), then the
+    count, then found (8-byte aligned)."""
+    buf = torch.empty(cap + 1 + (cap + 7) // 8, dtype=torch.int64,
+                      device=device)
+    return buf.view(torch.bool)[8 * cap + 8:9 * cap + 8], buf[:cap], buf[cap]
+
+
+def probe_launch_model(pcols, bcols, n: int, route: int, table, size: int,
+                       kmin: int, hash_table, grid: int, scratch, count,
+                       order: Optional[Sequence[int]] = None):
+    """K6 as its one launch runs it (csrc/join_probe.cu probe_kernel) over
+    `grid` blocks of PROBE_THREADS, on the kernel's own arguments: block b
+    walks the tiles b, b + grid, ... of PROBE_THREADS x R rows (R =
+    probe_rows(route)), its thread t taking rows t, t + PROBE_THREADS, ...
+    of a tile; each live row is looked up on `route` (the dense table,
+    K12's flat (count, first) table, or linear probing of K5's hash table
+    (slot_keys, slot_rows) from mix64(key)) and a composite key checked
+    column by column; each block, in `order`, adds one ticket and its
+    match count to the per-device word `scratch` in one atomic (the ticket
+    << PROBE_TICKET_SHIFT), and the block whose ticket is the last writes
+    the total the atomic returned plus its own count to `count` (this
+    call's own word) and zeroes `scratch`. Returns (found bool[cap], brow
+    int64[cap], writes int64[cap]: the stores each row took)."""
+    cap = pcols[0][0].shape[0]
+    key, null = _key_cols(pcols)
+    ok = (torch.arange(cap) < n) & ~null
+    rows = torch.full((cap,), -1, dtype=torch.int64)
+    raw = key - kmin
+    inb = (raw >= 0) & (raw < size)
+    at = raw.clamp(0, max(size - 1, 0))
+    if route == ROUTE_CODE["dense"]:
+        r = table[at].to(torch.int64)
+        hit = ok & inb & (r != _I32_MAX)
+        rows = torch.where(hit, r, rows)
+    elif route == ROUTE_CODE["mxu"]:
+        pairs = table.view(-1, 2).to(torch.int64)
+        hit = ok & inb & (pairs[at, 0] != 0)
+        rows = torch.where(hit, pairs[at, 1], rows)
+    else:
+        slot_keys, slot_rows = hash_table
+        mask = slot_rows.shape[0] - 1
+        s = _mix64(key) & mask
+        pending = ok.clone()
+        while pending.any():
+            r = slot_rows[s].to(torch.int64)
+            empty = r == -1
+            match = ~empty & (slot_keys[s] == key)
+            rows = torch.where(pending & match, r, rows)
+            pending &= ~(empty | match)
+            s = (s + 1) & mask
+    if len(pcols) > 1:
+        b = rows.clamp(min=0)
+        for (pv, _), (bv, _) in zip(pcols, bcols):
+            if pv.is_floating_point() or bv.is_floating_point():
+                same = pv.to(torch.float64) == bv[b].to(torch.float64)
+            else:
+                same = pv.to(torch.int64) == bv[b].to(torch.int64)
+            rows = torch.where(same, rows, torch.full_like(rows, -1))
+    tile = PROBE_THREADS * probe_rows(route)
+    writes = torch.zeros(cap, dtype=torch.int64)
+    block_of = torch.zeros(cap, dtype=torch.int64)
+    for first in range(0, cap, tile * grid):
+        # the rows block b's threads take in this round of tiles
+        i = first + tile * torch.arange(grid)[:, None] + torch.arange(tile)
+        b = torch.arange(grid)[:, None].expand_as(i)
+        keep = i < cap
+        writes.index_add_(0, i[keep], torch.ones_like(i[keep]))
+        block_of[i[keep]] = b[keep]
+    found = rows >= 0
+    hits = torch.zeros(grid, dtype=torch.int64).index_add_(
+        0, block_of, found.to(torch.int64))
+    for blk in (range(grid) if order is None else order):
+        old = int(scratch[0])
+        scratch[0] = old + (1 << PROBE_TICKET_SHIFT) + int(hits[blk])
+        if old >> PROBE_TICKET_SHIFT == grid - 1:
+            count.fill_((old & ((1 << PROBE_TICKET_SHIFT) - 1))
+                        + int(hits[blk]))
+            scratch[0] = 0
+    return found, torch.where(found, rows, torch.zeros_like(rows)), writes
+
+
 def unique_probe_cuda(pcols, bcols, num_rows: torch.Tensor,
                       prepared: Prepared):
-    """K6 launch: see csrc/join_probe.cu."""
+    """K6 launch: see csrc/join_probe.cu. One launch (the count summed by
+    the last block, no memset), the key columns in a parameter block sized
+    to them, the outputs views of one allocation (probe_outputs)."""
     cap = pcols[0][0].shape[0]
-    dev = num_rows.device
-    _check_key_cols(pcols, cap, dev)
-    _check_key_cols(bcols, bcols[0][0].shape[0], dev)
-    if num_rows.dtype != torch.int32 or num_rows.dim() != 0:
-        raise ValueError("num_rows must be a 0-d int32 tensor")
-    found = torch.empty(cap, dtype=torch.bool, device=dev)
-    brow = torch.empty(cap, dtype=torch.int64, device=dev)
-    count = torch.empty((), dtype=torch.int64, device=dev)
+    index = num_rows.get_device()
+    if index < 0 or num_rows.dtype is not torch.int32 or num_rows.dim():
+        raise ValueError("num_rows must be a 0-d int32 CUDA tensor")
+    if len(bcols) != len(pcols):
+        raise ValueError("probe and build need as many key columns")
+    words = _key_words(pcols, cap, index, "probe")
+    words += _key_words(bcols, bcols[0][0].shape[0], index, "build")
+    if len(words) > native.TABLE_MAX:
+        raise ValueError(f"{len(pcols)} key columns: one launch's table "
+                         f"holds {native.TABLE_MAX // 8}")
+    stats = prepared.stats
+    if stats.get_device() != index:
+        raise ValueError("K5's statistics must be on the probe's device")
     if prepared.mxu is not None and prepared.runs is not None:
         raise ValueError("K6 reads build rows: an mxu table of run starts "
                          "belongs to the expanding probe")
@@ -506,18 +724,15 @@ def unique_probe_cuda(pcols, bcols, num_rows: torch.Tensor,
     else:
         slot_keys = slot_rows = table
         slots = 1
-    lib = native.library("join_probe")
-    rc = lib.join_probe(
-        host_table(_key_table(pcols), _key_table(bcols)),
-        ctypes.c_int64(len(pcols)), ctypes.c_int64(cap),
-        ctypes.c_void_p(num_rows.data_ptr()), ctypes.c_int64(route),
-        ctypes.c_void_p(table.data_ptr()), ctypes.c_int64(size),
-        ctypes.c_void_p(prepared.stats.data_ptr()),
-        ctypes.c_void_p(slot_keys.data_ptr()),
-        ctypes.c_void_p(slot_rows.data_ptr()), ctypes.c_int64(slots),
-        ctypes.c_void_p(found.data_ptr()),
-        ctypes.c_void_p(brow.data_ptr()), ctypes.c_void_p(count.data_ptr()),
-        ctypes.c_void_p(native.stream_ptr(dev)))
+    grid = probe_grid(cap, route, size, native.sm_count(index))
+    ticket = _probe_scratch(index).data_ptr()
+    found, brow, count = probe_outputs(cap, num_rows.device)
+    host = array.array("q", words)
+    rc = native.function("join_probe", "join_probe", _PROBE_ARGS)(
+        host.buffer_info()[0], len(pcols), cap, num_rows.data_ptr(), route,
+        table.data_ptr(), size, stats.data_ptr(), slot_keys.data_ptr(),
+        slot_rows.data_ptr(), slots, found.data_ptr(), brow.data_ptr(),
+        count.data_ptr(), ticket, grid, native.raw_stream(index))
     native.check(rc, "join_probe")
     unique_probe_cuda.launches += 1
     _count_route(unique_probe_cuda, prepared)
