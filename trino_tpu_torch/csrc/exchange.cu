@@ -19,12 +19,14 @@
 //   4. dest_counts_kernel — each destination's rows.
 // The host reads the n x n counts of all sources in one fetch, sizes the
 // bucket as the reference's capacity ladder ends, and launches
-// exchange_scatter: per tile and destination a block scan ranks the
-// tile's rows of that destination, and each row with rank < bucket lands
-// at d * bucket + rank of every array (a missing validity written as
-// true). Slots past a destination's count are not written. The receive
-// (K2, csrc/concat.cu) concatenates min(count, bucket) rows of each
-// source's bucket for a destination, in source order.
+// exchange_scatter once (below): each live row with rank < bucket within
+// its destination lands at d * bucket + rank of every array (a missing
+// validity written as true), from one read of each destination word,
+// ranks from warp ballots, and stores staged in shared memory so that
+// consecutive threads write consecutive slots of a bucket. Slots past a
+// destination's count are not written. The receive (K2, csrc/concat.cu)
+// concatenates min(count, bucket) rows of each source's bucket for a
+// destination, in source order.
 //
 // K36 replaces detect_heavy_keys (:70-:110) after its sort (K10 sorts the
 // masked key words): heavy_local keeps the k largest run lengths of one
@@ -36,7 +38,8 @@
 // ascending), the sentinel 2^64 - 1 past them.
 //
 // Bound on this card: bytes. K35 reads the key columns once for the
-// destinations and every column once, and writes every moved row once;
+// destinations, and the scatter the live destination words and every
+// live row of every column once and writes every moved row once;
 // K36's local mode reads the live prefix of the sorted words once (and
 // a few words past each tile), the sentinel tail not at all: a run's
 // length is the distance to the next run start.
@@ -85,10 +88,6 @@ __global__ void dest_kernel(const int32_t* __restrict__ n_ptr, int64_t cap,
   }
 }
 
-__device__ __forceinline__ bool member(int32_t d_row, int64_t d) {
-  return d_row == d || d_row == -1;
-}
-
 // counts[d * ntiles + tile] = rows of the tile bound for destination d.
 __global__ void tile_dest_count_kernel(const int32_t* __restrict__ dest,
                                        int64_t cap, int64_t n,
@@ -120,38 +119,271 @@ __global__ void dest_counts_kernel(const int64_t* __restrict__ offsets,
   if (d < n) counts[d] = offsets[(d + 1) * ntiles] - offsets[d * ntiles];
 }
 
-// `cols`: 3 words per array (source ptr or 0 for an absent validity,
-// destination ptr, row bytes).
-__global__ void scatter_kernel(const int32_t* __restrict__ dest, int64_t cap,
-                               int64_t n, int64_t ntiles,
-                               const int64_t* __restrict__ offsets,
-                               int64_t bucket,
-                               const __grid_constant__ Table cols,
-                               int64_t ncols) {
-  __shared__ int warp_sums[32];
+// ---------------------------------------------------------- K35 scatter
+//
+// Replaces all_to_all_by_key's stable argsort by destination, ranks within
+// a run and .at[slot].set of every column (trino_tpu/parallel/exchange.py
+// :161-191), and all_to_all_replicate's per-destination cumsum ranks and
+// scatters (:202-235). One launch, one block of SC_THREADS per TILE-row
+// tile of the capacity; a block whose tile starts at or past num_rows
+// (read on the device) returns at once, and no dest word or source row
+// past num_rows is read.
+//   1. Ranks. Warp w takes the tile's rows [512 w, 512 w + 512) in 16
+//      rounds of 32 and reads each destination word once, coalesced. Per
+//      destination d a __ballot_sync of the round's members (a replicated
+//      row, -1, is a member of every destination, as the count pass
+//      counts it) and __popc of the lanes below give each row its rank
+//      among the warp's members of d; the warp's count of d goes to
+//      shared memory.
+//   2. One scan over (destination, warp) in warp 0: each warp's first rank
+//      of d in the tile, each destination's first position in the tile's
+//      destination-major order (sbase), the tile's member total. The
+//      tile's first rank within d comes from the count pass's offsets, so
+//      a position p of d has the slot d * bucket + rank0[d] + p - sbase[d]
+//      (dropped when that rank reaches the bucket; the host reruns with a
+//      larger one).
+//   3. Stores, in windows of SC_STAGE positions (one window unless
+//      replicated rows make the tile's member total larger): each window
+//      position gets its tile row (srow) and destination (sdst, SC_DROP for
+//      a dropped rank) — a hashed row from its own rank, a replicated row
+//      by redoing its destinations' ballots, only those whose positions
+//      meet the window. Then array by array: a row of 1, 2, 4 or 8 bytes
+//      is staged in shared memory in source order (the tile read with
+//      16-byte loads, coalesced) and written in destination-major order,
+//      so consecutive threads write consecutive slots of one bucket; a
+//      wider row (K32's list planes) goes from source to slot directly; a
+//      missing validity is written as true without a read. (Staging
+//      several narrow arrays together, one barrier pair for all, measured
+//      slower on the card.)
+// Shared memory: 32 KB of staged rows, 12 KB of window positions, 3 KB of
+// counts and bases (under the 48 KB of static shared memory a block has).
+constexpr int SC_THREADS = 256;
+constexpr int SC_WARPS = SC_THREADS / 32;
+constexpr int SC_WARP_ROWS = TILE / SC_WARPS;  // 512 rows a warp
+constexpr int SC_ROUNDS = SC_WARP_ROWS / 32;   // of 32 rows each
+constexpr int SC_STAGE = TILE;                 // positions of a window
+constexpr uint8_t SC_DROP = 0xFF;              // sdst of a dropped rank
+int64_t scatter_enqueues = 0;  // launches exchange_scatter enqueued
+
+// Stage rows [base, base + rows) of `src` (T-sized rows) in `stage`.
+template <class T>
+__device__ __forceinline__ void stage_tile(const T* __restrict__ src,
+                                           int64_t base, int rows,
+                                           uint64_t* stage) {
+  const char* s = reinterpret_cast<const char*>(src + base);
+  char* d = reinterpret_cast<char*>(stage);
+  const int bytes = rows * (int)sizeof(T);
+  if ((reinterpret_cast<uintptr_t>(s) & 15) == 0) {
+    const int words = bytes >> 4;
+    for (int w = threadIdx.x; w < words; w += SC_THREADS)
+      reinterpret_cast<uint4*>(d)[w] = reinterpret_cast<const uint4*>(s)[w];
+    for (int b = (words << 4) + threadIdx.x; b < bytes; b += SC_THREADS)
+      d[b] = s[b];
+  } else {
+    T* st = reinterpret_cast<T*>(stage);
+    for (int t = threadIdx.x; t < rows; t += SC_THREADS) st[t] = src[base + t];
+  }
+}
+
+// Write the window's staged rows to their slots: position q of the
+// window (tile position w0 + q) of destination d goes to dslot0[d] + w0 + q.
+template <class T>
+__device__ __forceinline__ void store_window(const uint64_t* stage,
+                                             const uint16_t* srow,
+                                             const uint8_t* sdst,
+                                             const int64_t* dslot0, int w0,
+                                             int wlen, T* __restrict__ dst) {
+  const T* sv = reinterpret_cast<const T*>(stage);
+  for (int q = threadIdx.x; q < wlen; q += SC_THREADS) {
+    const int d = sdst[q];
+    if (d != SC_DROP) dst[dslot0[d] + w0 + q] = sv[srow[q]];
+  }
+}
+
+// cols: 3 words per array (source ptr or 0 for an absent validity,
+// destination ptr of n * bucket rows, row bytes).
+template <int W, bool REPL>
+__global__ void __launch_bounds__(SC_THREADS) scatter_kernel(
+    const int32_t* __restrict__ dest, const int32_t* __restrict__ n_ptr,
+    int64_t cap, int n, int64_t ntiles, const int64_t* __restrict__ offsets,
+    int64_t bucket, const __grid_constant__ ParamBlock<W> cols, int ncols) {
+  __shared__ __align__(16) uint64_t stage[SC_STAGE];
+  __shared__ uint16_t srow[SC_STAGE];
+  __shared__ uint8_t sdst[SC_STAGE];
+  __shared__ int wbase[SC_WARPS][MAX_N];  // a warp's count of d, then base
+  __shared__ int sbase[MAX_N + 1];        // d's first tile position; total
+  __shared__ int64_t rank0[MAX_N];        // the tile's first rank within d
+  __shared__ int64_t dslot0[MAX_N];       // d * bucket + rank0[d] - sbase[d]
+  const int64_t live = live_rows(n_ptr, cap);
   const int64_t base = (int64_t)blockIdx.x * TILE;
-  for (int64_t d = 0; d < n; ++d) {
-    // this tile's first rank within destination d
-    int64_t rank0 = offsets[d * ntiles + blockIdx.x] - offsets[d * ntiles];
-    for (int r = 0; r < TILE; r += blockDim.x) {
-      const int64_t i = base + r + threadIdx.x;
-      const int f = i < cap && member(dest[i], d) ? 1 : 0;
-      int total;
-      const int ex = block_exclusive_scan(f, warp_sums, &total);
-      const int64_t rank = rank0 + ex;
-      if (f && rank < bucket) {
-        const int64_t slot = d * bucket + rank;
-        for (int64_t c = 0; c < ncols; ++c) {
-          const void* src = reinterpret_cast<const void*>(cols.v[3 * c]);
-          void* dst = reinterpret_cast<void*>(cols.v[3 * c + 1]);
-          if (src == nullptr)
-            static_cast<uint8_t*>(dst)[slot] = 1;
-          else
-            copy_elem(src, i, dst, slot, cols.v[3 * c + 2]);
+  if (base >= live) return;
+  const int rows = (int)(live - base < TILE ? live - base : TILE);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  const int row0 = warp * SC_WARP_ROWS + lane;  // this thread's round-0 row
+  int dv[SC_ROUNDS];    // destination words (n: no destination)
+  int pos[SC_ROUNDS];   // a hashed row's rank, then its tile position
+  unsigned rep[SC_ROUNDS];
+  bool mine_rep = false;
+#pragma unroll
+  for (int r = 0; r < SC_ROUNDS; ++r) {
+    const int t = row0 + 32 * r;
+    pos[r] = 0;
+    dv[r] = t < rows ? dest[base + t] : n;
+    if (REPL) {
+      rep[r] = __ballot_sync(0xffffffffu, dv[r] == -1);
+      mine_rep |= dv[r] == -1;
+    }
+  }
+  // 1. each row's rank among the warp's members of its destination
+  for (int d = 0; d < n; ++d) {
+    int run = 0;
+#pragma unroll
+    for (int r = 0; r < SC_ROUNDS; ++r) {
+      unsigned m = __ballot_sync(0xffffffffu, dv[r] == d);
+      if (REPL) m |= rep[r];
+      if (dv[r] == d) pos[r] = run + __popc(m & below);
+      run += __popc(m);
+    }
+    if (lane == 0) wbase[warp][d] = run;
+  }
+  const bool any_rep = REPL ? __syncthreads_or(mine_rep) : false;
+  if (!REPL) __syncthreads();
+  // 2. the scan over (destination, warp), lane l taking d = l and l + 32
+  if (warp == 0) {
+    int c[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int d = lane + 32 * h;
+      int acc = 0;
+      if (d < n)
+        for (int w = 0; w < SC_WARPS; ++w) {
+          const int x = wbase[w][d];
+          wbase[w][d] = acc;
+          acc += x;
+        }
+      c[h] = acc;
+    }
+    int inc[2] = {c[0], c[1]};
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, inc[h], o);
+        if (lane >= o) inc[h] += y;
+      }
+    const int lo_total = __shfl_sync(0xffffffffu, inc[0], 31);
+    const int total = lo_total + __shfl_sync(0xffffffffu, inc[1], 31);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int d = lane + 32 * h;
+      if (d < n) {
+        const int sb = (h ? lo_total : 0) + inc[h] - c[h];
+        const int64_t r0 =
+            offsets[(int64_t)d * ntiles + blockIdx.x] -
+            offsets[(int64_t)d * ntiles];
+        sbase[d] = sb;
+        rank0[d] = r0;
+        dslot0[d] = (int64_t)d * bucket + r0 - sb;
+      }
+    }
+    if (lane == 0) sbase[n] = total;
+  }
+  __syncthreads();
+  const int total = sbase[n];
+#pragma unroll
+  for (int r = 0; r < SC_ROUNDS; ++r)
+    pos[r] = dv[r] >= 0 && dv[r] < n
+                 ? sbase[dv[r]] + wbase[warp][dv[r]] + pos[r] : -1;
+  // 3. windows of positions
+  for (int w0 = 0; w0 < total; w0 += SC_STAGE) {
+    const int wlen = total - w0 < SC_STAGE ? total - w0 : SC_STAGE;
+#pragma unroll
+    for (int r = 0; r < SC_ROUNDS; ++r) {
+      const int q = pos[r] - w0;
+      if (pos[r] >= 0 && q >= 0 && q < wlen) {
+        const int d = dv[r];
+        srow[q] = (uint16_t)(row0 + 32 * r);
+        sdst[q] = rank0[d] + (pos[r] - sbase[d]) < bucket ? (uint8_t)d
+                                                           : SC_DROP;
+      }
+    }
+    if (REPL && any_rep) {
+      for (int d = 0; d < n; ++d) {
+        if (sbase[d + 1] <= w0 || sbase[d] >= w0 + wlen) continue;
+        int run = wbase[warp][d];
+#pragma unroll
+        for (int r = 0; r < SC_ROUNDS; ++r) {
+          const unsigned m = __ballot_sync(0xffffffffu, dv[r] == d) | rep[r];
+          if (dv[r] == -1) {
+            const int p = sbase[d] + run + __popc(m & below);
+            const int q = p - w0;
+            if (q >= 0 && q < wlen) {
+              srow[q] = (uint16_t)(row0 + 32 * r);
+              sdst[q] = rank0[d] + (p - sbase[d]) < bucket ? (uint8_t)d
+                                                           : SC_DROP;
+            }
+          }
+          run += __popc(m);
         }
       }
-      rank0 += total;
     }
+    __syncthreads();
+    for (int c = 0; c < ncols; ++c) {
+      const void* src = reinterpret_cast<const void*>(cols.v[3 * c]);
+      void* dst = reinterpret_cast<void*>(cols.v[3 * c + 1]);
+      const int64_t rb = cols.v[3 * c + 2];
+      if (src == nullptr) {  // a missing validity: true
+        for (int q = threadIdx.x; q < wlen; q += SC_THREADS) {
+          const int d = sdst[q];
+          if (d != SC_DROP)
+            static_cast<uint8_t*>(dst)[dslot0[d] + w0 + q] = 1;
+        }
+        continue;
+      }
+      switch (rb) {
+        case 8:
+          stage_tile(static_cast<const uint64_t*>(src), base, rows, stage);
+          break;
+        case 4:
+          stage_tile(static_cast<const uint32_t*>(src), base, rows, stage);
+          break;
+        case 2:
+          stage_tile(static_cast<const uint16_t*>(src), base, rows, stage);
+          break;
+        case 1:
+          stage_tile(static_cast<const uint8_t*>(src), base, rows, stage);
+          break;
+        default:  // a wide row (K32's list planes): source to slot
+          for (int q = threadIdx.x; q < wlen; q += SC_THREADS) {
+            const int d = sdst[q];
+            if (d != SC_DROP)
+              copy_elem(src, base + srow[q], dst, dslot0[d] + w0 + q, rb);
+          }
+          continue;
+      }
+      __syncthreads();
+      switch (rb) {
+        case 8:
+          store_window(stage, srow, sdst, dslot0, w0, wlen,
+                       static_cast<uint64_t*>(dst));
+          break;
+        case 4:
+          store_window(stage, srow, sdst, dslot0, w0, wlen,
+                       static_cast<uint32_t*>(dst));
+          break;
+        case 2:
+          store_window(stage, srow, sdst, dslot0, w0, wlen,
+                       static_cast<uint16_t*>(dst));
+          break;
+        default:
+          store_window(stage, srow, sdst, dslot0, w0, wlen,
+                       static_cast<uint8_t*>(dst));
+          break;
+      }
+      __syncthreads();  // the stage is the next array's
+    }
+    __syncthreads();    // the window's positions are the next window's
   }
 }
 
@@ -494,24 +726,65 @@ TT_EXPORT int exchange_count(const void* keys, int64_t nkeys, int64_t cap,
   return (int)cudaGetLastError();
 }
 
-// dest, hist: exchange_count's outputs for this page; cols: int64 HOST
-// array, 3 words per moved array (source ptr or 0 for a validity to write
-// as true, destination ptr of n * bucket rows, row bytes). Returns
-// cudaGetLastError(), or -1 on a bad table.
-TT_EXPORT int exchange_scatter(const void* dest, int64_t cap, int64_t n,
-                               const void* hist, int64_t bucket,
-                               const void* cols, int64_t ncols,
-                               void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  thread_local static Table ct;
-  if (n < 1 || n > MAX_N || bucket < 1 || load_table(cols, 3 * ncols, &ct))
-    return -1;
-  if (cap > 0 && ncols > 0)
-    scatter_kernel<<<(unsigned)tile_blocks(cap), TILE_THREADS, 0, s>>>(
-        static_cast<const int32_t*>(dest), cap, n, tile_blocks(cap),
-        static_cast<const int64_t*>(hist), bucket, ct, ncols);
+namespace {
+template <int W, bool REPL>
+int scatter_launch(const void* dest, int64_t cap, int64_t n, const void* hist,
+                   const void* num_rows, int64_t bucket, const void* cols,
+                   int64_t ncols, cudaStream_t s) {
+  thread_local static ParamBlock<W> t;  // each launch copies it
+  load_block(cols, 3 * ncols, &t);
+  const int64_t ntiles = tile_blocks(cap);
+  scatter_kernel<W, REPL><<<(unsigned)ntiles, SC_THREADS, 0, s>>>(
+      static_cast<const int32_t*>(dest),
+      static_cast<const int32_t*>(num_rows), cap, (int)n, ntiles,
+      static_cast<const int64_t*>(hist), bucket, t, (int)ncols);
+  ++scatter_enqueues;
   return (int)cudaGetLastError();
 }
+
+template <int W>
+int scatter_mode(int64_t mode, const void* dest, int64_t cap, int64_t n,
+                 const void* hist, const void* num_rows, int64_t bucket,
+                 const void* cols, int64_t ncols, cudaStream_t s) {
+  return mode == MODE_REPLICATE
+             ? scatter_launch<W, true>(dest, cap, n, hist, num_rows, bucket,
+                                       cols, ncols, s)
+             : scatter_launch<W, false>(dest, cap, n, hist, num_rows, bucket,
+                                        cols, ncols, s);
+}
+}  // namespace
+
+// dest, hist: exchange_count's outputs for this page, num_rows its
+// device-side row count and mode its mode (the same as the count pass
+// had); cols: int64 HOST array, 3 words per moved array (source ptr or 0
+// for a validity to write as true, destination ptr of n * bucket rows,
+// row bytes), in a parameter block of 8, 64 or TABLE_MAX words. One
+// launch (scatter_kernel). Returns cudaGetLastError(), or -1 on a bad
+// table or argument.
+TT_EXPORT int exchange_scatter(const void* dest, int64_t cap, int64_t n,
+                               const void* hist, const void* num_rows,
+                               int64_t mode, int64_t bucket, const void* cols,
+                               int64_t ncols, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n < 1 || n > MAX_N || bucket < 1 || ncols < 0 || cap < 0) return -1;
+  switch (param_block_words(3 * ncols)) {
+    case 8:
+      return scatter_mode<8>(mode, dest, cap, n, hist, num_rows, bucket,
+                             cols, ncols, s);
+    case 64:
+      return scatter_mode<64>(mode, dest, cap, n, hist, num_rows, bucket,
+                              cols, ncols, s);
+    case TABLE_MAX:
+      return scatter_mode<TABLE_MAX>(mode, dest, cap, n, hist, num_rows,
+                                     bucket, cols, ncols, s);
+    default:
+      return -1;
+  }
+}
+
+// The launches exchange_scatter has enqueued in this process
+// (chip_smoke.py counts them per call).
+TT_EXPORT int64_t exchange_scatter_enqueues() { return scatter_enqueues; }
 
 // sorted: u64[cap] ascending (NULL and dead rows the sentinel, last);
 // scratch: u64[HL_GRID_MAX * 64] partials, then the ticket (uint32, 0,

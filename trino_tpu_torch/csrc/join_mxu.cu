@@ -137,11 +137,25 @@ TT_EXPORT int mxu_table(const void* table, int64_t nkeys, int64_t cap,
 // table row (zeros outside the span), its pair count cnt, and each derived
 // column — cnt, cnt where the probe value is valid, value * cnt (int64,
 // wrapping, or float64), or a table column — plus the live mask (row live,
-// key not NULL, cnt > 0) that K1 compacts by. A table of at most 6,144
-// words (48 KB) is staged in each block's shared memory, as K13 stages its
+// key not NULL, cnt > 0) that K1 compacts by. Bound on this card: bytes —
+// the live rows' probe key and value columns read once, every derived
+// column and the mask written once over the live rows.
+//
+// One launch (agg_lookup_kernel, below): only the rows below num_rows (read
+// on the device) are computed, outputs and mask alike; the padding past
+// them is left unwritten, as K27's is, since K1 reads i < num_rows only
+// (csrc/compact.cu Keep). The grid is fixed by the capacity and the SM
+// count (ops: agg_lookup_grid) and its blocks stride the live rows, two
+// consecutive rows a thread (an integer pair of the key or a probe column
+// read in one load), so a table of at most SMEM_WORDS words (48 KB)
+// is staged in shared memory once per resident block, as K13 stages its
 // table; a larger one (G2 at sf1: 32,768 slots x 4 = 1 MiB) is read where
-// it lies, through L2. Bound on this card: bytes — the probe key and value
-// columns read once, every derived column and the mask written once.
+// it lies, through L2. The outputs are the rows of one int64 (nout,
+// stride) block (a float64 column holds its bits), stride even, so a
+// thread stores its two rows of an output as one 16-byte word. The key
+// column and the output descriptors travel in a by-value block sized to
+// the call (LookupDesc of 8, 64 or LK_MAX outputs); an output's op is the
+// same for every thread.
 namespace {
 enum Vec { VEC_CNT = 0, VEC_SUM_I = 1, VEC_SUM_F = 2, VEC_VALIDCNT = 3 };
 enum Op {
@@ -149,8 +163,6 @@ enum Op {
   OP_TABLE_F = 5
 };
 constexpr int VEC_FIELDS = 5;   // kind, values ptr, valid ptr, esz, is_float
-constexpr int OUT_FIELDS = 7;   // op, table column, values, valid, esz,
-                                // is_float, out ptr
 constexpr int64_t SMEM_WORDS = 6144;   // 48 KB of 8-byte table words
 constexpr int64_t SUB_WORDS = 6080;    // K24's copy, beside 256 B of its own
 constexpr int SHARED_BLOCKS = 264;     // two blocks per SM for the copy
@@ -313,63 +325,6 @@ __global__ void agg_finish_kernel(const __grid_constant__ Table tbl,
   }
 }
 
-__global__ void agg_lookup_kernel(const __grid_constant__ Table tbl,
-                                  int64_t nout, int64_t cap,
-                                  const int32_t* __restrict__ num_rows,
-                                  const long long* __restrict__ table,
-                                  int64_t slots, int64_t ncols,
-                                  const int64_t* __restrict__ kmin_p,
-                                  bool* __restrict__ live_out) {
-  extern __shared__ long long stab[];
-  const long long* t = table;
-  const int64_t words = slots * ncols;
-  if (words <= SMEM_WORDS) {
-    for (int64_t j = threadIdx.x; j < words; j += blockDim.x)
-      stab[j] = table[j];
-    __syncthreads();
-    t = stab;
-  }
-  const int64_t n = clamp_rows(num_rows, cap);
-  const uint64_t kmin = (uint64_t)*kmin_p;
-  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < cap;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    // every row is looked up, as the reference's matmul looks up every row;
-    // liveness only decides what K1 keeps
-    bool null;
-    const uint64_t key = join_key(tbl.v, 1, i, &null);
-    const int64_t raw = (int64_t)(key - kmin);
-    const bool inb = raw >= 0 && raw < slots;
-    const long long* row = t + (inb ? raw : 0) * ncols;
-    const long long cnt = inb ? row[0] : 0;
-    live_out[i] = i < n && !null && cnt > 0;
-    for (int64_t q = 0; q < nout; ++q) {
-      const int64_t* o = tbl.v + KEY_FIELDS + OUT_FIELDS * q;
-      const void* p = reinterpret_cast<const void*>(o[2]);
-      long long* out = reinterpret_cast<long long*>(o[6]);
-      switch ((int)o[0]) {
-        case OP_PAIRS:
-          out[i] = cnt;
-          break;
-        case OP_CNTP: {
-          const uint8_t* valid = reinterpret_cast<const uint8_t*>(o[3]);
-          out[i] = (valid == nullptr || valid[i]) ? cnt : 0;
-          break;
-        }
-        case OP_SUMP_I:
-          out[i] = (long long)((unsigned long long)load_int(p, i, (int)o[4]) *
-                               (unsigned long long)cnt);
-          break;
-        case OP_SUMP_F:
-          reinterpret_cast<double*>(out)[i] =
-              load_float(p, i, (int)o[4]) * (double)cnt;
-          break;
-        default:  // OP_TABLE_I, OP_TABLE_F: the word, float64 bits as they are
-          out[i] = inb ? row[o[1]] : 0;
-          break;
-      }
-    }
-  }
-}
 }  // namespace
 
 // table: int64 HOST array: the key column's KEY_FIELDS words, then
@@ -411,28 +366,242 @@ TT_EXPORT int agg_table(const void* table, int64_t nvec, int64_t cap,
   return (int)cudaGetLastError();
 }
 
-// table: int64 HOST array: the probe key column's KEY_FIELDS words, then
-// OUT_FIELDS words per output column (op, table column, values ptr or 0,
-// valid ptr or 0, element size, is_float, out ptr: int64 or float64
-// [cap]); tab: K24's int64[slots][ncols]; kmin: one int64 word on the
-// device; live: bool[cap]. Returns cudaGetLastError(), or -1 when the
-// table exceeds TABLE_MAX.
-TT_EXPORT int agg_lookup(const void* table, int64_t nout, int64_t cap,
-                         const void* num_rows, const void* tab, int64_t slots,
-                         int64_t ncols, const void* kmin, void* live,
-                         void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  thread_local static Table t;  // each launch copies it as a parameter
-  if (load_table(table, KEY_FIELDS + OUT_FIELDS * nout, &t)) return -1;
+namespace {
+constexpr int LK_THREADS = 256;
+constexpr int LK_ROWS = 2;       // consecutive rows a thread
+constexpr int LK_FIELDS = 6;     // op, table column, values, valid, esz,
+                                 // is_float
+constexpr int LK_MAX = (TABLE_MAX - KEY_FIELDS) / LK_FIELDS;  // 340 outputs
+int64_t lookup_enqueues = 0;     // launches agg_lookup enqueued
+
+template <int H>
+struct LookupDesc {
+  int64_t key[KEY_FIELDS];
+  int64_t out[LK_FIELDS * H];
+};
+
+// Elements i0 and i0 + 1 (i0 even) of an integer column of `esz` bytes,
+// sign-extended: one 16- or 8-byte load where the column is aligned so.
+__device__ __forceinline__ void load_int_pair(const void* p, int64_t i0,
+                                              int esz, int64_t* a,
+                                              int64_t* b) {
+  const uintptr_t at = reinterpret_cast<uintptr_t>(p);
+  if (esz == 8 && (at & 15) == 0) {
+    const longlong2 v = reinterpret_cast<const longlong2*>(p)[i0 >> 1];
+    *a = v.x;
+    *b = v.y;
+  } else if (esz == 4 && (at & 7) == 0) {
+    const int2 v = reinterpret_cast<const int2*>(p)[i0 >> 1];
+    *a = v.x;
+    *b = v.y;
+  } else {
+    *a = load_int(p, i0, esz);
+    *b = load_int(p, i0 + 1, esz);
+  }
+}
+
+// Bytes i0 and i0 + 1 (i0 even) of a validity column.
+__device__ __forceinline__ void load_valid_pair(const uint8_t* v, int64_t i0,
+                                                bool* a, bool* b) {
+  if ((reinterpret_cast<uintptr_t>(v) & 1) == 0) {
+    const uchar2 x = reinterpret_cast<const uchar2*>(v)[i0 >> 1];
+    *a = x.x;
+    *b = x.y;
+  } else {
+    *a = v[i0];
+    *b = v[i0 + 1];
+  }
+}
+
+// The join keys of probe rows i0 and i0 + 1 over one key column (join_key
+// of csrc/common.cuh), an integer pair in one load; `two` false: row i0
+// alone (the second NULL).
+__device__ __forceinline__ void key_pair(const int64_t* c, int64_t i0,
+                                         bool two, uint64_t* k, bool* null) {
+  if (!two) {
+    k[0] = join_key(c, 1, i0, &null[0]);
+    k[1] = 0;
+    null[1] = true;
+    return;
+  }
+  const void* v = reinterpret_cast<const void*>(c[0]);
+  if (c[3]) {
+    k[0] = key_bits(v, i0, (int)c[2], 1);
+    k[1] = key_bits(v, i0 + 1, (int)c[2], 1);
+  } else {
+    int64_t a, b;
+    load_int_pair(v, i0, (int)c[2], &a, &b);
+    k[0] = (uint64_t)a;
+    k[1] = (uint64_t)b;
+  }
+  const uint8_t* valid = reinterpret_cast<const uint8_t*>(c[1]);
+  bool va = true, vb = true;
+  if (valid != nullptr) load_valid_pair(valid, i0, &va, &vb);
+  null[0] = !va;
+  null[1] = !vb;
+}
+
+// One output's values at probe rows i0 and i0 + 1 (the second only when
+// `two`), given their table rows and counts.
+__device__ __forceinline__ void lookup_pair(const int64_t* o, int64_t i0,
+                                            bool two, const long long* cnt,
+                                            const long long* const* row,
+                                            const bool* inb, long long* v) {
+  const void* p = reinterpret_cast<const void*>(o[2]);
+  const int esz = (int)o[4];
+  switch ((int)o[0]) {
+    case OP_PAIRS:
+      v[0] = cnt[0];
+      v[1] = cnt[1];
+      return;
+    case OP_CNTP: {
+      const uint8_t* valid = reinterpret_cast<const uint8_t*>(o[3]);
+      bool a = true, b = true;
+      if (valid != nullptr) {
+        if (two)
+          load_valid_pair(valid, i0, &a, &b);
+        else
+          a = valid[i0];
+      }
+      v[0] = a ? cnt[0] : 0;
+      v[1] = b ? cnt[1] : 0;
+      return;
+    }
+    case OP_SUMP_I: {
+      int64_t a, b = 0;
+      if (two)
+        load_int_pair(p, i0, esz, &a, &b);
+      else
+        a = load_int(p, i0, esz);
+      v[0] = (long long)((unsigned long long)a * (unsigned long long)cnt[0]);
+      v[1] = (long long)((unsigned long long)b * (unsigned long long)cnt[1]);
+      return;
+    }
+    case OP_SUMP_F:
+      v[0] = __double_as_longlong(load_float(p, i0, esz) * (double)cnt[0]);
+      v[1] = two ? __double_as_longlong(load_float(p, i0 + 1, esz) *
+                                        (double)cnt[1])
+                 : 0;
+      return;
+    default:  // OP_TABLE_I, OP_TABLE_F: the word, float64 bits as they are
+      v[0] = inb[0] ? row[0][o[1]] : 0;
+      v[1] = inb[1] ? row[1][o[1]] : 0;
+      return;
+  }
+}
+
+// outs: int64 [nout][stride] (stride even, outs 16-byte aligned); live:
+// bool [cap]. Rows at and past num_rows are not written.
+template <int H>
+__global__ void __launch_bounds__(LK_THREADS) agg_lookup_kernel(
+    const __grid_constant__ LookupDesc<H> p, int nout, int64_t cap,
+    const int32_t* __restrict__ num_rows, const long long* __restrict__ table,
+    int64_t slots, int64_t ncols, const int64_t* __restrict__ kmin_p,
+    long long* __restrict__ outs, int64_t stride, bool* __restrict__ live) {
+  extern __shared__ long long stab[];
+  const int64_t n = clamp_rows(num_rows, cap);
+  const int64_t step = (int64_t)LK_THREADS * LK_ROWS;
+  if ((int64_t)blockIdx.x * step >= n) return;  // no live row for the block
+  const long long* t = table;
+  const int64_t words = slots * ncols;
+  if (words <= SMEM_WORDS) {
+    for (int64_t j = threadIdx.x; j < words; j += LK_THREADS)
+      stab[j] = table[j];
+    __syncthreads();
+    t = stab;
+  }
+  const uint64_t kmin = (uint64_t)*kmin_p;
+  for (int64_t i0 = ((int64_t)blockIdx.x * LK_THREADS + threadIdx.x) *
+                    LK_ROWS;
+       i0 < n; i0 += (int64_t)gridDim.x * step) {
+    const bool two = i0 + 1 < n;
+    uint64_t key[LK_ROWS];
+    long long cnt[LK_ROWS];
+    const long long* row[LK_ROWS];
+    bool null[LK_ROWS], inb[LK_ROWS], ok[LK_ROWS];
+    key_pair(p.key, i0, two, key, null);
+#pragma unroll
+    for (int k = 0; k < LK_ROWS; ++k) {
+      const int64_t raw = (int64_t)(key[k] - kmin);
+      inb[k] = raw >= 0 && raw < slots;
+      row[k] = t + (inb[k] ? raw : 0) * ncols;
+      cnt[k] = inb[k] ? row[k][0] : 0;
+      ok[k] = !null[k] && cnt[k] > 0;
+    }
+    if (two) {
+      reinterpret_cast<uchar2*>(live)[i0 >> 1] =
+          make_uchar2(ok[0], ok[1]);
+    } else {
+      live[i0] = ok[0];
+    }
+    for (int q = 0; q < nout; ++q) {
+      const int64_t* o = p.out + LK_FIELDS * q;
+      long long* out = outs + q * stride;
+      long long v[LK_ROWS];
+      lookup_pair(o, i0, two, cnt, row, inb, v);
+      if (two) {
+        reinterpret_cast<longlong2*>(out)[i0 >> 1] = make_longlong2(v[0],
+                                                                    v[1]);
+      } else {
+        out[i0] = v[0];
+      }
+    }
+  }
+}
+
+template <int H>
+int lookup_launch(const void* host, int64_t nout, int64_t cap,
+                  const void* num_rows, const void* tab, int64_t slots,
+                  int64_t ncols, const void* kmin, void* outs, int64_t stride,
+                  void* live, int64_t grid, cudaStream_t s) {
+  thread_local static LookupDesc<H> d;  // each launch copies it
+  const int64_t* src = static_cast<const int64_t*>(host);
+  for (int f = 0; f < KEY_FIELDS; ++f) d.key[f] = src[f];
+  for (int64_t i = 0; i < LK_FIELDS * nout; ++i)
+    d.out[i] = src[KEY_FIELDS + i];
   const int64_t words = slots * ncols;
   const size_t smem = words <= SMEM_WORDS ? (size_t)(8 * words) : 0;
-  if (cap > 0)
-    agg_lookup_kernel<<<grid_for(cap), THREADS, smem, s>>>(
-        t, nout, cap, static_cast<const int32_t*>(num_rows),
-        static_cast<const long long*>(tab), slots, ncols,
-        static_cast<const int64_t*>(kmin), static_cast<bool*>(live));
+  agg_lookup_kernel<H><<<(unsigned)grid, LK_THREADS, smem, s>>>(
+      d, (int)nout, cap, static_cast<const int32_t*>(num_rows),
+      static_cast<const long long*>(tab), slots, ncols,
+      static_cast<const int64_t*>(kmin), static_cast<long long*>(outs),
+      stride, static_cast<bool*>(live));
+  ++lookup_enqueues;
   return (int)cudaGetLastError();
 }
+}  // namespace
+
+// table: int64 HOST array: the probe key column's KEY_FIELDS words, then
+// LK_FIELDS words per output column (op, table column, values ptr or 0,
+// valid ptr or 0, element size, is_float); tab: K24's int64[slots][ncols];
+// kmin: one int64 word on the device; outs: int64 [nout][stride] on the
+// device (stride even, outs 16-byte aligned: output q is row q, a float64
+// column as its bits); live: bool[cap], 2-byte aligned; grid >= 1 blocks
+// (ops: agg_lookup_grid). One launch. Returns cudaGetLastError(), or -1
+// for more than LK_MAX outputs or a bad layout.
+TT_EXPORT int agg_lookup(const void* table, int64_t nout, int64_t cap,
+                         const void* num_rows, const void* tab, int64_t slots,
+                         int64_t ncols, const void* kmin, void* outs,
+                         int64_t stride, void* live, int64_t grid,
+                         void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (nout < 0 || nout > LK_MAX || grid < 1 || stride < cap ||
+      (stride & 1) || (reinterpret_cast<uintptr_t>(outs) & 15) ||
+      (reinterpret_cast<uintptr_t>(live) & 1))
+    return -1;
+  if (nout <= 8)
+    return lookup_launch<8>(table, nout, cap, num_rows, tab, slots, ncols,
+                            kmin, outs, stride, live, grid, s);
+  if (nout <= 64)
+    return lookup_launch<64>(table, nout, cap, num_rows, tab, slots, ncols,
+                             kmin, outs, stride, live, grid, s);
+  return lookup_launch<LK_MAX>(table, nout, cap, num_rows, tab, slots, ncols,
+                               kmin, outs, stride, live, grid, s);
+}
+
+// The launches agg_lookup has enqueued in this process (chip_smoke.py
+// counts them per call).
+TT_EXPORT int64_t agg_lookup_enqueues() { return lookup_enqueues; }
 
 // ------------------------------------------------------------------ K27
 //

@@ -1,5 +1,5 @@
 """Where the host and device time of a K2, K4, K16, K30 HLL, K36, K27, K5
-dense-mode or K6 call goes, and the launch floor.
+dense-mode, K6, K35 scatter or K25 call goes, and the launch floor.
 
 For eight calls it traces 1,000 calls with cProfile and splits each
 call's host time over what the wrapper calls directly (the checks and
@@ -43,7 +43,19 @@ kernels a call launches:
   slots); and on the search route at q3 sf1's second probe: 3,049,501
   live order keys of 5,242,880, each order's lines together as lineitem
   has them, against K5's hash table of 157,563 build rows (262,144
-  capacity), about 1% matching.
+  capacity), about 1% matching;
+* K35's scatter (`parallel/exchange.py` `exchange_scatter_cuda`) at the
+  shape of a D4 sf10 q9 shard's lineitem page: 7,503,144 live rows of
+  8,388,608 in hash mode over 8 destinations into buckets of 1,048,576,
+  seven columns and their validity (14 arrays, 63 bytes a row), the
+  state from K35's count pass on the card; beside it the library call
+  `argsort(dest, stable=True)` + one `index_select` per array;
+* K25 (`ops/join_mxu.py` `agg_lookup_cuda`) at G3's probe: 5,999,956
+  live lineitem rows of 8,388,608, an int64 key of 256 values
+  (l_orderkey % 256), an int32 value (l_linenumber), a (256, 3) table
+  (pair count, sum of the build column, its valid count) and G3's four
+  outputs (the pairs, value x pairs, two table columns); beside it the
+  library call `index_select` of each live row's table row.
 
 The launch floor is an empty kernel (`csrc/floor.cu`) launched through
 the package's ctypes binding with a parameter block of three words, of
@@ -54,7 +66,8 @@ microseconds per launch over 1,000 launches, and CUDA-event milliseconds
 per launch. Needs the card:
 
     python3 -m trino_tpu_torch.launch_trace [--calls 1000]
-        [--only floor,main,spill,hll,ladder,heavy,post,dense,probe]
+        [--only floor,main,spill,hll,ladder,heavy,post,dense,probe,
+                scatter,lookup]
 """
 
 from __future__ import annotations
@@ -123,8 +136,18 @@ SEARCH_CAP = 5_242_880       # q3 sf1's lineitem probe buffer
 SEARCH_LIVE = 3_049_501
 SEARCH_BUILD_CAP = 262_144   # q3 sf1's orders build
 SEARCH_BUILD = 157_563
+SCATTER_CAP = 8_388_608      # a D4 sf10 q9 shard's lineitem page
+SCATTER_LIVE = 7_503_144
+SCATTER_N = 8
+SCATTER_BUCKET = 1_048_576
+SCATTER_DTYPES = (torch.int64, torch.int64, torch.int64, torch.float64,
+                  torch.float64, torch.float64, torch.int64)
+LOOKUP_CAP = 8_388_608       # G3's probe: lineitem sf1 on a scan page
+LOOKUP_LIVE = 5_999_956
+LOOKUP_SLOTS = 256
+LOOKUP_BUILD = 1_500_000     # orders sf1 over the 256 slots
 PARTS = ("floor", "main", "spill", "hll", "ladder", "heavy", "post",
-         "dense", "probe")
+         "dense", "probe", "scatter", "lookup")
 
 
 def event_ms(fn, iters: int = 100) -> float:
@@ -142,6 +165,22 @@ def event_ms(fn, iters: int = 100) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def queued_ms(fn, calls: int) -> float:
+    """CUDA-event milliseconds per call over `calls` calls enqueued back
+    to back: the device time of a call whose host enqueue is shorter (the
+    profiler's device split can drop events)."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(calls):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / calls
 
 
 def enqueue_us(fn, calls: int) -> float:
@@ -464,6 +503,106 @@ def search_cols(dev, seed: int = 12):
             torch.tensor(SEARCH_LIVE, dtype=torch.int32, device=dev))
 
 
+def scatter_arrays(dev, cap: int = SCATTER_CAP, live: int = SCATTER_LIVE,
+                   seed: int = 17):
+    """A D4 sf10 q9 shard's lineitem page as K35 moves it: (key columns,
+    num_rows, [(array, template)]) with SCATTER_DTYPES values (the first
+    the join key) and a validity for each, `live` live rows of `cap`."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    arrays = []
+    for dt in SCATTER_DTYPES:
+        if dt.is_floating_point:
+            v = torch.rand(cap, generator=g, device=dev, dtype=dt)
+        else:
+            v = torch.randint(0, 1 << 40, (cap,), generator=g, device=dev,
+                              dtype=dt)
+        valid = torch.rand(cap, generator=g, device=dev) < 0.95
+        arrays += [(v, v), (valid, valid)]
+    nr = torch.tensor(live, dtype=torch.int32, device=dev)
+    return [(arrays[0][0], None)], nr, arrays
+
+
+def scatter_call(dev):
+    """K35's scatter arguments at the D4 shard's shape: the state from
+    K35's count pass on the card (hash mode), the arrays, n, bucket."""
+    from trino_tpu_torch.parallel import exchange as X
+    cols, nr, arrays = scatter_arrays(dev)
+    state, _ = X.exchange_count_cuda(cols, nr, SCATTER_N, X.MODE_HASH, None)
+    return state, arrays, SCATTER_N, SCATTER_BUCKET
+
+
+def scatter_check(args) -> int:
+    """Compare K35's scatter at `args` with its twin over every occupied
+    slot of every array; returns the rows moved."""
+    from trino_tpu_torch.parallel import exchange as X
+    state, arrays, n, bucket = args
+    dest = state[0]
+    got = X.exchange_scatter_cuda(*args)
+    want = X.exchange_scatter_plain(dest, arrays, n, bucket)
+    counts = [min(int(((dest == d) | (dest == -1)).sum()), bucket)
+              for d in range(n)]
+    for a, b in zip(got, want):
+        for d, m in enumerate(counts):
+            lo = d * bucket
+            if not torch.equal(a[lo:lo + m], b[lo:lo + m]):
+                raise SystemExit("K35's scatter differs from its twin")
+    return sum(counts)
+
+
+def scatter_library(args):
+    """The library call beside K35's scatter: one stable argsort of the
+    destinations and one index_select per array."""
+    state, arrays, _, _ = args
+    src = [a for a, _ in arrays if a is not None]
+
+    def run():
+        order = torch.argsort(state[0], stable=True)
+        return [a.index_select(0, order) for a in src]
+    return run
+
+
+def lookup_call(dev, cap: int = LOOKUP_CAP, live: int = LOOKUP_LIVE,
+                seed: int = 19):
+    """K25's arguments at G3's probe: (key, num_rows, table, kmin, outs)
+    with G3's outputs: the pairs, l_linenumber x pairs, the build column's
+    sum and its valid count (the SUM's helper)."""
+    from trino_tpu_torch.ops import join_mxu as JM
+    g = torch.Generator(device=dev).manual_seed(seed)
+    key = torch.randint(0, 6_000_000, (cap,), generator=g, device=dev,
+                        dtype=torch.int64) % LOOKUP_SLOTS
+    v = torch.randint(1, 8, (cap,), generator=g, device=dev,
+                      dtype=torch.int32)
+    per = LOOKUP_BUILD // LOOKUP_SLOTS
+    cnt = torch.randint(per - 50, per + 50, (LOOKUP_SLOTS,), generator=g,
+                        device=dev, dtype=torch.int64)
+    table = torch.stack([cnt, cnt * 75_000, cnt], 1).contiguous()
+    kmin = torch.zeros(1, dtype=torch.int64, device=dev)
+    outs = [(JM.OP_PAIRS, 0, None, None), (JM.OP_SUMP_I, 0, v, None),
+            (JM.OP_TABLE_I, 1, None, None), (JM.OP_TABLE_I, 2, None, None)]
+    nr = torch.tensor(live, dtype=torch.int32, device=dev)
+    return (key, None), nr, table, kmin, outs
+
+
+def lookup_check(args) -> None:
+    """Compare K25 at `args` with its twin over the live rows, the
+    outputs and the mask."""
+    from trino_tpu_torch.ops import join_mxu as JM
+    n = int(args[1])
+    got, live = JM.agg_lookup_cuda(*args)
+    want, wlive = JM.agg_lookup_plain(*args)
+    if not torch.equal(live[:n], wlive[:n]) or not all(
+            torch.equal(a[:n], b[:n]) for a, b in zip(got, want)):
+        raise SystemExit("K25 differs from its twin on the live rows")
+
+
+def lookup_library(args):
+    """The library call beside K25: index_select of each live row's table
+    row (the indices made beforehand)."""
+    key, nr, table, kmin, _ = args
+    idx = (key[0][:int(nr)] - kmin).clamp(0, table.shape[0] - 1)
+    return lambda: table.index_select(0, idx)
+
+
 def probe_prepared(bcols, bnr, route: str):
     """K5 (with its dense mode on the dense route, K12 on the mxu route)
     on the card: the Prepared K6 reads."""
@@ -652,6 +791,30 @@ def report(calls: int, parts=PARTS):
             shapes.append((name, J.unique_probe_cuda,
                            (pcols, bcols, pnr, prep),
                            f"{shape}, {int(got[2])} matched", True))
+    library = {}
+    if "scatter" in parts:
+        from trino_tpu_torch.parallel import exchange as X
+        args = scatter_call(dev)
+        moved = scatter_check(args)
+        name = "K35 scatter at a D4 q9 shard"
+        library[name] = ("argsort(dest, stable=True) + index_select per "
+                         "array", scatter_library(args))
+        shapes.append((
+            name, X.exchange_scatter_cuda, args,
+            f"{SCATTER_LIVE} live rows of {SCATTER_CAP}, {moved} moved, "
+            f"{SCATTER_N} x {SCATTER_BUCKET} slots, {len(args[1])} arrays",
+            True))
+    if "lookup" in parts:
+        from trino_tpu_torch.ops import join_mxu as JM
+        args = lookup_call(dev)
+        lookup_check(args)
+        name = "K25 at G3's probe"
+        library[name] = ("index_select of the live rows' table rows",
+                         lookup_library(args))
+        shapes.append((
+            name, JM.agg_lookup_cuda, args,
+            f"{LOOKUP_LIVE} live rows of {LOOKUP_CAP}, table "
+            f"{tuple(args[2].shape)}, {len(args[4])} outputs", True))
     trace_ctypes()
     for name, wrapper, args, shape, split in shapes:
         def call(w=wrapper, a=args):
@@ -664,7 +827,9 @@ def report(calls: int, parts=PARTS):
         yield (f"[host] {name} ({shape}): host enqueue "
                f"{enqueue_us(call, queued):.1f} us per call ({queued} "
                f"calls), "
-               f"{event_ms(call):.4f} ms per call (CUDA events); under "
+               f"{event_ms(call):.4f} ms per call (CUDA events), "
+               f"{queued_ms(call, min(queued, 200)):.4f} ms per call back "
+               f"to back; under "
                f"cProfile {total:.1f} us per call: "
                + "; ".join(f"{label} {us:.1f}" for label, us in parts_[:12])
                + f" — {card}")
@@ -676,6 +841,10 @@ def report(calls: int, parts=PARTS):
                    f"{n:g} kernels and copies per call: "
                    + "; ".join(f"{k} {ms:.4f} ms x{c:g}" for k, ms, c in top)
                    + f" — {card}")
+        if name in library:
+            label, lib = library[name]
+            yield (f"[library] {name}: {label} {event_ms(lib):.4f} ms per "
+                   f"call (CUDA events) — {card}")
     if "ladder" in parts and hasattr(A, "HLL_LAST_BLOCK_GROUPS"):
         for groups in HLL_LADDER:
             pairs = 78 * groups

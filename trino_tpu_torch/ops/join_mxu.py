@@ -33,9 +33,10 @@ SINGLE aggregation, so the cross product is never materialized.
   build row adds its vectors into the (slots, C) table with 64-bit
   atomics, then one block counts the distinct slots, the live rows and
   the magnitude gate.
-* K25 `agg_lookup` (agg_join_lookup; csrc/join_mxu.cu): one thread per
-  probe row reads its key's table row and writes every derived column and
-  the live mask; K1 then compacts the page.
+* K25 `agg_lookup` (agg_join_lookup; csrc/join_mxu.cu): one launch whose
+  threads take two live probe rows each, read their keys' table rows and
+  write every derived column (the rows of one allocation) and the live
+  mask below num_rows, the padding unwritten; K1 then compacts the page.
 * K26 `key_bounds` (Triton, `_key_bounds_partial`/`_key_bounds_final`):
   the live key's unsigned 64-bit min/max and its min/max in its own type
   (the dynamic filter's range), one pass.
@@ -626,52 +627,160 @@ def agg_lookup_plain(key, num_rows: torch.Tensor, table: torch.Tensor,
     return got, live
 
 
+AGG_LOOKUP_THREADS = 256   # csrc/join_mxu.cu LK_THREADS
+AGG_LOOKUP_ROWS = 2        # LK_ROWS: consecutive rows a thread
+AGG_LOOKUP_PER_SM = 8      # resident blocks of K25 on an SM (2,048 threads)
+AGG_LOOKUP_FIELDS = 6      # LK_FIELDS: words of an output's descriptor
+AGG_LOOKUP_MAX = (native.TABLE_MAX - 4) // AGG_LOOKUP_FIELDS   # LK_MAX
+AGG_LOOKUP_SMEM_WORDS = 6144   # SMEM_WORDS: a table staged in shared memory
+_AGG_LOOKUP_ARGS = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                    ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+                    ctypes.c_void_p)
+
+
+def agg_lookup_grid(cap: int, sms: int, words: int) -> int:
+    """Blocks of K25's grid: one per AGG_LOOKUP_THREADS x AGG_LOOKUP_ROWS
+    rows of capacity, at most as many as the card holds at once (so none
+    waits for another's stride): AGG_LOOKUP_PER_SM an SM, half as many
+    when each stages a table of more than a quarter of SMEM_WORDS (`words`
+    = slots x columns; a larger table is not staged)."""
+    step = AGG_LOOKUP_THREADS * AGG_LOOKUP_ROWS
+    per_sm = AGG_LOOKUP_PER_SM // 2 if AGG_LOOKUP_SMEM_WORDS // 4 < words \
+        <= AGG_LOOKUP_SMEM_WORDS else AGG_LOOKUP_PER_SM
+    return max(1, min(-(-cap // step), per_sm * sms))
+
+
+def agg_lookup_stride(cap: int) -> int:
+    """The row stride of K25's int64 (nout, stride) output block: a
+    multiple of 32 words, so every output starts 256-byte aligned."""
+    return -(-cap // 32) * 32
+
+
+def agg_lookup_words(key, outs) -> List[int]:
+    """K25's parameter words: the key column's four (csrc/common.cuh
+    join_key), then per output its op, table column, values and validity
+    pointers (0 where absent), element size and float flag."""
+    words = _key_table([key])
+    for op, col, values, valid in outs:
+        if values is None:
+            words += (op, col, 0, 0, 0, 0)
+        else:
+            words += (op, col, values.data_ptr(),
+                      0 if valid is None else valid.data_ptr(),
+                      values.element_size(), int(values.is_floating_point()))
+    return words
+
+
 def agg_lookup_cuda(key, num_rows: torch.Tensor, table: torch.Tensor,
                     kmin: torch.Tensor, outs
                     ) -> Tuple[List[torch.Tensor], torch.Tensor]:
-    """K25 launch: see csrc/join_mxu.cu agg_lookup."""
+    """K25 launch: see csrc/join_mxu.cu agg_lookup. One launch; the outputs
+    are the rows of one allocation (agg_lookup_stride), the mask a second;
+    both are written below num_rows only."""
     cap = key[0].shape[0]
+    index = num_rows.get_device()
+    if index < 0:
+        raise ValueError("K25's num_rows must be on a CUDA device")
     dev = num_rows.device
     _check_key_cols([key], cap, dev)
     if num_rows.dtype != torch.int32 or num_rows.dim() != 0:
         raise ValueError("num_rows must be a 0-d int32 tensor")
     if table.dtype != torch.int64 or table.dim() != 2 \
-            or table.device != dev or not table.is_contiguous():
+            or table.get_device() != index or not table.is_contiguous():
         raise ValueError("the table must be a contiguous int64 (slots, C) "
                          "tensor on the card")
-    if kmin.dtype != torch.int64 or kmin.numel() != 1 or kmin.device != dev:
+    if kmin.dtype != torch.int64 or kmin.numel() != 1 \
+            or kmin.get_device() != index:
         raise ValueError("kmin must be one int64 word on the card")
-    got, words = [], []
+    nout = len(outs)
+    if nout > AGG_LOOKUP_MAX:
+        raise ValueError(f"{nout} outputs: one launch's table holds "
+                         f"{AGG_LOOKUP_MAX}")
+    slots, ncols = table.shape
     for op, col, values, valid in outs:
-        if op in (OP_CNTP, OP_SUMP_I, OP_SUMP_F) and values is None:
-            raise ValueError("a probe-side output needs its column")
-        if op in (OP_TABLE_I, OP_TABLE_F) and not 0 <= col < table.shape[1]:
-            raise ValueError(f"table column {col} out of range")
         if values is not None:
             _check_key_cols([(values, valid)], cap, dev)
-        out = torch.empty(cap, dtype=torch.float64 if op in (
-            OP_SUMP_F, OP_TABLE_F) else torch.int64, device=dev)
-        got.append(out)
-        words += [op, col, 0 if values is None else values.data_ptr(),
-                  0 if valid is None else valid.data_ptr(),
-                  0 if values is None else values.element_size(),
-                  0 if values is None else int(values.is_floating_point()),
-                  out.data_ptr()]
+        elif op in (OP_CNTP, OP_SUMP_I, OP_SUMP_F):
+            raise ValueError("a probe-side output needs its column")
+        if op >= OP_TABLE_I and not 0 <= col < ncols:
+            raise ValueError(f"table column {col} out of range")
+    stride = agg_lookup_stride(cap)
+    block = torch.empty(max(1, nout * stride), dtype=torch.int64, device=dev)
     live = torch.empty(cap, dtype=torch.bool, device=dev)
-    lib = native.library("join_mxu")
-    rc = lib.agg_lookup(
-        host_table(_key_table([key]), words), ctypes.c_int64(len(outs)),
-        ctypes.c_int64(cap), ctypes.c_void_p(num_rows.data_ptr()),
-        ctypes.c_void_p(table.data_ptr()), ctypes.c_int64(table.shape[0]),
-        ctypes.c_int64(table.shape[1]), ctypes.c_void_p(kmin.data_ptr()),
-        ctypes.c_void_p(live.data_ptr()),
-        ctypes.c_void_p(native.stream_ptr(dev)))
+    got = list(block.as_strided((nout, cap), (stride, 1)).unbind(0))
+    for q, (op, *_) in enumerate(outs):
+        if op == OP_SUMP_F or op == OP_TABLE_F:
+            got[q] = got[q].view(torch.float64)
+    desc = array.array("q", agg_lookup_words(key, outs))
+    rc = native.function("join_mxu", "agg_lookup", _AGG_LOOKUP_ARGS)(
+        desc.buffer_info()[0], nout, cap, num_rows.data_ptr(),
+        table.data_ptr(), slots, ncols, kmin.data_ptr(), block.data_ptr(),
+        stride, live.data_ptr(),
+        agg_lookup_grid(cap, native.sm_count(index), slots * ncols),
+        native.raw_stream(index))
     native.check(rc, "agg_lookup")
     agg_lookup_cuda.launches += 1
     return got, live
 
 
 agg_lookup_cuda.launches = 0
+
+
+def agg_lookup_launch_model(key, num_rows: int, table: torch.Tensor,
+                            kmin: int, outs, got, live, grid: int) -> dict:
+    """Model of K25's launch (csrc/join_mxu.cu agg_lookup_kernel) writing
+    into `got` (one [cap] tensor per output, float64 columns as float64)
+    and `live` (bool [cap]): `grid` blocks of AGG_LOOKUP_THREADS threads,
+    AGG_LOOKUP_ROWS consecutive rows a thread, striding the live rows; a
+    block with no live row returns before it stages the table. Returns
+    stats: blocks run, tables staged in shared memory, stores of two rows
+    and of one, and each row's writes."""
+    import numpy as np
+    cap = key[0].shape[0]
+    n = max(0, min(int(num_rows), cap))
+    step = AGG_LOOKUP_THREADS * AGG_LOOKUP_ROWS
+    slots, ncols = table.shape
+    k, null = _key_cols([key])
+    writes = np.zeros(cap, dtype=np.int64)
+    stats = dict(blocks=0, staged=0, pairs=0, singles=0, writes=writes)
+    for b in range(grid):
+        if b * step >= n:
+            continue
+        stats["blocks"] += 1
+        stats["staged"] += int(slots * ncols <= AGG_LOOKUP_SMEM_WORDS)
+        t0 = (b * AGG_LOOKUP_THREADS + np.arange(AGG_LOOKUP_THREADS)) * \
+            AGG_LOOKUP_ROWS
+        firsts = (t0[None, :] + np.arange(0, n, grid * step)[:, None])
+        firsts = firsts[firsts < n]
+        two = firsts + 1 < n
+        stats["pairs"] += int(two.sum())
+        stats["singles"] += int((~two).sum())
+        rows = np.concatenate([firsts, firsts[two] + 1])
+        np.add.at(writes, rows, 1)
+        idx = torch.from_numpy(rows)
+        raw = k[idx] - kmin                 # u64 difference as int64
+        inb = (raw >= 0) & (raw < slots)
+        trow = table[raw.clamp(0, max(slots - 1, 0))] if slots else \
+            torch.zeros((len(rows), ncols), dtype=torch.int64)
+        cnt = torch.where(inb, trow[:, 0], torch.zeros_like(raw))
+        live[idx] = ~null[idx] & (cnt > 0)
+        for (op, col, values, valid), out in zip(outs, got):
+            if op == OP_PAIRS:
+                v = cnt
+            elif op == OP_CNTP:
+                v = cnt if valid is None else torch.where(
+                    valid[idx], cnt, torch.zeros_like(cnt))
+            elif op == OP_SUMP_I:
+                v = values[idx].to(torch.int64) * cnt
+            elif op == OP_SUMP_F:
+                v = (values[idx].to(torch.float64) * cnt.to(torch.float64)
+                     ).view(torch.int64)
+            else:
+                v = torch.where(inb, trow[:, col], torch.zeros_like(cnt))
+            out.view(torch.int64)[idx] = v
+    return stats
 
 
 def agg_lookup(key, num_rows, table, kmin, outs):

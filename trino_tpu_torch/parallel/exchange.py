@@ -39,6 +39,7 @@ tensor it launches the kernel or raises.
 
 from __future__ import annotations
 
+import array
 import ctypes
 from typing import Callable, List, Optional, Sequence, Tuple, Union
 
@@ -47,7 +48,7 @@ import torch
 from trino_tpu_torch import native
 from trino_tpu_torch.ops.join import _C1, _C2, _key_cols, _key_table, _srl
 from trino_tpu_torch.page import (Column, Page, device_concat, host_table,
-                                  row_bytes, row_count)
+                                  row_count)
 from trino_tpu_torch.parallel.mesh import to_device
 
 SENTINEL = -1          # u64 2^64 - 1 as an int64 word
@@ -61,6 +62,14 @@ _HEAVY_SCRATCH: dict = {}  # device index -> K36's partials and ticket
 _HEAVY_ARGS = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
                ctypes.c_void_p)
+SCATTER_WARPS = 8      # csrc/exchange.cu SC_WARPS: warps of a tile's block
+SCATTER_STAGE = 4096   # csrc/exchange.cu SC_STAGE: positions of a window
+SCATTER_ALIGN = 256    # bytes between the starts of two output arrays
+SCATTER_MAX_ARRAYS = native.TABLE_MAX // 3
+_SCATTER_ARGS = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                 ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+                 ctypes.c_void_p)
 
 Bucket = Union[int, Callable[[int], int]]
 
@@ -138,8 +147,9 @@ def exchange_scatter_plain(dest: torch.Tensor, arrays, n: int, bucket: int
 
 def exchange_count_cuda(key_cols, num_rows: torch.Tensor, n: int, mode: int,
                         heavy: Optional[torch.Tensor]):
-    """K35's count pass: see csrc/exchange.cu. Returns ((dest, hist),
-    counts int64[n]); the state feeds exchange_scatter_cuda."""
+    """K35's count pass: see csrc/exchange.cu. Returns ((dest, hist,
+    num_rows, mode), counts int64[n]); the state feeds
+    exchange_scatter_cuda, which reads num_rows on the device."""
     from trino_tpu_torch.ops.join import _check_key_cols
     cap = key_cols[0][0].shape[0]
     dev = num_rows.device
@@ -167,40 +177,211 @@ def exchange_count_cuda(key_cols, num_rows: torch.Tensor, n: int, mode: int,
         ctypes.c_void_p(native.stream_ptr(dev)))
     native.check(rc, "exchange_count")
     exchange_count_cuda.launches += 1
-    return (dest[:cap], hist), counts
+    return (dest[:cap], hist, num_rows, mode), counts
 
 
 exchange_count_cuda.launches = 0
 
 
+def scatter_layout(arrays, n: int, bucket: int):
+    """K35's outputs in one allocation, the arrays of one dtype and row
+    shape side by side as the rows of one block: [(byte offset, dtype, row
+    shape, row bytes, array indices)] per block, each block's start
+    SCATTER_ALIGN-aligned, and the allocation's bytes. A row of an array
+    starts at a multiple of its row bytes from its block's start."""
+    blocks = {}
+    for i, (_, like) in enumerate(arrays):
+        blocks.setdefault((like.dtype, tuple(like.shape[1:])), []).append(i)
+    out, at = [], 0
+    for (dtype, rshape), idx in blocks.items():
+        rb = dtype.itemsize
+        for d in rshape:
+            rb *= d
+        out.append((at, dtype, rshape, rb, idx))
+        at += -(-len(idx) * n * bucket * rb // SCATTER_ALIGN) * SCATTER_ALIGN
+    return out, at
+
+
 def exchange_scatter_cuda(state, arrays, n: int, bucket: int
                           ) -> List[torch.Tensor]:
-    """K35's scatter pass: see csrc/exchange.cu."""
-    dest, hist = state
+    """K35's scatter pass: see csrc/exchange.cu. One launch; the outputs
+    are views of one allocation (scatter_layout)."""
+    dest, hist, num_rows, mode = state
     cap = dest.shape[0]
-    dev = dest.device
-    outs, table = [], []
+    index = dest.get_device()
+    if index < 0:
+        raise ValueError("K35's state must be on a CUDA device")
+    if not 1 <= n <= MAX_DESTINATIONS or bucket < 1:
+        raise ValueError(f"{n} destinations, bucket {bucket}")
+    if len(arrays) > SCATTER_MAX_ARRAYS:
+        raise ValueError(f"{len(arrays)} arrays: one launch's table holds "
+                         f"{SCATTER_MAX_ARRAYS}")
     for a, like in arrays:
-        if a is not None and (a.device != dev or a.shape[0] != cap
+        if a is not None and (a.get_device() != index or a.shape[0] != cap
+                              or a.dtype != like.dtype
                               or not a.is_contiguous()):
             raise ValueError(f"array {a.dtype}{tuple(a.shape)} does not "
                              "match the page")
-        o = torch.empty((n * bucket,) + tuple(like.shape[1:]),
-                        dtype=like.dtype, device=dev)
-        outs.append(o)
-        table += [0 if a is None else a.data_ptr(), o.data_ptr(),
-                  row_bytes(o)]
-    rc = native.library("exchange").exchange_scatter(
-        ctypes.c_void_p(dest.data_ptr()), ctypes.c_int64(cap),
-        ctypes.c_int64(n), ctypes.c_void_p(hist.data_ptr()),
-        ctypes.c_int64(bucket), host_table(table),
-        ctypes.c_int64(len(arrays)), ctypes.c_void_p(native.stream_ptr(dev)))
+    layout, nbytes = scatter_layout(arrays, n, bucket)
+    buf = torch.empty(max(nbytes, 1), dtype=torch.uint8, device=dest.device)
+    base, rows = buf.data_ptr(), n * bucket
+    outs: List[Optional[torch.Tensor]] = [None] * len(arrays)
+    words = array.array("q", bytes(24 * len(arrays)))
+    for at, dtype, rshape, rb, idx in layout:
+        block = buf[at:at + len(idx) * rows * rb].view(dtype).view(
+            (len(idx), rows) + rshape)
+        for j, (i, o) in enumerate(zip(idx, block.unbind(0))):
+            a = arrays[i][0]
+            outs[i] = o
+            words[3 * i] = 0 if a is None else a.data_ptr()
+            words[3 * i + 1] = base + at + j * rows * rb
+            words[3 * i + 2] = rb
+    rc = native.function("exchange", "exchange_scatter", _SCATTER_ARGS)(
+        dest.data_ptr(), cap, n, hist.data_ptr(), num_rows.data_ptr(), mode,
+        bucket, words.buffer_info()[0], len(arrays),
+        native.raw_stream(index))
     native.check(rc, "exchange_scatter")
     exchange_scatter_cuda.launches += 1
     return outs
 
 
 exchange_scatter_cuda.launches = 0
+
+
+def scatter_offsets_plain(dest: torch.Tensor, num_rows, n: int,
+                          tile: int = TILE) -> torch.Tensor:
+    """The count pass's scanned offsets (its `hist`): per (destination,
+    tile), destination-major, the members of d before the tile in the
+    whole page (a replicated row a member of every destination; rows at
+    and past num_rows of none), then the total."""
+    cap = dest.shape[0]
+    ntiles = max(1, -(-cap // tile))
+    live = torch.arange(cap) < int(num_rows)
+    counts = torch.zeros((n, ntiles), dtype=torch.int64)
+    tiles = torch.arange(cap) // tile
+    for d in range(n):
+        m = ((dest == d) | (dest == -1)) & live
+        counts[d].index_add_(0, tiles[m], torch.ones(int(m.sum()),
+                                                      dtype=torch.int64))
+    flat = counts.reshape(-1)
+    return torch.cat([torch.cumsum(flat, 0) - flat, flat.sum().view(1)])
+
+
+def scatter_launch_model(dest, hist, num_rows: int, mode: int, cols,
+                         n: int, bucket: int, tile: int = TILE,
+                         warps: int = SCATTER_WARPS,
+                         stage: int = SCATTER_STAGE) -> dict:
+    """NumPy model of K35's scatter launch (csrc/exchange.cu scatter_kernel)
+    over tiles of `tile` rows, `warps` warps a tile's block taking rounds
+    of 32 rows, windows of `stage` positions. `dest` int32[cap] and `hist`
+    (the count pass's offsets) as numpy arrays; `cols` [(source bytes
+    (cap, rb) or None, destination bytes (n * bucket, rb))], written in
+    place. Returns stats: tiles run, the furthest dest word and source
+    row read, windows, replicated passes, staged and direct array moves,
+    and the largest window."""
+    import numpy as np
+    cap = dest.shape[0]
+    live = max(0, min(int(num_rows), cap))
+    ntiles = max(1, -(-cap // tile))
+    rounds = tile // warps // 32
+    drop = 0xFF
+    stats = dict(tiles=0, read=-1, windows=0, rep_passes=0, staged=0,
+                 direct=0, widest=0)
+    lanes = np.arange(32)
+
+    def ballot_rank(m):
+        """Each lane's members below it, and the round's members."""
+        return np.cumsum(m) - m, int(m.sum())
+    for b in range(ntiles):
+        base = b * tile
+        if base >= live:
+            continue          # the block returns at once
+        rows = min(tile, live - base)
+        stats["tiles"] += 1
+        stats["read"] = max(stats["read"], base + rows - 1)
+        dv = np.full(tile, n, dtype=np.int64)
+        dv[:rows] = dest[base:base + rows]
+        dv = dv.reshape(warps, rounds, 32)
+        rep = dv == -1 if mode == MODE_REPLICATE else np.zeros_like(dv,
+                                                                   bool)
+        pos = np.zeros_like(dv)
+        wcount = np.zeros((warps, n), dtype=np.int64)
+        # 1. ranks from ballots, destination by destination
+        for w in range(warps):
+            for d in range(n):
+                run = 0
+                for r in range(rounds):
+                    m = (dv[w, r] == d) | rep[w, r]
+                    ex, c = ballot_rank(m)
+                    mine = dv[w, r] == d
+                    pos[w, r][mine] = run + ex[mine]
+                    run += c
+                wcount[w, d] = run
+        # 2. the scan over (destination, warp)
+        wbase = np.cumsum(wcount, 0) - wcount
+        cnt = wcount.sum(0)
+        sbase = np.concatenate([[0], np.cumsum(cnt)])
+        total = int(sbase[n])
+        rank0 = np.array([hist[d * ntiles + b] - hist[d * ntiles]
+                          for d in range(n)], dtype=np.int64)
+        dslot0 = np.arange(n) * bucket + rank0 - sbase[:n]
+        hashed = (dv >= 0) & (dv < n)
+        dd = np.where(hashed, dv, 0)
+        p_all = np.where(hashed, sbase[dd] + wbase[np.arange(warps)[:, None,
+                                                                  None], dd]
+                         + pos, -1)
+        trow = (np.arange(warps)[:, None, None] * (tile // warps)
+                + np.arange(rounds)[None, :, None] * 32 + lanes)
+        # 3. windows
+        for w0 in range(0, total, stage):
+            wlen = min(stage, total - w0)
+            stats["windows"] += 1
+            stats["widest"] = max(stats["widest"], wlen)
+            srow = np.full(wlen, -1, dtype=np.int64)
+            sdst = np.full(wlen, -1, dtype=np.int64)
+            writes = np.zeros(wlen, dtype=np.int64)
+
+            def place(p, row, d):
+                q = p - w0
+                if 0 <= q < wlen:
+                    srow[q] = row
+                    sdst[q] = d if rank0[d] + p - sbase[d] < bucket \
+                        else drop
+                    writes[q] += 1
+            q = p_all - w0
+            sel = hashed & (q >= 0) & (q < wlen)
+            qs, ds = q[sel], dv[sel]
+            srow[qs] = trow[sel]
+            sdst[qs] = np.where(rank0[ds] + p_all[sel] - sbase[ds] < bucket,
+                                ds, drop)
+            np.add.at(writes, qs, 1)
+            if mode == MODE_REPLICATE and rep.any():
+                for d in range(n):
+                    if sbase[d + 1] <= w0 or sbase[d] >= w0 + wlen:
+                        continue
+                    stats["rep_passes"] += 1
+                    for w in range(warps):
+                        run = int(wbase[w, d])
+                        for r in range(rounds):
+                            m = (dv[w, r] == d) | rep[w, r]
+                            ex, c = ballot_rank(m)
+                            for lane in np.nonzero(rep[w, r])[0]:
+                                place(int(sbase[d] + run + ex[lane]),
+                                      int(trow[w, r, lane]), d)
+                            run += c
+            assert (writes == 1).all(), "a window position set twice or never"
+            kept = sdst != drop
+            slots = dslot0[sdst[kept]] + w0 + np.nonzero(kept)[0]
+            for src, dst in cols:
+                if src is None:
+                    dst[slots] = 1
+                    continue
+                if src.shape[1] in (1, 2, 4, 8):
+                    stats["staged"] += 1
+                else:
+                    stats["direct"] += 1
+                dst[slots] = src[base + srow[kept]]
+    return stats
 
 
 def exchange_count(key_cols, num_rows, n, mode, heavy):
