@@ -4,7 +4,8 @@
 
 Phases, each printing its lines before the next starts:
   1. card: name and power limit, torch/CUDA versions, kernel build time
-     (every csrc/*.cu built by nvcc in parallel, plus the Triton kernel);
+     (every csrc/*.cu built by nvcc in parallel; the Triton kernels
+     compile at their first launch);
   2. kernels against their plain PyTorch twins on seeded inputs on the
      card (NULLs, NaN, -0.0, empty pages, all-false masks, ragged
      capacities, duplicate, negative (-1 included), composite and
@@ -1186,15 +1187,18 @@ def launcher_enqueues(kind: str) -> int:
     """The stream operations (kernels and memsets) K5's dense mode
     (`kind` "dense": csrc/join_build.cu join_dense), K6 ("probe":
     csrc/join_probe.cu join_probe), K35's scatter ("scatter":
-    csrc/exchange.cu exchange_scatter) or K25 ("lookup": csrc/join_mxu.cu
-    agg_lookup) has enqueued in this process, counted by the C launcher as
-    it enqueues them."""
+    csrc/exchange.cu exchange_scatter), K25 ("lookup": csrc/join_mxu.cu
+    agg_lookup), K26 ("bounds": csrc/join_mxu.cu key_bounds) or K17
+    ("spillprobe": csrc/join_spill.cu spill_probe) has enqueued in this
+    process, counted by the C launcher as it enqueues them."""
     import ctypes
     from trino_tpu_torch import native
     lib, entry = {"dense": ("join_build", "join_dense_enqueues"),
                   "probe": ("join_probe", "join_probe_enqueues"),
                   "scatter": ("exchange", "exchange_scatter_enqueues"),
-                  "lookup": ("join_mxu", "agg_lookup_enqueues")}[kind]
+                  "lookup": ("join_mxu", "agg_lookup_enqueues"),
+                  "bounds": ("join_mxu", "key_bounds_enqueues"),
+                  "spillprobe": ("join_spill", "spill_probe_enqueues")}[kind]
     fn = getattr(native.library(lib), entry)
     fn.restype = ctypes.c_int64
     return fn()
@@ -1848,7 +1852,7 @@ def check_agg_join(g, dev) -> float:
     for label, bcap, bn, kind, distinct, slots, pcap, pn in AGG_CASES:
         key, base, cols = agg_case(g, dev, bcap, kind, distinct)
         bnr = torch.tensor(bn, dtype=torch.int32, device=dev)
-        got = JM.key_bounds_triton(key[0], key[1], bnr)
+        got = JM.key_bounds_cuda(key[0], key[1], bnr)
         want = JM.key_bounds_plain(key[0], key[1], bnr)
         sync()
         if not torch.equal(got, want):
@@ -1925,7 +1929,7 @@ def check_agg_join(g, dev) -> float:
                       key, vecs, bnr, kmin, slots, JM.AGG_TABLE_AUTO)),
                   "K24 global atomics": cuda_ms(lambda: JM.agg_table_cuda(
                       key, vecs, bnr, kmin, slots, JM.AGG_TABLE_GLOBAL)),
-                  "K26": cuda_ms(lambda: JM.key_bounds_triton(
+                  "K26": cuda_ms(lambda: JM.key_bounds_cuda(
                       key[0], key[1], bnr)),
                   "K25": cuda_ms(lambda: JM.agg_lookup_cuda(
                       pkey, pnr, wt, kmin, outs)),
@@ -1937,6 +1941,61 @@ def check_agg_join(g, dev) -> float:
                 + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
                 + " per call (CUDA events)")
     return worst
+
+
+BOUNDS_TYPES = (torch.int8, torch.int16, torch.int32, torch.int64,
+                torch.bool, torch.float32, torch.float64)
+BOUNDS_CASES = [  # capacity, live rows ("cap": every row)
+    (5000, 0), (5000, 700), (5000, 4096), (5000, "cap"),
+    (2_097_152, 1_500_000)]   # G3's build: orders sf1 on its page
+
+
+def bounds_key(g, dtype, cap, dev):
+    """(values, valid) of one K26 case: keys of `dtype` with NULLs; floats
+    with NaN, -0.0, +0.0 and both infinities among them."""
+    v = torch.randint(-10**6, 10**6, (cap,), generator=g)
+    if dtype is torch.bool:
+        values = v > 0
+    elif dtype.is_floating_point:
+        values = (v * 0.75).to(dtype)
+        values[::17] = float("nan")
+        values[3::13] = -0.0
+        values[5::19] = 0.0
+        values[7::23] = float("inf")
+        values[9::29] = float("-inf")
+    else:
+        values = v.to(dtype) if dtype is torch.int64 else \
+            (v % 100 - 50).to(dtype)
+    return (values.to(dev),
+            (torch.rand(cap, generator=g) >= 0.1).to(dev))
+
+
+def check_key_bounds(g, dev) -> float:
+    """K26 against its twin over every key width and kind (1, 2, 4 and 8
+    byte integers, bool, float32 and float64 with NaN and -0.0), with
+    NULLs, no validity and an all-NULL column, num_rows 0, inside the
+    first tile, on a tile boundary and equal to the capacity, and at G3's
+    build; the five words bit for bit; one enqueue a call."""
+    from trino_tpu_torch.ops import join_mxu as JM
+    for dtype in BOUNDS_TYPES:
+        for cap, n in BOUNDS_CASES:
+            n = cap if n == "cap" else n
+            values, valid = bounds_key(g, dtype, cap, dev)
+            nr = torch.tensor(n, dtype=torch.int32, device=dev)
+            for va in (valid, None, torch.zeros_like(valid)):
+                got = JM.key_bounds_cuda(values, va, nr)
+                want = JM.key_bounds_plain(values, va, nr)
+                sync()
+                if not torch.equal(got, want):
+                    fail(f"K26 differs from its twin ({dtype}, {n} of "
+                         f"{cap} live, validity "
+                         f"{'none' if va is None else int(va.sum())}): "
+                         f"{got.tolist()} vs {want.tolist()}")
+    values, valid = bounds_key(g, torch.int64, 2_097_152, dev)
+    nr = torch.tensor(1_500_000, dtype=torch.int32, device=dev)
+    one_enqueue("key_bounds at G3's build shape", lambda: JM.key_bounds_cuda(
+        values, None, nr), "bounds")
+    return 0.0   # compared exactly
 
 
 def gen_windows(table, sf):
@@ -2626,14 +2685,21 @@ SPILL_JOIN_CASES = [  # kind, cap, live rows, duplicate, probe cap, live
     ("wide", 65_536, 65_536, True, 4096, 4096),          # live to cap
     ("orders", 2_097_152, 1_500_000, False, 1_000_000, 1_000_000),  # sf1
 ]
+# K17's dense mode with the live probe rows inside its first tile, and none
+SPILL_PROBE_CASES = [("dense", 8192, 8000, False, 20_000, 300),
+                     ("dense", 8192, 8000, False, 20_000, 0)]
 
 
 def check_spill_join(g, dev) -> float:
     """K16 (sorted keys, permutation, statistics), K5's dense mode with
     the permutation as payload, and K17 in both modes, against their
-    twins: everything bit for bit."""
+    twins: everything bit for bit (K17's found and brow on the live
+    rows: it leaves the padding unwritten); one enqueue a call of K17 in
+    each mode at its largest case."""
     from trino_tpu_torch.ops import join as J
-    for kind, bcap, bn, dup, pcap, pn in SPILL_JOIN_CASES:
+    largest = {}
+    for kind, bcap, bn, dup, pcap, pn in SPILL_JOIN_CASES + \
+            SPILL_PROBE_CASES:
         label = f"{kind} build {bn}/{bcap} probe {pn}/{pcap} dup={dup}"
         bcols = spill_key_cols(g, kind, bcap, bn, dup, dev)
         bnr = torch.tensor(bn, dtype=torch.int32, device=dev)
@@ -2679,10 +2745,17 @@ def check_spill_join(g, dev) -> float:
             sync()
             wf, wb, wc = J.spill_probe_plain(pcols, pnr, mode, wlookup,
                                              wstats)
-            if int(c) != int(wc) or not torch.equal(f, wf) \
-                    or not torch.equal(b, wb):
+            if int(c) != int(wc) or not torch.equal(f[:pn], wf[:pn]) \
+                    or not torch.equal(b[:pn], wb[:pn]):
                 fail(f"K17 mode {mode} differs ({label}): count {int(c)} "
                      f"vs {int(wc)}")
+            if pn >= largest.get(mode, (0,))[0]:
+                largest[mode] = (pn, label, pcols, pnr, lookup, stats)
+    for mode, (_, label, pcols, pnr, lookup, stats) in sorted(
+            largest.items()):
+        one_enqueue(f"spill_probe mode {mode} at {label}", lambda: (
+            J.spill_probe_cuda(pcols, pnr, mode, lookup, stats)),
+            "spillprobe")
     return 0.0   # compared exactly
 
 
@@ -3627,6 +3700,15 @@ def kernel_rows_special(cap: Capture, originals, launches, dev, card):
     _same_picks("K31 at the main path's inputs", originals["percentile"](
         *args), A.percentile_plain(*args), G)
     picks = torch.randint(0, max(n, 1), (G,), device=dev)
+    # the yardstick sorts what K31 sorts: its (group, value) words of the
+    # live rows, value word then group word (a stable LSD sort), and then
+    # picks one position per group
+    words = A.percentile_words_plain(x, masks, nr, gid)[:, :n]
+
+    def sort_and_pick():
+        order = torch.sort(words[1], stable=True).indices
+        order = order[torch.sort(words[0][order], stable=True).indices]
+        return x.index_select(0, order[picks])
     out.append(row(
         "special_percentile (K31, with K10's radix passes)",
         "trino_tpu_torch/csrc/special_agg.cu",
@@ -3635,8 +3717,9 @@ def kernel_rows_special(cap: Capture, originals, launches, dev, card):
         lambda: A.percentile_plain(*args),
         col_bytes([(x, None), (p, None), (gid, None)], n)
         + masks_bytes(masks, n) + G * (x.element_size() + 1),
-        lambda: x.index_select(0, picks),
-        "index_select of one picked position per group (the pick alone)",
+        sort_and_pick,
+        "torch.sort(stable=True) of the packed (group, value) words, value "
+        "word then group word, plus index_select of one pick per group",
         f"cap {x.numel()}, {n} live rows, {x.dtype}, {G} groups", 0.0))
     return out
 
@@ -5250,9 +5333,12 @@ def main() -> None:
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     errs = {"agg_table + agg_lookup + key_bounds + agg_post":
-            check_agg_join(g, dev)}
-    say(f"[kernels] K24 (both modes), K25, K26 (Triton, first call "
-        f"compiles) and K27 match their plain twins on the card (K26's words, K24's "
+            check_agg_join(g, dev),
+            "key_bounds over every key type": check_key_bounds(g, dev)}
+    say(f"[kernels] K24 (both modes), K25, K26 and K27 match their plain "
+        f"twins on the card (K26's words over {len(BOUNDS_TYPES)} key "
+        f"types x {len(BOUNDS_CASES)} live-row counts x 3 validities and "
+        f"the fused cases, K24's "
         f"counts, integer sums, distinct slots, live rows and mag_ok, K25's "
         f"outputs and live mask, K27's masks exactly; float64 sums <= 1e-9 "
         f"rel; {len(AGG_CASES)} cases: 128 to 65,536 slots, 8 and 256 keys "
@@ -5491,7 +5577,7 @@ def main() -> None:
              * len(vecs), scopes=ds)
     cap.wrap(JM, "agg_lookup_cuda", lambda key, nr, tab, km, outs:
              key[0].numel() * len(outs), scopes=ds)
-    cap.wrap(JM, "key_bounds_triton", lambda values, *_: values.numel(),
+    cap.wrap(JM, "key_bounds_cuda", lambda values, *_: values.numel(),
              scopes=ds)
     cap.wrap(JM, "agg_post_cuda",
              lambda hs, nr: hs[0].numel() * len(hs) if hs else 0, scopes=ds)
@@ -5572,7 +5658,7 @@ def main() -> None:
                "bounded_minmax": (PW, "bounded_minmax_cuda"),
                "agg_table": (JM, "agg_table_cuda"),
                "agg_lookup": (JM, "agg_lookup_cuda"),
-               "key_bounds": (JM, "key_bounds_triton"),
+               "key_bounds": (JM, "key_bounds_cuda"),
                "agg_post": (JM, "agg_post_cuda")}
     # K16-K19: the memory-bounded paths' kernels (the sf10 runs may
     # launch them; the forced-threshold path below must)
@@ -6127,9 +6213,9 @@ def kernel_rows_agg_join(cap: Capture, originals, launches, dev, card):
     out = []
 
     def row(name, source, replaces, n_launches, fn, plain, bound_bytes,
-            library, library_name, shape, err, route="cuda"):
+            library, library_name, shape, err):
         return dict(
-            name=name, route=route, source=source, replaces=replaces,
+            name=name, route="cuda", source=source, replaces=replaces,
             launches=n_launches, max_abs_err=err, ms=cuda_ms(fn),
             device_ms=device_profile(fn)[0], host_ms=host_ms(fn),
             plain_ms=cuda_ms(plain),
@@ -6216,20 +6302,22 @@ def kernel_rows_agg_join(cap: Capture, originals, launches, dev, card):
         "agg_lookup"](pkey, pnr, table, kmin, outs), "lookup")
 
     # K26 at its largest call
-    values, valid, nr = cap.calls[("key_bounds_triton", "ds")][1]
+    values, valid, nr = cap.calls[("key_bounds_cuda", "ds")][1]
     n = int(nr)
     if not torch.equal(originals["key_bounds"](values, valid, nr),
                        JM.key_bounds_plain(values, valid, nr)):
         fail("K26 differs from its twin at the main path's inputs")
     out.append(row(
-        "key_bounds (K26, key_bounds)", "trino_tpu_torch/ops/join_mxu.py",
+        "key_bounds (K26, key_bounds)", "trino_tpu_torch/csrc/join_mxu.cu",
         "trino_tpu/ops/join_mxu.py:201", launches["key_bounds"],
         lambda: originals["key_bounds"](values, valid, nr),
         lambda: JM.key_bounds_plain(values, valid, nr),
         col_bytes([(values, valid)], n) + 40,
         lambda: torch.aminmax(values[:n]), "torch.aminmax of the live keys",
         f"build key: cap {values.numel()}, {n} live rows, {values.dtype}",
-        0.0, route="triton"))
+        0.0))
+    one_enqueue("key_bounds at the main path's call", lambda: originals[
+        "key_bounds"](values, valid, nr), "bounds")
 
     # K27 at its largest call
     helpers, nr = cap.calls[("agg_post_cuda", "ds")][1]
@@ -6889,25 +6977,33 @@ def kernel_rows_spill(cap: Capture, originals, launches, spill_launches,
         pn, pcap = int(pnr), pcols[0][0].numel()
         got = originals["spill_probe"](pcols, pnr, m, lookup, stats)
         want = J.spill_probe_plain(pcols, pnr, m, lookup, stats)
-        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        # the live rows: K17 leaves the padding unwritten
+        if int(got[2]) != int(want[2]) or not all(
+                torch.equal(a[:pn], b[:pn])
+                for a, b in zip(got[:2], want[:2])):
             fail(f"K17 {tag} mode differs from its twin at the main path's "
                  f"inputs")
         pkey, _ = J._key_cols(pcols)
         if m == J.SPILL_DENSE:
             table = lookup
             held = table.numel() * 4
-            off = (pkey - stats[J.KMIN]).clamp(0, table.numel() - 1)
+            off = (pkey[:pn] - stats[J.KMIN]).clamp(0, table.numel() - 1)
             lib = (lambda t=table, o=off: t.index_select(0, o))
-            lib_name = "index_select of the row table at the offsets"
+            lib_name = "index_select of the row table at the live offsets"
             desc = f"row table of {table.numel()} slots"
         else:
             bkeys, bperm = lookup
             held = bkeys.numel() * 12
             flipped = bkeys ^ i64_min
-            pflip = pkey ^ i64_min
+            pflip = pkey[:pn] ^ i64_min
             lib = (lambda f=flipped, p=pflip: torch.searchsorted(f, p))
-            lib_name = "torch.searchsorted over the sorted keys"
+            lib_name = "torch.searchsorted of the live keys"
             desc = f"{bkeys.numel()} sorted keys"
+        # the live probe rows' keys and the lookup read once, found (1
+        # byte) and brow (8 bytes) of each live row written once; the
+        # whole capacity for the shape text
+        live_bytes, cap_bytes = (col_bytes(pcols, r) + held + r * 9
+                                 for r in (pn, pcap))
         out.append(row(
             f"spill_probe {tag} mode (K17, spilled_"
             f"{'dense' if tag == 'dense' else 'unique'}_probe)",
@@ -6915,10 +7011,13 @@ def kernel_rows_spill(cap: Capture, originals, launches, spill_launches,
             total("spill_probe", tag),
             lambda: originals["spill_probe"](pcols, pnr, m, lookup, stats),
             lambda: J.spill_probe_plain(pcols, pnr, m, lookup, stats),
-            # the probe keys and the lookup read once, found (1 byte) and
-            # brow (8 bytes) of every row written once
-            col_bytes(pcols, pcap) + held + pcap * 9, lib, lib_name,
-            f"sf1 spilled probe: cap {pcap}, {pn} live, {desc}"))
+            live_bytes, lib, lib_name,
+            f"sf1 spilled probe: cap {pcap}, {pn} live, {desc}; bound "
+            f"over the capacity "
+            f"{cap_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms"))
+        one_enqueue(f"spill_probe {tag} mode at the main path's call",
+                    lambda: originals["spill_probe"](pcols, pnr, m, lookup,
+                                                     stats), "spillprobe")
 
     # K18 in hash and range mode at its largest sf1 page
     for tag, replaces in (("hash", "trino_tpu/exec/spill.py:88"),

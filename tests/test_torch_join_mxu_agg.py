@@ -8,9 +8,8 @@
   keys below kmin and past the span, integer sums past 2^53, an all-NULL
   build column, the empty build and an all-dead probe. Integers, masks and
   mag_ok compare exactly, doubles to 1e-12 relative.
-* K26's Triton text, run per program under a torch stand-in for
-  triton.language, against its twin (K27 is CUDA now: its wrapper runs
-  through a kernel model in test_torch_heavy_post_models.py).
+* K26 and K27 are CUDA kernels: their wrappers run through kernel models
+  in test_torch_spill_bounds_models.py and test_torch_heavy_post_models.py.
 * Queries at tiny under the default, forced and off sessions: G1-G4
   (chip_smoke.TPCDS), G5 and G6 (the all-NULL build sum and the 2^53
   guard, as inline subqueries: the port has no memory tables), the
@@ -268,143 +267,6 @@ def test_agg_join_post_matches_reference(name):
             n, CPU)), exact=name != "sums past 2^53")
     sumz = 1 + DERIVE.index(("sumb", 6, "i", 1))
     assert not got.columns[sumz].valid_mask()[:n].any()   # all NULL w
-
-
-# ------------- K26's Triton text under a torch stand-in (CPU)
-
-class _Ptr:
-    def __init__(self, t, off=None):
-        self.t, self.off = t, off
-
-    def __add__(self, off):
-        return _Ptr(self.t, off if self.off is None else self.off + off)
-
-
-def _t(v, like=None):
-    if isinstance(v, torch.Tensor):
-        return v
-    dtype = like.dtype if isinstance(like, torch.Tensor) else torch.int64
-    return torch.tensor(v, dtype=dtype)
-
-
-class _TL:
-    """The parts of triton.language K26 uses, as torch ops on one
-    program's block of rows."""
-
-    int64 = torch.int64
-    constexpr = int
-    pid = 0
-
-    def program_id(self, axis):
-        return torch.tensor(self.pid, dtype=torch.int32)
-
-    @staticmethod
-    def arange(a, b):
-        return torch.arange(a, b, dtype=torch.int32)
-
-    @staticmethod
-    def full(shape, value, dtype):
-        return torch.full(shape, value, dtype=dtype)
-
-    @staticmethod
-    def zeros(shape, dtype):
-        return torch.zeros(shape, dtype=dtype)
-
-    @staticmethod
-    def load(ptr, mask=None, other=0):
-        if ptr.off is None:
-            return ptr.t.reshape(())
-        off = torch.as_tensor(ptr.off).to(torch.int64)
-        vals = ptr.t[off.clamp(0, max(ptr.t.numel() - 1, 0))]
-        if mask is None:
-            return vals
-        return torch.where(mask, vals, torch.tensor(other, dtype=vals.dtype))
-
-    @staticmethod
-    def store(ptr, val, mask=None):
-        off = torch.as_tensor(0 if ptr.off is None else ptr.off).to(
-            torch.int64)
-        val = torch.broadcast_to(_t(val), off.shape)
-        if mask is None:
-            mask = torch.ones(off.shape, dtype=torch.bool)
-        ptr.t[off[mask]] = val[mask].to(ptr.t.dtype)
-
-    @staticmethod
-    def where(c, a, b):
-        return torch.where(c, _t(a, b), _t(b, a))
-
-    @staticmethod
-    def minimum(a, b):
-        return torch.minimum(_t(a, b), _t(b, a))
-
-    @staticmethod
-    def maximum(a, b):
-        return torch.maximum(_t(a, b), _t(b, a))
-
-    @staticmethod
-    def min(x, axis=0):
-        return x.min()
-
-    @staticmethod
-    def max(x, axis=0):
-        return x.max()
-
-
-class _Shim:
-    """kernel[grid](*args, **constexprs), each program in turn."""
-
-    def __init__(self, tl, fn):
-        self.tl, self.fn = tl, fn
-
-    def __getitem__(self, grid):
-        def launch(*args, num_warps=None, **kw):
-            args = [_Ptr(a) if isinstance(a, torch.Tensor) else a
-                    for a in args]
-            for pid in range(grid[0]):
-                self.tl.pid = pid
-                self.fn(*args, **kw)
-        return launch
-
-
-@pytest.fixture
-def triton_shim(monkeypatch):
-    tl = _TL()
-    monkeypatch.setattr(PM, "tl", tl, raising=False)
-    monkeypatch.setattr(PM, "_k26", lambda: (
-        _Shim(tl, PM._key_bounds_partial), _Shim(tl, PM._key_bounds_final)))
-    monkeypatch.setattr(PM, "KEY_BOUNDS_BLOCK", 64)
-    monkeypatch.setattr(PM, "_KEY_BOUNDS_RBLOCK", 4)
-
-
-@pytest.mark.parametrize("name", sorted(CASES))
-def test_k26_text_matches_its_twin(triton_shim, name):
-    _, pb, *_ = case(name)
-    c = pb.column(0)
-    before = PM.key_bounds_triton.launches
-    got = PM.key_bounds_triton(c.values, c.valid, pb.num_rows)
-    want = PM.key_bounds_plain(c.values, c.valid, pb.num_rows)
-    assert torch.equal(got, want), (got.tolist(), want.tolist())
-    assert PM.key_bounds_triton.launches == before + 1
-
-
-@pytest.mark.parametrize("dtype", ["int32", "int8", "bool", "float32"])
-def test_k26_text_other_key_types(triton_shim, dtype):
-    rng = np.random.default_rng(7)
-    v = rng.integers(-100, 100, 300)
-    if dtype == "bool":
-        values = torch.from_numpy(v > 0)
-    elif dtype == "float32":
-        v = v.astype(np.float32)
-        v[::17] = np.nan
-        v[::13] = -0.0
-        values = torch.from_numpy(v)
-    else:
-        values = torch.from_numpy(v.astype(dtype))
-    valid = torch.from_numpy(rng.random(300) >= 0.1)
-    nr = PP.row_count(290, CPU)
-    got = PM.key_bounds_triton(values, valid, nr)
-    want = PM.key_bounds_plain(values, valid, nr)
-    assert torch.equal(got, want), (got.tolist(), want.tolist())
 
 
 # ------------------------------------------------------------- queries

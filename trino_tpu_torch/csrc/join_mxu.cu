@@ -24,7 +24,7 @@
 // and the table (8 bytes a slot) written once; the build is at most a few
 // thousand rows on the main path (nation 25, region 5; the span is at most
 // mxu_join_max_slots), so a launch is latency, not bandwidth.
-// K24, K25 and K27: the aggregating join (B11b), below.
+// K24, K25, K26 and K27: the aggregating join (B11b), below.
 #include "common.cuh"
 
 namespace {
@@ -602,6 +602,211 @@ TT_EXPORT int agg_lookup(const void* table, int64_t nout, int64_t cap,
 // The launches agg_lookup has enqueued in this process (chip_smoke.py
 // counts them per call).
 TT_EXPORT int64_t agg_lookup_enqueues() { return lookup_enqueues; }
+
+// ------------------------------------------------------------------ K26
+//
+// Replaces trino_tpu/ops/join_mxu.py key_bounds (:201), a masked jnp.min
+// and max over the key in uint64, and trino_tpu/ops/join.py
+// build_key_bounds (:742), the dynamic filter's min and max in the key's
+// own type, which the fused join reads from the same five words: over the
+// live (below num_rows), non-NULL keys, B_KMIN and B_KMAX of the join key
+// encoding in unsigned order (common.cuh key_bits: an integer
+// sign-extended, a float as its float64 bits with -0.0 made +0.0), B_LO and
+// B_HI in the column's own order (a float's over its non-NaN values, as
+// float64 bits; NaN bits where it holds a NaN) and B_LO_NAN. Bound on this
+// card: bytes, the live rows' key and validity read once, five words
+// written. At the main path's call (G3's build: 1,500,000 live int64 keys,
+// 12 MB) that is 3.6 us, so the call is its launches and the host's
+// enqueue, and the design is ONE launch: a grid fixed by the capacity and
+// the SM count (ops: key_bounds_grid, two blocks an SM: the fastest of
+// one to four at G3's build) whose blocks stride the live prefix (rows
+// past num_rows are never read), each thread taking KB_ROWS rows a round
+// (their loads issued together) in the key's own width (1, 2, 4 or 8
+// bytes; a float32 widened to float64 in a register) and reducing the
+// five values in registers; then warp shuffles and one shared-memory step
+// per block, whose thread 0 folds each of the block's five values that
+// left its identity into per-device words (ops: _key_bounds_scratch) with
+// one atomic min, max or or each, fences and takes a ticket; the block
+// that takes the last writes the call's own five words from them and sets
+// them and the ticket back. Min and max do not depend on the order of
+// folding, so the words are exact in any block order. (On the card the
+// atomics measured faster than per-block partials folded by the last
+// block, and 16-byte loads of int64 pairs no faster than 8-byte ones.)
+namespace {
+constexpr int KB_THREADS = 256;
+constexpr int KB_ROWS = 8;    // rows a thread reads a round
+constexpr int KB_WORDS = 5;   // B_KMIN, B_KMAX, B_LO, B_HI, B_LO_NAN
+constexpr long long KB_LO0 = 0x7fffffffffffffffLL;   // lo's identity
+constexpr long long KB_HI0 = (long long)0x8000000000000000ULL;
+int64_t bounds_enqueues = 0;  // launches key_bounds enqueued
+
+struct Bounds {
+  unsigned long long umin, umax;  // the join key encoding
+  long long lo, hi;               // the value, or a float's order key
+  int nan;
+};
+
+__device__ __forceinline__ void bounds_fold(Bounds& a, const Bounds& b) {
+  a.umin = b.umin < a.umin ? b.umin : a.umin;
+  a.umax = b.umax > a.umax ? b.umax : a.umax;
+  a.lo = b.lo < a.lo ? b.lo : a.lo;
+  a.hi = b.hi > a.hi ? b.hi : a.hi;
+  a.nan |= b.nan;
+}
+
+// One live, non-NULL row into a: `bits` holds an integer, or a float's
+// value widened to float64 (whose order keys lie strictly between the
+// integer identities KB_HI0 and KB_LO0).
+template <bool FLOAT>
+__device__ __forceinline__ void bounds_add(Bounds& a, long long bits) {
+  unsigned long long key = (unsigned long long)bits;
+  long long own = bits;
+  bool nan = false;
+  if (FLOAT) {
+    const double x = __longlong_as_double(bits);
+    key = (unsigned long long)__double_as_longlong(x == 0.0 ? 0.0 : x);
+    nan = x != x;
+    own = nan ? a.lo : ordered_key(x);
+  }
+  a.umin = key < a.umin ? key : a.umin;
+  a.umax = key > a.umax ? key : a.umax;
+  if (nan) {
+    a.nan = 1;
+    return;
+  }
+  a.lo = own < a.lo ? own : a.lo;
+  a.hi = own > a.hi ? own : a.hi;
+}
+
+// The fold of one Bounds per thread over the block, valid in thread 0.
+__device__ __forceinline__ Bounds bounds_block(Bounds a, Bounds* warp_b) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    Bounds b;
+    b.umin = __shfl_xor_sync(0xffffffffu, a.umin, o);
+    b.umax = __shfl_xor_sync(0xffffffffu, a.umax, o);
+    b.lo = __shfl_xor_sync(0xffffffffu, a.lo, o);
+    b.hi = __shfl_xor_sync(0xffffffffu, a.hi, o);
+    b.nan = __shfl_xor_sync(0xffffffffu, a.nan, o);
+    bounds_fold(a, b);
+  }
+  if (lane == 0) warp_b[warp] = a;
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int w = 1; w < KB_THREADS / 32; ++w) bounds_fold(a, warp_b[w]);
+  return a;
+}
+
+// acc: the per-device words (the ticket in word 0's low half, then umin,
+// umax, lo, hi and the NaN flag at their identities ~0, 0, KB_LO0, KB_HI0
+// and 0) between calls; out: int64 [KB_WORDS].
+template <bool FLOAT>
+__global__ void __launch_bounds__(KB_THREADS)
+    key_bounds_kernel(const void* __restrict__ values,
+                      const uint8_t* __restrict__ valid, int esz,
+                      const int32_t* __restrict__ num_rows, int64_t cap,
+                      long long* __restrict__ acc,
+                      long long* __restrict__ out) {
+  __shared__ Bounds warp_b[KB_THREADS / 32];
+  __shared__ bool last;
+  const int64_t n = clamp_rows(num_rows, cap);
+  const int64_t grid = gridDim.x;
+  Bounds a = {~0ULL, 0ULL, KB_LO0, KB_HI0, 0};
+  for (int64_t base = (int64_t)blockIdx.x * KB_THREADS * KB_ROWS +
+                      threadIdx.x;
+       base < n; base += grid * KB_THREADS * KB_ROWS) {
+    long long bits[KB_ROWS];
+#pragma unroll
+    for (int r = 0; r < KB_ROWS; ++r) {
+      const int64_t i = base + r * KB_THREADS;
+      bits[r] = i >= n ? 0
+                : FLOAT ? __double_as_longlong(load_float(values, i, esz))
+                        : load_int(values, i, esz);
+    }
+#pragma unroll
+    for (int r = 0; r < KB_ROWS; ++r) {
+      const int64_t i = base + r * KB_THREADS;
+      if (i < n && (valid == nullptr || valid[i]))
+        bounds_add<FLOAT>(a, bits[r]);
+    }
+  }
+  a = bounds_block(a, warp_b);
+  unsigned* ticket = reinterpret_cast<unsigned*>(acc);
+  unsigned long long* uacc = reinterpret_cast<unsigned long long*>(acc);
+  if (threadIdx.x == 0) {
+    // fire-and-forget reductions; a word at its identity is left alone
+    if (a.umin != ~0ULL) atomicMin(uacc + 1, a.umin);
+    if (a.umax) atomicMax(uacc + 2, a.umax);
+    if (a.lo != KB_LO0) atomicMin(acc + 3, a.lo);
+    if (a.hi != KB_HI0) atomicMax(acc + 4, a.hi);
+    if (a.nan) atomicOr(uacc + 5, 1ULL);
+    // the reductions are performed before the ticket counts this block
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == (unsigned)grid - 1;
+  }
+  __syncthreads();
+  if (!last || threadIdx.x != 0) return;
+  __threadfence();
+  const unsigned long long umin = __ldcg(uacc + 1), umax = __ldcg(uacc + 2);
+  const long long lo = __ldcg(acc + 3), hi = __ldcg(acc + 4);
+  const long long nan = __ldcg(acc + 5);
+  out[0] = (long long)umin;
+  out[1] = (long long)umax;
+  if (FLOAT) {
+    // no non-NaN value: lo +inf, hi -inf; a NaN: NaN bits for both
+    const long long nan_bits = 0x7ff8000000000000LL;
+    out[2] = nan ? nan_bits
+             : lo == KB_LO0 ? 0x7ff0000000000000LL
+                            : __double_as_longlong(from_key(lo));
+    out[3] = nan ? nan_bits
+             : hi == KB_HI0 ? (long long)0xfff0000000000000ULL
+                            : __double_as_longlong(from_key(hi));
+  } else {
+    out[2] = lo;
+    out[3] = hi;
+  }
+  out[4] = nan;
+  acc[1] = ~0LL;
+  acc[2] = 0;
+  acc[3] = KB_LO0;
+  acc[4] = KB_HI0;
+  acc[5] = 0;
+  *ticket = 0;
+}
+}  // namespace
+
+// values: the key column [cap] (1, 2, 4 or 8 bytes a value; bool as a
+// byte; is_float: float32 or float64); valid: bool [cap] or 0; num_rows:
+// int32 on the device; acc: the per-device int64 [6] on the
+// device (word 0's low half the ticket, 0 between calls, then the five
+// reductions at their identities; the last block resets all six); out:
+// int64 [KB_WORDS]; grid >= 1 blocks. One launch. Returns
+// cudaGetLastError(), or -1 on a bad element size or grid.
+TT_EXPORT int key_bounds(const void* values, const void* valid, int64_t esz,
+                         int64_t is_float, const void* num_rows, int64_t cap,
+                         void* acc, void* out, int64_t grid, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (grid < 1 || (esz != 1 && esz != 2 && esz != 4 && esz != 8) ||
+      (is_float && esz < 4))
+    return -1;
+  const uint8_t* v = static_cast<const uint8_t*>(valid);
+  const int32_t* nr = static_cast<const int32_t*>(num_rows);
+  long long* a = static_cast<long long*>(acc);
+  long long* o = static_cast<long long*>(out);
+  if (is_float)
+    key_bounds_kernel<true><<<(unsigned)grid, KB_THREADS, 0, s>>>(
+        values, v, (int)esz, nr, cap, a, o);
+  else
+    key_bounds_kernel<false><<<(unsigned)grid, KB_THREADS, 0, s>>>(
+        values, v, (int)esz, nr, cap, a, o);
+  ++bounds_enqueues;
+  return (int)cudaGetLastError();
+}
+
+// The launches key_bounds has enqueued in this process (chip_smoke.py
+// counts them per call).
+TT_EXPORT int64_t key_bounds_enqueues() { return bounds_enqueues; }
 
 // ------------------------------------------------------------------ K27
 //

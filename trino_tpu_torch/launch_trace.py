@@ -1,14 +1,15 @@
 """Where the host and device time of a K2, K4, K16, K30 HLL, K36, K27, K5
-dense-mode, K6, K35 scatter or K25 call goes, and the launch floor.
+dense-mode, K6, K35 scatter, K25, K26 or K17 call goes, and the launch
+floor.
 
-For eight calls it traces 1,000 calls with cProfile and splits each
+For each call below it traces 1,000 calls with cProfile and splits each
 call's host time over what the wrapper calls directly (the checks and
 glue in the wrapper itself, each allocation, the pointer-table build,
 the stream lookup, the ctypes call with its launches, a Triton
 launcher), beside the call's host enqueue time without the profiler and
-its CUDA-event time on an idle stream; for the K16, HLL, K36 and K27
-calls also the profiler's device time per call of each kernel and the
-kernels a call launches:
+its CUDA-event time on an idle stream; for all but K2 and K4 also the
+profiler's device time per call of each kernel and the kernels a call
+launches:
 
 * K2 (`page.concat_rows_cuda`) at q1 sf1's partial buffer, captured from
   a run of q1 on the card;
@@ -55,7 +56,16 @@ kernels a call launches:
   (l_orderkey % 256), an int32 value (l_linenumber), a (256, 3) table
   (pair count, sum of the build column, its valid count) and G3's four
   outputs (the pairs, value x pairs, two table columns); beside it the
-  library call `index_select` of each live row's table row.
+  library call `index_select` of each live row's table row;
+* K26 (`ops/join_mxu.py` `key_bounds_words`, split over its CUDA wrapper,
+  or the Triton one of a tree that has it) at G3's build: 1,500,000 live
+  int64 keys o_orderkey % 256 of 2,097,152, no NULL; beside it
+  `torch.aminmax` of the live keys;
+* K17's dense mode (`ops/join.py` `spill_probe`, split over
+  `spill_probe_cuda`) at q3 sf1's spill-dense probe: the search probe's
+  3,049,501 live lineitem order keys of 5,242,880 against K5's dense row
+  table over K16's keys of its 157,563 orders (8,388,608 slots); beside
+  it `index_select` of the row table at the live rows' offsets.
 
 The launch floor is an empty kernel (`csrc/floor.cu`) launched through
 the package's ctypes binding with a parameter block of three words, of
@@ -67,7 +77,7 @@ per launch. Needs the card:
 
     python3 -m trino_tpu_torch.launch_trace [--calls 1000]
         [--only floor,main,spill,hll,ladder,heavy,post,dense,probe,
-                scatter,lookup]
+                scatter,lookup,bounds,spillprobe]
 """
 
 from __future__ import annotations
@@ -146,8 +156,10 @@ LOOKUP_CAP = 8_388_608       # G3's probe: lineitem sf1 on a scan page
 LOOKUP_LIVE = 5_999_956
 LOOKUP_SLOTS = 256
 LOOKUP_BUILD = 1_500_000     # orders sf1 over the 256 slots
+BOUNDS_CAP = 2_097_152       # G3's build: orders sf1 on its page
+BOUNDS_LIVE = 1_500_000
 PARTS = ("floor", "main", "spill", "hll", "ladder", "heavy", "post",
-         "dense", "probe", "scatter", "lookup")
+         "dense", "probe", "scatter", "lookup", "bounds", "spillprobe")
 
 
 def event_ms(fn, iters: int = 100) -> float:
@@ -603,6 +615,61 @@ def lookup_library(args):
     return lambda: table.index_select(0, idx)
 
 
+def bounds_call(dev):
+    """K26's arguments at G3's build: (values, valid, num_rows) with
+    BOUNDS_LIVE int64 keys o_orderkey % 256 (TPC-H's sparse order keys, in
+    order) on BOUNDS_CAP rows, no NULL."""
+    i = torch.arange(BOUNDS_LIVE, dtype=torch.int64)
+    v = torch.zeros(BOUNDS_CAP, dtype=torch.int64)
+    v[:BOUNDS_LIVE] = (i // 8 * 32 + i % 8 + 1) % 256
+    return v.to(dev), None, torch.tensor(BOUNDS_LIVE, dtype=torch.int32,
+                                        device=dev)
+
+
+def bounds_wrapper():
+    from trino_tpu_torch.ops import join_mxu as JM
+    return getattr(JM, "key_bounds_cuda", None) \
+        or getattr(JM, "key_bounds_triton")
+
+
+def spill_probe_call(dev):
+    """K17's dense-mode arguments at q3 sf1's spill-dense probe: the
+    SEARCH_BUILD order keys of search_cols through K16 and K5's dense mode
+    (the row table over their span), and SEARCH_LIVE lineitem order keys
+    of SEARCH_CAP rows: (pcols, num_rows, mode, table, stats)."""
+    from trino_tpu_torch.ops import join as J
+    bcols, bnr, pcols, pnr = search_cols(dev)
+    keys, perm, stats = J.spill_prep_cuda(bcols, bnr)
+    kmin, kmax = (J.unsigned(int(stats[J.KMIN])),
+                  J.unsigned(int(stats[J.KMAX])))
+    size = 1 << (kmax - kmin).bit_length()
+    table = J.build_dense_table_rows(size)(keys, perm, stats)
+    return pcols, pnr, J.SPILL_DENSE, table, stats
+
+
+def spill_probe_check(args) -> int:
+    """Compare K17 at `args` with its twin over the live rows; returns
+    the matches."""
+    from trino_tpu_torch.ops import join as J
+    n = int(args[1])
+    got = J.spill_probe(*args)
+    want = J.spill_probe_plain(*args)
+    if int(got[2]) != int(want[2]) or not all(
+            torch.equal(a[:n], b[:n]) for a, b in zip(got[:2], want[:2])):
+        raise SystemExit("K17 differs from its twin on the live rows")
+    return int(got[2])
+
+
+def spill_probe_library(args):
+    """The library call beside K17's dense mode: index_select of the row
+    table at the live rows' offsets (made beforehand)."""
+    from trino_tpu_torch.ops import join as J
+    pcols, nr, _, table, stats = args
+    key, _ = J._key_cols(pcols)
+    off = (key[:int(nr)] - stats[J.KMIN]).clamp(0, table.numel() - 1)
+    return lambda: table.index_select(0, off)
+
+
 def probe_prepared(bcols, bnr, route: str):
     """K5 (with its dense mode on the dense route, K12 on the mxu route)
     on the card: the Prepared K6 reads."""
@@ -815,9 +882,35 @@ def report(calls: int, parts=PARTS):
             name, JM.agg_lookup_cuda, args,
             f"{LOOKUP_LIVE} live rows of {LOOKUP_CAP}, table "
             f"{tuple(args[2].shape)}, {len(args[4])} outputs", True))
+    entry = {}
+    if "bounds" in parts:
+        from trino_tpu_torch.ops import join_mxu as JM
+        args = bounds_call(dev)
+        if not torch.equal(JM.key_bounds_words(*args),
+                           JM.key_bounds_plain(*args)):
+            raise SystemExit("K26 differs from its twin")
+        name = "K26 at G3's build"
+        library[name] = ("torch.aminmax of the live keys",
+                         lambda v=args[0][:BOUNDS_LIVE]: torch.aminmax(v))
+        entry[name] = JM.key_bounds_words
+        shapes.append((name, bounds_wrapper(), args,
+                       f"{BOUNDS_LIVE} live int64 keys of {BOUNDS_CAP}, no "
+                       f"NULL", True))
+    if "spillprobe" in parts:
+        args = spill_probe_call(dev)
+        matched = spill_probe_check(args)
+        name = "K17 dense mode at q3's spill-dense probe"
+        library[name] = ("index_select of the row table at the live rows' "
+                         "offsets", spill_probe_library(args))
+        entry[name] = J.spill_probe
+        shapes.append((
+            name, J.spill_probe_cuda, args,
+            f"{SEARCH_LIVE} live of {SEARCH_CAP}, a row table of "
+            f"{args[3].numel()} slots over {SEARCH_BUILD} build keys, "
+            f"{matched} matched", True))
     trace_ctypes()
     for name, wrapper, args, shape, split in shapes:
-        def call(w=wrapper, a=args):
+        def call(w=entry.get(name, wrapper), a=args):
             return w(*a)
         total, parts_ = host_split(call, wrapper, calls)
         queued = calls

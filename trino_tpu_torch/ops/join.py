@@ -598,11 +598,11 @@ def probe_grid(cap: int, route: int, size: int, sms: int) -> int:
 
 
 def _probe_scratch(index: int) -> torch.Tensor:
-    """K6's per-device word (the blocks' tickets << PROBE_TICKET_SHIFT |
-    their matches), zero between calls (the last block zeroes it). Calls
-    share it, so they must be ordered on one stream, as every launch of
-    the port is (the device's current stream), from one host thread; each
-    call's count goes to its own output word."""
+    """K6's and K17's per-device word (the blocks' tickets <<
+    PROBE_TICKET_SHIFT | their matches), zero between calls (the last
+    block zeroes it). Calls share it, so they must be ordered on one
+    stream, as every launch of the port is (the device's current stream),
+    from one host thread; each call's count goes to its own output word."""
     s = _PROBE_SCRATCH.get(index)
     if s is None:
         s = _PROBE_SCRATCH[index] = torch.zeros(
@@ -1535,41 +1535,139 @@ def spill_probe_plain(pcols, num_rows: torch.Tensor, mode: int, lookup,
     return found, brow, found.sum(dtype=torch.int64)
 
 
-def spill_probe_cuda(pcols, num_rows: torch.Tensor, mode: int, lookup,
-                     stats: torch.Tensor):
-    """K17 launch: see csrc/join_spill.cu spill_probe."""
+def spill_probe_launch_model(pcols, n: int, mode: int, lookup,
+                             stats: torch.Tensor, grid: int,
+                             scratch: torch.Tensor, found: torch.Tensor,
+                             brow: torch.Tensor, count: torch.Tensor,
+                             order: Optional[Sequence[int]] = None
+                             ) -> torch.Tensor:
+    """K17 as its one launch runs it (csrc/join_spill.cu probe_kernel) over
+    `grid` blocks, on the kernel's own arguments: block b walks the tiles
+    b, b + grid, ... of PROBE_THREADS x R rows below n (R 2 in dense mode,
+    1 searching), its thread t taking rows t, t + PROBE_THREADS, ... of a
+    tile; each live row's key is looked up (the dense row table at key -
+    kmin, or a binary lower bound over the sorted keys, the permutation at
+    the clamped bound), and found and brow are written at the rows below n
+    only; each block, in `order`, adds one ticket and its match count to
+    the per-device word `scratch` in one atomic, and the block whose
+    ticket is the last writes the total to `count` and zeroes `scratch`.
+    Returns the stores each row took (1 below n, 0 past it)."""
     cap = pcols[0][0].shape[0]
-    dev = num_rows.device
-    _check_key_cols(pcols, cap, dev)
-    if num_rows.dtype != torch.int32 or num_rows.dim() != 0:
-        raise ValueError("num_rows must be a 0-d int32 tensor")
+    key, null = _key_cols(pcols)
+    key, null = key[:n], null[:n]
     if mode == SPILL_DENSE:
-        table = lookup
-        bkeys = bperm = lookup
-        size, nbuild = table.shape[0], 0
-        if table.dtype != torch.int32 or table.device != dev:
-            raise ValueError("the dense row table must be int32 on the "
-                             "device")
+        size = lookup.shape[0]
+        raw = key - stats[KMIN]
+        at = raw.clamp(0, max(size - 1, 0))
+        r = torch.where((raw >= 0) & (raw < size), lookup[at].to(
+            torch.int64), torch.full_like(key, _I32_MAX))
+        f = ~null & (r != _I32_MAX)
+        b = torch.where(f, r, torch.zeros_like(r))
+        rows = PROBE_LOOKUP_ROWS
     else:
         bkeys, bperm = lookup
-        table, size, nbuild = bkeys, 0, bkeys.shape[0]
-        if bkeys.dtype != torch.int64 or bperm.dtype != torch.int32 \
-                or bperm.shape != bkeys.shape or bkeys.device != dev \
-                or bperm.device != dev:
+        nb = bkeys.shape[0]
+        lo = torch.zeros(n, dtype=torch.int64)
+        hi = torch.full((n,), nb, dtype=torch.int64)
+        while bool((lo < hi).any()):
+            go = lo < hi
+            mid = (lo + hi) >> 1
+            less = (bkeys[mid.clamp(max=max(nb - 1, 0))] ^ _I64_MIN) \
+                < (key ^ _I64_MIN)
+            lo = torch.where(go & less, mid + 1, lo)
+            hi = torch.where(go & ~less, mid, hi)
+        lc = torch.where(lo < nb - 1, lo, torch.full_like(lo, max(nb - 1,
+                                                                   0)))
+        f = ~null & (lo < stats[N_LIVE]) & (nb > 0)
+        if nb:
+            f &= bkeys[lc] == key
+            b = bperm[lc].to(torch.int64)
+        else:
+            b = torch.zeros_like(key)
+        rows = PROBE_SEARCH_ROWS
+    found[:n] = f
+    brow[:n] = b
+    stores = torch.zeros(cap, dtype=torch.int64)
+    stores[:n] = 1
+    block_of = (torch.arange(n) // (PROBE_THREADS * rows)) % grid
+    hits = torch.zeros(grid, dtype=torch.int64).index_add_(
+        0, block_of, f.to(torch.int64))
+    for blk in (range(grid) if order is None else order):
+        old = int(scratch[0])
+        scratch[0] = old + (1 << PROBE_TICKET_SHIFT) + int(hits[blk])
+        if old >> PROBE_TICKET_SHIFT == grid - 1:
+            count.fill_((old & ((1 << PROBE_TICKET_SHIFT) - 1))
+                        + int(hits[blk]))
+            scratch[0] = 0
+    return stores
+
+
+_SPILL_PROBE_ARGS = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                     ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                     ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+                     ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                     ctypes.c_int64, ctypes.c_void_p)
+
+
+def spill_probe_grid(cap: int, mode: int, sms: int) -> int:
+    """Blocks of K17's launch: K6's sizing (probe_grid) for tiles of
+    PROBE_THREADS x 2 rows in dense mode and PROBE_THREADS rows in search
+    mode."""
+    route = ROUTE_CODE["dense" if mode == SPILL_DENSE else "search"]
+    return probe_grid(cap, route, 0, sms)
+
+
+def _on_device(t: torch.Tensor, dtype, index: int) -> bool:
+    return t.dtype is dtype and t.dim() == 1 and t.is_contiguous() \
+        and t.get_device() == index
+
+
+def spill_probe_cuda(pcols, num_rows: torch.Tensor, mode: int, lookup,
+                     stats: torch.Tensor):
+    """K17 launch: see csrc/join_spill.cu spill_probe. One launch in either
+    mode (the count summed by the last block into its own word, the
+    tickets in K6's per-device word, no memset), the key columns in a
+    parameter block sized to them, the outputs views of one allocation
+    (probe_outputs), found and brow written below num_rows only."""
+    cap = pcols[0][0].shape[0]
+    index = num_rows.get_device()
+    if index < 0 or num_rows.dtype is not torch.int32 or num_rows.dim():
+        raise ValueError("num_rows must be a 0-d int32 CUDA tensor")
+    words = _key_words(pcols, cap, index, "probe")
+    if len(words) > native.TABLE_MAX:
+        raise ValueError(f"{len(pcols)} key columns: one launch's table "
+                         f"holds {native.TABLE_MAX // 4}")
+    if not (_on_device(stats, torch.int64, index)
+            and stats.shape[0] == N_STATS):
+        raise ValueError("K16's stats must be int64[10] on the probe's "
+                         "device")
+    dense = bkeys = bperm = 0
+    size = nbuild = 0
+    if mode == SPILL_DENSE:
+        if not _on_device(lookup, torch.int32, index):
+            raise ValueError("the dense row table must be int32 on the "
+                             "device")
+        dense, size = lookup.data_ptr(), lookup.shape[0]
+    elif mode == SPILL_SEARCH:
+        keys, perm = lookup
+        if not (_on_device(keys, torch.int64, index)
+                and _on_device(perm, torch.int32, index)
+                and perm.shape == keys.shape):
             raise ValueError("search mode needs int64 sorted keys and their "
                              "int32 permutation on the device")
-    found = torch.empty(cap, dtype=torch.bool, device=dev)
-    brow = torch.empty(cap, dtype=torch.int64, device=dev)
-    count = torch.empty((), dtype=torch.int64, device=dev)
-    rc = native.library("join_spill").spill_probe(
-        host_table(_key_table(pcols)), ctypes.c_int64(len(pcols)),
-        ctypes.c_int64(cap), ctypes.c_void_p(num_rows.data_ptr()),
-        ctypes.c_int64(mode), ctypes.c_void_p(table.data_ptr()),
-        ctypes.c_int64(size), ctypes.c_void_p(bkeys.data_ptr()),
-        ctypes.c_void_p(bperm.data_ptr()), ctypes.c_int64(nbuild),
-        ctypes.c_void_p(stats.data_ptr()), ctypes.c_void_p(found.data_ptr()),
-        ctypes.c_void_p(brow.data_ptr()), ctypes.c_void_p(count.data_ptr()),
-        ctypes.c_void_p(native.stream_ptr(dev)))
+        bkeys, bperm, nbuild = keys.data_ptr(), perm.data_ptr(), \
+            keys.shape[0]
+    else:
+        raise ValueError(f"K17 has no mode {mode}")
+    grid = spill_probe_grid(cap, mode, native.sm_count(index))
+    found, brow, count = probe_outputs(cap, num_rows.device)
+    host = array.array("q", words)
+    rc = native.function("join_spill", "spill_probe", _SPILL_PROBE_ARGS)(
+        host.buffer_info()[0], len(pcols), cap, num_rows.data_ptr(), mode,
+        dense, size, bkeys, bperm, nbuild, stats.data_ptr(),
+        found.data_ptr(), brow.data_ptr(), count.data_ptr(),
+        _probe_scratch(index).data_ptr(), grid, native.raw_stream(index))
     native.check(rc, "spill_probe")
     spill_probe_cuda.launches += 1
     m = "dense" if mode == SPILL_DENSE else "search"

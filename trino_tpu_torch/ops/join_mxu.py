@@ -37,9 +37,11 @@ SINGLE aggregation, so the cross product is never materialized.
   threads take two live probe rows each, read their keys' table rows and
   write every derived column (the rows of one allocation) and the live
   mask below num_rows, the padding unwritten; K1 then compacts the page.
-* K26 `key_bounds` (Triton, `_key_bounds_partial`/`_key_bounds_final`):
-  the live key's unsigned 64-bit min/max and its min/max in its own type
-  (the dynamic filter's range), one pass.
+* K26 `key_bounds` (csrc/join_mxu.cu): the live key's unsigned 64-bit
+  min/max and its min/max in its own type (the dynamic filter's range),
+  one launch over the live rows, the key read in its own width, each
+  block folding its five values into per-device words with one atomic
+  each and the last block (by ticket) writing the call's words.
 * K27 `agg_post` (agg_join_post; csrc/join_mxu.cu): the SQL NULL of a
   build-side SUM, `helper > 0` over the aggregated page's live rows, one
   launch for every helper.
@@ -68,7 +70,7 @@ from trino_tpu_torch.ops.aggregate import (KEY_NEG_INF, KEY_POS_INF,
                                            from_ordered_key, ordered_key)
 from trino_tpu_torch.ops.join import (KMIN, NDISTINCT, Prepared, _key_cols,
                                       _check_key_cols, _key_table,
-                                      _page_key_cols, _reduce)
+                                      _key_words, _page_key_cols, _reduce)
 from trino_tpu_torch.page import Column, Page, host_table
 
 # the reference's key-range block width of its one-hot matmuls; the port
@@ -390,19 +392,17 @@ def _word_values(values: torch.Tensor) -> torch.Tensor:
 
 # words of K26's output: the same statistics as K5's KMIN..LO_NAN
 B_KMIN, B_KMAX, B_LO, B_HI, B_LO_NAN = range(5)
-KEY_BOUNDS_BLOCK = 4096
-_KEY_BOUNDS_RBLOCK = 1024
+KEY_BOUNDS_WORDS = 5
 _F64_NAN_BITS = 0x7FF8000000000000
-_F64_ABS_MASK = 0x7FFFFFFFFFFFFFFF
-_F64_INF_BITS = 0x7FF0000000000000
-_K26 = {}
-tl = None   # triton.language, bound by _k26 at the first launch
-
-
-def _float_bits(values: torch.Tensor) -> torch.Tensor:
-    """A float key column as the float64 bits K26 reads (float32 widened
-    first, as the key encoding widens it)."""
-    return values.to(torch.float64).view(torch.int64)
+_F64_NEG_INF_BITS = -0x10000000000000          # -inf's float64 bits
+KEY_BOUNDS_THREADS = 256        # csrc/join_mxu.cu KB_THREADS
+KEY_BOUNDS_ROWS = 8             # KB_ROWS: rows a thread reads a round
+KEY_BOUNDS_BLOCKS_PER_SM = 2    # the fastest of 1-4 at G3's build
+_KEY_BOUNDS_SCRATCH: dict = {}
+_KEY_BOUNDS_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                    ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                    ctypes.c_void_p)
 
 
 def key_bounds_plain(values: torch.Tensor, valid, num_rows: torch.Tensor
@@ -442,136 +442,135 @@ def key_bounds_plain(values: torch.Tensor, valid, num_rows: torch.Tensor
     return torch.stack([kmin, kmax, lo, hi, lo_nan])
 
 
-# K26 pass 1: one program per BLOCK rows writes its rows' five partial
-# words (unsigned min/max as sign-flipped int64, own-order min/max, a NaN
-# flag) at j * nblocks + pid. Float columns arrive as float64 bits, so the
-# program does integer work only: -0.0 made +0.0 for the key, the order key
-# b >= 0 ? b : b ^ INT64_MAX for lo/hi, NaN excluded from lo/hi and
-# flagged. Built by _k26 with `tl` bound to triton.language.
-def _key_bounds_partial(v_ptr, a_ptr, num_rows_ptr, part_ptr, nblocks,
-                        HAS_VALID: tl.constexpr, IS_FLOAT: tl.constexpr,
-                        BLOCK: tl.constexpr):
-    pid = tl.program_id(0)
-    offs = pid.to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
-    ok = offs < tl.load(num_rows_ptr).to(tl.int64)
-    if HAS_VALID:
-        ok = ok & (tl.load(a_ptr + offs, mask=ok, other=0) != 0)
-    x = tl.load(v_ptr + offs, mask=ok, other=0).to(tl.int64)
-    sign = tl.full([BLOCK], 1, tl.int64) << 63
-    big = 9223372036854775807
-    if IS_FLOAT:
-        key = tl.where(x == sign, 0, x)             # -0.0 -> +0.0
-        isnan = (x & big) > 9218868437227405312     # |bits| > inf's
-        good = ok & (isnan == 0)
-        ordk = tl.where(x >= 0, x, x ^ big)
-        lo = tl.min(tl.where(good, ordk, 9218868437227405312), axis=0)
-        hi = tl.max(tl.where(good, ordk, -9218868437227405313), axis=0)
-        nan = tl.max((ok & isnan).to(tl.int64), axis=0)
-    else:
-        key = x
-        lo = tl.min(tl.where(ok, x, big), axis=0)
-        hi = tl.max(tl.where(ok, x, sign), axis=0)
-        nan = tl.max(tl.zeros([BLOCK], dtype=tl.int64), axis=0)
-    flipped = key ^ sign
-    tl.store(part_ptr + pid, tl.min(tl.where(ok, flipped, big), axis=0))
-    tl.store(part_ptr + nblocks + pid,
-             tl.max(tl.where(ok, flipped, sign), axis=0))
-    tl.store(part_ptr + 2 * nblocks + pid, lo)
-    tl.store(part_ptr + 3 * nblocks + pid, hi)
-    tl.store(part_ptr + 4 * nblocks + pid, nan)
+def key_bounds_grid(cap: int, sms: int) -> int:
+    """Blocks of K26's launch: one per KEY_BOUNDS_THREADS x
+    KEY_BOUNDS_ROWS rows of capacity, at most KEY_BOUNDS_BLOCKS_PER_SM per
+    SM."""
+    need = -(-cap // (KEY_BOUNDS_THREADS * KEY_BOUNDS_ROWS))
+    return max(1, min(need, KEY_BOUNDS_BLOCKS_PER_SM * sms))
 
 
-# K26 pass 2: one program folds the partials in block order and writes the
-# five words (the unsigned bounds un-flipped, a float's lo/hi back to its
-# bits, NaN bits where the column holds a NaN).
-def _key_bounds_final(part_ptr, out_ptr, nblocks, IS_FLOAT: tl.constexpr,
-                      RBLOCK: tl.constexpr):
-    sign = tl.full([RBLOCK], 1, tl.int64) << 63
-    big = 9223372036854775807
-    umin = tl.full([RBLOCK], big, tl.int64)
-    umax = sign
-    lo = tl.full([RBLOCK], big, tl.int64)
-    hi = sign
-    nan = tl.zeros([RBLOCK], dtype=tl.int64)
-    for start in range(0, nblocks, RBLOCK):
-        idx = start + tl.arange(0, RBLOCK)
-        m = idx < nblocks
-        umin = tl.minimum(umin, tl.load(part_ptr + idx, mask=m, other=big))
-        umax = tl.maximum(umax, tl.load(part_ptr + nblocks + idx, mask=m,
-                                        other=-9223372036854775807 - 1))
-        lo = tl.minimum(lo, tl.load(part_ptr + 2 * nblocks + idx, mask=m,
-                                    other=big))
-        hi = tl.maximum(hi, tl.load(part_ptr + 3 * nblocks + idx, mask=m,
-                                    other=-9223372036854775807 - 1))
-        nan = tl.maximum(nan, tl.load(part_ptr + 4 * nblocks + idx, mask=m,
-                                      other=0))
-    one = tl.max(sign, axis=0)
-    lo_w = tl.min(lo, axis=0)
-    hi_w = tl.max(hi, axis=0)
-    nan_w = tl.max(nan, axis=0)
-    if IS_FLOAT:
-        lo_w = tl.where(lo_w >= 0, lo_w, lo_w ^ big)
-        hi_w = tl.where(hi_w >= 0, hi_w, hi_w ^ big)
-        lo_w = tl.where(nan_w > 0, 9221120237041090560, lo_w)
-        hi_w = tl.where(nan_w > 0, 9221120237041090560, hi_w)
-    tl.store(out_ptr, tl.min(umin, axis=0) ^ one)
-    tl.store(out_ptr + 1, tl.max(umax, axis=0) ^ one)
-    tl.store(out_ptr + 2, lo_w)
-    tl.store(out_ptr + 3, hi_w)
-    tl.store(out_ptr + 4, nan_w)
+def key_bounds_acc_init() -> List[int]:
+    """K26's per-device words between calls: the ticket (word 0's low
+    half) at 0, then umin, umax, lo and hi at their identities (u64::MAX,
+    0, int64 max, int64 min) and the NaN flag at 0."""
+    return [0, -1, 0, _I64_MAX, _I64_MIN, 0]
 
 
-def _k26():
-    """Build (once per process) K26's two Triton programs.
-
-    Replaces trino_tpu/ops/join_mxu.py key_bounds (:201), a masked
-    jnp.min/max over the key in uint64, and the reference's
-    build_key_bounds (ops/join.py), the dynamic filter's min/max in the
-    key's own type, which the fused join runs over the same column. Bound
-    on this card: bytes, the key column and its validity read once; the
-    output is five words. Both passes reduce in a fixed order."""
-    if not _K26:
-        import triton
-        import triton.language as tl_mod
-        globals()["tl"] = tl_mod
-        _K26["partial"] = triton.jit(_key_bounds_partial,
-                                     do_not_specialize=["nblocks"])
-        _K26["final"] = triton.jit(_key_bounds_final,
-                                   do_not_specialize=["nblocks"])
-    return _K26["partial"], _K26["final"]
+def _key_bounds_scratch(index: int) -> torch.Tensor:
+    """K26's per-device words (key_bounds_acc_init), set once: every call's
+    last block writes the call's five words from them and sets them back.
+    Calls share them, so they must be ordered on one stream, as every
+    launch of the port is (the device's current stream), from one host
+    thread."""
+    s = _KEY_BOUNDS_SCRATCH.get(index)
+    if s is None:
+        s = _KEY_BOUNDS_SCRATCH[index] = torch.tensor(
+            key_bounds_acc_init(), dtype=torch.int64,
+            device=torch.device("cuda", index))
+    return s
 
 
-def key_bounds_triton(values: torch.Tensor, valid, num_rows: torch.Tensor
-                      ) -> torch.Tensor:
-    """K26 launch (two Triton programs)."""
+def key_bounds_launch_model(values, valid, n: int, grid: int,
+                            acc: torch.Tensor, out: torch.Tensor,
+                            order: Optional[Sequence[int]] = None
+                            ) -> torch.Tensor:
+    """K26 as its one launch runs it (csrc/join_mxu.cu key_bounds_kernel)
+    over `grid` blocks, on the kernel's own arguments: block b takes the
+    rows of the tiles b, b + grid, ... of KEY_BOUNDS_THREADS x
+    KEY_BOUNDS_ROWS rows below n, each row's key read in its own width (a
+    float32 widened to float64), and folds their unsigned key encoding,
+    own-order value (a float's order key, NaN left out) and NaN flag from
+    the identities of key_bounds_acc_init; the blocks, in `order`, fold
+    each word that left its identity into the per-device words `acc` and
+    take a ticket, and the block that takes the last writes the five
+    words to `out` (a float column's lo and hi as float64 bits: +inf and
+    -inf where no value, NaN bits where a NaN) and sets `acc` back.
+    Returns the times each row was read (1 below n, 0 past it)."""
     cap = values.shape[0]
-    dev = num_rows.device
-    _check_key_cols([(values, valid)], cap, dev)
-    if num_rows.dtype != torch.int32 or num_rows.dim() != 0:
-        raise ValueError("num_rows must be a 0-d int32 tensor")
     is_float = values.is_floating_point()
-    words = _float_bits(values) if is_float else _word_values(values)
-    partial, final = _k26()
-    nblocks = max(1, -(-cap // KEY_BOUNDS_BLOCK))
-    part = torch.empty(5 * nblocks, dtype=torch.int64, device=dev)
-    out = torch.empty(5, dtype=torch.int64, device=dev)
-    dummy = torch.empty(1, dtype=torch.uint8, device=dev)   # never read
-    partial[(nblocks,)](words, dummy if valid is None else
-                        valid.view(torch.uint8), num_rows, part, nblocks,
-                        HAS_VALID=valid is not None, IS_FLOAT=is_float,
-                        BLOCK=KEY_BOUNDS_BLOCK, num_warps=8)
-    final[(1,)](part, out, nblocks, IS_FLOAT=is_float,
-                RBLOCK=_KEY_BOUNDS_RBLOCK, num_warps=4)
-    key_bounds_triton.launches += 1
+    i = torch.arange(cap)
+    block = (i // (KEY_BOUNDS_THREADS * KEY_BOUNDS_ROWS)) % grid
+    ok = i < n
+    read = ok.to(torch.int64)
+    if valid is not None:
+        ok = ok & valid
+    if is_float:
+        x = values.to(torch.float64)
+        key = torch.where(x == 0, torch.zeros_like(x), x).view(torch.int64)
+        isnan = torch.isnan(x)
+        own = ordered_key(torch.where(isnan, torch.zeros_like(x), x))
+    else:
+        key = own = values.to(torch.int64)
+        isnan = torch.zeros(cap, dtype=torch.bool)
+    flipped = key ^ _I64_MIN
+    ident = key_bounds_acc_init()
+    for b in (range(grid) if order is None else order):
+        m = ok & (block == b)
+        good = m & ~isnan
+        words = [_reduce(flipped, m, _I64_MAX, True) ^ _I64_MIN,
+                 _reduce(flipped, m, _I64_MIN, False) ^ _I64_MIN,
+                 _reduce(own, good, _I64_MAX, True),
+                 _reduce(own, good, _I64_MIN, False),
+                 (m & isnan).any().to(torch.int64)]
+        for j, w in enumerate(words, 1):
+            w, was = int(w), int(acc[j])
+            if w == ident[j]:
+                continue
+            if j <= 2:      # unsigned min, max
+                pick = min if j == 1 else max
+                acc[j] = pick(was ^ _I64_MIN, w ^ _I64_MIN) ^ _I64_MIN
+            elif j <= 4:
+                acc[j] = (min if j == 3 else max)(was, w)
+            else:
+                acc[j] = was | w
+        ticket = int(acc[0])
+        acc[0] = ticket + 1
+        if ticket != grid - 1:
+            continue
+        umin, umax, lo, hi, nan = (int(w) for w in acc[1:6])
+        if is_float:
+            lo = KEY_POS_INF if lo == _I64_MAX else int(
+                from_ordered_key(torch.tensor([lo])).view(torch.int64)[0])
+            hi = _F64_NEG_INF_BITS if hi == _I64_MIN else int(
+                from_ordered_key(torch.tensor([hi])).view(torch.int64)[0])
+            if nan:
+                lo = hi = _F64_NAN_BITS
+        out.copy_(torch.tensor([umin, umax, lo, hi, nan]))
+        acc.copy_(torch.tensor(ident))
+    return read
+
+
+def key_bounds_cuda(values: torch.Tensor, valid, num_rows: torch.Tensor
+                    ) -> torch.Tensor:
+    """K26 launch: see csrc/join_mxu.cu key_bounds. One launch (each block
+    folds its words into the per-device words, the last block writes the
+    call's), the key read in its own width, one allocation (the five
+    output words)."""
+    cap = values.shape[0]
+    index = num_rows.get_device()
+    if index < 0 or num_rows.dtype is not torch.int32 or num_rows.dim():
+        raise ValueError("num_rows must be a 0-d int32 CUDA tensor")
+    ptr, vptr, esz, is_float = _key_words([(values, valid)], cap, index,
+                                          "build")
+    grid = key_bounds_grid(cap, native.sm_count(index))
+    out = torch.empty(KEY_BOUNDS_WORDS, dtype=torch.int64,
+                      device=num_rows.device)
+    rc = native.function("join_mxu", "key_bounds", _KEY_BOUNDS_ARGS)(
+        ptr, vptr, esz, is_float, num_rows.data_ptr(), cap,
+        _key_bounds_scratch(index).data_ptr(), out.data_ptr(), grid,
+        native.raw_stream(index))
+    native.check(rc, "key_bounds")
+    key_bounds_cuda.launches += 1
     return out
 
 
-key_bounds_triton.launches = 0
+key_bounds_cuda.launches = 0
 
 
 def key_bounds_words(values, valid, num_rows) -> torch.Tensor:
-    """K26 wrapper: plain twin on the CPU, Triton kernel on CUDA."""
-    run = key_bounds_triton if num_rows.is_cuda else key_bounds_plain
+    """K26 wrapper: plain twin on the CPU, kernel on CUDA."""
+    run = key_bounds_cuda if num_rows.is_cuda else key_bounds_plain
     return run(values, valid, num_rows)
 
 
