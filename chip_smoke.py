@@ -47,7 +47,9 @@ Phases, each printing its lines before the next starts:
      centered doubles (1e-9 relative or of the column's largest value);
      K32-K34 (the list layouts: K1, K7 and K2 moving planes of L 1, 8
      and 128, K2 padding a narrower page; K33's size, array and map
-     modes over LIST_CASES; K34's count and expand) bit for bit; K35
+     modes over LIST_CASES, and its map mode's direct-address and sort
+     routes over MAP_CASES, on each side of G x span's and the span's
+     limits; K34's count and expand) bit for bit; K35
      (the exchange pack's count and scatter in hash, spread and replicate
      modes) and K36 (heavy keys, local and merge modes) over
      EXCHANGE_CASES (n = 1, 2, 4, 8; NULL, dead, -1, NaN, -0.0, bool,
@@ -1188,8 +1190,10 @@ def launcher_enqueues(kind: str) -> int:
     (`kind` "dense": csrc/join_build.cu join_dense), K6 ("probe":
     csrc/join_probe.cu join_probe), K35's scatter ("scatter":
     csrc/exchange.cu exchange_scatter), K25 ("lookup": csrc/join_mxu.cu
-    agg_lookup), K26 ("bounds": csrc/join_mxu.cu key_bounds) or K17
-    ("spillprobe": csrc/join_spill.cu spill_probe) has enqueued in this
+    agg_lookup), K26 ("bounds": csrc/join_mxu.cu key_bounds), K17
+    ("spillprobe": csrc/join_spill.cu spill_probe), K5's runs mode
+    ("runs": csrc/join_build.cu join_runs) or K33's map mode ("map":
+    csrc/list.cu collect_map and collect_map_pack) has enqueued in this
     process, counted by the C launcher as it enqueues them."""
     import ctypes
     from trino_tpu_torch import native
@@ -1198,7 +1202,9 @@ def launcher_enqueues(kind: str) -> int:
                   "scatter": ("exchange", "exchange_scatter_enqueues"),
                   "lookup": ("join_mxu", "agg_lookup_enqueues"),
                   "bounds": ("join_mxu", "key_bounds_enqueues"),
-                  "spillprobe": ("join_spill", "spill_probe_enqueues")}[kind]
+                  "spillprobe": ("join_spill", "spill_probe_enqueues"),
+                  "runs": ("join_build", "join_runs_enqueues"),
+                  "map": ("list", "collect_map_enqueues")}[kind]
     fn = getattr(native.library(lib), entry)
     fn.restype = ctypes.c_int64
     return fn()
@@ -1416,8 +1422,15 @@ def check_group(g, dev) -> float:
 def runs_case(g, dev, kind, cap, n):
     """Build-side key columns with duplicate keys: a dense span with runs
     of up to 40 (`dense`), sparse keys over all of int64 with a live -1
-    (`negative`), duplicate (int32, int64) pairs (`composite`)."""
-    if kind == "dense":
+    (`negative`), duplicate (int32, int64) pairs (`composite`), unique
+    keys of a dense span but one key on SKEWED_RUN live rows
+    (`skewed`)."""
+    heavy = None
+    if kind == "skewed":
+        v = torch.randperm(cap, generator=g).to(torch.int64) * 2 + 7
+        heavy = torch.randperm(n, generator=g)[:SKEWED_RUN]
+        v[heavy] = 4242
+    elif kind == "dense":
         v = (torch.randint(0, max(cap // 4, 1), (cap,), generator=g) * 3
              + 100).to(torch.int64)
         if cap > 100:
@@ -1430,6 +1443,8 @@ def runs_case(g, dev, kind, cap, n):
     else:
         v = torch.randint(0, 7, (cap,), generator=g, dtype=torch.int32)
     valid = torch.rand(cap, generator=g) >= 0.05
+    if heavy is not None:
+        valid[heavy] = True         # the heavy key on SKEWED_RUN live rows
     cols = [(v.to(dev), valid.to(dev))]
     if kind == "composite":
         w = torch.randint(0, max(cap // 20, 1), (cap,), generator=g,
@@ -1459,18 +1474,28 @@ def dense_size(stats) -> int:
 
 
 def runs_by_key(prep, twin: bool):
-    """(key, build row) pairs of a Prepared's runs, in layout order."""
+    """(key, build row) pairs of a Prepared's runs, each run read through
+    its (start, count) as the probes read it, runs in slot order (the
+    twin's slots are its sorted keys). Fails when the kernel's runs do not
+    tile the places [0, total) once each."""
     runs, start, count = prep.runs
     if twin:
         keys = prep.lookup[1]
         occ = torch.ones_like(keys, dtype=torch.bool)
     else:
         occ = prep.lookup[2] >= 0
-        keys = prep.lookup[1][occ]
-    counts = count[occ].to(torch.int64) if not twin else count.to(
-        torch.int64)
+    keys = prep.lookup[1][occ]
+    counts = count[occ].to(torch.int64)
+    starts = start[occ].to(torch.int64)
     total = int(counts.sum())
-    return torch.repeat_interleave(keys, counts), runs[:total].to(
+    first = torch.cumsum(counts, 0) - counts
+    place = torch.repeat_interleave(starts - first, counts) + torch.arange(
+        total, device=counts.device)
+    if not twin and total and not torch.equal(
+            torch.sort(place).values,
+            torch.arange(total, device=place.device)):
+        fail("K5 runs mode: the runs do not tile the places [0, total)")
+    return torch.repeat_interleave(keys, counts), runs[place].to(
         torch.int64)
 
 
@@ -1501,26 +1526,37 @@ def runs_ok(label, kprep, wprep) -> None:
             fail(f"K5 runs-mode dense table differs ({label})")
 
 
+SKEWED_RUN = 20_000     # rows of the skewed build's one heavy key
 EXPAND_CASES = [  # kind, build cap, live, probe cap, live
     ("dense", 5000, 4900, 6000, 5990),
     ("negative", 30_000, 29_000, 70_000, 65_000),
     ("composite", 4096, 4096, 9000, 9000),
     ("dense", 1000, 0, 500, 500),               # empty build
     ("negative", 1000, 1000, 500, 0),           # dead probe
-    ("dense", 147_456, 147_000, 4_194_304, 4_194_304)]
+    ("dense", 147_456, 147_000, 4_194_304, 4_194_304),
+    # one key on 20,000 rows among unique keys (a dense span, so with and
+    # without the dense table); 300 probe rows keep the output near 2M
+    ("skewed", 65_536, 60_000, 4096, 300)]
 
 
 def check_runs(g, dev) -> float:
-    """K5 runs mode (and its dense table) against its twin."""
+    """K5 runs mode (and its dense table) against its twin; one enqueue a
+    call at the largest build and at the skewed one."""
     from trino_tpu_torch.ops import join as J
     for kind, bcap, bn, *_ in EXPAND_CASES:
         cols = runs_case(g, dev, kind, bcap, bn)
         bnr = torch.tensor(bn, dtype=torch.int32, device=dev)
-        stats, _ = J.join_build_cuda(cols, bnr)
+        stats, lookup = J.join_build_cuda(cols, bnr)
         for size in sorted({0, dense_size(stats)}):
             kprep, wprep = built_pair(cols, bnr, size)
             sync()
             runs_ok(f"{kind} build {bn}/{bcap} dense {size}", kprep, wprep)
+            if kind == "skewed" and int(kprep.stats[J.MAX_RUN]) < SKEWED_RUN:
+                fail("K5 runs mode: the skewed build lost its heavy key")
+            if bcap in (EXPAND_CASES[-1][1], EXPAND_CASES[-2][1]):
+                one_enqueue(f"join_runs at {kind} build {bn}/{bcap}, dense "
+                            f"{size}", lambda: J.join_runs_cuda(
+                                cols, bnr, stats, lookup, size), "runs")
     return 0.0   # compared exactly
 
 
@@ -3732,6 +3768,111 @@ LIST_CASES = [  # cap, live rows, groups, L (K33); 0 groups: an empty page
     (1 << 20, 1 << 20, 100_000, 64), (4_194_304, 4_000_000, 1_500_000, 8)]
 
 
+# K33 map mode's routes: label, cap, live rows, groups, L, key dtype, key
+# range [lo, hi), the span the caller passes (a dictionary's size) or
+# None. G x span against MAP_DIRECT_LIMIT (4,194,304) and the span against
+# MAP_DIRECT_SPAN (4,096) on each side; the key draws are spread over the
+# range's ends so the span is the range's
+MAP_CASES = [
+    ("codes, the span from the dictionary", 600_000, 590_000, 10_000, 64,
+     torch.int32, 0, 7, 7),
+    ("G x span at the limit", 300_000, 300_000, 2048, 256, torch.int32,
+     -1024, 1024, None),
+    ("G x span past the limit", 300_000, 300_000, 2048, 256, torch.int32,
+     -1024, 1025, None),
+    ("span at its widest", 50_000, 49_000, 3, 8192, torch.int16, 100, 4196,
+     None),
+    ("span past its widest", 50_000, 49_000, 3, 8192, torch.int16, 100,
+     4197, None),
+    ("negative keys", 100_000, 99_000, 500, 64, torch.int64, -5_000_000,
+     -4_999_000, None),
+    ("an int64 span past 64 bits with the group", 100_000, 99_000, 500,
+     64, torch.int64, -2**63, 2**63 - 1, None),
+    ("1-byte keys", 100_000, 99_000, 40, 256, torch.int8, -128, 128, None),
+    ("floats, one word", 100_000, 99_000, 700, 64, torch.float32, -3, 4,
+     None),
+    ("an empty page", 64, 0, 0, 1, torch.int32, 0, 7, 7)]
+
+
+def map_case(g, dev, cap, n, ng, dt, lo, hi):
+    """(x, gid, num_rows, num_groups, masks, map_agg values) of one
+    MAP_CASES row: keys uniform over [lo, hi) with both ends present,
+    floats with NaN, -0.0, +0.0 and both infinities; the first live row of
+    each group a key that also comes later, so map_agg's value of a key's
+    first row is not always its group's first."""
+    from trino_tpu_torch.ops import aggregate as A
+    gk = torch.randint(0, max(ng, 1), (cap,), generator=g)
+    nr = torch.tensor(n, dtype=torch.int32, device=dev)
+    *_, G, gid = A.group_ids([A.GroupKey(gk.to(dev), None)], [], nr, cap)
+    if dt.is_floating_point:
+        x = (torch.randint(lo, hi, (cap,), generator=g) * 0.5).to(dt)
+        if cap:
+            x[::5] = float("nan")
+            x[1::7] = -0.0
+            x[2::9] = 0.0
+            x[3::11] = float("inf")
+            x[4::13] = float("-inf")
+    else:
+        x = torch.randint(lo, hi, (cap,), generator=g, dtype=torch.int64)
+        if cap > 2:
+            x[0], x[1] = lo, hi - 1
+        x = x.to(dt)
+    masks = [(torch.rand(cap, generator=g) < 0.9).to(dev)]
+    if cap > 2:
+        masks[0][:2] = True
+    x2 = torch.randint(-1000, 1000, (cap,), generator=g).to(dev)
+    return x.to(dev), gid, nr, G, masks, x2
+
+
+def map_sorts(x, masks, nr, gid, G, plan) -> bool:
+    """Whether a K33 map-mode call must take the sort route: the plan's
+    route, or on ROUTE_AUTO the eligible keys' span past MAP_DIRECT_SPAN
+    or G x span past the table, read on the host from the inputs."""
+    from trino_tpu_torch.ops import lists as LS
+    if plan.route != LS.ROUTE_AUTO:
+        return plan.route == LS.ROUTE_SORT
+    n, G = int(nr), int(G)
+    g = gid[:n].to(torch.int64)
+    elig = LS._eligible(masks, nr, x.shape[0])[:n] & (g >= 0) & (g < G)
+    k = LS.map_key(x[:n])[elig]
+    span = int(k.max()) - int(k.min()) + 1 if k.numel() else 1
+    return span > LS.MAP_DIRECT_SPAN or G * span > plan.table
+
+
+def check_map_routes(g, dev) -> None:
+    """K33 map mode over MAP_CASES: each route the plan and the device
+    take, the card's route read back and held to what the inputs call
+    for, equal to its twin bit for bit for histogram and map_agg; one
+    enqueue a call on the direct route."""
+    from trino_tpu_torch.ops import lists as LS
+    for label, cap, n, ng, L, dt, lo, hi, span in MAP_CASES:
+        x, gid, nr, G, masks, x2 = map_case(g, dev, cap, n, ng, dt, lo, hi)
+        rows = max(1024, 1 << max(int(G) - 1, 0).bit_length())
+        plan = LS.map_plan(x, rows, span)
+        want_sort = map_sorts(x, masks, nr, gid, G, plan)
+        for v2 in (None, x2):
+            kind = "histogram" if v2 is None else "map_agg"
+            *got, sorted_ = LS.collect_map_cuda(x, v2, masks, nr, gid, G, L,
+                                                rows, span, with_route=True)
+            want = LS.collect_map_plain(x, v2, masks, nr, gid, G, L, rows)
+            for a, b in zip(got, want):
+                if not same_bits(a, b):
+                    fail(f"K33 map mode ({label}, {kind}) differs from its "
+                         f"twin")
+            if bool(int(sorted_)) != want_sort:
+                fail(f"K33 map mode ({label}, {kind}): the card took the "
+                     f"{'sort' if int(sorted_) else 'direct'} route, its "
+                     f"inputs call for the other")
+        say(f"[map] {label}: {dt}, {int(G)} groups, L {L}, plan route "
+            f"{plan.route}, the card's route "
+            f"{'sort' if want_sort else 'direct'}, {plan.words} word(s), "
+            f"{len(plan.passes)} K10 passes launched")
+        if plan.route == LS.ROUTE_DIRECT and cap > 1000:
+            one_enqueue(f"collect_map direct route ({label})", lambda:
+                        LS.collect_map_cuda(x, None, masks, nr, gid, G, L,
+                                            rows, span), "map")
+
+
 def list_arrays(g, cap, L, dev):
     """A page's arrays with list planes: an int64 column, a bool validity,
     an int32 plane [cap, L] (dictionary codes), its lengths, a float64
@@ -3813,6 +3954,7 @@ def check_list(g, dev) -> float:
                                              rows),
                          LS.collect_map_plain(x, v2, masks, nr, gid, G, L,
                                               rows))
+    check_map_routes(g, dev)
     for cap, L in ((4096, 8), (1_500_000, 8), (100_000, 3), (10, 1)):
         arrays = list_arrays(g, cap, L, dev)
         _, v, plane, lens, aux = arrays
@@ -4858,32 +5000,48 @@ def kernel_rows_list(cap: Capture, originals, launches, dev, card):
                                       .indices],), xs),
         "torch.sort(stable=True) of the group ids plus one index_put_",
         f"cap {x.numel()}, {n} live rows, {x.dtype}, {G} groups, L {L}, "
-        f"{rows_} list rows, {len(LS._words_passes(rows_, False))} K10 "
+        f"{rows_} list rows, {len(LS._array_passes(rows_))} K10 "
         f"passes"))
-    args = cap.calls[("collect_map_cuda", "list")][1]
-    x, x2, masks, nr, gid, ng, L, rows_ = args
-    equal("K33 map mode", originals["collect_map"](*args),
-          LS.collect_map_plain(*args))
-    n, G = int(nr), int(ng)
-    key = (gid[:n].to(torch.int64) << 32) + x[:n].to(torch.int64)
-    vsz = 8 if x2 is None else x2.element_size()
-    kflat = torch.zeros(rows_ * L, dtype=x.dtype, device=dev)
-    kslot = (gid[:n].to(torch.int64) * L).clamp(max=rows_ * L - 1)
-    out.append(row(
-        "collect_map (K33 map mode, with K10's radix passes)",
-        "trino_tpu_torch/csrc/list.cu", "trino_tpu/ops/aggregate.py:1020",
-        launches["collect_map"],
-        lambda: originals["collect_map"](*args),
-        lambda: LS.collect_map_plain(*args),
-        n * (x.element_size() + (0 if x2 is None else vsz) + len(masks) + 4)
-        + G * (L * (x.element_size() + vsz) + 4),
-        lambda: kflat.index_put_((kslot[torch.sort(key, stable=True)
-                                        .indices],), x[:n]),
-        "torch.sort(stable=True) of (group, key) plus one index_put_",
-        f"cap {x.numel()}, {n} live rows, key {x.dtype}, "
-        f"{'histogram' if x2 is None else 'map_agg'}, {G} groups, L {L}, "
-        f"{rows_} list rows, {len(LS._words_passes(rows_, True))} K10 "
-        f"passes"))
+    # K33's map mode at its largest call (L3's direct route) and at its
+    # largest call the host sends to the sort route (L4)
+    for key, what in ((("collect_map_cuda", "list"), "largest call"),
+                      (("collect_map_cuda:sort", "list"),
+                       "largest sort-route call")):
+        if key not in cap.calls:
+            say(f"[kernel] collect_map: no {what} on the list path")
+            continue
+        args = cap.calls[key][1]
+        x, x2, masks, nr, gid, ng, L, rows_, span = (*args, None)[:9]
+        equal("K33 map mode", originals["collect_map"](*args),
+              LS.collect_map_plain(*args[:8]))
+        n, G = int(nr), int(ng)
+        plan = LS.map_plan(x, rows_, span)
+        if plan.route == LS.ROUTE_DIRECT:
+            one_enqueue(f"collect_map at the list path's {what}",
+                        lambda a=args: originals["collect_map"](*a), "map")
+        sorted_key = (gid[:n].to(torch.int64) << 32) + x[:n].to(torch.int64)
+        vsz = 8 if x2 is None else x2.element_size()
+        kflat = torch.zeros(rows_ * L, dtype=x.dtype, device=dev)
+        kslot = (gid[:n].to(torch.int64) * L).clamp(max=rows_ * L - 1)
+        route = {LS.ROUTE_DIRECT: "the direct-address route",
+                 LS.ROUTE_AUTO: "the route chosen on the card",
+                 LS.ROUTE_SORT: "the sort route"}[plan.route]
+        out.append(row(
+            f"collect_map (K33 map mode, {what}: {route})",
+            "trino_tpu_torch/csrc/list.cu",
+            "trino_tpu/ops/aggregate.py:1020",
+            launches["collect_map"],
+            lambda a=args: originals["collect_map"](*a),
+            lambda a=args: LS.collect_map_plain(*a[:8]),
+            n * (x.element_size() + (0 if x2 is None else vsz)
+                 + len(masks) + 4) + G * (L * (x.element_size() + vsz) + 4),
+            lambda k=sorted_key, f=kflat, sl=kslot, xs=x[:n]: f.index_put_(
+                (sl[torch.sort(k, stable=True).indices],), xs),
+            "torch.sort(stable=True) of (group, key) plus one index_put_",
+            f"cap {x.numel()}, {n} live rows, key {x.dtype}, "
+            f"{'histogram' if x2 is None else 'map_agg'}, {G} groups, L "
+            f"{L}, {rows_} list rows, span bound {span}, "
+            f"{len(plan.passes)} K10 passes launched"))
 
     # K34: the count and the expansion at their largest calls
     lens, valid, nr = cap.calls[("unnest_count_cuda", "list")][1]
@@ -5546,8 +5704,10 @@ def main() -> None:
     cap.wrap(LS, "collect_array_cuda",
              lambda x, masks, nr, gid, ng, L, rows: x.numel() * L, scopes=lp)
     cap.wrap(LS, "collect_map_cuda",
-             lambda x, x2, masks, nr, gid, ng, L, rows: x.numel() * L,
-             scopes=lp)
+             lambda x, x2, masks, nr, gid, ng, L, rows, span=None:
+             x.numel() * L, lambda x, x2, masks, nr, gid, ng, L, rows,
+             span=None: "sort" if LS.map_plan(x, rows, span).route
+             != LS.ROUTE_DIRECT else None, scopes=lp)
     cap.wrap(LS, "unnest_count_cuda", lambda lens, *_: lens.numel(),
              scopes=lp)
     cap.wrap(LS, "unnest_expand_cuda", lambda lens, v, nr, plane, *_:
@@ -6581,6 +6741,8 @@ def kernel_rows_expand(cap: Capture, originals, launches, dev):
     wruns, wdense = J.join_runs_plain(cols, nr, wst, wlk, size)
     runs_ok("main path", J.Prepared(None, (), stats, lookup, dense, runs),
             J.Prepared(None, (), wst, wlk, wdense, wruns))
+    one_enqueue("join_runs at the main path's call", lambda: originals[
+        "join_runs"](cols, nr, stats, lookup, size), "runs")
     n_live = int(stats[J.N_LIVE])
     slots = lookup[2].numel()
     keys5 = cols[0][0][:n]

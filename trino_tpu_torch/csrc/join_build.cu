@@ -45,22 +45,34 @@
 //
 // Runs mode (join_runs) replaces the part of prepare_build the expanding
 // probe (K9, csrc/join_expand.cu) reads: the sort permutation `bperm`
-// with `run_len`, every key's build rows laid out together. The slot
-// counts are already there, so a count -> exclusive scan -> scatter pass
-// over the slots (csrc/tile.cuh, each slot weighted by its count) gives
-// each slot's start in a `runs` array; each live row then takes a place in
-// its run (an atomic cursor per slot) and a second pass puts every run in
-// ascending build-row order (each row's rank is the number of smaller rows
-// in its run), so the probe's output order, and the float sums above it,
-// are the same from run to run. A skewed key serialises that rank count
-// (its cost grows with the square of the run; executor logs record
-// max_run). The dense table of this mode holds a key's SLOT (its run's
-// start and count), as the reference's table holds a first sorted position
-// that run_len completes. Bound: the slot counts read once and 4 bytes of
-// row per live build row read and written once (plus the dense table).
+// with `run_len`, every key's build rows laid out together. It is ONE
+// cooperative launch (runs_kernel below): each live row finds its slot
+// once and keeps it in a row stash the later phases read coalesced; the
+// row that claimed the slot in join_build (its owner) takes the run's
+// start from a block scan over the owners' counts and one atomic a block
+// and round on a per-device counter (no memset, no walk over empty
+// slots, no atomic a run on one word) and writes slot_start once; the
+// other rows take places counted down from a cursor at the owner's row
+// (the owner's row is what their probe read in slot_rows), and each owner
+// then orders its run in place by row: a rank per row up to 32 rows, a
+// block's bitonic sorts and merge passes past that, so a skewed key costs
+// c log c and not c^2 (executor logs record max_run). The runs lie in the
+// order the blocks' rounds took their starts; every consumer reads a run
+// through its slot's (start, count). The dense table of this mode holds a
+// key's SLOT (its run's start and count), as the reference's table holds
+// a first sorted position that run_len completes; it is filled over its
+// `size` words and written by the owners. Bound: the slot counts read
+// once and 4 bytes of row per live build row read and written once (plus
+// the dense table); this design moves about 40 bytes a live row (the
+// key, the stash written once and read twice, the cursor, the row written
+// at its place and read and written once more by its run's order) and two
+// random 32-byte sectors of the slot table (slot_rows; then slot_counts
+// and a slot_start write for an owner, slot_keys for the other rows,
+// whose one atomic falls on the row-sized cursor), but no byte of an
+// empty slot.
 #include <cooperative_groups.h>
 
-#include "tile.cuh"
+#include "common.cuh"
 
 namespace {
 constexpr int THREADS = 256;
@@ -221,12 +233,6 @@ __global__ void finish_kernel(unsigned long long* __restrict__ stats,
       from_key((long long)stats[HI])));
 }
 
-__global__ void dense_init_kernel(int32_t* __restrict__ table, int64_t size) {
-  for (int64_t s = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; s < size;
-       s += (int64_t)gridDim.x * blockDim.x)
-    table[s] = 0x7fffffff;
-}
-
 // K5's dense mode in one cooperative launch: the blocks (all resident on
 // the card) fill the table with INT32_MAX, 16 bytes a store where the
 // table is 16-byte aligned, wait at one grid barrier, then scatter the
@@ -257,92 +263,6 @@ __global__ void __launch_bounds__(THREADS)
     const int64_t raw = (int64_t)(key - kmin);
     if (raw >= 0 && raw < size)
       atomicMin(&table[raw], payload ? payload[i] : (int32_t)i);
-  }
-}
-
-// Runs mode. The slot counts as tile weights: a slot's run takes as many
-// places as rows hold its key (0 for an empty slot).
-struct SlotCount {
-  const int32_t* counts;
-  int64_t slots;
-
-  __device__ __forceinline__ int64_t limit() const { return slots; }
-  __device__ __forceinline__ int operator()(int64_t s) const {
-    return counts[s];
-  }
-};
-
-__global__ void runs_start_kernel(const SlotCount sc,
-                                  const int64_t* __restrict__ offsets,
-                                  int32_t* __restrict__ slot_start) {
-  tile_scatter(sc, sc.slots, offsets, [&](int64_t s, int64_t pos) {
-    slot_start[s] = (int32_t)pos;
-  });
-}
-
-// Each live non-NULL row takes the next place of its slot's run (any
-// order); runs_order_kernel then sorts each run.
-__global__ void runs_place_kernel(const __grid_constant__ Table tbl,
-                                  int64_t nkeys, int64_t cap,
-                                  const int32_t* __restrict__ num_rows,
-                                  const int64_t* __restrict__ slot_keys,
-                                  const int32_t* __restrict__ slot_rows,
-                                  int64_t slots,
-                                  const int32_t* __restrict__ slot_start,
-                                  int32_t* __restrict__ cursor,
-                                  int32_t* __restrict__ placed) {
-  int64_t n = *num_rows;
-  n = n < 0 ? 0 : (n > cap ? cap : n);
-  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    bool null;
-    const uint64_t key = join_key(tbl.v, nkeys, i, &null);
-    if (null) continue;
-    const int64_t s = hash_find(key, slot_keys, slot_rows, slots);
-    placed[slot_start[s] + atomicAdd(&cursor[s], 1)] = (int32_t)i;
-  }
-}
-
-// Row i's final place: its run's start plus the number of rows of the run
-// below i, so every run ends in ascending row order.
-__global__ void runs_order_kernel(const __grid_constant__ Table tbl,
-                                  int64_t nkeys, int64_t cap,
-                                  const int32_t* __restrict__ num_rows,
-                                  const int64_t* __restrict__ slot_keys,
-                                  const int32_t* __restrict__ slot_rows,
-                                  const int32_t* __restrict__ slot_counts,
-                                  int64_t slots,
-                                  const int32_t* __restrict__ slot_start,
-                                  const int32_t* __restrict__ placed,
-                                  int32_t* __restrict__ runs) {
-  int64_t n = *num_rows;
-  n = n < 0 ? 0 : (n > cap ? cap : n);
-  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    bool null;
-    const uint64_t key = join_key(tbl.v, nkeys, i, &null);
-    if (null) continue;
-    const int64_t s = hash_find(key, slot_keys, slot_rows, slots);
-    const int32_t start = slot_start[s], count = slot_counts[s];
-    int32_t rank = 0;
-    for (int32_t q = 0; count > 1 && q < count; ++q)
-      rank += placed[start + q] < (int32_t)i ? 1 : 0;
-    runs[start + rank] = (int32_t)i;
-  }
-}
-
-// The dense table of runs mode: key kmin + d -> the slot holding it.
-__global__ void runs_dense_kernel(const int64_t* __restrict__ slot_keys,
-                                  const int32_t* __restrict__ slot_rows,
-                                  int64_t slots,
-                                  const unsigned long long* __restrict__ stats,
-                                  int32_t* __restrict__ table, int64_t size) {
-  const uint64_t kmin = stats[KMIN];
-  for (int64_t s = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; s < slots;
-       s += (int64_t)gridDim.x * blockDim.x) {
-    if (slot_rows[s] == -1) continue;
-    const int64_t raw = (int64_t)((uint64_t)slot_keys[s] - kmin);
-    if (raw >= 0 && raw < size) table[raw] = (int32_t)s;
   }
 }
 
@@ -457,48 +377,402 @@ TT_EXPORT int join_dense(const void* table, int64_t nkeys, int64_t cap,
 // this process (chip_smoke.py counts them per call).
 TT_EXPORT int64_t join_dense_enqueues() { return dense_enqueues; }
 
+// Runs mode in one cooperative launch (runs_kernel), three phases between
+// two grid barriers; block b takes the rows b x THREADS + m x grid x
+// THREADS below num_rows, RUN_ITEMS of them a thread a round:
+//   0. the dense table's fill (`size` words only); per live non-NULL row
+//      one hash_find (the row that owns the slot, the one that claimed
+//      it in join_build, reads no key: slot_rows names it), kept in
+//      `stash` as (slot, count) for the owner and (owner row, 0) for
+//      another row of the run, read coalesced by the later phases; each
+//      owner's run start from a block scan of the round's owners' counts
+//      and one atomicAdd a block and round on the per-device counter (so
+//      the runs lie in the order the rounds reach it; no atomic a run on
+//      one word); the owner writes slot_start (an atomicExch: the sector
+//      is fetched whole into the L2, not merged in DRAM), its row at the
+//      run's first place and the run's last place into `cursor` at its
+//      own row;
+//   1. every other row takes a place counted down from its owner's
+//      cursor (a 15 MB array at sf1's build, not the slot table), one
+//      atomicSub per run a warp (__match_any_sync), so the cursor ends at
+//      the run's start; the owners write their dense entries; the counter
+//      is set back to 0;
+//   2. each owner puts its run in ascending row order in place: a run of
+//      at most SHORT_RUN rows by each row's rank (in registers up to
+//      TINY_RUN rows), a longer one by the owner's block (bitonic sorts of
+//      CHUNK rows in shared memory, then merge passes with `spare` as
+//      scratch: `cursor` is still read by other owners), so the work
+//      grows as c log c and not c^2.
+namespace {
+constexpr int SHORT_RUN = 32;
+constexpr int TINY_RUN = 8;          // a run ordered in registers
+constexpr int RUN_ITEMS = 4;        // rows a thread takes a round
+constexpr int CHUNK = 2048;          // rows a block sorts in shared memory
+constexpr int RUNS_MAX_GRID = 2048;  // blocks of one launch at most
+
+__device__ __forceinline__ int ceil_log2(int64_t v) {
+  int b = 0;
+  while (((int64_t)1 << b) < v) ++b;
+  return b;
+}
+
+// Sort buf[0, n) ascending in shared memory, n a power of two (every
+// thread of the block calls it).
+__device__ void bitonic_sort(int32_t* buf, int n) {
+  for (int k = 2; k <= n; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int x = threadIdx.x; x < n; x += blockDim.x) {
+        const int y = x ^ j;
+        if (y > x) {
+          const int32_t a = buf[x], b = buf[y];
+          if ((a > b) == ((x & k) == 0)) {
+            buf[x] = b;
+            buf[y] = a;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// run[0, c) sorted in place by the whole block (c > SHORT_RUN), with
+// scratch[0, c): one chunk in shared memory, or chunks of CHUNK then
+// ceil(log2(chunks)) merge passes, each output place found by a
+// merge-path search; the chunks land in `run` or `scratch` so that the
+// last pass writes `run`.
+__device__ void block_sort_run(int32_t* run, int32_t* scratch, int64_t c,
+                               int32_t* buf) {
+  const int32_t* src = run;
+  const int64_t chunks = (c + CHUNK - 1) / CHUNK;
+  const int passes = ceil_log2(chunks);
+  int32_t* from = (passes & 1) ? scratch : run;
+  for (int64_t k = 0; k < chunks; ++k) {
+    const int64_t lo = k * CHUNK;
+    const int m = (int)(c - lo < CHUNK ? c - lo : CHUNK);
+    const int n = 1 << ceil_log2(m < 2 ? 2 : m);
+    for (int x = threadIdx.x; x < n; x += blockDim.x)
+      buf[x] = x < m ? src[lo + x] : 0x7fffffff;
+    __syncthreads();
+    bitonic_sort(buf, n);
+    for (int x = threadIdx.x; x < m; x += blockDim.x) from[lo + x] = buf[x];
+    __syncthreads();
+  }
+  int32_t* to = from == run ? scratch : run;
+  for (int64_t w = CHUNK; w < c; w <<= 1) {
+    for (int64_t k = threadIdx.x; k < c; k += blockDim.x) {
+      const int64_t lo = k / (2 * w) * (2 * w);
+      const int64_t na = c - lo < w ? c - lo : w;
+      int64_t nb = c - lo - w;
+      nb = nb < 0 ? 0 : (nb > w ? w : nb);
+      const int32_t* A = from + lo;
+      const int32_t* B = A + w;
+      const int64_t kk = k - lo;
+      if (nb == 0) {
+        to[k] = A[kk];
+        continue;
+      }
+      int64_t a = kk - nb > 0 ? kk - nb : 0, b = kk < na ? kk : na;
+      while (a < b) {
+        const int64_t mid = (a + b) >> 1;
+        if (A[mid] < B[kk - mid - 1]) a = mid + 1; else b = mid;
+      }
+      const int64_t j = kk - a;
+      to[k] = (j >= nb || (a < na && A[a] < B[j])) ? A[a] : B[j];
+    }
+    __syncthreads();
+    int32_t* t = from;
+    from = to;
+    to = t;
+  }
+}
+
+template <int W>
+__global__ void __launch_bounds__(THREADS)
+    runs_kernel(const __grid_constant__ ParamBlock<W> tbl, int nkeys,
+                int64_t cap, const int32_t* __restrict__ num_rows,
+                const unsigned long long* __restrict__ stats,
+                const int64_t* __restrict__ slot_keys,
+                const int32_t* __restrict__ slot_rows,
+                const int32_t* __restrict__ slot_counts, int64_t slots,
+                int32_t* __restrict__ slot_start, int2* __restrict__ stash,
+                int32_t* __restrict__ cursor, int32_t* __restrict__ spare,
+                int32_t* __restrict__ counter, int32_t* __restrict__ runs,
+                int32_t* __restrict__ dense, int64_t size, int vec) {
+  __shared__ int warp_sums[32];
+  __shared__ int block_base;
+  __shared__ int nlong;
+  __shared__ int2 longs[THREADS];
+  __shared__ int32_t buf[CHUNK];
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  const int64_t t = blockIdx.x * (int64_t)THREADS + threadIdx.x;
+  const int64_t stride = (int64_t)gridDim.x * THREADS;
+  const int lane = threadIdx.x & 31;
+  int64_t n = *num_rows;
+  n = n < 0 ? 0 : (n > cap ? cap : n);
+  const uint64_t mask = (uint64_t)slots - 1;
+
+  // phase 0: the dense fill; each row's slot; each owner's run: a block
+  // scan a round of RUN_ITEMS rows a thread (rows first + t + k x stride,
+  // their probes in flight together) and one atomic on the per-device
+  // counter a block and round
+  const int64_t quads = vec ? size / 4 : 0;
+  const int4 absent = make_int4(0x7fffffff, 0x7fffffff, 0x7fffffff,
+                                0x7fffffff);
+  for (int64_t q = t; q < quads; q += stride)
+    reinterpret_cast<int4*>(dense)[q] = absent;
+  for (int64_t s = 4 * quads + t; s < size; s += stride) dense[s] = 0x7fffffff;
+  const int64_t round = RUN_ITEMS * stride;
+  for (int64_t first = blockIdx.x * (int64_t)THREADS; first < n;
+       first += round) {
+    uint64_t key[RUN_ITEMS], s[RUN_ITEMS];
+    int32_t r[RUN_ITEMS];
+    bool live[RUN_ITEMS];
+#pragma unroll
+    for (int k = 0; k < RUN_ITEMS; ++k) {
+      const int64_t i = first + threadIdx.x + k * stride;
+      bool null = true;
+      if (i < n) key[k] = join_key(tbl.v, nkeys, i, &null);
+      live[k] = !null;
+      s[k] = live[k] ? mix64(key[k]) & mask : 0;
+      r[k] = live[k] ? slot_rows[s[k]] : -1;
+    }
+    int2 st[RUN_ITEMS];
+#pragma unroll
+    for (int k = 0; k < RUN_ITEMS; ++k) {
+      // (slot, c) for the owner (its own slot: no key read), (owner row,
+      // 0) for another row of the run, y -1 for no slot
+      st[k] = make_int2((int)s[k], -1);
+      if (r[k] == (int32_t)(first + threadIdx.x + k * stride))
+        st[k].y = slot_counts[s[k]];
+      else if (r[k] != -1 && (uint64_t)slot_keys[s[k]] == key[k])
+        st[k] = make_int2(r[k], 0);
+    }
+    int mine = 0;
+#pragma unroll
+    for (int k = 0; k < RUN_ITEMS; ++k) {
+      const int64_t i = first + threadIdx.x + k * stride;
+      if (i < n && live[k] && st[k].y < 0 && r[k] != -1) {  // past the
+        uint64_t q = s[k];                                 // first slot
+        while (true) {
+          q = (q + 1) & mask;
+          const int32_t rq = slot_rows[q];
+          if (rq == -1) break;  // absent: not a row join_build inserted
+          if (rq == (int32_t)i) {
+            st[k] = make_int2((int)q, slot_counts[q]);
+            break;
+          }
+          if ((uint64_t)slot_keys[q] == key[k]) {
+            st[k] = make_int2(rq, 0);
+            break;
+          }
+        }
+      }
+      mine += st[k].y > 0 ? st[k].y : 0;
+    }
+    int sum;
+    int start = block_exclusive_scan(mine, warp_sums, &sum);
+    if (threadIdx.x == 0) block_base = sum ? atomicAdd(counter, sum) : 0;
+    __syncthreads();
+    start += block_base;
+#pragma unroll
+    for (int k = 0; k < RUN_ITEMS; ++k) {
+      const int64_t i = first + threadIdx.x + k * stride;
+      if (i >= n) continue;
+      stash[i] = st[k];
+      const int c = st[k].y;
+      if (c <= 0) continue;
+      atomicExch(&slot_start[st[k].x], start);  // a full sector in L2
+      runs[start] = (int32_t)i;
+      // the run's last place, at the owner's row: each other row of the
+      // run takes one place below it, so the cursor ends at the start
+      cursor[i] = start + c - 1;
+      start += c;
+    }
+    __syncthreads();  // block_base is read before the next round sets it
+  }
+  grid.sync();
+
+  // phase 1: the other rows' places, counted down from the run's last
+  // place at the owner's row, one atomic per run a warp; the owners'
+  // dense entries
+  if (t == 0) *counter = 0;  // every start is taken: ready for the next call
+  const uint64_t kmin = stats[KMIN];
+  for (int64_t first = blockIdx.x * (int64_t)THREADS; first < n;
+       first += round) {
+    int2 st[RUN_ITEMS];
+#pragma unroll
+    for (int k = 0; k < RUN_ITEMS; ++k) {
+      const int64_t i = first + threadIdx.x + k * stride;
+      st[k] = i < n ? stash[i] : make_int2(0, -1);
+    }
+    int last[RUN_ITEMS];
+    unsigned peers[RUN_ITEMS];
+#pragma unroll
+    for (int k = 0; k < RUN_ITEMS; ++k) {
+      const bool member = st[k].y == 0;
+      const unsigned active = __ballot_sync(0xffffffffu, member);
+      peers[k] = 0u;
+      last[k] = 0;
+      if (member) {
+        peers[k] = __match_any_sync(active, st[k].x);
+        if (lane == __ffs(peers[k]) - 1)
+          last[k] = atomicSub(&cursor[st[k].x], __popc(peers[k]));
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < RUN_ITEMS; ++k) {
+      const int64_t i = first + threadIdx.x + k * stride;
+      if (st[k].y > 0 && size > 0) {
+        bool null;
+        const int64_t raw =
+            (int64_t)(join_key(tbl.v, nkeys, i, &null) - kmin);
+        if (raw >= 0 && raw < size) dense[raw] = st[k].x;
+      }
+      if (st[k].y != 0) continue;
+      const int l = __shfl_sync(peers[k], last[k], __ffs(peers[k]) - 1);
+      runs[l - __popc(peers[k] & ((1u << lane) - 1u))] = (int32_t)i;
+    }
+  }
+  grid.sync();
+
+  // phase 2: each run of two or more rows in ascending row order
+  if (threadIdx.x == 0) nlong = 0;
+  __syncthreads();
+  for (int64_t first = blockIdx.x * (int64_t)THREADS; first < n;
+       first += stride) {
+    const int64_t i = first + threadIdx.x;
+    int2 st = i < n ? stash[i] : make_int2(0, -1);
+    if (st.y > 1) st.x = cursor[i];  // the owner's cursor ended at the start
+    if (st.y > SHORT_RUN) {
+      longs[atomicAdd(&nlong, 1)] = st;
+    } else if (st.y > TINY_RUN) {
+      int32_t a[SHORT_RUN];
+      for (int q = 0; q < st.y; ++q) a[q] = runs[st.x + q];
+      for (int q = 0; q < st.y; ++q) {
+        int r = 0;
+        for (int p = 0; p < st.y; ++p) r += a[p] < a[q] ? 1 : 0;
+        runs[st.x + r] = a[q];
+      }
+    } else if (st.y > 1) {  // in registers: fixed indices, padded
+      int32_t a[TINY_RUN];
+#pragma unroll
+      for (int q = 0; q < TINY_RUN; ++q)
+        a[q] = q < st.y ? runs[st.x + q] : 0x7fffffff;
+#pragma unroll
+      for (int q = 0; q < TINY_RUN; ++q) {
+        int r = 0;
+#pragma unroll
+        for (int p = 0; p < TINY_RUN; ++p) r += a[p] < a[q] ? 1 : 0;
+        if (q < st.y) runs[st.x + r] = a[q];
+      }
+    }
+    __syncthreads();
+    for (int l = 0; l < nlong; ++l)
+      block_sort_run(runs + longs[l].x, spare + longs[l].x, longs[l].y,
+                     buf);
+    __syncthreads();
+    if (threadIdx.x == 0) nlong = 0;
+    __syncthreads();
+  }
+}
+}  // namespace
+
 // Runs mode (after join_build on the same columns): runs: int32[cap], the
 // live non-NULL build rows grouped by key, each key's rows in ascending
-// order; slot_start: int32[slots], an occupied slot's first place in runs
-// (slot_counts, from join_build, its length); cursor: int32[slots] and
-// placed: int32[cap] scratch; scratch: int64[ceil(slots / 4096)]; total:
-// int32 scalar (the rows laid out). With size > 0 also the dense table
-// dense: int32[size], key kmin + d -> its slot, INT32_MAX when absent.
-// Returns cudaGetLastError(), or -1 when the table exceeds TABLE_MAX.
-TT_EXPORT int join_runs(const void* table, int64_t nkeys, int64_t cap,
-                        const void* num_rows, const void* stats,
-                        const void* slot_keys, const void* slot_rows,
-                        const void* slot_counts, int64_t slots,
-                        void* slot_start, void* cursor, void* placed,
-                        void* scratch, void* total, void* runs, void* dense,
-                        int64_t size, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  thread_local static Table t;
-  if (nkeys < 1 || load_table(table, KEY_FIELDS * nkeys, &t)) return -1;
+// row order, the runs in any order (every consumer reads a run through
+// its slot's start and count); slot_start: int32[slots], an occupied
+// slot's first place in runs (slot_counts, from join_build, its length;
+// an empty slot's entry is not written); scratch: int64[runs_scratch_words
+// (cap)] (the row stash, the cursors, a long run's sort scratch);
+// counter: the per-device int32
+// word, 0 between calls (the launch sets it back after its last use);
+// with size > 0 also the dense table dense: int32[size], key kmin + d ->
+// its slot, INT32_MAX when absent. One cooperative launch (runs_kernel);
+// the key columns in a parameter block of 8, 64 or TABLE_MAX words.
+// Returns the launch's error, or -1 when the table exceeds TABLE_MAX.
+namespace {
+int64_t runs_enqueues_ = 0;  // stream operations join_runs enqueued
+
+template <int W>
+int runs_launch(const void* host, int64_t nkeys, int64_t cap,
+                const void* num_rows, const void* stats,
+                const void* slot_keys, const void* slot_rows,
+                const void* slot_counts, int64_t slots, void* slot_start,
+                void* scratch, void* counter, void* runs, void* dense,
+                int64_t size, cudaStream_t s) {
+  thread_local static ParamBlock<W> t;  // each launch copies it
+  load_block(host, KEY_FIELDS * nkeys, &t);
+  static int resident[MAX_DEVICES];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= MAX_DEVICES) return -1;
+  if (resident[dev] == 0) {
+    int per_sm = 0, sms = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, runs_kernel<W>,
+                                                  THREADS, 0);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    resident[dev] = per_sm * sms > 0 ? per_sm * sms : 1;
+  }
+  const int64_t work = size / 4 > cap ? size / 4 : cap;
+  const int64_t per_block = THREADS * DENSE_ITEMS;
+  int64_t blocks = (work + per_block - 1) / per_block;
+  const int64_t most = resident[dev] < RUNS_MAX_GRID ? resident[dev]
+                                                      : RUNS_MAX_GRID;
+  blocks = blocks < 1 ? 1 : (blocks > most ? most : blocks);
+  int nk = (int)nkeys;
+  const auto* nr = static_cast<const int32_t*>(num_rows);
+  const auto* st = static_cast<const unsigned long long*>(stats);
   const auto* keys = static_cast<const int64_t*>(slot_keys);
   const auto* rows = static_cast<const int32_t*>(slot_rows);
   const auto* counts = static_cast<const int32_t*>(slot_counts);
   auto* start = static_cast<int32_t*>(slot_start);
-  auto* offsets = static_cast<int64_t*>(scratch);
-  const auto* nr = static_cast<const int32_t*>(num_rows);
-  cudaMemsetAsync(cursor, 0, slots * sizeof(int32_t), s);
-  const SlotCount sc{counts, slots};
-  const int64_t nblocks = tile_offsets(sc, slots, offsets,
-                                       static_cast<int32_t*>(total), s);
-  runs_start_kernel<<<(unsigned)nblocks, TILE_THREADS, 0, s>>>(sc, offsets,
-                                                               start);
-  runs_place_kernel<<<grid_for(cap), THREADS, 0, s>>>(
-      t, nkeys, cap, nr, keys, rows, slots, start,
-      static_cast<int32_t*>(cursor), static_cast<int32_t*>(placed));
-  runs_order_kernel<<<grid_for(cap), THREADS, 0, s>>>(
-      t, nkeys, cap, nr, keys, rows, counts, slots, start,
-      static_cast<const int32_t*>(placed), static_cast<int32_t*>(runs));
-  if (size > 0) {
-    dense_init_kernel<<<grid_for(size), THREADS, 0, s>>>(
-        static_cast<int32_t*>(dense), size);
-    runs_dense_kernel<<<grid_for(slots), THREADS, 0, s>>>(
-        keys, rows, slots, static_cast<const unsigned long long*>(stats),
-        static_cast<int32_t*>(dense), size);
-  }
-  return (int)cudaGetLastError();
+  auto* stash = static_cast<int2*>(scratch);
+  auto* cursor = reinterpret_cast<int32_t*>(stash + cap);
+  int32_t* spare = cursor + ((cap + 1) / 2) * 2;
+  auto* count_word = static_cast<int32_t*>(counter);
+  auto* out = static_cast<int32_t*>(runs);
+  auto* table = static_cast<int32_t*>(dense);
+  int vec = (reinterpret_cast<uintptr_t>(dense) & 15) == 0;
+  void* args[] = {&t,      &nk,    &cap,  &nr,       &st,    &keys,
+                  &rows,   &counts, &slots, &start,  &stash,
+                  &cursor, &spare, &count_word, &out, &table, &size, &vec};
+  const cudaError_t rc = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(runs_kernel<W>), dim3((unsigned)blocks),
+      dim3(THREADS), args, 0, s);
+  ++runs_enqueues_;
+  return rc == cudaSuccess ? (int)cudaGetLastError() : (int)rc;
 }
+}  // namespace
+
+TT_EXPORT int join_runs(const void* table, int64_t nkeys, int64_t cap,
+                        const void* num_rows, const void* stats,
+                        const void* slot_keys, const void* slot_rows,
+                        const void* slot_counts, int64_t slots,
+                        void* slot_start, void* scratch, void* counter,
+                        void* runs, void* dense, int64_t size,
+                        void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (nkeys < 1) return -1;
+  switch (param_block_words(KEY_FIELDS * nkeys)) {
+    case 8:
+      return runs_launch<8>(table, nkeys, cap, num_rows, stats, slot_keys,
+                            slot_rows, slot_counts, slots, slot_start,
+                            scratch, counter, runs, dense, size, s);
+    case 64:
+      return runs_launch<64>(table, nkeys, cap, num_rows, stats, slot_keys,
+                             slot_rows, slot_counts, slots, slot_start,
+                             scratch, counter, runs, dense, size, s);
+    case TABLE_MAX:
+      return runs_launch<TABLE_MAX>(table, nkeys, cap, num_rows, stats,
+                                    slot_keys, slot_rows, slot_counts, slots,
+                                    slot_start, scratch, counter, runs, dense,
+                                    size, s);
+    default:
+      return -1;
+  }
+}
+
+// The stream operations join_runs has enqueued in this process
+// (chip_smoke.py counts them per call).
+TT_EXPORT int64_t join_runs_enqueues() { return runs_enqueues_; }

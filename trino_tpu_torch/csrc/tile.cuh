@@ -1,8 +1,8 @@
 #pragma once
 #include "common.cuh"
 
-// Tiled stream compaction, shared by K1 (csrc/compact.cu), K5's runs mode
-// (csrc/join_build.cu) and K8 (csrc/group_agg.cu).
+// Tiled stream compaction, shared by K1 (csrc/compact.cu), K8
+// (csrc/group_agg.cu) and K34 (csrc/list.cu).
 //
 // Keeps the chosen rows of [0, n) in order, in three passes over tiles of
 // TILE rows and no sort: tile_count_kernel counts each tile's kept rows,
@@ -12,8 +12,8 @@
 // block scan and hands the body its output position. `Keep` is a by-value
 // functor with `int64_t limit() const` (n, read on the device) and
 // `operator()(int64_t i) const` for i < n returning a bool (kept or not)
-// or an int weight (the row's number of output slots: K5's runs mode lays
-// out each slot's run this way; a tile's weights sum to at most 2^31 - 1).
+// or an int weight (the row's number of output slots: K34 lays out each
+// list's elements this way; a tile's weights sum to at most 2^31 - 1).
 constexpr int TILE = 4096;  // trino_tpu_torch/page.py COMPACT_TILE
 constexpr int TILE_THREADS = 256;  // threads of a tile's block
 

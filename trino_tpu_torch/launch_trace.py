@@ -65,7 +65,24 @@ launches:
   `spill_probe_cuda`) at q3 sf1's spill-dense probe: the search probe's
   3,049,501 live lineitem order keys of 5,242,880 against K5's dense row
   table over K16's keys of its 157,563 orders (8,388,608 slots); beside
-  it `index_select` of the row table at the live rows' offsets.
+  it `index_select` of the row table at the live rows' offsets;
+* K5's runs mode (`ops/join.py` `join_runs_cuda`) at the shape of sf1's
+  largest expanding build: 3,793,276 live lineitem rows (63.2% of the
+  lines of 1,500,000 orders, 1 to 7 lines each, TPC-H's sparse order
+  keys) on a page of 8,388,608, K5's hash table of 16,777,216 slots, a
+  dense table of 2,097,152 slots, max_run 7; and at q13's build (orders
+  by o_custkey at sf1: 1,500,000 live rows of 2,097,152, keys drawn as
+  TPC-H draws them, from the 100,000 customers whose key is not a
+  multiple of 3, so runs of about 15 rows, most of 9 to 32; no dense
+  table); beside each `torch.argsort(stable=True)` of the build keys;
+* K33's map mode (`ops/lists.py` `collect_map_cuda`) at L3's call
+  (`histogram(l_shipmode) ... GROUP BY l_suppkey`: 5,999,956 live rows of
+  8,388,608, int32 dictionary codes of 7 values with the dictionary's
+  size as the span bound, 10,000 groups, L 1,024, 16,384 list rows) and
+  at L4's (`map_agg(ps_partkey, ps_supplycost) GROUP BY ps_suppkey`:
+  800,000 live partsupp rows of 1,048,576, int64 part keys, float64
+  costs, 10,000 groups, L 128, 16,384 list rows); beside each
+  `torch.sort(stable=True)` of (group, key) and one `index_put_`.
 
 The launch floor is an empty kernel (`csrc/floor.cu`) launched through
 the package's ctypes binding with a parameter block of three words, of
@@ -77,7 +94,7 @@ per launch. Needs the card:
 
     python3 -m trino_tpu_torch.launch_trace [--calls 1000]
         [--only floor,main,spill,hll,ladder,heavy,post,dense,probe,
-                scatter,lookup,bounds,spillprobe]
+                scatter,lookup,bounds,spillprobe,runs,map]
 """
 
 from __future__ import annotations
@@ -158,8 +175,17 @@ LOOKUP_SLOTS = 256
 LOOKUP_BUILD = 1_500_000     # orders sf1 over the 256 slots
 BOUNDS_CAP = 2_097_152       # G3's build: orders sf1 on its page
 BOUNDS_LIVE = 1_500_000
+RUNS_CAP = 8_388_608          # sf1's largest expanding build
+RUNS_LIVE = 3_793_276
+RUNS_ORDERS = 1_500_000
+RUNS_DENSE = 2_097_152
+RUNS_Q13 = (2_097_152, 1_500_000, 150_000)  # cap, orders, customers (sf1)
+MAP_L3 = (8_388_608, 5_999_956, 7, 10_000, 1_024, 16_384)  # cap, live,
+MAP_L4 = (1_048_576, 800_000, 200_000, 10_000, 128, 16_384)  # keys, G, L,
+# list rows
 PARTS = ("floor", "main", "spill", "hll", "ladder", "heavy", "post",
-         "dense", "probe", "scatter", "lookup", "bounds", "spillprobe")
+         "dense", "probe", "scatter", "lookup", "bounds", "spillprobe",
+         "runs", "map")
 
 
 def event_ms(fn, iters: int = 100) -> float:
@@ -670,6 +696,129 @@ def spill_probe_library(args):
     return lambda: table.index_select(0, off)
 
 
+def runs_call(dev, seed: int = 19):
+    """K5 runs-mode arguments at sf1's largest expanding build: (cols,
+    num_rows, stats, lookup, size) from K5 on the card over RUNS_LIVE
+    lines kept from RUNS_ORDERS orders of 1 to 7 lines (TPC-H's sparse
+    order keys: 8 of every 32) on RUNS_CAP rows."""
+    from trino_tpu_torch.ops import join as J
+    g = torch.Generator().manual_seed(seed)
+    lines = torch.randint(1, 8, (RUNS_ORDERS,), generator=g)
+    o = torch.arange(RUNS_ORDERS)
+    okey = torch.repeat_interleave(o // 8 * 32 + o % 8 + 1, lines)
+    keep = torch.randperm(okey.numel(), generator=g)[:RUNS_LIVE]
+    v = torch.zeros(RUNS_CAP, dtype=torch.int64)
+    v[:RUNS_LIVE] = okey[torch.sort(keep).values]
+    cols = [(v.to(dev), None)]
+    nr = torch.tensor(RUNS_LIVE, dtype=torch.int32, device=dev)
+    stats, lookup = J.join_build_cuda(cols, nr)
+    return cols, nr, stats, lookup, RUNS_DENSE
+
+
+def runs_q13_call(dev, seed: int = 13):
+    """K5 runs-mode arguments at q13's build at sf1: (cols, num_rows,
+    stats, lookup, 0) over RUNS_Q13's orders in order-key order, each
+    o_custkey drawn uniformly from the customers whose key is not a
+    multiple of 3 (TPC-H's rule), so a run's rows lie apart."""
+    from trino_tpu_torch.ops import join as J
+    cap, orders, customers = RUNS_Q13
+    g = torch.Generator().manual_seed(seed)
+    ck = torch.arange(1, customers + 1)
+    ck = ck[ck % 3 != 0]
+    v = torch.zeros(cap, dtype=torch.int64)
+    v[:orders] = ck[torch.randint(0, ck.numel(), (orders,), generator=g)]
+    cols = [(v.to(dev), None)]
+    nr = torch.tensor(orders, dtype=torch.int32, device=dev)
+    stats, lookup = J.join_build_cuda(cols, nr)
+    return cols, nr, stats, lookup, 0
+
+
+def runs_check(args) -> int:
+    """Compare K5's runs mode at `args` with its twin, each run read
+    through its (start, count); returns max_run."""
+    from trino_tpu_torch.ops import join as J
+    cols, nr, stats, lookup, size = args
+    (runs, start, count), dense = J.join_runs_cuda(*args)
+    wst, wlk = J.join_build_plain(cols, nr)
+    (wruns, _, wcount), wdense = J.join_runs_plain(cols, nr, wst, wlk,
+                                                        size)
+    occ = lookup[2] >= 0
+    keys, order = torch.sort(lookup[1][occ])
+    c = count[occ][order].to(torch.int64)
+    s0 = start[occ][order].to(torch.int64)
+    total = int(c.sum())
+    first = torch.cumsum(c, 0) - c
+    place = torch.repeat_interleave(s0 - first, c) + torch.arange(
+        total, device=c.device)
+    if not (torch.equal(keys, wlk[1]) and torch.equal(c, wcount.to(
+            torch.int64)) and torch.equal(runs[place], wruns[:total])):
+        raise SystemExit("K5's runs mode differs from its twin")
+    if (dense is None) != (wdense is None):
+        raise SystemExit("K5's runs mode and its twin differ on the dense "
+                         "table's presence")
+    if dense is None:
+        return int(stats[J.MAX_RUN])
+    kin = dense != 2**31 - 1
+    if not torch.equal(kin, wdense != 2**31 - 1) or not torch.equal(
+            lookup[1][dense[kin].long()], wlk[1][wdense[kin].long()]):
+        raise SystemExit("K5's runs-mode dense table differs from its twin")
+    return int(stats[J.MAX_RUN])
+
+
+def map_call(dev, shape, seed: int = 33):
+    """K33 map-mode arguments (x, x2, masks, num_rows, gid, num_groups, L,
+    rows) and the span bound at L3's (`shape` MAP_L3: histogram of int32
+    codes) or L4's (MAP_L4: map_agg of int64 part keys, each on 4 of the
+    groups, and float64 costs) call; group ids uniform over the groups."""
+    cap, live, keys, groups, L, rows = shape
+    g = torch.Generator().manual_seed(seed)
+    gid = torch.zeros(cap, dtype=torch.int32)
+    if shape is MAP_L3:
+        gid[:live] = torch.randint(0, groups, (live,), generator=g,
+                                   dtype=torch.int32)
+        x = torch.zeros(cap, dtype=torch.int32)
+        x[:live] = torch.randint(0, keys, (live,), generator=g,
+                                 dtype=torch.int32)
+        x2, span = None, keys
+    else:
+        p = torch.arange(keys).repeat_interleave(4)
+        i = torch.arange(live) % 4
+        gid[:live] = ((p + i * (groups // 4 + p // groups)) % groups).to(
+            torch.int32)
+        x = torch.zeros(cap, dtype=torch.int64)
+        x[:live] = p + 1
+        x2 = torch.zeros(cap, dtype=torch.float64)
+        x2[:live] = torch.randint(100, 100_000, (live,), generator=g) / 100
+        x2, span = x2.to(dev), None
+    args = (x.to(dev), x2, [], torch.tensor(live, dtype=torch.int32,
+                                            device=dev), gid.to(dev),
+            torch.tensor(groups, dtype=torch.int32, device=dev), L, rows)
+    return args, span
+
+
+def map_wrapper_call(args, span):
+    """The tree's map-mode wrapper at `args`, with the span bound where
+    the wrapper takes one (a tree before it does not)."""
+    import inspect
+    from trino_tpu_torch.ops import lists as LS
+    if "span" in inspect.signature(LS.collect_map_cuda).parameters:
+        return lambda: LS.collect_map_cuda(*args, span)
+    return lambda: LS.collect_map_cuda(*args)
+
+
+def map_library(args):
+    """The library call beside K33's map mode: torch.sort(stable=True) of
+    (group, key) and one index_put_ of the keys at each group's row."""
+    x, _, _, nr, gid, _, L, rows = args
+    n = int(nr)
+    key = (gid[:n].to(torch.int64) << 32) + x[:n].to(torch.int64)
+    flat = torch.zeros(rows * L, dtype=x.dtype, device=x.device)
+    slot = (gid[:n].to(torch.int64) * L).clamp(max=rows * L - 1)
+    xs = x[:n]
+    return lambda: flat.index_put_((slot[torch.sort(key, stable=True)
+                                         .indices],), xs)
+
+
 def probe_prepared(bcols, bnr, route: str):
     """K5 (with its dense mode on the dense route, K12 on the mxu route)
     on the card: the Prepared K6 reads."""
@@ -908,6 +1057,47 @@ def report(calls: int, parts=PARTS):
             f"{SEARCH_LIVE} live of {SEARCH_CAP}, a row table of "
             f"{args[3].numel()} slots over {SEARCH_BUILD} build keys, "
             f"{matched} matched", True))
+    if "runs" in parts:
+        for name, args in (
+                ("K5 runs mode at sf1's largest expanding build",
+                 runs_call(dev)),
+                ("K5 runs mode at q13's build (orders by o_custkey, sf1)",
+                 runs_q13_call(dev))):
+            max_run = runs_check(args)
+            live = int(args[1])
+            keys = args[0][0][0][:live]
+            library[name] = ("torch.argsort(stable=True) of the build keys",
+                             lambda k=keys: torch.argsort(k, stable=True))
+            shapes.append((
+                name, J.join_runs_cuda, args,
+                f"{live} live keyed rows of {args[0][0][0].numel()}, "
+                f"{args[3][2].numel()} slots, dense table {args[4]}, "
+                f"max_run {max_run}", True))
+    if "map" in parts:
+        from trino_tpu_torch.ops import lists as LS
+        for label, shape in (("L3", MAP_L3), ("L4", MAP_L4)):
+            args, span = map_call(dev, shape)
+            call = map_wrapper_call(args, span)
+            got, want = call(), LS.collect_map_plain(*args)
+            if not all(torch.equal(a.view(torch.uint8) if a.is_floating_point()
+                                   else a, b.view(torch.uint8)
+                                   if b.is_floating_point() else b)
+                       for a, b in zip(got, want)):
+                raise SystemExit(f"K33's map mode at {label} differs from "
+                                 "its twin")
+            name = f"K33 map mode at {label}'s call"
+            library[name] = ("torch.sort(stable=True) of (group, key) + "
+                             "index_put_", map_library(args))
+            entry[name] = lambda *a, c=call: c()
+            plan = getattr(LS, "map_plan", None)
+            passes = len(plan(args[0], args[7], span).passes) if plan \
+                else len(LS._words_passes(args[7], True))
+            shapes.append((
+                name, LS.collect_map_cuda, args,
+                f"{int(args[3])} live rows of {args[0].numel()}, key "
+                f"{args[0].dtype}, {'histogram' if args[1] is None else 'map_agg'}, "
+                f"{int(args[5])} groups, L {args[6]}, {args[7]} list rows, "
+                f"span bound {span}, {passes} K10 passes launched", True))
     trace_ctypes()
     for name, wrapper, args, shape, split in shapes:
         def call(w=entry.get(name, wrapper), a=args):

@@ -2089,8 +2089,10 @@ def _collect_column(page: Page, spec: AggSpec, fn, gid, num_groups, L: int,
         col2 = page.column(spec.input2)
         x2, aux_dict, cols = col2.values.contiguous(), col2.dictionary, \
             (spec.input, spec.input2)
+    span = None if xcol.dictionary is None else len(xcol.dictionary.values)
     keys, vals, lengths = lists.collect_map(
-        x, x2, _spec_masks(page, spec, *cols), nr, gid, num_groups, L, rows)
+        x, x2, _spec_masks(page, spec, *cols), nr, gid, num_groups, L, rows,
+        span)
     return Column(keys, None, out_type, xcol.dictionary, lengths, vals,
                   aux_dict)
 

@@ -853,40 +853,239 @@ def join_runs_plain(cols, num_rows: torch.Tensor, stats: torch.Tensor,
     return (runs, starts.to(torch.int32), counts.to(torch.int32)), dense
 
 
+RUNS_THREADS = 256      # csrc/join_build.cu THREADS
+RUNS_SHORT = 32         # csrc/join_build.cu SHORT_RUN
+RUNS_ITEMS = 4          # csrc/join_build.cu RUN_ITEMS
+RUNS_CHUNK = 2048       # csrc/join_build.cu CHUNK
+RUNS_MAX_GRID = 2048    # csrc/join_build.cu RUNS_MAX_GRID
+_RUNS_ARGS = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+              ctypes.c_void_p)
+
+
+def runs_scratch_words(cap: int) -> int:
+    """int64 words of K5 runs mode's scratch: an int2 stash per row, a
+    cursor per row and a long run's sort scratch (int32 each, rounded to
+    a word pair)."""
+    return cap + 2 * ((cap + 1) // 2)
+
+
+_RUNS_COUNTER: dict = {}
+
+
+def _runs_counter(index: int) -> torch.Tensor:
+    """K5 runs mode's per-device int32 word, whose atomics give the runs
+    their starts; zero between calls (the launch sets it back after its
+    last use). Calls share it, so they must be ordered on one stream, as
+    every launch of the port is, from one host thread."""
+    c = _RUNS_COUNTER.get(index)
+    if c is None:
+        c = _RUNS_COUNTER[index] = torch.zeros(
+            1, dtype=torch.int32, device=torch.device("cuda", index))
+    return c
+
+
+def runs_outputs(cap: int, slots: int, size: int, device):
+    """(runs int32[cap], slot_start int32[slots], dense int32[size]):
+    views of one allocation, the dense table 16-byte aligned."""
+    head = -(-max(cap, 1) // 4) * 4
+    out = torch.empty(head + slots + max(size, 1), dtype=torch.int32,
+                      device=device)
+    return (out[:max(cap, 1)], out[head:head + slots],
+            out[head + slots:head + slots + max(size, 1)])
+
+
+def _find_slots(key: torch.Tensor, slot_keys, slot_rows) -> torch.Tensor:
+    """Each key's slot in K5's table by linear probing from mix64(key)
+    (-1 where absent), as csrc/common.cuh hash_find walks it."""
+    slots = slot_rows.shape[0]
+    s = _mix64(key) & (slots - 1)
+    out = torch.full_like(key, -1)
+    todo = torch.arange(key.shape[0])
+    while todo.numel():
+        here = s[todo]
+        empty = slot_rows[here] == -1
+        hit = ~empty & (slot_keys[here] == key[todo])
+        out[todo[hit]] = here[hit]
+        todo = todo[~empty & ~hit]
+        s[todo] = (s[todo] + 1) & (slots - 1)
+    return out
+
+
+def block_sort_model(run: torch.Tensor, scratch: torch.Tensor) -> int:
+    """A long run's order as csrc/join_build.cu block_sort_run makes it, in
+    place: each chunk of RUNS_CHUNK rows sorted into `run`, or into
+    `scratch` when the merge passes that follow are odd in number, then
+    merge passes of width RUNS_CHUNK, 2 x RUNS_CHUNK, ... between the
+    two, every output place k taking its row by the merge-path search
+    (the number of rows of the left half among the first k), the last
+    into `run`. Returns the merge passes."""
+    c = run.shape[0]
+    chunks = -(-c // RUNS_CHUNK)
+    passes = max(chunks - 1, 0).bit_length()
+    bufs = [run, scratch] if passes % 2 == 0 else [scratch, run]
+    for lo in range(0, c, RUNS_CHUNK):
+        bufs[0][lo:lo + RUNS_CHUNK] = torch.sort(
+            run[lo:lo + RUNS_CHUNK]).values
+    w = RUNS_CHUNK
+    while w < c:
+        frm, to = bufs
+        k = torch.arange(c)
+        lo = k // (2 * w) * (2 * w)
+        na = torch.clamp(c - lo, max=w)
+        nb = torch.clamp(c - lo - w, min=0, max=w)
+        kk = k - lo
+        a = torch.clamp(kk - nb, min=0)
+        b = torch.minimum(kk, na)
+        while bool((a < b).any()):
+            mid = (a + b) >> 1
+            go = a < b
+            am = frm[(lo + mid).clamp(max=c - 1)]
+            bm = frm[(lo + w + kk - mid - 1).clamp(0, c - 1)]
+            right = go & (am < bm)
+            a = torch.where(right, mid + 1, a)
+            b = torch.where(go & ~right, mid, b)
+        j = kk - a
+        av = frm[(lo + a).clamp(max=c - 1)]
+        bv = frm[(lo + w + j).clamp(0, c - 1)]
+        take_a = (j >= nb) | ((a < na) & (av < bv))
+        to[:] = torch.where(take_a, av, bv)
+        bufs = [to, frm]
+        w *= 2
+    return passes
+
+
+def runs_launch_model(cols, num_rows, stats: torch.Tensor, lookup: tuple,
+                      size: int, grid: int,
+                      order: Optional[Sequence[int]] = None,
+                      counter: Optional[torch.Tensor] = None):
+    """K5's runs mode as its one cooperative launch runs it
+    (csrc/join_build.cu runs_kernel) over `grid` blocks of RUNS_THREADS,
+    block b taking the rows b x RUNS_THREADS + m x grid x RUNS_THREADS +
+    t, RUNS_ITEMS of them (m = 4j .. 4j + 3) a thread a round: phase 0
+    fills the dense table, finds each live non-NULL row's slot once (the
+    row that claimed the slot is its owner, and keeps the slot's count)
+    and gives each owner its run's start (a block's round takes its
+    owners' places from the counter at once, the blocks in `order`; the
+    round's owners by thread, then the thread's rows) and the run's first
+    place; phase 1 gives the other rows the places below the run's last,
+    counted down on the owner's cursor, the blocks arriving in `order` (a
+    warp's rows of one run in lane order), and writes the owners' dense
+    entries and sets the per-device `counter` (int32[1], 0 between calls)
+    back to 0; phase 2 orders each run by row in place (a rank per row up
+    to RUNS_SHORT rows, block_sort_model past that). Returns (runs
+    int32[cap], slot_start int32[slots], dense int32[size]) from memory
+    that held garbage, and the slot lookups each row made."""
+    cap = cols[0][0].shape[0]
+    _, slot_keys, slot_rows, slot_counts = lookup
+    slots = slot_rows.shape[0]
+    n = max(0, min(int(num_rows), cap))
+    threads = grid * RUNS_THREADS
+    garbage = -0x5A5A5A5B
+    runs = torch.full((cap,), garbage, dtype=torch.int32)
+    start = torch.full((slots,), garbage, dtype=torch.int32)
+    dense = torch.full((size,), _I32_MAX, dtype=torch.int32)
+    # phase 0: one lookup per live non-NULL row; the owners' starts from
+    # one atomic a block and round, the blocks' rounds reaching the
+    # counter block by block in `order`; a round's owners by thread, then
+    # the thread's rows
+    key, null = _key_cols(cols)
+    rows = torch.arange(n)
+    ok = ~null[:n]
+    lookups = ok.to(torch.int64)
+    slot = torch.full((n,), -1, dtype=torch.int64)
+    slot[ok] = _find_slots(key[:n][ok], slot_keys, slot_rows)
+    found = slot >= 0
+    owner = found & (slot_rows[slot.clamp(min=0)].to(torch.int64) == rows)
+    count = torch.where(owner, slot_counts[slot.clamp(min=0)].to(
+        torch.int64), torch.zeros_like(rows))
+    block = (rows % threads) // RUNS_THREADS
+    m = rows // threads
+    rnd = m // RUNS_ITEMS
+    within = (rows % RUNS_THREADS) * RUNS_ITEMS + m % RUNS_ITEMS
+    first = torch.zeros_like(count)
+    taken = 0 if counter is None else int(counter[0])
+    for b in (range(grid) if order is None else order):
+        for j in range(int(rnd.max()) + 1 if n else 0):
+            sel = torch.nonzero((block == b) & (rnd == j)).flatten()
+            sel = sel[torch.argsort(within[sel])]
+            c = count[sel]
+            first[sel] = taken + torch.cumsum(c, 0) - c
+            taken += int(c.sum())
+    o = torch.nonzero(owner).flatten()
+    start[slot[o]] = first[o].to(torch.int32)
+    runs[first[o]] = o.to(torch.int32)
+    cursor = torch.full((cap,), garbage, dtype=torch.int64)
+    cursor[o] = first[o] + count[o] - 1     # the run's last place
+    # phase 1: the other rows take places c - 1, c - 2, ... of their run
+    # in arrival order, counted down on the owner's cursor; the owners'
+    # dense entries
+    owner_row = slot_rows[slot.clamp(min=0)].to(torch.int64)
+    for b in (range(grid) if order is None else order):
+        sel = torch.nonzero((block == b) & found & ~owner).flatten()
+        for i in sel.tolist():
+            r = int(owner_row[i])
+            runs[int(cursor[r])] = i
+            cursor[r] -= 1
+    kmin = int(stats[KMIN])
+    raw = key[o] - kmin
+    inb = (raw >= 0) & (raw < size)
+    dense[raw[inb]] = slot[o][inb].to(torch.int32)
+    if counter is not None:
+        counter.zero_()
+    # phase 2: each run of two or more rows by row, in place (the owner's
+    # cursor ended at the run's start)
+    scratch = torch.full((cap,), garbage, dtype=torch.int32)
+    for i in o[count[o] > 1].tolist():
+        lo, c = int(cursor[i]), int(count[i])
+        assert lo == int(first[i])
+        if c <= RUNS_SHORT:
+            a = runs[lo:lo + c].clone()
+            rank = (a[None, :] < a[:, None]).sum(1)
+            runs[lo + rank] = a
+        else:
+            block_sort_model(runs[lo:lo + c], scratch[lo:lo + c])
+    return runs, start, dense, lookups
+
+
 def join_runs_cuda(cols, num_rows: torch.Tensor, stats: torch.Tensor,
                    lookup: tuple, size: int):
-    """K5 runs-mode launch: see csrc/join_build.cu join_runs. Returns
-    ((runs, slot_start, slot_counts), dense slot table or None)."""
+    """K5 runs-mode launch: see csrc/join_build.cu join_runs. One
+    cooperative launch, the key columns in a parameter block sized to
+    them; the outputs are views of one allocation and the scratch a
+    second. Returns ((runs, slot_start, slot_counts), dense slot table or
+    None): the runs in any order, each read through its slot's start and
+    count."""
     cap = cols[0][0].shape[0]
-    dev = num_rows.device
-    _check_key_cols(cols, cap, dev)
+    index = num_rows.get_device()
+    if index < 0 or num_rows.dtype is not torch.int32 or num_rows.dim():
+        raise ValueError("num_rows must be a 0-d int32 CUDA tensor")
+    words = _key_words(cols, cap, index, "build")
+    if len(words) > native.TABLE_MAX:
+        raise ValueError(f"{len(cols)} key columns: one launch's table "
+                         f"holds {native.TABLE_MAX // 4}")
+    if stats.dtype is not torch.int64 or stats.shape != (N_STATS,) \
+            or stats.get_device() != index:
+        raise ValueError("stats must be K5's int64[10] on the device")
     if lookup[0] != "hash":
         raise ValueError("K5 runs mode needs the hash table K5 built on "
                          "the card")
     _, slot_keys, slot_rows, slot_counts = lookup
     slots = slot_rows.shape[0]
-    slot_start = torch.empty(slots, dtype=torch.int32, device=dev)
-    cursor = torch.empty(slots, dtype=torch.int32, device=dev)
-    placed = torch.empty(max(cap, 1), dtype=torch.int32, device=dev)
-    runs = torch.empty(max(cap, 1), dtype=torch.int32, device=dev)
-    scratch = torch.empty(-(-slots // 4096), dtype=torch.int64, device=dev)
-    total = torch.empty((), dtype=torch.int32, device=dev)
-    dense = torch.empty(max(size, 1), dtype=torch.int32, device=dev)
-    lib = native.library("join_build")
-    rc = lib.join_runs(
-        host_table(_key_table(cols)), ctypes.c_int64(len(cols)),
-        ctypes.c_int64(cap), ctypes.c_void_p(num_rows.data_ptr()),
-        ctypes.c_void_p(stats.data_ptr()),
-        ctypes.c_void_p(slot_keys.data_ptr()),
-        ctypes.c_void_p(slot_rows.data_ptr()),
-        ctypes.c_void_p(slot_counts.data_ptr()), ctypes.c_int64(slots),
-        ctypes.c_void_p(slot_start.data_ptr()),
-        ctypes.c_void_p(cursor.data_ptr()),
-        ctypes.c_void_p(placed.data_ptr()),
-        ctypes.c_void_p(scratch.data_ptr()),
-        ctypes.c_void_p(total.data_ptr()), ctypes.c_void_p(runs.data_ptr()),
-        ctypes.c_void_p(dense.data_ptr()), ctypes.c_int64(size),
-        ctypes.c_void_p(native.stream_ptr(dev)))
+    runs, slot_start, dense = runs_outputs(cap, slots, size,
+                                           num_rows.device)
+    scratch = torch.empty(runs_scratch_words(cap),
+                          dtype=torch.int64, device=num_rows.device)
+    host = array.array("q", words)
+    rc = native.function("join_build", "join_runs", _RUNS_ARGS)(
+        host.buffer_info()[0], len(cols), cap, num_rows.data_ptr(),
+        stats.data_ptr(), slot_keys.data_ptr(), slot_rows.data_ptr(),
+        slot_counts.data_ptr(), slots, slot_start.data_ptr(),
+        scratch.data_ptr(), _runs_counter(index).data_ptr(),
+        runs.data_ptr(), dense.data_ptr(), size, native.raw_stream(index))
     native.check(rc, "join_runs")
     join_runs_cuda.launches += 1
     return (runs, slot_start, slot_counts), (dense if size else None)
